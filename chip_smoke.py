@@ -1,6 +1,7 @@
 """H100 smoke run of the PyTorch port: build every kernel, hold each
 against its plain PyTorch version on the card, time it, then drive the
-full-width ULIP-PointBERT recognition inference path.
+full-width ULIP-PointBERT recognition inference path and the
+prompt-tuning train path.
 
     python3 chip_smoke.py            # one CUDA card, no arguments
 
@@ -10,7 +11,8 @@ Phases (any failed check raises, and the script exits non-zero):
      parallel) and report the build time;
   3. each kernel entry point against its plain version, at a small shape
      and at the slice's shape, in f32 and bf16 (the grouping kernels take
-     f32 coordinates in both): indices exact, f32 within 1e-4 and bf16
+     f32 coordinates in both; the five kernels of the inference path also
+     at the train path's batch of 30): indices exact, f32 within 1e-4 and bf16
      within 2e-2 of the plain output's max magnitude; kernel, plain and
      library times with CUDA events;
   4. the recognition path at full width (ULIP-PointBERT, bf16, B=32,
@@ -20,7 +22,23 @@ Phases (any failed check raises, and the script exits non-zero):
      ``validate``; the median clouds/sec of the timed passes with their
      spread, the text tower's share of a pass, each kernel's launch count
      in one pass (all must be > 0), and the logits against the same
-     weights through the plain path on the card.
+     weights through the plain path on the card;
+  5. the prompt-tuning train path at full width through ``cls.setup`` and
+     the trainer (ULIP-PointBERT, bf16, head_type 0, batch 30, N=1024, the
+     40 ModelNet40 names, 32 prompt tokens "middle", label smoothing 0.2,
+     lr 3e-3, synthetic train split, DropPath and augmentation on): a
+     warm-up, then 5 windows of 20 steps with the loss read every step as
+     ``train_loop`` reads it, and between them 4 windows with the losses
+     read once per window; median/min/max train clouds/sec of each kind,
+     first and last loss, kernel launches per step (``mini_stats`` > 0);
+     one epoch through ``cls.train_loop`` itself;
+     frozen weights unchanged, prompt tokens and BatchNorm buffers moved;
+     a fixed batch repeated with augmentation and DropPath off, whose loss
+     must fall; one step's loss, prompt gradient and updated BatchNorm
+     buffers against the same step through the plain path on the card
+     (f32 and bf16); a head_type 3 step whose ``block_11`` gradients agree
+     with the plain path; save -> load -> evaluate gives identical logits.
+     Its numbers go on a line of their own ({"train": ...}).
 
 The line before the last is a JSON object with the per-kernel numbers;
 the last line is the contract line
@@ -28,8 +46,10 @@ the last line is the contract line
 """
 
 import contextlib
+import dataclasses
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -43,7 +63,10 @@ if not torch.cuda.is_available():
 
 import torch.nn.functional as F  # noqa: E402
 
+from ppt_torch.data import datasets as pdata  # noqa: E402
+from ppt_torch.data.augment import train_augment  # noqa: E402
 from ppt_torch.data.datasets import ArrayDataset, make_synthetic  # noqa: E402
+from ppt_torch.data.loader import Loader  # noqa: E402
 from ppt_torch.kernels import _build  # noqa: E402
 from ppt_torch.kernels import group as kgroup  # noqa: E402
 from ppt_torch.kernels import mini as kmini  # noqa: E402
@@ -53,21 +76,31 @@ from ppt_torch.nn import pointbert as npb  # noqa: E402
 from ppt_torch.prompt.learner import build_prompt_spec  # noqa: E402
 from ppt_torch.tasks import cls  # noqa: E402
 from ppt_torch.tasks.args import TaskArgs  # noqa: E402
+from ppt_torch.models.losses import smoothed_cross_entropy  # noqa: E402
+from ppt_torch.train.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
 from ppt_torch.train.eval import make_cached_text_eval  # noqa: E402
+from ppt_torch.train.trainer import make_train_step  # noqa: E402
 
 DEV = torch.device("cuda")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK = {"bf16": 989e12, "f32": 67e12}  # dense tensor-core bf16; f32 outside tensor cores
 TOL = {"f32": 1e-4, "bf16": 2e-2}
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
-# (shape..., tag): a small shape, then the shape the slice gives the kernel
-GROUP_SHAPES = ((2, 256, 32, 8, "small"), (32, 1024, 512, 32, "slice"))  # B, N, G, K
-MINI_SHAPES = ((1, 7, 20, "small"), (32, 512, 32, "slice"))  # B, G, M (small: padded groups)
-BLOCK_SHAPES = ((2, 33, 64, 2, "small"), (32, 513, 384, 6, "slice"))  # B, L, C, heads
+# (shape..., tag): a small shape, the shape the train path gives the kernel
+# (batch 30; checked only) and the shape the inference path gives it (batch
+# 32; checked and timed). mini_stats runs on the train path alone.
+GROUP_SHAPES = ((2, 256, 32, 8, "small"), (30, 1024, 512, 32, "train"),
+                (32, 1024, 512, 32, "slice"))  # B, N, G, K
+MINI_SHAPES = ((1, 7, 20, "small"), (30, 512, 32, "train"),
+               (32, 512, 32, "slice"))  # B, G, M (small: padded groups)
+STATS_SHAPES = ((1, 7, 20, "small"), (30, 512, 32, "slice"))
+BLOCK_SHAPES = ((2, 33, 64, 2, "small"), (30, 513, 384, 6, "train"),
+                (32, 513, 384, 6, "slice"))  # B, L, C, heads
 SOURCES = {
     "fps_batched": ("ppt_torch/csrc/group.cu", "ppt_tpu/kernels/group.py:132"),
     "knn_gather": ("ppt_torch/csrc/group.cu", "ppt_tpu/kernels/group.py:336"),
     "mini_forward": ("ppt_torch/csrc/mini.cu", "ppt_tpu/kernels/mini.py:344"),
+    "mini_stats": ("ppt_torch/csrc/mini.cu", "ppt_tpu/kernels/mini.py:316"),
     "fused_vit_block": ("ppt_torch/csrc/vitblock.cu", "ppt_tpu/kernels/vitblock.py:372"),
     "fused_vit_block_readout": ("ppt_torch/csrc/vitblock.cu",
                                 "ppt_tpu/kernels/vitblock.py:526"),
@@ -205,6 +238,66 @@ def check_mini(results):
                     library_ms=gpu_time_ms(lambda: mini_library(M, dt, x, w)))
 
 
+def stats_library(M, dt, x, w):
+    """One chain of library calls for the same function: form h, sum it."""
+    fw1, fb1, w2, b2, wg, wl, bs = [t.to(dt) for t in w]
+    B, GM, _ = x.shape
+    x1 = F.relu(F.linear(x.to(dt), fw1.t(), fb1))
+    x2 = F.linear(x1, w2.t(), b2).reshape(B, GM // M, M, -1)
+    gh = F.linear(x2.amax(2), wg.t())
+    h = (F.linear(x2, wl.t()) + gh[:, :, None] + bs).float().reshape(-1, wl.shape[1])
+    return h.sum(0), (h * h).sum(0)
+
+
+def check_mini_stats(results):
+    for B, G, M, tag in STATS_SHAPES:
+        x = cloud(B, G * M, G + 1) - 0.5
+        w = mini_weights(256, G + 1)[:7]  # fw1, fb1, w2, b2, wg, wl, bsplit
+        for dname, dt in DTYPES.items():
+            got = kmini.mini_stats(M, dt, x, *w)
+            want = kmini.mini_stats_plain(M, dt, x, *w)
+            sweep = kmini.mini_stats_sweep(M, dt, x, *w[:4])
+            sweep2 = kmini.mini_stats_sweep(M, dt, x, *w[:4])
+            sweep_want = kmini.mini_stats_sweep_plain(M, dt, x, *w[:4])
+            again = kmini.mini_stats(M, dt, x, *w)
+            torch.cuda.synchronize()
+            errs = [rel_err(g, t) for g, t in zip(got, want)]
+            sweep_errs = [rel_err(g, t) for g, t in zip(sweep, sweep_want)]
+            same = all(torch.equal(a, b) for a, b in zip(sweep + got, sweep2 + again))
+            print(f"[kernel] mini_stats {tag} {dname} B={B} G={G} M={M}: max rel err sum_h "
+                  f"{errs[0]:.3e}, sumsq_h {errs[1]:.3e} (tol {TOL[dname]}); sweep m2 "
+                  f"{sweep_errs[0]:.3e}, sg {sweep_errs[1]:.3e}, gmax {sweep_errs[2]:.3e}; "
+                  f"two runs bit-identical: {same}")
+            check(all(torch.isfinite(t).all() for t in got), "mini_stats non-finite")
+            check(max(errs + sweep_errs) <= TOL[dname], f"mini_stats {tag} {dname} error {errs}")
+            check(same, f"mini_stats {tag} {dname} differs between two runs")
+            if tag != "slice":
+                continue
+            sweep_ms = gpu_time_ms(lambda: kmini.mini_stats_sweep(M, dt, x, *w[:4]))
+            whole_ms = gpu_time_ms(lambda: kmini.mini_stats(M, dt, x, *w))
+            epilogue_ms = gpu_time_ms(lambda: kmini._stats_epilogue(M, *sweep, *w[4:]))
+            print(f"[kernel] mini_stats slice {dname}: sweep kernels {sweep_ms:.3f} ms + f32 "
+                  f"epilogue {epilogue_ms:.3f} ms; the wrapper {whole_ms:.3f} ms")
+            if dname == "f32":
+                f32_ms = {"f32_ms": whole_ms, "f32_sweep_ms": sweep_ms}
+                continue
+            # The sweep's operations: two products per point, and m2 = x2^T x2,
+            # which is symmetric, so C2 (C2 + 1) / 2 of its entries are needed.
+            # The epilogue's f32 products are left out: the bound errs low.
+            n, C2 = B * G * M, 256
+            ops = 2 * n * (3 * 128 + 128 * C2) + n * C2 * (C2 + 1)
+            nbytes = n * 12 + 2 * B * G * C2 * 4 + C2 * C2 * 4 + 2 * (
+                3 * 128 + 128 + 128 * C2 + C2)
+            bms, by = bound_ms(nbytes, ops, PEAK["bf16"])
+            results["mini_stats"] = dict(
+                max_abs_err=max(float((g - t).abs().max()) for g, t in zip(got, want)),
+                ms=whole_ms,
+                plain_ms=gpu_time_ms(lambda: kmini.mini_stats_plain(M, dt, x, *w)),
+                bound_ms=bms, bound_by=by,
+                library_ms=gpu_time_ms(lambda: stats_library(M, dt, x, w)),
+                sweep_ms=sweep_ms, epilogue_ms=epilogue_ms, **f32_ms)
+
+
 def block_inputs(B, L, C, dt, seed):
     g = torch.Generator().manual_seed(seed)
 
@@ -289,17 +382,18 @@ def check_block(results):
 def plain_path():
     """Route the model's kernel calls to the plain PyTorch versions."""
     saved = (kgroup.fps_batched, kgroup.knn_gather, npb.mini_forward, npb.fused_vit_block,
-             npb.fused_vit_block_readout)
+             npb.fused_vit_block_readout, npb.mini_stats)
     kgroup.fps_batched = kgroup.fps_plain
     kgroup.knn_gather = kgroup.knn_gather_plain
     npb.mini_forward = kmini.mini_forward_plain
+    npb.mini_stats = kmini.mini_stats_plain
     npb.fused_vit_block = kvit.vit_block_plain
     npb.fused_vit_block_readout = kvit.vit_block_readout_plain
     try:
         yield
     finally:
         (kgroup.fps_batched, kgroup.knn_gather, npb.mini_forward, npb.fused_vit_block,
-         npb.fused_vit_block_readout) = saved
+         npb.fused_vit_block_readout, npb.mini_stats) = saved
 
 
 MN40_TEST_CLOUDS = 2468  # ModelNet40's test split
@@ -346,7 +440,8 @@ def run_slice(passes=5, batch=32, npoints=1024, seed=0):
           f"acc1 {val['acc1']:.2f} (random weights)")
     print(f"[slice] kernel launches in one pass: {json.dumps(launches, sort_keys=True)}")
     for name in SOURCES:
-        check(launches.get(name, 0) > 0, f"{name} was not launched on the main path")
+        if name != "mini_stats":  # the train path's kernel: phase 5 counts it
+            check(launches.get(name, 0) > 0, f"{name} was not launched on the main path")
 
     text_ms = []
     for _ in range(passes):
@@ -391,6 +486,240 @@ def run_slice(passes=5, batch=32, npoints=1024, seed=0):
                       "pass_ms": pass_med}
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the prompt-tuning train path at full width
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH = 30  # configs/experiments/ppt_base_mn40.yaml
+TRAIN_DIR = _build.BUILD_DIR.parent / "chip_smoke_train"
+
+
+def synthetic_modelnet40(args, split):
+    """ModelNet40's 40 class names over synthetic clouds (no dataset ships
+    with the repository): 30 clouds per class to train on, 3 to test."""
+    names = TaskArgs(dataset_name="modelnet40").load_classnames()
+    ds = make_synthetic(num_classes=40, samples_per_class=30 if split == "train" else 3,
+                        npoints=args.npoints, seed=0 if split == "train" else 1, classnames=names)
+    return ArrayDataset(ds.points, ds.labels, ds.classnames, name="modelnet40_synthetic_clouds")
+
+
+def train_args(dtype="bfloat16", head_type=0, batch=TRAIN_BATCH, **kw):
+    return TaskArgs(dataset_name="modelnet40", npoints=1024, batch_size=batch,
+                    num_learnable_prompt_tokens=32, class_name_position="middle",
+                    compute_dtype=dtype, head_type=head_type, label_smoothing=0.2, lr=3e-3,
+                    epochs=250, seed=0, device="cuda", pretrained_dir="",
+                    output_dir=str(TRAIN_DIR), **kw)
+
+
+def snapshot(tensors):
+    return {k: v.detach().clone() for k, v in tensors.items()}
+
+
+def one_step_quantities(ctx, batch, seed):
+    """Loss, gradients of the trainable leaves and the BatchNorm buffers
+    after one training-mode forward/backward (no optimizer step), with the
+    state put back as it was."""
+    state, model = ctx["state"], ctx["model"]
+    before = snapshot(state.batch_stats())
+    state.generator.manual_seed(seed)
+    logits = model(batch["pc"], ctx["prompts"], train=True, generator=state.generator)
+    loss = smoothed_cross_entropy(logits, batch["label"], 0.2)
+    names = list(state.trainable)
+    grads = dict(zip(names, torch.autograd.grad(loss, [state.trainable[k] for k in names])))
+    after = snapshot(state.batch_stats())
+    with torch.no_grad():
+        for k, v in state.batch_stats().items():
+            v.copy_(before[k])
+    torch.cuda.synchronize()
+    return float(loss.detach()), grads, after
+
+
+def compare_with_plain(dtype, head_type, batch_size, tol_loss, tol_grad, tol_stats):
+    """One step through the kernels against the same step through their
+    plain versions on the card; returns the worst relative differences."""
+    ctx = cls.setup(train_args(dtype, head_type, batch_size))
+    b = cls.device_batch(next(iter(Loader(ctx["train_ds"], batch_size, shuffle=True, seed=3))),
+                         DEV)
+    loss, grads, stats = one_step_quantities(ctx, b, seed=11)
+    with plain_path():
+        loss_p, grads_p, stats_p = one_step_quantities(ctx, b, seed=11)
+    d_loss = abs(loss - loss_p) / abs(loss_p)
+    d_grad = {k: rel_err(grads[k], grads_p[k]) for k in grads}
+    d_stats = max(rel_err(stats[k], stats_p[k]) for k in stats)
+    tag = f"{dtype} head_type {head_type} B={batch_size}"
+    print(f"[train] one step vs plain path on the card ({tag}): loss {loss:.6f} vs "
+          f"{loss_p:.6f} (rel {d_loss:.3e}, tol {tol_loss}); BN buffers max rel "
+          f"{d_stats:.3e} (tol {tol_stats}); gradient max rel per leaf (tol {tol_grad}): "
+          + json.dumps({k: float(f"{v:.3e}") for k, v in d_grad.items()}))
+    check(math.isfinite(loss) and all(torch.isfinite(g).all() for g in grads.values()),
+          f"non-finite loss or gradient ({tag})")
+    check(all(float(g.abs().max()) > 0 for g in grads.values()), f"a zero gradient ({tag})")
+    check(d_loss <= tol_loss, f"loss disagrees with the plain path ({tag})")
+    check(max(d_grad.values()) <= tol_grad, f"gradients disagree with the plain path ({tag})")
+    check(d_stats <= tol_stats, f"BN buffers disagree with the plain path ({tag})")
+    if head_type:
+        check(any("block_11" in k for k in d_grad), "head_type 3 trains no block_11 leaf")
+    return {"loss_rel": d_loss, "grad_rel": max(d_grad.values()), "stats_rel": d_stats}
+
+
+def run_train_slice(windows=5, steps_per_window=20, warmup=5):
+    saved_loader = pdata.DATASETS["modelnet40"]
+    pdata.DATASETS["modelnet40"] = synthetic_modelnet40
+    try:
+        return _run_train_slice(windows, steps_per_window, warmup)
+    finally:
+        pdata.DATASETS["modelnet40"] = saved_loader
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+
+
+def _run_train_slice(windows, steps_per_window, warmup):
+    args = train_args()
+    ctx = cls.setup(args)
+    state, model, prompts = ctx["state"], ctx["model"], ctx["prompts"]
+    check(len(ctx["classnames"]) == 40 and ctx["classnames"][0] == "airplane",
+          "ModelNet40 class names")
+    check(sorted(state.trainable) == ["prompt_learner.learnable_tokens"], "head_type 0 partition")
+    frozen0 = snapshot({k: p for k, p in model.named_parameters() if k not in state.trainable})
+    check(not any(p.requires_grad for p in frozen0.values()), "a frozen leaf requires grad")
+    tokens0 = snapshot(state.trainable)["prompt_learner.learnable_tokens"]
+    stats0 = snapshot(state.batch_stats())
+    step_fn = make_train_step(smoothing=args.label_smoothing)
+    loader = Loader(ctx["train_ds"], TRAIN_BATCH, shuffle=True, drop_last=True, seed=args.seed)
+    print(f"[train] ULIP_PointBERT bf16 head_type 0: {len(ctx['train_ds'])} train clouds x "
+          f"{args.npoints} points, batch {TRAIN_BATCH} ({ctx['steps_per_epoch']} steps per "
+          f"epoch), label smoothing {args.label_smoothing}, lr {args.lr}, DropPath "
+          f"{model.point_encoder.config.drop_path_rate}, augmentation on")
+
+    def batches():
+        epoch = 0
+        while True:
+            loader.set_epoch(epoch)
+            for batch in loader:
+                yield batch
+            epoch += 1
+
+    stream = batches()
+
+    def run(n, read_every_step=True):
+        """`n` steps as the body of ``cls.train_loop`` takes them: the loss
+        is read on the host after every step, which waits for the card.
+        With ``read_every_step`` off the losses are read after the last."""
+        nonlocal state
+        losses = []
+        for _ in range(n):
+            b = cls.device_batch(next(stream), DEV)
+            b["pc"] = train_augment(state.generator, b["pc"])
+            state, metrics = step_fn(state, b, prompts)
+            losses.append(float(metrics["loss"]) if read_every_step else metrics["loss"])
+        torch.cuda.synchronize()
+        return [float(x) for x in losses]
+
+    # `windows` windows that read the loss every step, and between each two
+    # of them one that reads its losses at its end, so a host that drifts
+    # during the run slows both kinds alike
+    losses = run(warmup)
+    _build.reset_launches()
+    in_order = []
+    for i in range(2 * windows - 1):
+        t0 = time.perf_counter()
+        losses += run(steps_per_window, read_every_step=i % 2 == 0)
+        in_order.append(steps_per_window * TRAIN_BATCH / (time.perf_counter() - t0))
+    launches = dict(_build.LAUNCHES)
+    n_steps = len(in_order) * steps_per_window
+    per_step = {k: v / n_steps for k, v in sorted(launches.items())}
+    rates, late = sorted(in_order[0::2]), sorted(in_order[1::2])
+    rate, late_rate = rates[len(rates) // 2], late[len(late) // 2]
+    print(f"[train] {warmup} warm-up steps, then {len(in_order)} windows of {steps_per_window} "
+          f"steps, train clouds/sec in run order {[round(r, 1) for r in in_order]}; loss first "
+          f"{losses[0]:.4f}, last {losses[-1]:.4f}")
+    print(f"[train] {len(rates)} windows with the loss read every step, as train_loop reads it: "
+          f"median {rate:.1f} train clouds/sec, min {rates[0]:.1f}, max {rates[-1]:.1f} "
+          f"({1e3 * TRAIN_BATCH / rate:.2f} ms per step)")
+    print(f"[train] {len(late)} windows between them with the losses read once per window (no "
+          f"wait per step): median {late_rate:.1f} train clouds/sec, min {late[0]:.1f}, max "
+          f"{late[-1]:.1f} ({1e3 * TRAIN_BATCH / late_rate:.2f} ms per step)")
+    print(f"[train] kernel launches per step: {json.dumps(per_step)}")
+
+    # one epoch through train_loop itself (epochs cut to 1; the schedule is setup's)
+    steps_before = state.step
+    loop_args = dataclasses.replace(args, start_epoch=0, epochs=1)
+    epoch = cls.train_loop(loop_args, ctx)["history"][0]
+    state = ctx["state"]
+    loop_steps = state.step - steps_before
+    loop_rate = loop_steps * TRAIN_BATCH / epoch["epoch_time"]
+    print(f"[train] cls.train_loop, one epoch of {loop_steps} steps: {loop_rate:.1f} train "
+          f"clouds/sec ({1e3 * epoch['epoch_time'] / loop_steps:.2f} ms per step), loss "
+          f"{epoch['loss']:.4f}, val_acc1 {epoch['val_acc1']:.2f}")
+    check(loop_steps == ctx["steps_per_epoch"] and math.isfinite(epoch["loss"]),
+          "train_loop's epoch")
+    check(all(math.isfinite(x) for x in losses), "non-finite training loss")
+    check(steps_before == warmup + n_steps and n_steps >= 100, "step count")
+    for name in SOURCES:
+        check(launches.get(name, 0) >= n_steps, f"{name} was not launched on every train step")
+    check(all(torch.equal(p, frozen0[k]) for k, p in model.named_parameters() if k in frozen0),
+          "a frozen weight changed")
+    moved = float((state.trainable["prompt_learner.learnable_tokens"].detach() - tokens0)
+                  .abs().max())
+    stats_moved = min(float((v - stats0[k]).abs().max()) for k, v in state.batch_stats().items())
+    print(f"[train] frozen weights unchanged ({len(frozen0)} leaves); prompt tokens moved by up "
+          f"to {moved:.3e}; every BatchNorm buffer moved (least max change {stats_moved:.3e})")
+    check(moved > 0 and stats_moved > 0, "prompt tokens or BN buffers did not move")
+
+    # save -> load into a fresh setup -> the evaluation step gives the same logits
+    save_checkpoint(str(TRAIN_DIR / "cls"), state, meta={"epoch": 0})
+    eval_args = train_args(evaluate_3d=True, test_ckpt_addr=str(TRAIN_DIR / "cls"))
+    ctx2 = cls.setup(eval_args)
+    ctx2["state"] = load_checkpoint(eval_args.test_ckpt_addr, ctx2["state"])
+    embed_fn, step_fn2 = make_cached_text_eval(model)
+    pc = torch.from_numpy(ctx["test_ds"].points[:TRAIN_BATCH]).to(DEV)
+    want = step_fn2(model, {"pc": pc}, embed_fn(model, prompts))
+    got = step_fn2(ctx2["model"], {"pc": pc}, embed_fn(ctx2["model"], ctx2["prompts"]))
+    untrained = cls.setup(train_args())["model"]
+    base = step_fn2(untrained, {"pc": pc}, embed_fn(untrained, prompts))
+    val = cls.validate(ctx2["model"], (embed_fn, step_fn2), ctx2["test_ds"], ctx2["prompts"],
+                       eval_args, DEV)
+    torch.cuda.synchronize()
+    print(f"[train] checkpoint round trip: logits identical {torch.equal(got, want)}; differ "
+          f"from the untrained model's by up to {float((want - base).abs().max()):.3e}; "
+          f"validate acc1 {val['acc1']:.2f} on {len(ctx2['test_ds'])} synthetic test clouds")
+    check(torch.isfinite(want).all() and torch.equal(got, want),
+          "logits differ after the checkpoint round trip")
+    check(not torch.equal(want, base), "training left the logits unchanged")
+
+    # a fixed batch, augmentation and DropPath off: the loss must fall
+    fixed_args = train_args()
+    fixed_args.pointbert_config = npb.PointBertConfig(drop_path_rate=0.0)
+    fctx = cls.setup(fixed_args)
+    fstep = make_train_step(smoothing=0.2)
+    fb = cls.device_batch(next(iter(loader)), DEV)
+    fstate, flosses = fctx["state"], []
+    for _ in range(60):
+        fstate, m = fstep(fstate, fb, fctx["prompts"])
+        flosses.append(m["loss"])
+    flosses = [float(x) for x in flosses]
+    print(f"[train] fixed batch, 60 steps, augmentation and DropPath off: loss "
+          f"{flosses[0]:.4f} -> {flosses[-1]:.4f} (lowest {min(flosses):.4f})")
+    check(all(math.isfinite(x) for x in flosses) and flosses[-1] < flosses[0],
+          "the loss did not fall on a fixed batch")
+
+    agree = {
+        "f32": compare_with_plain("float32", 0, TRAIN_BATCH, 1e-4, 1e-4, 1e-4),
+        "bf16": compare_with_plain("bfloat16", 0, TRAIN_BATCH, 5e-2, 0.25, 2e-2),
+        "f32_head3": compare_with_plain("float32", 3, 8, 1e-4, 1e-4, 1e-4),
+        "bf16_head3": compare_with_plain("bfloat16", 3, 8, 5e-2, 0.25, 2e-2),
+    }
+    return launches, {
+        "train_clouds_per_sec": rate, "train_clouds_per_sec_min": rates[0],
+        "train_clouds_per_sec_max": rates[-1], "ms_per_step": 1e3 * TRAIN_BATCH / rate,
+        "loss_read": "every step", "train_clouds_per_sec_loss_read_per_window": late_rate,
+        "window_clouds_per_sec_in_run_order": in_order,
+        "train_loop_clouds_per_sec": loop_rate,
+        "steps": n_steps, "batch": TRAIN_BATCH, "loss_first": losses[0], "loss_last": losses[-1],
+        "launches_per_step": per_step, "fixed_batch_loss": [flosses[0], flosses[-1]],
+        "vs_plain": agree,
+    }
+
+
 def main():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -413,8 +742,11 @@ def main():
     results = {}
     check_grouping(results)
     check_mini(results)
+    check_mini_stats(results)
     check_block(results)
     launches, slice_stats = run_slice()
+    train_launches, train_stats = run_train_slice()
+    launches["mini_stats"] = train_launches["mini_stats"]  # the train path's own kernel
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():
@@ -424,6 +756,7 @@ def main():
         print(f"[time] {name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
               f"library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 3)}"
               f" ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    print(json.dumps({"train": train_stats}))
     print(json.dumps({"kernels": kernels, **slice_stats}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -15,6 +15,11 @@ Rules, leaf by leaf:
 
 It raises on a leaf that has no counterpart in the port and on a port
 parameter or buffer that no leaf sets.
+
+``train_state_from_jax(payload, state)`` carries a reference training run
+across: the payload of ``ppt_tpu/train/checkpoint.py:38-43`` (trainable
+partition, ``optax.adamw`` state, batch statistics, step) as numpy trees
+into the port's ``TrainState``, by the same leaf rules.
 """
 
 from __future__ import annotations
@@ -72,3 +77,44 @@ def from_jax(params: Mapping[str, Any], batch_stats: Mapping[str, Any],
     if unset:
         raise ValueError(f"from_jax: port parameters left unset: {unset}")
     return out
+
+
+def _find_adam(tree: Any) -> Mapping[str, Any]:
+    """The ``ScaleByAdamState`` (count, mu, nu) inside an optax state given
+    as nested mappings/sequences (a restored msgpack keys tuples "0", "1", ...)."""
+    if isinstance(tree, Mapping):
+        if {"count", "mu", "nu"} <= set(tree):
+            return tree
+        children = tree.values()
+    elif isinstance(tree, (tuple, list)):
+        children = tree
+    else:
+        return {}
+    for child in children:
+        found = _find_adam(child)
+        if found:
+            return found
+    return {}
+
+
+def train_state_from_jax(payload: Mapping[str, Any], state):
+    """Load the reference's checkpoint payload ``{"trainable", "opt_state",
+    "batch_stats", "step"}`` (numpy trees) into ``state``
+    (``ppt_torch.train.trainer.TrainState``) in place."""
+    from ppt_torch.train.checkpoint import restore_payload
+
+    adam = _find_adam(payload["opt_state"])
+    if not adam:
+        raise ValueError("train_state_from_jax: no adam state (count, mu, nu) in opt_state")
+
+    def leaves(tree, stats=False):
+        return {_port_key(path, stats): torch.from_numpy(np.array(arr, order="C", copy=True))
+                for path, arr in _flatten(tree)}
+
+    return restore_payload({
+        "trainable": leaves(payload["trainable"]),
+        "opt_state": {"count": int(np.asarray(adam["count"])), "mu": leaves(adam["mu"]),
+                      "nu": leaves(adam["nu"])},
+        "batch_stats": leaves(payload["batch_stats"], stats=True),
+        "step": int(np.asarray(payload["step"])),
+    }, state)

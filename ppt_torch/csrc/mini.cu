@@ -6,7 +6,9 @@
 //   y  = h @ w3 + b3 ; out = max_M y              [CO]
 // per group of M <= 32 points; only out [B*G, CO] is written.
 //
-// Replaces ppt_tpu/kernels/mini.py:mini_forward (_forward_kernel).
+// Replaces ppt_tpu/kernels/mini.py:mini_forward (_forward_kernel). The
+// train-mode statistics sweep (mini_stats, second half of this file)
+// shares the first two stages.
 //
 // Bound: operations. ~3.1e11 FLOP per batch at B=32, G=512, M=32
 // against ~10 MB of input and output. Design: in bf16 (the serving
@@ -53,6 +55,21 @@ __device__ __forceinline__ void col_dot(const float* __restrict__ A, int lda, in
   }
 }
 
+// stage 1 (K = 3) of one group: x1 = relu(xin @ fw1 + fb1), xin [MAXM][3]
+__device__ __forceinline__ void stage1_f32(const float* xin, const float* __restrict__ fw1,
+                                           const float* __restrict__ fb1, int C1, float* x1) {
+  for (int c = threadIdx.x; c < C1; c += THREADS) {
+    const float wa = fw1[c], wb = fw1[C1 + c], wc = fw1[2 * C1 + c];
+    const float bias = fb1[c];
+    for (int r = 0; r < MAXM; ++r) {
+      float s = xin[3 * r] * wa;
+      s = fmaf(xin[3 * r + 1], wb, s);
+      s = fmaf(xin[3 * r + 2], wc, s);
+      x1[r * C1 + c] = fmaxf(s + bias, 0.f);
+    }
+  }
+}
+
 __global__ void __launch_bounds__(THREADS)
 mini_forward_kernel(const float* __restrict__ x, int M, int C1, int C2, int H, int CO,
                     const float* __restrict__ fw1, const float* __restrict__ fb1,
@@ -75,17 +92,7 @@ mini_forward_kernel(const float* __restrict__ x, int M, int C1, int C2, int H, i
     xin[e] = e < M * 3 ? xg[e] : 0.f;
   __syncthreads();
 
-  // stage 1: K = 3
-  for (int c = tid; c < C1; c += THREADS) {
-    const float wa = fw1[c], wb = fw1[C1 + c], wc = fw1[2 * C1 + c];
-    const float bias = fb1[c];
-    for (int r = 0; r < MAXM; ++r) {
-      float s = xin[3 * r] * wa;
-      s = fmaf(xin[3 * r + 1], wb, s);
-      s = fmaf(xin[3 * r + 2], wc, s);
-      x1[r * C1 + c] = fmaxf(s + bias, 0.f);
-    }
-  }
+  stage1_f32(xin, fw1, fb1, C1, x1);
   __syncthreads();
 
   float acc[MAXM];
@@ -243,6 +250,55 @@ __device__ __forceinline__ void zero(float (&acc)[MT][NT][4]) {
 
 __device__ __forceinline__ float bf(const bf16* p, int i) { return __bfloat162float(p[i]); }
 
+// Stages 1 and 2 of one tile of GPB groups starting at group g0:
+//   x1 = relu(T(T(x @ fw1) + fb1)) -> x1s,  x2 = T(T(x1 @ w2) + b2) -> x2s.
+// With ZERO_PAD the x2 rows of absent points (r >= M, or a group past the
+// end) are written as zeros, so that they drop out of sums over rows.
+// Every thread of the block calls it; it ends with a barrier.
+template <bool ZERO_PAD>
+__device__ __forceinline__ void tile_x2(const float* __restrict__ x, int n_groups, int M, int g0,
+                                        const bf16* __restrict__ fw1,
+                                        const bf16* __restrict__ fb1,
+                                        const bf16* __restrict__ w2,
+                                        const bf16* __restrict__ b2, float* xin, bf16* x1s,
+                                        bf16* x2s, bf16* ws) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 3, wn = warp >> 2;  // warp wm's 32 rows are group wm
+  for (int e = tid; e < R * 3; e += THREADS) {
+    const int row = e / 3, grp = g0 + row / MAXM, r = row % MAXM;
+    xin[e] = (grp < n_groups && r < M) ? rnd<bf16>(x[((size_t)grp * M + r) * 3 + e % 3]) : 0.f;
+  }
+  __syncthreads();
+
+  for (int e = tid; e < R * C1; e += THREADS) {
+    const int row = e / C1, c = e % C1;
+    float s = __fmul_rn(xin[3 * row], bf(fw1, c));
+    s = fmaf(xin[3 * row + 1], bf(fw1, C1 + c), s);
+    s = fmaf(xin[3 * row + 2], bf(fw1, 2 * C1 + c), s);
+    x1s[row * X1_LD + c] = __float2bfloat16_rn(fmaxf(rnd<bf16>(rnd<bf16>(s) + bf(fb1, c)), 0.f));
+  }
+
+  // two 128-column halves
+  for (int nb = 0; nb < C2; nb += 128) {
+    float acc[2][8][4];
+    zero(acc);
+    block_mma(acc, x1s, X1_LD, wm * 32, w2, C2, nb, 128, C1, wn * 64, ws);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = wm * 32 + mt * 16 + (lane >> 2) + (e >> 1) * 8;
+          const int c = nb + wn * 64 + nt * 8 + (lane & 3) * 2 + (e & 1);
+          float v = rnd<bf16>(acc[mt][nt][e]) + bf(b2, c);
+          if (ZERO_PAD && (g0 + wm >= n_groups || row % MAXM >= M)) v = 0.f;
+          x2s[row * X2_LD + c] = __float2bfloat16_rn(v);
+        }
+  }
+  __syncthreads();
+}
+
 __global__ void __launch_bounds__(THREADS, 1)
 mini_forward_bf16_kernel(const float* __restrict__ x, int n_groups, int M,
                          const bf16* __restrict__ fw1, const bf16* __restrict__ fb1,
@@ -263,39 +319,8 @@ mini_forward_bf16_kernel(const float* __restrict__ x, int n_groups, int M,
   const int wm = warp & 3, wn = warp >> 2;  // warp wm's 32 rows are group wm
   const int g0 = blockIdx.x * GPB;
 
-  for (int e = tid; e < R * 3; e += THREADS) {
-    const int row = e / 3, grp = g0 + row / MAXM, r = row % MAXM;
-    xin[e] = (grp < n_groups && r < M) ? rnd<bf16>(x[((size_t)grp * M + r) * 3 + e % 3]) : 0.f;
-  }
   for (int e = tid; e < 16 * X2_LD; e += THREADS) gA[e] = __float2bfloat16_rn(0.f);
-  __syncthreads();
-
-  // x1 = relu(T(T(x @ fw1) + fb1))
-  for (int e = tid; e < R * C1; e += THREADS) {
-    const int row = e / C1, c = e % C1;
-    float s = __fmul_rn(xin[3 * row], bf(fw1, c));
-    s = fmaf(xin[3 * row + 1], bf(fw1, C1 + c), s);
-    s = fmaf(xin[3 * row + 2], bf(fw1, 2 * C1 + c), s);
-    x1s[row * X1_LD + c] = __float2bfloat16_rn(fmaxf(rnd<bf16>(rnd<bf16>(s) + bf(fb1, c)), 0.f));
-  }
-
-  // x2 = T(T(x1 @ w2) + b2), two 128-column halves
-  for (int nb = 0; nb < C2; nb += 128) {
-    float acc[2][8][4];
-    zero(acc);
-    block_mma(acc, x1s, X1_LD, wm * 32, w2, C2, nb, 128, C1, wn * 64, ws);
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row = wm * 32 + mt * 16 + (lane >> 2) + (e >> 1) * 8;
-          const int c = nb + wn * 64 + nt * 8 + (lane & 3) * 2 + (e & 1);
-          x2s[row * X2_LD + c] = __float2bfloat16_rn(rnd<bf16>(acc[mt][nt][e]) + bf(b2, c));
-        }
-  }
-  __syncthreads();
+  tile_x2<false>(x, n_groups, M, g0, fw1, fb1, w2, b2, xin, x1s, x2s, ws);
 
   // g = max over each group's valid rows -> rows 0..3 of gA
   for (int e = tid; e < GPB * C2; e += THREADS) {
@@ -364,6 +389,109 @@ mini_forward_bf16_kernel(const float* __restrict__ x, int n_groups, int M,
       if (lane < 4 && grp < n_groups) out[(size_t)grp * CO + c] = __float2bfloat16_rn(m);
     }
 }
+// ---------------------------------------------------------------------------
+// mini_stats, bf16: the train-mode BN2 statistics sweep. Replaces
+// ppt_tpu/kernels/mini.py:mini_stats (_stats_kernel): per tile of groups
+// it forms x2 as above and emits the second-moment matrix
+// m2 = sum x2^T x2 [C2, C2] (f32, over ALL rows), per-group column sums
+// sg [n_groups, C2] and per-group column maxes gmax [n_groups, C2] (f32);
+// the closed-form epilogue that turns them into sum(h) and sum(h^2) is
+// plain f32 tensor code in the wrapper, as it is plain XLA in the
+// reference.
+//
+// Bound: operations (2 n (3 C1 + C1 C2 + C2 C2) against the input read
+// once and sg/gmax written once). Design: the TPU grid runs in order and
+// adds every tile into one m2 block; here a fixed number of persistent
+// blocks each walk their tiles (tile = blockIdx.x, += gridDim.x) and keep
+// their share of m2 in registers, so no atomics are needed and two runs
+// give the same bits. 256 x 256 f32 accumulators do not fit one block's
+// registers, so gridDim.y = 2 splits m2's columns: block (p, half) owns
+// m2[:, 128 half .. 128 half + 127] (128 accumulators per thread, as the
+// forward kernel's y) and that half of sg and gmax, and both halves
+// recompute x2 for the tile (stages 1-2 are a third of the work). x2^T x2
+// runs on the tensor cores straight from the bf16 x2 tile in shared
+// memory: ldmatrix.trans gives the A fragments of x2^T as well as the B
+// fragments. Each block writes one partial [C2, 128] slab; m2_reduce_kernel
+// adds the partials in block order.
+// ---------------------------------------------------------------------------
+constexpr int STATS_BLOCKS = 66;  // x 2 column halves = one block per SM
+constexpr size_t STATS_SMEM =
+    sizeof(bf16) * ((size_t)R * X2_LD + (size_t)R * X1_LD + 2 * KT * WS_LD) +
+    sizeof(float) * (R * 3);
+
+__global__ void __launch_bounds__(THREADS, 1)
+mini_stats_bf16_kernel(const float* __restrict__ x, int n_groups, int M,
+                       const bf16* __restrict__ fw1, const bf16* __restrict__ fb1,
+                       const bf16* __restrict__ w2, const bf16* __restrict__ b2,
+                       float* __restrict__ part, float* __restrict__ sg,
+                       float* __restrict__ gmax) {
+  extern __shared__ __align__(16) unsigned char smraw[];
+  bf16* x2s = reinterpret_cast<bf16*>(smraw);           // [R][X2_LD]
+  bf16* x1s = x2s + R * X2_LD;                          // [R][X1_LD]
+  bf16* ws = x1s + R * X1_LD;                           // [2][KT][WS_LD]
+  float* xin = reinterpret_cast<float*>(ws + 2 * KT * WS_LD);  // [R][3]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 3, wn = warp >> 2;  // 64 rows x 64 columns of the m2 half per warp
+  const int col0 = blockIdx.y * 128;
+  const int n_tiles = (n_groups + GPB - 1) / GPB;
+
+  float acc[4][8][4];
+  zero(acc);
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int g0 = tile * GPB;
+    tile_x2<true>(x, n_groups, M, g0, fw1, fb1, w2, b2, xin, x1s, x2s, ws);
+
+    // per-group column sums (f32, rows in order) and maxes of this half
+    for (int e = tid; e < GPB * 128; e += THREADS) {
+      const int grp = e / 128, c = col0 + e % 128;
+      if (g0 + grp < n_groups) {
+        float s = 0.f, m = -INFINITY;
+        for (int r = 0; r < M; ++r) {
+          const float v = __bfloat162float(x2s[(grp * MAXM + r) * X2_LD + c]);
+          s += v;
+          m = fmaxf(m, v);
+        }
+        sg[(size_t)(g0 + grp) * C2 + c] = s;
+        gmax[(size_t)(g0 + grp) * C2 + c] = m;
+      }
+    }
+
+    // acc += x2[:, rows of this warp]^T @ x2[:, columns of this warp]
+#pragma unroll 2
+    for (int ks = 0; ks < R; ks += 16) {
+      uint32_t a[4][4];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+        ldmatrix_x4_trans(a[mt], x2s + (ks + (lane & 7) + ((lane >> 4) & 1) * 8) * X2_LD +
+                                     wm * 64 + mt * 16 + ((lane >> 3) & 1) * 8);
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, x2s + (ks + ((lane >> 3) & 1) * 8 + (lane & 7)) * X2_LD + col0 +
+                                 wn * 64 + p * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          mma_bf16(acc[mt][2 * p], a[mt], b[0], b[1]);
+          mma_bf16(acc[mt][2 * p + 1], a[mt], b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();  // x2s is rewritten by the next tile
+  }
+
+  float* dst = part + (size_t)blockIdx.x * C2 * C2;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = wm * 64 + mt * 16 + (lane >> 2) + (e >> 1) * 8;
+        const int j = col0 + wn * 64 + nt * 8 + (lane & 3) * 2 + (e & 1);
+        dst[i * C2 + j] = acc[mt][nt][e];
+      }
+}
 }  // namespace tc
 
 static int launch_f32(const void* x, int n_groups, int M, int C1, int C2, int H, int CO,
@@ -402,4 +530,139 @@ PPT_EXPORT int ppt_mini_forward(int dtype, const void* x, int n_groups, int M, i
   }
   return launch_f32(x, n_groups, M, C1, C2, H, CO, fw1, fb1, w2, b2, fwg, fwl, fbs, w3, b3,
                     out, stream);
+}
+
+// ---------------------------------------------------------------------------
+// mini_stats, f32 (FMA on the CUDA cores): the same sweep and the same
+// split as the bf16 kernel above, one group per tile. Block (p, half)
+// keeps m2[:, 128 half ..] in registers: thread (ti, tj) owns rows
+// {4 ti + e, 128 + 4 ti + e} x columns {32 q + 4 tj + f} (8 x 16
+// accumulators), so a row of x2 is read as float4s without bank conflicts.
+// ---------------------------------------------------------------------------
+namespace st {
+constexpr int C1 = 128, C2 = 256;
+constexpr size_t SMEM = sizeof(float) * (MAXM * (C1 + C2 + 3));
+
+__global__ void __launch_bounds__(THREADS, 1)
+mini_stats_f32_kernel(const float* __restrict__ x, int n_groups, int M,
+                      const float* __restrict__ fw1, const float* __restrict__ fb1,
+                      const float* __restrict__ w2, const float* __restrict__ b2,
+                      float* __restrict__ part, float* __restrict__ sg,
+                      float* __restrict__ gmax) {
+  extern __shared__ float sm[];
+  float* x1 = sm;              // [MAXM][C1]
+  float* x2 = x1 + MAXM * C1;  // [MAXM][C2]; rows >= M are zero
+  float* xin = x2 + MAXM * C2; // [MAXM][3]
+
+  const int tid = threadIdx.x, ti = tid >> 3, tj = tid & 7;
+  const int col0 = blockIdx.y * 128;
+
+  float m2[8][16];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 16; ++j) m2[i][j] = 0.f;
+
+  for (int grp = blockIdx.x; grp < n_groups; grp += gridDim.x) {
+    const float* xg = x + (size_t)grp * M * 3;
+    for (int e = tid; e < MAXM * 3; e += THREADS) xin[e] = e < M * 3 ? xg[e] : 0.f;
+    __syncthreads();
+    stage1_f32(xin, fw1, fb1, C1, x1);
+    __syncthreads();
+    {  // THREADS == C2: one column of x2 per thread
+      const int c = tid;
+      float acc[MAXM];
+      col_dot(x1, C1, C1, w2, C2, c, acc);
+      const float bias = b2[c];
+      float s = 0.f, m = -INFINITY;
+#pragma unroll
+      for (int r = 0; r < MAXM; ++r) {
+        const float v = acc[r] + bias;
+        x2[r * C2 + c] = r < M ? v : 0.f;
+        if (r < M) {
+          s += v;
+          m = fmaxf(m, v);
+        }
+      }
+      if (c >= col0 && c < col0 + 128) {
+        sg[(size_t)grp * C2 + c] = s;
+        gmax[(size_t)grp * C2 + c] = m;
+      }
+    }
+    __syncthreads();
+    for (int k = 0; k < M; ++k) {
+      const float* row = x2 + k * C2;
+      float a[8], b[16];
+#pragma unroll
+      for (int p = 0; p < 2; ++p)
+        *reinterpret_cast<float4*>(a + 4 * p) =
+            *reinterpret_cast<const float4*>(row + p * 128 + ti * 4);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        *reinterpret_cast<float4*>(b + 4 * q) =
+            *reinterpret_cast<const float4*>(row + col0 + q * 32 + tj * 4);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 16; ++j) m2[i][j] = fmaf(a[i], b[j], m2[i][j]);
+    }
+    __syncthreads();  // x2 and xin are rewritten by the next group
+  }
+
+  float* dst = part + (size_t)blockIdx.x * C2 * C2;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      dst[((i >> 2) * 128 + ti * 4 + (i & 3)) * C2 + col0 + (j >> 2) * 32 + tj * 4 + (j & 3)] =
+          m2[i][j];
+}
+
+// out[e] = part[0][e] + part[1][e] + ... in block order: the fixed-order sum
+// that makes m2 the same bits from run to run.
+__global__ void m2_reduce_kernel(const float* __restrict__ part, int P, int n,
+                                 float* __restrict__ out) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  float s = 0.f;
+  for (int p = 0; p < P; ++p) s += part[(size_t)p * n + e];
+  out[e] = s;
+}
+}  // namespace st
+
+// Number of partial m2 slabs (persistent blocks per column half) that
+// ppt_mini_stats writes for this many groups; the caller sizes `part` by it.
+PPT_EXPORT int ppt_mini_stats_blocks(int dtype, int n_groups) {
+  const int tiles = dtype == PPT_BF16 ? (n_groups + tc::GPB - 1) / tc::GPB : n_groups;
+  return tiles < tc::STATS_BLOCKS ? tiles : tc::STATS_BLOCKS;
+}
+
+// x [n_groups * M, 3] f32; weights in the compute dtype; part
+// [ppt_mini_stats_blocks, C2, C2], m2 [C2, C2], sg and gmax [n_groups, C2] f32.
+PPT_EXPORT int ppt_mini_stats(int dtype, const void* x, int n_groups, int M, int C1, int C2,
+                              const void* fw1, const void* fb1, const void* w2, const void* b2,
+                              void* part, void* m2, void* sg, void* gmax, void* stream) {
+  if (C1 != st::C1 || C2 != st::C2 || M > MAXM || n_groups < 1)
+    return (int)cudaErrorInvalidValue;
+  const int P = ppt_mini_stats_blocks(dtype, n_groups);
+  const dim3 grid(P, 2);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == PPT_BF16) {
+    cudaFuncSetAttribute(tc::mini_stats_bf16_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)tc::STATS_SMEM);
+    tc::mini_stats_bf16_kernel<<<grid, THREADS, tc::STATS_SMEM, s>>>(
+        (const float*)x, n_groups, M, (const bf16*)fw1, (const bf16*)fb1, (const bf16*)w2,
+        (const bf16*)b2, (float*)part, (float*)sg, (float*)gmax);
+  } else {
+    cudaFuncSetAttribute(st::mini_stats_f32_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)st::SMEM);
+    st::mini_stats_f32_kernel<<<grid, THREADS, st::SMEM, s>>>(
+        (const float*)x, n_groups, M, (const float*)fw1, (const float*)fb1, (const float*)w2,
+        (const float*)b2, (float*)part, (float*)sg, (float*)gmax);
+  }
+  PPT_CHECK_LAUNCH();
+  const int n = C2 * C2;
+  st::m2_reduce_kernel<<<(n + 255) / 256, 256, 0, s>>>((const float*)part, P, n, (float*)m2);
+  PPT_CHECK_LAUNCH();
+  return 0;
 }

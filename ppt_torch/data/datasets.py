@@ -1,7 +1,8 @@
 """Datasets for the recognition path: ModelNet loader, synthetic fallback.
 
-Counterpart of ``ppt_tpu/data/datasets.py``, cut to what the inference
-slice needs. Loaders produce plain numpy; batching is in
+Counterpart of ``ppt_tpu/data/datasets.py``, cut to what the recognition
+and few-shot tasks need (train and test splits, ``*_fs`` few-shot
+resampling of the train split). Loaders produce plain numpy; batching is in
 ``ppt_torch.data.loader``.
 """
 
@@ -57,6 +58,21 @@ class ArrayDataset:
         return len(self.classnames)
 
 
+def generate_fewshot(dataset: ArrayDataset, nshots: int, seed: int = 0) -> ArrayDataset:
+    """Sample ``nshots`` items per class, with replacement when a class is
+    scarce (same generator and draws as the reference's, ``:214-236``)."""
+    rng = np.random.RandomState(seed)
+    idx: List[int] = []
+    for c in range(dataset.num_classes):
+        pool = np.flatnonzero(dataset.labels == c)
+        if len(pool) == 0:
+            continue
+        idx.extend(rng.choice(pool, nshots, replace=len(pool) < nshots))
+    idx = np.asarray(idx)
+    return ArrayDataset(dataset.points[idx], dataset.labels[idx], dataset.classnames,
+                        name=f"{dataset.name}_fs{nshots}")
+
+
 def load_modelnet(root: str, split: str, npoints: int, num_category: int = 40,
                   source_npoints: int = 8192) -> ArrayDataset:
     """ModelNet from the pre-FPS'd pickle (``ModelNet``, :261-323), with
@@ -109,8 +125,16 @@ def _synthetic(args, split: str) -> ArrayDataset:
     )
 
 
+def _modelnet40_fs(args, split: str) -> ArrayDataset:
+    ds = load_modelnet(args.data_path, split, args.npoints, 40)
+    if split == "train":
+        ds = generate_fewshot(ds, args.nshots, seed=args.seed)
+    return ds
+
+
 DATASETS: Dict[str, Callable[..., ArrayDataset]] = {
     "modelnet40": lambda args, split: load_modelnet(args.data_path, split, args.npoints, 40),
+    "modelnet40_fs": _modelnet40_fs,
     "synthetic": _synthetic,
 }
 

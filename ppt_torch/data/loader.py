@@ -1,10 +1,13 @@
-"""Batch loader: fixed-shape numpy batches with a validity mask.
+"""Batch loader: shuffling, fixed-shape numpy batches, a validity mask.
 
-Counterpart of ``ppt_tpu/data/loader.py`` for evaluation, without JAX:
-datasets are materialised arrays, so batching is slicing, in order. The
+Counterpart of ``ppt_tpu/data/loader.py`` without JAX: datasets are
+materialised arrays, so batching is slicing. With ``shuffle`` the order
+of epoch ``e`` is ``np.random.RandomState(seed * 100003 + e).permutation``,
+the reference's own (``data/loader.py:58-65``), so both packages see the
+same batches. ``drop_last`` (training) keeps shapes fixed; otherwise the
 final batch is padded to ``batch_size`` with its last item and ``valid``
-marks the real rows. Shuffling and multi-process striding come with the
-training slice.
+marks the real rows. Multi-process striding comes with the parallelism
+slice.
 """
 
 from __future__ import annotations
@@ -21,14 +24,33 @@ from ppt_torch.data.datasets import ArrayDataset
 class Loader:
     dataset: ArrayDataset
     batch_size: int
+    shuffle: bool = False
+    drop_last: bool = False
+    seed: int = 0
+
+    def __post_init__(self):
+        self._epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        """Reshuffle seed per epoch (DistributedSampler.set_epoch parity)."""
+        self._epoch = epoch
 
     def __len__(self) -> int:
-        return -(-len(self.dataset) // self.batch_size)
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def indices(self) -> np.ndarray:
+        n = len(self.dataset)
+        if self.shuffle:
+            return np.random.RandomState(self.seed * 100003 + self._epoch).permutation(n)
+        return np.arange(n)
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
-        n, bs = len(self.dataset), self.batch_size
-        for start in range(0, n, bs):
-            idx = np.arange(start, min(start + bs, n))
+        order, bs = self.indices(), self.batch_size
+        n = len(order)
+        stop = n - n % bs if self.drop_last else n
+        for start in range(0, stop, bs):
+            idx = order[start:start + bs]
             valid = np.ones(bs, dtype=bool)
             if len(idx) < bs:
                 valid[len(idx):] = False

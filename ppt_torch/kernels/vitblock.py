@@ -13,6 +13,11 @@ denominator; proj; droppath-scaled residual; LN2; MLP with tanh-GELU;
 residual. The readout variant adds the final f32 LayerNorm and returns
 ``[B, 8, C]`` f32 rows: row 0 the normalised cls token, row 1 the
 lanewise max over the point tokens, rows 2..7 zero.
+
+Neither kernel has a backward kernel in the reference
+(``vitblock.py:398-400``, ``:551-553``); both public functions carry the
+gradient of their plain version (``_autograd.py``), which is what trains
+``block_11`` under head types 1 to 3.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import math
 import torch
 
 from ppt_torch.kernels import _build
+from ppt_torch.kernels._autograd import recompute_grad
 
 LN_EPS = 1e-6
 
@@ -141,22 +147,40 @@ def _launch(x, pos, dp, weights, lnf, heads, name):
     return ro if ro is not None else out.reshape(B, L, C)
 
 
-def fused_vit_block(
+def _block_run(
     x, pos, dp, ln1s, ln1b, wqkv, wproj, bproj, ln2s, ln2b, wfc1, bfc1, wfc2, bfc2, heads
 ) -> torch.Tensor:
-    """One whole ViT block: [B, L, C] -> [B, L, C] in x's dtype."""
     weights = (ln1s, ln1b, wqkv, wproj, bproj, ln2s, ln2b, wfc1, bfc1, wfc2, bfc2)
     if x.device.type == "cpu":
         return vit_block_plain(x, pos, dp, *weights, heads)
     return _launch(x, pos, dp, weights, None, heads, "fused_vit_block")
 
 
-def fused_vit_block_readout(
+def _block_readout_run(
     x, pos, dp, ln1s, ln1b, wqkv, wproj, bproj, ln2s, ln2b, wfc1, bfc1, wfc2, bfc2,
     lnfs, lnfb, heads,
 ) -> torch.Tensor:
-    """Last block + trunk readout: [B, L, C] -> [B, 8, C] f32."""
     weights = (ln1s, ln1b, wqkv, wproj, bproj, ln2s, ln2b, wfc1, bfc1, wfc2, bfc2)
     if x.device.type == "cpu":
         return vit_block_readout_plain(x, pos, dp, *weights, lnfs, lnfb, heads)
     return _launch(x, pos, dp, weights, (lnfs, lnfb), heads, "fused_vit_block_readout")
+
+
+def fused_vit_block(
+    x, pos, dp, ln1s, ln1b, wqkv, wproj, bproj, ln2s, ln2b, wfc1, bfc1, wfc2, bfc2, heads
+) -> torch.Tensor:
+    """One whole ViT block: [B, L, C] -> [B, L, C] in x's dtype.
+    Differentiable: the backward recomputes ``vit_block_plain``."""
+    return recompute_grad(_block_run, vit_block_plain, x, pos, dp, ln1s, ln1b, wqkv, wproj,
+                          bproj, ln2s, ln2b, wfc1, bfc1, wfc2, bfc2, heads)
+
+
+def fused_vit_block_readout(
+    x, pos, dp, ln1s, ln1b, wqkv, wproj, bproj, ln2s, ln2b, wfc1, bfc1, wfc2, bfc2,
+    lnfs, lnfb, heads,
+) -> torch.Tensor:
+    """Last block + trunk readout: [B, L, C] -> [B, 8, C] f32.
+    Differentiable: the backward recomputes ``vit_block_readout_plain``."""
+    return recompute_grad(_block_readout_run, vit_block_readout_plain, x, pos, dp, ln1s, ln1b,
+                          wqkv, wproj, bproj, ln2s, ln2b, wfc1, bfc1, wfc2, bfc2, lnfs, lnfb,
+                          heads)

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -77,12 +77,17 @@ class Ulip(nn.Module):
         emb = self.text(spliced, prompts.eot_pos).float()
         return emb / torch.linalg.norm(emb, dim=-1, keepdim=True)
 
-    def encode_pc(self, pc: torch.Tensor) -> torch.Tensor:
-        """Point embeddings [B, E] f32, deliberately NOT normalised."""
-        return self.point_encoder(pc).float() @ self.pc_projection
+    def encode_pc(self, pc: torch.Tensor, train: bool = False,
+                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Point embeddings [B, E] f32, deliberately NOT normalised.
+        ``train`` puts the point tower in training mode (batch statistics,
+        DropPath from ``generator``) whether or not its weights train."""
+        feat = self.point_encoder(pc, train=train, generator=generator)
+        return feat.float() @ self.pc_projection
 
-    def forward(self, pc: torch.Tensor, prompts: PromptArrays) -> torch.Tensor:
-        pc_embed = self.encode_pc(pc)
+    def forward(self, pc: torch.Tensor, prompts: PromptArrays, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        pc_embed = self.encode_pc(pc, train=train, generator=generator)
         text_embed = self.encode_text(prompts)
         return torch.exp(self.logit_scale) * pc_embed @ text_embed.t()
 
@@ -140,6 +145,60 @@ def ulip_pointbert(args) -> ModelSpec:
 
 
 MODEL_REGISTRY: Dict[str, Callable[..., ModelSpec]] = {"ULIP_PointBERT": ulip_pointbert}
+
+
+# ---------------------------------------------------------------------------
+# Freeze partition (``models/ulip.py:295-361``)
+# ---------------------------------------------------------------------------
+
+# PointAdapter: the progressively unfrozen tensors of the last PointBERT
+# block, by head type.
+_HEAD_TYPE_UNFREEZE: Dict[int, Tuple[Tuple[str, ...], ...]] = {
+    1: (("point_encoder", "block_11", "norm2"), ("point_encoder", "block_11", "mlp", "fc2")),
+    2: (("point_encoder", "block_11", "norm1"), ("point_encoder", "block_11", "mlp", "fc1")),
+    3: (("point_encoder", "block_11", "attn", "qkv"),
+        ("point_encoder", "block_11", "attn", "proj")),
+}
+
+# partseg: the point encoder's subtrees outside the pretrained trunk train.
+# Listed for the part-segmentation slice; no model of the port has them yet.
+_PARTSEG_TRAINABLE_SUBTREES = ("propagation_0", "propagation_1", "propagation_2",
+                               "dgcnn_pro_1", "dgcnn_pro_2", "conv1", "bn1")
+
+
+def trainable_mask(model: nn.Module, head_type: int = 0, task: str = "cls") -> Dict[str, bool]:
+    """Which parameters train, by ``named_parameters`` name.
+
+    Prompt tasks (cls, fewshot): always ``prompt_learner.*``; head types
+    1 to 3 progressively add the PointAdapter leaves of ``block_11``.
+    ``task='pretrain'`` instead trains the point encoder, ``pc_projection``
+    and ``logit_scale`` against the frozen text tower."""
+    if task == "partseg":
+        raise NotImplementedError("the partseg trainable subtrees "
+                                  f"{_PARTSEG_TRAINABLE_SUBTREES} are not ported yet")
+
+    def is_trainable(path: Tuple[str, ...]) -> bool:
+        if task == "pretrain":
+            return path[0] in ("point_encoder", "pc_projection", "logit_scale")
+        if "prompt_learner" in path:
+            return True
+        return any(path[:len(prefix)] == prefix
+                   for ht, prefixes in _HEAD_TYPE_UNFREEZE.items() if head_type >= ht
+                   for prefix in prefixes)
+
+    return {name: is_trainable(tuple(name.split("."))) for name, _ in model.named_parameters()}
+
+
+def apply_trainable_mask(model: nn.Module, mask: Dict[str, bool]) -> Dict[str, nn.Parameter]:
+    """Set ``requires_grad`` from ``mask``; returns the trainable
+    parameters by name. Frozen leaves get no gradient at all (not the
+    [49408, 512] token embedding either): gradients only flow THROUGH them."""
+    trainable = {}
+    for name, p in model.named_parameters():
+        p.requires_grad_(mask[name])
+        if mask[name]:
+            trainable[name] = p
+    return trainable
 
 
 def build_model(name: str, args, device=None, seed: Optional[int] = None) -> ModelSpec:

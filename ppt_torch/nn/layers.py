@@ -9,6 +9,8 @@ kernels take, so neither the weight bridge nor a kernel call transposes.
 
 from __future__ import annotations
 
+from typing import Optional, Sequence
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -59,6 +61,21 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     """flax ``nn.gelu`` default (tanh approximation)."""
     return F.gelu(x, approximate="tanh")
+
+
+def drop_path_scales(rates: Sequence[float], batch: int, train: bool,
+                     generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """Stochastic depth as the per-sample branch scales the block kernel
+    takes: ``[len(rates), batch, 2]`` f32, one scale for the attention
+    branch and one for the MLP branch of each block. In training each is
+    Bernoulli(keep) / keep with keep = 1 - rate (``nn/pointbert.py:339-349``),
+    drawn from ``generator``; a block of rate 0 (block 0 of the
+    ``linspace(0, drop_path_rate, depth)`` ladder) and eval mode give ones."""
+    if not train or max(rates) == 0.0:
+        return torch.ones(len(rates), batch, 2, dtype=torch.float32, device=device)
+    keep = 1.0 - torch.tensor(list(rates), dtype=torch.float32, device=device)[:, None, None]
+    u = torch.rand(len(rates), batch, 2, generator=generator, device=device)
+    return (u < keep).float() / keep
 
 
 class MlpBlock(nn.Module):

@@ -1,10 +1,14 @@
 """PointBERT (PointTransformer) classification trunk, channels-last.
 
-Counterpart of ``ppt_tpu/nn/pointbert.py`` (eval path): grouping by the
-FPS + kNN kernels, the MiniPointNet group encoder with both BatchNorms
-folded into the fused kernel, and the ViT trunk on the fused block
-kernels, the last of which also emits the ``[LN(cls), max-pool]``
-readout. Module and parameter names mirror the flax tree so that
+Counterpart of ``ppt_tpu/nn/pointbert.py``: grouping by the FPS + kNN
+kernels, the MiniPointNet group encoder with both BatchNorms folded into
+the fused kernel (running statistics in eval; batch statistics in
+training, BN1's from the input moments and BN2's from the ``mini_stats``
+kernel), and the ViT trunk on the fused block kernels with DropPath as
+per-sample branch scales, the last of which also emits the
+``[LN(cls), max-pool]`` readout. ``train`` is an explicit argument, not
+the module's mode: the frozen tower of prompt tuning still runs in
+training mode. Module and parameter names mirror the flax tree so that
 ``ppt_torch.convert.from_jax`` maps every leaf one to one.
 
 The position embedding is added before EVERY block (reference
@@ -16,15 +20,17 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from ppt_torch.kernels.group import fused_group
-from ppt_torch.kernels.mini import mini_forward
+from ppt_torch.kernels.mini import mini_forward, mini_stats
 from ppt_torch.kernels.vitblock import fused_vit_block, fused_vit_block_readout
-from ppt_torch.nn.layers import Dense, LayerNormF32, MlpBlock, gelu_tanh
+from ppt_torch.nn.layers import Dense, LayerNormF32, MlpBlock, drop_path_scales, gelu_tanh
 
 BN_EPS = 1e-5  # flax nn.BatchNorm default
+BN_MOMENTUM = 0.99  # flax nn.BatchNorm default: ra = 0.99 ra + 0.01 batch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,8 +55,9 @@ def group_points(
 
 class BatchNormStats(nn.Module):
     """BatchNorm parameters and running statistics (flax ``scale``/``bias``
-    and ``batch_stats`` ``mean``/``var``); eval folds them into the
-    adjacent Dense weights."""
+    and ``batch_stats`` ``mean``/``var``), folded into the adjacent Dense
+    weights: with the running statistics in eval, with the batch's in
+    training, which also moves the running statistics as flax does."""
 
     def __init__(self, width: int):
         super().__init__()
@@ -59,16 +66,31 @@ class BatchNormStats(nn.Module):
         self.register_buffer("running_mean", torch.zeros(width))
         self.register_buffer("running_var", torch.ones(width))
 
-    def fold(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(scale, shift) with BN(x) = x * scale + shift."""
-        scale = self.weight / torch.sqrt(self.running_var + BN_EPS)
-        return scale, self.bias - self.running_mean * scale
+    def fold(self, mean: Optional[torch.Tensor] = None,
+             var: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(scale, shift) with BN(x) = x * scale + shift, from the given
+        batch statistics or else the running ones."""
+        if mean is None:
+            mean, var = self.running_mean, self.running_var
+        scale = self.weight / torch.sqrt(var + BN_EPS)
+        return scale, self.bias - mean * scale
+
+    @torch.no_grad()
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """flax's update, in place: momentum 0.99 and the BIASED batch
+        variance (torch's BatchNorm would use 0.1 and the unbiased one)."""
+        self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1.0 - BN_MOMENTUM)
+        self.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1.0 - BN_MOMENTUM)
 
 
 class MiniPointNet(nn.Module):
-    """Per-group feature extractor (``Encoder``, dvae.py:184-215), eval
-    mode: both BNs folded with the running statistics, the whole chain in
-    the ``mini_forward`` kernel (``nn/pointbert.py:143-199``, train=False)."""
+    """Per-group feature extractor (``Encoder``, dvae.py:184-215): both
+    BNs folded, the whole chain in the ``mini_forward`` kernel
+    (``nn/pointbert.py:143-214``). With ``train`` the fold uses batch
+    statistics: BN1's come in closed form from the 3x3 input moments (it
+    feeds on an affine map of the coordinates), BN2's from the
+    ``mini_stats`` kernel; both variances are clamped at 0 in f32, and the
+    running statistics are updated in place."""
 
     def __init__(self, out_dim: int = 256, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -80,7 +102,7 @@ class MiniPointNet(nn.Module):
         self.bn2 = BatchNormStats(512)
         self.conv2b = Dense(512, out_dim, dtype=dtype)
 
-    def forward(self, groups: torch.Tensor) -> torch.Tensor:
+    def forward(self, groups: torch.Tensor, train: bool = False) -> torch.Tensor:
         B, G, M, C = groups.shape
         groups2 = groups.reshape(B, G * M, C).float()
         w1, b1 = self.conv1a.kernel, self.conv1a.bias
@@ -89,13 +111,31 @@ class MiniPointNet(nn.Module):
         w3, b3 = self.conv2b.kernel, self.conv2b.bias
         cg = wsp.shape[0] - w2.shape[1]
         wg, wl = wsp[:cg], wsp[cg:]
-        scale1, shift1 = self.bn1.fold()
-        scale2, shift2 = self.bn2.fold()
-        return mini_forward(
-            M, self.dtype, groups2,
-            w1 * scale1[None, :], b1 * scale1 + shift1, w2, b2,
+        n = B * G * M
+        mean1 = var1 = mean2 = var2 = None
+        if train:
+            z = groups2.reshape(-1, C)
+            sz, szz = z.sum(0), z.t() @ z  # [3], [3, 3]
+            szw = sz @ w1
+            mean1 = szw / n + b1
+            e2 = ((w1 * (szz @ w1)).sum(0) + 2.0 * b1 * szw + n * b1 * b1) / n
+            # E[x^2] - E[x]^2 can round a hair negative for a near-constant channel
+            var1 = torch.clamp_min(e2 - mean1 * mean1, 0.0)
+        scale1, shift1 = self.bn1.fold(mean1, var1)
+        fw1, fb1 = w1 * scale1[None, :], b1 * scale1 + shift1
+        if train:
+            sumh, sumsqh = mini_stats(M, self.dtype, groups2, fw1, fb1, w2, b2, wg, wl, bsp)
+            mean2 = sumh / n
+            var2 = torch.clamp_min(sumsqh / n - mean2 * mean2, 0.0)
+        scale2, shift2 = self.bn2.fold(mean2, var2)
+        out = mini_forward(
+            M, self.dtype, groups2, fw1, fb1, w2, b2,
             wg * scale2[None, :], wl * scale2[None, :], bsp * scale2 + shift2, w3, b3,
         )
+        if train:
+            self.bn1.update_running(mean1, var1)
+            self.bn2.update_running(mean2, var2)
+        return out
 
 
 class VitAttention(nn.Module):
@@ -111,7 +151,7 @@ class VitAttention(nn.Module):
 class VitBlock(nn.Module):
     """Pre-norm ViT block (``Block``, point_encoder.py:61-79) on the fused
     block kernel. ``dp`` is the per-sample droppath branch scale
-    ``[B, 2]`` (all ones in eval)."""
+    ``[B, 2]`` (all ones in eval, ``drop_path_scales`` in training)."""
 
     def __init__(self, width: int, num_heads: int, mlp_ratio: float = 4.0,
                  dtype: torch.dtype = torch.float32):
@@ -171,17 +211,21 @@ class PointBert(nn.Module):
     def blocks(self):
         return [getattr(self, f"block_{i}") for i in range(self.config.depth)]
 
-    def forward(self, pts: torch.Tensor) -> torch.Tensor:
+    def forward(self, pts: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``train``: batch statistics in the group encoder's BatchNorms
+        (and their running update) and DropPath drawn from ``generator``."""
         cfg = self.config
         dt = self.dtype
         neighborhood, center = group_points(pts, cfg.num_group, cfg.group_size)
-        tokens = self.reduce_dim(self.encoder(neighborhood))
+        tokens = self.reduce_dim(self.encoder(neighborhood, train))
         B = tokens.shape[0]
         pos = self.pos_embed2(gelu_tanh(self.pos_embed1(center)))
         x = torch.cat([self.cls_token.to(dt).expand(B, 1, -1), tokens], dim=1)
         pos = torch.cat([self.cls_pos.to(dt).expand(B, 1, -1), pos], dim=1)
-        dp = torch.ones(B, 2, dtype=torch.float32, device=x.device)
+        rates = np.linspace(0.0, cfg.drop_path_rate, cfg.depth).tolist()
+        dp = drop_path_scales(rates, B, train, generator, x.device)
         blocks = self.blocks()
-        for blk in blocks[:-1]:
-            x = blk(x, pos, dp)
-        return blocks[-1](x, pos, dp, readout_ln=self.norm)
+        for i, blk in enumerate(blocks[:-1]):
+            x = blk(x, pos, dp[i])
+        return blocks[-1](x, pos, dp[-1], readout_ln=self.norm)

@@ -1,0 +1,102 @@
+"""Port vs reference: learning-rate schedules and AdamW.
+
+Schedules: the port evaluates the reference's f32 expressions in numpy,
+so values agree to 1e-7 absolute (rates are <= 3e-3; the slack is for the
+cosine's last bit). AdamW: 5 steps against ``optax.adamw`` with the same
+schedule, gradients from a numpy seed, 1e-6 absolute on parameters of
+order 1 (f32 on both sides; the bias corrections are f64 on the host in
+the port and f32 in optax).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from ppt_tpu.train.optim import build_schedule as jax_build_schedule
+from ppt_torch.train.optim import AdamW, build_optimizer, build_schedule
+
+KW = dict(final_lr=1e-5, warmup_epochs=1, warmup_start_lr=1e-6)
+
+
+@pytest.mark.parametrize("name", ["cosine", "constant"])
+@pytest.mark.parametrize("warmup_epochs", [0, 1, 3])
+def test_schedule_values_match_reference(name, warmup_epochs):
+    kw = dict(KW, warmup_epochs=warmup_epochs)
+    epochs, spe = 10, 7
+    want_fn = jax_build_schedule(name, 3e-3, epochs, spe, **kw)
+    got_fn = build_schedule(name, 3e-3, epochs, spe, **kw)
+    for step in list(range(0, epochs * spe + 3)) + [1000]:
+        want = float(want_fn(jnp.asarray(step)))
+        assert abs(got_fn(step) - want) <= 1e-7, (step, got_fn(step), want)
+
+
+def test_schedule_reads_published_recipe_endpoints():
+    sched = build_schedule("cosine", 3e-3, 250, 328, **KW)
+    assert abs(sched(0) - 1e-6) <= 1e-9
+    assert abs(sched(328) - 3e-3) <= 1e-9
+    assert abs(sched(250 * 328) - 1e-5) <= 1e-9
+
+
+def test_adamw_matches_optax_for_five_steps():
+    rng = np.random.RandomState(0)
+    shapes = {"tokens": (4, 16), "scale": ()}
+    p0 = {k: np.asarray(rng.randn(*s), np.float32) for k, s in shapes.items()}
+    grads = [{k: np.asarray(rng.randn(*s) * 10 ** rng.uniform(-4, 0), np.float32)
+              for k, s in shapes.items()} for _ in range(5)]
+    sched_j = jax_build_schedule("cosine", 3e-3, 3, 2, **KW)
+    opt = optax.adamw(sched_j, b1=0.9, b2=0.98, eps=1e-8, weight_decay=0.1)
+    pj = {k: jnp.asarray(v) for k, v in p0.items()}
+    st = opt.init(pj)
+
+    pt = {k: torch.from_numpy(v.copy()) for k, v in p0.items()}
+    topt = build_optimizer("adamw", pt.items(), build_schedule("cosine", 3e-3, 3, 2, **KW),
+                           weight_decay=0.1, betas=(0.9, 0.98), eps=1e-8)
+    assert isinstance(topt, AdamW)
+    for i, g in enumerate(grads):
+        upd, st = opt.update({k: jnp.asarray(v) for k, v in g.items()}, st, pj)
+        pj = optax.apply_updates(pj, upd)
+        topt.step({k: torch.from_numpy(v) for k, v in g.items()})
+        assert topt.count == i + 1
+        for k in shapes:
+            np.testing.assert_allclose(pt[k].numpy(), np.asarray(pj[k]), atol=1e-6, rtol=0)
+    np.testing.assert_allclose(topt.mu["tokens"].numpy(), np.asarray(st[0].mu["tokens"]),
+                               atol=1e-7)
+    np.testing.assert_allclose(topt.nu["tokens"].numpy(), np.asarray(st[0].nu["tokens"]),
+                               atol=1e-7)
+
+
+def test_adamw_decays_every_leaf_and_reads_lr_before_the_increment():
+    p = {"w": torch.ones(3)}
+    seen = []
+
+    def sched(step):
+        seen.append(step)
+        return 0.5
+
+    opt = AdamW(p.items(), sched, weight_decay=0.1, betas=(0.9, 0.98), eps=1e-8)
+    opt.step({"w": torch.zeros(3)})
+    # zero gradient: only the decoupled decay moves the leaf, p -= lr * wd * p
+    np.testing.assert_allclose(p["w"].numpy(), np.full(3, 1 - 0.5 * 0.1), rtol=1e-7)
+    opt.step({"w": torch.zeros(3)})
+    assert seen == [0, 1]
+
+
+@pytest.mark.parametrize("name", ["multistep", "poly", "tanh", "plateau", "cosine_restarts"])
+def test_unported_schedules_raise_by_name(name):
+    with pytest.raises(NotImplementedError, match=name):
+        build_schedule(name, 1e-3, 2, 2)
+
+
+@pytest.mark.parametrize("name", ["adam", "sgd", "lamb", "adahessian", "madgrad"])
+def test_unported_optimizers_raise_by_name(name):
+    with pytest.raises(NotImplementedError, match=name):
+        build_optimizer(name, {}.items(), lambda s: 1e-3)
+
+
+def test_unknown_names_raise_key_error():
+    with pytest.raises(KeyError):
+        build_schedule("nope", 1e-3, 2, 2)
+    with pytest.raises(KeyError):
+        build_optimizer("nope", {}.items(), lambda s: 1e-3)

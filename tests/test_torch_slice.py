@@ -110,7 +110,8 @@ def test_cls_main_evaluate_3d_on_cpu():
     assert 0.0 <= result["best_acc"] <= 100.0 and result["best_epoch"] == -1
 
 
-def test_cls_main_parses_flags_and_requires_evaluate_3d():
+def test_cls_main_parses_flags_and_requires_evaluate_3d(monkeypatch):
+    """``--evaluate_3d`` selects evaluation; without it ``main`` trains."""
     from ppt_torch.tasks import cls
     from ppt_torch.tasks.args import parse_args
 
@@ -118,8 +119,14 @@ def test_cls_main_parses_flags_and_requires_evaluate_3d():
                        "--compute_dtype", "bfloat16"])
     assert args.evaluate_3d and args.device == "cpu" and args.npoints == 256
     assert args.compute_dtype == "bfloat16"
-    with pytest.raises(SystemExit):
-        cls.main(["--device", "cpu"])
+    took = []
+    monkeypatch.setattr(cls, "setup", lambda a: {"model": None, "test_ds": None,
+                                                 "prompts": None, "device": None})
+    monkeypatch.setattr(cls, "train_loop", lambda a, ctx: took.append("train") or {})
+    monkeypatch.setattr(cls, "validate", lambda *a: took.append("eval") or {"acc1": 0.0})
+    cls.main(["--device", "cpu"])
+    cls.main(["--device", "cpu", "--evaluate_3d"])
+    assert took == ["train", "eval"]
 
 
 def test_from_jax_raises_on_missing_and_extra_leaves():
