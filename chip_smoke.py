@@ -1,7 +1,7 @@
 """H100 smoke run of the PyTorch port: build every kernel, hold each
 against its plain PyTorch version on the card, time it, then drive the
-full-width ULIP-PointBERT recognition inference path and the
-prompt-tuning train path.
+full-width ULIP-PointBERT recognition inference path, the prompt-tuning
+train path, and both again with the text tower on its fused routes.
 
     python3 chip_smoke.py            # one CUDA card, no arguments
 
@@ -14,7 +14,12 @@ Phases (any failed check raises, and the script exits non-zero):
      f32 coordinates in both; the five kernels of the inference path also
      at the train path's batch of 30): indices exact, f32 within 1e-4 and bf16
      within 2e-2 of the plain output's max magnitude; kernel, plain and
-     library times with CUDA events;
+     library times with CUDA events. The three text kernels
+     (fused_text_block, fused_text_tower with and without block outputs,
+     fused_text_tower_bwd) at 5 classes x 13 positions x 128 wide and at
+     the slice's 40 x L x 512, 12 layers (L from the prompts): the same
+     limits, bf16 d_x0 within 5e-2, two runs bit-identical; the library
+     time is the port's plain-PyTorch TextTransformer on the card;
   4. the recognition path at full width (ULIP-PointBERT, bf16, B=32,
      N=1024, 40 ModelNet40 class names, 32 prompt tokens "middle",
      weights from a seed): passes of ModelNet40's test-set size (2468
@@ -39,16 +44,35 @@ Phases (any failed check raises, and the script exits non-zero):
      (f32 and bf16); a head_type 3 step whose ``block_11`` gradients agree
      with the plain path; save -> load -> evaluate gives identical logits.
      Its numbers go on a line of their own ({"train": ...}).
+  6. the fused text path at full width, through ``cls.setup`` with the
+     reference's switches set as a user would set them
+     (``PPT_FUSED_TEXT_TOWER=1`` / ``PPT_FUSED_TEXT=1``): a ``validate``
+     pass with the tower route (the forward kernel once, no residuals),
+     its logits and text embeddings against the off route on the same
+     weights, the text encode's time by route; 4 windows of 20 train
+     steps with the tower route interleaved with 4 of the off route
+     (loss read every step), launches per step by route (the
+     residual-saving forward and the backward kernel once per step);
+     frozen weights unchanged; a fixed batch whose loss must fall; one
+     step against the plain path for the tower and the block route (f32
+     and bf16, phase 5's limits); 5 train steps with the block route (12
+     block launches per encode); the three routes against each other in
+     f32. Its numbers go on a line of their own ({"text": ...}).
 
-The line before the last is a JSON object with the per-kernel numbers;
+The line before the card's is a JSON object with the per-kernel numbers.
+Each ``launches`` there is a counter read after a driven run, or a sum of
+such readings (``fused_text_tower`` adds its two variants' counters and
+lists them under ``launches_by_variant``);
 the last line is the contract line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
+import collections
 import contextlib
 import dataclasses
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -70,9 +94,12 @@ from ppt_torch.data.loader import Loader  # noqa: E402
 from ppt_torch.kernels import _build  # noqa: E402
 from ppt_torch.kernels import group as kgroup  # noqa: E402
 from ppt_torch.kernels import mini as kmini  # noqa: E402
+from ppt_torch.kernels import textblock as ktextblock  # noqa: E402
+from ppt_torch.kernels import texttower as ktower  # noqa: E402
 from ppt_torch.kernels import vitblock as kvit  # noqa: E402
 from ppt_torch.models.ulip import PromptArrays, build_model  # noqa: E402
 from ppt_torch.nn import pointbert as npb  # noqa: E402
+from ppt_torch.nn import text as ntext  # noqa: E402
 from ppt_torch.prompt.learner import build_prompt_spec  # noqa: E402
 from ppt_torch.tasks import cls  # noqa: E402
 from ppt_torch.tasks.args import TaskArgs  # noqa: E402
@@ -104,7 +131,13 @@ SOURCES = {
     "fused_vit_block": ("ppt_torch/csrc/vitblock.cu", "ppt_tpu/kernels/vitblock.py:372"),
     "fused_vit_block_readout": ("ppt_torch/csrc/vitblock.cu",
                                 "ppt_tpu/kernels/vitblock.py:526"),
+    "fused_text_block": ("ppt_torch/csrc/text.cu", "ppt_tpu/kernels/textblock.py:173"),
+    "fused_text_tower": ("ppt_torch/csrc/text.cu", "ppt_tpu/kernels/texttower.py:351"),
+    "fused_text_tower_bwd": ("ppt_torch/csrc/text.cu", "ppt_tpu/kernels/texttower.py:465"),
 }
+TEXT_KERNELS = ("fused_text_block", "fused_text_tower", "fused_text_tower_bwd")
+POINT_KERNELS = tuple(k for k in SOURCES if k not in TEXT_KERNELS)
+TOL_TEXT_BWD = {"f32": 1e-4, "bf16": 5e-2}
 
 
 def check(cond, msg):
@@ -373,6 +406,176 @@ def check_block(results):
                 library_ms=gpu_time_ms(lambda: block_library(x, pos, dp, w, H, lnf)))
 
 
+def mn40_prompts():
+    """The 40 ModelNet40 names with 32 prompt tokens "middle", on the card."""
+    names = TaskArgs(dataset_name="modelnet40").load_classnames()
+    spec = build_prompt_spec(names, n_ctx=32, class_name_position="middle")
+    return PromptArrays.from_spec(spec, device=DEV)
+
+
+def text_inputs(C, L, D, depth, E, dt, seed):
+    """x0, one-hot EOT rows, output cotangent and the tower's 15 weights
+    (matrices in ``dt``, LN parameters and biases f32), from a seed."""
+    g = torch.Generator().manual_seed(seed)
+
+    def f(*s, sc=1.0):
+        return (torch.randn(*s, generator=g) * sc).to(DEV)
+
+    hid = 4 * D
+    x0 = f(C, L, D).to(dt)
+    eot_pos = torch.randint(1, L, (C,), generator=g).to(DEV)
+    onehot = (torch.arange(L, device=DEV)[None, :] == eot_pos[:, None]).float()
+    cot = f(C, E)
+    s = D ** -0.5
+    weights = [1 + 0.1 * f(depth, D), 0.1 * f(depth, D), f(depth, D, 3 * D, sc=s).to(dt),
+               0.1 * f(depth, 3 * D), f(depth, D, D, sc=s).to(dt), 0.1 * f(depth, D),
+               1 + 0.1 * f(depth, D), 0.1 * f(depth, D), f(depth, D, hid, sc=s).to(dt),
+               0.1 * f(depth, hid), f(depth, hid, D, sc=hid ** -0.5).to(dt), 0.1 * f(depth, D),
+               1 + 0.1 * f(D), 0.1 * f(D), f(D, E, sc=s)]
+    return x0, eot_pos, onehot, cot, weights
+
+
+def text_library(C, L, D, H, depth, E, dt, x0, eot_pos):
+    """The port's plain-PyTorch ``TextTransformer`` (route "off") and one
+    of its blocks, on the card, for the library times: forward, and
+    forward + backward to the input."""
+    cfg = ntext.TextConfig(vocab_size=8, context_length=max(L, 77), width=D, layers=depth,
+                           heads=H, embed_dim=E)
+    text = ntext.TextTransformer(cfg, dtype=dt).to(DEV)
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for name, p in text.named_parameters():
+            if name.endswith("kernel") or name == "text_projection":
+                p.copy_(torch.randn(p.shape, generator=gen) * p.shape[0] ** -0.5)
+            p.requires_grad_(False)
+    mask = text.mask[:L, :L]
+
+    def block():
+        with torch.no_grad():
+            return text.block_0(x0, mask)
+
+    def forward():
+        with torch.no_grad():
+            return text(x0, eot_pos)
+
+    def forward_backward():
+        x = x0.detach().requires_grad_(True)
+        return torch.autograd.grad(text(x, eot_pos).float().sum(), x)
+
+    def forward_with_graph():
+        return text(x0.detach().requires_grad_(True), eot_pos)
+
+    return block, forward, forward_backward, forward_with_graph
+
+
+def text_ops(C, L, D, H, hid, depth, E):
+    """Operations of the tower's forward and of its backward kernel:
+    every product at 2 per multiply-add, attention counted to the
+    diagonal (what the causal loops run)."""
+    R, d = C * L, D // H
+    tri = C * H * (L * (L + 1) // 2) * d * 2  # one causal product
+    fwd_layer = 2 * R * (3 * D * D + D * D + 2 * D * hid) + 2 * tri
+    epilogue = 2 * C * (L * D + D * E)
+    # backward: qkv, out_proj and c_fc recomputed; one product per forward
+    # product for the input cotangent; four more attention products
+    bwd_layer = 2 * R * (3 * D * D + D * D + D * hid) + 2 * tri \
+        + 2 * R * (2 * D * hid + D * D + 3 * D * D) + 4 * tri
+    return depth * fwd_layer + epilogue, depth * bwd_layer + 2 * epilogue, fwd_layer
+
+
+def check_text(results):
+    """Phase 3 for the text path: fused_text_block, fused_text_tower (with
+    and without block outputs) and fused_text_tower_bwd."""
+    L_slice = int(mn40_prompts().perm_tokens.shape[1])
+    shapes = ((5, 13, 128, 4, 2, 96, "small"), (40, L_slice, 512, 8, 12, 512, "slice"))
+    for C, L, D, H, depth, E, tag in shapes:
+        for dname, dt in DTYPES.items():
+            x0, eot_pos, onehot, cot, w = text_inputs(C, L, D, depth, E, dt, seed=L + depth)
+            w0 = [t[0] for t in w[:12]]
+            with torch.no_grad():
+                blk = ktextblock.fused_text_block(x0, *w0, H)
+                blk2 = ktextblock.fused_text_block(x0, *w0, H)
+                blk_want = ktextblock.text_block_plain(x0, *w0, H)
+                out = ktower.tower_forward(x0, onehot, w, H)
+                out_res, xs = ktower.tower_forward(x0, onehot, w, H, want_blocks=True)
+                out2, xs2 = ktower.tower_forward(x0, onehot, w, H, want_blocks=True)
+                out_want, xs_want = ktower.text_tower_plain(x0, onehot, *w, H, return_blocks=True)
+                dx = ktower.tower_backward(cot, x0, xs, onehot, w, H)
+                dx2 = ktower.tower_backward(cot, x0, xs, onehot, w, H)
+                dx_want = ktower.text_tower_bwd_plain(cot, x0, xs, onehot, *w, H)
+            torch.cuda.synchronize()
+            errs = {"block": rel_err(blk, blk_want), "tower": rel_err(out, out_want),
+                    "tower_res": rel_err(out_res, out_want), "xs": rel_err(xs, xs_want),
+                    "bwd": rel_err(dx, dx_want)}
+            same = (torch.equal(blk, blk2) and torch.equal(out, out_res)
+                    and torch.equal(out_res, out2) and torch.equal(xs, xs2)
+                    and torch.equal(dx, dx2))
+            print(f"[kernel] text {tag} {dname} C={C} L={L} D={D} H={H} depth={depth}: max rel "
+                  f"err block {errs['block']:.3e}, tower {errs['tower']:.3e}, tower with block "
+                  f"outputs {errs['tower_res']:.3e}, block outputs {errs['xs']:.3e} (tol "
+                  f"{TOL[dname]}); backward d_x0 {errs['bwd']:.3e} (tol {TOL_TEXT_BWD[dname]}); "
+                  f"two runs bit-identical: {same}")
+            check(all(torch.isfinite(t.float()).all() for t in (blk, out, xs, dx)),
+                  f"text kernels non-finite at {tag} {dname}")
+            for k in ("block", "tower", "tower_res", "xs"):
+                check(errs[k] <= TOL[dname], f"text {k} {tag} {dname} error {errs[k]}")
+            check(errs["bwd"] <= TOL_TEXT_BWD[dname],
+                  f"fused_text_tower_bwd {tag} {dname} error {errs['bwd']}")
+            check(same, f"text kernels {tag} {dname} differ between two runs")
+            if tag != "slice":
+                continue
+            hid, R = 4 * D, C * L
+            fwd_ms = gpu_time_ms(lambda: ktower.tower_forward(x0, onehot, w, H))
+            res_ms = gpu_time_ms(
+                lambda: ktower.tower_forward(x0, onehot, w, H, want_blocks=True))
+            bwd_ms = gpu_time_ms(lambda: ktower.tower_backward(cot, x0, xs, onehot, w, H))
+            blk_ms = gpu_time_ms(lambda: ktextblock._block_run(x0, *w0, H))
+            if dname == "f32":
+                f32_ms = {"block": blk_ms, "tower": fwd_ms, "res": res_ms, "bwd": bwd_ms}
+                print(f"[kernel] text slice f32 (CUDA cores): block {blk_ms:.3f} ms, tower "
+                      f"{fwd_ms:.3f} ms, with block outputs {res_ms:.3f} ms, backward "
+                      f"{bwd_ms:.3f} ms")
+                continue
+            with torch.no_grad():
+                plain_blk = gpu_time_ms(lambda: ktextblock.text_block_plain(x0, *w0, H), reps=5)
+                plain_fwd = gpu_time_ms(lambda: ktower.text_tower_plain(x0, onehot, *w, H),
+                                        reps=3, warmup=1)
+                plain_bwd = gpu_time_ms(
+                    lambda: ktower.text_tower_bwd_plain(cot, x0, xs, onehot, *w, H),
+                    reps=3, warmup=1)
+            lib_block, lib_fwd, lib_fwd_bwd, lib_graph = text_library(
+                C, L, D, H, depth, E, dt, x0, eot_pos)
+            lib_blk_ms, lib_fwd_ms = gpu_time_ms(lib_block), gpu_time_ms(lib_fwd)
+            lib_fb_ms, lib_graph_ms = gpu_time_ms(lib_fwd_bwd), gpu_time_ms(lib_graph)
+            fwd_ops, bwd_ops, layer_ops = text_ops(C, L, D, H, hid, depth, E)
+            layer_w = 2 * (3 * D * D + D * D + 2 * D * hid) + 4 * (9 * D + hid)
+            act = R * D * 2
+            bms, by = bound_ms(2 * act + layer_w, layer_ops, PEAK["bf16"])
+            results["fused_text_block"] = dict(
+                max_abs_err=float((blk.float() - blk_want.float()).abs().max()), ms=blk_ms,
+                plain_ms=plain_blk, bound_ms=bms, bound_by=by, library_ms=lib_blk_ms,
+                f32_ms=f32_ms["block"])
+            tower_b = act + C * L * 4 + depth * layer_w + 4 * (2 * D + D * E) + C * E * 4
+            bms, by = bound_ms(tower_b, fwd_ops, PEAK["bf16"])
+            bms_res, _ = bound_ms(tower_b + depth * act, fwd_ops, PEAK["bf16"])
+            results["fused_text_tower"] = dict(
+                max_abs_err=float((out - out_want).abs().max()), ms=fwd_ms, plain_ms=plain_fwd,
+                bound_ms=bms, bound_by=by, library_ms=lib_fwd_ms, res_ms=res_ms,
+                res_bound_ms=bms_res, f32_ms=f32_ms["tower"], f32_res_ms=f32_ms["res"],
+                device_kernels_per_call=7 * depth + 1)
+            bms, by = bound_ms(tower_b + depth * act + act, bwd_ops, PEAK["bf16"])
+            results["fused_text_tower_bwd"] = dict(
+                max_abs_err=float((dx.float() - dx_want.float()).abs().max()), ms=bwd_ms,
+                plain_ms=plain_bwd, bound_ms=bms, bound_by=by,
+                library_ms=lib_fb_ms - lib_graph_ms, library_fwd_bwd_ms=lib_fb_ms,
+                fwd_bwd_ms=res_ms + bwd_ms, f32_ms=f32_ms["bwd"],
+                device_kernels_per_call=13 * depth + 1)
+            print(f"[kernel] text slice bf16: forward + backward to x0, kernels "
+                  f"{res_ms + bwd_ms:.3f} ms, the plain-PyTorch TextTransformer {lib_fb_ms:.3f} "
+                  f"ms (its forward alone {lib_fwd_ms:.3f} ms, with a graph {lib_graph_ms:.3f} "
+                  f"ms)")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the recognition path at full width
 # ---------------------------------------------------------------------------
@@ -383,6 +586,12 @@ def plain_path():
     """Route the model's kernel calls to the plain PyTorch versions."""
     saved = (kgroup.fps_batched, kgroup.knn_gather, npb.mini_forward, npb.fused_vit_block,
              npb.fused_vit_block_readout, npb.mini_stats)
+    saved_text = (ktextblock._block_run, ktower.tower_forward, ktower.tower_backward)
+    ktextblock._block_run = ktextblock.text_block_plain
+    ktower.tower_forward = lambda x0, eot, w, heads, want_blocks=False: ktower.text_tower_plain(
+        x0, eot, *w, heads, return_blocks=want_blocks)
+    ktower.tower_backward = lambda g, x0, xs, eot, w, heads: ktower.text_tower_bwd_plain(
+        g, x0, xs, eot, *w, heads)
     kgroup.fps_batched = kgroup.fps_plain
     kgroup.knn_gather = kgroup.knn_gather_plain
     npb.mini_forward = kmini.mini_forward_plain
@@ -394,6 +603,7 @@ def plain_path():
     finally:
         (kgroup.fps_batched, kgroup.knn_gather, npb.mini_forward, npb.fused_vit_block,
          npb.fused_vit_block_readout, npb.mini_stats) = saved
+        ktextblock._block_run, ktower.tower_forward, ktower.tower_backward = saved_text
 
 
 MN40_TEST_CLOUDS = 2468  # ModelNet40's test split
@@ -439,7 +649,7 @@ def run_slice(passes=5, batch=32, npoints=1024, seed=0):
           f"max {rates[-1]:.1f}; pass walls ms {[round(w * 1e3, 2) for w in walls]}; "
           f"acc1 {val['acc1']:.2f} (random weights)")
     print(f"[slice] kernel launches in one pass: {json.dumps(launches, sort_keys=True)}")
-    for name in SOURCES:
+    for name in POINT_KERNELS:
         if name != "mini_stats":  # the train path's kernel: phase 5 counts it
             check(launches.get(name, 0) > 0, f"{name} was not launched on the main path")
 
@@ -534,10 +744,37 @@ def one_step_quantities(ctx, batch, seed):
     return float(loss.detach()), grads, after
 
 
-def compare_with_plain(dtype, head_type, batch_size, tol_loss, tol_grad, tol_stats):
+TEXT_SWITCHES = {"off": {}, "block": {"PPT_FUSED_TEXT": "1"},
+                 "tower": {"PPT_FUSED_TEXT_TOWER": "1"}}
+
+
+@contextlib.contextmanager
+def text_route(route):
+    """The reference's switches set as a user's shell would set them, for
+    the ``cls.setup`` calls inside."""
+    keys = ("PPT_FUSED_TEXT", "PPT_FUSED_TEXT_TOWER")
+    saved = {k: os.environ.pop(k, None) for k in keys}
+    os.environ.update(TEXT_SWITCHES[route])
+    try:
+        yield
+    finally:
+        for k in keys:
+            os.environ.pop(k, None)
+            if saved[k] is not None:
+                os.environ[k] = saved[k]
+
+
+def setup_with_route(args, route):
+    with text_route(route):
+        ctx = cls.setup(args)
+    check(ctx["model"].text.fused == route, f"setup did not take the text route {route}")
+    return ctx
+
+
+def compare_with_plain(dtype, head_type, batch_size, tol_loss, tol_grad, tol_stats, route="off"):
     """One step through the kernels against the same step through their
     plain versions on the card; returns the worst relative differences."""
-    ctx = cls.setup(train_args(dtype, head_type, batch_size))
+    ctx = setup_with_route(train_args(dtype, head_type, batch_size), route)
     b = cls.device_batch(next(iter(Loader(ctx["train_ds"], batch_size, shuffle=True, seed=3))),
                          DEV)
     loss, grads, stats = one_step_quantities(ctx, b, seed=11)
@@ -546,7 +783,7 @@ def compare_with_plain(dtype, head_type, batch_size, tol_loss, tol_grad, tol_sta
     d_loss = abs(loss - loss_p) / abs(loss_p)
     d_grad = {k: rel_err(grads[k], grads_p[k]) for k in grads}
     d_stats = max(rel_err(stats[k], stats_p[k]) for k in stats)
-    tag = f"{dtype} head_type {head_type} B={batch_size}"
+    tag = f"{dtype} head_type {head_type} B={batch_size} text route {route}"
     print(f"[train] one step vs plain path on the card ({tag}): loss {loss:.6f} vs "
           f"{loss_p:.6f} (rel {d_loss:.3e}, tol {tol_loss}); BN buffers max rel "
           f"{d_stats:.3e} (tol {tol_stats}); gradient max rel per leaf (tol {tol_grad}): "
@@ -560,6 +797,48 @@ def compare_with_plain(dtype, head_type, batch_size, tol_loss, tol_grad, tol_sta
     if head_type:
         check(any("block_11" in k for k in d_grad), "head_type 3 trains no block_11 leaf")
     return {"loss_rel": d_loss, "grad_rel": max(d_grad.values()), "stats_rel": d_stats}
+
+
+def batch_stream(loader):
+    epoch = 0
+    while True:
+        loader.set_epoch(epoch)
+        for batch in loader:
+            yield batch
+        epoch += 1
+
+
+def run_steps(ctx, step_fn, stream, n, read_every_step=True):
+    """`n` steps as the body of ``cls.train_loop`` takes them: the loss is
+    read on the host after every step, which waits for the card. With
+    ``read_every_step`` off the losses are read after the last."""
+    losses = []
+    for _ in range(n):
+        b = cls.device_batch(next(stream), DEV)
+        b["pc"] = train_augment(ctx["state"].generator, b["pc"])
+        ctx["state"], metrics = step_fn(ctx["state"], b, ctx["prompts"])
+        losses.append(float(metrics["loss"]) if read_every_step else metrics["loss"])
+    torch.cuda.synchronize()
+    return [float(x) for x in losses]
+
+
+def fixed_batch_losses(loader, steps, route="off"):
+    """A fixed batch, augmentation and DropPath off: the loss must fall."""
+    fixed_args = train_args()
+    fixed_args.pointbert_config = npb.PointBertConfig(drop_path_rate=0.0)
+    fctx = setup_with_route(fixed_args, route)
+    fstep = make_train_step(smoothing=0.2)
+    fb = cls.device_batch(next(iter(loader)), DEV)
+    fstate, flosses = fctx["state"], []
+    for _ in range(steps):
+        fstate, m = fstep(fstate, fb, fctx["prompts"])
+        flosses.append(m["loss"])
+    flosses = [float(x) for x in flosses]
+    print(f"[train] fixed batch, {steps} steps, augmentation and DropPath off, text route "
+          f"{route}: loss {flosses[0]:.4f} -> {flosses[-1]:.4f} (lowest {min(flosses):.4f})")
+    check(all(math.isfinite(x) for x in flosses) and flosses[-1] < flosses[0],
+          f"the loss did not fall on a fixed batch (text route {route})")
+    return flosses
 
 
 def run_train_slice(windows=5, steps_per_window=20, warmup=5):
@@ -590,29 +869,10 @@ def _run_train_slice(windows, steps_per_window, warmup):
           f"epoch), label smoothing {args.label_smoothing}, lr {args.lr}, DropPath "
           f"{model.point_encoder.config.drop_path_rate}, augmentation on")
 
-    def batches():
-        epoch = 0
-        while True:
-            loader.set_epoch(epoch)
-            for batch in loader:
-                yield batch
-            epoch += 1
-
-    stream = batches()
+    stream = batch_stream(loader)
 
     def run(n, read_every_step=True):
-        """`n` steps as the body of ``cls.train_loop`` takes them: the loss
-        is read on the host after every step, which waits for the card.
-        With ``read_every_step`` off the losses are read after the last."""
-        nonlocal state
-        losses = []
-        for _ in range(n):
-            b = cls.device_batch(next(stream), DEV)
-            b["pc"] = train_augment(state.generator, b["pc"])
-            state, metrics = step_fn(state, b, prompts)
-            losses.append(float(metrics["loss"]) if read_every_step else metrics["loss"])
-        torch.cuda.synchronize()
-        return [float(x) for x in losses]
+        return run_steps(ctx, step_fn, stream, n, read_every_step)
 
     # `windows` windows that read the loss every step, and between each two
     # of them one that reads its losses at its end, so a host that drifts
@@ -654,7 +914,7 @@ def _run_train_slice(windows, steps_per_window, warmup):
           "train_loop's epoch")
     check(all(math.isfinite(x) for x in losses), "non-finite training loss")
     check(steps_before == warmup + n_steps and n_steps >= 100, "step count")
-    for name in SOURCES:
+    for name in POINT_KERNELS:
         check(launches.get(name, 0) >= n_steps, f"{name} was not launched on every train step")
     check(all(torch.equal(p, frozen0[k]) for k, p in model.named_parameters() if k in frozen0),
           "a frozen weight changed")
@@ -686,21 +946,7 @@ def _run_train_slice(windows, steps_per_window, warmup):
           "logits differ after the checkpoint round trip")
     check(not torch.equal(want, base), "training left the logits unchanged")
 
-    # a fixed batch, augmentation and DropPath off: the loss must fall
-    fixed_args = train_args()
-    fixed_args.pointbert_config = npb.PointBertConfig(drop_path_rate=0.0)
-    fctx = cls.setup(fixed_args)
-    fstep = make_train_step(smoothing=0.2)
-    fb = cls.device_batch(next(iter(loader)), DEV)
-    fstate, flosses = fctx["state"], []
-    for _ in range(60):
-        fstate, m = fstep(fstate, fb, fctx["prompts"])
-        flosses.append(m["loss"])
-    flosses = [float(x) for x in flosses]
-    print(f"[train] fixed batch, 60 steps, augmentation and DropPath off: loss "
-          f"{flosses[0]:.4f} -> {flosses[-1]:.4f} (lowest {min(flosses):.4f})")
-    check(all(math.isfinite(x) for x in flosses) and flosses[-1] < flosses[0],
-          "the loss did not fall on a fixed batch")
+    flosses = fixed_batch_losses(loader, 60)
 
     agree = {
         "f32": compare_with_plain("float32", 0, TRAIN_BATCH, 1e-4, 1e-4, 1e-4),
@@ -717,6 +963,179 @@ def _run_train_slice(windows, steps_per_window, warmup):
         "steps": n_steps, "batch": TRAIN_BATCH, "loss_first": losses[0], "loss_last": losses[-1],
         "launches_per_step": per_step, "fixed_batch_loss": [flosses[0], flosses[-1]],
         "vs_plain": agree,
+    }
+
+# ---------------------------------------------------------------------------
+# phase 6: the fused text path at full width
+# ---------------------------------------------------------------------------
+
+
+def median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def run_text_slice(windows=4, steps_per_window=20, warmup=5):
+    saved_loader = pdata.DATASETS["modelnet40"]
+    pdata.DATASETS["modelnet40"] = synthetic_modelnet40
+    try:
+        return _run_text_slice(windows, steps_per_window, warmup)
+    finally:
+        pdata.DATASETS["modelnet40"] = saved_loader
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+
+
+def _run_text_slice(windows, steps_per_window, warmup):
+    # the same seed gives the two setups the same weights
+    ctxs = {route: setup_with_route(train_args(), route) for route in ("off", "tower")}
+    off, tower = ctxs["off"], ctxs["tower"]
+    prompts = tower["prompts"]
+    C, L = prompts.perm_tokens.shape
+    print(f"[text] ULIP_PointBERT bf16, {C} prompts x {L} positions, text tower "
+          f"{tower['model'].text.config.layers} layers x {tower['model'].text.config.width}")
+
+    # --- eval: one validate pass with the tower route -----------------------
+    eval_fn = make_cached_text_eval(tower["model"])
+    embed_fn, step_fn = eval_fn
+    cls.validate(tower["model"], eval_fn, tower["test_ds"], prompts, train_args(), DEV)  # warm-up
+    _build.reset_launches()
+    val = cls.validate(tower["model"], eval_fn, tower["test_ds"], prompts, train_args(), DEV)
+    torch.cuda.synchronize()
+    eval_launches = dict(_build.LAUNCHES)
+    check(eval_launches.get("fused_text_tower", 0) == 1
+          and "fused_text_tower_res" not in eval_launches
+          and "fused_text_tower_bwd" not in eval_launches,
+          f"a validate pass takes the forward kernel once, without residuals: {eval_launches}")
+    pc = torch.from_numpy(tower["test_ds"].points[:TRAIN_BATCH]).to(DEV)
+    te_tower, te_off = embed_fn(tower["model"], prompts), embed_fn(off["model"], prompts)
+    logits = step_fn(tower["model"], {"pc": pc}, te_tower)
+    want = step_fn(off["model"], {"pc": pc}, te_off)
+    torch.cuda.synchronize()
+    check(logits.shape == (TRAIN_BATCH, C) and torch.isfinite(logits).all(), "text slice logits")
+    diff = float((logits - want).abs().max() / want.std())
+    top1 = float((logits.argmax(-1) == want.argmax(-1)).float().mean())
+    te_err = rel_err(te_tower, te_off)
+    encode_ms = {"off": [], "tower": []}
+    for _ in range(5):
+        for route, ctx in ctxs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            embed_fn(ctx["model"], prompts)
+            torch.cuda.synchronize()
+            encode_ms[route].append((time.perf_counter() - t0) * 1e3)
+    encode_ms = {k: median(v) for k, v in encode_ms.items()}
+    print(f"[text] validate with the tower route: acc1 {val['acc1']:.2f} (random weights), "
+          f"launches {json.dumps(eval_launches, sort_keys=True)}; logits vs the off route "
+          f"(bf16): max|diff|/std {diff:.3e}, top-1 agreement {top1:.3f}; text embeddings max "
+          f"rel diff {te_err:.3e}; text encode median of 5, interleaved: tower "
+          f"{encode_ms['tower']:.2f} ms, off {encode_ms['off']:.2f} ms")
+    check(diff <= 0.25 and top1 >= 0.8, "tower-route logits disagree with the off route")
+
+    # --- train: interleaved windows, tower and off ---------------------------
+    step = make_train_step(smoothing=0.2)
+    streams = {r: batch_stream(Loader(c["train_ds"], TRAIN_BATCH, shuffle=True, drop_last=True,
+                                      seed=0)) for r, c in ctxs.items()}
+    frozen0 = snapshot({k: p for k, p in tower["model"].named_parameters()
+                        if k not in tower["state"].trainable})
+    tokens0 = snapshot(tower["state"].trainable)["prompt_learner.learnable_tokens"]
+    losses = {r: run_steps(ctxs[r], step, streams[r], warmup) for r in ctxs}
+    rates, launches = {"off": [], "tower": []}, {}
+    counted = collections.Counter(eval_launches)  # the counts as read, summed over the runs
+    for _ in range(windows):
+        for route in ("tower", "off"):
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            losses[route] += run_steps(ctxs[route], step, streams[route], steps_per_window)
+            rates[route].append(steps_per_window * TRAIN_BATCH / (time.perf_counter() - t0))
+            if route == "tower":
+                counted.update(_build.LAUNCHES)
+            got = {k: v / steps_per_window for k, v in sorted(_build.LAUNCHES.items())}
+            check(launches.setdefault(route, got) == got, f"launches per step moved: {got}")
+    for route in ("tower", "off"):
+        r = sorted(rates[route])
+        print(f"[text] train, text route {route}: {windows} windows of {steps_per_window} steps "
+              f"(loss read every step), interleaved with the other route: median "
+              f"{median(r):.1f} train clouds/sec, min {r[0]:.1f}, max {r[-1]:.1f} "
+              f"({1e3 * TRAIN_BATCH / median(r):.2f} ms per step); loss first "
+              f"{losses[route][0]:.4f}, last {losses[route][-1]:.4f}; kernel launches per step "
+              f"{json.dumps(launches[route])}")
+        check(all(math.isfinite(x) for x in losses[route]), f"non-finite loss, route {route}")
+    per_step = launches["tower"]
+    check(per_step.get("fused_text_tower_res") == 1 and per_step.get("fused_text_tower_bwd") == 1
+          and "fused_text_tower" not in per_step,
+          f"a tower-route train step takes the residual forward and the backward once: {per_step}")
+    check(not any(k in launches["off"] for k in ("fused_text_tower", "fused_text_tower_res",
+                                                 "fused_text_tower_bwd", "fused_text_block")),
+          "the off route launched a text kernel")
+    for name in POINT_KERNELS:
+        check(per_step.get(name, 0) >= 1, f"{name} was not launched on every tower-route step")
+    check(all(torch.equal(p, frozen0[k]) for k, p in tower["model"].named_parameters()
+              if k in frozen0), "a frozen weight changed on the tower route")
+    moved = float((tower["state"].trainable["prompt_learner.learnable_tokens"].detach()
+                   - tokens0).abs().max())
+    print(f"[text] tower route: frozen weights unchanged ({len(frozen0)} leaves); prompt tokens "
+          f"moved by up to {moved:.3e}")
+    check(moved > 0, "the prompt tokens did not move on the tower route")
+
+    loader = Loader(tower["train_ds"], TRAIN_BATCH, shuffle=True, drop_last=True, seed=0)
+    flosses = fixed_batch_losses(loader, 30, route="tower")
+
+    # one step, kernels against their plain versions, per route
+    agree = {
+        "tower_f32": compare_with_plain("float32", 0, TRAIN_BATCH, 1e-4, 1e-4, 1e-4, "tower"),
+        "tower_bf16": compare_with_plain("bfloat16", 0, TRAIN_BATCH, 5e-2, 0.25, 2e-2, "tower"),
+    }
+    agree["block_f32"] = compare_with_plain("float32", 0, TRAIN_BATCH, 1e-4, 1e-4, 1e-4, "block")
+    agree["block_bf16"] = compare_with_plain("bfloat16", 0, TRAIN_BATCH, 5e-2, 0.25, 2e-2,
+                                             "block")
+
+    # --- train with the block route: a few steps driven, the count read after
+    block = setup_with_route(train_args(), "block")
+    block_steps = 5
+    _build.reset_launches()
+    block_losses = run_steps(block, step, batch_stream(loader), block_steps)
+    block_counts = dict(_build.LAUNCHES)
+    layers = block["model"].text.config.layers
+    print(f"[text] train, text route block: {block_steps} steps, loss first {block_losses[0]:.4f}"
+          f", last {block_losses[-1]:.4f}; kernel launches {json.dumps(block_counts, sort_keys=True)}")
+    check(all(math.isfinite(x) for x in block_losses), "non-finite loss, route block")
+    check(block_counts.get("fused_text_block") == layers * block_steps,
+          f"the block route launches {layers} text blocks per encode: {block_counts}")
+    check(not any(k.startswith("fused_text_tower") for k in block_counts),
+          "the block route launched a tower kernel")
+
+    # the routes against each other in f32: the same function of the same weights
+    b = cls.device_batch(next(iter(loader)), DEV)
+    f32 = {r: setup_with_route(train_args("float32"), r) for r in ("off", "block", "tower")}
+    ref = one_step_quantities(f32["off"], b, seed=11)
+    for route in ("block", "tower"):
+        loss, grads, _ = one_step_quantities(f32[route], b, seed=11)
+        d_loss = abs(loss - ref[0]) / abs(ref[0])
+        d_grad = max(rel_err(grads[k], ref[1][k]) for k in grads)
+        print(f"[text] f32 step, route {route} vs off: loss rel {d_loss:.3e}, prompt gradient "
+              f"max rel {d_grad:.3e} (tol 1e-3)")
+        check(d_loss <= 1e-4 and d_grad <= 1e-3, f"route {route} disagrees with off in f32")
+        agree[f"{route}_vs_off_f32"] = {"loss_rel": d_loss, "grad_rel": d_grad}
+
+    # every figure here is a counter as read after a driven run, or a sum of such
+    by_variant = {k: counted[k] for k in ("fused_text_tower", "fused_text_tower_res")}
+    text_launches = {
+        "fused_text_block": block_counts["fused_text_block"],
+        "fused_text_tower": sum(by_variant.values()),
+        "fused_text_tower_bwd": counted["fused_text_tower_bwd"],
+    }
+    r_t, r_o = median(rates["tower"]), median(rates["off"])
+    return text_launches, {
+        "prompt_length": L, "eval_logits_vs_off": {"diff_over_std": diff, "top1": top1},
+        "text_embed_rel_vs_off": te_err, "text_encode_ms": encode_ms,
+        "eval_launches": eval_launches, "tower_launches_by_variant": by_variant,
+        "block_route_launches": block_counts,
+        "train_clouds_per_sec": {"tower": r_t, "off": r_o},
+        "train_clouds_per_sec_windows": rates,
+        "ms_per_step": {"tower": 1e3 * TRAIN_BATCH / r_t, "off": 1e3 * TRAIN_BATCH / r_o},
+        "launches_per_step": launches,
+        "block_route_text_blocks_per_encode": block_counts["fused_text_block"] // block_steps,
+        "loss_first_last": {r: [losses[r][0], losses[r][-1]] for r in losses},
+        "fixed_batch_loss": [flosses[0], flosses[-1]], "vs_plain": agree,
     }
 
 
@@ -744,18 +1163,27 @@ def main():
     check_mini(results)
     check_mini_stats(results)
     check_block(results)
+    check_text(results)
     launches, slice_stats = run_slice()
     train_launches, train_stats = run_train_slice()
     launches["mini_stats"] = train_launches["mini_stats"]  # the train path's own kernel
+    text_launches, text_stats = run_text_slice()
+    text_stats["text_encode_ms"]["phase_4"] = slice_stats["text_tower_ms"]
+    launches.update(text_launches)  # the fused text path's own kernels
+    for name in SOURCES:
+        check(launches.get(name, 0) > 0, f"{name} was launched on no path")
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         r = results[name]
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=launches[name], **r))
+        if name == "fused_text_tower":  # one kernel, two wrappers' counters
+            kernels[-1]["launches_by_variant"] = text_stats["tower_launches_by_variant"]
         print(f"[time] {name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
               f"library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 3)}"
               f" ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    print(json.dumps({"text": text_stats}))
     print(json.dumps({"train": train_stats}))
     print(json.dumps({"kernels": kernels, **slice_stats}))
     print(smi)

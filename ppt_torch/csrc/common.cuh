@@ -1,4 +1,7 @@
-// Shared helpers for the port's hand-written Hopper kernels.
+// Shared helpers for the port's hand-written Hopper kernels: the C ABI's
+// conventions, dtype conversion, the mma.sync / ldmatrix / cp.async
+// wrappers, and the LayerNorm row and GEMM main loops that vitblock.cu and
+// text.cu both build their kernels from.
 //
 // Every kernel library exposes a plain C ABI (loaded with ctypes by
 // ppt_torch/kernels/_build.py): pointers and the stream arrive as
@@ -89,6 +92,229 @@ __device__ __forceinline__ void cp_async_commit() {
 
 template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Building blocks shared by vitblock.cu and text.cu. Each file wraps them in
+// its own __global__ kernels (so a trace tells the point tower's launches
+// from the text tower's) and brings its own epilogue functor
+// `epi(acc, row, col)`, which rounds and stores one output element.
+// ---------------------------------------------------------------------------
+
+// One row of x0 = x + pos (optional) ; xn = LN(x0), by one warp, C <= 1024:
+// f32 statistics, fast variance E[x^2] - E[x]^2.
+template <typename T>
+__device__ __forceinline__ void add_ln_row(const T* __restrict__ xr, const T* __restrict__ pr,
+                                           int C, const float* __restrict__ s,
+                                           const float* __restrict__ b, float eps,
+                                           T* __restrict__ x0_row, T* __restrict__ xn_row) {
+  const int lane = threadIdx.x & 31;
+  float v[32];
+  float sum = 0.f, sq = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int c = lane + 32 * i;
+    float t = 0.f;
+    if (c < C) {
+      t = to_f(xr[c]);
+      if (pr) t = rnd<T>(__fadd_rn(t, to_f(pr[c])));
+      if (x0_row) x0_row[c] = from_f<T>(t);
+      sum += t;
+      sq = fmaf(t, t, sq);
+    }
+    v[i] = t;
+  }
+  for (int off = 16; off; off >>= 1) {
+    sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    sq += __shfl_xor_sync(0xffffffffu, sq, off);
+  }
+  const float mu = sum / C;
+  const float var = __fsub_rn(sq / C, __fmul_rn(mu, mu));
+  const float rs = rsqrtf(var + eps);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int c = lane + 32 * i;
+    if (c < C)
+      xn_row[c] = from_f<T>(__fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v[i], mu), rs), s[c]), b[c]));
+  }
+}
+
+// GEMM out[M,N] = A[M,K] @ W. TB = false: W is [K, N]; TB = true: W is
+// [N, K] and the product is A @ W^T (the weight is read as it lies).
+//
+// f32: plain FMA on the CUDA cores (f32 products are exact only there).
+// Block tile 64 x 64, k-step 16, 256 threads, 4 x 4 outputs per thread.
+constexpr int BM = 64, BN = 64, BK = 16;
+
+template <bool TB, typename Epi>
+__device__ __forceinline__ void gemm_f32_body(const float* __restrict__ A,
+                                              const float* __restrict__ W, int M, int N, int K,
+                                              const Epi& epi) {
+  __shared__ float As[BK][BM + 4];
+  __shared__ float Ws[BK][BN + 4];
+  const int tid = threadIdx.x;
+  const int tx = tid & 15, ty = tid >> 4;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    {  // A tile: 64 rows x 16 k, 4 consecutive k per thread
+      const int r = tid >> 2, kk = (tid & 3) * 4;
+      const int gr = m0 + r;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int gk = k0 + kk + e;
+        As[kk + e][r] = (gr < M && gk < K) ? A[(size_t)gr * K + gk] : 0.f;
+      }
+    }
+    if (TB) {  // W^T tile: 64 n x 16 k, read along k as A is
+      const int r = tid >> 2, kk = (tid & 3) * 4;
+      const int gc = n0 + r;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int gk = k0 + kk + e;
+        Ws[kk + e][r] = (gc < N && gk < K) ? W[(size_t)gc * K + gk] : 0.f;
+      }
+    } else {  // W tile: 16 k x 64 cols, 4 consecutive cols per thread
+      const int kk = tid >> 4, c = (tid & 15) * 4;
+      const int gk = k0 + kk;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int gc = n0 + c + e;
+        Ws[kk][c + e] = (gk < K && gc < N) ? W[(size_t)gk * N + gc] : 0.f;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      float a[4], w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) w[j] = Ws[kk][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = m0 + ty + 16 * i;
+    if (r >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = n0 + tx + 16 * j;
+      if (c < N) epi(acc[i][j], r, c);
+    }
+  }
+}
+
+// bf16: mma.sync tensor-core tiles. Block tile TBM x 128 (TBM 128 or 64),
+// k-step 32, cp.async double buffer; 8 warps as 4 (rows) x 2 (cols), each
+// warp TBM/4 x 64. Needs K % 32 == 0 and N % 8 == 0. For TB the W tile is
+// kept [n][k] in shared memory, as the A tile is: that is the mma's native
+// B layout, and its fragments come from a plain ldmatrix.
+constexpr int TBN = 128, TBK = 32;
+constexpr int A_LD = TBK + 8, W_LD = TBN + 8;  // padded rows: conflict-free ldmatrix
+
+template <int TBM, bool TB, typename Epi>
+__device__ __forceinline__ void gemm_bf16_body(const bf16* __restrict__ A,
+                                               const bf16* __restrict__ W, int M, int N, int K,
+                                               const Epi& epi) {
+  constexpr int MT = TBM / 64;  // 16-row mma tiles per warp
+  constexpr int WS_ELEMS = TB ? TBN * A_LD : TBK * W_LD;
+  __shared__ __align__(16) bf16 As[2][TBM * A_LD];
+  __shared__ __align__(16) bf16 Ws[2][WS_ELEMS];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 3, wn = warp >> 2;
+  const int m0 = blockIdx.y * TBM, n0 = blockIdx.x * TBN;
+
+  auto load = [&](int stage, int k0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int c = tid + 256 * i;
+      if (i < MT) {  // A: TBM rows x 4 chunks of 8
+        const int r = c >> 2, kc = (c & 3) * 8;
+        const bool ok = m0 + r < M;
+        cp_async16(&As[stage][r * A_LD + kc], ok ? A + (size_t)(m0 + r) * K + k0 + kc : A, ok);
+      }
+      if (TB) {  // W^T: 128 n x 4 chunks of 8 along k
+        const int r = c >> 2, kc = (c & 3) * 8;
+        const bool ok = n0 + r < N;
+        cp_async16(&Ws[stage][r * A_LD + kc], ok ? W + (size_t)(n0 + r) * K + k0 + kc : W, ok);
+      } else {  // W: 32 k x 16 chunks of 8 along n
+        const int kr = c >> 4, nc = (c & 15) * 8;
+        const bool ok = n0 + nc < N;
+        cp_async16(&Ws[stage][kr * W_LD + nc], ok ? W + (size_t)(k0 + kr) * N + n0 + nc : W, ok);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[MT][8][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  const int KT = K / TBK;
+  load(0, 0);
+  for (int kt = 0; kt < KT; ++kt) {
+    if (kt + 1 < KT) {
+      load((kt + 1) & 1, (kt + 1) * TBK);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* as = As[kt & 1];
+    const bf16* ws = Ws[kt & 1];
+#pragma unroll
+    for (int ks = 0; ks < TBK; ks += 16) {
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        ldmatrix_x4(a[mt], as + (wm * (16 * MT) + mt * 16 + (lane & 15)) * A_LD + ks +
+                               (lane >> 4) * 8);
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        uint32_t b[4];
+        if (TB)
+          ldmatrix_x4(b, ws + (wn * 64 + p * 16 + (lane >> 4) * 8 + (lane & 7)) * A_LD + ks +
+                             ((lane >> 3) & 1) * 8);
+        else
+          ldmatrix_x4_trans(b, ws + (ks + ((lane >> 3) & 1) * 8 + (lane & 7)) * W_LD + wn * 64 +
+                                   p * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(acc[mt][2 * p], a[mt], b[0], b[1]);
+          mma_bf16(acc[mt][2 * p + 1], a[mt], b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = m0 + wm * (16 * MT) + mt * 16 + (lane >> 2) + (e >> 1) * 8;
+        const int c = n0 + wn * 64 + nt * 8 + (lane & 3) * 2 + (e & 1);
+        if (r < M && c < N) epi(acc[mt][nt][e], r, c);
+      }
 }
 
 // cudaGetLastError after a launch, as the C entry points return it.

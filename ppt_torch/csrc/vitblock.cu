@@ -40,49 +40,17 @@ template <typename T>
 __global__ void add_ln_kernel(const T* __restrict__ x, const T* __restrict__ pos, int rows,
                               int C, const float* __restrict__ s, const float* __restrict__ b,
                               T* __restrict__ x0_out, T* __restrict__ xn_out) {
-  const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (row >= rows) return;
-  const T* xr = x + (size_t)row * C;
-  const T* pr = pos ? pos + (size_t)row * C : nullptr;
-  float v[32];
-  float sum = 0.f, sq = 0.f;
-#pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    const int c = lane + 32 * i;
-    float t = 0.f;
-    if (c < C) {
-      t = to_f(xr[c]);
-      if (pr) t = rnd<T>(__fadd_rn(t, to_f(pr[c])));
-      if (x0_out) x0_out[(size_t)row * C + c] = from_f<T>(t);
-      sum += t;
-      sq = fmaf(t, t, sq);
-    }
-    v[i] = t;
-  }
-  for (int off = 16; off; off >>= 1) {
-    sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    sq += __shfl_xor_sync(0xffffffffu, sq, off);
-  }
-  const float mu = sum / C;
-  const float var = __fsub_rn(sq / C, __fmul_rn(mu, mu));
-  const float rs = rsqrtf(var + LN_EPS);
-#pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    const int c = lane + 32 * i;
-    if (c < C) {
-      const float y = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v[i], mu), rs), s[c]), b[c]);
-      xn_out[(size_t)row * C + c] = from_f<T>(y);
-    }
-  }
+  const size_t o = (size_t)row * C;
+  add_ln_row<T>(x + o, pos ? pos + o : nullptr, C, s, b, LN_EPS, x0_out ? x0_out + o : nullptr,
+                xn_out + o);
 }
 
 // ---------------------------------------------------------------------------
 // GEMM out[M,N] = A[M,K] @ W[K,N] with an epilogue
 // ---------------------------------------------------------------------------
 enum { EPI_ROUND = 0, EPI_BIAS_RES = 1, EPI_BIAS_GELU = 2 };
-
-constexpr int BM = 64, BN = 64, BK = 16;
 
 __device__ __forceinline__ float gelu_tanh(float x) {
   const float c = 0.7978845608028654f;  // sqrt(2/pi)
@@ -113,157 +81,36 @@ __device__ __forceinline__ void epilogue(float acc, int r, int c, int N,
   out[o] = from_f<T>(v);
 }
 
-// f32: plain FMA on the CUDA cores (f32 products are exact only there).
+// the epilogue as the functor the shared GEMM main loops call per element
+template <typename T, int EPI>
+struct Epilogue {
+  int N;
+  const float* bias;
+  const T* res;
+  const float* dp;
+  int dp_col, L;
+  T* out;
+  __device__ __forceinline__ void operator()(float acc, int r, int c) const {
+    epilogue<T, EPI>(acc, r, c, N, bias, res, dp, dp_col, L, out);
+  }
+};
+
+// f32 on the CUDA cores, bf16 on the tensor cores (common.cuh)
 template <int EPI>
 __global__ void __launch_bounds__(256)
 gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ W, int M, int N, int K,
                 const float* __restrict__ bias, const float* __restrict__ res,
                 const float* __restrict__ dp, int dp_col, int L, float* __restrict__ out) {
-  __shared__ float As[BK][BM + 4];
-  __shared__ float Ws[BK][BN + 4];
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    // A tile: 64 rows x 16 k, 4 consecutive k per thread
-    {
-      const int r = tid >> 2, kk = (tid & 3) * 4;
-      const int gr = m0 + r;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int gk = k0 + kk + e;
-        As[kk + e][r] = (gr < M && gk < K) ? A[(size_t)gr * K + gk] : 0.f;
-      }
-    }
-    // W tile: 16 k x 64 cols, 4 consecutive cols per thread
-    {
-      const int kk = tid >> 4, c = (tid & 15) * 4;
-      const int gk = k0 + kk;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int gc = n0 + c + e;
-        Ws[kk][c + e] = (gk < K && gc < N) ? W[(size_t)gk * N + gc] : 0.f;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[4], w[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) w[j] = Ws[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = m0 + ty + 16 * i;
-    if (r >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = n0 + tx + 16 * j;
-      if (c < N) epilogue<float, EPI>(acc[i][j], r, c, N, bias, res, dp, dp_col, L, out);
-    }
-  }
+  gemm_f32_body<false>(A, W, M, N, K, Epilogue<float, EPI>{N, bias, res, dp, dp_col, L, out});
 }
-
-// bf16: mma.sync tensor-core tiles. Block tile 128x128, k-step 32,
-// cp.async double buffer; 8 warps as 4 (rows) x 2 (cols), each warp
-// 32x64 = 2x8 mma tiles. Needs K % 32 == 0 and N % 8 == 0.
-constexpr int TBM = 128, TBN = 128, TBK = 32;
-constexpr int A_LD = TBK + 8, W_LD = TBN + 8;  // padded rows: conflict-free ldmatrix
 
 template <int EPI>
 __global__ void __launch_bounds__(256)
 gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W, int M, int N, int K,
                  const float* __restrict__ bias, const bf16* __restrict__ res,
                  const float* __restrict__ dp, int dp_col, int L, bf16* __restrict__ out) {
-  __shared__ __align__(16) bf16 As[2][TBM * A_LD];
-  __shared__ __align__(16) bf16 Ws[2][TBK * W_LD];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp & 3, wn = warp >> 2;
-  const int m0 = blockIdx.y * TBM, n0 = blockIdx.x * TBN;
-
-  auto load = [&](int stage, int k0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + 256 * i;
-      const int r = c >> 2, kc = (c & 3) * 8;  // A: 128 rows x 4 chunks of 8
-      const bool ok = m0 + r < M;
-      cp_async16(&As[stage][r * A_LD + kc], ok ? A + (size_t)(m0 + r) * K + k0 + kc : A, ok);
-      const int kr = c >> 4, nc = (c & 15) * 8;  // W: 32 rows x 16 chunks of 8
-      const bool okw = n0 + nc < N;
-      cp_async16(&Ws[stage][kr * W_LD + nc], okw ? W + (size_t)(k0 + kr) * N + n0 + nc : W,
-                 okw);
-    }
-    cp_async_commit();
-  };
-
-  float acc[2][8][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  const int KT = K / TBK;
-  load(0, 0);
-  for (int kt = 0; kt < KT; ++kt) {
-    if (kt + 1 < KT) {
-      load((kt + 1) & 1, (kt + 1) * TBK);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* as = As[kt & 1];
-    const bf16* ws = Ws[kt & 1];
-#pragma unroll
-    for (int ks = 0; ks < TBK; ks += 16) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-        ldmatrix_x4(a[mt], as + (wm * 32 + mt * 16 + (lane & 15)) * A_LD + ks + (lane >> 4) * 8);
-#pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, ws + (ks + ((lane >> 3) & 1) * 8 + (lane & 7)) * W_LD + wn * 64 +
-                                 p * 16 + (lane >> 4) * 8);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          mma_bf16(acc[mt][2 * p], a[mt], b[0], b[1]);
-          mma_bf16(acc[mt][2 * p + 1], a[mt], b[2], b[3]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = m0 + wm * 32 + mt * 16 + (lane >> 2) + (e >> 1) * 8;
-        const int c = n0 + wn * 64 + nt * 8 + (lane & 3) * 2 + (e & 1);
-        if (r < M && c < N)
-          epilogue<bf16, EPI>(acc[mt][nt][e], r, c, N, bias, res, dp, dp_col, L, out);
-      }
+  gemm_bf16_body<128, false>(A, W, M, N, K,
+                             Epilogue<bf16, EPI>{N, bias, res, dp, dp_col, L, out});
 }
 
 // ---------------------------------------------------------------------------
@@ -568,7 +415,7 @@ static int gemm(const bf16* A, const bf16* W, int M, int N, int K, const float* 
                 const bf16* res, const float* dp, int dp_col, int L, bf16* out,
                 cudaStream_t st) {
   if (K % TBK || N % 8) return (int)cudaErrorInvalidValue;
-  dim3 grid((N + TBN - 1) / TBN, (M + TBM - 1) / TBM);
+  dim3 grid((N + TBN - 1) / TBN, (M + 127) / 128);
   gemm_bf16_kernel<EPI><<<grid, 256, 0, st>>>(A, W, M, N, K, bias, res, dp, dp_col, L, out);
   PPT_CHECK_LAUNCH();
   return 0;

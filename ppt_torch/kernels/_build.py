@@ -27,7 +27,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build" / "kernels"
-SOURCES = ("group", "mini", "vitblock")
+SOURCES = ("group", "mini", "text", "vitblock")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 # Launch counts per kernel entry point: each wrapper adds one where it

@@ -61,10 +61,11 @@ class Ulip(nn.Module):
     """Composite prompt-tuned multimodal model (cls task)."""
 
     def __init__(self, point_encoder: nn.Module, pc_feat_dims: int, n_ctx: int = 32,
-                 text_config: TextConfig = TextConfig(), dtype: torch.dtype = torch.float32):
+                 text_config: TextConfig = TextConfig(), dtype: torch.dtype = torch.float32,
+                 text_fused: str = "off"):
         super().__init__()
         self.dtype = dtype
-        self.text = TextTransformer(text_config, dtype=dtype)
+        self.text = TextTransformer(text_config, dtype=dtype, fused=text_fused)
         self.prompt_learner = PromptLearner(n_ctx, text_config.width)
         self.pc_projection = nn.Parameter(torch.zeros(pc_feat_dims, text_config.embed_dim))
         self.logit_scale = nn.Parameter(torch.tensor(float(np.log(1.0 / 0.07))))
@@ -125,23 +126,27 @@ class ModelSpec:
     name: str
 
 
-def _make(name: str, encoder: nn.Module, pc_feat_dims: int, args, dtype) -> ModelSpec:
+def _make(name: str, encoder: nn.Module, pc_feat_dims: int, args, dtype,
+          text_fused: str) -> ModelSpec:
     model = Ulip(
         point_encoder=encoder,
         pc_feat_dims=pc_feat_dims,
         n_ctx=getattr(args, "num_learnable_prompt_tokens", 32),
         text_config=getattr(args, "text_config", None) or TextConfig(),
         dtype=dtype,
+        text_fused=text_fused,
     )
     return ModelSpec(model=model, pc_feat_dims=pc_feat_dims, name=name)
 
 
-def ulip_pointbert(args) -> ModelSpec:
+def ulip_pointbert(args, text_fused: str = "off") -> ModelSpec:
     """ULIP-PointBERT (PPT-Base). ``args.pointbert_config`` may override
-    the PointBERT config (tests shrink it)."""
+    the PointBERT config (tests shrink it); ``text_fused`` is the text
+    tower's route (``nn/text.py``)."""
     dt = resolve_dtype(getattr(args, "compute_dtype", "float32"))
     cfg = getattr(args, "pointbert_config", None) or PointBertConfig()
-    return _make("ULIP_PointBERT", PointBert(cfg, dtype=dt), 2 * cfg.trans_dim, args, dt)
+    return _make("ULIP_PointBERT", PointBert(cfg, dtype=dt), 2 * cfg.trans_dim, args, dt,
+                 text_fused)
 
 
 MODEL_REGISTRY: Dict[str, Callable[..., ModelSpec]] = {"ULIP_PointBERT": ulip_pointbert}
@@ -201,13 +206,15 @@ def apply_trainable_mask(model: nn.Module, mask: Dict[str, bool]) -> Dict[str, n
     return trainable
 
 
-def build_model(name: str, args, device=None, seed: Optional[int] = None) -> ModelSpec:
+def build_model(name: str, args, device=None, seed: Optional[int] = None,
+                text_fused: str = "off") -> ModelSpec:
     """Build ``name`` on ``device`` (the card unless told otherwise), in
-    eval mode, with weights drawn from ``seed`` (default ``args.seed``)."""
+    eval mode, with weights drawn from ``seed`` (default ``args.seed``) and
+    the text tower on the route ``text_fused`` ("off", "block", "tower")."""
     if name not in MODEL_REGISTRY:
         raise KeyError(f"unknown model {name!r}; have {sorted(MODEL_REGISTRY)}")
     dev = resolve_device(device)
-    spec = MODEL_REGISTRY[name](args)
+    spec = MODEL_REGISTRY[name](args, text_fused=text_fused)
     init_weights(spec.model, getattr(args, "seed", 0) if seed is None else seed)
     spec.model.to(dev).eval()
     return spec

@@ -47,6 +47,18 @@ from ppt_torch.utils.metrics import Meter, per_class_accuracy
 log = logging.getLogger(__name__)
 
 
+def text_route_from_env() -> str:
+    """The text tower's route from the reference's own switches
+    (``ppt_tpu/nn/text.py:95``, ``:214``): ``PPT_FUSED_TEXT_TOWER=1`` gives
+    "tower", else ``PPT_FUSED_TEXT=1`` gives "block", else "off". The one
+    place the port reads them: ``setup`` passes the result down."""
+    if os.environ.get("PPT_FUSED_TEXT_TOWER", "0") == "1":
+        return "tower"
+    if os.environ.get("PPT_FUSED_TEXT", "0") == "1":
+        return "block"
+    return "off"
+
+
 def setup(args: TaskArgs) -> Dict:
     """Datasets, prompts, model, trainable partition, schedule, optimizer
     and train state on ``args.device`` (the card if empty), shared by
@@ -68,7 +80,9 @@ def setup(args: TaskArgs) -> Dict:
         template_init=args.template_init,
     )
     prompts = PromptArrays.from_spec(spec, device=device)
-    model = build_model(args.model, args, device=device).model
+    text_route = text_route_from_env()
+    log.info("text route: %s", text_route)
+    model = build_model(args.model, args, device=device, text_fused=text_route).model
     if not args.evaluate_3d and args.pretrained_dir and os.path.isdir(args.pretrained_dir):
         raise NotImplementedError(
             f"{args.pretrained_dir} exists, but loading converted pretrained backbones is "

@@ -6,17 +6,21 @@ profiles ``--batches`` steps on synthetic clouds, each ending in
 ``torch.cuda.synchronize()``: recognition steps with the text embedding
 cached, or with ``--train`` prompt-tuning train steps (augmentation,
 training-mode point tower, text tower forward and backward, AdamW on the
-trainable partition). Prints one JSON object: wall time per batch on the
-host clock, the device's busy and idle share of that window (union of
+trainable partition; ``--text_route`` puts the text tower on the plain
+modules, the block kernel or the tower kernels). Prints one JSON object:
+wall time per batch on the host clock, the device's busy and idle share of that window (union of
 kernel intervals), device time per batch for each part of the point tower
-(the port's kernels by CUDA kernel name) and for everything else, and the
-largest other kernels. ``--train`` adds the step's sections (CUDA events
+(the port's kernels by CUDA kernel name) and for everything else, the
+largest other kernels, and the text kernels by template instantiation
+(launches and ms; a GEMM's arguments are its tile rows, whether W is read
+transposed, and its epilogue). ``--train`` adds the step's sections (CUDA events
 around augmentation, point tower, text tower forward + loss, backward,
 optimizer; each includes the gaps in which the device waits for the host).
 
     python -m ppt_torch.tools.profile [--batch 32] [--npoints 1024] \
         [--batches 5] [--compute_dtype bfloat16]
-    python -m ppt_torch.tools.profile --train [--batch 30] [--head_type 0]
+    python -m ppt_torch.tools.profile --train [--batch 30] [--head_type 0] \
+        [--text_route off|block|tower]
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from ppt_torch.data.augment import train_augment
 from ppt_torch.data.datasets import make_synthetic
 from ppt_torch.models.losses import smoothed_cross_entropy
 from ppt_torch.models.ulip import PromptArrays, build_model, trainable_mask
+from ppt_torch.nn.text import TEXT_ROUTES
 from ppt_torch.prompt.learner import build_prompt_spec
 from ppt_torch.tasks.args import TaskArgs
 from ppt_torch.train.eval import make_cached_text_eval
@@ -42,6 +47,13 @@ from ppt_torch.utils.device import resolve_device
 
 # substring of the CUDA kernel's name -> the part of the step it belongs to
 PARTS = (
+    ("text::gemm_", "text: GEMMs"),
+    ("text::ln_vjp_kernel", "text: LayerNorm backward"),
+    ("text::ln_kernel", "text: LayerNorm"),
+    ("text::attn_fwd_kernel", "text: attention"),
+    ("text::attn_bwd_kernel", "text: attention backward"),
+    ("text::pool_ln_proj_kernel", "text: pooling + ln_final + projection"),
+    ("text::epilogue_bwd_kernel", "text: pooling + ln_final + projection"),
     ("fps_kernel", "fps_batched"),
     ("knn_kernel", "knn_gather"),
     ("mini_forward", "mini_forward"),
@@ -76,14 +88,14 @@ def busy_us(intervals) -> float:
     return total
 
 
-def _setup(batch, npoints, compute_dtype, seed):
+def _setup(batch, npoints, compute_dtype, seed, text_route="off"):
     dev = resolve_device(None)  # the card; no CPU fallback
     args = TaskArgs(npoints=npoints, batch_size=batch, num_learnable_prompt_tokens=32,
                     class_name_position="middle", compute_dtype=compute_dtype, seed=seed)
     classnames = args.load_classnames()
     prompts = PromptArrays.from_spec(
         build_prompt_spec(classnames, n_ctx=32, class_name_position="middle"), device=dev)
-    model = build_model("ULIP_PointBERT", args, device=dev).model
+    model = build_model("ULIP_PointBERT", args, device=dev, text_fused=text_route).model
     ds = make_synthetic(num_classes=len(classnames), samples_per_class=-(-batch // len(classnames)),
                         npoints=npoints, seed=seed + 1, classnames=classnames)
     pc = torch.from_numpy(ds.points[:batch]).to(dev)
@@ -106,11 +118,16 @@ def _profile(step, batches: int) -> dict:
     if not kernels:
         raise RuntimeError("the profiler recorded no device activity")
     by_part, by_name = collections.Counter(), collections.Counter()
+    text_us, text_n = collections.Counter(), collections.Counter()
     for e in kernels:
         us = e.time_range.elapsed_us()
         by_part[part_of(e.name)] += us
         if part_of(e.name).startswith("other"):
             by_name[e.name[:80]] += us
+        elif "text::" in e.name:  # per template instantiation: tile rows, W^T, epilogue
+            inst = e.name.split("text::", 1)[1].split("(", 1)[0]
+            text_us[inst] += us
+            text_n[inst] += 1
     busy = busy_us((e.time_range.start, e.time_range.end) for e in kernels)
     return {
         "device": torch.cuda.get_device_name(0),
@@ -122,6 +139,9 @@ def _profile(step, batches: int) -> dict:
         "device_ms_per_batch": {k: v / batches / 1e3 for k, v in by_part.most_common()},
         "top_other_kernels_ms_per_batch": {k: v / batches / 1e3
                                            for k, v in by_name.most_common(8)},
+        "text_kernels_per_batch": {k: {"launches": text_n[k] / batches,
+                                       "ms": v / batches / 1e3}
+                                   for k, v in text_us.most_common()},
     }
 
 
@@ -140,10 +160,12 @@ def profile_step(batch: int = 32, npoints: int = 1024, batches: int = 5,
 
 def profile_train_step(batch: int = 30, npoints: int = 1024, batches: int = 5,
                        compute_dtype: str = "bfloat16", seed: int = 0,
-                       head_type: int = 0, smoothing: float = 0.2) -> dict:
+                       head_type: int = 0, smoothing: float = 0.2,
+                       text_route: str = "off") -> dict:
     """The published PPT-Base recipe's step (AdamW, cosine schedule over 250
-    epochs of ModelNet40's 9843 // batch steps) on one synthetic batch."""
-    _, model, prompts, pc, label = _setup(batch, npoints, compute_dtype, seed)
+    epochs of ModelNet40's 9843 // batch steps) on one synthetic batch, with
+    the text tower on ``text_route`` ("off", "block" or "tower")."""
+    _, model, prompts, pc, label = _setup(batch, npoints, compute_dtype, seed, text_route)
     sched = build_schedule("cosine", 3e-3, 250, 9843 // batch, final_lr=1e-5, warmup_epochs=1,
                            warmup_start_lr=1e-6)
     state = create_train_state(
@@ -183,7 +205,7 @@ def profile_train_step(batch: int = 30, npoints: int = 1024, batches: int = 5,
         for i, name in enumerate(names):
             sums[name] += ev[i].elapsed_time(ev[i + 1])
     return {"step": "train", "compute_dtype": compute_dtype, "batch": batch, "npoints": npoints,
-            "head_type": head_type, **out,
+            "head_type": head_type, "text_route": text_route, **out,
             "clouds_per_sec": batch / out["wall_ms_per_batch"] * 1e3,
             "section_ms_per_batch": {k: sums[k] / batches for k in names}}
 
@@ -197,10 +219,12 @@ def main(argv=None) -> None:
     p.add_argument("--batches", type=int, default=5)
     p.add_argument("--compute_dtype", default="bfloat16", choices=("float32", "bfloat16"))
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--text_route", default="off", choices=TEXT_ROUTES,
+                   help="the text tower's route for --train")
     a = p.parse_args(argv)
     if a.train:
         out = profile_train_step(a.batch or 30, a.npoints, a.batches, a.compute_dtype, a.seed,
-                                 a.head_type)
+                                 a.head_type, text_route=a.text_route)
     else:
         out = profile_step(a.batch or 32, a.npoints, a.batches, a.compute_dtype, a.seed)
     print(json.dumps(out))

@@ -24,6 +24,12 @@ def test_busy_us_is_the_union_of_intervals(intervals, want):
     ("void gemm_bf16_kernel<1>(__nv_bfloat16 const*)", "vit block: GEMMs"),
     ("void attention_bf16_kernel<64>(__nv_bfloat16 const*)", "vit block: attention"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n", "other (library kernels)"),
+    ("void text::gemm_bf16_kernel<128, true, 6>(__nv_bfloat16 const*)", "text: GEMMs"),
+    ("void text::gemm_f32_kernel<false, 0>(float const*)", "text: GEMMs"),
+    ("void text::ln_kernel<__nv_bfloat16>(__nv_bfloat16 const*)", "text: LayerNorm"),
+    ("void text::ln_vjp_kernel<float>(float const*)", "text: LayerNorm backward"),
+    ("void text::attn_bwd_kernel<__nv_bfloat16>(__nv_bfloat16 const*)",
+     "text: attention backward"),
 ])
 def test_part_of_maps_kernel_names(name, part):
     assert profile.part_of(name) == part

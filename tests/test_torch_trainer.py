@@ -49,8 +49,9 @@ def make_batches(n, seed=0, batch=4, npoints=128):
              "label": rng.randint(0, len(CLASSES), batch).astype(np.int32)} for _ in range(n)]
 
 
-def jax_side(head_type, depth, monkeypatch):
+def jax_side(head_type, depth, monkeypatch, text=None):
     """(state, step_fn, prompts) of the reference at the tiny config."""
+    text = text or TEXT
     from ppt_tpu.models import PromptArrays as JaxPrompts
     from ppt_tpu.models import Ulip as JaxUlip
     from ppt_tpu.models import trainable_mask as jax_mask
@@ -66,7 +67,7 @@ def jax_side(head_type, depth, monkeypatch):
     monkeypatch.setenv("PPT_FORCE_FUSED_MINI", "1")
     monkeypatch.setenv("PPT_FUSED_BLOCK", "1")
     model = JaxUlip(point_encoder=JaxPointBert(JaxBertConfig(depth=depth, **TINY)),
-                    pc_feat_dims=128, n_ctx=4, text_config=JaxTextConfig(**TEXT))
+                    pc_feat_dims=128, n_ctx=4, text_config=JaxTextConfig(**text))
     prompts = JaxPrompts.from_spec(jax_spec(CLASSES, n_ctx=4, class_name_position="middle"))
     # numpy copies: the reference's step donates its state's buffers
     variables = np_tree(model.init(jax.random.PRNGKey(0), jnp.zeros((1, 128, 3)) + 0.5, prompts))
@@ -78,12 +79,12 @@ def jax_side(head_type, depth, monkeypatch):
     return state, jax_make_step(model, opt, smoothing=SMOOTHING), prompts, variables
 
 
-def port_side(head_type, depth, variables):
+def port_side(head_type, depth, variables, text=None, text_fused="off"):
     """(state, step_fn, prompts) of the port with the reference's weights."""
     args = TaskArgs(num_learnable_prompt_tokens=4, class_name_position="middle")
     args.pointbert_config = PointBertConfig(depth=depth, **TINY)
-    args.text_config = TextConfig(**TEXT)
-    model = build_model("ULIP_PointBERT", args, device="cpu").model
+    args.text_config = TextConfig(**(text or TEXT))
+    model = build_model("ULIP_PointBERT", args, device="cpu", text_fused=text_fused).model
     model.load_state_dict(from_jax(np_tree(variables["params"]),
                                    np_tree(variables["batch_stats"]), model))
     sched = build_schedule("cosine", 3e-3, EPOCHS, STEPS_PER_EPOCH, **SCHED)
@@ -148,6 +149,38 @@ def test_train_step_lockstep_with_reference(head_type, depth, monkeypatch):
     for path, want in flat(np_tree(jstate.batch_stats)).items():
         got = stats[port_name(path)].numpy()
         assert np.max(np.abs(got - want)) <= 1e-5, (path, np.max(np.abs(got - want)))
+    for k, v in state.model.named_parameters():
+        if k in frozen0:
+            assert torch.equal(v, frozen0[k]), k
+            assert v.grad is None
+
+
+def test_train_step_lockstep_through_fused_text_tower(monkeypatch):
+    """Three head-type-0 steps with the text tower on its fused route on
+    both sides: the reference under ``PPT_FUSED_TEXT_TOWER=1`` (its forward
+    and hand-written backward kernels interpreted), the port with
+    ``text_fused="tower"`` (the plain versions of its kernels on the CPU).
+    128 wide, the least the reference's route engages at."""
+    text = dict(width=128, layers=2, heads=4, embed_dim=128)
+    monkeypatch.setenv("PPT_FUSED_TEXT_TOWER", "1")
+    jstate, jstep, jprompts, variables = jax_side(0, 2, monkeypatch, text=text)
+    state, step, prompts = port_side(0, 2, variables, text=text, text_fused="tower")
+    assert state.model.text.fused == "tower"
+    assert sorted(state.trainable) == ["prompt_learner.learnable_tokens"]
+    frozen0 = {k: v.detach().clone() for k, v in state.model.named_parameters()
+               if k not in state.trainable}
+
+    for i, b in enumerate(make_batches(3)):
+        jstate, jm = jstep(jstate, jax_batch(b), jprompts)
+        state, m = step(state, torch_batch(b), prompts)
+        want = float(jm["loss"])
+        assert abs(float(m["loss"]) - want) <= 1e-4 * abs(want), (i, float(m["loss"]), want)
+
+    want = np.asarray(jstate.trainable["prompt_learner"]["learnable_tokens"])
+    got = state.trainable["prompt_learner.learnable_tokens"].detach().numpy()
+    assert np.max(np.abs(got - want)) <= 1e-5
+    tokens0 = np.asarray(variables["params"]["prompt_learner"]["learnable_tokens"])
+    assert np.max(np.abs(got - tokens0)) > 1e-4  # the prompt was tuned through d_x0
     for k, v in state.model.named_parameters():
         if k in frozen0:
             assert torch.equal(v, frozen0[k]), k
