@@ -1,7 +1,8 @@
 """H100 smoke run of the PyTorch port: build every kernel, hold each
 against its plain PyTorch version on the card, time it, then drive the
 full-width ULIP-PointBERT recognition inference path, the prompt-tuning
-train path, and both again with the text tower on its fused routes.
+train path, both again with the text tower on its fused routes, and the
+ball-query towers (PointNeXt-S, PointNet++ SSG and MSG).
 
     python3 chip_smoke.py            # one CUDA card, no arguments
 
@@ -19,7 +20,17 @@ Phases (any failed check raises, and the script exits non-zero):
      fused_text_tower_bwd) at 5 classes x 13 positions x 128 wide and at
      the slice's 40 x L x 512, 12 layers (L from the prompts): the same
      limits, bf16 d_x0 within 5e-2, two runs bit-identical; the library
-     time is the port's plain-PyTorch TextTransformer on the card;
+     time is the port's plain-PyTorch TextTransformer on the card. The three
+     ball-query kernels (ball_query_gather, ball_query_gather_feats with
+     bf16 and f32 features, ball_query_gather_v2) against their plain
+     versions at a small shape (odd nsample, N not a multiple of 32, a
+     query with no hit, short rows, a point at exactly the radius) and at
+     every shape the towers of phase 7 give them, on those towers' own
+     cascade of FPS subsets: indices and gathered features exact,
+     coordinates within 1e-6, v2 identical to ball_query_gather bit for
+     bit, two runs identical; fps_batched against fps_plain at each stage
+     of the cascade, and it must raise on a shape it does not take; the
+     library time is mask + topk + gather;
   4. the recognition path at full width (ULIP-PointBERT, bf16, B=32,
      N=1024, 40 ModelNet40 class names, 32 prompt tokens "middle",
      weights from a seed): passes of ModelNet40's test-set size (2468
@@ -58,6 +69,19 @@ Phases (any failed check raises, and the script exits non-zero):
      and bf16, phase 5's limits); 5 train steps with the block route (12
      block launches per encode); the three routes against each other in
      f32. Its numbers go on a line of their own ({"text": ...}).
+  7. the ball-query towers through ``cls.setup`` and ``validate``:
+     ULIP_PN_NEXT with ``--use_height`` at PointNeXt-S's full width, bf16,
+     B=128, N=1024, 40 ModelNet40 names, 32 prompt tokens, weights from a
+     seed: a warm-up pass, then 5 passes over 2468 synthetic clouds
+     (median/min/max clouds/sec, launches per pass from the counters:
+     ball_query_gather_feats and fps_batched > 0), logits against the plain
+     path on the card in f32 and bf16 (phase 4's limits); ULIP_PN_MSG and
+     ULIP_PN_SSG at B=32: one pass each, ball_query_gather launched, logits
+     against the plain path; one head_type 0 train step of ULIP_PN_NEXT
+     against the plain path (loss, prompt gradient, BatchNorm buffers;
+     phase 5's limits), then one window of 20 steps whose frozen leaves
+     stay bit-unchanged and whose BatchNorm buffers move. Its numbers go on
+     a line of their own ({"ballquery": ...}).
 
 The line before the card's is a JSON object with the per-kernel numbers.
 Each ``launches`` there is a counter read after a driven run, or a sum of
@@ -88,7 +112,7 @@ if not torch.cuda.is_available():
 import torch.nn.functional as F  # noqa: E402
 
 from ppt_torch.data import datasets as pdata  # noqa: E402
-from ppt_torch.data.augment import train_augment  # noqa: E402
+from ppt_torch.data.augment import append_height, train_augment  # noqa: E402
 from ppt_torch.data.datasets import ArrayDataset, make_synthetic  # noqa: E402
 from ppt_torch.data.loader import Loader  # noqa: E402
 from ppt_torch.kernels import _build  # noqa: E402
@@ -134,9 +158,17 @@ SOURCES = {
     "fused_text_block": ("ppt_torch/csrc/text.cu", "ppt_tpu/kernels/textblock.py:173"),
     "fused_text_tower": ("ppt_torch/csrc/text.cu", "ppt_tpu/kernels/texttower.py:351"),
     "fused_text_tower_bwd": ("ppt_torch/csrc/text.cu", "ppt_tpu/kernels/texttower.py:465"),
+    "ball_query_gather": ("ppt_torch/csrc/group.cu", "ppt_tpu/kernels/group.py:769"),
+    "ball_query_gather_feats": ("ppt_torch/csrc/group.cu", "ppt_tpu/kernels/group.py:832"),
+    "ball_query_gather_v2": ("ppt_torch/csrc/group.cu", "ppt_tpu/kernels/group.py:421"),
 }
 TEXT_KERNELS = ("fused_text_block", "fused_text_tower", "fused_text_tower_bwd")
-POINT_KERNELS = tuple(k for k in SOURCES if k not in TEXT_KERNELS)
+BALL_KERNELS = ("ball_query_gather", "ball_query_gather_feats", "ball_query_gather_v2")
+# the PointBERT tower's kernels (phases 4 to 6)
+POINT_KERNELS = tuple(k for k in SOURCES if k not in TEXT_KERNELS + BALL_KERNELS)
+# ball_query_gather_v2 is the second formulation of ball_query_gather: no module
+# calls it (nor does the reference call its own), so no driven path launches it
+OFF_PATH_KERNELS = ("ball_query_gather_v2",)
 TOL_TEXT_BWD = {"f32": 1e-4, "bf16": 5e-2}
 
 
@@ -576,6 +608,191 @@ def check_text(results):
                   f"ms)")
 
 
+# (tag, B, [(N, S, radius, nsample, F or 0), ...]): each tower's ball queries in
+# call order, at the batch phase 7 gives it; F is the width of the gathered
+# features (PointNeXt's stem and stages, SSG's sa1 output), 0 where the tower
+# gathers none inside the kernel.
+BALL_SHAPES = (
+    ("pn_next", 128, [(1024, 512, 0.15, 32, 32), (512, 256, 0.225, 32, 64),
+                      (256, 128, 0.3375, 32, 128), (128, 64, 0.50625, 32, 256)]),
+    ("pn_ssg", 32, [(1024, 512, 0.2, 32, 0), (512, 128, 0.4, 64, 128)]),
+    ("pn_msg", 32, [(1024, 512, 0.1, 16, 0), (1024, 512, 0.2, 32, 0), (1024, 512, 0.4, 128, 0),
+                    (512, 128, 0.2, 32, 0), (512, 128, 0.4, 64, 0), (512, 128, 0.8, 128, 0)]),
+)
+
+
+def ball_library(radius, nsample, xyz, q, feats):
+    """Library calls for the same function: distance mask, top-k of the
+    masked indices, gathers."""
+    B, N, _ = xyz.shape
+    hit = torch.cdist(q, xyz) <= radius
+    masked = torch.where(hit, torch.arange(N, device=xyz.device), N)
+    idx = torch.topk(masked, nsample, dim=-1, largest=False, sorted=True).values
+    idx = torch.where(idx == N, idx[..., :1], idx).clamp_max(N - 1)
+    flat = idx.reshape(B, -1, 1)
+    rel = torch.gather(xyz, 1, flat.expand(-1, -1, 3)).reshape(*idx.shape, 3) - q[:, :, None]
+    if feats is None:
+        return idx, rel
+    F_ = feats.shape[-1]
+    return idx, rel, torch.gather(feats, 1, flat.expand(-1, -1, F_)).reshape(*idx.shape, F_)
+
+
+def ball_bound(xyz, q, idx, feats):
+    """Bytes: coordinates, centres and features read once, indices,
+    coordinates and gathered rows written once. Operations: the 9 of a
+    distance test (3 sub, 3 mul, 2 add, 1 compare) for every point a query
+    has to look at on this data: up to its `nsample`-th hit, or all N."""
+    B, N, _ = xyz.shape
+    S, ns = idx.shape[1:]
+    full = idx[..., -1] != idx[..., 0] if ns > 1 else torch.ones_like(idx[..., 0], dtype=torch.bool)
+    looked = torch.where(full, idx[..., -1].long() + 1, N).sum().item()
+    nbytes = B * N * 12 + B * S * 12 + B * S * ns * 16
+    if feats is not None:
+        row = feats.shape[-1] * feats.element_size()
+        nbytes += B * N * row + B * S * ns * row
+    return bound_ms(nbytes, 9 * looked, PEAK["f32"]), looked / (B * S * N)
+
+
+def check_one_ball(tag, radius, ns, xyz, q, feat_list, results=None):
+    """The three kernels at one shape against the plain versions; with
+    ``results`` also times, bounds and library times."""
+    B, N, _ = xyz.shape
+    S = q.shape[1]
+    widx, wrel = kgroup.ball_query_gather_plain(radius, ns, xyz, q)
+    idx, rel = kgroup.ball_query_gather(radius, ns, xyz, q)
+    idx_b, rel_b = kgroup.ball_query_gather(radius, ns, xyz, q)
+    idx2, rel2 = kgroup.ball_query_gather_v2(radius, ns, xyz, q)
+    idx2_b, rel2_b = kgroup.ball_query_gather_v2(radius, ns, xyz, q)
+    torch.cuda.synchronize()
+    n_bad, n_bad2 = int((idx != widx).sum()), int((idx2 != widx).sum())
+    err = float((rel - wrel).abs().max())
+    same = (torch.equal(idx, idx_b) and torch.equal(rel, rel_b) and torch.equal(idx2, idx2_b)
+            and torch.equal(rel2, rel2_b))
+    v2_same = torch.equal(idx, idx2) and torch.equal(rel, rel2)
+    short = float((widx[..., -1] == widx[..., 0]).float().mean()) if ns > 1 else 0.0
+    msg = (f"[kernel] ball query {tag} B={B} N={N} S={S} r={radius} ns={ns}: index mismatches "
+           f"{n_bad} (v2 {n_bad2}), max |d rel| {err:.1e}, v2 == v1 bit for bit {v2_same}, two "
+           f"runs identical {same}, short rows {short:.3f}")
+    check(n_bad == 0 and n_bad2 == 0, f"ball query indices differ at {tag}")
+    check(err <= 1e-6, f"ball query coordinates differ at {tag}")
+    check(v2_same, f"ball_query_gather_v2 differs from ball_query_gather at {tag}")
+    check(same, f"ball query differs between two runs at {tag}")
+    for feats in feat_list:
+        fname = {torch.float32: "f32", torch.bfloat16: "bf16"}[feats.dtype]
+        fi, fr, fj = kgroup.ball_query_gather_feats(radius, ns, xyz, q, feats)
+        _, _, fj_b = kgroup.ball_query_gather_feats(radius, ns, xyz, q, feats)
+        _, _, wfj = kgroup.ball_query_gather_feats_plain(radius, ns, xyz, q, feats)
+        torch.cuda.synchronize()
+        ok = (torch.equal(fi, widx) and torch.equal(fr, rel) and torch.equal(fj, wfj)
+              and torch.equal(fj, fj_b))
+        msg += f"; feats {fname} F={feats.shape[-1]} exact {ok}"
+        check(ok, f"ball_query_gather_feats differs at {tag} {fname}")
+    print(msg)
+    if results is None:
+        return
+
+    def add(name, row):
+        acc = results.setdefault(name, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                                            library_ms=0.0, shapes=[]))
+        acc["max_abs_err"] = max(acc["max_abs_err"], row.pop("max_abs_err"))
+        for k in ("ms", "plain_ms", "bound_ms", "library_ms"):
+            acc[k] += row[k]
+        acc["shapes"].append(row)
+
+    shape = dict(tag=tag, B=B, N=N, S=S, radius=radius, nsample=ns)
+    (bms, by), looked = ball_bound(xyz, q, widx, None)
+    plain_ms = gpu_time_ms(lambda: kgroup.ball_query_gather_plain(radius, ns, xyz, q), reps=3,
+                           warmup=1)
+    lib_ms = gpu_time_ms(lambda: ball_library(radius, ns, xyz, q, None), reps=3, warmup=1)
+    for name, fn in (("ball_query_gather", kgroup.ball_query_gather),
+                     ("ball_query_gather_v2", kgroup.ball_query_gather_v2)):
+        add(name, dict(shape, max_abs_err=err, ms=gpu_time_ms(lambda: fn(radius, ns, xyz, q)),
+                       plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
+                       points_looked_at=looked))
+    for feats in feat_list:
+        (bms, by), _ = ball_bound(xyz, q, widx, feats)
+        row = dict(shape, F=feats.shape[-1], dtype=str(feats.dtype).split(".")[1],
+                   max_abs_err=err, bound_ms=bms, bound_by=by, points_looked_at=looked,
+                   ms=gpu_time_ms(
+                       lambda: kgroup.ball_query_gather_feats(radius, ns, xyz, q, feats)),
+                   plain_ms=gpu_time_ms(lambda: kgroup.ball_query_gather_feats_plain(
+                       radius, ns, xyz, q, feats), reps=3, warmup=1),
+                   library_ms=gpu_time_ms(lambda: ball_library(radius, ns, xyz, q, feats),
+                                          reps=3, warmup=1))
+        # the dtype the bf16 towers hand the kernel: PointNeXt casts before the
+        # gather, PointNet++ gathers its BatchNorm's f32 output
+        if (feats.dtype == torch.float32) == tag.startswith("pn_ssg"):
+            add("ball_query_gather_feats", row)
+        else:
+            results.setdefault("ball_query_gather_feats_other_dtype", []).append(row)  # checked too
+
+
+def check_ballquery(results):
+    """Phase 3 for the ball-query towers. A tower's clouds are a cascade:
+    each stage queries the FPS subset the stage before it kept."""
+    # small: odd nsample, N not a multiple of 32, a query with no hit, short rows
+    xyz = cloud(2, 77, 77)
+    q = torch.gather(xyz, 1, kgroup.fps_plain(xyz, 9).long()[:, :, None].expand(-1, -1, 3)).clone()
+    q[0, 1] = 40.0
+    g = torch.Generator().manual_seed(7)
+    small_feats = [torch.randn(2, 77, 5, generator=g).to(DEV).bfloat16(),  # 10-byte rows
+                   torch.randn(2, 77, 6, generator=g).to(DEV),             # 24-byte rows
+                   torch.randn(2, 77, 32, generator=g).to(DEV).bfloat16()]  # 64-byte rows
+    check_one_ball("small", 0.3, 7, xyz, q, small_feats)
+    empty, _ = kgroup.ball_query_gather(0.3, 7, xyz, q)
+    check(bool((empty[0, 1] == 76).all()), "a query with no hit must give N - 1")
+
+    # a point at exactly the radius is inside (d <= r*r); the next float is not
+    edge = torch.full((1, 40, 3), 9.0, device=DEV)
+    edge[0, :3] = torch.tensor([[0.0, 0, 0], [0.5, 0, 0], [0.5000001, 0, 0]])
+    origin = torch.zeros(1, 8, 3, device=DEV)
+    check_one_ball("boundary", 0.5, 4, edge, origin, [])
+    at_radius, _ = kgroup.ball_query_gather(0.5, 4, edge, origin)
+    check(at_radius[0, 0].tolist() == [0, 1, 0, 0], "a point at the radius must be a hit")
+
+    for bad in (lambda: kgroup.fps_batched(cloud(1, 64, 1), 65),
+                lambda: kgroup.fps_batched(cloud(1, 16384, 1), 8)):
+        try:
+            bad()
+        except ValueError as e:
+            print(f"[kernel] fps_batched refuses: {e}")
+        else:
+            check(False, "fps_batched took a shape it cannot run")
+
+    names = TaskArgs(dataset_name="modelnet40").load_classnames()
+    for tag, B, stages in BALL_SHAPES:
+        pts = make_synthetic(num_classes=40, samples_per_class=-(-B // 40), npoints=1024,
+                             seed=3, classnames=names).points[:B]
+        level = {1024: torch.from_numpy(pts).to(DEV)}
+        g = torch.Generator().manual_seed(B)
+        for N, S, radius, ns, F_ in stages:
+            xyz = level[N]
+            fidx = kgroup.fps_batched(xyz, S)
+            want = kgroup.fps_plain(xyz, S)
+            torch.cuda.synchronize()
+            n_bad = int((fidx != want).sum())
+            fps_ms = gpu_time_ms(lambda: kgroup.fps_batched(xyz, S))
+            print(f"[kernel] fps_batched {tag} B={B} N={N} -> {S}: index mismatches {n_bad}, "
+                  f"{fps_ms:.3f} ms")
+            check(n_bad == 0, f"fps_batched indices differ at {tag} N={N}")
+            q = torch.gather(xyz, 1, fidx.long()[:, :, None].expand(-1, -1, 3))
+            level.setdefault(S, q)
+            feats = []
+            if F_:
+                f32 = torch.randn(B, N, F_, generator=g).to(DEV)
+                feats = [f32.bfloat16(), f32]
+            check_one_ball(f"{tag}/N{N}", radius, ns, xyz, q, feats, results)
+            results.setdefault("fps_by_shape", []).append(
+                dict(tag=tag, B=B, N=N, npoint=S, ms=fps_ms))
+    for name in BALL_KERNELS:
+        r = results[name]
+        # one bound for the sum over the shapes: what bounds most of it
+        by = collections.Counter()
+        for row in r["shapes"]:
+            by[row["bound_by"]] += row["bound_ms"]
+        r["bound_by"] = by.most_common(1)[0][0]
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the recognition path at full width
 # ---------------------------------------------------------------------------
@@ -587,6 +804,9 @@ def plain_path():
     saved = (kgroup.fps_batched, kgroup.knn_gather, npb.mini_forward, npb.fused_vit_block,
              npb.fused_vit_block_readout, npb.mini_stats)
     saved_text = (ktextblock._block_run, ktower.tower_forward, ktower.tower_backward)
+    saved_ball = (kgroup.ball_query_gather, kgroup._ball_feats_run)
+    kgroup.ball_query_gather = kgroup.ball_query_gather_plain
+    kgroup._ball_feats_run = kgroup.ball_query_gather_feats_plain
     ktextblock._block_run = ktextblock.text_block_plain
     ktower.tower_forward = lambda x0, eot, w, heads, want_blocks=False: ktower.text_tower_plain(
         x0, eot, *w, heads, return_blocks=want_blocks)
@@ -604,6 +824,7 @@ def plain_path():
         (kgroup.fps_batched, kgroup.knn_gather, npb.mini_forward, npb.fused_vit_block,
          npb.fused_vit_block_readout, npb.mini_stats) = saved
         ktextblock._block_run, ktower.tower_forward, ktower.tower_backward = saved_text
+        kgroup.ball_query_gather, kgroup._ball_feats_run = saved_ball
 
 
 MN40_TEST_CLOUDS = 2468  # ModelNet40's test split
@@ -771,19 +992,23 @@ def setup_with_route(args, route):
     return ctx
 
 
-def compare_with_plain(dtype, head_type, batch_size, tol_loss, tol_grad, tol_stats, route="off"):
+def compare_with_plain(dtype, head_type, batch_size, tol_loss, tol_grad, tol_stats, route="off",
+                       **model_kw):
     """One step through the kernels against the same step through their
     plain versions on the card; returns the worst relative differences."""
-    ctx = setup_with_route(train_args(dtype, head_type, batch_size), route)
+    args = train_args(dtype, head_type, batch_size, **model_kw)
+    ctx = setup_with_route(args, route)
     b = cls.device_batch(next(iter(Loader(ctx["train_ds"], batch_size, shuffle=True, seed=3))),
                          DEV)
+    if args.use_height:
+        b["pc"] = append_height(b["pc"])
     loss, grads, stats = one_step_quantities(ctx, b, seed=11)
     with plain_path():
         loss_p, grads_p, stats_p = one_step_quantities(ctx, b, seed=11)
     d_loss = abs(loss - loss_p) / abs(loss_p)
     d_grad = {k: rel_err(grads[k], grads_p[k]) for k in grads}
     d_stats = max(rel_err(stats[k], stats_p[k]) for k in stats)
-    tag = f"{dtype} head_type {head_type} B={batch_size} text route {route}"
+    tag = f"{args.model} {dtype} head_type {head_type} B={batch_size} text route {route}"
     print(f"[train] one step vs plain path on the card ({tag}): loss {loss:.6f} vs "
           f"{loss_p:.6f} (rel {d_loss:.3e}, tol {tol_loss}); BN buffers max rel "
           f"{d_stats:.3e} (tol {tol_stats}); gradient max rel per leaf (tol {tol_grad}): "
@@ -1138,6 +1363,191 @@ def _run_text_slice(windows, steps_per_window, warmup):
         "fixed_batch_loss": [flosses[0], flosses[-1]], "vs_plain": agree,
     }
 
+# ---------------------------------------------------------------------------
+# phase 7: the ball-query towers at full width
+# ---------------------------------------------------------------------------
+
+NEXT_BATCH = 128  # the PointNeXt-S inference shape: B=128 x N=1024
+
+
+def synthetic_modelnet40_eval(args, split):
+    """As ``synthetic_modelnet40``, with a test split of ModelNet40's size."""
+    if split == "train":
+        return synthetic_modelnet40(args, split)
+    names = TaskArgs(dataset_name="modelnet40").load_classnames()
+    ds = make_synthetic(num_classes=40, samples_per_class=-(-MN40_TEST_CLOUDS // 40),
+                        npoints=args.npoints, seed=1, classnames=names)
+    return ArrayDataset(ds.points[:MN40_TEST_CLOUDS], ds.labels[:MN40_TEST_CLOUDS],
+                        ds.classnames, name="modelnet40_synthetic_clouds")
+
+
+def tower_args(model, batch, dtype="bfloat16", **kw):
+    return train_args(dtype, 0, batch, model=model, use_height=model == "ULIP_PN_NEXT",
+                      evaluate_3d=True, **kw)
+
+
+def logits_vs_plain(model_name, dtype, batch, test_ds):
+    """One batch's logits through the kernels and through their plain
+    versions on the card, same weights."""
+    args = tower_args(model_name, batch, dtype)
+    ctx = cls.setup(args)
+    embed_fn, step_fn = make_cached_text_eval(ctx["model"])
+    pc = torch.from_numpy(test_ds.points[:batch]).to(DEV)
+    if args.use_height:
+        pc = append_height(pc)
+    text_embed = embed_fn(ctx["model"], ctx["prompts"])
+    logits = step_fn(ctx["model"], {"pc": pc}, text_embed)
+    with plain_path():
+        want = step_fn(ctx["model"], {"pc": pc}, text_embed)
+    torch.cuda.synchronize()
+    check(logits.shape == (batch, 40) and torch.isfinite(logits).all(), f"{model_name} logits")
+    diff = float((logits - want).abs().max() / want.std())
+    top1 = float((logits.argmax(-1) == want.argmax(-1)).float().mean())
+    print(f"[ballquery] {model_name} logits vs plain path on the card ({dtype}, B={batch}): "
+          f"max|diff|/std {diff:.3e}, top-1 agreement {top1:.3f}")
+    if dtype == "float32":
+        ok = diff <= 1e-3 and top1 >= 0.95
+    else:
+        ok = diff <= 0.25 and top1 >= 0.8
+    check(ok, f"{dtype} {model_name} logits disagree with the plain path")
+    return {"diff_over_std": diff, "top1": top1}
+
+
+def timed_passes(ctx, args, passes):
+    """`passes` validate passes with the counters set to 0 just before each
+    and read just after; the counts must not move between passes."""
+    eval_fn = make_cached_text_eval(ctx["model"])
+    walls, launches = [], None
+    for _ in range(passes):
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        val = cls.validate(ctx["model"], eval_fn, ctx["test_ds"], ctx["prompts"], args, DEV)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        got = dict(_build.LAUNCHES)
+        check(launches is None or got == launches, f"launch counts differ between passes: {got}")
+        launches = got
+    return walls, launches, val
+
+
+def run_ballquery_slice(passes=5, steps=20):
+    saved_loader = pdata.DATASETS["modelnet40"]
+    pdata.DATASETS["modelnet40"] = synthetic_modelnet40_eval
+    try:
+        return _run_ballquery_slice(passes, steps)
+    finally:
+        pdata.DATASETS["modelnet40"] = saved_loader
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+
+
+def _run_ballquery_slice(passes, steps):
+    out, counted = {}, collections.Counter()
+    # --- ULIP_PN_NEXT, the serving path -------------------------------------
+    args = tower_args("ULIP_PN_NEXT", NEXT_BATCH)
+    ctx = cls.setup(args)
+    model, test_ds = ctx["model"], ctx["test_ds"]
+    n_params = sum(p.numel() for p in model.point_encoder.parameters())
+    n_batches = math.ceil(len(test_ds) / NEXT_BATCH)
+    check(len(test_ds) == MN40_TEST_CLOUDS and len(ctx["classnames"]) == 40, "phase 7 data")
+    check(model.point_encoder.config.stage_channels() == (32, 64, 128, 256, 512, 512)
+          and model.point_encoder.stem.kernel.shape == (4, 32), "PointNeXt-S at full width")
+    print(f"[ballquery] ULIP_PN_NEXT bf16 --use_height: point tower {n_params / 1e6:.2f} M "
+          f"parameters, {len(test_ds)} clouds x {args.npoints} points, batch {NEXT_BATCH} "
+          f"({n_batches} batches), prompt length {ctx['prompts'].perm_tokens.shape[1]}")
+    timed_passes(ctx, args, 1)  # warm-up (allocator, libraries)
+    walls, launches, val = timed_passes(ctx, args, passes)
+    rates = sorted(len(test_ds) / w for w in walls)
+    print(f"[ballquery] ULIP_PN_NEXT validate, {passes} passes of {len(test_ds)} clouds: median "
+          f"{median(rates):.1f} clouds/sec, min {rates[0]:.1f}, max {rates[-1]:.1f}; pass walls "
+          f"ms {[round(w * 1e3, 2) for w in walls]}; acc1 {val['acc1']:.2f} (random weights); "
+          f"kernel launches in one pass: {json.dumps(launches, sort_keys=True)}")
+    check(launches.get("ball_query_gather_feats", 0) == 4 * n_batches
+          and launches.get("fps_batched", 0) == 4 * n_batches,
+          f"ULIP_PN_NEXT launches 4 ball queries and 4 FPS per batch: {launches}")
+    counted.update(launches)
+    out["pn_next"] = {
+        "clouds_per_sec": median(rates), "clouds_per_sec_min": rates[0],
+        "clouds_per_sec_max": rates[-1], "pass_ms": median(walls) * 1e3, "batch": NEXT_BATCH,
+        "launches_per_pass": launches,
+        "logits_vs_plain": {dt: logits_vs_plain("ULIP_PN_NEXT", dt, NEXT_BATCH, test_ds)
+                            for dt in ("float32", "bfloat16")},
+    }
+
+    # --- ULIP_PN_MSG and ULIP_PN_SSG, one pass each -------------------------
+    for name, key, per_batch in (("ULIP_PN_MSG", "pn_msg", {"ball_query_gather": 6}),
+                                 ("ULIP_PN_SSG", "pn_ssg", {"ball_query_gather": 1,
+                                                            "ball_query_gather_feats": 1})):
+        targs = tower_args(name, 32)
+        tctx = cls.setup(targs)
+        timed_passes(tctx, targs, 1)  # warm-up
+        walls, launches, val = timed_passes(tctx, targs, 1)
+        nb = math.ceil(len(test_ds) / 32)
+        print(f"[ballquery] {name} bf16 B=32 validate, one pass of {len(test_ds)} clouds: "
+              f"{len(test_ds) / walls[0]:.1f} clouds/sec; kernel launches "
+              f"{json.dumps(launches, sort_keys=True)}")
+        for k, n in dict(per_batch, fps_batched=2).items():
+            check(launches.get(k, 0) == n * nb, f"{name} launches {n} {k} per batch: {launches}")
+        counted.update(launches)
+        out[key] = {"clouds_per_sec": len(test_ds) / walls[0], "batch": 32,
+                    "launches_per_pass": launches,
+                    "logits_vs_plain": {dt: logits_vs_plain(name, dt, 32, test_ds)
+                                        for dt in ("float32", "bfloat16")}}
+
+    # --- ULIP_PN_NEXT, the prompt-tuning step -------------------------------
+    next_kw = dict(model="ULIP_PN_NEXT", use_height=True)
+    out["train_vs_plain"] = {
+        "f32": compare_with_plain("float32", 0, TRAIN_BATCH, 1e-4, 1e-4, 1e-4, **next_kw),
+        "bf16": compare_with_plain("bfloat16", 0, TRAIN_BATCH, 5e-2, 0.25, 2e-2, **next_kw),
+    }
+    targs = train_args(**next_kw)
+    tctx = cls.setup(targs)
+    state, tmodel = tctx["state"], tctx["model"]
+    check(sorted(state.trainable) == ["prompt_learner.learnable_tokens"], "head_type 0 partition")
+    frozen0 = snapshot({k: p for k, p in tmodel.named_parameters() if k not in state.trainable})
+    stats0 = snapshot(state.batch_stats())
+    step_fn = make_train_step(smoothing=targs.label_smoothing)
+    stream = batch_stream(Loader(tctx["train_ds"], TRAIN_BATCH, shuffle=True, drop_last=True,
+                                 seed=0))
+
+    def run(n):
+        losses = []
+        for _ in range(n):
+            b = cls.device_batch(next(stream), DEV)
+            b["pc"] = train_augment(state.generator, b["pc"], use_height=True)
+            _, metrics = step_fn(state, b, tctx["prompts"])
+            losses.append(float(metrics["loss"]))  # read every step, as train_loop reads it
+        torch.cuda.synchronize()
+        return losses
+
+    losses = run(5)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    losses += run(steps)
+    rate = steps * TRAIN_BATCH / (time.perf_counter() - t0)
+    per_step = {k: v / steps for k, v in sorted(_build.LAUNCHES.items())}
+    counted.update(_build.LAUNCHES)
+    stats_moved = min(float((v - stats0[k]).abs().max()) for k, v in state.batch_stats().items())
+    print(f"[ballquery] ULIP_PN_NEXT train, bf16 head_type 0 B={TRAIN_BATCH}: 5 warm-up steps, "
+          f"then one window of {steps} steps (loss read every step): {rate:.1f} train clouds/sec "
+          f"({1e3 * TRAIN_BATCH / rate:.2f} ms per step); loss first {losses[0]:.4f}, last "
+          f"{losses[-1]:.4f}; kernel launches per step {json.dumps(per_step)}; {len(frozen0)} "
+          f"frozen leaves unchanged; {len(stats0)} BatchNorm buffers moved (least max change "
+          f"{stats_moved:.3e})")
+    check(all(math.isfinite(x) for x in losses), "non-finite ULIP_PN_NEXT training loss")
+    check(per_step.get("ball_query_gather_feats") == 4 and per_step.get("fps_batched") == 4,
+          f"a ULIP_PN_NEXT train step launches 4 ball queries and 4 FPS: {per_step}")
+    check(all(torch.equal(p, frozen0[k]) for k, p in tmodel.named_parameters() if k in frozen0),
+          "a frozen weight of ULIP_PN_NEXT changed")
+    check(stats_moved > 0, "a BatchNorm buffer of ULIP_PN_NEXT did not move")
+    out["train"] = {"train_clouds_per_sec": rate, "ms_per_step": 1e3 * TRAIN_BATCH / rate,
+                    "steps": steps, "batch": TRAIN_BATCH,
+                    "loss_first_last": [losses[0], losses[-1]],
+                    "launches_per_step": per_step}
+    # counters as read after the driven runs above, summed
+    ball_launches = {k: counted.get(k, 0) for k in BALL_KERNELS}
+    out["launches_counted"] = dict(ball_launches, fps_batched=counted["fps_batched"])
+    return ball_launches, out
+
 
 def main():
     smi = subprocess.run(
@@ -1164,14 +1574,23 @@ def main():
     check_mini_stats(results)
     check_block(results)
     check_text(results)
+    check_ballquery(results)
     launches, slice_stats = run_slice()
     train_launches, train_stats = run_train_slice()
     launches["mini_stats"] = train_launches["mini_stats"]  # the train path's own kernel
     text_launches, text_stats = run_text_slice()
     text_stats["text_encode_ms"]["phase_4"] = slice_stats["text_tower_ms"]
     launches.update(text_launches)  # the fused text path's own kernels
+    ball_launches, ball_stats = run_ballquery_slice()
+    launches.update(ball_launches)  # the ball-query towers' own kernels
+    ball_stats["fps_by_shape"] = results.pop("fps_by_shape")
+    ball_stats["ball_query_gather_feats_other_dtype"] = results.pop(
+        "ball_query_gather_feats_other_dtype")
     for name in SOURCES:
-        check(launches.get(name, 0) > 0, f"{name} was launched on no path")
+        if name in OFF_PATH_KERNELS:
+            check(launches.get(name, 0) == 0, f"{name} is called by no module, yet was launched")
+        else:
+            check(launches.get(name, 0) > 0, f"{name} was launched on no path")
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():
@@ -1185,6 +1604,7 @@ def main():
               f" ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     print(json.dumps({"text": text_stats}))
     print(json.dumps({"train": train_stats}))
+    print(json.dumps({"ballquery": ball_stats}))
     print(json.dumps({"kernels": kernels, **slice_stats}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -13,6 +13,11 @@ Rules, leaf by leaf:
   ``positional_embedding``, ``text_projection``, ``cls_token``,
   ``pc_projection``, ``logit_scale``, ...) keeps its name and shape.
 
+The same rules carry the set-abstraction towers: their modules keep
+flax's names (``sa1/conv0``, ``sa1/bn0_1``, ``stage1_sa/conv0/conv`` whose
+Dense has no bias where BatchNorm follows, ``stage1_sa/skipconv``,
+``stem``, ``head_fc0``/``head_bn0``), so no leaf needs a rule of its own.
+
 It raises on a leaf that has no counterpart in the port and on a port
 parameter or buffer that no leaf sets.
 

@@ -1,7 +1,10 @@
-"""Grouping kernels: batched FPS and kNN with the neighbourhood gather.
+"""Grouping kernels: batched FPS, kNN with the neighbourhood gather, and
+the ball queries of the set-abstraction towers.
 
 Replaces ``ppt_tpu/kernels/group.py:fps_batched`` and ``:knn_gather``
-(chained by ``:fused_group``). The CUDA side is ``csrc/group.cu``, whose
+(chained by ``:fused_group``), ``:ball_query_gather``,
+``:ball_query_gather_feats`` and the rank formulation
+``:_ball_query_kernel_v2``. The CUDA side is ``csrc/group.cu``, whose
 header says what bounds each kernel on the H100 and how its design
 answers that.
 
@@ -12,6 +15,17 @@ Contracts (exact, ties included):
   ``((qx-x)^2 + (qy-y)^2) + (qz-z)^2``, ties to the lowest index, nearest
   first. This is the kernel contract the reference runs on its chip
   (``group.py:194``), not the expanded-form ``ops.knn_point``.
+- ball query keeps the first ``nsample`` indices, in ascending order, of
+  the points with ``((qx-x)^2 + (qy-y)^2) + (qz-z)^2 <= f32(radius * radius)``
+  (the reference kernel's test, ``group.py:642-643``; the product is a
+  Python double rounded once to f32). A short row is padded with its first
+  hit; a query with no hit gives ``N - 1`` everywhere, with that point's
+  coordinates minus the centre. The CPU oracle ``ops.query_ball_point``
+  tests the expanded-form distance instead: the two agree on any cloud
+  whose distances keep clear of ``radius**2`` by more than f32 rounding.
+  The reference's ``relative`` and ``mode`` options are not here: every
+  caller asks for centre-relative coordinates, and the modes are three
+  schedules of this one function.
 """
 
 from __future__ import annotations
@@ -22,6 +36,7 @@ from typing import Tuple
 import torch
 
 from ppt_torch.kernels import _build
+from ppt_torch.kernels._autograd import recompute_grad
 
 _SMEM_LIMIT = 227 * 1024
 
@@ -120,6 +135,167 @@ def knn_gather(
     _build.check(lib, rc, "knn_gather")
     _build.LAUNCHES["knn_gather"] += 1
     return idx, nbr
+
+
+def _ball_picks(radius: float, nsample: int, xyz: torch.Tensor,
+                new_xyz: torch.Tensor) -> torch.Tensor:
+    """The ball query's indices [B, S, nsample] int64, by ranks: a hit's
+    inclusive prefix count is its slot + 1."""
+    B, N, _ = xyz.shape
+    S = new_xyz.shape[1]
+    d = _sq3(
+        new_xyz[:, :, None, 0] - xyz[:, None, :, 0],
+        new_xyz[:, :, None, 1] - xyz[:, None, :, 1],
+        new_xyz[:, :, None, 2] - xyz[:, None, :, 2],
+    )  # [B, S, N]
+    hit = d <= torch.tensor(radius * radius, dtype=torch.float32, device=xyz.device)
+    rank = torch.cumsum(hit, dim=-1)
+    count = rank[..., -1:]
+    # each hit of rank <= nsample lands in slot rank - 1; the rest in a spare slot
+    slot = torch.where(hit & (rank <= nsample), rank - 1, nsample)
+    lane = torch.arange(N, device=xyz.device).expand(B, S, N)
+    picks = torch.full((B, S, nsample + 1), N - 1, dtype=torch.long, device=xyz.device)
+    picks.scatter_(2, slot, lane)
+    picks = picks[..., :nsample]
+    first = torch.where(count > 0, picks[..., :1], N - 1)
+    return torch.where(torch.arange(nsample, device=xyz.device) < count, picks, first)
+
+
+def _gather_rows(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``out[b, s, k, :] = points[b, idx[b, s, k], :]``."""
+    B, S, K = idx.shape
+    C = points.shape[-1]
+    flat = idx.reshape(B, S * K, 1).long().expand(-1, -1, C)
+    return torch.gather(points, 1, flat).reshape(B, S, K, C)
+
+
+def ball_query_gather_plain(
+    radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch ball query + coordinate gather:
+    (idx [B,S,nsample] int32, picks - centre [B,S,nsample,3] f32)."""
+    xyz = xyz.float()
+    q = new_xyz.float()
+    picks = _ball_picks(radius, nsample, xyz, q)
+    return picks.to(torch.int32), _gather_rows(xyz, picks) - q[:, :, None, :]
+
+
+def ball_query_gather_feats_plain(
+    radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor, feats: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch ball query + coordinate gather + feature gather:
+    (idx, picks - centre, feats[picks] [B,S,nsample,F] in ``feats``' dtype)."""
+    idx, rel = ball_query_gather_plain(radius, nsample, xyz, new_xyz)
+    return idx, rel, _gather_rows(feats, idx)
+
+
+_BALL_WARPS = 8  # queries (warps) per block
+
+
+def _ball_args(name: str, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor):
+    B, N, C = xyz.shape
+    if C != 3 or new_xyz.shape[0] != B or new_xyz.shape[2] != 3:
+        raise ValueError(f"{name}: expects xyz [B, N, 3] and centres [B, S, 3], got "
+                         f"{tuple(xyz.shape)} and {tuple(new_xyz.shape)}")
+    if not 1 <= nsample <= N:
+        raise ValueError(f"{name}: nsample={nsample} not in [1, N={N}]")
+    xyz = xyz.float().contiguous()
+    q = new_xyz.float().contiguous()
+    _build.check_tensors(name, xyz, q)
+    S = q.shape[1]
+    idx = torch.empty(B, S, nsample, dtype=torch.int32, device=xyz.device)
+    rel = torch.empty(B, S, nsample, 3, dtype=torch.float32, device=xyz.device)
+    return xyz, q, B, N, S, idx, rel
+
+
+def ball_query_gather(
+    radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Ball query + centre-relative coordinates in one kernel:
+    (idx [B, S, nsample] int32, picks - centre [B, S, nsample, 3] f32)."""
+    if xyz.device.type == "cpu":
+        return ball_query_gather_plain(radius, nsample, xyz, new_xyz)
+    xyz, q, B, N, S, idx, rel = _ball_args("ball_query_gather", nsample, xyz, new_xyz)
+    lib = _build.load("group")
+    lib.ppt_ball_query.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    rc = lib.ppt_ball_query(_build.ptr(xyz), _build.ptr(q), B, N, S, nsample, radius * radius,
+                            _BALL_WARPS, _build.ptr(idx), _build.ptr(rel),
+                            _build.stream_ptr(xyz))
+    _build.check(lib, rc, "ball_query_gather")
+    _build.LAUNCHES["ball_query_gather"] += 1
+    return idx, rel
+
+
+def ball_query_gather_v2(
+    radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``ball_query_gather`` by ranks: one full pass over the cloud from
+    shared memory, a hit's prefix count is its slot. The same outputs, bit
+    for bit; no module calls it (nor does the reference call its own)."""
+    if xyz.device.type == "cpu":
+        return ball_query_gather_plain(radius, nsample, xyz, new_xyz)
+    xyz, q, B, N, S, idx, rel = _ball_args("ball_query_gather_v2", nsample, xyz, new_xyz)
+    if 12 * N > _SMEM_LIMIT:
+        raise ValueError(f"ball_query_gather_v2: N={N} does not fit one block's shared memory")
+    lib = _build.load("group")
+    lib.ppt_ball_query_rank.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [
+        ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                             ctypes.c_void_p, ctypes.c_void_p]
+    rc = lib.ppt_ball_query_rank(_build.ptr(xyz), _build.ptr(q), B, N, S, nsample,
+                                 radius * radius, 4 * _BALL_WARPS, _BALL_WARPS,
+                                 _build.ptr(idx), _build.ptr(rel), _build.stream_ptr(xyz))
+    _build.check(lib, rc, "ball_query_gather_v2")
+    _build.LAUNCHES["ball_query_gather_v2"] += 1
+    return idx, rel
+
+
+def _ball_feats_run(radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor,
+                    feats: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    name = "ball_query_gather_feats"
+    xyz, q, B, N, S, idx, rel = _ball_args(name, nsample, xyz, new_xyz)
+    if feats.dim() != 3 or feats.shape[:2] != (B, N):
+        raise ValueError(f"{name}: feats {tuple(feats.shape)} is not [B={B}, N={N}, F]")
+    if feats.dtype not in _build.DTYPE_CODE:
+        raise TypeError(f"{name}: feats dtype {feats.dtype} not in (float32, bfloat16)")
+    feats = feats.detach().contiguous()
+    _build.check_tensors(name, xyz, feats)
+    fj = torch.empty(B, S, nsample, feats.shape[2], dtype=feats.dtype, device=xyz.device)
+    row_bytes = feats.shape[2] * feats.element_size()
+    # the widest copy unit that divides a row and keeps both pointers aligned
+    unit = next(u for u in (16, 4, 2)
+                if row_bytes % u == 0 and feats.data_ptr() % u == 0 and fj.data_ptr() % u == 0)
+    lib = _build.load("group")
+    lib.ppt_ball_query_feats.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+        ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+    rc = lib.ppt_ball_query_feats(_build.ptr(xyz), _build.ptr(q), _build.ptr(feats), B, N, S,
+                                  nsample, radius * radius, row_bytes, unit, _BALL_WARPS,
+                                  _build.ptr(idx), _build.ptr(rel), _build.ptr(fj),
+                                  _build.stream_ptr(xyz))
+    _build.check(lib, rc, name)
+    _build.LAUNCHES[name] += 1
+    return idx, rel, fj
+
+
+def ball_query_gather_feats(
+    radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor, feats: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Ball query + centre-relative coordinates + the picks' feature rows in
+    one kernel: (idx [B, S, nsample] int32, picks - centre [B, S, nsample, 3]
+    f32, feats[picks] [B, S, nsample, F] in ``feats``' dtype, f32 or bf16).
+    ``fj`` carries a gradient to ``feats`` (the plain gather's, by
+    ``recompute_grad``); the indices and the coordinates carry none."""
+    run = ball_query_gather_feats_plain if xyz.device.type == "cpu" else _ball_feats_run
+    if not (feats.requires_grad and torch.is_grad_enabled()):
+        return run(radius, nsample, xyz, new_xyz, feats)
+    kept = {}
+
+    def forward(f):
+        kept["idx"], kept["rel"], fj = run(radius, nsample, xyz.detach(), new_xyz.detach(), f)
+        return fj
+
+    fj = recompute_grad(forward, lambda f: _gather_rows(f, kept["idx"]), feats)
+    return kept["idx"], kept["rel"], fj
 
 
 def fused_group(

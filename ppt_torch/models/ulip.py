@@ -1,7 +1,8 @@
 """The ULIP composite: point encoder + prompt-tuned CLIP text tower.
 
-Counterpart of ``ppt_tpu/models/ulip.py`` (PointBERT only in this
-slice). Forward contract (classification)::
+Counterpart of ``ppt_tpu/models/ulip.py`` with four of its point towers:
+PointBERT, PointNet++ SSG and MSG, PointNeXt-S. Forward contract
+(classification)::
 
     pc_embed   = point_encoder(pc) @ pc_projection                 # [B, E]
     text_embed = normalize(text_tower(splice(prompts))[eot] @ proj) # [C, E]
@@ -23,6 +24,8 @@ from torch import nn
 
 from ppt_torch.nn.layers import Dense
 from ppt_torch.nn.pointbert import PointBert, PointBertConfig
+from ppt_torch.nn.pointnet2 import PointNet2Msg, PointNet2Ssg
+from ppt_torch.nn.pointnext import PointNext, PointNextConfig
 from ppt_torch.nn.text import TextConfig, TextTransformer
 from ppt_torch.prompt.learner import PromptLearner, PromptSpec
 from ppt_torch.utils.device import resolve_device, resolve_dtype
@@ -139,17 +142,58 @@ def _make(name: str, encoder: nn.Module, pc_feat_dims: int, args, dtype,
     return ModelSpec(model=model, pc_feat_dims=pc_feat_dims, name=name)
 
 
+def _xyz_only(name: str, args) -> None:
+    """The reference lets flax infer a 4-wide first layer and then samples
+    and groups in 4-D; the port's grouping kernels take xyz, so a tower that
+    has no use for the height refuses it by name."""
+    if getattr(args, "use_height", False):
+        raise NotImplementedError(f"--use_height appends the height as a 4th channel, and "
+                                  f"{name} takes xyz only")
+
+
 def ulip_pointbert(args, text_fused: str = "off") -> ModelSpec:
     """ULIP-PointBERT (PPT-Base). ``args.pointbert_config`` may override
     the PointBERT config (tests shrink it); ``text_fused`` is the text
     tower's route (``nn/text.py``)."""
+    _xyz_only("ULIP_PointBERT", args)
     dt = resolve_dtype(getattr(args, "compute_dtype", "float32"))
     cfg = getattr(args, "pointbert_config", None) or PointBertConfig()
     return _make("ULIP_PointBERT", PointBert(cfg, dtype=dt), 2 * cfg.trans_dim, args, dt,
                  text_fused)
 
 
-MODEL_REGISTRY: Dict[str, Callable[..., ModelSpec]] = {"ULIP_PointBERT": ulip_pointbert}
+def ulip_pn_ssg(args, text_fused: str = "off") -> ModelSpec:
+    """ULIP over the PointNet++ single-scale trunk."""
+    _xyz_only("ULIP_PN_SSG", args)
+    dt = resolve_dtype(getattr(args, "compute_dtype", "float32"))
+    return _make("ULIP_PN_SSG", PointNet2Ssg(dtype=dt), 256, args, dt, text_fused)
+
+
+def ulip_pn_msg(args, text_fused: str = "off") -> ModelSpec:
+    """ULIP over the PointNet++ multi-scale trunk."""
+    _xyz_only("ULIP_PN_MSG", args)
+    dt = resolve_dtype(getattr(args, "compute_dtype", "float32"))
+    return _make("ULIP_PN_MSG", PointNet2Msg(dtype=dt), 256, args, dt, text_fused)
+
+
+def ulip_pn_next(args, text_fused: str = "off") -> ModelSpec:
+    """ULIP over PointNeXt-S. The stem is as wide as the input: 4 channels
+    with ``--use_height`` (the published network), else 3, as the
+    reference's shape inference has it. ``args.pointnext_config`` may
+    override the config (tests shrink it)."""
+    dt = resolve_dtype(getattr(args, "compute_dtype", "float32"))
+    cfg = getattr(args, "pointnext_config", None) or PointNextConfig(
+        in_channels=4 if getattr(args, "use_height", False) else 3)
+    return _make("ULIP_PN_NEXT", PointNext(cfg, dtype=dt), cfg.head_mlps[-1], args, dt,
+                 text_fused)
+
+
+MODEL_REGISTRY: Dict[str, Callable[..., ModelSpec]] = {
+    "ULIP_PN_SSG": ulip_pn_ssg,
+    "ULIP_PN_MSG": ulip_pn_msg,
+    "ULIP_PointBERT": ulip_pointbert,
+    "ULIP_PN_NEXT": ulip_pn_next,
+}
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,7 @@ kernels take, so neither the weight bridge nor a kernel call transposes.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -32,6 +32,72 @@ class Dense(nn.Module):
         dt = self.dtype
         y = x.to(dt) @ self.kernel.to(dt)
         return y if self.bias is None else y + self.bias.to(dt)
+
+
+BN_EPS = 1e-5  # flax nn.BatchNorm default
+BN_MOMENTUM = 0.99  # flax nn.BatchNorm default: ra = 0.99 ra + 0.01 batch
+
+
+class BatchNormStats(nn.Module):
+    """BatchNorm parameters and running statistics (flax ``scale``/``bias``
+    and ``batch_stats`` ``mean``/``var``), for a caller that folds them
+    into adjacent Dense weights: with the running statistics in eval, with
+    the batch's in training, which also moves the running statistics as
+    flax does."""
+
+    def __init__(self, width: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(width))
+        self.bias = nn.Parameter(torch.zeros(width))
+        self.register_buffer("running_mean", torch.zeros(width))
+        self.register_buffer("running_var", torch.ones(width))
+
+    def fold(self, mean: Optional[torch.Tensor] = None,
+             var: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(scale, shift) with BN(x) = x * scale + shift, from the given
+        batch statistics or else the running ones."""
+        if mean is None:
+            mean, var = self.running_mean, self.running_var
+        scale = self.weight / torch.sqrt(var + BN_EPS)
+        return scale, self.bias - mean * scale
+
+    @torch.no_grad()
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """flax's update, in place: momentum 0.99 and the BIASED batch
+        variance (torch's BatchNorm would use 0.1 and the unbiased one)."""
+        self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1.0 - BN_MOMENTUM)
+        self.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1.0 - BN_MOMENTUM)
+
+
+class BatchNorm(BatchNormStats):
+    """flax ``nn.BatchNorm(dtype=float32)`` over the last axis: statistics
+    and affine in f32 whatever the input's dtype (a bf16 Dense output), the
+    result f32. ``train``: the batch's mean and biased variance
+    (``E[x^2] - E[x]^2`` clamped at 0, flax's fast variance) normalise and
+    move the running statistics; else the running statistics normalise."""
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = x.float()
+        if train:
+            flat = x.reshape(-1, x.shape[-1])
+            mean = flat.mean(0)
+            var = torch.clamp_min((flat * flat).mean(0) - mean * mean, 0.0)
+            self.update_running(mean.detach(), var.detach())
+        else:
+            mean, var = self.running_mean, self.running_var
+        return (x - mean) * (torch.rsqrt(var + BN_EPS) * self.weight) + self.bias
+
+
+def dropout(x: torch.Tensor, rate: float, train: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: in training each element is kept with
+    probability ``1 - rate`` and scaled by its inverse, the mask drawn from
+    ``generator`` (on ``x``'s device); identity in eval or at rate 0."""
+    if not train or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 class LayerNormF32(nn.Module):

@@ -27,11 +27,8 @@ from torch import nn
 from ppt_torch.kernels.group import fused_group
 from ppt_torch.kernels.mini import mini_forward, mini_stats
 from ppt_torch.kernels.vitblock import fused_vit_block, fused_vit_block_readout
-from ppt_torch.nn.layers import Dense, LayerNormF32, MlpBlock, drop_path_scales, gelu_tanh
-
-BN_EPS = 1e-5  # flax nn.BatchNorm default
-BN_MOMENTUM = 0.99  # flax nn.BatchNorm default: ra = 0.99 ra + 0.01 batch
-
+from ppt_torch.nn.layers import (BatchNormStats, Dense, LayerNormF32, MlpBlock,
+                                 drop_path_scales, gelu_tanh)
 
 @dataclasses.dataclass(frozen=True)
 class PointBertConfig:
@@ -51,36 +48,6 @@ def group_points(
     """FPS centers + kNN neighbourhoods, center-normalised:
     (neighbourhood [B, G, M, 3], center [B, G, 3])."""
     return fused_group(xyz, num_group, group_size)
-
-
-class BatchNormStats(nn.Module):
-    """BatchNorm parameters and running statistics (flax ``scale``/``bias``
-    and ``batch_stats`` ``mean``/``var``), folded into the adjacent Dense
-    weights: with the running statistics in eval, with the batch's in
-    training, which also moves the running statistics as flax does."""
-
-    def __init__(self, width: int):
-        super().__init__()
-        self.weight = nn.Parameter(torch.ones(width))
-        self.bias = nn.Parameter(torch.zeros(width))
-        self.register_buffer("running_mean", torch.zeros(width))
-        self.register_buffer("running_var", torch.ones(width))
-
-    def fold(self, mean: Optional[torch.Tensor] = None,
-             var: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(scale, shift) with BN(x) = x * scale + shift, from the given
-        batch statistics or else the running ones."""
-        if mean is None:
-            mean, var = self.running_mean, self.running_var
-        scale = self.weight / torch.sqrt(var + BN_EPS)
-        return scale, self.bias - mean * scale
-
-    @torch.no_grad()
-    def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
-        """flax's update, in place: momentum 0.99 and the BIASED batch
-        variance (torch's BatchNorm would use 0.1 and the unbiased one)."""
-        self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1.0 - BN_MOMENTUM)
-        self.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1.0 - BN_MOMENTUM)
 
 
 class MiniPointNet(nn.Module):

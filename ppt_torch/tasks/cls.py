@@ -13,6 +13,8 @@ Without pretrained weights or a checkpoint the weights are random from
     python -m ppt_torch.tasks.cls --dataset_name modelnet40 --npoints 1024 \
         --batch_size 30 --class_name_position middle --label_smoothing 0.2 \
         --compute_dtype bfloat16 [--head_type 0..3] [--device cpu]
+    # the other towers: --model ULIP_PN_NEXT --use_height (PointNeXt-S takes the
+    # height as a 4th channel), --model ULIP_PN_SSG, --model ULIP_PN_MSG
     # evaluate a checkpoint
     python -m ppt_torch.tasks.cls --evaluate_3d --test_ckpt_addr outputs/cls ...
 """
@@ -30,7 +32,7 @@ from typing import Dict, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from ppt_torch.data.augment import train_augment
+from ppt_torch.data.augment import append_height, train_augment
 from ppt_torch.data.datasets import build_dataset
 from ppt_torch.data.loader import Loader
 from ppt_torch.models.ulip import PromptArrays, build_model, trainable_mask
@@ -64,9 +66,6 @@ def setup(args: TaskArgs) -> Dict:
     and train state on ``args.device`` (the card if empty), shared by
     training and evaluation."""
     device = resolve_device(args.device or None)
-    if args.use_height:
-        raise NotImplementedError(
-            "--use_height appends a 4th channel, and no ported model takes one yet")
     train_ds = build_dataset(args.dataset_name, args, "train")
     test_ds = build_dataset(args.dataset_name, args, "test")
     if train_ds.name.startswith("synthetic"):
@@ -134,6 +133,8 @@ def validate(state, eval_fn, test_ds, prompts, args: TaskArgs, device) -> Dict[s
     for batch in Loader(test_ds, batch_size=args.batch_size):
         valid = batch["valid"]
         pc = torch.from_numpy(batch["pc"].astype(np.float32)).to(device)
+        if args.use_height:
+            pc = append_height(pc)
         logits = step_fn(state, {"pc": pc}, text_embed)
         preds.append(logits.argmax(-1).cpu().numpy()[valid])
         labels.append(batch["label"][valid])
@@ -174,7 +175,8 @@ def train_loop(args: TaskArgs, ctx: Dict) -> Dict[str, float]:
             if it / max(n_batches, 1) > args.data_ratio:
                 break
             dbatch = device_batch(batch, device)
-            dbatch["pc"] = train_augment(state.generator, dbatch["pc"])
+            dbatch["pc"] = train_augment(state.generator, dbatch["pc"],
+                                         use_height=args.use_height)
             state, metrics = step_fn(state, dbatch, prompts)
             loss_meter.update(float(metrics["loss"]), len(batch["label"]))
             acc_meter.update(float(metrics["acc"]), len(batch["label"]))

@@ -1,7 +1,8 @@
 """Where a step's device time goes, from a torch.profiler trace.
 
 Counterpart of ``ppt_tpu/tools/profile.py`` for the card. Builds
-full-width ULIP-PointBERT (weights from ``--seed``), warms up, then
+``--model`` at full width (ULIP-PointBERT unless told otherwise; the
+height channel is on for ULIP_PN_NEXT; weights from ``--seed``), warms up, then
 profiles ``--batches`` steps on synthetic clouds, each ending in
 ``torch.cuda.synchronize()``: recognition steps with the text embedding
 cached, or with ``--train`` prompt-tuning train steps (augmentation,
@@ -13,7 +14,10 @@ kernel intervals), device time per batch for each part of the point tower
 (the port's kernels by CUDA kernel name) and for everything else, the
 largest other kernels, and the text kernels by template instantiation
 (launches and ms; a GEMM's arguments are its tile rows, whether W is read
-transposed, and its epilogue). ``--train`` adds the step's sections (CUDA events
+transposed, and its epilogue), and the point tower's time by module (CUDA
+events around each of its children: stem, SA stages, head; the library
+kernels of an SA layer's MLP cannot be told from the head's by name).
+``--train`` adds the step's sections (CUDA events
 around augmentation, point tower, text tower forward + loss, backward,
 optimizer; each includes the gaps in which the device waits for the host).
 
@@ -21,6 +25,7 @@ optimizer; each includes the gaps in which the device waits for the host).
         [--batches 5] [--compute_dtype bfloat16]
     python -m ppt_torch.tools.profile --train [--batch 30] [--head_type 0] \
         [--text_route off|block|tower]
+    python -m ppt_torch.tools.profile --model ULIP_PN_NEXT --batch 128 [--train]
 """
 
 from __future__ import annotations
@@ -33,10 +38,10 @@ import time
 import torch
 from torch.autograd import DeviceType
 
-from ppt_torch.data.augment import train_augment
+from ppt_torch.data.augment import append_height, train_augment
 from ppt_torch.data.datasets import make_synthetic
 from ppt_torch.models.losses import smoothed_cross_entropy
-from ppt_torch.models.ulip import PromptArrays, build_model, trainable_mask
+from ppt_torch.models.ulip import MODEL_REGISTRY, PromptArrays, build_model, trainable_mask
 from ppt_torch.nn.text import TEXT_ROUTES
 from ppt_torch.prompt.learner import build_prompt_spec
 from ppt_torch.tasks.args import TaskArgs
@@ -56,6 +61,9 @@ PARTS = (
     ("text::epilogue_bwd_kernel", "text: pooling + ln_final + projection"),
     ("fps_kernel", "fps_batched"),
     ("knn_kernel", "knn_gather"),
+    ("ball_query_feats_kernel", "ball_query_gather_feats"),
+    ("ball_query_rank_kernel", "ball_query_gather_v2"),
+    ("ball_query_kernel", "ball_query_gather"),
     ("mini_forward", "mini_forward"),
     ("mini_stats", "mini_stats"),
     ("m2_reduce_kernel", "mini_stats"),
@@ -88,19 +96,60 @@ def busy_us(intervals) -> float:
     return total
 
 
-def _setup(batch, npoints, compute_dtype, seed, text_route="off"):
+def takes_height(model_name: str) -> bool:
+    """PointNeXt-S is published with the height as a 4th input channel."""
+    return model_name == "ULIP_PN_NEXT"
+
+
+def _setup(batch, npoints, compute_dtype, seed, text_route="off", model_name="ULIP_PointBERT"):
     dev = resolve_device(None)  # the card; no CPU fallback
     args = TaskArgs(npoints=npoints, batch_size=batch, num_learnable_prompt_tokens=32,
-                    class_name_position="middle", compute_dtype=compute_dtype, seed=seed)
+                    class_name_position="middle", compute_dtype=compute_dtype, seed=seed,
+                    model=model_name, use_height=takes_height(model_name))
     classnames = args.load_classnames()
     prompts = PromptArrays.from_spec(
         build_prompt_spec(classnames, n_ctx=32, class_name_position="middle"), device=dev)
-    model = build_model("ULIP_PointBERT", args, device=dev, text_fused=text_route).model
+    model = build_model(model_name, args, device=dev, text_fused=text_route).model
     ds = make_synthetic(num_classes=len(classnames), samples_per_class=-(-batch // len(classnames)),
                         npoints=npoints, seed=seed + 1, classnames=classnames)
     pc = torch.from_numpy(ds.points[:batch]).to(dev)
     label = torch.from_numpy(ds.labels[:batch]).long().to(dev)
     return dev, model, prompts, pc, label
+
+
+def tower_section(child_name: str) -> str:
+    """The point tower's child module -> the section its time is summed
+    under: the head's layers together, everything else by its own name."""
+    return "head" if child_name.startswith("head") else child_name
+
+
+def tower_sections_ms(tower: torch.nn.Module, step, batches: int) -> dict:
+    """ms per batch under each child of ``tower``: CUDA events at its
+    forward's start and end (the gaps in which the device waits for the
+    host are inside), summed by :func:`tower_section`."""
+    spans, handles = [], []
+    for name, child in tower.named_children():
+        def before(mod, args, name=name):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            spans.append([tower_section(name), ev, None])
+
+        def after(mod, args, out):
+            spans[-1][2] = torch.cuda.Event(enable_timing=True)
+            spans[-1][2].record()
+
+        handles += [child.register_forward_pre_hook(before), child.register_forward_hook(after)]
+    try:
+        for _ in range(batches):
+            step()
+        torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+    sums = collections.Counter()
+    for section, start, end in spans:
+        sums[section] += start.elapsed_time(end)
+    return {k: v / batches for k, v in sums.items()}
 
 
 def _profile(step, batches: int) -> dict:
@@ -146,26 +195,36 @@ def _profile(step, batches: int) -> dict:
 
 
 def profile_step(batch: int = 32, npoints: int = 1024, batches: int = 5,
-                 compute_dtype: str = "bfloat16", seed: int = 0) -> dict:
-    _, model, prompts, pc, _ = _setup(batch, npoints, compute_dtype, seed)
+                 compute_dtype: str = "bfloat16", seed: int = 0,
+                 model_name: str = "ULIP_PointBERT") -> dict:
+    _, model, prompts, pc, _ = _setup(batch, npoints, compute_dtype, seed, model_name=model_name)
     embed_fn, step_fn = make_cached_text_eval(model)
     text_embed = embed_fn(model, prompts)
+
+    def step():  # as `validate` takes a batch: the height is appended on the card
+        x = append_height(pc) if takes_height(model_name) else pc
+        return step_fn(model, {"pc": x}, text_embed)
+
     for _ in range(2):
-        step_fn(model, {"pc": pc}, text_embed)
+        step()
     torch.cuda.synchronize()
-    out = _profile(lambda: step_fn(model, {"pc": pc}, text_embed), batches)
-    return {"step": "eval", "compute_dtype": compute_dtype, "batch": batch, "npoints": npoints,
-            **out}
+    out = _profile(step, batches)
+    return {"step": "eval", "model": model_name, "compute_dtype": compute_dtype, "batch": batch,
+            "npoints": npoints, **out,
+            "clouds_per_sec": batch / out["wall_ms_per_batch"] * 1e3,
+            "tower_section_ms_per_batch": tower_sections_ms(model.point_encoder, step, batches)}
 
 
 def profile_train_step(batch: int = 30, npoints: int = 1024, batches: int = 5,
                        compute_dtype: str = "bfloat16", seed: int = 0,
                        head_type: int = 0, smoothing: float = 0.2,
-                       text_route: str = "off") -> dict:
+                       text_route: str = "off", model_name: str = "ULIP_PointBERT") -> dict:
     """The published PPT-Base recipe's step (AdamW, cosine schedule over 250
     epochs of ModelNet40's 9843 // batch steps) on one synthetic batch, with
     the text tower on ``text_route`` ("off", "block" or "tower")."""
-    _, model, prompts, pc, label = _setup(batch, npoints, compute_dtype, seed, text_route)
+    _, model, prompts, pc, label = _setup(batch, npoints, compute_dtype, seed, text_route,
+                                          model_name)
+    height = takes_height(model_name)
     sched = build_schedule("cosine", 3e-3, 250, 9843 // batch, final_lr=1e-5, warmup_epochs=1,
                            warmup_start_lr=1e-6)
     state = create_train_state(
@@ -174,7 +233,7 @@ def profile_train_step(batch: int = 30, npoints: int = 1024, batches: int = 5,
     step_fn = make_train_step(smoothing=smoothing)
 
     def step():
-        b = {"pc": train_augment(state.generator, pc), "label": label}
+        b = {"pc": train_augment(state.generator, pc, use_height=height), "label": label}
         return float(step_fn(state, b, prompts)[1]["loss"])  # train_loop reads the loss every step too
 
     for _ in range(3):
@@ -189,7 +248,7 @@ def profile_train_step(batch: int = 30, npoints: int = 1024, batches: int = 5,
     for _ in range(batches):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
         ev[0].record()
-        aug = train_augment(state.generator, pc)
+        aug = train_augment(state.generator, pc, use_height=height)
         ev[1].record()
         pc_embed = model.encode_pc(aug, train=True, generator=state.generator)
         ev[2].record()
@@ -204,8 +263,8 @@ def profile_train_step(batch: int = 30, npoints: int = 1024, batches: int = 5,
         torch.cuda.synchronize()
         for i, name in enumerate(names):
             sums[name] += ev[i].elapsed_time(ev[i + 1])
-    return {"step": "train", "compute_dtype": compute_dtype, "batch": batch, "npoints": npoints,
-            "head_type": head_type, "text_route": text_route, **out,
+    return {"step": "train", "model": model_name, "compute_dtype": compute_dtype, "batch": batch,
+            "npoints": npoints, "head_type": head_type, "text_route": text_route, **out,
             "clouds_per_sec": batch / out["wall_ms_per_batch"] * 1e3,
             "section_ms_per_batch": {k: sums[k] / batches for k in names}}
 
@@ -213,6 +272,7 @@ def profile_train_step(batch: int = 30, npoints: int = 1024, batches: int = 5,
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--train", action="store_true", help="profile the train step")
+    p.add_argument("--model", default="ULIP_PointBERT", choices=sorted(MODEL_REGISTRY))
     p.add_argument("--head_type", type=int, default=0)
     p.add_argument("--batch", type=int, default=None, help="default 32 (eval), 30 (--train)")
     p.add_argument("--npoints", type=int, default=1024)
@@ -224,9 +284,10 @@ def main(argv=None) -> None:
     a = p.parse_args(argv)
     if a.train:
         out = profile_train_step(a.batch or 30, a.npoints, a.batches, a.compute_dtype, a.seed,
-                                 a.head_type, text_route=a.text_route)
+                                 a.head_type, text_route=a.text_route, model_name=a.model)
     else:
-        out = profile_step(a.batch or 32, a.npoints, a.batches, a.compute_dtype, a.seed)
+        out = profile_step(a.batch or 32, a.npoints, a.batches, a.compute_dtype, a.seed,
+                           model_name=a.model)
     print(json.dumps(out))
 
 

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from ppt_torch.nn.pointbert import PointBertConfig
+from ppt_torch.nn.pointnext import PointNextConfig
 from ppt_torch.nn.text import TextConfig
 from ppt_torch.tasks import cls, fewshot
 from ppt_torch.tasks.args import TaskArgs, parse_args
@@ -121,8 +122,10 @@ def test_training_flags_parse():
     (dict(optim="lamb"), NotImplementedError, "lamb"),
     (dict(sched="multistep"), NotImplementedError, "multistep"),
     (dict(task="partseg"), NotImplementedError, "partseg"),
-    (dict(model="ULIP_PN_NEXT"), KeyError, "ULIP_PN_NEXT"),
+    (dict(model="ULIP_PN_MLP"), KeyError, "ULIP_PN_MLP"),
     (dict(use_height=True), NotImplementedError, "use_height"),
+    (dict(use_height=True, model="ULIP_PN_SSG"), NotImplementedError, "ULIP_PN_SSG takes xyz"),
+    (dict(use_height=True, model="ULIP_PN_MSG"), NotImplementedError, "ULIP_PN_MSG takes xyz"),
 ])
 def test_what_the_slice_leaves_out_raises_by_name(tmp_path, kw, exc, match):
     with pytest.raises(exc, match=match):
@@ -144,3 +147,49 @@ def test_non_finite_loss_stops_training(tmp_path):
         ctx["model"].logit_scale.fill_(float("nan"))
     with pytest.raises(FloatingPointError, match="non-finite loss at epoch 0"):
         cls.train_loop(args, ctx)
+
+
+def _next_args(out, **kw):
+    """ULIP_PN_NEXT, the S plan at full width on 64 points (4 points reach
+    the last stage), head dropout as published."""
+    args = _args(out, model="ULIP_PN_NEXT", npoints=64, **kw)
+    args.pointnext_config = PointNextConfig(in_channels=4 if args.use_height else 3)
+    return args
+
+
+def test_use_height_trains_and_evaluates_pn_next_through_cls_main(tmp_path):
+    """``--model ULIP_PN_NEXT --use_height`` end to end on the CPU: the
+    height rides through ``train_augment`` and ``validate`` as a 4th
+    channel, the stem is 4 wide, an epoch trains and a checkpoint loads."""
+    result = cls.main(_next_args(tmp_path, use_height=True, epochs=1))
+    (entry,) = result["history"]
+    assert entry["loss"] > 0 and 0.0 <= entry["val_acc1"] <= 100.0
+    run = tmp_path / "cls"
+    ev = cls.main(_next_args(tmp_path, use_height=True, evaluate_3d=True,
+                             test_ckpt_addr=str(run)))
+    assert ev["best_acc"] == entry["val_acc1"]
+    ctx = cls.setup(_next_args(tmp_path, use_height=True))
+    assert tuple(ctx["model"].point_encoder.stem.kernel.shape) == (4, 32)
+    # without the flag the stem follows the 3-channel input, as the reference's does
+    ctx3 = cls.setup(_next_args(tmp_path))
+    assert tuple(ctx3["model"].point_encoder.stem.kernel.shape) == (3, 32)
+    assert 0.0 <= cls.main(_next_args(tmp_path, evaluate_3d=True))["best_acc"] <= 100.0
+
+
+def test_fewshot_passes_use_height_on(tmp_path):
+    result = fewshot.main(_next_args(tmp_path, use_height=True, epochs=1))
+    assert len(result["history"]) == 1
+
+
+@pytest.mark.parametrize("model", ["ULIP_PN_NEXT", "ULIP_PN_SSG", "ULIP_PN_MSG"])
+def test_head_type_3_on_a_ball_query_tower_trains_the_prompt_only(tmp_path, model):
+    """The PointAdapter leaves are ``block_11``'s: these towers have none, so
+    every head type trains the prompt alone, as in the reference."""
+    from ppt_torch.models.ulip import build_model, trainable_mask
+
+    args = _args(tmp_path, model=model)
+    net = build_model(model, args, device="cpu").model
+    for head_type in (0, 1, 2, 3):
+        mask = trainable_mask(net, head_type=head_type)
+        assert [k for k, v in mask.items() if v] == ["prompt_learner.learnable_tokens"]
+    assert not any("block_11" in k for k in mask)

@@ -89,3 +89,55 @@ def test_geometry_ops_match_reference():
     got = tgeo.knn_point(5, torch.from_numpy(dst), torch.from_numpy(src)).numpy()
     want = np.asarray(ops.knn_point(5, jnp.asarray(dst), jnp.asarray(src)))
     np.testing.assert_array_equal(got, want)
+
+
+def _lattice(B, N, seed):
+    """Coordinates on a 1/64 lattice: squared distances are exact in f32 in
+    the expanded form and in the exact-difference form alike, and none of
+    the radii used here squares to a multiple of 1/4096."""
+    return (np.random.RandomState(seed).randint(0, 65, (B, N, 3)) / 64.0).astype(np.float32)
+
+
+@pytest.mark.parametrize("radius,K", [(0.2, 8), (0.05, 6), (0.7, 40)])
+def test_query_ball_point_matches_reference(radius, K):
+    xyz = np.random.RandomState(K).rand(2, 120, 3).astype(np.float32)
+    q = xyz[:, ::5]
+    got = tgeo.query_ball_point(radius, K, torch.from_numpy(xyz), torch.from_numpy(q))
+    want = np.asarray(ops.query_ball_point(radius, K, jnp.asarray(xyz), jnp.asarray(q)))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    far = np.full((2, 3, 3), 9.0, np.float32)  # no hit: the clamped sentinel
+    got = tgeo.query_ball_point(radius, K, torch.from_numpy(xyz), torch.from_numpy(far))
+    assert (got == 119).all()
+    idx = np.random.RandomState(1).randint(0, 120, (2, 7, 3)).astype(np.int32)
+    np.testing.assert_array_equal(
+        tgeo.group_points(torch.from_numpy(xyz), torch.from_numpy(idx)).numpy(),
+        np.asarray(ops.group_points(jnp.asarray(xyz), jnp.asarray(idx))))
+
+
+@pytest.mark.parametrize("with_points", [True, False])
+def test_sample_and_group_matches_reference(with_points):
+    """Through the kernels' wrappers (their plain versions here) against the
+    reference's CPU path, on lattice clouds where the two distance forms
+    agree exactly."""
+    xyz = _lattice(2, 150, 3)
+    pts = np.random.RandomState(4).randn(2, 150, 5).astype(np.float32) if with_points else None
+    new_xyz, new_points = tgeo.sample_and_group(
+        16, 0.3, 9, torch.from_numpy(xyz), None if pts is None else torch.from_numpy(pts))
+    want_xyz, want_points = ops.sample_and_group(
+        16, 0.3, 9, jnp.asarray(xyz), None if pts is None else jnp.asarray(pts))
+    np.testing.assert_array_equal(new_xyz.numpy(), np.asarray(want_xyz))
+    assert new_points.shape == (2, 16, 9, 8 if with_points else 3)
+    np.testing.assert_array_equal(new_points.numpy(), np.asarray(want_points))
+
+
+def test_sample_and_group_all_matches_reference():
+    xyz = _lattice(2, 20, 5)
+    pts = np.random.RandomState(6).randn(2, 20, 4).astype(np.float32)
+    for p in (pts, None):
+        new_xyz, grouped = tgeo.sample_and_group_all(
+            torch.from_numpy(xyz), None if p is None else torch.from_numpy(p))
+        want_xyz, want = ops.sample_and_group_all(
+            jnp.asarray(xyz), None if p is None else jnp.asarray(p))
+        np.testing.assert_array_equal(new_xyz.numpy(), np.asarray(want_xyz))
+        np.testing.assert_array_equal(grouped.numpy(), np.asarray(want))

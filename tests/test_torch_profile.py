@@ -30,6 +30,11 @@ def test_busy_us_is_the_union_of_intervals(intervals, want):
     ("void text::ln_vjp_kernel<float>(float const*)", "text: LayerNorm backward"),
     ("void text::attn_bwd_kernel<__nv_bfloat16>(__nv_bfloat16 const*)",
      "text: attention backward"),
+    ("ball_query_kernel(float const*, float const*, int, int, int, float, int*, float*)",
+     "ball_query_gather"),
+    ("ball_query_feats_kernel(float const*, float const*, char const*, int)",
+     "ball_query_gather_feats"),
+    ("ball_query_rank_kernel(float const*, float const*, int, int)", "ball_query_gather_v2"),
 ])
 def test_part_of_maps_kernel_names(name, part):
     assert profile.part_of(name) == part
@@ -41,3 +46,19 @@ def test_profile_refuses_without_a_card(monkeypatch):
         profile.profile_step(batch=2, npoints=64, batches=1)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         profile.profile_train_step(batch=2, npoints=64, batches=1)
+
+
+def test_model_flag_and_tower_sections(monkeypatch):
+    """``--model`` picks the tower (PointNeXt-S with its height channel) and
+    the tower's time is summed by child module, the head's layers together."""
+    assert profile.takes_height("ULIP_PN_NEXT") and not profile.takes_height("ULIP_PN_SSG")
+    assert [profile.tower_section(n) for n in ("stem", "stage1_sa", "stage5_global", "head_fc0",
+                                                "head_bn1", "sa2", "head")] == [
+        "stem", "stage1_sa", "stage5_global", "head", "head", "sa2", "head"]
+    seen = {}
+    monkeypatch.setattr(profile, "profile_step",
+                        lambda *a, **kw: seen.update(kw, batch=a[0]) or {})
+    profile.main(["--model", "ULIP_PN_NEXT", "--batch", "128"])
+    assert seen == {"model_name": "ULIP_PN_NEXT", "batch": 128}
+    with pytest.raises(SystemExit):
+        profile.main(["--model", "ULIP_PN_MLP"])  # not ported: not a choice

@@ -99,6 +99,53 @@ def test_ulip_eval_logits_match_jax(monkeypatch):
     np.testing.assert_array_equal(logits.argmax(-1).numpy(), want_logits.argmax(-1))
 
 
+@pytest.mark.parametrize("name,channels,npoints", [
+    ("ULIP_PN_NEXT", 4, 64), ("ULIP_PN_SSG", 3, 560), ("ULIP_PN_MSG", 3, 560)])
+def test_ulip_eval_logits_match_jax_for_the_ball_query_towers(name, channels, npoints):
+    """The three new factories at their full widths (PointNeXt-S on 64
+    points with the height channel; PointNet++ needs 512 centres), tiny
+    text tower, weights through ``from_jax``, clouds on a 1/64 lattice so
+    that both packages pick the same neighbours
+    (``test_torch_pointnet2.py``). f32: logits within 1e-4 of their scale,
+    as for PointBERT above."""
+    from ppt_tpu.models import PromptArrays as JaxPrompts
+    from ppt_tpu.models import build_model as jax_build
+    from ppt_tpu.nn import TextConfig as JaxTextConfig
+    from ppt_tpu.prompt import build_prompt_spec as jax_spec
+    from ppt_tpu.train.trainer import make_cached_text_eval as jax_cached_eval
+
+    from test_torch_pointnet2 import lattice_cloud, randomise_bn
+
+    rng = np.random.RandomState(1)
+    pc = lattice_cloud(2, npoints, 2, channels=channels)
+    jargs = TaskArgs(num_learnable_prompt_tokens=4)
+    jargs.text_config = JaxTextConfig(**TEXT)
+    jmodel = jax_build(name, jargs).model
+    jprompts = JaxPrompts.from_spec(jax_spec(CLASSES, n_ctx=4, class_name_position="middle"))
+    variables = jmodel.init(jax.random.PRNGKey(0), jnp.asarray(pc[:1]), jprompts)
+    params = jax.tree_util.tree_map(np.asarray, variables["params"])
+    stats = jax.tree_util.tree_map(np.asarray, variables["batch_stats"])
+    randomise_bn(params["point_encoder"], stats["point_encoder"], rng)
+    embed_fn, step_fn = jax_cached_eval(jmodel)
+    state = _State(trainable=params, frozen={}, batch_stats=stats)
+    want = np.asarray(step_fn(state, {"pc": jnp.asarray(pc)}, embed_fn(state, jprompts)))
+
+    args = TaskArgs(num_learnable_prompt_tokens=4, class_name_position="middle",
+                    use_height=channels == 4)
+    args.text_config = TextConfig(**TEXT)
+    spec = build_model(name, args, device="cpu")
+    assert spec.pc_feat_dims == 256 and spec.name == name
+    model = spec.model
+    model.load_state_dict(from_jax(params, stats, model))
+    prompts = PromptArrays.from_spec(
+        build_prompt_spec(CLASSES, n_ctx=4, class_name_position="middle"), device="cpu")
+    embed_fn, step_fn = make_cached_text_eval(model)
+    logits = step_fn(model, {"pc": torch.from_numpy(pc)}, embed_fn(model, prompts))
+    scale = float(np.max(np.abs(want)))
+    assert np.max(np.abs(logits.numpy() - want)) <= 1e-4 * scale
+    np.testing.assert_array_equal(logits.argmax(-1).numpy(), want.argmax(-1))
+
+
 def test_cls_main_evaluate_3d_on_cpu():
     from ppt_torch.tasks import cls
 
@@ -182,8 +229,9 @@ def test_default_device_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device()
-    with pytest.raises(RuntimeError):
-        build_model("ULIP_PointBERT", _tiny_args())
+    for name in ("ULIP_PointBERT", "ULIP_PN_NEXT", "ULIP_PN_SSG", "ULIP_PN_MSG"):
+        with pytest.raises(RuntimeError):
+            build_model(name, _tiny_args())
     with pytest.raises(RuntimeError):
         PromptArrays.from_spec(build_prompt_spec(CLASSES, n_ctx=4))
     assert resolve_device("cpu") == torch.device("cpu")
