@@ -1,8 +1,9 @@
 """H100 smoke run of the PyTorch port: build every kernel, hold each
 against its plain PyTorch version on the card, time it, then drive the
 full-width ULIP-PointBERT recognition inference path, the prompt-tuning
-train path, both again with the text tower on its fused routes, and the
-ball-query towers (PointNeXt-S, PointNet++ SSG and MSG).
+train path, both again with the text tower on its fused routes, the
+ball-query towers (PointNeXt-S, PointNet++ SSG and MSG), and PointBERT's
+other trunk routes with the long-sequence trunk.
 
     python3 chip_smoke.py            # one CUDA card, no arguments
 
@@ -30,7 +31,19 @@ Phases (any failed check raises, and the script exits non-zero):
      coordinates within 1e-6, v2 identical to ball_query_gather bit for
      bit, two runs identical; fps_batched against fps_plain at each stage
      of the cascade, and it must raise on a shape it does not take; the
-     library time is mask + topk + gather;
+     library time is mask + topk + gather. fps_batched and knn_gather also
+     at the long trunk's N=8192 with 1024 centres. fused_mha (q, k, v as
+     views of one qkv product, as the unfused block hands them over) at
+     B=2 x L=33 x 2 heads x 32, and at B=30 and 32 x 513 x 6 x 64;
+     flash_mha's kernel at L=65 (one valid key in the last tile), L=1025
+     and D=128, and at the long trunk's 32 x 1025 x 6 x 64;
+     fused_vit_tower at B=2 x L=33 x C=64, depth 3 and at 30 (the train
+     path's batch; checked only) and 32 x 513 x 384, depth 12, with
+     DropPath scales (a zero among them): the same limits, repeats
+     bit-identical, the tower
+     identical to its chain of block launches; the block's own attention
+     identical to fused_mha on the block's qkv product (one header, one
+     implementation). The tower's library time is 12 SDPA blocks + LN;
   4. the recognition path at full width (ULIP-PointBERT, bf16, B=32,
      N=1024, 40 ModelNet40 class names, 32 prompt tokens "middle",
      weights from a seed): passes of ModelNet40's test-set size (2468
@@ -82,6 +95,21 @@ Phases (any failed check raises, and the script exits non-zero):
      phase 5's limits), then one window of 20 steps whose frozen leaves
      stay bit-unchanged and whose BatchNorm buffers move. Its numbers go on
      a line of their own ({"ballquery": ...}).
+  8. PointBERT's trunk routes through ``cls.setup`` with the reference's
+     switches set as a user sets them: ``PPT_FUSED_VIT_TOWER=1`` (route
+     "tower") and ``PPT_FUSED_BLOCK=0`` ("unfused"): a warm-up, then 3
+     ``validate`` passes over 2468 clouds at B=32 (median/min/max
+     clouds/sec, launches per pass: 78 fused_vit_tower, 936 fused_mha),
+     logits against the plain path on the card (phase 4's limits), the
+     tower's logits identical to the default route's; one pass with
+     ``PPT_FORCE_XLA_ATTN=1`` ("plain", no trunk kernel launched); per
+     route a head_type 0 bf16 step and head_type 3 steps in f32 and bf16
+     against the plain path (phase 5's limits) and a window of 20 steps.
+     Then the long-sequence trunk (PPT-Base's widths, 1024 groups: L=1025,
+     N=8192, B=32, bf16) served through ``ulip_customized`` and
+     ``validate``: clouds/sec, 12 flash_mha launches per batch, logits
+     against the plain path in bf16 and f32. Its numbers go on a line of
+     their own ({"routes": ...}).
 
 The line before the card's is a JSON object with the per-kernel numbers.
 Each ``launches`` there is a counter read after a driven run, or a sum of
@@ -116,12 +144,14 @@ from ppt_torch.data.augment import append_height, train_augment  # noqa: E402
 from ppt_torch.data.datasets import ArrayDataset, make_synthetic  # noqa: E402
 from ppt_torch.data.loader import Loader  # noqa: E402
 from ppt_torch.kernels import _build  # noqa: E402
+from ppt_torch.kernels import attention as kattn  # noqa: E402
 from ppt_torch.kernels import group as kgroup  # noqa: E402
 from ppt_torch.kernels import mini as kmini  # noqa: E402
 from ppt_torch.kernels import textblock as ktextblock  # noqa: E402
 from ppt_torch.kernels import texttower as ktower  # noqa: E402
 from ppt_torch.kernels import vitblock as kvit  # noqa: E402
-from ppt_torch.models.ulip import PromptArrays, build_model  # noqa: E402
+from ppt_torch.models.ulip import (PromptArrays, build_model, init_weights,  # noqa: E402
+                                   ulip_customized)
 from ppt_torch.nn import pointbert as npb  # noqa: E402
 from ppt_torch.nn import text as ntext  # noqa: E402
 from ppt_torch.prompt.learner import build_prompt_spec  # noqa: E402
@@ -141,7 +171,7 @@ DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 # (batch 30; checked only) and the shape the inference path gives it (batch
 # 32; checked and timed). mini_stats runs on the train path alone.
 GROUP_SHAPES = ((2, 256, 32, 8, "small"), (30, 1024, 512, 32, "train"),
-                (32, 1024, 512, 32, "slice"))  # B, N, G, K
+                (32, 1024, 512, 32, "slice"), (32, 8192, 1024, 32, "long"))  # B, N, G, K
 MINI_SHAPES = ((1, 7, 20, "small"), (30, 512, 32, "train"),
                (32, 512, 32, "slice"))  # B, G, M (small: padded groups)
 STATS_SHAPES = ((1, 7, 20, "small"), (30, 512, 32, "slice"))
@@ -161,11 +191,22 @@ SOURCES = {
     "ball_query_gather": ("ppt_torch/csrc/group.cu", "ppt_tpu/kernels/group.py:769"),
     "ball_query_gather_feats": ("ppt_torch/csrc/group.cu", "ppt_tpu/kernels/group.py:832"),
     "ball_query_gather_v2": ("ppt_torch/csrc/group.cu", "ppt_tpu/kernels/group.py:421"),
+    "fused_mha": ("ppt_torch/csrc/attention.cu", "ppt_tpu/kernels/attention.py:178"),
+    "flash_mha": ("ppt_torch/csrc/attention.cu", "ppt_tpu/kernels/attention.py:245"),
+    "fused_vit_tower": ("ppt_torch/csrc/vitblock.cu", "ppt_tpu/kernels/vitblock.py:476"),
 }
+# B, L, heads, head dim
+MHA_SHAPES = ((2, 33, 2, 32, "small"), (30, 513, 6, 64, "train"), (32, 513, 6, 64, "slice"))
+FLASH_SHAPES = ((2, 65, 2, 32, "tail1"), (1, 1025, 6, 64, "L1025"), (2, 130, 2, 128, "d128"),
+                (32, 1025, 6, 64, "slice"))
+TOWER_SHAPES = ((2, 33, 64, 2, 3, "small"), (30, 513, 384, 6, 12, "train"),
+                (32, 513, 384, 6, 12, "slice"))  # B, L, C, H, depth
 TEXT_KERNELS = ("fused_text_block", "fused_text_tower", "fused_text_tower_bwd")
 BALL_KERNELS = ("ball_query_gather", "ball_query_gather_feats", "ball_query_gather_v2")
-# the PointBERT tower's kernels (phases 4 to 6)
-POINT_KERNELS = tuple(k for k in SOURCES if k not in TEXT_KERNELS + BALL_KERNELS)
+# the kernels of PointBERT's other trunk routes (phase 8)
+ROUTE_KERNELS = ("fused_mha", "flash_mha", "fused_vit_tower")
+# the PointBERT tower's kernels on its default route (phases 4 to 6)
+POINT_KERNELS = tuple(k for k in SOURCES if k not in TEXT_KERNELS + BALL_KERNELS + ROUTE_KERNELS)
 # ball_query_gather_v2 is the second formulation of ball_query_gather: no module
 # calls it (nor does the reference call its own), so no driven path launches it
 OFF_PATH_KERNELS = ("ball_query_gather_v2",)
@@ -436,6 +477,171 @@ def check_block(results):
                     lambda: kvit.vit_block_readout_plain(x, pos, dp, *w, *lnf, H)),
                 bound_ms=bms, bound_by=by,
                 library_ms=gpu_time_ms(lambda: block_library(x, pos, dp, w, H, lnf)))
+
+
+def qkv_views(B, L, H, D, dt, seed):
+    """q, k, v [B, L, H, D] as the unfused block hands them over: column
+    views of one [B, L, 3HD] product, no copies."""
+    g = torch.Generator().manual_seed(seed)
+    qkv = (torch.randn(B, L, 3 * H * D, generator=g) * 0.5).to(DEV).to(dt)
+    return tuple(t.reshape(B, L, H, D) for t in qkv.split(H * D, dim=-1))
+
+
+def sdpa(q, k, v):
+    """The library call for the same function, [B, L, H, D] in and out."""
+    return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                          v.transpose(1, 2)).transpose(1, 2)
+
+
+def attention_bound(B, L, H, D, dt):
+    """Two products of 2 B H L^2 D operations; q, k, v read, out written."""
+    return bound_ms(4 * B * L * H * D * (2 if dt == torch.bfloat16 else 4),
+                    4 * B * H * L * L * D, PEAK["bf16" if dt == torch.bfloat16 else "f32"])
+
+
+def check_attention(results):
+    """fused_mha and flash_mha's kernel against their plain versions."""
+    for B, L, H, D, tag in MHA_SHAPES:
+        for dname, dt in DTYPES.items():
+            q, k, v = qkv_views(B, L, H, D, dt, L + D)
+            got = kattn._mha_run(q, k, v)
+            again = kattn._mha_run(q, k, v)
+            dense = kattn._mha_run(q.contiguous(), k.contiguous(), v.contiguous())
+            want = kattn.mha_plain(q, k, v)
+            torch.cuda.synchronize()
+            err = rel_err(got, want)
+            same = torch.equal(got, again) and torch.equal(got, dense)
+            print(f"[kernel] fused_mha {tag} {dname} B={B} L={L} H={H} D={D}: max rel err "
+                  f"{err:.3e} (tol {TOL[dname]}); repeats and contiguous inputs bit-identical "
+                  f"{same}")
+            check(torch.isfinite(got.float()).all(), "fused_mha non-finite")
+            check(err <= TOL[dname], f"fused_mha {tag} {dname} error {err}")
+            check(same, f"fused_mha {tag} {dname} differs between runs or layouts")
+            if tag != "slice":
+                continue
+            if dname == "f32":
+                mha_f32_ms = gpu_time_ms(lambda: kattn._mha_run(q, k, v))
+                continue
+            bms, by = attention_bound(B, L, H, D, dt)
+            results["fused_mha"] = dict(
+                max_abs_err=float((got.float() - want.float()).abs().max()),
+                ms=gpu_time_ms(lambda: kattn._mha_run(q, k, v)),
+                plain_ms=gpu_time_ms(lambda: kattn.mha_plain(q, k, v)),
+                bound_ms=bms, bound_by=by, library_ms=gpu_time_ms(lambda: sdpa(q, k, v)),
+                f32_ms=mha_f32_ms)
+
+    for B, L, H, D, tag in FLASH_SHAPES:
+        for dname, dt in DTYPES.items():
+            q, k, v = qkv_views(B, L, H, D, dt, L + D)
+            got = kattn._flash_run(q, k, v)
+            again = kattn._flash_run(q, k, v)
+            want = kattn.flash_plain(q, k, v)
+            torch.cuda.synchronize()
+            err = rel_err(got, want)
+            same = torch.equal(got, again)
+            print(f"[kernel] flash_mha {tag} {dname} B={B} L={L} H={H} D={D}: max rel err "
+                  f"{err:.3e} (tol {TOL[dname]}); repeats bit-identical {same}")
+            check(torch.isfinite(got.float()).all(), "flash_mha non-finite")
+            check(err <= TOL[dname], f"flash_mha {tag} {dname} error {err}")
+            check(same, f"flash_mha {tag} {dname} differs between two runs")
+            if tag != "slice":
+                continue
+            if dname == "f32":
+                flash_f32_ms = gpu_time_ms(lambda: kattn._flash_run(q, k, v))
+                continue
+            bms, by = attention_bound(B, L, H, D, dt)
+            results["flash_mha"] = dict(
+                max_abs_err=float((got.float() - want.float()).abs().max()),
+                ms=gpu_time_ms(lambda: kattn._flash_run(q, k, v)),
+                plain_ms=gpu_time_ms(lambda: kattn.flash_plain(q, k, v), reps=3, warmup=1),
+                bound_ms=bms, bound_by=by, library_ms=gpu_time_ms(lambda: sdpa(q, k, v)),
+                f32_ms=flash_f32_ms,
+                whole_row_ms=gpu_time_ms(lambda: kattn._mha_run(q, k, v)))
+
+    # the block's attention is fused_mha's kernel on the block's own qkv product
+    for B, L, C, H, tag in BLOCK_SHAPES:
+        for dname, dt in DTYPES.items():
+            x, pos, dp, w, _ = block_inputs(B, L, C, dt, L + 1)
+            sc = {}
+            kvit._launch(x, pos, dp, w, None, H, "fused_vit_block", scratch=sc)
+            q, k, v = (t.reshape(B, L, H, C // H) for t in sc["qkv"].reshape(B, L, 3 * C)
+                       .split(C, dim=-1))
+            alone = kattn._mha_run(q, k, v)
+            torch.cuda.synchronize()
+            same = torch.equal(alone.reshape(B * L, C), sc["attn"])
+            print(f"[kernel] fused_vit_block {tag} {dname}: its attention output equals "
+                  f"fused_mha on its qkv product bit for bit: {same}")
+            check(same, f"the block's attention and fused_mha differ at {tag} {dname}")
+
+
+def tower_inputs(B, L, C, depth, dt, seed):
+    """x, pos, DropPath scales [B, depth, 2] (block 0 kept, a zero among
+    the rest), the stacked weights and the final LN, from a seed."""
+    g = torch.Generator().manual_seed(seed)
+    per_block = [block_inputs(B, L, C, dt, seed + 1 + i) for i in range(depth)]
+    x, pos, _, _, lnf = per_block[0]
+    keep = 1.0 - torch.linspace(0.0, 0.1, depth)[None, :, None]
+    dp = ((torch.rand(B, depth, 2, generator=g) < keep).float() / keep).to(DEV)
+    dp[0, -1, 0] = 0.0
+    stacked = [torch.stack(ws) for ws in zip(*(blk[3] for blk in per_block))]
+    return x, pos, dp, stacked, lnf
+
+
+def tower_library(x, pos, dp, stacked, lnf, heads):
+    depth = stacked[0].shape[0]
+    for i in range(depth - 1):
+        x = block_library(x, pos, dp[:, i], [t[i] for t in stacked], heads)
+    return block_library(x, pos, dp[:, -1], [t[-1] for t in stacked], heads, lnf)
+
+
+def tower_chain(x, pos, dp, stacked, lnf, heads):
+    """The same trunk as launches of the block kernels, one per block."""
+    depth = stacked[0].shape[0]
+    for i in range(depth - 1):
+        x = kvit._block_run(x, pos, dp[:, i], *[t[i] for t in stacked], heads)
+    return kvit._block_readout_run(x, pos, dp[:, -1], *[t[-1] for t in stacked], *lnf, heads)
+
+
+def check_tower(results):
+    for B, L, C, H, depth, tag in TOWER_SHAPES:
+        for dname, dt in DTYPES.items():
+            x, pos, dp, w, lnf = tower_inputs(B, L, C, depth, dt, L + depth)
+            got = kvit._tower_run(x, pos, dp, *w, *lnf, H)
+            again = kvit._tower_run(x, pos, dp, *w, *lnf, H)
+            chain = tower_chain(x, pos, dp, w, lnf, H)
+            want = kvit.vit_tower_plain(x, pos, dp, *w, *lnf, H)
+            torch.cuda.synchronize()
+            err = rel_err(got, want)
+            same, as_chain = torch.equal(got, again), torch.equal(got, chain)
+            print(f"[kernel] fused_vit_tower {tag} {dname} B={B} L={L} C={C} H={H} depth "
+                  f"{depth}: max rel err {err:.3e} (tol {TOL[dname]}); repeats bit-identical "
+                  f"{same}; equal to the chain of {depth} block launches bit for bit {as_chain}")
+            check(torch.isfinite(got).all(), "fused_vit_tower non-finite")
+            check(err <= TOL[dname], f"fused_vit_tower {tag} {dname} error {err}")
+            check(same and as_chain, f"fused_vit_tower {tag} {dname} differs from a repeat or "
+                                     f"from the block chain")
+            check(bool((got[:, 2:] == 0).all()), "tower readout rows 2..7 not zero")
+            if tag != "slice":
+                continue
+            if dname == "f32":
+                tower_f32_ms = gpu_time_ms(lambda: kvit._tower_run(x, pos, dp, *w, *lnf, H),
+                                           reps=3, warmup=1)
+                continue
+            rows, hid = B * L, 4 * C
+            ops = depth * (2 * rows * (C * 3 * C + C * C + 2 * C * hid) + 4 * B * L * L * C) \
+                + 8 * rows * C
+            wbytes = 2 * (C * 3 * C + C * C + 2 * C * hid) + 4 * (7 * C + hid)
+            bms, by = bound_ms(2 * rows * C * 2 + B * depth * 2 * 4 + depth * wbytes
+                               + 4 * 2 * C + B * 8 * C * 4, ops, PEAK["bf16"])
+            results["fused_vit_tower"] = dict(
+                max_abs_err=float((got - want).abs().max()),
+                ms=gpu_time_ms(lambda: kvit._tower_run(x, pos, dp, *w, *lnf, H)),
+                plain_ms=gpu_time_ms(lambda: kvit.vit_tower_plain(x, pos, dp, *w, *lnf, H),
+                                     reps=3, warmup=1),
+                bound_ms=bms, bound_by=by,
+                library_ms=gpu_time_ms(lambda: tower_library(x, pos, dp, w, lnf, H)),
+                chain_ms=gpu_time_ms(lambda: tower_chain(x, pos, dp, w, lnf, H)),
+                f32_ms=tower_f32_ms)
 
 
 def mn40_prompts():
@@ -805,6 +1011,9 @@ def plain_path():
              npb.fused_vit_block_readout, npb.mini_stats)
     saved_text = (ktextblock._block_run, ktower.tower_forward, ktower.tower_backward)
     saved_ball = (kgroup.ball_query_gather, kgroup._ball_feats_run)
+    saved_route = (kattn._mha_run, kattn._flash_run, kvit._tower_run)
+    kattn._mha_run, kattn._flash_run = kattn.mha_plain, kattn.flash_plain
+    kvit._tower_run = kvit.vit_tower_plain
     kgroup.ball_query_gather = kgroup.ball_query_gather_plain
     kgroup._ball_feats_run = kgroup.ball_query_gather_feats_plain
     ktextblock._block_run = ktextblock.text_block_plain
@@ -825,6 +1034,7 @@ def plain_path():
          npb.fused_vit_block_readout, npb.mini_stats) = saved
         ktextblock._block_run, ktower.tower_forward, ktower.tower_backward = saved_text
         kgroup.ball_query_gather, kgroup._ball_feats_run = saved_ball
+        kattn._mha_run, kattn._flash_run, kvit._tower_run = saved_route
 
 
 MN40_TEST_CLOUDS = 2468  # ModelNet40's test split
@@ -969,13 +1179,19 @@ TEXT_SWITCHES = {"off": {}, "block": {"PPT_FUSED_TEXT": "1"},
                  "tower": {"PPT_FUSED_TEXT_TOWER": "1"}}
 
 
+POINT_SWITCHES = {"block": {}, "tower": {"PPT_FUSED_VIT_TOWER": "1"},
+                  "unfused": {"PPT_FUSED_BLOCK": "0"}, "plain": {"PPT_FORCE_XLA_ATTN": "1"}}
+
+
 @contextlib.contextmanager
-def text_route(route):
+def switches(settings):
     """The reference's switches set as a user's shell would set them, for
-    the ``cls.setup`` calls inside."""
-    keys = ("PPT_FUSED_TEXT", "PPT_FUSED_TEXT_TOWER")
+    the ``cls.setup`` calls inside; every other switch of the text tower or
+    the trunk unset."""
+    keys = ("PPT_FUSED_TEXT", "PPT_FUSED_TEXT_TOWER", "PPT_FORCE_XLA_ATTN", "PPT_FUSED_BLOCK",
+            "PPT_FUSED_VIT_TOWER")
     saved = {k: os.environ.pop(k, None) for k in keys}
-    os.environ.update(TEXT_SWITCHES[route])
+    os.environ.update(settings)
     try:
         yield
     finally:
@@ -985,19 +1201,22 @@ def text_route(route):
                 os.environ[k] = saved[k]
 
 
-def setup_with_route(args, route):
-    with text_route(route):
+def setup_with_route(args, route, point="block"):
+    with switches({**TEXT_SWITCHES[route], **POINT_SWITCHES[point]}):
         ctx = cls.setup(args)
     check(ctx["model"].text.fused == route, f"setup did not take the text route {route}")
+    if args.model == "ULIP_PointBERT":
+        check(ctx["model"].point_encoder.route == point,
+              f"setup did not take the point route {point}")
     return ctx
 
 
 def compare_with_plain(dtype, head_type, batch_size, tol_loss, tol_grad, tol_stats, route="off",
-                       **model_kw):
+                       point="block", **model_kw):
     """One step through the kernels against the same step through their
     plain versions on the card; returns the worst relative differences."""
     args = train_args(dtype, head_type, batch_size, **model_kw)
-    ctx = setup_with_route(args, route)
+    ctx = setup_with_route(args, route, point)
     b = cls.device_batch(next(iter(Loader(ctx["train_ds"], batch_size, shuffle=True, seed=3))),
                          DEV)
     if args.use_height:
@@ -1008,7 +1227,8 @@ def compare_with_plain(dtype, head_type, batch_size, tol_loss, tol_grad, tol_sta
     d_loss = abs(loss - loss_p) / abs(loss_p)
     d_grad = {k: rel_err(grads[k], grads_p[k]) for k in grads}
     d_stats = max(rel_err(stats[k], stats_p[k]) for k in stats)
-    tag = f"{args.model} {dtype} head_type {head_type} B={batch_size} text route {route}"
+    tag = (f"{args.model} {dtype} head_type {head_type} B={batch_size} text route {route} "
+           f"point route {point}")
     print(f"[train] one step vs plain path on the card ({tag}): loss {loss:.6f} vs "
           f"{loss_p:.6f} (rel {d_loss:.3e}, tol {tol_loss}); BN buffers max rel "
           f"{d_stats:.3e} (tol {tol_stats}); gradient max rel per leaf (tol {tol_grad}): "
@@ -1549,6 +1769,166 @@ def _run_ballquery_slice(passes, steps):
     return ball_launches, out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: PointBERT's other trunk routes and the long-sequence trunk
+# ---------------------------------------------------------------------------
+
+LONG_NPOINTS, LONG_GROUPS = 8192, 1024  # PointTransformer_8192point.yaml's npoints; L = 1025
+TRUNK_KERNELS = ("fused_vit_block", "fused_vit_block_readout") + ROUTE_KERNELS
+
+
+def eval_args(dtype="bfloat16", batch=32, npoints=1024):
+    args = train_args(dtype, 0, batch, evaluate_3d=True)
+    args.npoints = npoints
+    return args
+
+
+def route_logits(ctx, batch, test_ds, plain):
+    embed_fn, step_fn = make_cached_text_eval(ctx["model"])
+    pc = torch.from_numpy(test_ds.points[:batch]).to(DEV)
+    text_embed = embed_fn(ctx["model"], ctx["prompts"])
+    with plain_path() if plain else contextlib.nullcontext():
+        return step_fn(ctx["model"], {"pc": pc}, text_embed)
+
+
+def logits_agree(tag, logits, want, dtype):
+    check(torch.isfinite(logits).all(), f"{tag} logits non-finite")
+    diff = float((logits - want).abs().max() / want.std())
+    top1 = float((logits.argmax(-1) == want.argmax(-1)).float().mean())
+    print(f"[routes] {tag} logits vs plain path on the card ({dtype}): max|diff|/std "
+          f"{diff:.3e}, top-1 agreement {top1:.3f}")
+    ok = diff <= 1e-3 and top1 >= 0.95 if dtype == "float32" else diff <= 0.25 and top1 >= 0.8
+    check(ok, f"{tag} {dtype} logits disagree with the plain path")
+    return {"diff_over_std": diff, "top1": top1}
+
+
+def route_passes(ctx, args, passes):
+    timed_passes(ctx, args, 1)  # warm-up (allocator, libraries)
+    walls, launches, val = timed_passes(ctx, args, passes)
+    rates = sorted(len(ctx["test_ds"]) / w for w in walls)
+    return {"clouds_per_sec": median(rates), "clouds_per_sec_min": rates[0],
+            "clouds_per_sec_max": rates[-1], "pass_ms": median(walls) * 1e3,
+            "launches_per_pass": launches, "acc1": val["acc1"]}
+
+
+def run_routes_slice(passes=3, steps=20):
+    saved_loader = pdata.DATASETS["modelnet40"]
+    pdata.DATASETS["modelnet40"] = synthetic_modelnet40_eval
+    try:
+        return _run_routes_slice(passes, steps)
+    finally:
+        pdata.DATASETS["modelnet40"] = saved_loader
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+
+
+def _run_routes_slice(passes, steps):
+    out, counted = {}, {}
+    block = setup_with_route(eval_args(), "off", "block")
+    depth = block["model"].point_encoder.config.depth
+    per_batch = {"tower": ("fused_vit_tower", 1), "unfused": ("fused_mha", depth)}
+    test_ds = block["test_ds"]
+    n_batches = math.ceil(len(test_ds) / 32)
+    block_logits = route_logits(block, 32, test_ds, plain=False)
+    for route, (kernel, n) in per_batch.items():
+        ctx = setup_with_route(eval_args(), "off", route)
+        r = route_passes(ctx, eval_args(), passes)
+        launches = r["launches_per_pass"]
+        print(f"[routes] route {route} ({POINT_SWITCHES[route]}), ULIP_PointBERT bf16 B=32: "
+              f"{passes} validate passes of {len(test_ds)} clouds, median "
+              f"{r['clouds_per_sec']:.1f} clouds/sec, min {r['clouds_per_sec_min']:.1f}, max "
+              f"{r['clouds_per_sec_max']:.1f}; kernel launches in one pass "
+              f"{json.dumps(launches, sort_keys=True)}")
+        check(launches.get(kernel, 0) == n * n_batches,
+              f"route {route} launches {n} {kernel} per batch: {launches}")
+        check(not any(launches.get(k) for k in TRUNK_KERNELS if k != kernel),
+              f"route {route} launched another trunk kernel: {launches}")
+        counted[kernel] = launches[kernel]
+        r["logits_vs_plain"] = {}
+        for dtype in ("float32", "bfloat16"):
+            dctx = ctx if dtype == "bfloat16" else setup_with_route(eval_args(dtype), "off", route)
+            got = route_logits(dctx, 32, test_ds, plain=False)
+            want = route_logits(dctx, 32, test_ds, plain=True)
+            r["logits_vs_plain"][dtype] = logits_agree(f"route {route}", got, want, dtype)
+        if route == "tower":
+            same = torch.equal(route_logits(ctx, 32, test_ds, plain=False), block_logits)
+            print(f"[routes] route tower: logits identical to the default route's: {same}")
+            check(same, "the tower route's logits differ from the block route's")
+        out[route] = r
+
+    # no trunk kernel at all with PPT_FORCE_XLA_ATTN
+    ctx = setup_with_route(eval_args(), "off", "plain")
+    walls, launches, _ = timed_passes(ctx, eval_args(), 1)
+    print(f"[routes] route plain ({POINT_SWITCHES['plain']}): one pass "
+          f"{len(test_ds) / walls[0]:.1f} clouds/sec; kernel launches "
+          f"{json.dumps(launches, sort_keys=True)}")
+    check(not any(launches.get(k) for k in TRUNK_KERNELS),
+          f"PPT_FORCE_XLA_ATTN launched a trunk kernel: {launches}")
+    out["plain"] = {"clouds_per_sec_one_pass": len(test_ds) / walls[0],
+                    "launches_per_pass": launches}
+
+    # the prompt-tuning step on each route
+    step_fn = make_train_step(smoothing=0.2)
+    for route, (kernel, n) in per_batch.items():
+        out[route]["train_vs_plain"] = {
+            "bf16": compare_with_plain("bfloat16", 0, TRAIN_BATCH, 5e-2, 0.25, 2e-2,
+                                       point=route),
+            "f32_head3": compare_with_plain("float32", 3, 8, 1e-4, 1e-4, 1e-4, point=route),
+            "bf16_head3": compare_with_plain("bfloat16", 3, 8, 5e-2, 0.25, 2e-2, point=route),
+        }
+        ctx = setup_with_route(train_args(), "off", route)
+        stream = batch_stream(Loader(ctx["train_ds"], TRAIN_BATCH, shuffle=True, drop_last=True,
+                                     seed=0))
+        losses = run_steps(ctx, step_fn, stream, 5)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        losses += run_steps(ctx, step_fn, stream, steps)
+        rate = steps * TRAIN_BATCH / (time.perf_counter() - t0)
+        per_step = {k: v / steps for k, v in sorted(_build.LAUNCHES.items())}
+        print(f"[routes] route {route} train, bf16 head_type 0 B={TRAIN_BATCH}: 5 warm-up steps, "
+              f"then {steps} steps (loss read every step): {rate:.1f} train clouds/sec "
+              f"({1e3 * TRAIN_BATCH / rate:.2f} ms per step); loss first {losses[0]:.4f}, last "
+              f"{losses[-1]:.4f}; kernel launches per step {json.dumps(per_step)}")
+        check(all(math.isfinite(x) for x in losses), f"non-finite loss on route {route}")
+        check(per_step.get(kernel) == n, f"route {route} step launches {n} {kernel}: {per_step}")
+        out[route]["train"] = {"train_clouds_per_sec": rate, "ms_per_step": 1e3 * TRAIN_BATCH / rate,
+                               "steps": steps, "loss_first_last": [losses[0], losses[-1]],
+                               "launches_per_step": per_step}
+
+    # the long-sequence trunk, served through ulip_customized
+    long_out = {}
+    long_ds = synthetic_modelnet40_eval(eval_args(npoints=LONG_NPOINTS), "test")
+    for dtype in ("bfloat16", "float32"):
+        args = eval_args(dtype, npoints=LONG_NPOINTS)
+        with switches({}):
+            route = cls.point_route_from_env()
+        dt = DTYPES["bf16" if dtype == "bfloat16" else "f32"]
+        cfg = npb.PointBertConfig(num_group=LONG_GROUPS)
+        spec = ulip_customized(args, npb.PointBert(cfg, dtype=dt, route=route), 2 * cfg.trans_dim)
+        model = init_weights(spec.model, args.seed).to(DEV).eval()
+        ctx = {"model": model, "prompts": mn40_prompts(), "test_ds": long_ds}
+        if dtype == "bfloat16":
+            r = route_passes(ctx, args, passes)
+            launches = r["launches_per_pass"]
+            print(f"[routes] long trunk (ULIP_CUSTOMIZED over PointBERT {cfg.trans_dim} x "
+                  f"{cfg.depth}, {cfg.num_group} groups, L={cfg.num_group + 1}) bf16 B=32 x "
+                  f"N={LONG_NPOINTS}: {passes} validate passes of "
+                  f"{len(ctx['test_ds'])} clouds, median {r['clouds_per_sec']:.1f} clouds/sec, "
+                  f"min {r['clouds_per_sec_min']:.1f}, max {r['clouds_per_sec_max']:.1f}; "
+                  f"kernel launches in one pass {json.dumps(launches, sort_keys=True)}")
+            check(launches.get("flash_mha", 0) == cfg.depth * n_batches,
+                  f"the long trunk launches {cfg.depth} flash_mha per batch: {launches}")
+            check(not any(launches.get(k) for k in TRUNK_KERNELS if k != "flash_mha"),
+                  f"the long trunk launched another trunk kernel: {launches}")
+            counted["flash_mha"] = launches["flash_mha"]
+            long_out.update(r, batch=32, npoints=LONG_NPOINTS, num_group=LONG_GROUPS, tokens=1025)
+            long_out["logits_vs_plain"] = {}
+        got = route_logits(ctx, 32, ctx["test_ds"], plain=False)
+        want = route_logits(ctx, 32, ctx["test_ds"], plain=True)
+        long_out["logits_vs_plain"][dtype] = logits_agree("long trunk", got, want, dtype)
+    out["long_trunk"] = long_out
+    return counted, out
+
+
 def main():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1573,6 +1953,8 @@ def main():
     check_mini(results)
     check_mini_stats(results)
     check_block(results)
+    check_attention(results)
+    check_tower(results)
     check_text(results)
     check_ballquery(results)
     launches, slice_stats = run_slice()
@@ -1586,6 +1968,8 @@ def main():
     ball_stats["fps_by_shape"] = results.pop("fps_by_shape")
     ball_stats["ball_query_gather_feats_other_dtype"] = results.pop(
         "ball_query_gather_feats_other_dtype")
+    route_launches, route_stats = run_routes_slice()
+    launches.update(route_launches)  # the other trunk routes' own kernels
     for name in SOURCES:
         if name in OFF_PATH_KERNELS:
             check(launches.get(name, 0) == 0, f"{name} is called by no module, yet was launched")
@@ -1605,6 +1989,7 @@ def main():
     print(json.dumps({"text": text_stats}))
     print(json.dumps({"train": train_stats}))
     print(json.dumps({"ballquery": ball_stats}))
+    print(json.dumps({"routes": route_stats}))
     print(json.dumps({"kernels": kernels, **slice_stats}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

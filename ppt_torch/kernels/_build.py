@@ -4,7 +4,7 @@ Each ``ppt_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a``
 into its own shared library with a plain C ABI under ``build/kernels/``
 at the repository root (listed in ``.gitignore``), and loaded with
 ``ctypes``. A library is built at first use and rebuilt when its source
-or ``common.cuh`` is newer than it. :func:`build_all` starts one ``nvcc``
+or a shared header (``csrc/*.cuh``) is newer than it. :func:`build_all` starts one ``nvcc``
 per source, all at once.
 
 Nothing here runs at import time: the CPU tests import every module and
@@ -27,7 +27,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build" / "kernels"
-SOURCES = ("group", "mini", "text", "vitblock")
+SOURCES = ("attention", "group", "mini", "text", "vitblock")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 # Launch counts per kernel entry point: each wrapper adds one where it
@@ -63,7 +63,7 @@ def _stale(name: str) -> bool:
     lib = _lib_path(name)
     if not lib.exists():
         return True
-    newest = max((CSRC / f"{name}.cu").stat().st_mtime, (CSRC / "common.cuh").stat().st_mtime)
+    newest = max(p.stat().st_mtime for p in [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")])
     return lib.stat().st_mtime < newest
 
 

@@ -1,9 +1,10 @@
-"""PointBERT ViT block (and block + trunk readout) on hand-written kernels.
+"""PointBERT ViT block, block + trunk readout, and the whole trunk on
+hand-written kernels.
 
-Replaces ``ppt_tpu/kernels/vitblock.py:fused_vit_block`` and
-``:fused_vit_block_readout``; the CUDA side is ``csrc/vitblock.cu``,
-whose header says what bounds it on the H100 and how its design answers
-that.
+Replaces ``ppt_tpu/kernels/vitblock.py:fused_vit_block``,
+``:fused_vit_block_readout`` and ``:fused_vit_tower``; the CUDA side is
+``csrc/vitblock.cu``, whose header says what bounds it on the H100 and how
+its design answers that.
 
 Semantics (``vitblock.py:66-125``), in the compute dtype of ``x`` with
 f32 accumulation: x0 = x + pos; LN1 with f32 statistics (fast variance,
@@ -12,12 +13,16 @@ to dtype before P@V and the f32 accumulator divided by the f32
 denominator; proj; droppath-scaled residual; LN2; MLP with tanh-GELU;
 residual. The readout variant adds the final f32 LayerNorm and returns
 ``[B, 8, C]`` f32 rows: row 0 the normalised cls token, row 1 the
-lanewise max over the point tokens, rows 2..7 zero.
+lanewise max over the point tokens, rows 2..7 zero. The tower runs
+``depth`` blocks on stacked weights, per-sample droppath scales ``[B,
+depth, 2]``, then the readout: on the card one C entry point walks the
+block's launches over the depth, so its output equals the block chain's
+bit for bit.
 
-Neither kernel has a backward kernel in the reference
-(``vitblock.py:398-400``, ``:551-553``); both public functions carry the
-gradient of their plain version (``_autograd.py``), which is what trains
-``block_11`` under head types 1 to 3.
+No kernel here has a backward kernel in the reference
+(``vitblock.py:398-400``, ``:499-501``, ``:551-553``); each public function
+carries the gradient of its plain version (``_autograd.py``), which is what
+trains ``block_11`` under head types 1 to 3.
 """
 
 from __future__ import annotations
@@ -96,15 +101,23 @@ def vit_block_readout_plain(
     return readout_plain(x2, lnfs, lnfb)
 
 
-def _launch(x, pos, dp, weights, lnf, heads, name):
-    B, L, C = x.shape
+def vit_tower_plain(
+    x, pos, dp, ln1s, ln1b, wqkv, wproj, bproj, ln2s, ln2b, wfc1, bfc1, wfc2, bfc2,
+    lnfs, lnfb, heads,
+) -> torch.Tensor:
+    """``_vit_tower_twin``: ``depth`` plain blocks on the stacked weights
+    (leading depth axis), dp ``[B, depth, 2]``, then the readout ->
+    ``[B, 8, C]`` f32."""
+    for i in range(wqkv.shape[0]):
+        x = vit_block_plain(x, pos, dp[:, i], ln1s[i], ln1b[i], wqkv[i], wproj[i], bproj[i],
+                            ln2s[i], ln2b[i], wfc1[i], bfc1[i], wfc2[i], bfc2[i], heads)
+    return readout_plain(x, lnfs, lnfb)
+
+
+def _check_shapes(name, dt, B, L, C, heads, hid):
     if C % heads or C > 1024:
         raise ValueError(f"{name}: C={C} must split into {heads} heads and be <= 1024")
     d = C // heads
-    dt = x.dtype
-    code = _build.dtype_code(name, dt)
-    ln1s, ln1b, wqkv, wproj, bproj, ln2s, ln2b, wfc1, bfc1, wfc2, bfc2 = weights
-    hid = wfc1.shape[1]
     if dt == torch.bfloat16:  # tensor-core tiles
         if d not in (32, 64, 128) or C % 32 or hid % 32:
             raise ValueError(f"{name}: bf16 needs head dim 32, 64 or 128 (got {d}) and C, "
@@ -114,6 +127,18 @@ def _launch(x, pos, dp, weights, lnf, heads, name):
             raise ValueError(f"{name}: head dim {d} must be a multiple of 8 and <= 128")
         if 4 * (32 * d + 64 * (d + 1) + 32 * L + 32) > 227 * 1024:
             raise ValueError(f"{name}: L={L} too long for whole-row attention tiles")
+
+
+def _launch(x, pos, dp, weights, lnf, heads, name, scratch=None):
+    """One block launch. ``scratch``: a dict that receives the block's
+    intermediates by name (x0, xn, qkv, attn, x1, h1), for a check that
+    reads them."""
+    B, L, C = x.shape
+    dt = x.dtype
+    code = _build.dtype_code(name, dt)
+    ln1s, ln1b, wqkv, wproj, bproj, ln2s, ln2b, wfc1, bfc1, wfc2, bfc2 = weights
+    hid = wfc1.shape[1]
+    _check_shapes(name, dt, B, L, C, heads, hid)
     x = x.contiguous()
     pos = pos.to(dt).contiguous()
     dp = dp.float().contiguous()
@@ -129,6 +154,8 @@ def _launch(x, pos, dp, weights, lnf, heads, name):
         return torch.empty(rows, n, dtype=dt, device=x.device)
 
     x0, xn, qkv, attn, x1, h1, out = buf(C), buf(C), buf(3 * C), buf(C), buf(C), buf(hid), buf(C)
+    if scratch is not None:
+        scratch.update(x0=x0, xn=xn, qkv=qkv, attn=attn, x1=x1, h1=h1)
     ro = torch.empty(B, 8, C, dtype=torch.float32, device=x.device) if readout else None
     lib = _build.load("vitblock")
     lib.ppt_vit_block.argtypes = (
@@ -184,3 +211,57 @@ def fused_vit_block_readout(
     return recompute_grad(_block_readout_run, vit_block_readout_plain, x, pos, dp, ln1s, ln1b,
                           wqkv, wproj, bproj, ln2s, ln2b, wfc1, bfc1, wfc2, bfc2, lnfs, lnfb,
                           heads)
+
+
+def _tower_run(
+    x, pos, dp, ln1s, ln1b, wqkv, wproj, bproj, ln2s, ln2b, wfc1, bfc1, wfc2, bfc2,
+    lnfs, lnfb, heads,
+) -> torch.Tensor:
+    args = (x, pos, dp, ln1s, ln1b, wqkv, wproj, bproj, ln2s, ln2b, wfc1, bfc1, wfc2, bfc2,
+            lnfs, lnfb)
+    if x.device.type == "cpu":
+        return vit_tower_plain(*args, heads)
+    name = "fused_vit_tower"
+    B, L, C = x.shape
+    dt = x.dtype
+    code = _build.dtype_code(name, dt)
+    depth, hid = wfc1.shape[0], wfc1.shape[2]
+    if depth < 1 or tuple(dp.shape) != (B, depth, 2):
+        raise ValueError(f"{name}: dp {tuple(dp.shape)} must be [B, depth, 2] = "
+                         f"[{B}, {depth}, 2]")
+    _check_shapes(name, dt, B, L, C, heads, hid)
+    x = x.contiguous()
+    pos = pos.to(dt).contiguous()
+    dp_t = dp.float().transpose(0, 1).contiguous()  # [depth, B, 2]: one [B, 2] slab per block
+    mats = [w.to(dt).contiguous() for w in (wqkv, wproj, wfc1, wfc2)]
+    f32 = [t.float().contiguous() for t in (ln1s, ln1b, bproj, ln2s, ln2b, bfc1, bfc2, lnfs,
+                                            lnfb)]
+    _build.check_tensors(name, x, pos, dp_t, *mats, *f32)
+    rows = B * L
+    ws = torch.empty(rows * (9 * C + hid), dtype=dt, device=x.device)
+    ro = torch.empty(B, 8, C, dtype=torch.float32, device=x.device)
+    lib = _build.load("vitblock")
+    lib.ppt_vit_tower.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 16
+    )
+    p = _build.ptr
+    rc = lib.ppt_vit_tower(
+        code, p(x), p(pos), p(dp_t), B, L, C, heads, hid, depth,
+        p(f32[0]), p(f32[1]), p(mats[0]), p(mats[1]), p(f32[2]), p(f32[3]), p(f32[4]),
+        p(mats[2]), p(f32[5]), p(mats[3]), p(f32[6]), p(f32[7]), p(f32[8]),
+        p(ws), p(ro), _build.stream_ptr(x),
+    )
+    _build.check(lib, rc, name)
+    _build.LAUNCHES[name] += 1
+    return ro
+
+
+def fused_vit_tower(
+    x, pos, dp, ln1s, ln1b, wqkv, wproj, bproj, ln2s, ln2b, wfc1, bfc1, wfc2, bfc2,
+    lnfs, lnfb, heads,
+) -> torch.Tensor:
+    """The whole trunk + readout: x/pos [B, L, C], dp [B, depth, 2] f32,
+    weights stacked with a leading depth axis -> [B, 8, C] f32.
+    Differentiable: the backward recomputes ``vit_tower_plain``."""
+    return recompute_grad(_tower_run, vit_tower_plain, x, pos, dp, ln1s, ln1b, wqkv, wproj,
+                          bproj, ln2s, ln2b, wfc1, bfc1, wfc2, bfc2, lnfs, lnfb, heads)

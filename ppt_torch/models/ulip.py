@@ -1,7 +1,8 @@
 """The ULIP composite: point encoder + prompt-tuned CLIP text tower.
 
 Counterpart of ``ppt_tpu/models/ulip.py`` with four of its point towers:
-PointBERT, PointNet++ SSG and MSG, PointNeXt-S. Forward contract
+PointBERT, PointNet++ SSG and MSG, PointNeXt-S, and the template factory
+``ulip_customized`` for a caller's own tower. Forward contract
 (classification)::
 
     pc_embed   = point_encoder(pc) @ pc_projection                 # [B, E]
@@ -153,13 +154,16 @@ def _xyz_only(name: str, args) -> None:
 
 def ulip_pointbert(args, text_fused: str = "off") -> ModelSpec:
     """ULIP-PointBERT (PPT-Base). ``args.pointbert_config`` may override
-    the PointBERT config (tests shrink it); ``text_fused`` is the text
+    the PointBERT config (tests shrink it) and ``args.point_route`` the
+    trunk's route (``nn/pointbert.py``, "block" without it; ``cls.setup``
+    sets it from the reference's switches); ``text_fused`` is the text
     tower's route (``nn/text.py``)."""
     _xyz_only("ULIP_PointBERT", args)
     dt = resolve_dtype(getattr(args, "compute_dtype", "float32"))
     cfg = getattr(args, "pointbert_config", None) or PointBertConfig()
-    return _make("ULIP_PointBERT", PointBert(cfg, dtype=dt), 2 * cfg.trans_dim, args, dt,
-                 text_fused)
+    route = getattr(args, "point_route", "block")
+    return _make("ULIP_PointBERT", PointBert(cfg, dtype=dt, route=route), 2 * cfg.trans_dim,
+                 args, dt, text_fused)
 
 
 def ulip_pn_ssg(args, text_fused: str = "off") -> ModelSpec:
@@ -186,6 +190,18 @@ def ulip_pn_next(args, text_fused: str = "off") -> ModelSpec:
         in_channels=4 if getattr(args, "use_height", False) else 3)
     return _make("ULIP_PN_NEXT", PointNext(cfg, dtype=dt), cfg.head_mlps[-1], args, dt,
                  text_fused)
+
+
+def ulip_customized(args, encoder: nn.Module, pc_feat_dims: int = 512,
+                    text_fused: str = "off") -> ModelSpec:
+    """Template factory for a caller's own point tower (``ULIP_CUSTOMIZED``,
+    ``ppt_tpu/models/ulip.py:232-241``): any module mapping ``(pc, train=,
+    generator=)`` to ``[B, pc_feat_dims]``. The encoder keeps the dtype it
+    was built with; ``args.compute_dtype`` sets the text tower's. The
+    weights are as constructed: draw them with ``init_weights`` and place
+    the model as ``build_model`` does."""
+    dt = resolve_dtype(getattr(args, "compute_dtype", "float32"))
+    return _make("ULIP_CUSTOMIZED", encoder, pc_feat_dims, args, dt, text_fused)
 
 
 MODEL_REGISTRY: Dict[str, Callable[..., ModelSpec]] = {

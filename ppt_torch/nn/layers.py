@@ -9,7 +9,7 @@ kernels take, so neither the weight bridge nor a kernel call transposes.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -154,3 +154,24 @@ class MlpBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(gelu_tanh(self.fc1(x)))
+
+
+class CastCache:
+    """Copies of frozen parameters in the form a kernel takes them (cast,
+    stacked), kept until a source parameter changes (an in-place write
+    bumps its ``_version``; ``.to(device)`` or a new storage changes its
+    pointer). The text and point towers keep one each."""
+
+    def __init__(self):
+        self._key = None
+        self._value = None
+
+    def get(self, params: List[torch.Tensor], dt: torch.dtype, build):
+        if torch.is_grad_enabled() and any(p.requires_grad for p in params):
+            return build()  # a training weight: stay in the autograd graph
+        key = (dt, tuple((p.data_ptr(), p._version) for p in params))
+        if key != self._key:
+            with torch.no_grad():
+                self._value = build()
+            self._key = key
+        return self._value

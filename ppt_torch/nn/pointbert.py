@@ -4,15 +4,28 @@ Counterpart of ``ppt_tpu/nn/pointbert.py``: grouping by the FPS + kNN
 kernels, the MiniPointNet group encoder with both BatchNorms folded into
 the fused kernel (running statistics in eval; batch statistics in
 training, BN1's from the input moments and BN2's from the ``mini_stats``
-kernel), and the ViT trunk on the fused block kernels with DropPath as
-per-sample branch scales, the last of which also emits the
-``[LN(cls), max-pool]`` readout. ``train`` is an explicit argument, not
-the module's mode: the frozen tower of prompt tuning still runs in
-training mode. Module and parameter names mirror the flax tree so that
-``ppt_torch.convert.from_jax`` maps every leaf one to one.
+kernel), and the ViT trunk with DropPath as per-sample branch scales on
+one of the reference's four routes, chosen by ``PointBert(route=...)``
+(``tasks/cls.py:point_route_from_env`` reads the reference's switches):
+
+- "block" (the default): the fused block kernel per block, the last one
+  also emitting the ``[LN(cls), max-pool]`` readout;
+- "tower": the whole trunk and readout in one ``fused_vit_tower`` call;
+- "unfused": LayerNorm, Dense, ``fused_mha`` and the MLP as modules;
+- "plain": the unfused block with the reference's kernel-free attention
+  (bf16 scores in bf16, ``nn/pointbert.py:269-276``; ``flash_mha``'s
+  plain path in f32).
+
+A trunk of ``FLASH_MIN_SEQ`` tokens or more takes the unfused block with
+``flash_mha`` on every route, as the reference's length guard has it
+(``nn/pointbert.py:269-278``, ``:328``, ``:448``). ``train`` is an
+explicit argument, not the module's mode: the frozen tower of prompt
+tuning still runs in training mode. Module and parameter names mirror the
+flax tree so that ``ppt_torch.convert.from_jax`` maps every leaf one to
+one.
 
 The position embedding is added before EVERY block (reference
-``point_encoder.py:98-110``), inside the block kernel.
+``point_encoder.py:98-110``), inside the block kernel on the fused routes.
 """
 
 from __future__ import annotations
@@ -24,11 +37,15 @@ import numpy as np
 import torch
 from torch import nn
 
+from ppt_torch.kernels.attention import FLASH_MIN_SEQ, flash_mha, fused_mha
 from ppt_torch.kernels.group import fused_group
 from ppt_torch.kernels.mini import mini_forward, mini_stats
-from ppt_torch.kernels.vitblock import fused_vit_block, fused_vit_block_readout
-from ppt_torch.nn.layers import (BatchNormStats, Dense, LayerNormF32, MlpBlock,
+from ppt_torch.kernels.vitblock import fused_vit_block, fused_vit_block_readout, fused_vit_tower
+from ppt_torch.nn.layers import (BatchNormStats, CastCache, Dense, LayerNormF32, MlpBlock,
                                  drop_path_scales, gelu_tanh)
+
+POINT_ROUTES = ("block", "tower", "unfused", "plain")
+
 
 @dataclasses.dataclass(frozen=True)
 class PointBertConfig:
@@ -105,20 +122,51 @@ class MiniPointNet(nn.Module):
         return out
 
 
+def bf16_score_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The reference's bf16 attention without kernels (``nn/pointbert.py:
+    269-276``), [B, L, H, D]: both products in bf16 with f32 accumulation,
+    as the bf16 einsums; scores stored in bf16, scaled by the bf16 scale,
+    and the softmax taken op by op in bf16, as ``jax.nn.softmax`` runs it."""
+    dt = q.dtype
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))  # [B, H, L, D]
+    s = (qh @ kh.transpose(-1, -2)) * torch.tensor(1.0 / q.shape[-1] ** 0.5, dtype=dt)
+    u = torch.exp(s - s.amax(-1, keepdim=True))
+    p = u / u.sum(-1, keepdim=True)
+    return (p @ vh).transpose(1, 2)
+
+
 class VitAttention(nn.Module):
-    """timm-style attention parameters: fused qkv without bias, proj with
-    bias (``point_encoder.py:33-58``)."""
+    """timm-style attention: fused qkv without bias, proj with bias
+    (``point_encoder.py:33-58``), for the unfused block (``nn/pointbert.py:
+    242-279``)."""
 
     def __init__(self, width: int, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.qkv = Dense(width, 3 * width, bias=False, dtype=dtype)
         self.proj = Dense(width, width, dtype=dtype)
 
+    def forward(self, x: torch.Tensor, heads: int, fused: bool) -> torch.Tensor:
+        """[B, L, C] -> [B, L, C]. q, k and v are views of the qkv product.
+        From ``FLASH_MIN_SEQ`` tokens on ``flash_mha``; else ``fused_mha``
+        with ``fused``, the reference's kernel-free attention without."""
+        B, L, C = x.shape
+        q, k, v = (t.reshape(B, L, heads, C // heads) for t in self.qkv(x).split(C, dim=-1))
+        if L >= FLASH_MIN_SEQ:
+            out = flash_mha(q, k, v)
+        elif fused:
+            out = fused_mha(q, k, v)
+        elif self.dtype == torch.bfloat16:
+            out = bf16_score_attention(q, k, v)
+        else:
+            out = flash_mha(q, k, v)  # below FLASH_MIN_SEQ: the plain path
+        return self.proj(out.reshape(B, L, C))
+
 
 class VitBlock(nn.Module):
-    """Pre-norm ViT block (``Block``, point_encoder.py:61-79) on the fused
-    block kernel. ``dp`` is the per-sample droppath branch scale
-    ``[B, 2]`` (all ones in eval, ``drop_path_scales`` in training)."""
+    """Pre-norm ViT block (``Block``, point_encoder.py:61-79). ``dp`` is the
+    per-sample droppath branch scale ``[B, 2]`` (all ones in eval,
+    ``drop_path_scales`` in training)."""
 
     def __init__(self, width: int, num_heads: int, mlp_ratio: float = 4.0,
                  dtype: torch.dtype = torch.float32):
@@ -143,10 +191,15 @@ class VitBlock(nn.Module):
 
     def forward(
         self, x: torch.Tensor, pos: torch.Tensor, dp: torch.Tensor,
-        readout_ln: Optional[LayerNormF32] = None,
+        readout_ln: Optional[LayerNormF32] = None, route: str = "block",
     ) -> torch.Tensor:
-        """[B, L, C] -> [B, L, C]; with ``readout_ln`` the block also runs
-        the trunk's final LayerNorm and returns the [B, 2C] f32 feature."""
+        """[B, L, C] -> [B, L, C]; on the "block" route one fused block
+        kernel, which with ``readout_ln`` also runs the trunk's final
+        LayerNorm and returns the [B, 2C] f32 feature. The "unfused" and
+        "plain" routes run the block as modules (``nn/pointbert.py:373-385``)
+        with ``VitAttention``'s ``fused_mha`` or kernel-free attention."""
+        if route != "block":
+            return self._unfused(x, pos, dp, fused_attn=route == "unfused")
         if readout_ln is None:
             return fused_vit_block(x, pos.to(x.dtype), dp, *self._weights(), self.num_heads)
         ro = fused_vit_block_readout(
@@ -155,16 +208,32 @@ class VitBlock(nn.Module):
         )  # [B, 8, C] f32
         return torch.cat([ro[:, 0], ro[:, 1]], dim=-1)
 
+    def _unfused(self, x, pos, dp, fused_attn: bool) -> torch.Tensor:
+        """x + pos, LN1 (f32 statistics, output in the compute dtype),
+        attention, the droppath-scaled residual, LN2, MLP, residual. A branch
+        is scaled in f32 and rounded once: the reference's ``x / keep``."""
+        dt = x.dtype
+        x = x + pos.to(dt)
+        h = self.attn(self.norm1(x), self.num_heads, fused_attn)
+        x = x + (h.float() * dp[:, 0, None, None]).to(dt)
+        h = self.mlp(self.norm2(x))
+        return x + (h.float() * dp[:, 1, None, None]).to(dt)
+
 
 class PointBert(nn.Module):
-    """PointTransformer classification trunk -> [B, 2 * trans_dim] f32."""
+    """PointTransformer classification trunk -> [B, 2 * trans_dim] f32, on
+    the trunk ``route`` (``POINT_ROUTES``)."""
 
     def __init__(self, config: PointBertConfig = PointBertConfig(),
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, route: str = "block"):
         super().__init__()
+        if route not in POINT_ROUTES:
+            raise ValueError(f"PointBert route {route!r} not in {POINT_ROUTES}")
         cfg = config
         self.config = cfg
         self.dtype = dtype
+        self.route = route
+        self._cache = CastCache()
         self.encoder = MiniPointNet(cfg.encoder_dims, dtype=dtype)
         self.reduce_dim = Dense(cfg.encoder_dims, cfg.trans_dim, dtype=dtype)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, cfg.trans_dim))
@@ -174,9 +243,24 @@ class PointBert(nn.Module):
         for i in range(cfg.depth):
             self.add_module(f"block_{i}", VitBlock(cfg.trans_dim, cfg.num_heads, dtype=dtype))
         self.norm = LayerNormF32(cfg.trans_dim, eps=1e-6)
+        # the tower cache's sources, listed once: walking the modules costs
+        # more host time per batch than the key itself (loading a state
+        # dict and .to() keep these Parameter objects)
+        self._block_params = [p for blk in self.blocks() for p in blk.parameters()]
 
     def blocks(self):
         return [getattr(self, f"block_{i}") for i in range(self.config.depth)]
+
+    def stacked_weights(self):
+        """The blocks' 11 weights on a leading depth axis, the matrices in
+        the compute dtype, as ``fused_vit_tower`` takes them; cast and
+        stacked once until a source parameter changes."""
+        blocks = self.blocks()
+
+        def build():
+            return [torch.stack(ws) for ws in zip(*(blk._weights() for blk in blocks))]
+
+        return self._cache.get(self._block_params, self.dtype, build)
 
     def forward(self, pts: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -191,8 +275,18 @@ class PointBert(nn.Module):
         x = torch.cat([self.cls_token.to(dt).expand(B, 1, -1), tokens], dim=1)
         pos = torch.cat([self.cls_pos.to(dt).expand(B, 1, -1), pos], dim=1)
         rates = np.linspace(0.0, cfg.drop_path_rate, cfg.depth).tolist()
+        route = self.route if x.shape[1] < FLASH_MIN_SEQ else "unfused"
         dp = drop_path_scales(rates, B, train, generator, x.device)
+        if route == "tower":
+            ro = fused_vit_tower(x, pos.to(dt), dp.transpose(0, 1), *self.stacked_weights(),
+                                 self.norm.weight, self.norm.bias, cfg.num_heads)  # [B, 8, C] f32
+            return torch.cat([ro[:, 0], ro[:, 1]], dim=-1)
         blocks = self.blocks()
-        for i, blk in enumerate(blocks[:-1]):
-            x = blk(x, pos, dp[i])
-        return blocks[-1](x, pos, dp[-1], readout_ln=self.norm)
+        if route == "block":
+            for i, blk in enumerate(blocks[:-1]):
+                x = blk(x, pos, dp[i])
+            return blocks[-1](x, pos, dp[-1], readout_ln=self.norm)
+        for i, blk in enumerate(blocks):
+            x = blk(x, pos, dp[i], route=route)
+        xn = self.norm(x.float())
+        return torch.cat([xn[:, 0], xn[:, 1:].amax(1)], dim=-1)

@@ -39,7 +39,7 @@ from torch import nn
 
 from ppt_torch.kernels.textblock import MATRICES, fused_text_block
 from ppt_torch.kernels.texttower import fused_text_tower
-from ppt_torch.nn.layers import Dense, LayerNormF32, quick_gelu
+from ppt_torch.nn.layers import CastCache, Dense, LayerNormF32, quick_gelu
 
 TEXT_ROUTES = ("off", "block", "tower")
 
@@ -82,26 +82,6 @@ class FusedQKVAttention(nn.Module):
         p = torch.softmax(s, dim=-1).to(v.dtype)
         out = (p.float() @ v.float()).to(x.dtype)
         return self.out_proj(out.transpose(1, 2).reshape(B, L, D))
-
-
-class _CastCache:
-    """Copies of frozen parameters in the form a kernel takes them, kept
-    until a source parameter changes (an in-place write bumps its
-    ``_version``; ``.to(device)`` or a new storage changes its pointer)."""
-
-    def __init__(self):
-        self._key = None
-        self._value = None
-
-    def get(self, params: List[torch.Tensor], dt: torch.dtype, build):
-        if torch.is_grad_enabled() and any(p.requires_grad for p in params):
-            return build()  # a training weight: stay in the autograd graph
-        key = (dt, tuple((p.data_ptr(), p._version) for p in params))
-        if key != self._key:
-            with torch.no_grad():
-                self._value = build()
-            self._key = key
-        return self._value
 
 
 class TextBlock(nn.Module):
@@ -161,7 +141,7 @@ class TextTransformer(nn.Module):
         self.config = cfg
         self.dtype = dtype
         self.fused = fused
-        self._cache = _CastCache()
+        self._cache = CastCache()
         self.token_embedding = nn.Embedding(cfg.vocab_size, cfg.width)
         self.positional_embedding = nn.Parameter(torch.zeros(cfg.context_length, cfg.width))
         for i in range(cfg.layers):

@@ -61,6 +61,23 @@ def text_route_from_env() -> str:
     return "off"
 
 
+def point_route_from_env() -> str:
+    """PointBERT's trunk route from the reference's own switches, with
+    their precedence (``ppt_tpu/nn/pointbert.py:259-263``, ``:325-332``,
+    ``:446-453``): ``PPT_FORCE_XLA_ATTN`` set to anything gives "plain" (no
+    trunk kernel), else ``PPT_FUSED_BLOCK`` other than "1" gives "unfused"
+    (modules with ``fused_mha``), else ``PPT_FUSED_VIT_TOWER=1`` gives
+    "tower", else "block" (the default, as on the TPU). A trunk of 1024
+    tokens or more takes ``flash_mha`` whatever this says."""
+    if os.environ.get("PPT_FORCE_XLA_ATTN"):
+        return "plain"
+    if os.environ.get("PPT_FUSED_BLOCK", "1") != "1":
+        return "unfused"
+    if os.environ.get("PPT_FUSED_VIT_TOWER", "0") == "1":
+        return "tower"
+    return "block"
+
+
 def setup(args: TaskArgs) -> Dict:
     """Datasets, prompts, model, trainable partition, schedule, optimizer
     and train state on ``args.device`` (the card if empty), shared by
@@ -80,7 +97,8 @@ def setup(args: TaskArgs) -> Dict:
     )
     prompts = PromptArrays.from_spec(spec, device=device)
     text_route = text_route_from_env()
-    log.info("text route: %s", text_route)
+    args.point_route = point_route_from_env()  # read by ulip_pointbert
+    log.info("text route: %s; point route: %s", text_route, args.point_route)
     model = build_model(args.model, args, device=device, text_fused=text_route).model
     if not args.evaluate_3d and args.pretrained_dir and os.path.isdir(args.pretrained_dir):
         raise NotImplementedError(

@@ -17,6 +17,9 @@ largest other kernels, and the text kernels by template instantiation
 transposed, and its epilogue), and the point tower's time by module (CUDA
 events around each of its children: stem, SA stages, head; the library
 kernels of an SA layer's MLP cannot be told from the head's by name).
+``--point_route`` puts PointBERT's trunk on one of its routes and
+``--num_group`` sets its group count (1024 with ``--npoints 8192`` is the
+long-sequence trunk: 1025 tokens, every route on ``flash_mha``).
 ``--train`` adds the step's sections (CUDA events
 around augmentation, point tower, text tower forward + loss, backward,
 optimizer; each includes the gaps in which the device waits for the host).
@@ -26,6 +29,8 @@ optimizer; each includes the gaps in which the device waits for the host).
     python -m ppt_torch.tools.profile --train [--batch 30] [--head_type 0] \
         [--text_route off|block|tower]
     python -m ppt_torch.tools.profile --model ULIP_PN_NEXT --batch 128 [--train]
+    python -m ppt_torch.tools.profile --point_route tower|unfused|plain
+    python -m ppt_torch.tools.profile --num_group 1024 --npoints 8192   # the long trunk
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from ppt_torch.data.augment import append_height, train_augment
 from ppt_torch.data.datasets import make_synthetic
 from ppt_torch.models.losses import smoothed_cross_entropy
 from ppt_torch.models.ulip import MODEL_REGISTRY, PromptArrays, build_model, trainable_mask
+from ppt_torch.nn.pointbert import POINT_ROUTES, PointBertConfig
 from ppt_torch.nn.text import TEXT_ROUTES
 from ppt_torch.prompt.learner import build_prompt_spec
 from ppt_torch.tasks.args import TaskArgs
@@ -70,8 +76,11 @@ PARTS = (
     ("add_ln_kernel", "vit block: add + LayerNorm"),
     ("gemm_bf16_kernel", "vit block: GEMMs"),
     ("gemm_f32_kernel", "vit block: GEMMs"),
+    # the whole-row kernels serve the block and, on the "unfused" route, fused_mha
     ("attention_bf16_kernel", "vit block: attention"),
     ("attention_f32_kernel", "vit block: attention"),
+    ("flash_bf16_kernel", "flash_mha"),
+    ("flash_f32_kernel", "flash_mha"),
     ("readout_kernel", "vit block: readout"),
 )
 
@@ -101,11 +110,14 @@ def takes_height(model_name: str) -> bool:
     return model_name == "ULIP_PN_NEXT"
 
 
-def _setup(batch, npoints, compute_dtype, seed, text_route="off", model_name="ULIP_PointBERT"):
+def _setup(batch, npoints, compute_dtype, seed, text_route="off", model_name="ULIP_PointBERT",
+           point_route="block", num_group=512):
     dev = resolve_device(None)  # the card; no CPU fallback
     args = TaskArgs(npoints=npoints, batch_size=batch, num_learnable_prompt_tokens=32,
                     class_name_position="middle", compute_dtype=compute_dtype, seed=seed,
                     model=model_name, use_height=takes_height(model_name))
+    args.pointbert_config = PointBertConfig(num_group=num_group)
+    args.point_route = point_route
     classnames = args.load_classnames()
     prompts = PromptArrays.from_spec(
         build_prompt_spec(classnames, n_ctx=32, class_name_position="middle"), device=dev)
@@ -196,8 +208,10 @@ def _profile(step, batches: int) -> dict:
 
 def profile_step(batch: int = 32, npoints: int = 1024, batches: int = 5,
                  compute_dtype: str = "bfloat16", seed: int = 0,
-                 model_name: str = "ULIP_PointBERT") -> dict:
-    _, model, prompts, pc, _ = _setup(batch, npoints, compute_dtype, seed, model_name=model_name)
+                 model_name: str = "ULIP_PointBERT", point_route: str = "block",
+                 num_group: int = 512) -> dict:
+    _, model, prompts, pc, _ = _setup(batch, npoints, compute_dtype, seed, model_name=model_name,
+                                      point_route=point_route, num_group=num_group)
     embed_fn, step_fn = make_cached_text_eval(model)
     text_embed = embed_fn(model, prompts)
 
@@ -210,7 +224,7 @@ def profile_step(batch: int = 32, npoints: int = 1024, batches: int = 5,
     torch.cuda.synchronize()
     out = _profile(step, batches)
     return {"step": "eval", "model": model_name, "compute_dtype": compute_dtype, "batch": batch,
-            "npoints": npoints, **out,
+            "npoints": npoints, "point_route": point_route, "num_group": num_group, **out,
             "clouds_per_sec": batch / out["wall_ms_per_batch"] * 1e3,
             "tower_section_ms_per_batch": tower_sections_ms(model.point_encoder, step, batches)}
 
@@ -218,12 +232,13 @@ def profile_step(batch: int = 32, npoints: int = 1024, batches: int = 5,
 def profile_train_step(batch: int = 30, npoints: int = 1024, batches: int = 5,
                        compute_dtype: str = "bfloat16", seed: int = 0,
                        head_type: int = 0, smoothing: float = 0.2,
-                       text_route: str = "off", model_name: str = "ULIP_PointBERT") -> dict:
+                       text_route: str = "off", model_name: str = "ULIP_PointBERT",
+                       point_route: str = "block", num_group: int = 512) -> dict:
     """The published PPT-Base recipe's step (AdamW, cosine schedule over 250
     epochs of ModelNet40's 9843 // batch steps) on one synthetic batch, with
     the text tower on ``text_route`` ("off", "block" or "tower")."""
     _, model, prompts, pc, label = _setup(batch, npoints, compute_dtype, seed, text_route,
-                                          model_name)
+                                          model_name, point_route, num_group)
     height = takes_height(model_name)
     sched = build_schedule("cosine", 3e-3, 250, 9843 // batch, final_lr=1e-5, warmup_epochs=1,
                            warmup_start_lr=1e-6)
@@ -264,7 +279,8 @@ def profile_train_step(batch: int = 30, npoints: int = 1024, batches: int = 5,
         for i, name in enumerate(names):
             sums[name] += ev[i].elapsed_time(ev[i + 1])
     return {"step": "train", "model": model_name, "compute_dtype": compute_dtype, "batch": batch,
-            "npoints": npoints, "head_type": head_type, "text_route": text_route, **out,
+            "npoints": npoints, "head_type": head_type, "text_route": text_route,
+            "point_route": point_route, "num_group": num_group, **out,
             "clouds_per_sec": batch / out["wall_ms_per_batch"] * 1e3,
             "section_ms_per_batch": {k: sums[k] / batches for k in names}}
 
@@ -281,13 +297,18 @@ def main(argv=None) -> None:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--text_route", default="off", choices=TEXT_ROUTES,
                    help="the text tower's route for --train")
+    p.add_argument("--point_route", default="block", choices=POINT_ROUTES,
+                   help="PointBERT's trunk route")
+    p.add_argument("--num_group", type=int, default=512, help="PointBERT's group count")
     a = p.parse_args(argv)
     if a.train:
         out = profile_train_step(a.batch or 30, a.npoints, a.batches, a.compute_dtype, a.seed,
-                                 a.head_type, text_route=a.text_route, model_name=a.model)
+                                 a.head_type, text_route=a.text_route, model_name=a.model,
+                                 point_route=a.point_route, num_group=a.num_group)
     else:
         out = profile_step(a.batch or 32, a.npoints, a.batches, a.compute_dtype, a.seed,
-                           model_name=a.model)
+                           model_name=a.model, point_route=a.point_route,
+                           num_group=a.num_group)
     print(json.dumps(out))
 
 

@@ -35,6 +35,8 @@ def test_busy_us_is_the_union_of_intervals(intervals, want):
     ("ball_query_feats_kernel(float const*, float const*, char const*, int)",
      "ball_query_gather_feats"),
     ("ball_query_rank_kernel(float const*, float const*, int, int)", "ball_query_gather_v2"),
+    ("void flash_bf16_kernel<64>(__nv_bfloat16 const*)", "flash_mha"),
+    ("flash_f32_kernel(float const*, float const*)", "flash_mha"),
 ])
 def test_part_of_maps_kernel_names(name, part):
     assert profile.part_of(name) == part
@@ -59,6 +61,7 @@ def test_model_flag_and_tower_sections(monkeypatch):
     monkeypatch.setattr(profile, "profile_step",
                         lambda *a, **kw: seen.update(kw, batch=a[0]) or {})
     profile.main(["--model", "ULIP_PN_NEXT", "--batch", "128"])
-    assert seen == {"model_name": "ULIP_PN_NEXT", "batch": 128}
+    assert seen == {"model_name": "ULIP_PN_NEXT", "batch": 128, "point_route": "block",
+                    "num_group": 512}
     with pytest.raises(SystemExit):
         profile.main(["--model", "ULIP_PN_MLP"])  # not ported: not a choice
