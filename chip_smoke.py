@@ -2,8 +2,9 @@
 against its plain PyTorch version on the card, time it, then drive the
 full-width ULIP-PointBERT recognition inference path, the prompt-tuning
 train path, both again with the text tower on its fused routes, the
-ball-query towers (PointNeXt-S, PointNet++ SSG and MSG), and PointBERT's
-other trunk routes with the long-sequence trunk.
+ball-query towers (PointNeXt-S, PointNet++ SSG and MSG), PointBERT's
+other trunk routes with the long-sequence trunk, and training through the
+long trunk (prompt tuning at head types 3 and 2, ULIP pretraining).
 
     python3 chip_smoke.py            # one CUDA card, no arguments
 
@@ -36,7 +37,13 @@ Phases (any failed check raises, and the script exits non-zero):
      views of one qkv product, as the unfused block hands them over) at
      B=2 x L=33 x 2 heads x 32, and at B=30 and 32 x 513 x 6 x 64;
      flash_mha's kernel at L=65 (one valid key in the last tile), L=1025
-     and D=128, and at the long trunk's 32 x 1025 x 6 x 64;
+     and D=128, and at the long trunk's 32 x 1025 x 6 x 64; at the same
+     shapes flash_mha_bwd (di, dK/dV, dQ) against flash_bwd_plain on the
+     training forward's own output and lse, in f32 and bf16 with q, k, v as
+     views of one qkv product: dQ, dK, dV within 1e-4 (f32) and 5e-2 (bf16)
+     of the plain output's max, the lse within 1e-5 of flash_lse_plain, two
+     runs bit-identical; its library time is SDPA's forward plus backward,
+     its bound 10 B H L^2 D operations at the bf16 peak beside the bytes;
      fused_vit_tower at B=2 x L=33 x C=64, depth 3 and at 30 (the train
      path's batch; checked only) and 32 x 513 x 384, depth 12, with
      DropPath scales (a zero among them): the same limits, repeats
@@ -110,11 +117,34 @@ Phases (any failed check raises, and the script exits non-zero):
      ``validate``: clouds/sec, 12 flash_mha launches per batch, logits
      against the plain path in bf16 and f32. Its numbers go on a line of
      their own ({"routes": ...}).
+  9. training through the long-sequence trunk (PPT-Base's widths, 1024
+     groups, L=1025, N=8192, B=32, bf16, the text route off), built through
+     ``ulip_customized``: head types 3 and 2 (block_11's leaves before its
+     attention), each one step against the plain path on the card in f32
+     and bf16 (phase 5's limits: loss, gradients, BatchNorm buffers; one
+     flash_mha_bwd launch) and a window of 20 steps (train clouds/sec, 12
+     flash_mha and 1 flash_mha_bwd a step from the counters, frozen leaves
+     bit-unchanged); ULIP pretraining (``pretrain.make_pretrain_step``) on
+     the same trunk: one step against the plain path at B=8 in f32 and
+     bf16 (12 flash_mha_bwd launches; the group encoder's f32 gradient within
+     1e-2: its max-pools route a group's gradient to one of 32 points, whose
+     near-ties move with mini_stats' rounding; in bf16 the loss and the
+     BatchNorm buffers within phase 5's limits, and the gradients no farther
+     from the f32 step's than twice the plain bf16 step's, plus 1e-2: the
+     step's conditioning makes phase 5's per-leaf limit a measure of
+     rounding, not of the kernels), a fixed batch whose loss must
+     fall over 10 steps, a window of 20 steps (12 flash_mha_bwd a step, the text
+     tower bit-unchanged); then one epoch of ``pretrain.main`` on the
+     default trunk over the synthetic ShapeNet fallback (B=32 x N=8192,
+     every default-route kernel launched each step, the checkpoint read
+     back). Its numbers go on a line of their own ({"pretrain": ...}).
 
 The line before the card's is a JSON object with the per-kernel numbers.
 Each ``launches`` there is a counter read after a driven run, or a sum of
 such readings (``fused_text_tower`` adds its two variants' counters and
-lists them under ``launches_by_variant``);
+lists them under ``launches_by_variant``; ``flash_mha_bwd``'s is the
+pretraining window's, with the prompt-tuning windows' under
+``launches_by_path``);
 the last line is the contract line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -130,6 +160,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 if not torch.cuda.is_available():
@@ -151,16 +182,17 @@ from ppt_torch.kernels import textblock as ktextblock  # noqa: E402
 from ppt_torch.kernels import texttower as ktower  # noqa: E402
 from ppt_torch.kernels import vitblock as kvit  # noqa: E402
 from ppt_torch.models.ulip import (PromptArrays, build_model, init_weights,  # noqa: E402
-                                   ulip_customized)
+                                   trainable_mask, ulip_customized)
 from ppt_torch.nn import pointbert as npb  # noqa: E402
 from ppt_torch.nn import text as ntext  # noqa: E402
 from ppt_torch.prompt.learner import build_prompt_spec  # noqa: E402
-from ppt_torch.tasks import cls  # noqa: E402
+from ppt_torch.tasks import cls, pretrain  # noqa: E402
 from ppt_torch.tasks.args import TaskArgs  # noqa: E402
-from ppt_torch.models.losses import smoothed_cross_entropy  # noqa: E402
+from ppt_torch.models.losses import smoothed_cross_entropy, ulip_contrastive_loss  # noqa: E402
 from ppt_torch.train.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
 from ppt_torch.train.eval import make_cached_text_eval  # noqa: E402
-from ppt_torch.train.trainer import make_train_step  # noqa: E402
+from ppt_torch.train.optim import build_optimizer, build_schedule  # noqa: E402
+from ppt_torch.train.trainer import create_train_state, make_train_step  # noqa: E402
 
 DEV = torch.device("cuda")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -194,6 +226,8 @@ SOURCES = {
     "fused_mha": ("ppt_torch/csrc/attention.cu", "ppt_tpu/kernels/attention.py:178"),
     "flash_mha": ("ppt_torch/csrc/attention.cu", "ppt_tpu/kernels/attention.py:245"),
     "fused_vit_tower": ("ppt_torch/csrc/vitblock.cu", "ppt_tpu/kernels/vitblock.py:476"),
+    "flash_mha_bwd": ("ppt_torch/csrc/attention.cu",
+                      "jax/experimental/pallas/ops/tpu/flash_attention.py:941,1287"),
 }
 # B, L, heads, head dim
 MHA_SHAPES = ((2, 33, 2, 32, "small"), (30, 513, 6, 64, "train"), (32, 513, 6, 64, "slice"))
@@ -205,8 +239,11 @@ TEXT_KERNELS = ("fused_text_block", "fused_text_tower", "fused_text_tower_bwd")
 BALL_KERNELS = ("ball_query_gather", "ball_query_gather_feats", "ball_query_gather_v2")
 # the kernels of PointBERT's other trunk routes (phase 8)
 ROUTE_KERNELS = ("fused_mha", "flash_mha", "fused_vit_tower")
+# the kernels of training through the long trunk (phase 9)
+LONG_TRAIN_KERNELS = ("flash_mha_bwd",)
 # the PointBERT tower's kernels on its default route (phases 4 to 6)
-POINT_KERNELS = tuple(k for k in SOURCES if k not in TEXT_KERNELS + BALL_KERNELS + ROUTE_KERNELS)
+POINT_KERNELS = tuple(k for k in SOURCES
+                      if k not in TEXT_KERNELS + BALL_KERNELS + ROUTE_KERNELS + LONG_TRAIN_KERNELS)
 # ball_query_gather_v2 is the second formulation of ball_query_gather: no module
 # calls it (nor does the reference call its own), so no driven path launches it
 OFF_PATH_KERNELS = ("ball_query_gather_v2",)
@@ -572,6 +609,61 @@ def check_attention(results):
             print(f"[kernel] fused_vit_block {tag} {dname}: its attention output equals "
                   f"fused_mha on its qkv product bit for bit: {same}")
             check(same, f"the block's attention and fused_mha differ at {tag} {dname}")
+
+
+def sdpa_fwd_bwd(q, k, v, do):
+    """The library's forward plus backward at the same shape (a yardstick)."""
+    out = sdpa(q, k, v)
+    return torch.autograd.grad(out, (q, k, v), do)
+
+
+def check_flash_bwd(results):
+    """flash_mha's backward kernels against flash_bwd_plain, on the kernel
+    forward's own output and lse, and that lse against flash_lse_plain."""
+    for B, L, H, D, tag in FLASH_SHAPES:
+        for dname, dt in DTYPES.items():
+            q, k, v = qkv_views(B, L, H, D, dt, 7 * L + D)
+            g = torch.Generator().manual_seed(L + 3 * D)
+            do = torch.randn(B, L, H, D, generator=g).to(DEV).to(dt)
+            o, lse = kattn._flash_fwd(q, k, v)
+            got = kattn._flash_bwd(q, k, v, o, lse, do)
+            again = kattn._flash_bwd(q, k, v, o, lse, do)
+            want = kattn.flash_bwd_plain(q, k, v, o, lse, do)
+            lse_want = kattn.flash_lse_plain(q, k)
+            torch.cuda.synchronize()
+            errs = [rel_err(a, w) for a, w in zip(got, want)]
+            lse_err = float((lse - lse_want).abs().max())
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            print(f"[kernel] flash_mha_bwd {tag} {dname} B={B} L={L} H={H} D={D}: max rel err "
+                  f"dq/dk/dv {errs[0]:.3e} / {errs[1]:.3e} / {errs[2]:.3e} (tol "
+                  f"{TOL_TEXT_BWD[dname]}); forward lse max abs err {lse_err:.3e} (tol 1e-5); "
+                  f"repeats bit-identical {same}")
+            check(all(torch.isfinite(a.float()).all() for a in got), "flash_mha_bwd non-finite")
+            check(max(errs) <= TOL_TEXT_BWD[dname], f"flash_mha_bwd {tag} {dname} error {errs}")
+            check(lse_err <= 1e-5, f"flash_mha lse {tag} {dname} error {lse_err}")
+            check(same, f"flash_mha_bwd {tag} {dname} differs between two runs")
+            if tag != "slice":
+                continue
+            if dname == "f32":
+                bwd_f32_ms = gpu_time_ms(lambda: kattn._flash_bwd(q, k, v, o, lse, do))
+                continue
+            elt = 2
+            bms, by = bound_ms(8 * B * L * H * D * elt + 4 * B * H * L,
+                               10 * B * H * L * L * D, PEAK["bf16"])
+            leaves = [t.detach().clone().transpose(1, 2).requires_grad_(True) for t in (q, k, v)]
+            lq, lk, lv = (t.transpose(1, 2) for t in leaves)
+            results["flash_mha_bwd"] = dict(
+                max_abs_err=max(float((a.float() - w.float()).abs().max())
+                                for a, w in zip(got, want)),
+                ms=gpu_time_ms(lambda: kattn._flash_bwd(q, k, v, o, lse, do)),
+                plain_ms=gpu_time_ms(lambda: kattn.flash_bwd_plain(q, k, v, o, lse, do),
+                                     reps=3, warmup=1),
+                bound_ms=bms, bound_by=by,
+                library_ms=gpu_time_ms(lambda: sdpa_fwd_bwd(lq, lk, lv, do)),
+                library="scaled_dot_product_attention forward + backward",
+                fwd_bwd_ms=gpu_time_ms(
+                    lambda: kattn._flash_bwd(q, k, v, *kattn._flash_fwd(q, k, v), do)),
+                f32_ms=bwd_f32_ms, lse_max_abs_err=lse_err)
 
 
 def tower_inputs(B, L, C, depth, dt, seed):
@@ -1012,7 +1104,10 @@ def plain_path():
     saved_text = (ktextblock._block_run, ktower.tower_forward, ktower.tower_backward)
     saved_ball = (kgroup.ball_query_gather, kgroup._ball_feats_run)
     saved_route = (kattn._mha_run, kattn._flash_run, kvit._tower_run)
+    saved_flash = (kattn._flash_fwd, kattn._flash_bwd)
     kattn._mha_run, kattn._flash_run = kattn.mha_plain, kattn.flash_plain
+    kattn._flash_fwd = lambda q, k, v: (kattn.flash_plain(q, k, v), kattn.flash_lse_plain(q, k))
+    kattn._flash_bwd = kattn.flash_bwd_plain
     kvit._tower_run = kvit.vit_tower_plain
     kgroup.ball_query_gather = kgroup.ball_query_gather_plain
     kgroup._ball_feats_run = kgroup.ball_query_gather_feats_plain
@@ -1035,6 +1130,7 @@ def plain_path():
         ktextblock._block_run, ktower.tower_forward, ktower.tower_backward = saved_text
         kgroup.ball_query_gather, kgroup._ball_feats_run = saved_ball
         kattn._mha_run, kattn._flash_run, kvit._tower_run = saved_route
+        kattn._flash_fwd, kattn._flash_bwd = saved_flash
 
 
 MN40_TEST_CLOUDS = 2468  # ModelNet40's test split
@@ -1929,6 +2025,334 @@ def _run_routes_slice(passes, steps):
     return counted, out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: training through the long-sequence trunk
+# ---------------------------------------------------------------------------
+
+PRETRAIN_DIR = _build.BUILD_DIR.parent / "chip_smoke_pretrain"
+LONG_BATCH, PLAIN_PRETRAIN_BATCH = 32, 8
+TOL_STEP = {"float32": (1e-4, 1e-4, 1e-4), "bfloat16": (5e-2, 0.25, 2e-2)}  # phase 5's
+
+
+def long_trunk_model(dtype, drop_path_rate=0.1, seed=0):
+    """ULIP_CUSTOMIZED over PointBERT at PPT-Base's widths with 1024 groups
+    (L = 1025: every block on flash_mha), the text route off, weights from
+    a seed, on the card."""
+    args = eval_args(dtype, npoints=LONG_NPOINTS)
+    with switches({}):
+        route = cls.point_route_from_env()
+    cfg = npb.PointBertConfig(num_group=LONG_GROUPS, drop_path_rate=drop_path_rate)
+    encoder = npb.PointBert(cfg, dtype=DTYPES["bf16" if dtype == "bfloat16" else "f32"],
+                            route=route)
+    spec = ulip_customized(args, encoder, 2 * cfg.trans_dim)
+    return init_weights(spec.model, seed).to(DEV)
+
+
+def long_train_state(model, head_type=0, task="cls", lr=None):
+    """The published recipe's AdamW and cosine schedule (or a constant
+    ``lr``) on the partition that ``head_type`` / ``task`` trains."""
+    sched = (lambda s: lr) if lr is not None else build_schedule(
+        "cosine", 3e-3, 250, 9843 // LONG_BATCH, final_lr=1e-5, warmup_epochs=1,
+        warmup_start_lr=1e-6)
+    return create_train_state(model, trainable_mask(model, head_type=head_type, task=task),
+                              lambda tr: build_optimizer("adamw", tr.items(), sched), seed=1)
+
+
+def long_clouds(n=320):
+    """Synthetic clouds of 8192 points with ModelNet40's class names."""
+    names = TaskArgs(dataset_name="modelnet40").load_classnames()
+    return make_synthetic(num_classes=40, samples_per_class=n // 40, npoints=LONG_NPOINTS,
+                          seed=2, classnames=names)
+
+
+def rel_to_floor(got, want, floor):
+    """max |got - want| over max(max |want|, floor)."""
+    return float((got.float() - want.float()).abs().max()) / max(float(want.abs().max()), floor)
+
+
+def pretrain_quantities(model, state, pc, tokens, seed):
+    """Loss, gradients of the trainable leaves and the BatchNorm buffers of
+    one pretraining forward/backward (no optimizer step), the buffers put
+    back as they were."""
+    before = snapshot(state.batch_stats())
+    state.generator.manual_seed(seed)
+    pc_embed = model.encode_pc(pc, train=True, generator=state.generator)
+    out = ulip_contrastive_loss(pc_embed, model.encode_captions(tokens), None,
+                                         torch.exp(model.logit_scale))
+    names = list(state.trainable)
+    grads = dict(zip(names, torch.autograd.grad(out["loss"],
+                                                [state.trainable[k] for k in names])))
+    after = snapshot(state.batch_stats())
+    with torch.no_grad():
+        for k, v in state.batch_stats().items():
+            v.copy_(before[k])
+    torch.cuda.synchronize()
+    return float(out["loss"].detach()), grads, after
+
+
+# the group encoder's gradient in f32, pretraining only: a relative change
+# of 1e-6 in its BatchNorm sums (mini_stats' f32 sums over 262k rows differ
+# from the plain sums at about that level) moves the encoder's gradients by
+# 7e-4 to 2.6e-3 (measured on the CPU at B=8, 1024 groups): its max-pools
+# send each group's gradient to one of 32 points, whose near-ties flip
+TOL_ENCODER_F32 = 1e-2
+
+
+def step_vs_plain(tag, dtype, quantities, tol_encoder=None):
+    """``quantities()`` -> (loss, grads, stats) through the kernels and
+    through their plain versions on the card; phase 5's limits, and
+    ``tol_encoder`` for the group encoder's leaves when it trains. A leaf's
+    gradient error is taken against its largest entry, floored at 1e-3 of
+    the largest gradient of any leaf: a Dense bias just before a train-mode
+    BatchNorm has a gradient of rounding noise."""
+    tol_loss, tol_grad, tol_stats = TOL_STEP[dtype]
+    tol_encoder = tol_encoder or tol_grad
+    _build.reset_launches()
+    loss, grads, stats = quantities()
+    bwd = _build.LAUNCHES["flash_mha_bwd"]
+    with plain_path():
+        loss_p, grads_p, stats_p = quantities()
+    top = max(float(g.abs().max()) for g in grads_p.values())
+    d_loss = abs(loss - loss_p) / abs(loss_p)
+    d_grad = {k: rel_to_floor(grads[k], grads_p[k], 1e-3 * top) for k in grads}
+    d_stats = max(rel_err(stats[k], stats_p[k]) for k in stats)
+    enc = {k: v for k, v in d_grad.items() if k.startswith("point_encoder.encoder.")}
+    rest = {k: v for k, v in d_grad.items() if k not in enc}
+    worst = max(rest, key=rest.get)
+    worst_enc = max(enc, key=enc.get) if enc else None
+    print(f"[pretrain] {tag} {dtype}: one step vs plain path on the card: loss {loss:.6f} vs "
+          f"{loss_p:.6f} (rel {d_loss:.3e}, tol {tol_loss}); gradient max rel {rest[worst]:.3e} "
+          f"({worst}; {len(grads)} leaves; tol {tol_grad})"
+          + (f", group encoder {enc[worst_enc]:.3e} ({worst_enc}; tol {tol_encoder})"
+             if enc else "")
+          + f"; BN buffers max rel {d_stats:.3e} (tol {tol_stats}); flash_mha_bwd launches {bwd}")
+    check(math.isfinite(loss) and all(torch.isfinite(g).all() for g in grads.values()),
+          f"non-finite loss or gradient ({tag} {dtype})")
+    check(d_loss <= tol_loss, f"loss disagrees with the plain path ({tag} {dtype})")
+    check(rest[worst] <= tol_grad, f"gradients disagree with the plain path ({tag} {dtype})")
+    check(not enc or enc[worst_enc] <= tol_encoder,
+          f"the group encoder's gradients disagree with the plain path ({tag} {dtype})")
+    check(d_stats <= tol_stats, f"BN buffers disagree with the plain path ({tag} {dtype})")
+    return {"loss_rel": d_loss, "grad_rel": rest[worst],
+            "encoder_grad_rel": enc[worst_enc] if enc else None, "stats_rel": d_stats,
+            "flash_mha_bwd_launches": bwd}, grads
+
+
+def grad_dist(grads, ref):
+    """||grads - ref|| / ||ref|| over all leaves together, in f32."""
+    num = sum(float(((grads[k].float() - ref[k].float()) ** 2).sum()) for k in ref)
+    return math.sqrt(num / sum(float((ref[k].float() ** 2).sum()) for k in ref))
+
+
+# bf16 pretraining: a step's gradients against the f32 step's on the same
+# weights, the kernels' no farther than twice the plain path's, plus 1e-2.
+# The per-leaf limit of phase 5 measures the step's conditioning here, not
+# the kernels: a 2e-3 change of the BatchNorm sums alone (bf16's rounding)
+# moves the plain bf16 step's gradients by 0.48 (max over leaves, the group
+# encoder's aside) at B=8 and 0.19 at B=32 (measured on the CPU at 96 wide,
+# depth 4, 1024 groups): the group encoder's and the readout's max-pools
+# route gradients to near-tied points.
+BF16_PRETRAIN_FACTOR, BF16_PRETRAIN_SLACK = 2.0, 1e-2
+
+
+def bf16_pretrain_vs_plain(tag, quantities, f32_grads):
+    tol_loss, _, tol_stats = TOL_STEP["bfloat16"]
+    _build.reset_launches()
+    loss, grads, stats = quantities()
+    bwd = _build.LAUNCHES["flash_mha_bwd"]
+    with plain_path():
+        loss_p, grads_p, stats_p = quantities()
+    d_loss = abs(loss - loss_p) / abs(loss_p)
+    d_stats = max(rel_err(stats[k], stats_p[k]) for k in stats)
+    e_k, e_p = grad_dist(grads, f32_grads), grad_dist(grads_p, f32_grads)
+    top = max(float(g.abs().max()) for g in grads_p.values())
+    d_grad = {k: rel_to_floor(grads[k], grads_p[k], 1e-3 * top) for k in grads}
+    worst = max(d_grad, key=d_grad.get)
+    print(f"[pretrain] {tag} bfloat16: one step vs plain path on the card: loss {loss:.6f} vs "
+          f"{loss_p:.6f} (rel {d_loss:.3e}, tol {tol_loss}); gradients' distance from the f32 "
+          f"step {e_k:.3e} (kernels) vs {e_p:.3e} (plain), tol {BF16_PRETRAIN_FACTOR} x plain + "
+          f"{BF16_PRETRAIN_SLACK}; per-leaf max rel kernels vs plain {d_grad[worst]:.3e} "
+          f"({worst}; not checked); BN buffers max rel {d_stats:.3e} (tol {tol_stats}); "
+          f"flash_mha_bwd launches {bwd}")
+    check(math.isfinite(loss) and all(torch.isfinite(g).all() for g in grads.values()),
+          f"non-finite loss or gradient ({tag} bfloat16)")
+    check(d_loss <= tol_loss, f"loss disagrees with the plain path ({tag} bfloat16)")
+    check(e_k <= BF16_PRETRAIN_FACTOR * e_p + BF16_PRETRAIN_SLACK,
+          f"the kernels' bf16 gradients are farther from the f32 step than the plain path's "
+          f"({tag})")
+    check(d_stats <= tol_stats, f"BN buffers disagree with the plain path ({tag} bfloat16)")
+    return {"loss_rel": d_loss, "grad_dist_from_f32": e_k, "plain_grad_dist_from_f32": e_p,
+            "grad_rel_per_leaf_unchecked": d_grad[worst], "stats_rel": d_stats,
+            "flash_mha_bwd_launches": bwd}
+
+
+def run_long_train_slice(steps=20):
+    try:
+        return _run_long_train_slice(steps)
+    finally:
+        shutil.rmtree(PRETRAIN_DIR, ignore_errors=True)
+
+
+def _run_long_train_slice(steps):
+    out, counted = {"batch": LONG_BATCH, "npoints": LONG_NPOINTS, "num_group": LONG_GROUPS,
+                    "tokens": LONG_GROUPS + 1}, {}
+    ds = long_clouds()
+    prompts = mn40_prompts()
+    stream = batch_stream(Loader(ds, LONG_BATCH, shuffle=True, drop_last=True, seed=0))
+    step_fn = make_train_step(smoothing=0.2)
+
+    # prompt tuning with head types 3 and 2: one flash_mha_bwd a step, in block_11
+    for ht in (3, 2):
+        r = {"vs_plain": {}}
+        b = cls.device_batch(next(iter(Loader(ds, LONG_BATCH, shuffle=True, seed=3))), DEV)
+        for dtype in ("float32", "bfloat16"):
+            model = long_trunk_model(dtype)
+            ctx = {"model": model, "state": long_train_state(model, ht), "prompts": prompts}
+            r["vs_plain"][dtype], _ = step_vs_plain(
+                f"long trunk head_type {ht}", dtype, lambda: one_step_quantities(ctx, b, 11))
+            check(r["vs_plain"][dtype]["flash_mha_bwd_launches"] == 1,
+                  f"head_type {ht} runs one flash_mha_bwd a step")
+        state = ctx["state"]
+        check(any("block_11" in k for k in state.trainable), f"head_type {ht} trains block_11")
+        frozen0 = snapshot({k: p for k, p in model.named_parameters() if k not in state.trainable})
+        losses = run_steps(ctx, step_fn, stream, 3)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        losses += run_steps(ctx, step_fn, stream, steps)
+        rate = steps * LONG_BATCH / (time.perf_counter() - t0)
+        per_step = {k: v / steps for k, v in sorted(_build.LAUNCHES.items())}
+        counted[f"head_type_{ht}"] = _build.LAUNCHES["flash_mha_bwd"]
+        print(f"[pretrain] long trunk prompt tuning, bf16 head_type {ht} B={LONG_BATCH} x "
+              f"N={LONG_NPOINTS}: 3 warm-up steps, then {steps} steps (loss read every step): "
+              f"{rate:.1f} train clouds/sec ({1e3 * LONG_BATCH / rate:.2f} ms per step); loss "
+              f"first {losses[0]:.4f}, last {losses[-1]:.4f}; kernel launches per step "
+              f"{json.dumps(per_step)}")
+        check(all(math.isfinite(x) for x in losses), f"non-finite loss, head_type {ht}")
+        check(per_step.get("flash_mha_bwd") == 1 and per_step.get("flash_mha") == 12,
+              f"head_type {ht}: 12 flash_mha and 1 flash_mha_bwd a step: {per_step}")
+        check(all(torch.equal(p, frozen0[k]) for k, p in model.named_parameters()
+                  if k in frozen0), f"a frozen weight changed under head_type {ht}")
+        r.update(train_clouds_per_sec=rate, ms_per_step=1e3 * LONG_BATCH / rate, steps=steps,
+                 loss_first_last=[losses[0], losses[-1]], launches_per_step=per_step)
+        out[f"head_type_{ht}"] = r
+        del model, ctx, state
+
+    # ULIP pretraining on the long trunk: every block runs flash_mha_bwd
+    bank = pretrain.build_caption_bank(ds.classnames)
+    cap_rng = np.random.RandomState(3)
+
+    def tokens_for(labels):  # one template per cloud, as the driver draws them
+        t_idx = cap_rng.randint(0, bank.shape[1], len(labels))
+        return torch.from_numpy(bank[labels, t_idx]).to(DEV)
+
+    r = {"vs_plain": {}}
+    raw = next(iter(Loader(ds, PLAIN_PRETRAIN_BATCH, shuffle=True, seed=4)))
+    pc8, tok8 = cls.device_batch(raw, DEV)["pc"], tokens_for(raw["label"])
+    for dtype in ("float32", "bfloat16"):
+        model = long_trunk_model(dtype)  # the same weights in both dtypes
+        state = long_train_state(model, task="pretrain")
+        tag = f"long trunk pretrain B={PLAIN_PRETRAIN_BATCH}"
+        quantities = lambda: pretrain_quantities(model, state, pc8, tok8, 11)  # noqa: E731
+        if dtype == "float32":
+            r["vs_plain"][dtype], f32_grads = step_vs_plain(tag, dtype, quantities,
+                                                            tol_encoder=TOL_ENCODER_F32)
+        else:
+            r["vs_plain"][dtype] = bf16_pretrain_vs_plain(tag, quantities, f32_grads)
+        check(r["vs_plain"][dtype]["flash_mha_bwd_launches"] == 12,
+              "a pretrain step runs 12 flash_mha_bwd on the long trunk")
+        del model, state
+
+    # a fixed batch, DropPath and augmentation off: the loss must fall
+    model = long_trunk_model("bfloat16", drop_path_rate=0.0)
+    state = long_train_state(model, task="pretrain", lr=1e-4)
+    pstep = pretrain.make_pretrain_step(model, state.optimizer)
+    raw = next(iter(Loader(ds, LONG_BATCH, shuffle=True, seed=5)))
+    fb, ftok = cls.device_batch(raw, DEV), tokens_for(raw["label"])
+    flosses = []
+    for _ in range(10):
+        state, m = pstep(state, {"pc": fb["pc"]}, ftok)
+        flosses.append(m["loss"])
+    flosses = [float(x) for x in flosses]
+    print(f"[pretrain] long trunk, fixed batch B={LONG_BATCH}, 10 steps at lr 1e-4, "
+          f"augmentation and DropPath off: loss {flosses[0]:.4f} -> {flosses[-1]:.4f} "
+          f"(lowest {min(flosses):.4f})")
+    check(all(math.isfinite(x) for x in flosses) and flosses[-1] < flosses[0],
+          "the pretraining loss did not fall on a fixed batch")
+    r["fixed_batch_loss"] = [flosses[0], flosses[-1]]
+    del model, state, pstep
+
+    # a window of pretraining steps as the driver takes them
+    model = long_trunk_model("bfloat16")
+    state = long_train_state(model, task="pretrain")
+    pstep = pretrain.make_pretrain_step(model, state.optimizer)
+    text0 = snapshot({k: p for k, p in model.named_parameters() if k not in state.trainable})
+
+    def run(n):
+        losses = []
+        for _ in range(n):
+            raw = next(stream)
+            pc = train_augment(state.generator, cls.device_batch(raw, DEV)["pc"])
+            _, m = pstep(state, {"pc": pc}, tokens_for(raw["label"]))
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        return losses
+
+    losses = run(3)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    losses += run(steps)
+    rate = steps * LONG_BATCH / (time.perf_counter() - t0)
+    per_step = {k: v / steps for k, v in sorted(_build.LAUNCHES.items())}
+    counted["pretrain"] = _build.LAUNCHES["flash_mha_bwd"]
+    print(f"[pretrain] long trunk ULIP pretraining, bf16 B={LONG_BATCH} x N={LONG_NPOINTS}: 3 "
+          f"warm-up steps, then {steps} steps (loss read every step): {rate:.1f} train "
+          f"clouds/sec ({1e3 * LONG_BATCH / rate:.2f} ms per step); loss first {losses[0]:.4f}, "
+          f"last {losses[-1]:.4f}; kernel launches per step {json.dumps(per_step)}")
+    check(all(math.isfinite(x) for x in losses), "non-finite pretraining loss")
+    check(per_step.get("flash_mha_bwd") == 12 and per_step.get("flash_mha") == 12,
+          f"a pretrain step on the long trunk runs 12 flash_mha and 12 flash_mha_bwd: {per_step}")
+    check(all(torch.equal(p, text0[k]) for k, p in model.named_parameters() if k in text0),
+          "a frozen text-tower weight changed in pretraining")
+    r.update(train_clouds_per_sec=rate, ms_per_step=1e3 * LONG_BATCH / rate, steps=steps,
+             loss_first_last=[losses[0], losses[-1]], launches_per_step=per_step)
+    out["pretrain_long_trunk"] = r
+    del model, state, pstep
+
+    # one epoch of pretrain.main on the default trunk over the synthetic ShapeNet fallback
+    args = TaskArgs(dataset_name="shapenet", data_path=str(PRETRAIN_DIR / "no_shapenet"),
+                    npoints=LONG_NPOINTS, batch_size=LONG_BATCH, epochs=1, seed=0,
+                    compute_dtype="bfloat16", device="cuda", output_dir=str(PRETRAIN_DIR))
+    _build.reset_launches()
+    with switches({}):
+        res = pretrain.main(args)
+    launches = dict(_build.LAUNCHES)
+    (entry,) = res["history"]
+    pstate = res["state"]
+    n_steps = pstate.step
+    print(f"[pretrain] pretrain.main, one epoch on the default trunk (ULIP_PointBERT bf16, 513 "
+          f"tokens) over the synthetic ShapeNet fallback, B={LONG_BATCH} x N={LONG_NPOINTS}: "
+          f"{n_steps} steps, loss {entry['loss']:.4f}, pc_text_acc {entry['pc_text_acc']:.2f}, "
+          f"{n_steps * LONG_BATCH / entry['epoch_time']:.1f} train clouds/sec; kernel launches "
+          f"{json.dumps(launches, sort_keys=True)}")
+    check(n_steps == 320 // LONG_BATCH and math.isfinite(entry["loss"]), "pretrain.main's epoch")
+    for name in POINT_KERNELS:
+        check(launches.get(name, 0) >= n_steps, f"pretrain.main did not launch {name} each step")
+    fresh = create_train_state(
+        build_model("ULIP_PointBERT", args, device=DEV).model,
+        trainable_mask(pstate.model, task="pretrain"),
+        lambda tr: build_optimizer("adamw", tr.items(), lambda s: 0.0), seed=0)
+    load_checkpoint(str(PRETRAIN_DIR / "pretrain"), fresh)
+    same = all(torch.equal(fresh.trainable[k], v) for k, v in pstate.trainable.items())
+    print(f"[pretrain] checkpoint written and read back: {len(pstate.trainable)} trainable "
+          f"leaves identical {same}, step {fresh.step}")
+    check(same and fresh.step == n_steps, "the pretraining checkpoint did not read back")
+    out["pretrain_main"] = {"steps": n_steps, "loss": entry["loss"],
+                            "pc_text_acc": entry["pc_text_acc"],
+                            "train_clouds_per_sec": n_steps * LONG_BATCH / entry["epoch_time"],
+                            "launches": launches}
+    return counted, out
+
+
 def main():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1954,6 +2378,7 @@ def main():
     check_mini_stats(results)
     check_block(results)
     check_attention(results)
+    check_flash_bwd(results)
     check_tower(results)
     check_text(results)
     check_ballquery(results)
@@ -1970,6 +2395,10 @@ def main():
         "ball_query_gather_feats_other_dtype")
     route_launches, route_stats = run_routes_slice()
     launches.update(route_launches)  # the other trunk routes' own kernels
+    long_launches, pretrain_stats = run_long_train_slice()
+    # training through the long trunk: the pretraining window's count, the
+    # prompt-tuning windows' beside it
+    launches["flash_mha_bwd"] = long_launches["pretrain"]
     for name in SOURCES:
         if name in OFF_PATH_KERNELS:
             check(launches.get(name, 0) == 0, f"{name} is called by no module, yet was launched")
@@ -1983,6 +2412,8 @@ def main():
                             launches=launches[name], **r))
         if name == "fused_text_tower":  # one kernel, two wrappers' counters
             kernels[-1]["launches_by_variant"] = text_stats["tower_launches_by_variant"]
+        if name == "flash_mha_bwd":
+            kernels[-1]["launches_by_path"] = long_launches
         print(f"[time] {name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
               f"library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 3)}"
               f" ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
@@ -1990,6 +2421,7 @@ def main():
     print(json.dumps({"train": train_stats}))
     print(json.dumps({"ballquery": ball_stats}))
     print(json.dumps({"routes": route_stats}))
+    print(json.dumps({"pretrain": pretrain_stats}))
     print(json.dumps({"kernels": kernels, **slice_stats}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

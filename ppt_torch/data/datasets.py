@@ -1,14 +1,17 @@
-"""Datasets for the recognition path: ModelNet loader, synthetic fallback.
+"""Datasets for the recognition and pretraining paths: ModelNet and
+ShapeNet-55 loaders, synthetic fallback.
 
-Counterpart of ``ppt_tpu/data/datasets.py``, cut to what the recognition
-and few-shot tasks need (train and test splits, ``*_fs`` few-shot
-resampling of the train split). Loaders produce plain numpy; batching is in
+Counterpart of ``ppt_tpu/data/datasets.py``, cut to what the recognition,
+few-shot and ULIP pretraining tasks need (train and test splits, ``*_fs``
+few-shot resampling of the train split, ShapeNet-55's clouds with their
+taxonomy names). Loaders produce plain numpy; batching is in
 ``ppt_torch.data.loader``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
 import os
 import pickle
@@ -23,6 +26,18 @@ def pc_normalize(pc: np.ndarray) -> np.ndarray:
     """Unit-sphere normalise one cloud (``pc_normalize``, :33-40)."""
     centered = pc - pc.mean(axis=0)
     return centered / np.sqrt((centered**2).sum(axis=1)).max()
+
+
+def read_cloud(path: str) -> np.ndarray:
+    """A cloud file by extension (``read_cloud``, ``:156-171``): ``.npy``,
+    ShapeNet-55's format; the reference's ``.pcd``, ``.h5`` and ``.txt``
+    readers are not ported and raise by name."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".npy":
+        return np.load(path)
+    if ext in (".pcd", ".h5", ".txt"):
+        raise NotImplementedError(f"{path}: the {ext} cloud reader is not ported yet")
+    raise ValueError(f"Unsupported file extension: {ext}")
 
 
 def fps_numpy(points: np.ndarray, npoint: int, seed: Optional[int] = None) -> np.ndarray:
@@ -93,6 +108,46 @@ def load_modelnet(root: str, split: str, npoints: int, num_category: int = 40,
     return ArrayDataset(pts, labels, classnames, name=f"modelnet{num_category}")
 
 
+def load_shapenet55(root: str, split: str, npoints: int, pc_dirname: str = "shapenet_pc",
+                    whole: bool = True, seed: int = 0) -> ArrayDataset:
+    """ShapeNet-55 ULIP pretraining clouds (``load_shapenet55``, ``:368-416``):
+    files from ``{split}.txt`` (``taxonomy-model.npy``; the train split
+    also takes ``test.txt`` when ``whole``), each subsampled at random to
+    ``npoints`` and normalised to the unit sphere; labels index the
+    taxonomy names of ``taxonomy.json`` in order of first appearance."""
+    with open(os.path.join(root, "taxonomy.json")) as f:
+        taxonomy = json.load(f)
+    synset_names = {d["synsetId"]: d["name"].split(",")[0] for d in taxonomy}
+
+    lines: List[str] = []
+    with open(os.path.join(root, f"{split}.txt")) as f:
+        lines += [line.strip() for line in f if line.strip()]
+    if whole and split == "train":
+        test_list = os.path.join(root, "test.txt")
+        if os.path.exists(test_list):
+            with open(test_list) as f:
+                lines += [line.strip() for line in f if line.strip()]
+
+    classnames: List[str] = []
+    name_to_idx: Dict[str, int] = {}
+    rng = np.random.RandomState(seed)
+    pts = np.zeros((len(lines), npoints, 3), dtype=np.float32)
+    labels = np.zeros(len(lines), dtype=np.int32)
+    for i, line in enumerate(lines):
+        name = synset_names.get(line.split("-")[0], line.split("-")[0])
+        if name not in name_to_idx:
+            name_to_idx[name] = len(classnames)
+            classnames.append(name)
+        data = read_cloud(os.path.join(root, pc_dirname, line)).astype(np.float32)
+        if npoints < data.shape[0]:
+            choice = rng.permutation(data.shape[0])[:npoints]
+        else:
+            choice = rng.randint(0, data.shape[0], npoints)
+        pts[i] = pc_normalize(data[choice, :3])
+        labels[i] = name_to_idx[name]
+    return ArrayDataset(pts, labels, classnames, name="shapenet55")
+
+
 def make_synthetic(num_classes: int = 40, samples_per_class: int = 8, npoints: int = 1024,
                    seed: int = 0, classnames: Optional[Sequence[str]] = None) -> ArrayDataset:
     """Structured random clouds: each class a distinct mixture of gaussian
@@ -135,6 +190,7 @@ def _modelnet40_fs(args, split: str) -> ArrayDataset:
 DATASETS: Dict[str, Callable[..., ArrayDataset]] = {
     "modelnet40": lambda args, split: load_modelnet(args.data_path, split, args.npoints, 40),
     "modelnet40_fs": _modelnet40_fs,
+    "shapenet": lambda args, split: load_shapenet55(args.data_path, split, args.npoints),
     "synthetic": _synthetic,
 }
 

@@ -13,12 +13,15 @@ as the reference's (the ``jax.nn`` convention).
   ``mha_reference``'s, which normalises before the cast: the reference's
   VJP differentiates ``_mha_reference`` (``:193-196``), not the kernel.
 - ``flash_mha``: the plain ``jax.nn.dot_product_attention`` below
-  ``FLASH_MIN_SEQ``, else the flash kernel (``:245-289``).
-  Its backward is the TPU's stock flash dq/dkv Pallas kernels, not ported:
-  it raises.
+  ``FLASH_MIN_SEQ``, else the flash kernel (``:245-289``). Its backward is
+  the kernel set ``flash_mha_bwd`` (``ppt_flash_mha_bwd``), the
+  counterpart of the TPU's stock flash dq/dkv Pallas kernels: it reads the
+  row log-sum-exp that the training forward writes. ``flash_bwd_plain``
+  spells out that backward's arithmetic and cast points.
 
-On the CPU each wrapper runs its kernel's plain version; on the card it
-launches the kernel or raises.
+On the CPU each wrapper runs its kernel's plain version (``flash_mha``'s
+gradient there is autograd of ``flash_plain``, which is what the reference
+differentiates off the TPU); on the card it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -81,6 +84,36 @@ def flash_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tens
     return _pv(p.to(dt), v).to(dt)
 
 
+def flash_lse_plain(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """The row log-sum-exp the training forward writes, [B, H, L] f32:
+    m + log(sum exp(s - m)) over the f32 scaled scores."""
+    s = _scores(q, k) * (1.0 / math.sqrt(q.shape[-1]))
+    m = s.amax(-1, keepdim=True)
+    return (m + torch.log(torch.exp(s - m).sum(-1, keepdim=True)))[..., 0]
+
+
+def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                    lse: torch.Tensor, do: torch.Tensor):
+    """``flash_mha_bwd``'s arithmetic step by step (the stock TPU backward's
+    function, ``flash_attention.py:254-276``, ``:894-919``, ``:1227-1261``):
+    p = exp(s * scale - lse) in f32; dV = p^T (rounded to the compute dtype)
+    do; dP = do v^T and di = rowsum(o do) in f32, o being the forward's
+    rounded output; dS = (dP - di) p scale; dK = dS^T q and dQ = dS k with
+    dS rounded to the compute dtype. Sums in f32, results in q's dtype.
+    Returns (dq, dk, dv), [B, L, H, D] each."""
+    dt = q.dtype
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    p = torch.exp(_scores(q, k) * scale - lse[..., None])  # [B, H, L, L]
+    dof = do.float().transpose(1, 2)  # [B, H, L, D]
+    dv = p.to(dt).float().transpose(-1, -2) @ dof
+    dp = dof @ v.float().permute(0, 2, 3, 1)
+    di = (o.float() * do.float()).sum(-1).transpose(1, 2)  # [B, H, L]
+    ds = ((dp - di[..., None]) * p * scale).to(dt).float()
+    dk = ds.transpose(-1, -2) @ q.float().transpose(1, 2)
+    dq = ds @ k.float().transpose(1, 2)
+    return tuple(g.transpose(1, 2).to(dt) for g in (dq, dk, dv))
+
+
 def _views(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """q, k, v as the kernels take them: one device, one dtype, D contiguous
     and strides shared (views of one qkv product qualify as they are);
@@ -111,7 +144,12 @@ def _check_dims(name: str, dt: torch.dtype, D: int) -> None:
         raise ValueError(f"{name}: head dim {D} must be a multiple of 8 and <= 128")
 
 
-def _launch(name: str, entry: str, q, k, v) -> torch.Tensor:
+_ARGS = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 3
+
+
+def _launch(name: str, entry: str, q, k, v, want_lse: bool = False):
+    """One attention kernel; with ``want_lse`` (the flash kernel in
+    training) returns (out, the [B, H, L] f32 row log-sum-exp)."""
     B, L, H, D = q.shape
     code = _build.dtype_code(name, q.dtype)
     _check_dims(name, q.dtype, D)
@@ -120,15 +158,61 @@ def _launch(name: str, entry: str, q, k, v) -> torch.Tensor:
         raise ValueError(f"{name}: L={L} too long for whole-row attention tiles")
     q, k, v, (sb, sl, sh) = _views(name, q, k, v)
     out = torch.empty(B, L, H, D, dtype=q.dtype, device=q.device)
+    lse = torch.empty(B, H, L, dtype=torch.float32, device=q.device) if want_lse else None
     lib = _build.load("attention")
     fn = getattr(lib, entry)
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-                   + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 2)
     p = _build.ptr
-    rc = fn(code, p(q), p(k), p(v), B, L, H, D, sb, sl, sh, p(out), _build.stream_ptr(q))
+    args = [code, p(q), p(k), p(v), B, L, H, D, sb, sl, sh, p(out)]
+    if entry == "ppt_flash_mha":  # the lse pointer: null when serving
+        args.append(ctypes.c_void_p(None) if lse is None else p(lse))
+    fn.argtypes = _ARGS + [ctypes.c_void_p] * (len(args) - len(_ARGS) + 1)
+    rc = fn(*args, _build.stream_ptr(q))
     _build.check(lib, rc, name)
     _build.LAUNCHES[name] += 1
-    return out
+    return (out, lse) if want_lse else out
+
+
+def bwd_smem_bytes(dt: torch.dtype, D: int) -> int:
+    """Shared memory of the larger backward CTA (``csrc/attention.cu``): in
+    bf16 the dK/dV kernel's 64-key K and V tiles, two stages of 32-query Q
+    and dO tiles and their lse/di slices; in f32 four 32-row tiles, the P
+    and dS tiles and the lse/di slices."""
+    if dt == torch.bfloat16:
+        return (2 * 64 + 4 * 32) * (D + 8) * 2 + 4 * 32 * 4
+    return 4 * (4 * 32 * (D + 1) + 2 * 32 * 33 + 2 * 32)
+
+
+def _flash_bwd(q, k, v, o, lse, do):
+    """``ppt_flash_mha_bwd`` on the card: di, then dK/dV, then dQ, on the
+    forward's saved q, k, v (as it took them), output and lse; -> (dq, dk,
+    dv)."""
+    name = "flash_mha_bwd"
+    B, L, H, D = q.shape
+    code = _build.dtype_code(name, q.dtype)
+    _check_dims(name, q.dtype, D)
+    if bwd_smem_bytes(q.dtype, D) > _SMEM_LIMIT:
+        raise ValueError(f"{name}: head dim {D} tiles exceed the SM's shared memory")
+    if o.shape != q.shape or do.shape != q.shape or lse.shape != (B, H, L):
+        raise ValueError(f"{name}: o {tuple(o.shape)}, do {tuple(do.shape)}, lse "
+                         f"{tuple(lse.shape)} do not fit q {tuple(q.shape)}")
+    if o.dtype != q.dtype or do.dtype != q.dtype or lse.dtype != torch.float32:
+        raise TypeError(f"{name}: o and do must be in q's dtype {q.dtype}, lse in float32")
+    q, k, v, (sb, sl, sh) = _views(name, q, k, v)
+    o, do, lse = o.contiguous(), do.contiguous(), lse.contiguous()
+    _build.check_tensors(name, o, do, lse)
+    if o.device != q.device:
+        raise ValueError(f"{name}: q on {q.device}, o on {o.device}")
+    di = torch.empty(B, H, L, dtype=torch.float32, device=q.device)
+    grads = [torch.empty(B, L, H, D, dtype=q.dtype, device=q.device) for _ in range(3)]
+    lib = _build.load("attention")
+    fn = lib.ppt_flash_mha_bwd
+    fn.argtypes = _ARGS + [ctypes.c_void_p] * 8
+    p = _build.ptr
+    rc = fn(code, p(q), p(k), p(v), B, L, H, D, sb, sl, sh, p(o), p(do), p(lse), p(di),
+            *map(p, grads), _build.stream_ptr(q))
+    _build.check(lib, rc, name)
+    _build.LAUNCHES[name] += 1
+    return tuple(grads)
 
 
 def _mha_run(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -149,25 +233,39 @@ def _flash_run(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tenso
     return _launch("flash_mha", "ppt_flash_mha", q, k, v)
 
 
+def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """The training forward on the card: (output, row log-sum-exp)."""
+    return _launch("flash_mha", "ppt_flash_mha", q, k, v, want_lse=True)
+
+
 class _FlashMha(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v):
-        return _flash_run(q, k, v)
+    """The flash kernel with its backward kernels, for CUDA tensors: the
+    forward saves q, k, v, its output and the lse."""
 
     @staticmethod
-    def backward(ctx, grad):
-        raise NotImplementedError(
-            "flash_mha has no backward yet: the reference's is the stock TPU flash-attention "
-            "dq/dkv Pallas kernels (jax.experimental.pallas.ops.tpu.flash_attention), which "
-            "are still to port; no plain recompute stands in for them")
+    def forward(ctx, q, k, v):
+        out, lse = _flash_fwd(q, k, v)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        grads = _flash_bwd(*ctx.saved_tensors, do)
+        return tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad))
 
 
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Multi-head attention, [B, L, H, D] -> [B, L, H, D]: the plain
     ``jax.nn.dot_product_attention`` semantics below ``FLASH_MIN_SEQ`` tokens
-    (as the reference routes by shape), else the flash kernel, whose
-    backward raises. The reference's ``causal`` option has no caller in
-    either package and is not ported."""
+    (as the reference routes by shape), else the flash kernel, which writes
+    the row log-sum-exp for its backward kernels only when a gradient is
+    wanted. On CPU tensors the gradient is autograd of ``flash_plain``. The
+    reference's ``causal`` option has no caller in either package and is
+    not ported."""
     if q.shape[1] < FLASH_MIN_SEQ:
         return flash_plain(q, k, v)
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))):
+        return _flash_run(q, k, v)
+    if q.device.type == "cpu":
+        return recompute_grad(_flash_run, flash_plain, q, k, v)
     return _FlashMha.apply(q, k, v)

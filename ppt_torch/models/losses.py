@@ -1,7 +1,12 @@
-"""Losses of the task scripts (counterpart of ``ppt_tpu/models/losses.py``;
-the pretraining contrastive loss comes with the pretraining slice)."""
+"""Losses of the task scripts (counterpart of ``ppt_tpu/models/losses.py``):
+the drivers' label-smoothed cross entropy and ULIP pretraining's symmetric
+InfoNCE. The port runs on one card, so the batch products below see the
+whole batch as they are (the reference's ``GatherLayer`` has nothing to
+gather)."""
 
 from __future__ import annotations
+
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -18,3 +23,35 @@ def smoothed_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     onehot = F.one_hot(labels.long(), num_classes).to(torch.float32)
     target = onehot * (1.0 - smoothing) + smoothing / num_classes
     return -(target * logp).sum(-1).mean()
+
+
+def _l2_normalize(x: torch.Tensor) -> torch.Tensor:
+    return x / torch.linalg.norm(x, dim=-1, keepdim=True)
+
+
+def ulip_contrastive_loss(pc_embed: torch.Tensor, text_embed: torch.Tensor,
+                          image_embed: Optional[torch.Tensor],
+                          logit_scale: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Symmetric InfoNCE across (pc, text) and, with ``image_embed``, (pc,
+    image) (``models/losses.py:82-118``, ``ULIPWithImageLoss.forward``): all
+    embeddings ``[B, E]``, positives on the diagonal, normalised in f32.
+    Returns ``loss`` and the retrieval accuracies in percent
+    (``pc_text_acc``, and ``pc_image_acc`` with images)."""
+    labels = torch.arange(pc_embed.shape[0], device=pc_embed.device)
+    pc = _l2_normalize(pc_embed.float())
+    tx = _l2_normalize(text_embed.float())
+
+    def pair_loss(a, b):
+        logits_ab = logit_scale * a @ b.t()
+        logits_ba = logit_scale * b @ a.t()
+        ce = smoothed_cross_entropy
+        return (ce(logits_ab, labels) + ce(logits_ba, labels)) / 2.0, logits_ab
+
+    loss, logits_pt = pair_loss(pc, tx)
+    out = {"pc_text_acc": 100.0 * (logits_pt.argmax(-1) == labels).float().mean()}
+    if image_embed is not None:
+        loss_pi, logits_pi = pair_loss(pc, _l2_normalize(image_embed.float()))
+        loss = loss + loss_pi
+        out["pc_image_acc"] = 100.0 * (logits_pi.argmax(-1) == labels).float().mean()
+    out["loss"] = loss
+    return out

@@ -3,7 +3,8 @@
 Counterpart of ``ppt_tpu/models/ulip.py`` with four of its point towers:
 PointBERT, PointNet++ SSG and MSG, PointNeXt-S, and the template factory
 ``ulip_customized`` for a caller's own tower. Forward contract
-(classification)::
+(classification; ULIP pretraining pairs ``encode_pc`` with
+``encode_captions``)::
 
     pc_embed   = point_encoder(pc) @ pc_projection                 # [B, E]
     text_embed = normalize(text_tower(splice(prompts))[eot] @ proj) # [C, E]
@@ -80,6 +81,15 @@ class Ulip(nn.Module):
         base = self.text.embed(prompts.perm_tokens)
         spliced = self.prompt_learner(base, prompts.ctx_mask, prompts.ctx_idx)
         emb = self.text(spliced, prompts.eot_pos).float()
+        return emb / torch.linalg.norm(emb, dim=-1, keepdim=True)
+
+    def encode_captions(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Raw caption tokens [B, 77] -> L2-normalised text embeddings [B, E]
+        f32 (``models/ulip.py:124-134``): ULIP pretraining's path, no prompt
+        learner, pooled at the EOT token (the largest id), on whichever text
+        route the model was built with."""
+        tokens = tokens.long()
+        emb = self.text(self.text.embed(tokens), tokens.argmax(-1)).float()
         return emb / torch.linalg.norm(emb, dim=-1, keepdim=True)
 
     def encode_pc(self, pc: torch.Tensor, train: bool = False,

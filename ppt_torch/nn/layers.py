@@ -103,7 +103,9 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
 class LayerNormF32(nn.Module):
     """LayerNorm with f32 statistics and affine, result cast back to the
     input dtype (reference ``models/ULIP_models.py:21-27``); flax's fast
-    variance ``E[x^2] - E[x]^2``."""
+    variance ``E[x^2] - E[x]^2`` clamped at 0, as flax's ``_compute_stats``
+    takes it (a near-constant row of large values can round it negative).
+    The kernels' LayerNorms follow the Pallas kernels, which do not clamp."""
 
     def __init__(self, width: int, eps: float = 1e-5):
         super().__init__()
@@ -114,7 +116,7 @@ class LayerNormF32(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.float()
         mu = x32.mean(-1, keepdim=True)
-        var = (x32 * x32).mean(-1, keepdim=True) - mu * mu
+        var = torch.clamp_min((x32 * x32).mean(-1, keepdim=True) - mu * mu, 0.0)
         y = (x32 - mu) * torch.rsqrt(var + self.eps) * self.weight + self.bias
         return y.to(x.dtype)
 
@@ -142,6 +144,19 @@ def drop_path_scales(rates: Sequence[float], batch: int, train: bool,
     keep = 1.0 - torch.tensor(list(rates), dtype=torch.float32, device=device)[:, None, None]
     u = torch.rand(len(rates), batch, 2, generator=generator, device=device)
     return (u < keep).float() / keep
+
+
+def drop_path(h: torch.Tensor, scale: torch.Tensor, rate: float) -> torch.Tensor:
+    """The reference's ``DropPath`` on a branch ``h`` [B, ...]
+    (``ppt_tpu/nn/layers.py:77-89``) for the samples that ``scale`` (one
+    column of ``drop_path_scales``, zero where a sample is dropped) keeps:
+    ``h / keep`` in ``h``'s dtype with ``keep = 1 - rate`` rounded to it,
+    an exact zero where dropped; ``h`` itself at rate 0 (and in eval)."""
+    if rate == 0.0:
+        return h
+    keep = torch.tensor(1.0 - rate, dtype=h.dtype, device=h.device)
+    kept = (scale > 0).reshape((-1,) + (1,) * (h.dim() - 1))
+    return torch.where(kept, h / keep, torch.zeros((), dtype=h.dtype, device=h.device))
 
 
 class MlpBlock(nn.Module):

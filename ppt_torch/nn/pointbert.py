@@ -42,7 +42,7 @@ from ppt_torch.kernels.group import fused_group
 from ppt_torch.kernels.mini import mini_forward, mini_stats
 from ppt_torch.kernels.vitblock import fused_vit_block, fused_vit_block_readout, fused_vit_tower
 from ppt_torch.nn.layers import (BatchNormStats, CastCache, Dense, LayerNormF32, MlpBlock,
-                                 drop_path_scales, gelu_tanh)
+                                 drop_path, drop_path_scales, gelu_tanh)
 
 POINT_ROUTES = ("block", "tower", "unfused", "plain")
 
@@ -166,7 +166,8 @@ class VitAttention(nn.Module):
 class VitBlock(nn.Module):
     """Pre-norm ViT block (``Block``, point_encoder.py:61-79). ``dp`` is the
     per-sample droppath branch scale ``[B, 2]`` (all ones in eval,
-    ``drop_path_scales`` in training)."""
+    ``drop_path_scales`` in training); the unfused routes also take the
+    block's DropPath ``rate`` (0 in eval)."""
 
     def __init__(self, width: int, num_heads: int, mlp_ratio: float = 4.0,
                  dtype: torch.dtype = torch.float32):
@@ -191,7 +192,7 @@ class VitBlock(nn.Module):
 
     def forward(
         self, x: torch.Tensor, pos: torch.Tensor, dp: torch.Tensor,
-        readout_ln: Optional[LayerNormF32] = None, route: str = "block",
+        readout_ln: Optional[LayerNormF32] = None, route: str = "block", rate: float = 0.0,
     ) -> torch.Tensor:
         """[B, L, C] -> [B, L, C]; on the "block" route one fused block
         kernel, which with ``readout_ln`` also runs the trunk's final
@@ -199,7 +200,7 @@ class VitBlock(nn.Module):
         "plain" routes run the block as modules (``nn/pointbert.py:373-385``)
         with ``VitAttention``'s ``fused_mha`` or kernel-free attention."""
         if route != "block":
-            return self._unfused(x, pos, dp, fused_attn=route == "unfused")
+            return self._unfused(x, pos, dp, route == "unfused", rate)
         if readout_ln is None:
             return fused_vit_block(x, pos.to(x.dtype), dp, *self._weights(), self.num_heads)
         ro = fused_vit_block_readout(
@@ -208,16 +209,18 @@ class VitBlock(nn.Module):
         )  # [B, 8, C] f32
         return torch.cat([ro[:, 0], ro[:, 1]], dim=-1)
 
-    def _unfused(self, x, pos, dp, fused_attn: bool) -> torch.Tensor:
+    def _unfused(self, x, pos, dp, fused_attn: bool, rate: float) -> torch.Tensor:
         """x + pos, LN1 (f32 statistics, output in the compute dtype),
-        attention, the droppath-scaled residual, LN2, MLP, residual. A branch
-        is scaled in f32 and rounded once: the reference's ``x / keep``."""
+        attention, DropPath, residual, LN2, MLP, DropPath, residual. DropPath
+        is the reference module's (``drop_path``): the kept branch divided in
+        the compute dtype by the rounded keep, the samples that ``dp`` drops
+        zero, so every route sees the same draw."""
         dt = x.dtype
         x = x + pos.to(dt)
         h = self.attn(self.norm1(x), self.num_heads, fused_attn)
-        x = x + (h.float() * dp[:, 0, None, None]).to(dt)
+        x = x + drop_path(h, dp[:, 0], rate)
         h = self.mlp(self.norm2(x))
-        return x + (h.float() * dp[:, 1, None, None]).to(dt)
+        return x + drop_path(h, dp[:, 1], rate)
 
 
 class PointBert(nn.Module):
@@ -287,6 +290,6 @@ class PointBert(nn.Module):
                 x = blk(x, pos, dp[i])
             return blocks[-1](x, pos, dp[-1], readout_ln=self.norm)
         for i, blk in enumerate(blocks):
-            x = blk(x, pos, dp[i], route=route)
+            x = blk(x, pos, dp[i], route=route, rate=rates[i] if train else 0.0)
         xn = self.norm(x.float())
         return torch.cat([xn[:, 0], xn[:, 1:].amax(1)], dim=-1)

@@ -1,7 +1,7 @@
 """Task CLI: the flag surface of ``ppt_tpu/tasks/args.py`` for the port.
 
-The flags the recognition and few-shot tasks read, with the reference
-package's names and defaults, plus ``--device`` (empty: the card).
+The flags the recognition, few-shot and pretraining tasks read, with the
+reference package's names and defaults, plus ``--device`` (empty: the card).
 ``--config`` YAML files are not ported yet, so the published recipe is
 spelled out as flags.
 """
@@ -48,6 +48,7 @@ class TaskArgs:
     wd: float = 0.1
     betas: Tuple[float, float] = (0.9, 0.98)
     eps: float = 1e-8
+    grad_norm_clip: float = 0.0  # global L2 clip before the update; 0 = off
     eval_freq: int = 1
     resume: str = ""
     label_smoothing: float = 0.3

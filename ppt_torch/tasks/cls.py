@@ -118,7 +118,7 @@ def setup(args: TaskArgs) -> Dict:
         model, mask,
         lambda trainable: build_optimizer(
             args.optim, trainable.items(), sched, weight_decay=args.wd, betas=args.betas,
-            eps=args.eps),
+            eps=args.eps, grad_norm_clip=args.grad_norm_clip),
         seed=args.seed + 1,
     )
     if args.resume:

@@ -23,6 +23,12 @@ long-sequence trunk: 1025 tokens, every route on ``flash_mha``).
 ``--train`` adds the step's sections (CUDA events
 around augmentation, point tower, text tower forward + loss, backward,
 optimizer; each includes the gaps in which the device waits for the host).
+``--train pretrain`` profiles ULIP pretraining's step instead (the whole
+point tower trains against captions through the frozen text tower; 1024
+groups over 8192 points by default, the long trunk, where every block runs
+``flash_mha``'s backward kernels); ``--train --num_group 1024 --npoints
+8192 --head_type 3`` is the long trunk's prompt-tuning step, one backward
+in ``block_11``.
 
     python -m ppt_torch.tools.profile [--batch 32] [--npoints 1024] \
         [--batches 5] [--compute_dtype bfloat16]
@@ -31,6 +37,8 @@ optimizer; each includes the gaps in which the device waits for the host).
     python -m ppt_torch.tools.profile --model ULIP_PN_NEXT --batch 128 [--train]
     python -m ppt_torch.tools.profile --point_route tower|unfused|plain
     python -m ppt_torch.tools.profile --num_group 1024 --npoints 8192   # the long trunk
+    python -m ppt_torch.tools.profile --train --num_group 1024 --npoints 8192 --head_type 3
+    python -m ppt_torch.tools.profile --train pretrain [--num_group 512 --npoints 1024]
 """
 
 from __future__ import annotations
@@ -45,7 +53,7 @@ from torch.autograd import DeviceType
 
 from ppt_torch.data.augment import append_height, train_augment
 from ppt_torch.data.datasets import make_synthetic
-from ppt_torch.models.losses import smoothed_cross_entropy
+from ppt_torch.models.losses import smoothed_cross_entropy, ulip_contrastive_loss
 from ppt_torch.models.ulip import MODEL_REGISTRY, PromptArrays, build_model, trainable_mask
 from ppt_torch.nn.pointbert import POINT_ROUTES, PointBertConfig
 from ppt_torch.nn.text import TEXT_ROUTES
@@ -53,6 +61,7 @@ from ppt_torch.prompt.learner import build_prompt_spec
 from ppt_torch.tasks.args import TaskArgs
 from ppt_torch.train.eval import make_cached_text_eval
 from ppt_torch.train.optim import build_optimizer, build_schedule
+from ppt_torch.tasks.pretrain import build_caption_bank, make_pretrain_step
 from ppt_torch.train.trainer import create_train_state, make_train_step
 from ppt_torch.utils.device import resolve_device
 
@@ -81,6 +90,7 @@ PARTS = (
     ("attention_f32_kernel", "vit block: attention"),
     ("flash_bf16_kernel", "flash_mha"),
     ("flash_f32_kernel", "flash_mha"),
+    ("flash_bwd_", "flash_mha_bwd"),
     ("readout_kernel", "vit block: readout"),
 )
 
@@ -206,6 +216,32 @@ def _profile(step, batches: int) -> dict:
     }
 
 
+def _train_sections(state, augment, loss_of, text_section: str, batches: int) -> dict:
+    """ms per batch of a train step's sections, CUDA events between them:
+    ``augment()``, the point tower in training mode, ``text_section`` (the
+    text tower and ``loss_of(pc_embed)``), backward, AdamW."""
+    names = ("augmentation", "point tower (train mode)", text_section, "backward", "optimizer")
+    model, sums = state.model, collections.Counter()
+    for _ in range(batches):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+        ev[0].record()
+        pc = augment()
+        ev[1].record()
+        pc_embed = model.encode_pc(pc, train=True, generator=state.generator)
+        ev[2].record()
+        loss = loss_of(pc_embed)
+        ev[3].record()
+        keys = list(state.trainable)
+        grads = torch.autograd.grad(loss, [state.trainable[k] for k in keys])
+        ev[4].record()
+        state.optimizer.step(dict(zip(keys, grads)))
+        ev[5].record()
+        torch.cuda.synchronize()
+        for i, name in enumerate(names):
+            sums[name] += ev[i].elapsed_time(ev[i + 1])
+    return {k: sums[k] / batches for k in names}
+
+
 def profile_step(batch: int = 32, npoints: int = 1024, batches: int = 5,
                  compute_dtype: str = "bfloat16", seed: int = 0,
                  model_name: str = "ULIP_PointBERT", point_route: str = "block",
@@ -257,41 +293,66 @@ def profile_train_step(batch: int = 30, npoints: int = 1024, batches: int = 5,
     out = _profile(step, batches)
 
     # the same step cut into sections, CUDA events between them
-    names = ("augmentation", "point tower (train mode)", "text tower forward + loss",
-             "backward", "optimizer")
-    sums = collections.Counter()
-    for _ in range(batches):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
-        ev[0].record()
-        aug = train_augment(state.generator, pc, use_height=height)
-        ev[1].record()
-        pc_embed = model.encode_pc(aug, train=True, generator=state.generator)
-        ev[2].record()
-        logits = torch.exp(model.logit_scale) * pc_embed @ model.encode_text(prompts).t()
-        loss = smoothed_cross_entropy(logits, label, smoothing)
-        ev[3].record()
-        keys = list(state.trainable)
-        grads = torch.autograd.grad(loss, [state.trainable[k] for k in keys])
-        ev[4].record()
-        state.optimizer.step(dict(zip(keys, grads)))
-        ev[5].record()
-        torch.cuda.synchronize()
-        for i, name in enumerate(names):
-            sums[name] += ev[i].elapsed_time(ev[i + 1])
+    sections = _train_sections(
+        state, lambda: train_augment(state.generator, pc, use_height=height),
+        lambda pc_embed: smoothed_cross_entropy(
+            torch.exp(model.logit_scale) * pc_embed @ model.encode_text(prompts).t(), label,
+            smoothing),
+        "text tower forward + loss", batches)
     return {"step": "train", "model": model_name, "compute_dtype": compute_dtype, "batch": batch,
             "npoints": npoints, "head_type": head_type, "text_route": text_route,
             "point_route": point_route, "num_group": num_group, **out,
             "clouds_per_sec": batch / out["wall_ms_per_batch"] * 1e3,
-            "section_ms_per_batch": {k: sums[k] / batches for k in names}}
+            "section_ms_per_batch": sections}
+
+
+def profile_pretrain_step(batch: int = 32, npoints: int = 8192, batches: int = 3,
+                          compute_dtype: str = "bfloat16", seed: int = 0,
+                          text_route: str = "off", point_route: str = "block",
+                          num_group: int = 1024) -> dict:
+    """ULIP pretraining's step (``tasks/pretrain.py:make_pretrain_step``:
+    AdamW on the point tower, ``pc_projection`` and ``logit_scale``) on one
+    synthetic batch with a ``shapenet_64`` caption per cloud."""
+    dev, model, _, pc, label = _setup(batch, npoints, compute_dtype, seed, text_route,
+                                      "ULIP_PointBERT", point_route, num_group)
+    names = TaskArgs(dataset_name="modelnet40").load_classnames()
+    tokens = torch.from_numpy(build_caption_bank(names)[label.cpu().numpy(), 0]).to(dev)
+    state = create_train_state(  # a constant rate: the step's cost does not depend on it
+        model, trainable_mask(model, task="pretrain"),
+        lambda tr: build_optimizer("adamw", tr.items(), lambda step: 3e-3), seed=seed + 1)
+    step_fn = make_pretrain_step(model, state.optimizer)
+
+    def step():
+        b = {"pc": train_augment(state.generator, pc)}
+        return float(step_fn(state, b, tokens)[1]["loss"])
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    out = _profile(step, batches)
+
+    sections = _train_sections(
+        state, lambda: train_augment(state.generator, pc),
+        lambda pc_embed: ulip_contrastive_loss(pc_embed, model.encode_captions(tokens), None,
+                                               torch.exp(model.logit_scale))["loss"],
+        "text tower (captions) + loss", batches)
+    return {"step": "pretrain", "model": "ULIP_PointBERT", "compute_dtype": compute_dtype,
+            "batch": batch, "npoints": npoints, "text_route": text_route,
+            "point_route": point_route, "num_group": num_group, **out,
+            "clouds_per_sec": batch / out["wall_ms_per_batch"] * 1e3,
+            "section_ms_per_batch": sections}
 
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--train", action="store_true", help="profile the train step")
+    p.add_argument("--train", nargs="?", const="cls", choices=("cls", "pretrain"),
+                   help="profile the prompt-tuning train step, or with 'pretrain' ULIP "
+                        "pretraining's step")
     p.add_argument("--model", default="ULIP_PointBERT", choices=sorted(MODEL_REGISTRY))
     p.add_argument("--head_type", type=int, default=0)
     p.add_argument("--batch", type=int, default=None, help="default 32 (eval), 30 (--train)")
-    p.add_argument("--npoints", type=int, default=1024)
+    p.add_argument("--npoints", type=int, default=None,
+                   help="default 1024, 8192 with --train pretrain")
     p.add_argument("--batches", type=int, default=5)
     p.add_argument("--compute_dtype", default="bfloat16", choices=("float32", "bfloat16"))
     p.add_argument("--seed", type=int, default=0)
@@ -299,16 +360,22 @@ def main(argv=None) -> None:
                    help="the text tower's route for --train")
     p.add_argument("--point_route", default="block", choices=POINT_ROUTES,
                    help="PointBERT's trunk route")
-    p.add_argument("--num_group", type=int, default=512, help="PointBERT's group count")
+    p.add_argument("--num_group", type=int, default=None,
+                   help="PointBERT's group count: default 512, 1024 with --train pretrain")
     a = p.parse_args(argv)
-    if a.train:
-        out = profile_train_step(a.batch or 30, a.npoints, a.batches, a.compute_dtype, a.seed,
-                                 a.head_type, text_route=a.text_route, model_name=a.model,
-                                 point_route=a.point_route, num_group=a.num_group)
+    if a.train == "pretrain":
+        out = profile_pretrain_step(a.batch or 32, a.npoints or 8192, a.batches, a.compute_dtype,
+                                    a.seed, text_route=a.text_route, point_route=a.point_route,
+                                    num_group=a.num_group or 1024)
+    elif a.train:
+        out = profile_train_step(a.batch or 30, a.npoints or 1024, a.batches, a.compute_dtype,
+                                 a.seed, a.head_type, text_route=a.text_route,
+                                 model_name=a.model, point_route=a.point_route,
+                                 num_group=a.num_group or 512)
     else:
-        out = profile_step(a.batch or 32, a.npoints, a.batches, a.compute_dtype, a.seed,
+        out = profile_step(a.batch or 32, a.npoints or 1024, a.batches, a.compute_dtype, a.seed,
                            model_name=a.model, point_route=a.point_route,
-                           num_group=a.num_group)
+                           num_group=a.num_group or 512)
     print(json.dumps(out))
 
 

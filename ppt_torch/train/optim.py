@@ -51,16 +51,20 @@ class AdamW:
     every leaf it is given (prompt tokens included); the learning rate is
     read at ``count`` before it is incremented. Moments are f32.
     ``torch.optim.AdamW`` differs in each of these unless driven by hand.
+    With ``grad_norm_clip > 0`` the gradients are first clipped by their
+    global L2 norm (``optax.clip_by_global_norm``, ``train/optim.py:394-400``):
+    scaled by ``clip / norm`` when the norm is not below ``clip``.
     """
 
     def __init__(self, params: Iterable[Tuple[str, torch.Tensor]], schedule: Callable,
                  weight_decay: float = 0.1, betas: Tuple[float, float] = (0.9, 0.98),
-                 eps: float = 1e-8):
+                 eps: float = 1e-8, grad_norm_clip: float = 0.0):
         self.params: Dict[str, torch.Tensor] = dict(params)
         self.schedule = schedule
         self.weight_decay = weight_decay
         self.b1, self.b2 = betas
         self.eps = eps
+        self.grad_norm_clip = grad_norm_clip
         self.count = 0
         self.mu = {k: torch.zeros_like(p, dtype=torch.float32) for k, p in self.params.items()}
         self.nu = {k: torch.zeros_like(p, dtype=torch.float32) for k, p in self.params.items()}
@@ -70,6 +74,8 @@ class AdamW:
         lr = self.schedule(self.count)
         t = self.count + 1
         c1, c2 = 1.0 - self.b1 ** t, 1.0 - self.b2 ** t
+        if self.grad_norm_clip > 0.0:
+            grads = clip_by_global_norm(grads, self.grad_norm_clip)
         for name, p in self.params.items():
             g = grads[name].float()
             mu, nu = self.mu[name], self.nu[name]
@@ -93,13 +99,25 @@ class AdamW:
         self.count = int(state["count"])
 
 
+def clip_by_global_norm(grads: Dict[str, torch.Tensor], clip: float) -> Dict[str, torch.Tensor]:
+    """``optax.clip_by_global_norm``: every gradient times ``clip / norm``
+    when the f32 L2 norm over all of them is at least ``clip``, else as
+    given. Decided on the card: no wait for the host."""
+    gs = {k: g.float() for k, g in grads.items()}
+    norm = torch.sqrt(sum((g * g).sum() for g in gs.values()))
+    keep = norm < clip
+    return {k: torch.where(keep, g, g / norm * clip) for k, g in gs.items()}
+
+
 def build_optimizer(name: str, params: Iterable[Tuple[str, torch.Tensor]], schedule: Callable,
                     *, weight_decay: float = 0.1, betas: Tuple[float, float] = (0.9, 0.98),
-                    eps: float = 1e-8) -> AdamW:
-    """The optimizer ``name`` over the named trainable tensors."""
+                    eps: float = 1e-8, grad_norm_clip: float = 0.0) -> AdamW:
+    """The optimizer ``name`` over the named trainable tensors, after a
+    global-norm clip of the gradients when ``grad_norm_clip > 0``."""
     name = name.lower()
     if name == "adamw":
-        return AdamW(params, schedule, weight_decay=weight_decay, betas=tuple(betas), eps=eps)
+        return AdamW(params, schedule, weight_decay=weight_decay, betas=tuple(betas), eps=eps,
+                     grad_norm_clip=grad_norm_clip)
     if name in _OPTIMIZERS_TO_PORT:
         raise NotImplementedError(f"optimizer {name!r} is not ported yet; have: adamw")
     raise KeyError(f"unknown optimizer {name!r}; supported: adamw "

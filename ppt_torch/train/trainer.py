@@ -59,7 +59,7 @@ def create_train_state(model: nn.Module, mask: Dict[str, bool],
 
 
 @torch.no_grad()
-def _clamp_logit_scale(trainable: Dict[str, torch.Tensor]) -> None:
+def clamp_logit_scale(trainable: Dict[str, torch.Tensor]) -> None:
     if "logit_scale" in trainable:
         trainable["logit_scale"].clamp_(0.0, LOGIT_SCALE_MAX)
 
@@ -79,7 +79,7 @@ def make_train_step(smoothing: float = 0.0) -> Callable:
         names = list(trainable)
         grads = torch.autograd.grad(loss, [trainable[k] for k in names])
         state.optimizer.step(dict(zip(names, grads)))
-        _clamp_logit_scale(trainable)
+        clamp_logit_scale(trainable)
         state.step += 1
         with torch.no_grad():
             acc = (logits.argmax(-1) == batch["label"]).float().mean() * 100.0

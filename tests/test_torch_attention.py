@@ -6,8 +6,9 @@ interpret mode; ``fused_mha``'s gradient against ``jax.grad`` of the
 reference's ``fused_mha`` (whose VJP differentiates ``_mha_reference``);
 ``flash_plain`` against ``flash_mha(force_xla=True)``, i.e.
 ``jax.nn.dot_product_attention``, past ``FLASH_MIN_SEQ`` with a ragged
-last key tile; the routing of ``flash_mha`` by length; its backward's
-refusal; the kernel paths' shape checks.
+last key tile; the routing of ``flash_mha`` by length and its backward
+(``tests/test_torch_flash_bwd.py`` holds that backward to the reference);
+the kernel paths' shape checks.
 
 Tolerances, relative to the reference output's max magnitude: f32 1e-5
 (same arithmetic, summation order only); bf16 2e-2 (P and the output are
@@ -97,8 +98,9 @@ def test_flash_plain_matches_dot_product_attention(L, H, D, dtype):
 
 def test_flash_mha_routes_by_length_and_its_backward_raises(monkeypatch):
     """Below FLASH_MIN_SEQ the plain path, differentiable; from it on the
-    kernel's route (the plain version on CPU tensors), whose backward is
-    not ported and says so."""
+    kernel's route (the plain version on CPU tensors), whose backward no
+    longer raises: it runs and gives autograd of ``flash_plain``, the
+    function the reference differentiates off the TPU."""
     runs = []
     orig = kattn._flash_run
     monkeypatch.setattr(kattn, "_flash_run", lambda *a: runs.append(a[0].shape[1]) or orig(*a))
@@ -110,8 +112,13 @@ def test_flash_mha_routes_by_length_and_its_backward_raises(monkeypatch):
     out = kattn.flash_mha(*long_)
     assert runs == [kattn.FLASH_MIN_SEQ] and torch.equal(out, kattn.flash_plain(*long_))
     grads = [t.clone().requires_grad_(True) for t in long_]
-    with pytest.raises(NotImplementedError, match="flash_mha.*dq/dkv"):
-        kattn.flash_mha(*grads).sum().backward()
+    kattn.flash_mha(*grads).sum().backward()
+    assert runs == [kattn.FLASH_MIN_SEQ] * 2
+    plain = [t.clone().requires_grad_(True) for t in long_]
+    kattn.flash_plain(*plain).sum().backward()
+    for g, w in zip(grads, plain):
+        assert torch.isfinite(g.grad).all() and float(g.grad.abs().max()) > 0
+        _close(g.grad.numpy(), w.grad.numpy(), 1e-6)
 
 
 def _meta(*shape, dtype=torch.float32):

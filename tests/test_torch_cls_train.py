@@ -193,3 +193,11 @@ def test_head_type_3_on_a_ball_query_tower_trains_the_prompt_only(tmp_path, mode
         mask = trainable_mask(net, head_type=head_type)
         assert [k for k, v in mask.items() if v] == ["prompt_learner.learnable_tokens"]
     assert not any("block_11" in k for k in mask)
+
+
+@pytest.mark.parametrize("clip", [0.0, 0.5])
+def test_setup_honours_grad_norm_clip(clip, tmp_path):
+    """``--grad_norm_clip`` is shared with the pretraining driver: the
+    recognition driver's optimizer clips by it too."""
+    ctx = cls.setup(_args(tmp_path, grad_norm_clip=clip))
+    assert ctx["optimizer"].grad_norm_clip == clip

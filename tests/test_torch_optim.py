@@ -100,3 +100,48 @@ def test_unknown_names_raise_key_error():
         build_schedule("nope", 1e-3, 2, 2)
     with pytest.raises(KeyError):
         build_optimizer("nope", {}.items(), lambda s: 1e-3)
+
+
+@pytest.mark.parametrize("clip", [0.05, 1.0, 100.0], ids=["clips", "clips_some", "never"])
+def test_grad_norm_clip_matches_the_reference_optimizer(clip):
+    """``--grad_norm_clip``: the reference's ``build_optimizer(...,
+    grad_norm_clip=c)`` chains ``optax.clip_by_global_norm(c)`` ahead of
+    AdamW (``train/optim.py:394-400``); five steps of gradients whose global
+    norm falls from ~2 to ~0.02 cross the clip at 1.0, so both branches of
+    the select run. 1e-6 absolute, as above."""
+    from ppt_tpu.train.optim import build_optimizer as jax_build_optimizer
+
+    from ppt_torch.train.optim import clip_by_global_norm
+
+    rng = np.random.RandomState(1)
+    shapes = {"tokens": (4, 16), "scale": ()}
+    p0 = {k: np.asarray(rng.randn(*s), np.float32) for k, s in shapes.items()}
+    grads = [{k: np.asarray(rng.randn(*s) * 0.25 / 3 ** i, np.float32) for k, s in shapes.items()}
+             for i in range(5)]
+    sched = dict(final_lr=1e-5, warmup_epochs=0, warmup_start_lr=1e-6)
+    opt = jax_build_optimizer("adamw", jax_build_schedule("cosine", 3e-3, 3, 2, **sched),
+                              weight_decay=0.1, betas=(0.9, 0.98), eps=1e-8, grad_norm_clip=clip)
+    pj = {k: jnp.asarray(v) for k, v in p0.items()}
+    st = opt.init(pj)
+    pt = {k: torch.from_numpy(v.copy()) for k, v in p0.items()}
+    topt = build_optimizer("adamw", pt.items(), build_schedule("cosine", 3e-3, 3, 2, **sched),
+                           weight_decay=0.1, betas=(0.9, 0.98), eps=1e-8, grad_norm_clip=clip)
+    for g in grads:
+        tg = {k: torch.from_numpy(v) for k, v in g.items()}
+        norm = float(np.sqrt(sum(float((v.astype(np.float64) ** 2).sum()) for v in g.values())))
+        clipped = clip_by_global_norm(tg, clip)
+        for k in g:
+            want = g[k] if norm < clip else g[k] / norm * clip
+            np.testing.assert_allclose(clipped[k].numpy(), want, rtol=1e-6, atol=1e-9)
+        upd, st = opt.update({k: jnp.asarray(v) for k, v in g.items()}, st, pj)
+        pj = optax.apply_updates(pj, upd)
+        topt.step(tg)
+    for k in shapes:
+        np.testing.assert_allclose(pt[k].numpy(), np.asarray(pj[k]), atol=1e-6)
+
+
+def test_grad_norm_clip_flag_reaches_the_optimizer():
+    from ppt_torch.tasks.args import parse_args
+
+    assert parse_args([]).grad_norm_clip == 0.0
+    assert parse_args(["--grad_norm_clip", "1.5"]).grad_norm_clip == 1.5

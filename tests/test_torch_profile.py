@@ -37,6 +37,10 @@ def test_busy_us_is_the_union_of_intervals(intervals, want):
     ("ball_query_rank_kernel(float const*, float const*, int, int)", "ball_query_gather_v2"),
     ("void flash_bf16_kernel<64>(__nv_bfloat16 const*)", "flash_mha"),
     ("flash_f32_kernel(float const*, float const*)", "flash_mha"),
+    ("void flash_bwd_dkv_bf16_kernel<64>(__nv_bfloat16 const*)", "flash_mha_bwd"),
+    ("void flash_bwd_dq_bf16_kernel<64>(__nv_bfloat16 const*)", "flash_mha_bwd"),
+    ("flash_bwd_dkv_f32_kernel(float const*, float const*)", "flash_mha_bwd"),
+    ("void flash_bwd_di_kernel<float>(float const*, float const*, int)", "flash_mha_bwd"),
 ])
 def test_part_of_maps_kernel_names(name, part):
     assert profile.part_of(name) == part
@@ -48,6 +52,8 @@ def test_profile_refuses_without_a_card(monkeypatch):
         profile.profile_step(batch=2, npoints=64, batches=1)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         profile.profile_train_step(batch=2, npoints=64, batches=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        profile.profile_pretrain_step(batch=2, npoints=64, batches=1, num_group=8)
 
 
 def test_model_flag_and_tower_sections(monkeypatch):
@@ -65,3 +71,30 @@ def test_model_flag_and_tower_sections(monkeypatch):
                     "num_group": 512}
     with pytest.raises(SystemExit):
         profile.main(["--model", "ULIP_PN_MLP"])  # not ported: not a choice
+
+
+@pytest.mark.parametrize("argv,fn,want", [
+    (["--train", "pretrain"], "profile_pretrain_step",
+     {"batch": 32, "npoints": 8192, "num_group": 1024}),
+    (["--train", "pretrain", "--num_group", "512"], "profile_pretrain_step",
+     {"batch": 32, "npoints": 8192, "num_group": 512}),
+    (["--train", "--num_group", "1024", "--npoints", "8192", "--head_type", "3"],
+     "profile_train_step", {"batch": 30, "npoints": 8192, "num_group": 1024, "head_type": 3}),
+    (["--train"], "profile_train_step", {"batch": 30, "npoints": 1024, "num_group": 512}),
+])
+def test_train_targets_reach_their_steps(argv, fn, want, monkeypatch):
+    """``--train pretrain`` profiles ULIP pretraining's step (the long trunk
+    by default); ``--train`` with 1024 groups over 8192 points and head
+    type 3 is the long trunk's prompt-tuning step."""
+    import inspect
+
+    seen = {}
+    names = list(inspect.signature(getattr(profile, fn)).parameters)
+
+    def fake(*a, **kw):
+        seen.update(dict(zip(names, a)), **kw)
+        return {}
+
+    monkeypatch.setattr(profile, fn, fake)
+    profile.main(argv)
+    assert {k: seen[k] for k in want} == want

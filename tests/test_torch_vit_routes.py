@@ -376,3 +376,195 @@ def test_ulip_customized_logits_match_jax(monkeypatch):
     logits = step(model, {"pc": torch.from_numpy(pc)}, embed(model, prompts))
     scale = float(np.max(np.abs(want)))
     assert np.max(np.abs(logits.numpy() - want)) <= 1e-4 * scale
+
+
+# ---------------------------------------------------------------------------
+# training through the long trunk: head types 2 and 3
+# ---------------------------------------------------------------------------
+
+LONG12 = dict(LONG, trans_dim=48, depth=12, encoder_dims=32)
+
+
+def _flat(tree, prefix=()):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = np.asarray(v)
+    return out
+
+
+def _port_name(path):
+    *mods, leaf = path
+    return ".".join(list(mods) + [{"scale": "weight", "mean": "running_mean",
+                                   "var": "running_var"}.get(leaf, leaf)])
+
+
+@pytest.mark.parametrize("head_type", [2, 3])
+def test_long_trunk_head_type_step_matches_reference(head_type, monkeypatch):
+    """One prompt-tuning step of ``make_train_step`` on a narrow depth-12
+    trunk of 1024 groups (L = 1025), head types 2 and 3 (``block_11``'s
+    ``norm1``/``fc1`` or ``qkv``/``proj`` train: leaves before the block's
+    attention, so the step runs ``flash_mha``'s backward once), against the
+    reference's step from the same weights on the same batch. f32, DropPath
+    0; loss rel 1e-4, AdamW's first moment (0.1 g) of every trainable leaf
+    within 1e-3 of its largest entry, the updated leaves abs 1e-5 where the
+    gradient exceeds that tolerance (AdamW's first step moves an entry by
+    about lr sign(g), so an entry whose gradient is rounding noise on both
+    sides may move either way: within 2 lr there), running statistics abs
+    1e-5, frozen leaves bit-unchanged."""
+    from ppt_tpu.models import PromptArrays as JaxPrompts
+    from ppt_tpu.models import Ulip as JaxUlip
+    from ppt_tpu.models import trainable_mask as jax_mask
+    from ppt_tpu.nn import PointBert as JaxPointBert
+    from ppt_tpu.nn import PointBertConfig as JaxConfig
+    from ppt_tpu.nn import TextConfig as JaxTextConfig
+    from ppt_tpu.prompt import build_prompt_spec as jax_spec
+    from ppt_tpu.train.optim import build_optimizer as jax_optimizer
+    from ppt_tpu.train.optim import build_schedule as jax_schedule
+    from ppt_tpu.train.trainer import create_train_state as jax_create
+    from ppt_tpu.train.trainer import make_train_step as jax_make_step
+
+    from ppt_torch.models.ulip import build_model, trainable_mask
+    from ppt_torch.train.optim import build_optimizer, build_schedule
+    from ppt_torch.train.trainer import create_train_state, make_train_step
+
+    _set_switches(monkeypatch, {"PPT_FUSED_BLOCK": "1"})
+    monkeypatch.delenv("PPT_FORCE_FUSED_MINI", raising=False)
+    rng = np.random.RandomState(6 + head_type)
+    pc = rng.rand(2, 2048, 3).astype(np.float32)
+    label = np.array([1, 3], np.int32)
+    sched = dict(final_lr=1e-5, warmup_epochs=0, warmup_start_lr=1e-6)
+    opt_kw = dict(weight_decay=0.1, betas=(0.9, 0.98), eps=1e-8)
+
+    jmodel = JaxUlip(point_encoder=JaxPointBert(JaxConfig(**LONG12)), pc_feat_dims=96, n_ctx=4,
+                     text_config=JaxTextConfig(**TEXT))
+    jprompts = JaxPrompts.from_spec(jax_spec(CLASSES, n_ctx=4, class_name_position="middle"))
+    variables = jax.tree_util.tree_map(
+        np.array, jmodel.init(jax.random.PRNGKey(0), jnp.asarray(pc[:1]), jprompts))
+    opt = jax_optimizer("adamw", jax_schedule("cosine", 3e-3, 2, 4, **sched), **opt_kw)
+    jstate = jax_create(jax.tree_util.tree_map(jnp.asarray, variables),
+                        jax_mask(variables["params"], head_type=head_type), opt,
+                        jax.random.PRNGKey(1))
+    jstate, jm = jax_make_step(jmodel, opt, smoothing=0.2)(
+        jstate, {"pc": jnp.asarray(pc), "label": jnp.asarray(label)}, jprompts)
+
+    args = TaskArgs(num_learnable_prompt_tokens=4, class_name_position="middle")
+    args.pointbert_config = PointBertConfig(**LONG12)
+    args.text_config = TextConfig(**TEXT)
+    model = build_model("ULIP_PointBERT", args, device="cpu").model
+    model.load_state_dict(from_jax(variables["params"], variables["batch_stats"], model))
+    state = create_train_state(
+        model, trainable_mask(model, head_type=head_type),
+        lambda tr: build_optimizer("adamw", tr.items(),
+                                   build_schedule("cosine", 3e-3, 2, 4, **sched), **opt_kw),
+        seed=1)
+    leaves = {2: ("norm1", "mlp.fc1"), 3: ("attn.qkv", "attn.proj")}[head_type]
+    assert any(f"block_11.{leaf}" in k for k in state.trainable for leaf in leaves)
+    frozen0 = {k: v.detach().clone() for k, v in model.named_parameters()
+               if k not in state.trainable}
+    prompts = PromptArrays.from_spec(
+        build_prompt_spec(CLASSES, n_ctx=4, class_name_position="middle"), device="cpu")
+    calls = _count_calls(monkeypatch)
+    state, m = make_train_step(smoothing=0.2)(
+        state, {"pc": torch.from_numpy(pc), "label": torch.from_numpy(label).long()}, prompts)
+    assert calls == {"flash_mha": 12, "_flash_run": 12}
+
+    want = float(jm["loss"])
+    assert abs(float(m["loss"]) - want) <= 1e-4 * abs(want)
+    mus = _flat(jax.tree_util.tree_map(np.asarray, jstate.opt_state[0].mu))
+    assert {_port_name(p) for p in mus} == set(state.trainable)
+    for path, want_mu in mus.items():
+        got_mu = state.optimizer.mu[_port_name(path)].numpy()
+        assert np.max(np.abs(got_mu - want_mu)) <= 1e-3 * np.max(np.abs(want_mu)), path
+    for path, want_p in _flat(jax.tree_util.tree_map(np.asarray, jstate.trainable)).items():
+        diff = np.abs(state.trainable[_port_name(path)].detach().numpy() - want_p)
+        sure = np.abs(mus[path]) > 1e-3 * np.max(np.abs(mus[path]))
+        assert np.max(diff[sure], initial=0.0) <= 1e-5, path
+        assert np.max(diff) <= 2 * 3e-3, path
+    stats = dict(model.named_buffers())
+    for path, want_s in _flat(jax.tree_util.tree_map(np.asarray, jstate.batch_stats)).items():
+        assert np.max(np.abs(stats[_port_name(path)].numpy() - want_s)) <= 1e-5, path
+    for k, v in model.named_parameters():
+        if k in frozen0:
+            assert torch.equal(v, frozen0[k]), k
+
+
+# ---------------------------------------------------------------------------
+# LayerNormF32 and the unfused DropPath against the reference's modules
+# ---------------------------------------------------------------------------
+
+
+def test_layernorm_clamps_the_fast_variance_as_flax_does():
+    """Near-constant rows of large values (300-3000 with 1e-3 noise), where
+    E[x^2] - E[x]^2 rounds below zero: clamped at 0, as flax's
+    ``_compute_stats`` does, so no NaN (before the repair 4-29 of 64 rows
+    of 384 were NaN). Two-wide rows have one summation order in any
+    implementation, so the same statistics: there the output matches
+    flax's ``LayerNorm`` within 1e-5 of its max magnitude (the affine is
+    rounded in another order), a quarter of them through the clamp. Rows
+    of 384 are summed in another order by each side, so the rounding noise
+    that stands in for the variance differs: there both are finite."""
+    import flax.linen as fnn
+
+    from ppt_torch.nn.layers import LayerNormF32
+
+    rng = np.random.RandomState(9)
+    jln = fnn.LayerNorm(epsilon=1e-6, dtype=jnp.float32)
+    for width in (2, 384):
+        x = (rng.uniform(300, 3000, (256, 1)) + 1e-3 * rng.randn(256, width)).astype(np.float32)
+        w = (1 + 0.1 * rng.randn(width)).astype(np.float32)
+        b = (0.1 * rng.randn(width)).astype(np.float32)
+        ln = LayerNormF32(width, eps=1e-6)
+        ln.weight.data, ln.bias.data = torch.from_numpy(w), torch.from_numpy(b)
+        want = np.asarray(jln.apply({"params": {"scale": jnp.asarray(w), "bias": jnp.asarray(b)}},
+                                    jnp.asarray(x)))
+        with torch.no_grad():
+            got = ln(torch.from_numpy(x)).numpy()
+        assert np.isfinite(got).all() and np.isfinite(want).all()
+        if width == 2:
+            fast_var = (x * x).mean(-1) - x.mean(-1) ** 2
+            assert (fast_var < 0).sum() >= 32  # the rows that take the clamp
+            _close(got, want, 1e-5)
+
+
+def test_unfused_bf16_droppath_is_the_reference_division():
+    """bf16 at rate 0.1 (bf16(keep) = 0.8984375): the kept samples' branch
+    divided in bf16, the dropped ones exactly zero, bit-equal to the
+    reference's ``DropPath`` for its own mask; and a ``VitBlock`` on the
+    unfused route adds exactly that branch."""
+    from ppt_tpu.nn.layers import DropPath
+
+    from ppt_torch.nn.layers import drop_path
+    from ppt_torch.nn.pointbert import VitBlock
+
+    rng = np.random.RandomState(10)
+    h = rng.randn(16, 8, 64).astype(np.float32)
+    key = {"droppath": jax.random.PRNGKey(1)}
+    jdp = DropPath(0.1)
+    want = jdp.apply({}, jnp.asarray(h, jnp.bfloat16), deterministic=False, rngs=key)
+    kept = np.asarray(jdp.apply({}, jnp.ones((16, 1, 1)), deterministic=False, rngs=key))[:, 0, 0]
+    assert 0 < (kept == 0).sum() < 16
+    scale = torch.from_numpy(kept.astype(np.float32))
+    got = drop_path(torch.from_numpy(h).to(torch.bfloat16), scale, 0.1)
+    assert got.dtype == torch.bfloat16
+    assert np.array_equal(got.view(torch.int16).numpy(),
+                          np.asarray(want).view(np.int16))
+    assert torch.equal(drop_path(torch.from_numpy(h), scale, 0.0), torch.from_numpy(h))
+
+    blk = VitBlock(64, 2, dtype=torch.bfloat16)
+    gen = torch.Generator().manual_seed(0)
+    for p in blk.parameters():
+        p.data.copy_(torch.randn(p.shape, generator=gen) * 0.1)
+    x = torch.randn(16, 8, 64, generator=gen).to(torch.bfloat16)
+    pos = torch.zeros(16, 8, 64)
+    dp = torch.stack([scale, torch.ones(16)], dim=1)
+    with torch.no_grad():
+        out = blk(x, pos, dp, route="unfused", rate=0.1)
+        h1 = blk.attn(blk.norm1(x), 2, True)
+        x1 = x + drop_path(h1, dp[:, 0], 0.1)
+        want_out = x1 + drop_path(blk.mlp(blk.norm2(x1)), dp[:, 1], 0.1)
+    assert torch.equal(out, want_out)
+    assert torch.equal(out[kept == 0], (x + (blk.mlp(blk.norm2(x)) / torch.tensor(
+        0.9, dtype=torch.bfloat16)))[kept == 0])
