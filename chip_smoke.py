@@ -4,7 +4,9 @@ full-width ULIP-PointBERT recognition inference path, the prompt-tuning
 train path, both again with the text tower on its fused routes, the
 ball-query towers (PointNeXt-S, PointNet++ SSG and MSG), PointBERT's
 other trunk routes with the long-sequence trunk, and training through the
-long trunk (prompt tuning at head types 3 and 2, ULIP pretraining).
+long trunk (prompt tuning at head types 3 and 2, ULIP pretraining), and
+PointBERT's two pretraining stages (the dVAE tokenizer, masked point
+modeling).
 
     python3 chip_smoke.py            # one CUDA card, no arguments
 
@@ -50,7 +52,16 @@ Phases (any failed check raises, and the script exits non-zero):
      bit-identical, the tower
      identical to its chain of block launches; the block's own attention
      identical to fused_mha on the block's qkv product (one header, one
-     implementation). The tower's library time is 12 SDPA blocks + LN;
+     implementation). The tower's library time is 12 SDPA blocks + LN.
+     The reconstruction-loss kernels: chamfer_nn_dists (nn_dists, both
+     directions) bit-equal to nn_dists_plain at the dVAE's per-group clouds
+     (4096 x 8 x 32, 4096 x 32 x 32), at 8 x 2048 x 2048 and at 4 x 16384 x
+     16384, and chamfer's value and gradient equal to the plain recompute's;
+     library time cdist, squared, min both ways. approx_match at the dVAE's
+     4096 x 8 x 32 and 4096 x 32 x 32, at 4 x 64 x 32, 4 x 1024 x 768 and
+     2 x 1 x 30000 (supply vectors in device scratch): the match within 1e-4
+     of the plain auction's, the match cost within 1e-4 relative, two runs
+     bit-identical; no library call computes it;
   4. the recognition path at full width (ULIP-PointBERT, bf16, B=32,
      N=1024, 40 ModelNet40 class names, 32 prompt tokens "middle",
      weights from a seed): passes of ModelNet40's test-set size (2468
@@ -138,6 +149,25 @@ Phases (any failed check raises, and the script exits non-zero):
      default trunk over the synthetic ShapeNet fallback (B=32 x N=8192,
      every default-route kernel launched each step, the checkpoint read
      back). Its numbers go on a line of their own ({"pretrain": ...}).
+ 10. PointBERT's two pretraining stages at full width, bf16, on 320
+     synthetic clouds of 1024 points (the ShapeNet-55 stand-in): the dVAE at
+     ``DvaeConfig()`` (64 groups of 32, widths 256, 8192 tokens), B=64: one
+     step against the plain path in f32 (loss and BatchNorm buffers within
+     phase 5's 1e-4, all its gradients together within 1e-2: every leaf
+     sits behind a max over EdgeConv neighbours, a max-pool or a ReLU whose
+     near-ties rounding reroutes) and in bf16 (held to the f32 step as
+     phase 9's pretraining is), a fixed batch whose loss must fall
+     over 10 steps (Gumbel noise fixed), a window of 20 steps, one epoch of
+     ``dvae_pretrain.main`` with its checkpoint read back; the dVAE with
+     ``dvae_loss(recon="emd")``: one f32 step against the plain path with
+     ``PPT_FORCE_XLA_EMD=1`` (two approx_match launches on the kernel side)
+     and a window of 20 steps (two a step from the counters); masked point
+     modeling at ``PointBertConfig()`` (384 wide, 12 blocks, 512 groups of
+     32), B=32, the frozen dVAE read from that checkpoint: one step against
+     the plain path at B=8 in f32 and bf16 (as the dVAE's), a fixed batch
+     whose loss must fall, a window of 20 steps, one epoch of
+     ``mpm_pretrain.main``. Its numbers go on a line of their own
+     ({"pretrain_pb": ...}).
 
 The line before the card's is a JSON object with the per-kernel numbers.
 Each ``launches`` there is a counter read after a driven run, or a sum of
@@ -176,6 +206,8 @@ from ppt_torch.data.datasets import ArrayDataset, make_synthetic  # noqa: E402
 from ppt_torch.data.loader import Loader  # noqa: E402
 from ppt_torch.kernels import _build  # noqa: E402
 from ppt_torch.kernels import attention as kattn  # noqa: E402
+from ppt_torch.kernels import chamfer as kchamfer  # noqa: E402
+from ppt_torch.kernels import emd as kemd  # noqa: E402
 from ppt_torch.kernels import group as kgroup  # noqa: E402
 from ppt_torch.kernels import mini as kmini  # noqa: E402
 from ppt_torch.kernels import textblock as ktextblock  # noqa: E402
@@ -183,12 +215,15 @@ from ppt_torch.kernels import texttower as ktower  # noqa: E402
 from ppt_torch.kernels import vitblock as kvit  # noqa: E402
 from ppt_torch.models.ulip import (PromptArrays, build_model, init_weights,  # noqa: E402
                                    trainable_mask, ulip_customized)
+from ppt_torch.nn import dvae as ndvae  # noqa: E402
+from ppt_torch.nn import mpm as nmpm  # noqa: E402
 from ppt_torch.nn import pointbert as npb  # noqa: E402
 from ppt_torch.nn import text as ntext  # noqa: E402
 from ppt_torch.prompt.learner import build_prompt_spec  # noqa: E402
-from ppt_torch.tasks import cls, pretrain  # noqa: E402
+from ppt_torch.tasks import cls, dvae_pretrain, mpm_pretrain, pretrain  # noqa: E402
 from ppt_torch.tasks.args import TaskArgs  # noqa: E402
 from ppt_torch.models.losses import smoothed_cross_entropy, ulip_contrastive_loss  # noqa: E402
+from ppt_torch.ops.losses3d import chamfer_l2  # noqa: E402
 from ppt_torch.train.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
 from ppt_torch.train.eval import make_cached_text_eval  # noqa: E402
 from ppt_torch.train.optim import build_optimizer, build_schedule  # noqa: E402
@@ -228,6 +263,8 @@ SOURCES = {
     "fused_vit_tower": ("ppt_torch/csrc/vitblock.cu", "ppt_tpu/kernels/vitblock.py:476"),
     "flash_mha_bwd": ("ppt_torch/csrc/attention.cu",
                       "jax/experimental/pallas/ops/tpu/flash_attention.py:941,1287"),
+    "chamfer_nn_dists": ("ppt_torch/csrc/losses3d.cu", "ppt_tpu/kernels/chamfer.py:99"),
+    "approx_match": ("ppt_torch/csrc/losses3d.cu", "ppt_tpu/kernels/emd.py:98,157"),
 }
 # B, L, heads, head dim
 MHA_SHAPES = ((2, 33, 2, 32, "small"), (30, 513, 6, 64, "train"), (32, 513, 6, 64, "slice"))
@@ -241,12 +278,16 @@ BALL_KERNELS = ("ball_query_gather", "ball_query_gather_feats", "ball_query_gath
 ROUTE_KERNELS = ("fused_mha", "flash_mha", "fused_vit_tower")
 # the kernels of training through the long trunk (phase 9)
 LONG_TRAIN_KERNELS = ("flash_mha_bwd",)
+# the reconstruction-loss kernels of PointBERT's pretraining stages (phase 10)
+LOSS3D_KERNELS = ("chamfer_nn_dists", "approx_match")
 # the PointBERT tower's kernels on its default route (phases 4 to 6)
-POINT_KERNELS = tuple(k for k in SOURCES
-                      if k not in TEXT_KERNELS + BALL_KERNELS + ROUTE_KERNELS + LONG_TRAIN_KERNELS)
+POINT_KERNELS = tuple(k for k in SOURCES if k not in TEXT_KERNELS + BALL_KERNELS + ROUTE_KERNELS
+                      + LONG_TRAIN_KERNELS + LOSS3D_KERNELS)
 # ball_query_gather_v2 is the second formulation of ball_query_gather: no module
-# calls it (nor does the reference call its own), so no driven path launches it
-OFF_PATH_KERNELS = ("ball_query_gather_v2",)
+# calls it (nor does the reference call its own), so no driven path launches it;
+# no entry point reaches chamfer_nn_dists either, here or in the reference: the
+# dVAE's Chamfer-L1 stays plain on every device, as the reference keeps it in XLA
+OFF_PATH_KERNELS = ("ball_query_gather_v2", "chamfer_nn_dists")
 TOL_TEXT_BWD = {"f32": 1e-4, "bf16": 5e-2}
 
 
@@ -1091,6 +1132,106 @@ def check_ballquery(results):
         r["bound_by"] = by.most_common(1)[0][0]
 
 
+# (B, N, M, tag): the dVAE's per-group clouds (B*G = 64*64 groups; coarse 8
+# and fine 32 points against each 32-point neighbourhood), kernel_check's
+# reconstruction scale (tools/kernel_check.py:190-195) and the 16k-point
+# clouds of the Chamfer kernel's docstring. The row's headline is the
+# reconstruction scale, the shape the reference's own on-chip check takes.
+NN_SHAPES = ((4096, 8, 32, "dvae_coarse"), (4096, 32, 32, "dvae_fine"), (8, 2048, 2048, "recon"),
+             (4, 16384, 16384, "16k"))
+# the dVAE's two EMD terms, the reference's small shape, kernel_check's
+# (tools/kernel_check.py:201-204), and one whose supply vectors alone pass a
+# block's shared memory (the device-scratch path). The headline is the
+# dVAE's step: its coarse and fine terms together.
+EMD_SHAPES = ((4096, 8, 32, "dvae_coarse"), (4096, 32, 32, "dvae_fine"), (4, 64, 32, "small"),
+              (4, 1024, 768, "kernel_check"), (2, 1, 30000, "scratch"))
+
+
+def chamfer_library(a, b):
+    """One PyTorch call per direction: cdist, squared, min."""
+    return torch.cdist(a, b).square().amin(-1), torch.cdist(b, a).square().amin(-1)
+
+
+def check_losses3d(results):
+    """Phase 3 for the reconstruction-loss kernels: nn_dists bit-equal to
+    its plain version both ways (and chamfer's gradient to the plain
+    recompute's), approx_match's match within 1e-4 and its cost within
+    1e-4 relative of the plain auction's, repeats bit-identical."""
+    g = torch.Generator().manual_seed(17)
+    rows = []
+    for B, N, M, tag in NN_SHAPES:
+        a, b = (torch.rand(B, n, 3, generator=g).to(DEV) for n in (N, M))
+        got = (kchamfer.nn_dists(a, b), kchamfer.nn_dists(b, a))
+        want = (kchamfer.nn_dists_plain(a, b), kchamfer.nn_dists_plain(b, a))
+        again = kchamfer.nn_dists(a, b)
+        torch.cuda.synchronize()
+        equal = all(torch.equal(x, y) for x, y in zip(got, want)) and torch.equal(again, got[0])
+        err = max(float((x - y).abs().max()) for x, y in zip(got, want))
+        nbytes = 2 * (B * N * 12 + B * M * 12) + B * (N + M) * 4
+        bms, by = bound_ms(nbytes, 9 * 2 * B * N * M, PEAK["f32"])  # 3 sub, 3 mul, 2 add, min
+        row = dict(tag=tag, B=B, N=N, M=M, max_abs_err=err, bound_ms=bms, bound_by=by,
+                   ms=gpu_time_ms(lambda: (kchamfer.nn_dists(a, b), kchamfer.nn_dists(b, a))),
+                   plain_ms=gpu_time_ms(lambda: (kchamfer.nn_dists_plain(a, b),
+                                                 kchamfer.nn_dists_plain(b, a)), reps=2, warmup=1),
+                   library_ms=gpu_time_ms(lambda: chamfer_library(a, b), reps=2, warmup=1))
+        rows.append(row)
+        print(f"[kernel] chamfer_nn_dists {tag} B={B} N={N} M={M}, both directions: bit-equal to "
+              f"the plain version {equal} (max |diff| {err:.1e}), repeats identical; kernel "
+              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.3f}, library {row['library_ms']:.3f},"
+              f" bound {bms:.4f} ({by})")
+        check(equal, f"chamfer_nn_dists differs from its plain version at {tag}")
+    a = torch.rand(4, 500, 3, generator=g).to(DEV).requires_grad_()
+    b = torch.rand(4, 300, 3, generator=g).to(DEV).requires_grad_()
+    value = kchamfer.chamfer(a, b)
+    ga, gb = torch.autograd.grad(value, [a, b])
+    wa, wb = torch.autograd.grad(chamfer_l2(a, b), [a, b])
+    same = (float(value.detach()) == float(kchamfer.chamfer_plain(a.detach(), b.detach()))
+            and torch.equal(ga, wa) and torch.equal(gb, wb))
+    print(f"[kernel] chamfer 4 x 500 vs 300: value equal to chamfer_plain and gradients equal to "
+          f"the plain chamfer_l2's {same}")
+    check(same, "chamfer's value or gradient differs from the plain version")
+    head = next(r for r in rows if r["tag"] == "recon")
+    results["chamfer_nn_dists"] = dict(
+        {k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        max_abs_err=max(r["max_abs_err"] for r in rows), headline=head["tag"], shapes=rows)
+
+    rows = []
+    for B, N, M, tag in EMD_SHAPES:
+        x1, x2 = torch.rand(B, N, 3, generator=g).to(DEV), torch.rand(B, M, 3, generator=g).to(DEV)
+        match, again = kemd.approx_match(x1, x2), kemd.approx_match(x1, x2)
+        want = kemd.approx_match_plain(x1, x2)
+        d2 = kemd.match_d2(x1, x2)
+        cost, cost_p = kemd.emd_matchcost(x1, x2), (d2 * want).sum((1, 2))
+        torch.cuda.synchronize()
+        err = float((match - want).abs().max())
+        cost_rel = float(((cost - cost_p).abs() / cost_p.abs()).max())
+        same = torch.equal(match, again)
+        nbytes = 2 * B * N * M * 4  # d2 read, match written
+        # per pair and level: the bid (mul, exp), suml (mul, add), sumr
+        # (mul, add), the flow (2 mul) into match (add) and its row sum (add)
+        bms, by = bound_ms(nbytes, 10 * len(kemd.LEVELS) * B * N * M, PEAK["f32"])
+        row = dict(tag=tag, B=B, N=N, M=M, max_abs_err=err, cost_rel=cost_rel, bound_ms=bms,
+                   bound_by=by, bit_equal=torch.equal(match, want),
+                   ms=gpu_time_ms(lambda: kemd._auction_run(d2), reps=3, warmup=1),
+                   plain_ms=gpu_time_ms(lambda: kemd.auction_plain(d2, *kemd.supplies(N, M)),
+                                        reps=1, warmup=1))
+        rows.append(row)
+        print(f"[kernel] approx_match {tag} B={B} N={N} M={M}: match max |diff| {err:.2e} (tol "
+              f"1e-4; bit-equal {row['bit_equal']}), cost rel {cost_rel:.2e} (tol 1e-4), "
+              f"repeats identical {same}, rows ship {float(match.sum(2).min()):.6f}-"
+              f"{float(match.sum(2).max()):.6f}; kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.3f}, bound {bms:.4f} ({by})")
+        check(err <= 1e-4, f"approx_match's match differs from the plain auction at {tag}")
+        check(cost_rel <= 1e-4, f"the EMD match cost differs from the plain version at {tag}")
+        check(same, f"approx_match differs between two runs at {tag}")
+    step = [r for r in rows if r["tag"].startswith("dvae_")]
+    results["approx_match"] = dict(
+        {k: sum(r[k] for r in step) for k in ("ms", "plain_ms", "bound_ms")},
+        bound_by=collections.Counter(r["bound_by"] for r in step).most_common(1)[0][0],
+        library_ms=None, max_abs_err=max(r["max_abs_err"] for r in rows),
+        headline="dvae_coarse + dvae_fine", shapes=rows)
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the recognition path at full width
 # ---------------------------------------------------------------------------
@@ -1105,6 +1246,8 @@ def plain_path():
     saved_ball = (kgroup.ball_query_gather, kgroup._ball_feats_run)
     saved_route = (kattn._mha_run, kattn._flash_run, kvit._tower_run)
     saved_flash = (kattn._flash_fwd, kattn._flash_bwd)
+    saved_emd = kemd._auction_run
+    kemd._auction_run = lambda d2: kemd.auction_plain(d2, *kemd.supplies(*d2.shape[1:]))
     kattn._mha_run, kattn._flash_run = kattn.mha_plain, kattn.flash_plain
     kattn._flash_fwd = lambda q, k, v: (kattn.flash_plain(q, k, v), kattn.flash_lse_plain(q, k))
     kattn._flash_bwd = kattn.flash_bwd_plain
@@ -1131,6 +1274,7 @@ def plain_path():
         kgroup.ball_query_gather, kgroup._ball_feats_run = saved_ball
         kattn._mha_run, kattn._flash_run, kvit._tower_run = saved_route
         kattn._flash_fwd, kattn._flash_bwd = saved_flash
+        kemd._auction_run = saved_emd
 
 
 MN40_TEST_CLOUDS = 2468  # ModelNet40's test split
@@ -1252,15 +1396,14 @@ def snapshot(tensors):
     return {k: v.detach().clone() for k, v in tensors.items()}
 
 
-def one_step_quantities(ctx, batch, seed):
+def step_quantities(state, seed, loss_of):
     """Loss, gradients of the trainable leaves and the BatchNorm buffers
-    after one training-mode forward/backward (no optimizer step), with the
-    state put back as it was."""
-    state, model = ctx["state"], ctx["model"]
+    after one training-mode forward/backward ``loss_of()`` (no optimizer
+    step) with ``state.generator`` seeded by ``seed``, the buffers put back
+    as they were."""
     before = snapshot(state.batch_stats())
     state.generator.manual_seed(seed)
-    logits = model(batch["pc"], ctx["prompts"], train=True, generator=state.generator)
-    loss = smoothed_cross_entropy(logits, batch["label"], 0.2)
+    loss = loss_of()
     names = list(state.trainable)
     grads = dict(zip(names, torch.autograd.grad(loss, [state.trainable[k] for k in names])))
     after = snapshot(state.batch_stats())
@@ -1269,6 +1412,14 @@ def one_step_quantities(ctx, batch, seed):
             v.copy_(before[k])
     torch.cuda.synchronize()
     return float(loss.detach()), grads, after
+
+
+def one_step_quantities(ctx, batch, seed):
+    """``step_quantities`` of the prompt-tuning loss."""
+    state, model = ctx["state"], ctx["model"]
+    return step_quantities(state, seed, lambda: smoothed_cross_entropy(
+        model(batch["pc"], ctx["prompts"], train=True, generator=state.generator),
+        batch["label"], 0.2))
 
 
 TEXT_SWITCHES = {"off": {}, "block": {"PPT_FUSED_TEXT": "1"},
@@ -1285,7 +1436,7 @@ def switches(settings):
     the ``cls.setup`` calls inside; every other switch of the text tower or
     the trunk unset."""
     keys = ("PPT_FUSED_TEXT", "PPT_FUSED_TEXT_TOWER", "PPT_FORCE_XLA_ATTN", "PPT_FUSED_BLOCK",
-            "PPT_FUSED_VIT_TOWER")
+            "PPT_FUSED_VIT_TOWER", "PPT_FORCE_XLA_EMD")
     saved = {k: os.environ.pop(k, None) for k in keys}
     os.environ.update(settings)
     try:
@@ -2071,23 +2222,10 @@ def rel_to_floor(got, want, floor):
 
 
 def pretrain_quantities(model, state, pc, tokens, seed):
-    """Loss, gradients of the trainable leaves and the BatchNorm buffers of
-    one pretraining forward/backward (no optimizer step), the buffers put
-    back as they were."""
-    before = snapshot(state.batch_stats())
-    state.generator.manual_seed(seed)
-    pc_embed = model.encode_pc(pc, train=True, generator=state.generator)
-    out = ulip_contrastive_loss(pc_embed, model.encode_captions(tokens), None,
-                                         torch.exp(model.logit_scale))
-    names = list(state.trainable)
-    grads = dict(zip(names, torch.autograd.grad(out["loss"],
-                                                [state.trainable[k] for k in names])))
-    after = snapshot(state.batch_stats())
-    with torch.no_grad():
-        for k, v in state.batch_stats().items():
-            v.copy_(before[k])
-    torch.cuda.synchronize()
-    return float(out["loss"].detach()), grads, after
+    """``step_quantities`` of ULIP's contrastive pretraining loss."""
+    return step_quantities(state, seed, lambda: ulip_contrastive_loss(
+        model.encode_pc(pc, train=True, generator=state.generator),
+        model.encode_captions(tokens), None, torch.exp(model.logit_scale))["loss"])
 
 
 # the group encoder's gradient in f32, pretraining only: a relative change
@@ -2098,25 +2236,27 @@ def pretrain_quantities(model, state, pc, tokens, seed):
 TOL_ENCODER_F32 = 1e-2
 
 
-def step_vs_plain(tag, dtype, quantities, tol_encoder=None):
+def step_vs_plain(tag, dtype, quantities, tol_encoder=None, encoder="point_encoder.encoder.",
+                  kernel="flash_mha_bwd"):
     """``quantities()`` -> (loss, grads, stats) through the kernels and
     through their plain versions on the card; phase 5's limits, and
-    ``tol_encoder`` for the group encoder's leaves when it trains. A leaf's
-    gradient error is taken against its largest entry, floored at 1e-3 of
-    the largest gradient of any leaf: a Dense bias just before a train-mode
-    BatchNorm has a gradient of rounding noise."""
+    ``tol_encoder`` for the leaves under ``encoder`` (the group encoder)
+    when it trains. A leaf's gradient error is taken
+    against its largest entry, floored at 1e-3 of the largest gradient of
+    any leaf: a Dense bias just before a train-mode BatchNorm has a
+    gradient of rounding noise. ``kernel``'s launches are counted."""
     tol_loss, tol_grad, tol_stats = TOL_STEP[dtype]
     tol_encoder = tol_encoder or tol_grad
     _build.reset_launches()
     loss, grads, stats = quantities()
-    bwd = _build.LAUNCHES["flash_mha_bwd"]
+    bwd = _build.LAUNCHES[kernel]
     with plain_path():
         loss_p, grads_p, stats_p = quantities()
     top = max(float(g.abs().max()) for g in grads_p.values())
     d_loss = abs(loss - loss_p) / abs(loss_p)
     d_grad = {k: rel_to_floor(grads[k], grads_p[k], 1e-3 * top) for k in grads}
     d_stats = max(rel_err(stats[k], stats_p[k]) for k in stats)
-    enc = {k: v for k, v in d_grad.items() if k.startswith("point_encoder.encoder.")}
+    enc = {k: v for k, v in d_grad.items() if k.startswith(encoder)}
     rest = {k: v for k, v in d_grad.items() if k not in enc}
     worst = max(rest, key=rest.get)
     worst_enc = max(enc, key=enc.get) if enc else None
@@ -2125,7 +2265,7 @@ def step_vs_plain(tag, dtype, quantities, tol_encoder=None):
           f"({worst}; {len(grads)} leaves; tol {tol_grad})"
           + (f", group encoder {enc[worst_enc]:.3e} ({worst_enc}; tol {tol_encoder})"
              if enc else "")
-          + f"; BN buffers max rel {d_stats:.3e} (tol {tol_stats}); flash_mha_bwd launches {bwd}")
+          + f"; BN buffers max rel {d_stats:.3e} (tol {tol_stats}); {kernel} launches {bwd}")
     check(math.isfinite(loss) and all(torch.isfinite(g).all() for g in grads.values()),
           f"non-finite loss or gradient ({tag} {dtype})")
     check(d_loss <= tol_loss, f"loss disagrees with the plain path ({tag} {dtype})")
@@ -2135,7 +2275,7 @@ def step_vs_plain(tag, dtype, quantities, tol_encoder=None):
     check(d_stats <= tol_stats, f"BN buffers disagree with the plain path ({tag} {dtype})")
     return {"loss_rel": d_loss, "grad_rel": rest[worst],
             "encoder_grad_rel": enc[worst_enc] if enc else None, "stats_rel": d_stats,
-            "flash_mha_bwd_launches": bwd}, grads
+            f"{kernel}_launches": bwd}, grads
 
 
 def grad_dist(grads, ref):
@@ -2155,11 +2295,11 @@ def grad_dist(grads, ref):
 BF16_PRETRAIN_FACTOR, BF16_PRETRAIN_SLACK = 2.0, 1e-2
 
 
-def bf16_pretrain_vs_plain(tag, quantities, f32_grads):
+def bf16_pretrain_vs_plain(tag, quantities, f32_grads, kernel="flash_mha_bwd"):
     tol_loss, _, tol_stats = TOL_STEP["bfloat16"]
     _build.reset_launches()
     loss, grads, stats = quantities()
-    bwd = _build.LAUNCHES["flash_mha_bwd"]
+    bwd = _build.LAUNCHES[kernel]
     with plain_path():
         loss_p, grads_p, stats_p = quantities()
     d_loss = abs(loss - loss_p) / abs(loss_p)
@@ -2173,7 +2313,7 @@ def bf16_pretrain_vs_plain(tag, quantities, f32_grads):
           f"step {e_k:.3e} (kernels) vs {e_p:.3e} (plain), tol {BF16_PRETRAIN_FACTOR} x plain + "
           f"{BF16_PRETRAIN_SLACK}; per-leaf max rel kernels vs plain {d_grad[worst]:.3e} "
           f"({worst}; not checked); BN buffers max rel {d_stats:.3e} (tol {tol_stats}); "
-          f"flash_mha_bwd launches {bwd}")
+          f"{kernel} launches {bwd}")
     check(math.isfinite(loss) and all(torch.isfinite(g).all() for g in grads.values()),
           f"non-finite loss or gradient ({tag} bfloat16)")
     check(d_loss <= tol_loss, f"loss disagrees with the plain path ({tag} bfloat16)")
@@ -2183,7 +2323,7 @@ def bf16_pretrain_vs_plain(tag, quantities, f32_grads):
     check(d_stats <= tol_stats, f"BN buffers disagree with the plain path ({tag} bfloat16)")
     return {"loss_rel": d_loss, "grad_dist_from_f32": e_k, "plain_grad_dist_from_f32": e_p,
             "grad_rel_per_leaf_unchecked": d_grad[worst], "stats_rel": d_stats,
-            "flash_mha_bwd_launches": bwd}
+            f"{kernel}_launches": bwd}
 
 
 def run_long_train_slice(steps=20):
@@ -2353,6 +2493,305 @@ def _run_long_train_slice(steps):
     return counted, out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: PointBERT's two pretraining stages (dVAE tokenizer, masked point
+# modeling)
+# ---------------------------------------------------------------------------
+
+PB_DIR = _build.BUILD_DIR.parent / "chip_smoke_pretrain_pb"
+DVAE_BATCH, MPM_BATCH, PLAIN_MPM_BATCH = 64, 32, 8  # TaskArgs' default batch; PR 6's B=8
+PB_NPOINTS = 1024
+
+
+def pb_clouds():
+    """320 synthetic clouds of 1024 points: the synthetic fallback that
+    stands in for ShapeNet-55 (not in the repository)."""
+    return make_synthetic(num_classes=40, samples_per_class=8, npoints=PB_NPOINTS, seed=2)
+
+
+def trainable_all(model, lr):
+    """AdamW at a constant ``lr`` on every parameter of ``model``."""
+    return create_train_state(model, {k: True for k, _ in model.named_parameters()},
+                              lambda tr: build_optimizer("adamw", tr.items(), lambda s: lr),
+                              seed=1)
+
+
+def dvae_model(dtype, seed=0):
+    """The dVAE at ``DvaeConfig()`` (64 groups of 32, widths 256, 8192
+    tokens), weights from ``seed``, on the card."""
+    return ndvae.init_dvae(ndvae.DiscreteVAE(ndvae.DvaeConfig(), dtype=DTYPES[dtype]),
+                           seed).to(DEV)
+
+
+def dvae_quantities(model, state, pc, seed, recon):
+    """``step_quantities`` of the dVAE's loss (``make_dvae_step``'s) at
+    temperature 1, the Gumbel noise drawn after ``seed``."""
+    def loss_of():
+        ret = model(pc, temperature=1.0, train=True, generator=state.generator)
+        loss_recon, klv = ndvae.dvae_loss(ret, model.config.num_tokens, recon=recon)
+        return loss_recon + 0.1 * klv
+
+    return step_quantities(state, seed, loss_of)
+
+
+def mpm_quantities(student, dvae, state, pc, mask, seed):
+    """``step_quantities`` of the MPM loss against the frozen dVAE's ids at
+    ``mask``."""
+    def loss_of():
+        nb, ct = npb.group_points(pc, student.config.num_group, student.config.group_size)
+        logits = student(nb, ct, mask, train=True, generator=state.generator)
+        return nmpm.mpm_loss(logits, nmpm.dvae_tokenize(dvae, nb, ct), mask)[0]
+
+    return step_quantities(state, seed, loss_of)
+
+
+def timed_window(tag, batch, run_step, steps):
+    """3 warm-up steps, then ``steps`` with the loss read every step:
+    train clouds/sec and kernel launches per step from the counters."""
+    losses = [run_step() for _ in range(3)]
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    losses += [run_step() for _ in range(steps)]
+    torch.cuda.synchronize()
+    rate = steps * batch / (time.perf_counter() - t0)
+    launches = dict(_build.LAUNCHES)
+    per_step = {k: v / steps for k, v in sorted(launches.items())}
+    print(f"[pretrain_pb] {tag}: 3 warm-up steps, then {steps} steps (loss read every step): "
+          f"{rate:.1f} train clouds/sec ({1e3 * batch / rate:.2f} ms per step); loss first "
+          f"{losses[0]:.4f}, last {losses[-1]:.4f}; kernel launches per step "
+          f"{json.dumps(per_step)}")
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss ({tag})")
+    return launches, dict(train_clouds_per_sec=rate, ms_per_step=1e3 * batch / rate, steps=steps,
+                          loss_first_last=[losses[0], losses[-1]], launches_per_step=per_step)
+
+
+def fixed_batch_falls(tag, step, steps=10):
+    losses = [step() for _ in range(steps)]
+    print(f"[pretrain_pb] {tag}, a fixed batch, {steps} steps: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} (lowest {min(losses):.4f})")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"the loss did not fall on a fixed batch ({tag})")
+    return [losses[0], losses[-1]]
+
+
+# The dVAE's every leaf sits behind a max over 4 EdgeConv neighbours, the
+# group encoder's max-pool or a decoder ReLU, so a rounding-sized change of
+# the group encoder's output reroutes some gradients: a 1e-7 relative change
+# moves single leaves by up to 1.4e-2 of their largest entry and all leaves
+# together by 5.2e-4 (1.3e-3 at 1e-6; measured on the CPU at full width,
+# B=8, f32). An f32 dVAE step is held to the plain path by the distance of
+# all its gradients together, with phase 5's limits on loss and buffers.
+TOL_DVAE_GRAD_DIST = 1e-2
+
+
+def f32_step_vs_plain_by_distance(tag, quantities, kernel, plain_switches=None):
+    tol_loss, _, tol_stats = TOL_STEP["float32"]
+    _build.reset_launches()
+    loss, grads, stats = quantities()
+    n = _build.LAUNCHES[kernel]
+    with switches(plain_switches or {}), plain_path():
+        loss_p, grads_p, stats_p = quantities()
+    d_loss = abs(loss - loss_p) / abs(loss_p)
+    d_stats = max(rel_err(stats[k], stats_p[k]) for k in stats)
+    dist = grad_dist(grads, grads_p)
+    top = max(float(g.abs().max()) for g in grads_p.values())
+    d_grad = {k: rel_to_floor(grads[k], grads_p[k], 1e-3 * top) for k in grads}
+    worst = max(d_grad, key=d_grad.get)
+    print(f"[pretrain_pb] {tag} float32: one step vs plain path on the card: loss {loss:.6f} vs "
+          f"{loss_p:.6f} (rel {d_loss:.3e}, tol {tol_loss}); gradients' distance, all "
+          f"{len(grads)} leaves together, {dist:.3e} (tol {TOL_DVAE_GRAD_DIST}); per-leaf max "
+          f"rel {d_grad[worst]:.3e} ({worst}; not checked); BN buffers max rel {d_stats:.3e} "
+          f"(tol {tol_stats}); {kernel} launches {n}")
+    check(math.isfinite(loss) and all(torch.isfinite(g).all() for g in grads.values()),
+          f"non-finite loss or gradient ({tag} float32)")
+    check(d_loss <= tol_loss, f"loss disagrees with the plain path ({tag} float32)")
+    check(dist <= TOL_DVAE_GRAD_DIST, f"gradients disagree with the plain path ({tag} float32)")
+    check(d_stats <= tol_stats, f"BN buffers disagree with the plain path ({tag} float32)")
+    return {"loss_rel": d_loss, "grad_dist": dist, "grad_rel_per_leaf_unchecked": d_grad[worst],
+            "stats_rel": d_stats, f"{kernel}_launches": n}, grads
+
+
+def run_pretrain_pb_slice(steps=20):
+    try:
+        return _run_pretrain_pb_slice(steps)
+    finally:
+        shutil.rmtree(PB_DIR, ignore_errors=True)
+
+
+def _run_pretrain_pb_slice(steps):
+    out = {"dvae": {"batch": DVAE_BATCH, "npoints": PB_NPOINTS, "config": "DvaeConfig()"},
+           "mpm": {"batch": MPM_BATCH, "npoints": PB_NPOINTS, "config": "PointBertConfig()"}}
+    counted = {}
+    ds = pb_clouds()
+    stream = batch_stream(Loader(ds, DVAE_BATCH, shuffle=True, drop_last=True, seed=0))
+    pc64 = cls.device_batch(next(iter(Loader(ds, DVAE_BATCH, shuffle=True, seed=3))), DEV)["pc"]
+
+    # 1. the dVAE with its Chamfer-L1 loss: one step against the plain path
+    r = out["dvae"]
+    r["vs_plain"] = {}
+    for dtype in ("f32", "bf16"):
+        model = dvae_model(dtype)  # the same weights in both dtypes
+        state = trainable_all(model, 1e-3)
+        quantities = lambda: dvae_quantities(model, state, pc64, 11, "chamfer")  # noqa: E731
+        if dtype == "f32":
+            r["vs_plain"][dtype], f32_grads = f32_step_vs_plain_by_distance(
+                f"dVAE B={DVAE_BATCH}", quantities, "mini_stats")
+        else:
+            r["vs_plain"][dtype] = bf16_pretrain_vs_plain(f"dVAE B={DVAE_BATCH}", quantities,
+                                                          f32_grads, kernel="mini_stats")
+        del model, state
+
+    model = dvae_model("bf16")
+    state = trainable_all(model, 1e-3)
+    step = dvae_pretrain.make_dvae_step(model, state.optimizer)
+
+    def fixed():
+        state.generator.manual_seed(0)  # the same Gumbel noise every step
+        return float(step(state, {"pc": pc64}, 1.0)[1]["loss"])
+
+    r["fixed_batch_loss"] = fixed_batch_falls("dVAE bf16, lr 1e-3, Gumbel noise fixed", fixed)
+    model = dvae_model("bf16")
+    state = trainable_all(model, 1e-3)
+    step = dvae_pretrain.make_dvae_step(model, state.optimizer)
+    total = 250 * (len(ds) // DVAE_BATCH)
+
+    def window_step():
+        pc = train_augment(state.generator, cls.device_batch(next(stream), DEV)["pc"])
+        temp = dvae_pretrain.temperature_at(state.step, total)
+        return float(step(state, {"pc": pc}, temp)[1]["loss"])
+
+    launches, stats = timed_window(f"dVAE (Chamfer-L1) bf16 B={DVAE_BATCH} x N={PB_NPOINTS}",
+                                   DVAE_BATCH, window_step, steps)
+    r.update(stats)
+    for name in ("fps_batched", "knn_gather", "mini_stats", "mini_forward"):
+        check(launches.get(name, 0) == steps, f"the dVAE step launches {name} once: {launches}")
+    check(not launches.get("approx_match"), "the Chamfer-L1 dVAE step launched approx_match")
+
+    # dvae_pretrain.main: one epoch, its checkpoint read back (phase 10's MPM reads it too)
+    args = TaskArgs(dataset_name="synthetic", npoints=PB_NPOINTS, batch_size=DVAE_BATCH,
+                    epochs=1, seed=0, compute_dtype="bfloat16", device="cuda",
+                    output_dir=str(PB_DIR))
+    res = dvae_pretrain.main(args)
+    (entry,) = res["history"]
+    dstate = res["state"]
+    fresh = trainable_all(ndvae.DiscreteVAE(ndvae.DvaeConfig(), torch.bfloat16).to(DEV), 0.0)
+    load_checkpoint(str(PB_DIR / "dvae"), fresh)
+    same = (all(torch.equal(fresh.trainable[k], v) for k, v in dstate.trainable.items())
+            and all(torch.equal(fresh.batch_stats()[k], v)
+                    for k, v in dstate.batch_stats().items()))
+    rate = dstate.step * DVAE_BATCH / entry["epoch_time"]
+    print(f"[pretrain_pb] dvae_pretrain.main, one epoch (bf16, B={DVAE_BATCH} x N={PB_NPOINTS}, "
+          f"{len(ds)} synthetic clouds): {dstate.step} steps, recon {entry['recon']:.4f}, kl "
+          f"{entry['kl']:.4f}, temperature {entry['temperature']:.4f}, {rate:.1f} train "
+          f"clouds/sec; checkpoint read back identical {same}")
+    check(dstate.step == len(ds) // DVAE_BATCH and math.isfinite(entry["recon"]) and same,
+          "dvae_pretrain.main's epoch or checkpoint")
+    r["main"] = dict(entry, steps=dstate.step, train_clouds_per_sec=rate)
+    del model, state, step, res, dstate, fresh
+
+    # 2. the dVAE with dvae_loss(recon="emd"): approx_match on the path
+    r = out["dvae_emd"] = {"batch": DVAE_BATCH, "npoints": PB_NPOINTS}
+    model = dvae_model("f32")
+    state = trainable_all(model, 1e-3)
+    r["vs_plain"], _ = f32_step_vs_plain_by_distance(
+        f"dVAE (EMD) B={DVAE_BATCH}", lambda: dvae_quantities(model, state, pc64, 11, "emd"),
+        "approx_match", plain_switches={"PPT_FORCE_XLA_EMD": "1"})
+    check(r["vs_plain"]["approx_match_launches"] == 2, "a dVAE EMD step runs approx_match twice")
+    model = dvae_model("bf16")
+    state = trainable_all(model, 1e-3)
+    step = dvae_pretrain.make_dvae_step(model, state.optimizer, recon="emd")
+    launches, stats = timed_window(f"dVAE (EMD) bf16 B={DVAE_BATCH} x N={PB_NPOINTS}",
+                                   DVAE_BATCH, window_step, steps)
+    r.update(stats)
+    check(launches.get("approx_match") == 2 * steps, f"two approx_match a step: {launches}")
+    counted["approx_match"] = launches.get("approx_match", 0)
+    del model, state, step
+
+    # 3. masked point modeling at PointBERT's widths, the dVAE from the checkpoint
+    r = out["mpm"]
+    cfg = npb.PointBertConfig()
+    dcfg = ndvae.DvaeConfig(group_size=cfg.group_size, num_group=cfg.num_group)
+    ckpt = PB_DIR / "dvae" / "checkpoint_best.pt"
+
+    def frozen_dvae(dtype):
+        dvae = ndvae.DiscreteVAE(dcfg, dtype=DTYPES[dtype])
+        return mpm_pretrain.load_dvae(dvae, str(ckpt)).to(DEV).requires_grad_(False)
+
+    def student(dtype, drop_path_rate=0.1):
+        return nmpm.init_mpm(nmpm.PointBertMPM(
+            npb.PointBertConfig(drop_path_rate=drop_path_rate), num_tokens=dcfg.num_tokens,
+            dtype=DTYPES[dtype]), 0).to(DEV)
+
+    pc8 = pc64[:PLAIN_MPM_BATCH]
+    mask8 = nmpm.sample_group_mask(torch.Generator(device=DEV).manual_seed(5), PLAIN_MPM_BATCH,
+                                   cfg.num_group, 0.4, device=DEV)
+    r["vs_plain"] = {}
+    for dtype in ("f32", "bf16"):
+        s_model, dvae = student(dtype), frozen_dvae(dtype)
+        state = trainable_all(s_model, 1e-4)
+        quantities = lambda: mpm_quantities(s_model, dvae, state, pc8, mask8, 11)  # noqa: E731
+        tag = f"MPM B={PLAIN_MPM_BATCH}"
+        if dtype == "f32":
+            r["vs_plain"][dtype], f32_grads = step_vs_plain(
+                tag, "float32", quantities, tol_encoder=TOL_ENCODER_F32, encoder="encoder.",
+                kernel="fused_vit_block")
+        else:
+            r["vs_plain"][dtype] = bf16_pretrain_vs_plain(tag, quantities, f32_grads,
+                                                          kernel="fused_vit_block")
+        check(r["vs_plain"][dtype]["fused_vit_block_launches"] == cfg.depth,
+              "an MPM step runs the block kernel once a block")
+        del s_model, dvae, state
+
+    dvae = frozen_dvae("bf16")
+    s_model = student("bf16", drop_path_rate=0.0)
+    state = trainable_all(s_model, 1e-4)
+    mstep = mpm_pretrain.make_mpm_step(s_model, dvae, state.optimizer, 0.4, cfg.num_group,
+                                       cfg.group_size)
+    pc32 = pc64[:MPM_BATCH]
+    mask32 = nmpm.sample_group_mask(torch.Generator(device=DEV).manual_seed(6), MPM_BATCH,
+                                    cfg.num_group, 0.4, device=DEV)
+    r["fixed_batch_loss"] = fixed_batch_falls(
+        "MPM bf16, lr 1e-4, DropPath off, mask fixed",
+        lambda: float(mstep(state, {"pc": pc32}, mask=mask32)[1]["loss"]))
+    s_model = student("bf16")
+    state = trainable_all(s_model, 1e-4)
+    mstep = mpm_pretrain.make_mpm_step(s_model, dvae, state.optimizer, 0.4, cfg.num_group,
+                                       cfg.group_size)
+    mstream = batch_stream(Loader(ds, MPM_BATCH, shuffle=True, drop_last=True, seed=1))
+    accs = []
+
+    def mpm_window_step():
+        pc = train_augment(state.generator, cls.device_batch(next(mstream), DEV)["pc"])
+        metrics = mstep(state, {"pc": pc})[1]
+        accs.append(metrics["masked_acc"])
+        return float(metrics["loss"])
+
+    launches, stats = timed_window(f"MPM bf16 B={MPM_BATCH} x N={PB_NPOINTS}", MPM_BATCH,
+                                   mpm_window_step, steps)
+    r.update(stats, masked_acc_last=float(accs[-1]))
+    check(launches.get("fused_vit_block") == cfg.depth * steps
+          and launches.get("mini_forward") == 2 * steps,
+          f"an MPM step runs 12 block kernels and two MiniPointNets: {launches}")
+    del s_model, state, mstep, dvae
+
+    # mpm_pretrain.main: one epoch, reading the dVAE checkpoint itself
+    args = TaskArgs(dataset_name="synthetic", npoints=PB_NPOINTS, batch_size=MPM_BATCH,
+                    epochs=1, seed=0, compute_dtype="bfloat16", device="cuda",
+                    output_dir=str(PB_DIR))
+    res = mpm_pretrain.main(args)
+    (entry,) = res["history"]
+    n_steps = res["state"].step
+    rate = n_steps * MPM_BATCH / entry["epoch_time"]
+    print(f"[pretrain_pb] mpm_pretrain.main, one epoch (bf16, B={MPM_BATCH} x N={PB_NPOINTS}, "
+          f"the dVAE from {ckpt.relative_to(PB_DIR)}): {n_steps} steps, loss "
+          f"{entry['loss']:.4f}, masked_acc {entry['masked_acc']:.2f}, {rate:.1f} train "
+          f"clouds/sec")
+    check(n_steps == len(ds) // MPM_BATCH and math.isfinite(entry["loss"]),
+          "mpm_pretrain.main's epoch")
+    r["main"] = dict(entry, steps=n_steps, train_clouds_per_sec=rate)
+    return counted, out
+
+
 def main():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2382,6 +2821,7 @@ def main():
     check_tower(results)
     check_text(results)
     check_ballquery(results)
+    check_losses3d(results)
     launches, slice_stats = run_slice()
     train_launches, train_stats = run_train_slice()
     launches["mini_stats"] = train_launches["mini_stats"]  # the train path's own kernel
@@ -2399,6 +2839,8 @@ def main():
     # training through the long trunk: the pretraining window's count, the
     # prompt-tuning windows' beside it
     launches["flash_mha_bwd"] = long_launches["pretrain"]
+    pb_launches, pb_stats = run_pretrain_pb_slice()
+    launches.update(pb_launches)  # the dVAE's EMD step: approx_match
     for name in SOURCES:
         if name in OFF_PATH_KERNELS:
             check(launches.get(name, 0) == 0, f"{name} is called by no module, yet was launched")
@@ -2409,7 +2851,7 @@ def main():
     for name, (source, replaces) in SOURCES.items():
         r = results[name]
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                            launches=launches[name], **r))
+                            launches=launches.get(name, 0), **r))
         if name == "fused_text_tower":  # one kernel, two wrappers' counters
             kernels[-1]["launches_by_variant"] = text_stats["tower_launches_by_variant"]
         if name == "flash_mha_bwd":
@@ -2422,6 +2864,7 @@ def main():
     print(json.dumps({"ballquery": ball_stats}))
     print(json.dumps({"routes": route_stats}))
     print(json.dumps({"pretrain": pretrain_stats}))
+    print(json.dumps({"pretrain_pb": pb_stats}))
     print(json.dumps({"kernels": kernels, **slice_stats}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -18,6 +18,11 @@ flax's names (``sa1/conv0``, ``sa1/bn0_1``, ``stage1_sa/conv0/conv`` whose
 Dense has no bias where BatchNorm follows, ``stage1_sa/skipconv``,
 ``stem``, ``head_fc0``/``head_bn0``), so no leaf needs a rule of its own.
 
+So do PointBERT's pretraining models: the dVAE (``codebook``, the
+EdgeConv stacks' ``gn*`` GroupNorm ``scale``/``bias``, the folding
+decoder's ``fbn*`` statistics) and the masked-point-modeling student
+(``mask_token``, ``cls_pos``, ``lm_head``).
+
 It raises on a leaf that has no counterpart in the port and on a port
 parameter or buffer that no leaf sets.
 

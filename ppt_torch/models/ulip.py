@@ -17,14 +17,13 @@ PointBERT, PointNet++ SSG and MSG, PointNeXt-S, and the template factory
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from ppt_torch.nn.layers import Dense
+from ppt_torch.nn.layers import init_dense_
 from ppt_torch.nn.pointbert import PointBert, PointBertConfig
 from ppt_torch.nn.pointnet2 import PointNet2Msg, PointNet2Ssg
 from ppt_torch.nn.pointnext import PointNext, PointNextConfig
@@ -117,11 +116,7 @@ def init_weights(model: Ulip, seed: int) -> Ulip:
     def normal_(p: torch.Tensor, std: float) -> None:
         p.copy_(torch.randn(p.shape, generator=gen) * std)
 
-    for mod in model.modules():
-        if isinstance(mod, Dense):
-            normal_(mod.kernel, 1.0 / math.sqrt(mod.kernel.shape[0]))
-            if mod.bias is not None:
-                mod.bias.zero_()
+    init_dense_(model, gen)
     text = model.text
     normal_(text.token_embedding.weight, 0.02)
     normal_(text.positional_embedding, 0.01)

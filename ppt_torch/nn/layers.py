@@ -9,6 +9,7 @@ kernels take, so neither the weight bridge nor a kernel call transposes.
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -119,6 +120,55 @@ class LayerNormF32(nn.Module):
         var = torch.clamp_min((x32 * x32).mean(-1, keepdim=True) - mu * mu, 0.0)
         y = (x32 - mu) * torch.rsqrt(var + self.eps) * self.weight + self.bias
         return y.to(x.dtype)
+
+
+GN_EPS = 1e-6  # flax nn.GroupNorm default (torch's is 1e-5)
+
+
+class GroupNorm(nn.Module):
+    """flax ``nn.GroupNorm(num_groups, dtype=float32)`` on channels-last
+    input ``[B, ..., C]``: each group of ``C / num_groups`` channels is
+    normalised over every non-batch axis together (for ``[B, G, k, C]``: G,
+    k and the group's channels; torch's ``GroupNorm`` is channel-first),
+    with flax's fast variance ``E[x^2] - E[x]^2`` clamped at 0 and eps 1e-6;
+    f32 statistics, parameters and output whatever the input's dtype."""
+
+    def __init__(self, width: int, num_groups: int = 4, eps: float = GN_EPS):
+        super().__init__()
+        if width % num_groups:
+            raise ValueError(f"GroupNorm: {num_groups} groups do not divide {width} channels")
+        self.num_groups = num_groups
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(width))
+        self.bias = nn.Parameter(torch.zeros(width))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, C = x.shape[0], x.shape[-1]
+        shape = (self.num_groups, C // self.num_groups)
+        g = x.float().reshape(B, -1, *shape)
+        mean = g.mean((1, 3), keepdim=True)
+        var = torch.clamp_min((g * g).mean((1, 3), keepdim=True) - mean * mean, 0.0)
+        y = (g - mean) * (torch.rsqrt(var + self.eps) * self.weight.reshape(shape))
+        return (y + self.bias.reshape(shape)).reshape(x.shape)
+
+
+def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
+    """flax ``nn.leaky_relu``: ``x`` where ``x >= 0``, else ``slope * x``."""
+    return F.leaky_relu(x, negative_slope)
+
+
+@torch.no_grad()
+def init_dense_(module: nn.Module, gen: torch.Generator) -> None:
+    """Every ``Dense`` under ``module``, in module order: a lecun-normal
+    kernel (std 1/sqrt(fan_in), drawn from ``gen`` on the CPU, so every
+    device gets the same values) and a zero bias, the reference's
+    initialiser families."""
+    for mod in module.modules():
+        if isinstance(mod, Dense):
+            mod.kernel.copy_(torch.randn(mod.kernel.shape, generator=gen)
+                             * (1.0 / math.sqrt(mod.kernel.shape[0])))
+            if mod.bias is not None:
+                mod.bias.zero_()
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:

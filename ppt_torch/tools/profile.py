@@ -28,7 +28,11 @@ point tower trains against captions through the frozen text tower; 1024
 groups over 8192 points by default, the long trunk, where every block runs
 ``flash_mha``'s backward kernels); ``--train --num_group 1024 --npoints
 8192 --head_type 3`` is the long trunk's prompt-tuning step, one backward
-in ``block_11``.
+in ``block_11``. ``--train dvae`` profiles PointBERT's dVAE pretraining
+step (``DvaeConfig()``, B=64 x N=1024; ``--recon emd`` for the auction-EMD
+loss) and ``--train mpm`` its masked-point-modeling step
+(``PointBertConfig()`` against a frozen dVAE, B=32 x N=1024), with their
+own sections.
 
     python -m ppt_torch.tools.profile [--batch 32] [--npoints 1024] \
         [--batches 5] [--compute_dtype bfloat16]
@@ -39,6 +43,8 @@ in ``block_11``.
     python -m ppt_torch.tools.profile --num_group 1024 --npoints 8192   # the long trunk
     python -m ppt_torch.tools.profile --train --num_group 1024 --npoints 8192 --head_type 3
     python -m ppt_torch.tools.profile --train pretrain [--num_group 512 --npoints 1024]
+    python -m ppt_torch.tools.profile --train dvae [--recon emd]
+    python -m ppt_torch.tools.profile --train mpm
 """
 
 from __future__ import annotations
@@ -55,15 +61,19 @@ from ppt_torch.data.augment import append_height, train_augment
 from ppt_torch.data.datasets import make_synthetic
 from ppt_torch.models.losses import smoothed_cross_entropy, ulip_contrastive_loss
 from ppt_torch.models.ulip import MODEL_REGISTRY, PromptArrays, build_model, trainable_mask
-from ppt_torch.nn.pointbert import POINT_ROUTES, PointBertConfig
+from ppt_torch.nn.dvae import DiscreteVAE, DvaeConfig, dvae_loss, init_dvae
+from ppt_torch.nn.mpm import PointBertMPM, dvae_tokenize, init_mpm, mpm_loss, sample_group_mask
+from ppt_torch.nn.pointbert import POINT_ROUTES, PointBertConfig, group_points
 from ppt_torch.nn.text import TEXT_ROUTES
 from ppt_torch.prompt.learner import build_prompt_spec
 from ppt_torch.tasks.args import TaskArgs
 from ppt_torch.train.eval import make_cached_text_eval
 from ppt_torch.train.optim import build_optimizer, build_schedule
+from ppt_torch.tasks.dvae_pretrain import make_dvae_step
+from ppt_torch.tasks.mpm_pretrain import make_mpm_step
 from ppt_torch.tasks.pretrain import build_caption_bank, make_pretrain_step
 from ppt_torch.train.trainer import create_train_state, make_train_step
-from ppt_torch.utils.device import resolve_device
+from ppt_torch.utils.device import resolve_device, resolve_dtype
 
 # substring of the CUDA kernel's name -> the part of the step it belongs to
 PARTS = (
@@ -92,6 +102,8 @@ PARTS = (
     ("flash_f32_kernel", "flash_mha"),
     ("flash_bwd_", "flash_mha_bwd"),
     ("readout_kernel", "vit block: readout"),
+    ("nn_dist_kernel", "chamfer_nn_dists"),
+    ("approx_match_kernel", "approx_match"),
 )
 
 
@@ -216,30 +228,51 @@ def _profile(step, batches: int) -> dict:
     }
 
 
-def _train_sections(state, augment, loss_of, text_section: str, batches: int) -> dict:
-    """ms per batch of a train step's sections, CUDA events between them:
-    ``augment()``, the point tower in training mode, ``text_section`` (the
-    text tower and ``loss_of(pc_embed)``), backward, AdamW."""
-    names = ("augmentation", "point tower (train mode)", text_section, "backward", "optimizer")
-    model, sums = state.model, collections.Counter()
+def _sections(names, run, batches: int) -> dict:
+    """ms per batch of the sections of ``run(mark)``, which calls
+    ``mark()`` at the end of each section named in ``names``: CUDA events
+    between them (each includes the gaps in which the device waits)."""
+    sums = collections.Counter()
     for _ in range(batches):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+        ev = [torch.cuda.Event(enable_timing=True)]
         ev[0].record()
-        pc = augment()
-        ev[1].record()
-        pc_embed = model.encode_pc(pc, train=True, generator=state.generator)
-        ev[2].record()
-        loss = loss_of(pc_embed)
-        ev[3].record()
-        keys = list(state.trainable)
-        grads = torch.autograd.grad(loss, [state.trainable[k] for k in keys])
-        ev[4].record()
-        state.optimizer.step(dict(zip(keys, grads)))
-        ev[5].record()
+
+        def mark():
+            ev.append(torch.cuda.Event(enable_timing=True))
+            ev[-1].record()
+
+        run(mark)
         torch.cuda.synchronize()
         for i, name in enumerate(names):
             sums[name] += ev[i].elapsed_time(ev[i + 1])
     return {k: sums[k] / batches for k in names}
+
+
+def _grads(state, loss):
+    keys = list(state.trainable)
+    return keys, torch.autograd.grad(loss, [state.trainable[k] for k in keys])
+
+
+def _train_sections(state, augment, loss_of, text_section: str, batches: int) -> dict:
+    """ms per batch of a train step's sections: ``augment()``, the point
+    tower in training mode, ``text_section`` (the text tower and
+    ``loss_of(pc_embed)``), backward, AdamW."""
+    model = state.model
+
+    def run(mark):
+        pc = augment()
+        mark()
+        pc_embed = model.encode_pc(pc, train=True, generator=state.generator)
+        mark()
+        loss = loss_of(pc_embed)
+        mark()
+        keys, grads = _grads(state, loss)
+        mark()
+        state.optimizer.step(dict(zip(keys, grads)))
+        mark()
+
+    return _sections(("augmentation", "point tower (train mode)", text_section, "backward",
+                      "optimizer"), run, batches)
 
 
 def profile_step(batch: int = 32, npoints: int = 1024, batches: int = 5,
@@ -343,14 +376,120 @@ def profile_pretrain_step(batch: int = 32, npoints: int = 8192, batches: int = 3
             "section_ms_per_batch": sections}
 
 
+def _all_trainable(model, seed):
+    """AdamW at a constant rate on every parameter: the step's cost does not
+    depend on the rate."""
+    return create_train_state(model, {k: True for k, _ in model.named_parameters()},
+                              lambda tr: build_optimizer("adamw", tr.items(), lambda s: 1e-4),
+                              seed=seed + 1)
+
+
+def _clouds(batch, npoints, seed, dev):
+    ds = make_synthetic(num_classes=40, samples_per_class=-(-batch // 40), npoints=npoints,
+                        seed=seed + 1)
+    return torch.from_numpy(ds.points[:batch]).to(dev)
+
+
+def profile_dvae_step(batch: int = 64, npoints: int = 1024, batches: int = 5,
+                      compute_dtype: str = "bfloat16", seed: int = 0,
+                      recon: str = "chamfer") -> dict:
+    """The dVAE pretraining step (``tasks/dvae_pretrain.py:make_dvae_step``:
+    the whole dVAE trains; ``recon`` "emd" runs the auction kernel twice a
+    step) on one synthetic batch at temperature 1."""
+    dev = resolve_device(None)
+    model = init_dvae(DiscreteVAE(DvaeConfig(), dtype=resolve_dtype(compute_dtype)), seed).to(dev)
+    state = _all_trainable(model, seed)
+    step_fn = make_dvae_step(model, state.optimizer, recon=recon)
+    pc = _clouds(batch, npoints, seed, dev)
+
+    def step():
+        return float(step_fn(state, {"pc": train_augment(state.generator, pc)}, 1.0)[1]["loss"])
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    out = _profile(step, batches)
+
+    def run(mark):
+        x = train_augment(state.generator, pc)
+        mark()
+        ret = model(x, temperature=1.0, train=True, generator=state.generator)
+        mark()
+        loss_recon, klv = dvae_loss(ret, model.config.num_tokens, recon=recon)
+        loss = loss_recon + 0.1 * klv
+        mark()
+        keys, grads = _grads(state, loss)
+        mark()
+        state.optimizer.step(dict(zip(keys, grads)))
+        mark()
+
+    sections = _sections(("augmentation", "dVAE forward (train mode)", f"loss ({recon})",
+                          "backward", "optimizer"), run, batches)
+    return {"step": "dvae", "recon": recon, "compute_dtype": compute_dtype, "batch": batch,
+            "npoints": npoints, **out, "clouds_per_sec": batch / out["wall_ms_per_batch"] * 1e3,
+            "section_ms_per_batch": sections}
+
+
+def profile_mpm_step(batch: int = 32, npoints: int = 1024, batches: int = 5,
+                     compute_dtype: str = "bfloat16", seed: int = 0,
+                     point_route: str = "block") -> dict:
+    """The masked-point-modeling step (``tasks/mpm_pretrain.py:make_mpm_step``)
+    of a PointBERT student at ``PointBertConfig()`` against a frozen dVAE
+    (weights from ``seed``) on one synthetic batch."""
+    dev = resolve_device(None)
+    dt = resolve_dtype(compute_dtype)
+    cfg = PointBertConfig()
+    dvae = init_dvae(DiscreteVAE(DvaeConfig(group_size=cfg.group_size, num_group=cfg.num_group),
+                                 dtype=dt), seed + 10).to(dev).requires_grad_(False)
+    student = init_mpm(PointBertMPM(cfg, dtype=dt, route=point_route), seed).to(dev)
+    state = _all_trainable(student, seed)
+    step_fn = make_mpm_step(student, dvae, state.optimizer, 0.4, cfg.num_group, cfg.group_size)
+    pc = _clouds(batch, npoints, seed, dev)
+
+    def step():
+        return float(step_fn(state, {"pc": train_augment(state.generator, pc)})[1]["loss"])
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    out = _profile(step, batches)
+
+    def run(mark):
+        x = train_augment(state.generator, pc)
+        mark()
+        nb, ct = group_points(x, cfg.num_group, cfg.group_size)
+        mark()
+        targets = dvae_tokenize(dvae, nb, ct)
+        mask = sample_group_mask(state.generator, batch, cfg.num_group, 0.4, device=dev)
+        mark()
+        loss, _ = mpm_loss(student(nb, ct, mask, train=True, generator=state.generator),
+                           targets, mask)
+        mark()
+        keys, grads = _grads(state, loss)
+        mark()
+        state.optimizer.step(dict(zip(keys, grads)))
+        mark()
+
+    sections = _sections(("augmentation", "grouping", "dVAE tokenizer (frozen)",
+                          "student forward (train mode) + loss", "backward", "optimizer"),
+                         run, batches)
+    return {"step": "mpm", "compute_dtype": compute_dtype, "batch": batch, "npoints": npoints,
+            "point_route": point_route, **out,
+            "clouds_per_sec": batch / out["wall_ms_per_batch"] * 1e3,
+            "section_ms_per_batch": sections}
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--train", nargs="?", const="cls", choices=("cls", "pretrain"),
+    p.add_argument("--train", nargs="?", const="cls", choices=("cls", "pretrain", "dvae", "mpm"),
                    help="profile the prompt-tuning train step, or with 'pretrain' ULIP "
-                        "pretraining's step")
+                        "pretraining's step, 'dvae' / 'mpm' PointBERT's two pretraining steps")
+    p.add_argument("--recon", default="chamfer", choices=("chamfer", "emd"),
+                   help="the dVAE's reconstruction loss for --train dvae")
     p.add_argument("--model", default="ULIP_PointBERT", choices=sorted(MODEL_REGISTRY))
     p.add_argument("--head_type", type=int, default=0)
-    p.add_argument("--batch", type=int, default=None, help="default 32 (eval), 30 (--train)")
+    p.add_argument("--batch", type=int, default=None,
+                   help="default 32 (eval, --train pretrain|mpm), 30 (--train), 64 (--train dvae)")
     p.add_argument("--npoints", type=int, default=None,
                    help="default 1024, 8192 with --train pretrain")
     p.add_argument("--batches", type=int, default=5)
@@ -363,7 +502,14 @@ def main(argv=None) -> None:
     p.add_argument("--num_group", type=int, default=None,
                    help="PointBERT's group count: default 512, 1024 with --train pretrain")
     a = p.parse_args(argv)
-    if a.train == "pretrain":
+    if a.train == "dvae":
+        out = profile_dvae_step(a.batch or 64, a.npoints or 1024, a.batches, a.compute_dtype,
+                                a.seed, recon=a.recon)
+    elif a.train == "mpm":
+        out = profile_mpm_step(a.batch or 32, a.npoints or 1024, a.batches, a.compute_dtype,
+                               a.seed, point_route="block" if a.point_route == "tower"
+                               else a.point_route)
+    elif a.train == "pretrain":
         out = profile_pretrain_step(a.batch or 32, a.npoints or 8192, a.batches, a.compute_dtype,
                                     a.seed, text_route=a.text_route, point_route=a.point_route,
                                     num_group=a.num_group or 1024)

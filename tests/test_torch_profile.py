@@ -41,6 +41,9 @@ def test_busy_us_is_the_union_of_intervals(intervals, want):
     ("void flash_bwd_dq_bf16_kernel<64>(__nv_bfloat16 const*)", "flash_mha_bwd"),
     ("flash_bwd_dkv_f32_kernel(float const*, float const*)", "flash_mha_bwd"),
     ("void flash_bwd_di_kernel<float>(float const*, float const*, int)", "flash_mha_bwd"),
+    ("nn_dist_kernel(float const*, float const*, int, int, int, float*)", "chamfer_nn_dists"),
+    ("approx_match_kernel(float const*, int, int, float, float, int, float*, float*)",
+     "approx_match"),
 ])
 def test_part_of_maps_kernel_names(name, part):
     assert profile.part_of(name) == part
@@ -54,6 +57,10 @@ def test_profile_refuses_without_a_card(monkeypatch):
         profile.profile_train_step(batch=2, npoints=64, batches=1)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         profile.profile_pretrain_step(batch=2, npoints=64, batches=1, num_group=8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        profile.profile_dvae_step(batch=2, npoints=64, batches=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        profile.profile_mpm_step(batch=2, npoints=64, batches=1)
 
 
 def test_model_flag_and_tower_sections(monkeypatch):
@@ -81,6 +88,10 @@ def test_model_flag_and_tower_sections(monkeypatch):
     (["--train", "--num_group", "1024", "--npoints", "8192", "--head_type", "3"],
      "profile_train_step", {"batch": 30, "npoints": 8192, "num_group": 1024, "head_type": 3}),
     (["--train"], "profile_train_step", {"batch": 30, "npoints": 1024, "num_group": 512}),
+    (["--train", "dvae"], "profile_dvae_step", {"batch": 64, "npoints": 1024, "recon": "chamfer"}),
+    (["--train", "dvae", "--recon", "emd"], "profile_dvae_step", {"batch": 64, "recon": "emd"}),
+    (["--train", "mpm", "--point_route", "tower"], "profile_mpm_step",
+     {"batch": 32, "npoints": 1024, "point_route": "block"}),
 ])
 def test_train_targets_reach_their_steps(argv, fn, want, monkeypatch):
     """``--train pretrain`` profiles ULIP pretraining's step (the long trunk
