@@ -4,9 +4,10 @@ full-width ULIP-PointBERT recognition inference path, the prompt-tuning
 train path, both again with the text tower on its fused routes, the
 ball-query towers (PointNeXt-S, PointNet++ SSG and MSG), PointBERT's
 other trunk routes with the long-sequence trunk, and training through the
-long trunk (prompt tuning at head types 3 and 2, ULIP pretraining), and
+long trunk (prompt tuning at head types 3 and 2, ULIP pretraining),
 PointBERT's two pretraining stages (the dVAE tokenizer, masked point
-modeling).
+modeling), and the kernel tools (the ViT-block ablation probe, the on-card
+kernel check).
 
     python3 chip_smoke.py            # one CUDA card, no arguments
 
@@ -61,7 +62,21 @@ Phases (any failed check raises, and the script exits non-zero):
      4096 x 8 x 32 and 4096 x 32 x 32, at 4 x 64 x 32, 4 x 1024 x 768 and
      2 x 1 x 30000 (supply vectors in device scratch): the match within 1e-4
      of the plain auction's, the match cost within 1e-4 relative, two runs
-     bit-identical; no library call computes it;
+     bit-identical; no library call computes it. fps_single and knn_single
+     (no module calls them) at 2 x 300 points with duplicates (npoint 64;
+     k, S = 1, 8 / 8, 128 / 32, 256), the slice's 32 x 1024 -> 512, the
+     long trunk's 32 x 8192 -> 1024 and fps_single's cap of 16384 points
+     (k = 32): indices identical to the plain versions, to fps_batched's and
+     knn_gather's where those take the shape, and between repeats; each
+     refuses by name a shape it does not take (S = 200; N = 16385); times
+     beside rows 1-2 at the same shapes. vit_variant, the ablation probe's
+     block, in each mode (full, mm_only, no_softmax, no_gelu, pv_ones,
+     qk_packed2, and full with two clouds per block) in f32 and bf16 at
+     2 x 33 x 96 (6 heads of 16) and 32 x 513 x 384 against
+     variant_block_plain: the limits above, repeats bit-identical, full and
+     rows=2 bit-identical to fused_vit_block, qk_packed2 within the limits
+     of full; each mode's time in bf16, the library time the SDPA block
+     for full, rows2 and qk_packed2 (no one call computes the ablations);
   4. the recognition path at full width (ULIP-PointBERT, bf16, B=32,
      N=1024, 40 ModelNet40 class names, 32 prompt tokens "middle",
      weights from a seed): passes of ModelNet40's test-set size (2468
@@ -168,6 +183,13 @@ Phases (any failed check raises, and the script exits non-zero):
      whose loss must fall, a window of 20 steps, one epoch of
      ``mpm_pretrain.main``. Its numbers go on a line of their own
      ({"pretrain_pb": ...}).
+ 11. the kernel tools as a user runs them: ``python -m
+     ppt_torch.tools.vitblock_probe`` at its defaults plus qk_packed2 and
+     prod (B=32, L=513, C=384, 6 heads, 12 blocks, bf16, 8 iterations;
+     every mode must come back timed; vit_variant's launches from the
+     counter), then ``python -m ppt_torch.tools.kernel_check`` (the
+     reference tool's 25 checks on the card, 0 failures). Its numbers go
+     on a line of their own ({"tools": ...}).
 
 The line before the card's is a JSON object with the per-kernel numbers.
 Each ``launches`` there is a counter read after a driven run, or a sum of
@@ -208,7 +230,9 @@ from ppt_torch.kernels import _build  # noqa: E402
 from ppt_torch.kernels import attention as kattn  # noqa: E402
 from ppt_torch.kernels import chamfer as kchamfer  # noqa: E402
 from ppt_torch.kernels import emd as kemd  # noqa: E402
+from ppt_torch.kernels import fps as kfps  # noqa: E402
 from ppt_torch.kernels import group as kgroup  # noqa: E402
+from ppt_torch.kernels import knn as kknn  # noqa: E402
 from ppt_torch.kernels import mini as kmini  # noqa: E402
 from ppt_torch.kernels import textblock as ktextblock  # noqa: E402
 from ppt_torch.kernels import texttower as ktower  # noqa: E402
@@ -222,6 +246,7 @@ from ppt_torch.nn import text as ntext  # noqa: E402
 from ppt_torch.prompt.learner import build_prompt_spec  # noqa: E402
 from ppt_torch.tasks import cls, dvae_pretrain, mpm_pretrain, pretrain  # noqa: E402
 from ppt_torch.tasks.args import TaskArgs  # noqa: E402
+from ppt_torch.tools import kernel_check, vitblock_probe  # noqa: E402
 from ppt_torch.models.losses import smoothed_cross_entropy, ulip_contrastive_loss  # noqa: E402
 from ppt_torch.ops.losses3d import chamfer_l2  # noqa: E402
 from ppt_torch.train.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
@@ -265,6 +290,9 @@ SOURCES = {
                       "jax/experimental/pallas/ops/tpu/flash_attention.py:941,1287"),
     "chamfer_nn_dists": ("ppt_torch/csrc/losses3d.cu", "ppt_tpu/kernels/chamfer.py:99"),
     "approx_match": ("ppt_torch/csrc/losses3d.cu", "ppt_tpu/kernels/emd.py:98,157"),
+    "fps_single": ("ppt_torch/csrc/cloud.cu", "ppt_tpu/kernels/fps.py:73"),
+    "knn_single": ("ppt_torch/csrc/cloud.cu", "ppt_tpu/kernels/knn.py:64"),
+    "vit_variant": ("ppt_torch/csrc/vitblock.cu", "ppt_tpu/tools/vitblock_probe.py:208"),
 }
 # B, L, heads, head dim
 MHA_SHAPES = ((2, 33, 2, 32, "small"), (30, 513, 6, 64, "train"), (32, 513, 6, 64, "slice"))
@@ -280,14 +308,19 @@ ROUTE_KERNELS = ("fused_mha", "flash_mha", "fused_vit_tower")
 LONG_TRAIN_KERNELS = ("flash_mha_bwd",)
 # the reconstruction-loss kernels of PointBERT's pretraining stages (phase 10)
 LOSS3D_KERNELS = ("chamfer_nn_dists", "approx_match")
+# the single-cloud FPS and kNN kernels (phase 3), and the ablation probe's (phase 11)
+CLOUD_KERNELS = ("fps_single", "knn_single")
+TOOL_KERNELS = ("vit_variant",)
 # the PointBERT tower's kernels on its default route (phases 4 to 6)
 POINT_KERNELS = tuple(k for k in SOURCES if k not in TEXT_KERNELS + BALL_KERNELS + ROUTE_KERNELS
-                      + LONG_TRAIN_KERNELS + LOSS3D_KERNELS)
+                      + LONG_TRAIN_KERNELS + LOSS3D_KERNELS + CLOUD_KERNELS + TOOL_KERNELS)
 # ball_query_gather_v2 is the second formulation of ball_query_gather: no module
 # calls it (nor does the reference call its own), so no driven path launches it;
 # no entry point reaches chamfer_nn_dists either, here or in the reference: the
-# dVAE's Chamfer-L1 stays plain on every device, as the reference keeps it in XLA
-OFF_PATH_KERNELS = ("ball_query_gather_v2", "chamfer_nn_dists")
+# dVAE's Chamfer-L1 stays plain on every device, as the reference keeps it in XLA;
+# nor does any module call fps_single or knn_single (the reference reaches
+# fps_pallas and knn_pallas from its tests alone)
+OFF_PATH_KERNELS = ("ball_query_gather_v2", "chamfer_nn_dists") + CLOUD_KERNELS
 TOL_TEXT_BWD = {"f32": 1e-4, "bf16": 5e-2}
 
 
@@ -1230,6 +1263,173 @@ def check_losses3d(results):
         bound_by=collections.Counter(r["bound_by"] for r in step).most_common(1)[0][0],
         library_ms=None, max_abs_err=max(r["max_abs_err"] for r in rows),
         headline="dvae_coarse + dvae_fine", shapes=rows)
+
+
+# (B, N, npoint, tag): the reference test's small cloud with duplicated points,
+# the slice's 32 x 1024 -> 512, the long trunk's 32 x 8192 -> 1024 and
+# fps_single's cap (coordinates in shared memory, knn_single's rows
+# recomputed). k = 32 at the three large shapes; the small one takes
+# (k, S) = (1, 8), (8, 128), (32, 256).
+CLOUD_SHAPES = ((2, 300, 64, "small"), (32, 1024, 512, "slice"), (32, 8192, 1024, "long"),
+                (2, kfps.MAX_POINTS, 1024, "cap"))
+CLOUD_SMALL_KNN = ((1, 8), (8, 128), (32, 256))
+
+
+def dup_cloud(B, N, seed):
+    """A cloud whose every fourth point repeats another: exact ties."""
+    xyz = cloud(B, N, seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    src = torch.randint(0, N, (N // 4,), generator=g).to(DEV)
+    xyz[:, 3::4] = xyz[:, src[: xyz[:, 3::4].shape[1]]]
+    return xyz
+
+
+def check_cloud(results):
+    """Phase 3 for fps_single and knn_single: indices identical to their plain
+    versions and to fps_batched's / knn_gather's where those take the shape,
+    repeats bit-identical, refusals by name."""
+    timing = {}
+    for B, N, npoint, tag in CLOUD_SHAPES:
+        xyz = dup_cloud(B, N, N) if tag == "small" else cloud(B, N, N + npoint)
+        got = kfps.fps_single(xyz, npoint)
+        again = kfps.fps_single(xyz, npoint)
+        want = kfps.fps_single_plain(xyz, npoint)
+        row1 = kgroup.fps_batched(xyz, npoint) if tag != "cap" else want
+        torch.cuda.synchronize()
+        n_bad = int((got != want).sum())
+        same = torch.equal(got, again) and torch.equal(got, row1)
+        print(f"[kernel] fps_single {tag} B={B} N={N} npoint={npoint}: index mismatches {n_bad}; "
+              f"repeat{' and fps_batched' if tag != 'cap' else ''} identical {same}")
+        check(n_bad == 0 and same, f"fps_single indices differ at {tag}")
+        if tag == "small":
+            qsets = [(k, xyz[:, :S].contiguous()) for k, S in CLOUD_SMALL_KNN]
+        else:
+            qsets = [(32, torch.gather(xyz, 1, want.long()[:, :, None].expand(-1, -1, 3)))]
+        for k, q in qsets:
+            got_k = kknn.knn_single(k, xyz, q)
+            again_k = kknn.knn_single(k, xyz, q)
+            want_k = kknn.knn_single_plain(k, xyz, q)
+            row2 = kgroup.knn_gather(k, xyz, q)[0] if tag != "cap" else want_k
+            torch.cuda.synchronize()
+            n_bad = int((got_k != want_k).sum())
+            same = torch.equal(got_k, again_k) and torch.equal(got_k, row2)
+            print(f"[kernel] knn_single {tag} B={B} N={N} S={q.shape[1]} k={k} (row layout "
+                  f"{kknn._row_layout(N)}): index mismatches {n_bad}; repeat"
+                  f"{' and knn_gather' if tag != 'cap' else ''} identical {same}")
+            check(n_bad == 0 and same, f"knn_single indices differ at {tag} k={k}")
+        if tag == "small":
+            continue
+        k, q = qsets[0]
+        timing[tag] = dict(
+            fps_single_ms=gpu_time_ms(lambda: kfps.fps_single(xyz, npoint)),
+            knn_single_ms=gpu_time_ms(lambda: kknn.knn_single(k, xyz, q)))
+        if tag != "cap":  # rows 1 and 2 at the same shape, the same call
+            timing[tag].update(
+                fps_batched_ms=gpu_time_ms(lambda: kgroup.fps_batched(xyz, npoint)),
+                knn_gather_ms=gpu_time_ms(lambda: kgroup.knn_gather(k, xyz, q)))
+        if tag != "slice":
+            continue
+        bms, by = bound_ms(B * N * 12 + B * npoint * 4, B * npoint * N * 10, PEAK["f32"])
+        results["fps_single"] = dict(
+            max_abs_err=0.0, ms=timing[tag]["fps_single_ms"],
+            plain_ms=gpu_time_ms(lambda: kfps.fps_single_plain(xyz, npoint), reps=3, warmup=1),
+            bound_ms=bms, bound_by=by, library_ms=None)
+        S = q.shape[1]
+        bms, by = bound_ms(B * N * 12 + B * S * 12 + B * S * k * 4, B * S * N * 9, PEAK["f32"])
+
+        def library():
+            return torch.topk(torch.cdist(q, xyz), k, dim=-1, largest=False).indices
+
+        results["knn_single"] = dict(
+            max_abs_err=0.0, ms=timing[tag]["knn_single_ms"],
+            plain_ms=gpu_time_ms(lambda: kknn.knn_single_plain(k, xyz, q), reps=3, warmup=1),
+            bound_ms=bms, bound_by=by, library_ms=gpu_time_ms(library))
+    for name, shapes in (("fps_single", "fps"), ("knn_single", "knn")):
+        results[name]["by_shape"] = {tag: {key: v for key, v in t.items() if key.startswith(shapes)}
+                                     for tag, t in timing.items()}
+    print(f"[kernel] fps_single / knn_single against rows 1-2, ms: {json.dumps(timing)}")
+
+    # the shapes they refuse, by name
+    xyz = cloud(1, 256, 1)
+    for fn, msg in ((lambda: kknn.knn_single(4, xyz, cloud(1, 200, 2)), "knn_single: S=200"),
+                    (lambda: kfps.fps_single(cloud(1, kfps.MAX_POINTS + 1, 3), 8),
+                     f"fps_single: N={kfps.MAX_POINTS + 1}")):
+        try:
+            fn()
+        except ValueError as e:
+            check(msg in str(e), f"unexpected refusal: {e}")
+        else:
+            check(False, f"{msg} was not refused")
+
+
+# B, L, C (the probe's 6 heads): a small shape (head dim 16) and the slice's
+VARIANT_SHAPES = ((2, 33, 96, "small"), (32, 513, 384, "slice"))
+VARIANT_RUNS = tuple((m, 1) for m in vitblock_probe.MODES) + (("full", 2),)
+
+
+def variant_bound(B, L, C, mode):
+    """The block's products (the attention's twice in qk_packed2) at the bf16
+    peak, beside x and pos read, the output written and the weights read."""
+    rows, hid = B * L, 4 * C
+    attn = 4 * B * L * L * C * (2 if mode == "qk_packed2" else 1)
+    ops = 2 * rows * (C * 3 * C + C * C + 2 * C * hid) + attn
+    wbytes = 2 * (C * 3 * C + C * C + 2 * C * hid) + 4 * (7 * C + hid)
+    return bound_ms(3 * rows * C * 2 + B * 2 * 4 + wbytes, ops, PEAK["bf16"])
+
+
+def check_variant(results):
+    """Phase 3 for the ablation probe's kernel: every mode, f32 and bf16,
+    against its plain version; full and rows=2 bit-identical to
+    fused_vit_block; qk_packed2 within the limits of full; repeats
+    bit-identical; times of every mode at the slice's shape in bf16."""
+    modes = {}
+    for B, L, C, tag in VARIANT_SHAPES:
+        for dname, dt in DTYPES.items():
+            x, pos, dp, w, _ = block_inputs(B, L, C, dt, L + C)
+            dp[0, 0], dp[-1, 1] = 0.0, 2.0  # DropPath scales: a zero and a 2
+            H = vitblock_probe.HEADS
+            prod = kvit.fused_vit_block(x, pos, dp, *w, H)
+            outs = {}
+            for mode, rows in VARIANT_RUNS:
+                key = "rows2" if rows == 2 else mode
+                got = vitblock_probe.variant_block(x, pos, dp, *w, mode=mode, rows=rows)
+                again = vitblock_probe.variant_block(x, pos, dp, *w, mode=mode, rows=rows)
+                want = vitblock_probe.variant_block_plain(x, pos, dp, *w, mode=mode, rows=rows)
+                torch.cuda.synchronize()
+                err = rel_err(got, want)
+                same = torch.equal(got, again)
+                line = (f"[kernel] vit_variant {tag} {dname} B={B} L={L} C={C} {key}: max rel "
+                        f"err {err:.3e} (tol {TOL[dname]}); repeat bit-identical {same}")
+                if mode == "full":
+                    ident = torch.equal(got, prod)
+                    line += f"; bit-identical to fused_vit_block {ident}"
+                    check(ident, f"vit_variant {key} differs from fused_vit_block at {tag} {dname}")
+                if mode == "qk_packed2":
+                    full_err = rel_err(got, outs["full"])
+                    ident = torch.equal(got, outs["full"])
+                    line += f"; against full {full_err:.3e}, bit-identical to full {ident}"
+                    check(full_err <= TOL[dname], f"qk_packed2 strays from full at {tag} {dname}")
+                print(line)
+                check(torch.isfinite(got.float()).all(), f"vit_variant {key} non-finite")
+                check(err <= TOL[dname], f"vit_variant {tag} {dname} {key} error {err}")
+                check(same, f"vit_variant {tag} {dname} {key} differs between two runs")
+                outs[key] = got
+                if tag != "slice" or dname != "bf16":
+                    continue
+                bms, by = variant_bound(B, L, C, mode)
+                lib = (gpu_time_ms(lambda: block_library(x, pos, dp, w, H))
+                       if mode in ("full", "qk_packed2") else None)
+                modes[key] = dict(
+                    max_abs_err=float((got.float() - want.float()).abs().max()),
+                    ms=gpu_time_ms(lambda: vitblock_probe.variant_block(x, pos, dp, *w, mode=mode,
+                                                                         rows=rows)),
+                    plain_ms=gpu_time_ms(lambda: vitblock_probe.variant_block_plain(
+                        x, pos, dp, *w, mode=mode, rows=rows)),
+                    bound_ms=bms, bound_by=by, library_ms=lib)
+                if mode == "qk_packed2":
+                    modes[key]["bit_identical_to_full"] = bool(torch.equal(got, outs["full"]))
+    modes["rows2"]["library_ms"] = modes["full"]["library_ms"]  # the same function
+    results["vit_variant"] = dict(modes["full"], headline="full", modes=modes)
 
 
 # ---------------------------------------------------------------------------
@@ -2792,6 +2992,39 @@ def _run_pretrain_pb_slice(steps):
     return counted, out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the kernel tools
+# ---------------------------------------------------------------------------
+
+PROBE_MODES = vitblock_probe.DEFAULT_MODES + ",qk_packed2,prod"
+
+
+def run_tools_slice():
+    """The ablation probe as a user runs it (its defaults plus qk_packed2 and
+    prod), every mode timed; then the on-card kernel check, 0 failures."""
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    probe_ms = vitblock_probe.main(["--modes", PROBE_MODES])
+    torch.cuda.synchronize()
+    probe_s = time.perf_counter() - t0
+    probe_launches = dict(_build.LAUNCHES)
+    missing = [m for m in PROBE_MODES.split(",") if m not in probe_ms]
+    check(not missing, f"vitblock_probe timed no result for {missing}")
+    check(probe_launches.get("vit_variant", 0) > 0 and probe_launches.get("fused_vit_block", 0) > 0,
+          f"vitblock_probe launched {probe_launches}")
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    rc = kernel_check.main()
+    torch.cuda.synchronize()
+    check_s = time.perf_counter() - t0
+    check_launches = dict(_build.LAUNCHES)
+    check(rc == 0, "kernel_check reported failures")
+    stats = dict(vitblock_probe_ms=probe_ms, probe_seconds=probe_s,
+                 probe_launches=probe_launches, kernel_check_failures=0,
+                 kernel_check_seconds=check_s, kernel_check_launches=check_launches)
+    return {"vit_variant": probe_launches["vit_variant"]}, stats
+
+
 def main():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2822,6 +3055,8 @@ def main():
     check_text(results)
     check_ballquery(results)
     check_losses3d(results)
+    check_cloud(results)
+    check_variant(results)
     launches, slice_stats = run_slice()
     train_launches, train_stats = run_train_slice()
     launches["mini_stats"] = train_launches["mini_stats"]  # the train path's own kernel
@@ -2841,6 +3076,8 @@ def main():
     launches["flash_mha_bwd"] = long_launches["pretrain"]
     pb_launches, pb_stats = run_pretrain_pb_slice()
     launches.update(pb_launches)  # the dVAE's EMD step: approx_match
+    tool_launches, tool_stats = run_tools_slice()
+    launches.update(tool_launches)  # the ablation probe's kernel
     for name in SOURCES:
         if name in OFF_PATH_KERNELS:
             check(launches.get(name, 0) == 0, f"{name} is called by no module, yet was launched")
@@ -2865,6 +3102,7 @@ def main():
     print(json.dumps({"routes": route_stats}))
     print(json.dumps({"pretrain": pretrain_stats}))
     print(json.dumps({"pretrain_pb": pb_stats}))
+    print(json.dumps({"tools": tool_stats}))
     print(json.dumps({"kernels": kernels, **slice_stats}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -13,29 +13,62 @@
 // max over ALL keys, p = exp(s - m) in f32, p rounded to the compute dtype
 // before P @ V, the f32 accumulator divided by the f32 denominator at the
 // end. No online rescale: a two-pass sweep keeps exactly that rounding.
+//
+// The kernels are templated on an attention mode and a row count for the
+// ViT-block ablation probe (ppt_torch/tools/vitblock_probe.py, the port of
+// ppt_tpu/tools/vitblock_probe.py:_variant_kernel); the production kernels
+// are the defaults, ATT_SOFTMAX and R = 1, and their code path is the one
+// above:
+//   ATT_RAW      the masked raw scaled scores (invalid keys 0) rounded to
+//                the compute dtype are P: no max, exp, sum or divide;
+//   ATT_PV_ONES  p = exp(s - m) rounded to the dtype; the denominator is a
+//                ones column appended to V in the P @ V product (f32 sum of
+//                the rounded p), not a separate f32 sum;
+//   ATT_PACKED2  two heads per launch: Q of the pair (2d wide) against a
+//                block-diagonal K (depth 2d, half of it zeros) and P of
+//                both heads against a block-diagonal V (2d wide): twice the
+//                products of the plain head, the same sums;
+//   R            clouds per block: a block walks R batch entries in turn.
 #pragma once
 
 #include "common.cuh"
 
 constexpr int MHA_TQ = 32, MHA_TK = 64;
+enum { ATT_SOFTMAX = 0, ATT_RAW = 1, ATT_PV_ONES = 2, ATT_PACKED2 = 3 };
 
-// f32: grid (ceil(L / 32), H, B), 256 threads, D <= 128 and a multiple of
-// 8; a 32-query tile's whole score rows sit in shared memory.
+// f32: grid (ceil(L / 32), H, B / R), 256 threads, D <= 128 and a multiple
+// of 8; a 32-query tile's whole score rows sit in shared memory. In
+// ATT_PACKED2, H counts head pairs, D is the pair's width 2d, and a row
+// holds both heads' scores, [2][L].
+template <int MODE = ATT_SOFTMAX, int R = 1>
 __global__ void __launch_bounds__(256)
 attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, long long sb, long long sl, long long sh,
                      int L, int D, float scale, float* __restrict__ out) {
+  constexpr int NH = MODE == ATT_PACKED2 ? 2 : 1;  // key halves (heads of a pair)
   extern __shared__ float sm[];
+  const int LS = NH * L;                 // score columns per row
   float* Qs = sm;                        // [TQ][D]
   float* KV = Qs + MHA_TQ * D;           // [TK][D + 1]
-  float* S = KV + MHA_TK * (D + 1);      // [TQ][L]
-  float* den = S + (size_t)MHA_TQ * L;   // [TQ]
+  float* S = KV + MHA_TK * (D + 1);      // [TQ][LS]
+  float* den = S + (size_t)MHA_TQ * LS;  // [TQ][NH]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int q0 = blockIdx.x * MHA_TQ, h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
+  const int q0 = blockIdx.x * MHA_TQ, h = blockIdx.y, H = gridDim.y;
   const int nq = min(MHA_TQ, L - q0);
+  const int dh = D / NH;  // a half's columns (ATT_PACKED2)
+
+  // a K or V element of key tile row j, column d; block-diagonal in ATT_PACKED2
+  auto kv_elem = [&](const float* src, int k0, int j, int d, int half) {
+    if (NH == 2 && d / dh != half) return 0.f;
+    return src[(size_t)(k0 + j) * sl + d];
+  };
+
+  for (int rr = 0; rr < R; ++rr) {
+  const int b = blockIdx.z * R + rr;
   const size_t off = (size_t)b * sb + (size_t)h * sh;
   const float *qb = q + off, *kb = k + off, *vb = v + off;
+  if (rr) __syncthreads();  // the previous entry's readers of Qs, S and den are done
 
   for (int e = tid; e < MHA_TQ * D; e += 256) {
     const int r = e / D, d = e % D;
@@ -43,12 +76,13 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   // pass 1: scores
+  for (int half = 0; half < NH; ++half)
   for (int k0 = 0; k0 < L; k0 += MHA_TK) {
     const int nk = min(MHA_TK, L - k0);
     __syncthreads();
     for (int e = tid; e < MHA_TK * D; e += 256) {
       const int j = e / D, d = e % D;
-      KV[j * (D + 1) + d] = j < nk ? kb[(size_t)(k0 + j) * sl + d] : 0.f;
+      KV[j * (D + 1) + d] = j < nk ? kv_elem(kb, k0, j, d, half) : 0.f;
     }
     __syncthreads();
     const int j = tid & (MHA_TK - 1);
@@ -56,40 +90,50 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int r = tid >> 6; r < nq; r += 4) {
         float s = 0.f;
         for (int d = 0; d < D; ++d) s = fmaf(Qs[r * D + d], KV[j * (D + 1) + d], s);
-        S[(size_t)r * L + k0 + j] = __fmul_rn(s, scale);
+        S[(size_t)r * LS + half * L + k0 + j] = __fmul_rn(s, scale);
       }
     }
   }
   __syncthreads();
 
-  // softmax numerators and f32 denominators, one warp per row
-  for (int r = warp; r < nq; r += 8) {
-    float* row = S + (size_t)r * L;
-    float m = -INFINITY;
-    for (int j = lane; j < L; j += 32) m = fmaxf(m, row[j]);
-    for (int o = 16; o; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    float sum = 0.f;
-    for (int j = lane; j < L; j += 32) {
-      const float p = expf(__fsub_rn(row[j], m));
-      row[j] = p;
-      sum += p;
+  // softmax numerators and f32 denominators, one warp per row and half
+  // (ATT_RAW: the scores are P as they stand)
+  if constexpr (MODE != ATT_RAW) {
+    for (int r = warp; r < nq; r += 8) {
+      for (int half = 0; half < NH; ++half) {
+        float* row = S + (size_t)r * LS + half * L;
+        float m = -INFINITY;
+        for (int j = lane; j < L; j += 32) m = fmaxf(m, row[j]);
+        for (int o = 16; o; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+        float sum = 0.f;
+        for (int j = lane; j < L; j += 32) {
+          const float p = expf(__fsub_rn(row[j], m));
+          row[j] = p;
+          sum += p;
+        }
+        if constexpr (MODE != ATT_PV_ONES) {
+          for (int o = 16; o; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+          if (lane == 0) den[r * NH + half] = sum;
+        }
+      }
     }
-    for (int o = 16; o; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    if (lane == 0) den[r] = sum;
   }
 
-  // pass 2: P @ V
+  // pass 2: P @ V (ATT_PV_ONES: thread r < nq also sums row r against the
+  // ones column, in key order)
   constexpr int MAXE = MHA_TQ * 128 / 256;
   float acc[MAXE];
 #pragma unroll
   for (int e = 0; e < MAXE; ++e) acc[e] = 0.f;
+  float ones_acc = 0.f;
   const int nE = (MHA_TQ * D) / 256;  // D multiple of 8
+  for (int half = 0; half < NH; ++half)
   for (int k0 = 0; k0 < L; k0 += MHA_TK) {
     const int nk = min(MHA_TK, L - k0);
     __syncthreads();
     for (int e = tid; e < MHA_TK * D; e += 256) {
       const int j = e / D, d = e % D;
-      KV[j * (D + 1) + d] = j < nk ? vb[(size_t)(k0 + j) * sl + d] : 0.f;
+      KV[j * (D + 1) + d] = j < nk ? kv_elem(vb, k0, j, d, half) : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -97,43 +141,65 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       if (e < nE) {
         const int idx = tid + 256 * e, r = idx / D, d = idx % D;
         if (r < nq) {
-          const float* prow = S + (size_t)r * L + k0;
+          const float* prow = S + (size_t)r * LS + half * L + k0;
           float a = acc[e];
           for (int j = 0; j < nk; ++j) a = fmaf(prow[j], KV[j * (D + 1) + d], a);
           acc[e] = a;
         }
       }
     }
+    if constexpr (MODE == ATT_PV_ONES) {
+      if (tid < nq) {
+        const float* prow = S + (size_t)tid * LS + k0;
+        for (int j = 0; j < nk; ++j) ones_acc = fmaf(prow[j], 1.f, ones_acc);
+      }
+    }
+  }
+  if constexpr (MODE == ATT_PV_ONES) {
+    if (tid < nq) den[tid] = ones_acc;
+    __syncthreads();
   }
 #pragma unroll
   for (int e = 0; e < MAXE; ++e) {
     if (e < nE) {
       const int idx = tid + 256 * e, r = idx / D, d = idx % D;
-      if (r < nq)
-        out[((size_t)b * L + q0 + r) * H * D + h * D + d] = __fdiv_rn(acc[e], den[r]);
+      if (r < nq) {
+        float o = acc[e];
+        if constexpr (MODE != ATT_RAW) o = __fdiv_rn(o, den[r * NH + d / dh]);
+        out[((size_t)b * L + q0 + r) * H * D + h * D + d] = o;
+      }
     }
+  }
   }
 }
 
-// bf16: grid (ceil(L / 64), H, B), 4 warps of 16 queries each, mma.sync
+// bf16: grid (ceil(L / 64), H, B / R), 4 warps of 16 queries each, mma.sync
 // for both products, no score matrix in memory. Pass 1 sweeps the key
 // tiles for the row max; pass 2 recomputes the scores, forms
 // p = exp(s - m) in f32 (summed in f32 for the denominator), rounds p to
 // bf16 straight from the accumulator registers into the A fragments of
 // P @ V, and divides the f32 result by the denominator at the end.
 // Needs 16-byte aligned rows: q, k, v and sb, sl, sh multiples of 8.
-template <int D>
+// ATT_RAW makes one pass; ATT_PACKED2 sweeps each pass once per head of
+// the pair (D is the pair's width 2d), with a row max and a denominator
+// per head; ATT_PV_ONES adds one 8-wide n-tile to P @ V whose first
+// column is ones.
+template <int D, int MODE = ATT_SOFTMAX, int R = 1>
 __global__ void __launch_bounds__(128)
 attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, long long sb, long long sl, long long sh,
                       int L, float scale, bf16* __restrict__ out) {
   constexpr int LD = D + 8, KS = D / 16;
+  constexpr int NH = MODE == ATT_PACKED2 ? 2 : 1, DH = D / NH;
   __shared__ __align__(16) bf16 Ks[MHA_TK * LD];
   __shared__ __align__(16) bf16 Vs[MHA_TK * LD];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
+  const int h = blockIdx.y, H = gridDim.y;
   const int r0 = blockIdx.x * 64 + warp * 16 + (lane >> 2), r1 = r0 + 8;
   const int kq = (lane & 3) * 2;
+
+  for (int rr = 0; rr < R; ++rr) {
+  const int b = blockIdx.z * R + rr;
   const size_t off = (size_t)b * sb + (size_t)h * sh;
   const bf16 *qb = q + off, *kb = k + off, *vb = v + off;
 
@@ -148,11 +214,13 @@ attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     qf[ks][3] = r1 < L ? *reinterpret_cast<const uint32_t*>(q1p + 8) : 0u;
   }
 
-  auto load_tile = [&](bf16* dst, const bf16* src, int k0) {  // 64 keys x D, zero past L
+  // 64 keys x D, zero past L; ATT_PACKED2 keeps only head `half`'s columns
+  auto load_tile = [&](bf16* dst, const bf16* src, int k0, int half) {
     for (int e = tid; e < MHA_TK * (D / 8); e += 128) {
       const int j = e / (D / 8), c = (e % (D / 8)) * 8;
       uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + j < L) val = *reinterpret_cast<const uint4*>(src + (size_t)(k0 + j) * sl + c);
+      if (k0 + j < L && (NH == 1 || c / DH == half))
+        val = *reinterpret_cast<const uint4*>(src + (size_t)(k0 + j) * sl + c);
       *reinterpret_cast<uint4*>(dst + j * LD + c) = val;
     }
   };
@@ -176,27 +244,33 @@ attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        s[nt][e] = k0 + nt * 8 + kq + (e & 1) < L ? __fmul_rn(s[nt][e], scale) : -INFINITY;
+        s[nt][e] = k0 + nt * 8 + kq + (e & 1) < L ? __fmul_rn(s[nt][e], scale)
+                                                  : (MODE == ATT_RAW ? 0.f : -INFINITY);
   };
 
-  // pass 1: row max over all keys
-  float m0 = -INFINITY, m1 = -INFINITY;
-  for (int k0 = 0; k0 < L; k0 += MHA_TK) {
-    __syncthreads();
-    load_tile(Ks, kb, k0);
-    __syncthreads();
-    float s[8][4];
-    scores(s, k0);
+  // pass 1: row max over all keys, per head of the pair
+  float m0[NH], m1[NH];
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      m0 = fmaxf(m0, fmaxf(s[nt][0], s[nt][1]));
-      m1 = fmaxf(m1, fmaxf(s[nt][2], s[nt][3]));
+  for (int half = 0; half < NH; ++half) {
+    m0[half] = -INFINITY;
+    m1[half] = -INFINITY;
+    for (int k0 = 0; MODE != ATT_RAW && k0 < L; k0 += MHA_TK) {
+      __syncthreads();
+      load_tile(Ks, kb, k0, half);
+      __syncthreads();
+      float s[8][4];
+      scores(s, k0);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        m0[half] = fmaxf(m0[half], fmaxf(s[nt][0], s[nt][1]));
+        m1[half] = fmaxf(m1[half], fmaxf(s[nt][2], s[nt][3]));
+      }
     }
-  }
 #pragma unroll
-  for (int o = 1; o <= 2; o <<= 1) {  // the 4 lanes of a row
-    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
-    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
+    for (int o = 1; o <= 2; o <<= 1) {  // the 4 lanes of a row
+      m0[half] = fmaxf(m0[half], __shfl_xor_sync(0xffffffffu, m0[half], o));
+      m1[half] = fmaxf(m1[half], __shfl_xor_sync(0xffffffffu, m1[half], o));
+    }
   }
 
   // pass 2: P @ V and the f32 denominators
@@ -205,49 +279,73 @@ attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int dt = 0; dt < D / 8; ++dt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
-  float d0 = 0.f, d1 = 0.f;
-  for (int k0 = 0; k0 < L; k0 += MHA_TK) {
-    __syncthreads();
-    load_tile(Ks, kb, k0);
-    load_tile(Vs, vb, k0);
-    __syncthreads();
-    float s[8][4];
-    scores(s, k0);
-    uint32_t pf[4][4];  // P as A fragments, 16 keys each
+  float d0[NH], d1[NH];
+  float ones_o[4] = {0.f, 0.f, 0.f, 0.f};  // ATT_PV_ONES: the ones column's n-tile
+  // B fragment of an 8-wide tile whose column 0 is ones: lanes 0-3 hold column 0
+  const uint32_t ones_b = lane < 4 ? pack_bf16(1.f, 1.f) : 0u;
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const float p0 = expf(__fsub_rn(s[nt][0], m0)), p1 = expf(__fsub_rn(s[nt][1], m0));
-      const float p2 = expf(__fsub_rn(s[nt][2], m1)), p3 = expf(__fsub_rn(s[nt][3], m1));
-      d0 += p0 + p1;
-      d1 += p2 + p3;
-      pf[nt >> 1][(nt & 1) * 2] = pack_bf16(p0, p1);
-      pf[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p2, p3);
+  for (int half = 0; half < NH; ++half) {
+    d0[half] = 0.f;
+    d1[half] = 0.f;
+    for (int k0 = 0; k0 < L; k0 += MHA_TK) {
+      __syncthreads();
+      load_tile(Ks, kb, k0, half);
+      load_tile(Vs, vb, k0, half);
+      __syncthreads();
+      float s[8][4];
+      scores(s, k0);
+      uint32_t pf[4][4];  // P as A fragments, 16 keys each
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        float p0 = s[nt][0], p1 = s[nt][1], p2 = s[nt][2], p3 = s[nt][3];
+        if constexpr (MODE != ATT_RAW) {
+          p0 = expf(__fsub_rn(p0, m0[half]));
+          p1 = expf(__fsub_rn(p1, m0[half]));
+          p2 = expf(__fsub_rn(p2, m1[half]));
+          p3 = expf(__fsub_rn(p3, m1[half]));
+        }
+        if constexpr (MODE == ATT_SOFTMAX || MODE == ATT_PACKED2) {
+          d0[half] += p0 + p1;
+          d1[half] += p2 + p3;
+        }
+        pf[nt >> 1][(nt & 1) * 2] = pack_bf16(p0, p1);
+        pf[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p2, p3);
+      }
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+#pragma unroll
+        for (int p = 0; p < D / 16; ++p) {
+          uint32_t vf[4];
+          ldmatrix_x4_trans(vf, Vs + (ks * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD +
+                                    p * 16 + (lane >> 4) * 8);
+          mma_bf16(o[2 * p], pf[ks], vf[0], vf[1]);
+          mma_bf16(o[2 * p + 1], pf[ks], vf[2], vf[3]);
+        }
+        if constexpr (MODE == ATT_PV_ONES) mma_bf16(ones_o, pf[ks], ones_b, ones_b);
+      }
     }
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
-#pragma unroll
-      for (int p = 0; p < D / 16; ++p) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, Vs + (ks * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD +
-                                  p * 16 + (lane >> 4) * 8);
-        mma_bf16(o[2 * p], pf[ks], vf[0], vf[1]);
-        mma_bf16(o[2 * p + 1], pf[ks], vf[2], vf[3]);
-      }
+    for (int off2 = 1; off2 <= 2; off2 <<= 1) {
+      d0[half] += __shfl_xor_sync(0xffffffffu, d0[half], off2);
+      d1[half] += __shfl_xor_sync(0xffffffffu, d1[half], off2);
+    }
   }
-#pragma unroll
-  for (int off2 = 1; off2 <= 2; off2 <<= 1) {
-    d0 += __shfl_xor_sync(0xffffffffu, d0, off2);
-    d1 += __shfl_xor_sync(0xffffffffu, d1, off2);
+  if constexpr (MODE == ATT_PV_ONES) {  // column 0 of the ones tile: lane 4(l/4), e 0 and 2
+    d0[0] = __shfl_sync(0xffffffffu, ones_o[0], lane & ~3);
+    d1[0] = __shfl_sync(0xffffffffu, ones_o[2], lane & ~3);
   }
 #pragma unroll
   for (int dt = 0; dt < D / 8; ++dt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int r = e < 2 ? r0 : r1;
-      if (r < L)
-        out[((size_t)b * L + r) * H * D + h * D + dt * 8 + kq + (e & 1)] =
-            __float2bfloat16_rn(__fdiv_rn(o[dt][e], e < 2 ? d0 : d1));
+      const int half = (dt * 8) / DH;
+      float val = o[dt][e];
+      if constexpr (MODE != ATT_RAW) val = __fdiv_rn(val, e < 2 ? d0[half] : d1[half]);
+      if (r < L) out[((size_t)b * L + r) * H * D + h * D + dt * 8 + kq + (e & 1)] =
+          __float2bfloat16_rn(val);
     }
+  }
 }
 
 // the scale as JAX forms it: 1/sqrt(d) in double, then rounded to f32
@@ -258,10 +356,10 @@ static int whole_row_attention(const float* q, const float* k, const float* v, i
                                float* out, cudaStream_t st) {
   const size_t smem =
       sizeof(float) * ((size_t)MHA_TQ * D + MHA_TK * (D + 1) + (size_t)MHA_TQ * L + MHA_TQ);
-  cudaFuncSetAttribute(attention_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaFuncSetAttribute(attention_f32_kernel<>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
   dim3 grid((L + MHA_TQ - 1) / MHA_TQ, H, B);
-  attention_f32_kernel<<<grid, 256, smem, st>>>(q, k, v, sb, sl, sh, L, D, attn_scale(D), out);
+  attention_f32_kernel<><<<grid, 256, smem, st>>>(q, k, v, sb, sl, sh, L, D, attn_scale(D), out);
   PPT_CHECK_LAUNCH();
   return 0;
 }
@@ -271,12 +369,61 @@ static int whole_row_attention(const bf16* q, const bf16* k, const bf16* v, int 
                                cudaStream_t st) {
   const float scale = attn_scale(D);
   dim3 grid((L + 63) / 64, H, B);
-  if (D == 32)
+  if (D == 16)
+    attention_bf16_kernel<16><<<grid, 128, 0, st>>>(q, k, v, sb, sl, sh, L, scale, out);
+  else if (D == 32)
     attention_bf16_kernel<32><<<grid, 128, 0, st>>>(q, k, v, sb, sl, sh, L, scale, out);
   else if (D == 64)
     attention_bf16_kernel<64><<<grid, 128, 0, st>>>(q, k, v, sb, sl, sh, L, scale, out);
   else if (D == 128)
     attention_bf16_kernel<128><<<grid, 128, 0, st>>>(q, k, v, sb, sl, sh, L, scale, out);
+  else
+    return (int)cudaErrorInvalidValue;
+  PPT_CHECK_LAUNCH();
+  return 0;
+}
+
+// The probe's attention (MODE, R as in the header). H and D are the block's
+// heads and head dim: ATT_PACKED2 launches H / 2 pairs of width 2D, with
+// the scale of the head dim D.
+template <int MODE, int R>
+static int attention_variant(const float* q, const float* k, const float* v, int B, int L,
+                             int H, int D, long long sb, long long sl, long long sh, float* out,
+                             cudaStream_t st) {
+  constexpr int NH = MODE == ATT_PACKED2 ? 2 : 1;
+  if (B % R || H % NH) return (int)cudaErrorInvalidValue;
+  const int Dl = NH * D;
+  const size_t smem = sizeof(float) * ((size_t)MHA_TQ * Dl + MHA_TK * (Dl + 1) +
+                                       (size_t)MHA_TQ * NH * L + MHA_TQ * NH);
+  cudaFuncSetAttribute(attention_f32_kernel<MODE, R>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  dim3 grid((L + MHA_TQ - 1) / MHA_TQ, H / NH, B / R);
+  attention_f32_kernel<MODE, R><<<grid, 256, smem, st>>>(q, k, v, sb, sl, sh * NH, L, Dl,
+                                                         attn_scale(D), out);
+  PPT_CHECK_LAUNCH();
+  return 0;
+}
+
+template <int MODE, int R>
+static int attention_variant(const bf16* q, const bf16* k, const bf16* v, int B, int L, int H,
+                             int D, long long sb, long long sl, long long sh, bf16* out,
+                             cudaStream_t st) {
+  constexpr int NH = MODE == ATT_PACKED2 ? 2 : 1;
+  if (B % R || H % NH) return (int)cudaErrorInvalidValue;
+  const int Dl = NH * D;
+  const float scale = attn_scale(D);
+  dim3 grid((L + 63) / 64, H / NH, B / R);
+  sh *= NH;
+  if (NH == 1 && Dl == 16)
+    attention_bf16_kernel<16, NH == 1 ? MODE : ATT_SOFTMAX, R>
+        <<<grid, 128, 0, st>>>(q, k, v, sb, sl, sh, L, scale, out);
+  else if (Dl == 32)
+    attention_bf16_kernel<32, MODE, R><<<grid, 128, 0, st>>>(q, k, v, sb, sl, sh, L, scale, out);
+  else if (Dl == 64)
+    attention_bf16_kernel<64, MODE, R><<<grid, 128, 0, st>>>(q, k, v, sb, sl, sh, L, scale, out);
+  else if (Dl == 128)
+    attention_bf16_kernel<128, MODE, R><<<grid, 128, 0, st>>>(q, k, v, sb, sl, sh, L, scale,
+                                                               out);
   else
     return (int)cudaErrorInvalidValue;
   PPT_CHECK_LAUNCH();

@@ -1,6 +1,7 @@
 // Shared helpers for the port's hand-written Hopper kernels: the C ABI's
-// conventions, dtype conversion, the mma.sync / ldmatrix / cp.async
-// wrappers, and the LayerNorm row and GEMM main loops that vitblock.cu and
+// conventions, dtype conversion, the point clouds' exact distance and
+// argmax / argmin merges, the mma.sync / ldmatrix / cp.async wrappers,
+// and the LayerNorm row and GEMM main loops that vitblock.cu and
 // text.cu both build their kernels from.
 //
 // Every kernel library exposes a plain C ABI (loaded with ctypes by
@@ -33,6 +34,26 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 // round to the compute dtype.
 template <typename T> __device__ __forceinline__ float rnd(float x) {
   return to_f(from_f<T>(x));
+}
+
+// ---------------------------------------------------------------------------
+// Point-cloud helpers shared by group.cu, cloud.cu and losses3d.cu: the exact squared
+// distance ((dx*dx + dy*dy) + dz*dz), each step rounded on its own so nvcc
+// cannot contract it into FMAs, and the (value, lowest index) merges every
+// argmax / argmin reduction uses.
+// ---------------------------------------------------------------------------
+static __device__ __forceinline__ float sq3(float dx, float dy, float dz) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
+}
+
+// larger value wins, ties to the lower index
+static __device__ __forceinline__ void argmax_merge(float& v, int& i, float ov, int oi) {
+  if (ov > v || (ov == v && oi < i)) { v = ov; i = oi; }
+}
+
+// smaller value wins, ties to the lower index
+static __device__ __forceinline__ void argmin_merge(float& v, int& i, float ov, int oi) {
+  if (ov < v || (ov == v && oi < i)) { v = ov; i = oi; }
 }
 
 // ---------------------------------------------------------------------------

@@ -51,20 +51,6 @@
 
 PPT_ERROR_STRING_FN
 
-static __device__ __forceinline__ float sq3(float dx, float dy, float dz) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
-}
-
-// larger value wins, ties to the lower index
-static __device__ __forceinline__ void argmax_merge(float& v, int& i, float ov, int oi) {
-  if (ov > v || (ov == v && oi < i)) { v = ov; i = oi; }
-}
-
-// smaller value wins, ties to the lower index
-static __device__ __forceinline__ void argmin_merge(float& v, int& i, float ov, int oi) {
-  if (ov < v || (ov == v && oi < i)) { v = ov; i = oi; }
-}
-
 __global__ void fps_kernel(const float* __restrict__ xyz, int N, int npoint,
                            int* __restrict__ out) {
   extern __shared__ float sm[];

@@ -47,10 +47,6 @@ PPT_ERROR_STRING_FN
 
 static constexpr int kSmemLimit = 232448;  // 227 KB, a block's dynamic shared memory
 
-static __device__ __forceinline__ float sq3(float dx, float dy, float dz) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
-}
-
 // ---------------------------------------------------------------------------
 // nn_dists
 // ---------------------------------------------------------------------------

@@ -54,10 +54,32 @@ __global__ void add_ln_kernel(const T* __restrict__ x, const T* __restrict__ pos
                 xn_out + o);
 }
 
+// The probe's form of the same launch: grid (ceil(L / 8), B / R), each warp
+// one token row in each of the block's R clouds; without LN only
+// x0 = x + pos is written (mode mm_only).
+template <typename T, bool LN, int R>
+__global__ void add_ln_rows_kernel(const T* __restrict__ x, const T* __restrict__ pos, int L,
+                                   int C, const float* __restrict__ s,
+                                   const float* __restrict__ b, T* __restrict__ x0_out,
+                                   T* __restrict__ xn_out) {
+  const int l = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (l >= L) return;
+  for (int i = 0; i < R; ++i) {
+    const size_t o = ((size_t)(blockIdx.y * R + i) * L + l) * C;
+    if constexpr (LN) {
+      add_ln_row<T>(x + o, pos ? pos + o : nullptr, C, s, b, LN_EPS,
+                    x0_out ? x0_out + o : nullptr, xn_out + o);
+    } else {
+      for (int c = threadIdx.x & 31; c < C; c += 32)
+        x0_out[o + c] = from_f<T>(rnd<T>(__fadd_rn(to_f(x[o + c]), to_f(pos[o + c]))));
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // GEMM out[M,N] = A[M,K] @ W[K,N] with an epilogue
 // ---------------------------------------------------------------------------
-enum { EPI_ROUND = 0, EPI_BIAS_RES = 1, EPI_BIAS_GELU = 2 };
+enum { EPI_ROUND = 0, EPI_BIAS_RES = 1, EPI_BIAS_GELU = 2, EPI_BIAS = 3 };
 
 __device__ __forceinline__ float gelu_tanh(float x) {
   const float c = 0.7978845608028654f;  // sqrt(2/pi)
@@ -68,6 +90,7 @@ __device__ __forceinline__ float gelu_tanh(float x) {
 // EPI_ROUND:     out = T(acc)
 // EPI_BIAS_RES:  y = T(T(acc) + T(bias)); out = T(res + T(y * T(dp[row / L, dp_col])))
 // EPI_BIAS_GELU: out = T(gelu_tanh(acc + bias))      (bias added in f32)
+// EPI_BIAS:      out = T(acc + bias)                 (the probe's GELU-less fc1)
 template <typename T, int EPI>
 __device__ __forceinline__ void epilogue(float acc, int r, int c, int N,
                                          const float* __restrict__ bias,
@@ -82,8 +105,10 @@ __device__ __forceinline__ void epilogue(float acc, int r, int c, int N,
     const float y = rnd<T>(__fadd_rn(rnd<T>(acc), rnd<T>(bias[c])));
     const float scaled = rnd<T>(__fmul_rn(y, rnd<T>(dp[(r / L) * 2 + dp_col])));
     v = __fadd_rn(to_f(res[o]), scaled);
-  } else {
+  } else if (EPI == EPI_BIAS_GELU) {
     v = gelu_tanh(__fadd_rn(acc, bias[c]));
+  } else {
+    v = __fadd_rn(acc, bias[c]);
   }
   out[o] = from_f<T>(v);
 }
@@ -250,6 +275,111 @@ PPT_EXPORT int ppt_vit_block(int dtype, const void* x, const void* pos, const vo
   if (dtype == PPT_BF16) return block<bf16>(PPT_BLOCK_ARGS(bf16));
   return block<float>(PPT_BLOCK_ARGS(float));
 #undef PPT_BLOCK_ARGS
+}
+
+// ---------------------------------------------------------------------------
+// The ViT-block ablation probe (ppt_torch/tools/vitblock_probe.py): the
+// block's launch sequence above with one component taken out or replaced,
+// so that each mode prices that component inside the production code.
+// Replaces ppt_tpu/tools/vitblock_probe.py:_variant_pallas (its kernel
+// _variant_kernel). Modes, as the TPU probe names them:
+//   full        the production sequence, block() itself (rows 1)
+//   mm_only     no LN1/LN2 (x0 and x1 feed the GEMMs), raw-score attention
+//               (ATT_RAW), no GELU
+//   no_softmax  ATT_RAW attention; LayerNorms and GELU kept
+//   no_gelu     GELU is the identity in the fc1 epilogue
+//   pv_ones     ATT_PV_ONES: the denominator from a ones column of V
+//   qk_packed2  ATT_PACKED2: two heads per block-diagonal product
+// rows = 2: each block of the attention and LayerNorm launches takes two
+// clouds' tiles in turn (the TPU probe's two clouds per grid instance).
+// ---------------------------------------------------------------------------
+enum { VAR_FULL = 0, VAR_MM_ONLY = 1, VAR_NO_SOFTMAX = 2, VAR_NO_GELU = 3, VAR_PV_ONES = 4,
+       VAR_QK_PACKED2 = 5 };
+
+template <typename T, bool LN, int R>
+static int add_ln_rows(const T* x, const T* pos, int B, int L, int C, const float* s,
+                       const float* b, T* x0, T* xn, cudaStream_t st) {
+  if (R == 1 && LN) return add_ln<T>(x, pos, B * L, C, s, b, x0, xn, st);
+  add_ln_rows_kernel<T, LN, R><<<dim3((L + 7) / 8, B / R), 256, 0, st>>>(x, pos, L, C, s, b,
+                                                                          x0, xn);
+  PPT_CHECK_LAUNCH();
+  return 0;
+}
+
+template <typename T, int MODE, int R>
+static int variant(const T* x, const T* pos, const float* dp, int B, int L, int C, int heads,
+                   int hid, const float* ln1s, const float* ln1b, const T* wqkv,
+                   const T* wproj, const float* bproj, const float* ln2s, const float* ln2b,
+                   const T* wfc1, const float* bfc1, const T* wfc2, const float* bfc2, T* x0,
+                   T* xn, T* qkv, T* attn, T* x1, T* h1, T* out, cudaStream_t st) {
+  constexpr bool LN = MODE != VAR_MM_ONLY;
+  constexpr bool GELU = MODE != VAR_MM_ONLY && MODE != VAR_NO_GELU;
+  constexpr int ATT = MODE == VAR_MM_ONLY || MODE == VAR_NO_SOFTMAX ? ATT_RAW
+                      : MODE == VAR_PV_ONES                         ? ATT_PV_ONES
+                      : MODE == VAR_QK_PACKED2                      ? ATT_PACKED2
+                                                                    : ATT_SOFTMAX;
+  if (B % R) return (int)cudaErrorInvalidValue;
+  const int rows = B * L, D = C / heads;
+  PPT_TRY((add_ln_rows<T, LN, R>(x, pos, B, L, C, ln1s, ln1b, x0, xn, st)));
+  PPT_TRY(gemm<EPI_ROUND>(LN ? xn : x0, wqkv, rows, 3 * C, C, nullptr, nullptr, nullptr, 0, L,
+                          qkv, st));
+  PPT_TRY((attention_variant<ATT, R>(qkv, qkv + C, qkv + 2 * C, B, L, heads, D,
+                                     (long long)L * 3 * C, 3 * C, D, attn, st)));
+  PPT_TRY(gemm<EPI_BIAS_RES>(attn, wproj, rows, C, C, bproj, x0, dp, 0, L, x1, st));
+  if (LN) PPT_TRY((add_ln_rows<T, true, R>(x1, nullptr, B, L, C, ln2s, ln2b, nullptr, xn, st)));
+  PPT_TRY(gemm<GELU ? EPI_BIAS_GELU : EPI_BIAS>(LN ? xn : x1, wfc1, rows, hid, C, bfc1, nullptr,
+                                                nullptr, 0, L, h1, st));
+  PPT_TRY(gemm<EPI_BIAS_RES>(h1, wfc2, rows, C, hid, bfc2, x1, dp, 1, L, out, st));
+  return 0;
+}
+
+template <typename T, int R>
+static int variant_mode(int mode, const T* x, const T* pos, const float* dp, int B, int L, int C,
+                        int heads, int hid, const float* ln1s, const float* ln1b, const T* wqkv,
+                        const T* wproj, const float* bproj, const float* ln2s,
+                        const float* ln2b, const T* wfc1, const float* bfc1, const T* wfc2,
+                        const float* bfc2, T* x0, T* xn, T* qkv, T* attn, T* x1, T* h1, T* out,
+                        cudaStream_t st) {
+#define PPT_VARIANT(M)                                                                       \
+  variant<T, M, R>(x, pos, dp, B, L, C, heads, hid, ln1s, ln1b, wqkv, wproj, bproj, ln2s,   \
+                   ln2b, wfc1, bfc1, wfc2, bfc2, x0, xn, qkv, attn, x1, h1, out, st)
+  switch (mode) {
+    case VAR_FULL:
+      if (R == 1)
+        return block<T>(x, pos, dp, B, L, C, heads, hid, ln1s, ln1b, wqkv, wproj, bproj, ln2s,
+                        ln2b, wfc1, bfc1, wfc2, bfc2, nullptr, nullptr, x0, xn, qkv, attn, x1,
+                        h1, out, nullptr, st);
+      return PPT_VARIANT(VAR_FULL);
+    case VAR_MM_ONLY: return PPT_VARIANT(VAR_MM_ONLY);
+    case VAR_NO_SOFTMAX: return PPT_VARIANT(VAR_NO_SOFTMAX);
+    case VAR_NO_GELU: return PPT_VARIANT(VAR_NO_GELU);
+    case VAR_PV_ONES: return PPT_VARIANT(VAR_PV_ONES);
+    case VAR_QK_PACKED2: return PPT_VARIANT(VAR_QK_PACKED2);
+  }
+#undef PPT_VARIANT
+  return (int)cudaErrorInvalidValue;
+}
+
+PPT_EXPORT int ppt_vit_variant(int dtype, int mode, int rows, const void* x, const void* pos,
+                               const void* dp, int B, int L, int C, int heads, int hid,
+                               const void* ln1s, const void* ln1b, const void* wqkv,
+                               const void* wproj, const void* bproj, const void* ln2s,
+                               const void* ln2b, const void* wfc1, const void* bfc1,
+                               const void* wfc2, const void* bfc2, void* x0, void* xn, void* qkv,
+                               void* attn, void* x1, void* h1, void* out, void* stream) {
+#define PPT_VARIANT_ARGS(T)                                                                  \
+  mode, (const T*)x, (const T*)pos, (const float*)dp, B, L, C, heads, hid,                  \
+      (const float*)ln1s, (const float*)ln1b, (const T*)wqkv, (const T*)wproj,              \
+      (const float*)bproj, (const float*)ln2s, (const float*)ln2b, (const T*)wfc1,          \
+      (const float*)bfc1, (const T*)wfc2, (const float*)bfc2, (T*)x0, (T*)xn, (T*)qkv,      \
+      (T*)attn, (T*)x1, (T*)h1, (T*)out, (cudaStream_t)stream
+  if (rows != 1 && rows != 2) return (int)cudaErrorInvalidValue;
+  if (dtype == PPT_BF16)
+    return rows == 1 ? variant_mode<bf16, 1>(PPT_VARIANT_ARGS(bf16))
+                     : variant_mode<bf16, 2>(PPT_VARIANT_ARGS(bf16));
+  return rows == 1 ? variant_mode<float, 1>(PPT_VARIANT_ARGS(float))
+                   : variant_mode<float, 2>(PPT_VARIANT_ARGS(float));
+#undef PPT_VARIANT_ARGS
 }
 
 // The whole trunk: `depth` blocks, then the readout into `ro` [B, 8, C] f32.

@@ -27,7 +27,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build" / "kernels"
-SOURCES = ("attention", "group", "losses3d", "mini", "text", "vitblock")
+SOURCES = ("attention", "cloud", "group", "losses3d", "mini", "text", "vitblock")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 # Launch counts per kernel entry point: each wrapper adds one where it

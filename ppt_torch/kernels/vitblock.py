@@ -119,8 +119,8 @@ def _check_shapes(name, dt, B, L, C, heads, hid):
         raise ValueError(f"{name}: C={C} must split into {heads} heads and be <= 1024")
     d = C // heads
     if dt == torch.bfloat16:  # tensor-core tiles
-        if d not in (32, 64, 128) or C % 32 or hid % 32:
-            raise ValueError(f"{name}: bf16 needs head dim 32, 64 or 128 (got {d}) and C, "
+        if d not in (16, 32, 64, 128) or C % 32 or hid % 32:
+            raise ValueError(f"{name}: bf16 needs head dim 16, 32, 64 or 128 (got {d}) and C, "
                              f"hidden ({C}, {hid}) multiples of 32")
     else:
         if d % 8 or d > 128:
@@ -129,33 +129,40 @@ def _check_shapes(name, dt, B, L, C, heads, hid):
             raise ValueError(f"{name}: L={L} too long for whole-row attention tiles")
 
 
+def block_operands(name, x, pos, dp, weights, heads):
+    """The arguments of a block's launch sequence, checked and cast as the
+    kernels take them: x, pos, dp, then the eleven weights in the order
+    of the C entry points (ln1s, ln1b, wqkv, wproj, bproj, ln2s, ln2b,
+    wfc1, bfc1, wfc2, bfc2), and the intermediates' buffers by name (x0,
+    xn, qkv, attn, x1, h1, out; [B * L, width] in x's dtype)."""
+    B, L, C = x.shape
+    dt = x.dtype
+    ln1s, ln1b, wqkv, wproj, bproj, ln2s, ln2b, wfc1, bfc1, wfc2, bfc2 = weights
+    hid = wfc1.shape[1]
+    _check_shapes(name, dt, B, L, C, heads, hid)
+    wq, wp, w1, w2 = (w.to(dt).contiguous() for w in (wqkv, wproj, wfc1, wfc2))
+    f = [t.float().contiguous() for t in (ln1s, ln1b, bproj, ln2s, ln2b, bfc1, bfc2)]
+    args = [x.contiguous(), pos.to(dt).contiguous(), dp.float().contiguous(),
+            f[0], f[1], wq, wp, f[2], f[3], f[4], w1, f[5], w2, f[6]]
+    _build.check_tensors(name, *args)
+    widths = dict(x0=C, xn=C, qkv=3 * C, attn=C, x1=C, h1=hid, out=C)
+    bufs = {k: torch.empty(B * L, n, dtype=dt, device=x.device) for k, n in widths.items()}
+    return args, bufs
+
+
 def _launch(x, pos, dp, weights, lnf, heads, name, scratch=None):
     """One block launch. ``scratch``: a dict that receives the block's
     intermediates by name (x0, xn, qkv, attn, x1, h1), for a check that
     reads them."""
     B, L, C = x.shape
-    dt = x.dtype
-    code = _build.dtype_code(name, dt)
-    ln1s, ln1b, wqkv, wproj, bproj, ln2s, ln2b, wfc1, bfc1, wfc2, bfc2 = weights
-    hid = wfc1.shape[1]
-    _check_shapes(name, dt, B, L, C, heads, hid)
-    x = x.contiguous()
-    pos = pos.to(dt).contiguous()
-    dp = dp.float().contiguous()
-    wq, wp, w1, w2 = (w.to(dt).contiguous() for w in (wqkv, wproj, wfc1, wfc2))
-    f32 = [t.float().contiguous() for t in (ln1s, ln1b, bproj, ln2s, ln2b, bfc1, bfc2)]
+    code = _build.dtype_code(name, x.dtype)
+    args, bufs = block_operands(name, x, pos, dp, weights, heads)
     readout = lnf is not None
     # without the readout the kernel never reads lnf; any f32 [C] pointers do
-    lnf = [t.float().contiguous() for t in lnf] if readout else f32[:2]
-    _build.check_tensors(name, x, pos, dp, wq, wp, w1, w2, *f32, *lnf)
-    rows = B * L
-
-    def buf(n):
-        return torch.empty(rows, n, dtype=dt, device=x.device)
-
-    x0, xn, qkv, attn, x1, h1, out = buf(C), buf(C), buf(3 * C), buf(C), buf(C), buf(hid), buf(C)
+    lnf = [t.float().contiguous() for t in lnf] if readout else args[3:5]
+    _build.check_tensors(name, args[0], *lnf)
     if scratch is not None:
-        scratch.update(x0=x0, xn=xn, qkv=qkv, attn=attn, x1=x1, h1=h1)
+        scratch.update((k, v) for k, v in bufs.items() if k != "out")
     ro = torch.empty(B, 8, C, dtype=torch.float32, device=x.device) if readout else None
     lib = _build.load("vitblock")
     lib.ppt_vit_block.argtypes = (
@@ -163,15 +170,13 @@ def _launch(x, pos, dp, weights, lnf, heads, name, scratch=None):
     )
     p = _build.ptr
     rc = lib.ppt_vit_block(
-        code, p(x), p(pos), p(dp), B, L, C, heads, hid,
-        p(f32[0]), p(f32[1]), p(wq), p(wp), p(f32[2]), p(f32[3]), p(f32[4]),
-        p(w1), p(f32[5]), p(w2), p(f32[6]), p(lnf[0]), p(lnf[1]),
-        p(x0), p(xn), p(qkv), p(attn), p(x1), p(h1), p(out),
+        code, *map(p, args[:3]), B, L, C, heads, weights[7].shape[1], *map(p, args[3:]),
+        *map(p, lnf), *map(p, bufs.values()),
         ctypes.c_void_p(ro.data_ptr() if ro is not None else None), _build.stream_ptr(x),
     )
     _build.check(lib, rc, name)
     _build.LAUNCHES[name] += 1
-    return ro if ro is not None else out.reshape(B, L, C)
+    return ro if ro is not None else bufs["out"].reshape(B, L, C)
 
 
 def _block_run(

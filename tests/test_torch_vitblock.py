@@ -105,7 +105,7 @@ def test_vitblock_module_matches_flax(dtype, monkeypatch):
 
 @pytest.mark.parametrize("dtype,C,heads,match", [
     (torch.bfloat16, 96, 2, "bf16 needs head dim"),  # head dim 48: no tensor-core variant
-    (torch.bfloat16, 64, 4, "bf16 needs head dim"),  # head dim 16
+    (torch.bfloat16, 96, 4, "bf16 needs head dim"),  # head dim 24
     (torch.float32, 96, 5, "must split into"),
 ])
 def test_block_kernel_path_rejects_what_it_does_not_take(dtype, C, heads, match):
