@@ -14,7 +14,10 @@ kernel check).
 Phases (any failed check raises, and the script exits non-zero):
   1. card name / power limit (nvidia-smi), torch and CUDA versions;
   2. build the kernels from ppt_torch/csrc (one nvcc per source, in
-     parallel) and report the build time;
+     parallel) and report the build time; count each Hopper kernel's wgmma
+     (HGMMA), TMA (UTMALDG, UBLKCP) and mma.sync (HMMA) instructions with
+     cuobjdump: the whole-row attention and the flash backward must issue
+     HGMMA on UTMALDG-loaded tiles and no HMMA;
   3. each kernel entry point against its plain version, at a small shape
      and at the slice's shape, in f32 and bf16 (the grouping kernels take
      f32 coordinates in both; the five kernels of the inference path also
@@ -46,7 +49,9 @@ Phases (any failed check raises, and the script exits non-zero):
      views of one qkv product: dQ, dK, dV within 1e-4 (f32) and 5e-2 (bf16)
      of the plain output's max, the lse within 1e-5 of flash_lse_plain, two
      runs bit-identical; its library time is SDPA's forward plus backward,
-     its bound 10 B H L^2 D operations at the bf16 peak beside the bytes;
+     beside SDPA's backward alone (library_bwd_ms: the gradient of one kept
+     forward) and the port's forward plus backward (fwd_bwd_ms), its bound
+     10 B H L^2 D operations at the bf16 peak beside the bytes;
      fused_vit_tower at B=2 x L=33 x C=64, depth 3 and at 30 (the train
      path's batch; checked only) and 32 x 513 x 384, depth 12, with
      DropPath scales (a zero among them): the same limits, repeats
@@ -207,10 +212,12 @@ import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -322,6 +329,46 @@ POINT_KERNELS = tuple(k for k in SOURCES if k not in TEXT_KERNELS + BALL_KERNELS
 # fps_pallas and knn_pallas from its tests alone)
 OFF_PATH_KERNELS = ("ball_query_gather_v2", "chamfer_nn_dists") + CLOUD_KERNELS
 TOL_TEXT_BWD = {"f32": 1e-4, "bf16": 5e-2}
+
+
+# the warp-specialised Hopper kernels: each must issue wgmma (HGMMA) on
+# tiles that TMA loads (UTMALDG), and none may run mma.sync (HMMA)
+HOPPER_KERNELS = {"attention": ("attention_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel",
+                                "flash_bwd_dq_wgmma_kernel"),
+                  "vitblock": ("attention_wgmma_kernel",)}
+SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "HMMA")
+
+
+def hopper_sass():
+    """Instruction counts of the Hopper kernels in the built libraries
+    (cuobjdump -sass), summed over each kernel's template instances; checks
+    that each issues HGMMA and UTMALDG and no HMMA. Returns {kernel:
+    {op: count}} for attention.cu."""
+    tool = Path(_build.nvcc_path()).parent / "cuobjdump"
+    found = {}
+    for lib, names in HOPPER_KERNELS.items():
+        out = subprocess.run([str(tool), "-sass", str(_build.BUILD_DIR / f"libppt_{lib}.so")],
+                             capture_output=True, text=True, timeout=300).stdout
+        counts = {n: dict.fromkeys(SASS_OPS, 0) for n in names}
+        instances = dict.fromkeys(names, 0)
+        current = None
+        for line in out.splitlines():
+            if "Function : " in line:
+                current = next((n for n in names if n in line), None)
+                if current:
+                    instances[current] += 1
+            elif current:
+                for op in SASS_OPS:
+                    if re.search(r"\b" + op + r"\b", line):
+                        counts[current][op] += 1
+        for n in names:
+            c = dict(counts[n], instances=instances[n])
+            print(f"[sass] lib{lib}: {n}: {c}")
+            check(instances[n] > 0 and c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["HMMA"] == 0,
+                  f"{n} in lib{lib} does not run wgmma on TMA-loaded tiles: {c}")
+            if lib == "attention":
+                found[n] = c
+    return found
 
 
 def check(cond, msg):
@@ -691,6 +738,11 @@ def sdpa_fwd_bwd(q, k, v, do):
     return torch.autograd.grad(out, (q, k, v), do)
 
 
+def sdpa_bwd(out, q, k, v, do):
+    """The library's backward alone: the gradient of one kept forward."""
+    return torch.autograd.grad(out, (q, k, v), do, retain_graph=True)
+
+
 def check_flash_bwd(results):
     """flash_mha's backward kernels against flash_bwd_plain, on the kernel
     forward's own output and lse, and that lse against flash_lse_plain."""
@@ -726,6 +778,7 @@ def check_flash_bwd(results):
                                10 * B * H * L * L * D, PEAK["bf16"])
             leaves = [t.detach().clone().transpose(1, 2).requires_grad_(True) for t in (q, k, v)]
             lq, lk, lv = (t.transpose(1, 2) for t in leaves)
+            kept = sdpa(lq, lk, lv)  # one forward whose backward alone is timed
             results["flash_mha_bwd"] = dict(
                 max_abs_err=max(float((a.float() - w.float()).abs().max())
                                 for a, w in zip(got, want)),
@@ -735,6 +788,7 @@ def check_flash_bwd(results):
                 bound_ms=bms, bound_by=by,
                 library_ms=gpu_time_ms(lambda: sdpa_fwd_bwd(lq, lk, lv, do)),
                 library="scaled_dot_product_attention forward + backward",
+                library_bwd_ms=gpu_time_ms(lambda: sdpa_bwd(kept, lq, lk, lv, do)),
                 fwd_bwd_ms=gpu_time_ms(
                     lambda: kattn._flash_bwd(q, k, v, *kattn._flash_fwd(q, k, v), do)),
                 f32_ms=bwd_f32_ms, lse_max_abs_err=lse_err)
@@ -3043,6 +3097,7 @@ def main():
         log = (_build.BUILD_DIR / f"{name}.log").read_text()
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
         print(f"[build] {name}.cu ptxas: " + " | ".join(regs[:12]))
+    sass = hopper_sass()
 
     results = {}
     check_grouping(results)
@@ -3084,6 +3139,8 @@ def main():
         else:
             check(launches.get(name, 0) > 0, f"{name} was launched on no path")
 
+    results["fused_mha"]["sass"] = sass["attention_wgmma_kernel"]
+    results["flash_mha_bwd"]["sass"] = {k: v for k, v in sass.items() if "flash_bwd" in k}
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         r = results[name]

@@ -17,6 +17,8 @@
 // trunk's [32, 1025, 6, 64]: 51.6 GFLOP against 101 MB, operations
 // (0.052 ms). Neither score matrix ever reaches device memory.
 //
+// Whole-row design: attention.cuh (bf16 on TMA and wgmma, hopper.cuh).
+//
 // Flash design (bf16): one CTA of 4 warps per (batch, head, 64-query
 // tile), each warp 16 query rows held as mma.sync A fragments; K and V
 // tiles of 64 keys staged in shared memory by cp.async, double-buffered,
@@ -31,7 +33,7 @@
 // carry over: no padding tensor, no segment-id array. Deterministic: every
 // sum runs in a fixed order, no atomics. f32 runs the same online softmax
 // as FMA on the CUDA cores (32 queries per CTA, scores through shared
-// memory). wgmma and TMA are later work.
+// memory). wgmma and TMA for the forward are later work.
 #include "attention.cuh"
 
 PPT_ERROR_STRING_FN
@@ -342,17 +344,22 @@ PPT_EXPORT int ppt_flash_mha(int dtype, const void* q, const void* k, const void
 
 // ---------------------------------------------------------------------------
 // flash_mha's backward: ppt_flash_mha_bwd, three launches.
-//   di   one warp per (b, l, h) row: di = sum_d o * do in f32, from the
-//        forward's output rounded to the compute dtype (as the stock
-//        _flash_attention_bwd forms it, flash_attention.py:274-276).
-//   dkv  one CTA of 4 warps per (b, h, 64-key tile); each warp owns 16 keys
-//        and walks every 32-query tile, recomputing S^T = K Q^T and
-//        P^T = exp(S^T * scale - lse) from the forward's row log-sum-exp.
-//        dV += P^T(bf16) dO, dP^T = V dO^T, dS^T = (dP^T - di) P^T scale,
-//        dK += dS^T(bf16) Q, both accumulated in f32 registers: no atomics.
-//   dq   one CTA of 4 warps per (b, h, 64-query tile), 16 queries a warp,
-//        walking every 64-key tile: S, P, dP = dO V^T, dS as above,
-//        dQ += dS(bf16) K in f32 registers.
+//   di   di = sum_d o * do in f32 per (b, l, h) row, from the forward's
+//        output rounded to the compute dtype (as the stock
+//        _flash_attention_bwd forms it, flash_attention.py:274-276): one
+//        warp a row in f32; in bf16 D / 8 lanes a row with 16-byte loads,
+//        and the row's lse copied beside di into a [B * H][2][Lp] scratch,
+//        Lp = L rounded up to 64, so that the dK/dV kernel takes both per
+//        query tile by one bulk copy each.
+//   dkv  one CTA per (b, h, 128 keys), 64 keys a consumer warpgroup
+//        (32 keys per f32 CTA), walking every query tile, recomputing S^T =
+//        K Q^T and P^T = exp(S^T * scale - lse) from the forward's row
+//        log-sum-exp. dV += P^T(bf16) dO, dP^T = V dO^T, dS^T = (dP^T - di)
+//        P^T scale, dK += dS^T(bf16) Q, both accumulated in f32 registers:
+//        no atomics.
+//   dq   one CTA per (b, h, 192 queries; 128 at D = 128), 64 queries a
+//        consumer warpgroup (32 per f32 CTA), walking every key tile: S, P,
+//        dP = dO V^T, dS as above, dQ += dS(bf16) K in f32 registers.
 // The arithmetic of _flash_attention_dkv_kernel / _flash_attention_dq_kernel
 // (flash_attention.py:894-919, :1227-1261), not their blocking. Casts: P to
 // the compute dtype only for the dV product, dS only for the dK and dQ
@@ -365,10 +372,10 @@ PPT_EXPORT int ppt_flash_mha(int dtype, const void* q, const void* k, const void
 // Bound at the long trunk's [32, 1025, 6, 64] bf16: 5 products of
 // 2 B H L^2 D (S twice, dP twice, and dV, dK, dQ: the two recomputed
 // products are not counted) = 129 GFLOP at the bf16 peak, against ~0.2 GB
-// moved: operations. bf16 runs every product on mma.sync m16n8k16 with
-// cp.async double-buffered tiles; f32 runs FMA on the CUDA cores with
-// scores and gradients staged in shared memory. wgmma and TMA are later
-// work.
+// moved: operations. bf16 runs its seven products on wgmma, the tiles
+// arriving by TMA through a ring of stages that a producer warpgroup
+// keeps full (hopper.cuh); f32 runs FMA on the CUDA cores with scores and
+// gradients staged in shared memory.
 // ---------------------------------------------------------------------------
 
 template <typename T>
@@ -388,276 +395,333 @@ flash_bwd_di_kernel(const T* __restrict__ o, const T* __restrict__ dout, int row
   }
 }
 
-constexpr int BW_TK = 64, BW_TQ = 32;  // bf16 dK/dV: keys per CTA, queries per step
-
-// smem bytes of the bf16 dK/dV kernel: K and V tiles, two Q/dO stages, lse/di
-template <int D> constexpr size_t dkv_bf16_smem() {
-  return (size_t)(2 * BW_TK + 4 * BW_TQ) * (D + 8) * sizeof(bf16) + 4 * BW_TQ * sizeof(float);
+// bf16: D / 8 lanes a row, 16 bytes of o and of do each; writes di and the
+// row's lse side by side, [B * H][2][Lp]
+template <int D>
+__global__ void __launch_bounds__(256)
+flash_bwd_di_bf16_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout, int rows,
+                         int L, int H, const float* __restrict__ lse, int Lp,
+                         float* __restrict__ stats) {
+  constexpr int LPR = D / 8;  // lanes a row
+  const int g = blockIdx.x * 256 + threadIdx.x;
+  const int row = g / LPR, part = g % LPR;  // row = (b * L + l) * H + h
+  float s = 0.f;
+  if (row < rows) {
+    const uint4 a = *reinterpret_cast<const uint4*>(o + (size_t)row * D + part * 8);
+    const uint4 c = *reinterpret_cast<const uint4*>(dout + (size_t)row * D + part * 8);
+    const bf16* ap = reinterpret_cast<const bf16*>(&a);
+    const bf16* cp = reinterpret_cast<const bf16*>(&c);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) s = __fadd_rn(s, __fmul_rn(to_f(ap[i]), to_f(cp[i])));
+  }
+#pragma unroll
+  for (int x = LPR / 2; x; x >>= 1) s += __shfl_xor_sync(0xffffffffu, s, x);
+  if (row < rows && part == 0) {
+    const int h = row % H, l = (row / H) % L, b = row / (H * L);
+    const size_t bh = (size_t)b * H + h;
+    stats[bh * 2 * Lp + l] = s;
+    stats[(bh * 2 + 1) * Lp + l] = lse[bh * L + l];
+  }
 }
-static_assert(dkv_bf16_smem<128>() <= 232448, "dK/dV tiles exceed the SM's shared memory");
+
+// bf16 dK/dV on Hopper: grid (ceil(L / 128), H, B), one CTA an SM of a
+// producer and two consumer warpgroups. The producer loads each consumer's
+// 64 keys of K and V once, then streams 64-query tiles of Q and dO (TMA)
+// and their di and lse rows (bulk copies of the padded [B * H][2][Lp]
+// scratch that the di launch writes) through a ring of BW_STAGES stages,
+// which both consumers read. A consumer owns 64 keys and walks every query
+// tile: S^T = K Q^T, then dP^T = V dO^T, on wgmma with both operands in
+// shared memory, the exp of P^T = exp(S^T scale - lse) overlapping the
+// second product; dS^T = (dP^T - di) P^T scale in f32 registers; then dV +=
+// P^T(bf16) dO and dK += dS^T(bf16) Q on wgmma with the rounded P^T and
+// dS^T as register A fragments and dO, Q MN-major. dK and dV (2 D f32 a
+// row) stay in registers to the end, which takes 240 a thread: hence one
+// CTA of two consumers an SM rather than two CTAs of one, or three
+// consumers (measured slower, with S^T and dP^T in 32-query halves to fit
+// 160 registers). No atomics.
+constexpr int BW_STAGES = 4, DKV_NC = 2;  // ring depth; dK/dV consumer warpgroups
+
+template <int D> constexpr size_t dkv_smem_bytes() {
+  return 1024 + 2 * DKV_NC * (size_t)RowTile<D>::BYTES +
+         BW_STAGES * (2 * (size_t)RowTile<D>::BYTES + 512) + 8 * (1 + 2 * BW_STAGES);
+}
+static_assert(dkv_smem_bytes<128>() <= 232448, "dK/dV tiles exceed the SM's shared memory");
+
+// 64 x 64 f32 products of two K-major tiles: acc = A B^T over the depth D
+template <int D>
+__device__ __forceinline__ void product_kk(float (&acc)[32], const bf16* a, const bf16* b) {
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) wgmma_ss<64>(acc, desc_k<D>(a, ks), desc_k<D>(b, ks), ks > 0);
+}
+
+// x (64 x 64, C-fragment order) rounded to bf16 as the A fragments of four k16 steps
+__device__ __forceinline__ void to_a_frags(uint32_t (&f)[4][4], const float (&x)[32]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    f[j >> 1][(j & 1) * 2] = pack_bf16(x[4 * j], x[4 * j + 1]);
+    f[j >> 1][(j & 1) * 2 + 1] = pack_bf16(x[4 * j + 2], x[4 * j + 3]);
+  }
+}
 
 template <int D>
-__global__ void __launch_bounds__(128)
-flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, long long sb, long long sl, long long sh,
-                          const bf16* __restrict__ dout, const float* __restrict__ lse,
-                          const float* __restrict__ di, int L, float scale,
-                          bf16* __restrict__ dk, bf16* __restrict__ dv) {
-  constexpr int LD = D + 8, KS = D / 16, QT = BW_TQ * LD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [64][LD]
-  bf16* Vs = Ks + BW_TK * LD;                     // [64][LD]
-  bf16* Qs = Vs + BW_TK * LD;                     // [2][32][LD]
-  bf16* dOs = Qs + 2 * QT;                        // [2][32][LD]
-  float* lse_s = reinterpret_cast<float*>(dOs + 2 * QT);  // [2][32]
-  float* di_s = lse_s + 2 * BW_TQ;                        // [2][32]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
-  const int k0 = blockIdx.x * BW_TK;
-  const int kq = (lane & 3) * 2;
-  const size_t off = (size_t)b * sb + (size_t)h * sh;
-  const bf16 *qb = q + off, *kb = k + off, *vb = v + off;
-  const bf16* dob = dout + ((size_t)b * L * H + h) * D;  // contiguous [B, L, H, D]
-  const float *lseb = lse + ((size_t)b * H + h) * L, *dib = di + ((size_t)b * H + h) * L;
+__global__ void __launch_bounds__(128 * (DKV_NC + 1), 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const float* __restrict__ stats, int L, int Lp, float scale,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv) {
+  using T = RowTile<D>;
+  constexpr int NC = DKV_NC;  // consumer warpgroups, 64 keys each
+  using Regs = RegSplit<NC + 1, 1>;
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  unsigned char* base = align1024(wg_smem);
+  bf16* Ks = reinterpret_cast<bf16*>(base);                         // [NC][64][D]
+  bf16* Vs = Ks + NC * T::ELEMS;                                     // [NC][64][D]
+  bf16* Qs = Vs + NC * T::ELEMS;                                     // [STAGES][64][D]
+  bf16* dOs = Qs + BW_STAGES * T::ELEMS;                             // [STAGES][64][D]
+  float* sts = reinterpret_cast<float*>(dOs + BW_STAGES * T::ELEMS);  // [STAGES][2][64]
+  uint64_t* kvfull = reinterpret_cast<uint64_t*>(sts + BW_STAGES * 128);
+  uint64_t* full = kvfull + 1;
+  uint64_t* empty = full + BW_STAGES;
+  const int k0 = blockIdx.x * 64 * NC, h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
+  const int nq = Lp / 64;
 
-  for (int e = tid; e < BW_TK * (D / 8); e += 128) {  // this CTA's keys, zero past L
-    const int j = e / (D / 8), c = (e % (D / 8)) * 8;
-    const bool ok = k0 + j < L;
-    const size_t o = (size_t)(ok ? k0 + j : 0) * sl + c;
-    cp_async16(Ks + j * LD + c, kb + o, ok);
-    cp_async16(Vs + j * LD + c, vb + o, ok);
+  if (threadIdx.x == 0) {
+    mbar_init(kvfull, 1);
+    for (int s = 0; s < BW_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * NC);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
   }
-  cp_async_commit();
-  auto load_tile = [&](int stage, int q0) {  // 32 queries of Q and dO, lse and di
-    for (int e = tid; e < BW_TQ * (D / 8); e += 128) {
-      const int j = e / (D / 8), c = (e % (D / 8)) * 8;
-      const bool ok = q0 + j < L;
-      const int r = ok ? q0 + j : 0;
-      cp_async16(Qs + stage * QT + j * LD + c, qb + (size_t)r * sl + c, ok);
-      cp_async16(dOs + stage * QT + j * LD + c, dob + (size_t)r * H * D + c, ok);
-    }
-    if (tid < BW_TQ) {
-      const bool ok = q0 + tid < L;
-      lse_s[stage * BW_TQ + tid] = ok ? lseb[q0 + tid] : 0.f;
-      di_s[stage * BW_TQ + tid] = ok ? dib[q0 + tid] : 0.f;
-    }
-    cp_async_commit();
-  };
+  __syncthreads();
 
-  float dka[D / 8][4], dva[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[dt][e] = dva[dt][e] = 0.f;
-
-  // S^T or dP^T of this warp's 16 keys x 32 queries: A = the key rows of
-  // `rows` (K or V), B = the query rows of `cols` (Q or dO), both [n][D]
-  auto product_t = [&](float (&acc)[4][4], const bf16* rows, const bf16* cols) {
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      uint32_t a[4];
-      ldmatrix_x4(a, rows + (warp * 16 + (lane & 15)) * LD + ks * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        uint32_t bf[4];
-        ldmatrix_x4(bf, cols + (p * 16 + (lane >> 4) * 8 + (lane & 7)) * LD + ks * 16 +
-                            ((lane >> 3) & 1) * 8);
-        mma_bf16(acc[2 * p], a, bf[0], bf[1]);
-        mma_bf16(acc[2 * p + 1], a, bf[2], bf[3]);
+  if (threadIdx.x < 128) {  // producer warpgroup
+    reg_dealloc<Regs::PRODUCER>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_tx(kvfull, 2 * NC * T::BYTES);
+      for (int w = 0; w < NC; ++w) {
+        tma_tile<D>(Ks + w * T::ELEMS, &tk, kvfull, h, k0 + 64 * w, b);
+        tma_tile<D>(Vs + w * T::ELEMS, &tv, kvfull, h, k0 + 64 * w, b);
+      }
+      const float* srow = stats + ((size_t)b * H + h) * 2 * Lp;
+      for (int t = 0; t < nq; ++t) {
+        const int s = t % BW_STAGES;
+        mbar_wait(&empty[s], ((t / BW_STAGES) & 1) ^ 1);
+        mbar_arrive_tx(&full[s], 2 * T::BYTES + 512);
+        tma_tile<D>(Qs + s * T::ELEMS, &tq, &full[s], h, t * 64, b);
+        tma_tile<D>(dOs + s * T::ELEMS, &tdo, &full[s], h, t * 64, b);
+        bulk_load(sts + s * 128, srow + t * 64, 256, &full[s]);
+        bulk_load(sts + s * 128 + 64, srow + Lp + t * 64, 256, &full[s]);
       }
     }
-  };
-  // acc[16 keys x D] += X^T (C fragments, rounded to bf16 as A fragments) @ Y [32 x D]
-  auto accumulate = [&](float (&acc)[D / 8][4], const float (&x)[4][4], const bf16* y) {
-#pragma unroll
-    for (int ks = 0; ks < 2; ++ks) {
-      uint32_t a[4] = {pack_bf16(x[2 * ks][0], x[2 * ks][1]), pack_bf16(x[2 * ks][2], x[2 * ks][3]),
-                       pack_bf16(x[2 * ks + 1][0], x[2 * ks + 1][1]),
-                       pack_bf16(x[2 * ks + 1][2], x[2 * ks + 1][3])};
-#pragma unroll
-      for (int p = 0; p < D / 16; ++p) {
-        uint32_t bf[4];
-        ldmatrix_x4_trans(bf, y + (ks * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD + p * 16 +
-                                  (lane >> 4) * 8);
-        mma_bf16(acc[2 * p], a, bf[0], bf[1]);
-        mma_bf16(acc[2 * p + 1], a, bf[2], bf[3]);
-      }
-    }
-  };
+    return;
+  }
 
-  const int n_tiles = (L + BW_TQ - 1) / BW_TQ;
-  load_tile(0, 0);
-  for (int t = 0; t < n_tiles; ++t) {
-    if (t + 1 < n_tiles) {
-      load_tile((t + 1) & 1, (t + 1) * BW_TQ);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int st = t & 1, q0 = t * BW_TQ;
-    const bf16 *qs = Qs + st * QT, *dos = dOs + st * QT;
-    const float *ls = lse_s + st * BW_TQ, *ds_ = di_s + st * BW_TQ;
-    float p[4][4], g[4][4];
-    product_t(p, Ks, qs);   // S^T
-    product_t(g, Vs, dos);  // dP^T
+  reg_alloc<Regs::CONSUMER>();
+  const int wg = threadIdx.x / 128 - 1, tid = threadIdx.x % 128, lane = tid & 31,
+            warp = tid >> 5;
+  const int kq = (lane & 3) * 2;
+  const int kw = k0 + 64 * wg;  // this warpgroup's first key (past L: zero tiles, no writes)
+  const bf16 *kt = Ks + wg * T::ELEMS, *vt = Vs + wg * T::ELEMS;
+  float dka[D / 2] = {}, dva[D / 2] = {};
+  mbar_wait(kvfull, 0);
+  for (int t = 0; t < nq; ++t) {
+    const int s = t % BW_STAGES;
+    const bf16 *qs = Qs + s * T::ELEMS, *dos = dOs + s * T::ELEMS;
+    const float *dis = sts + s * 128, *lss = dis + 64;
+    const int lim = L - t * 64;  // queries of this tile below L
+    mbar_wait(&full[s], (t / BW_STAGES) & 1);
+    float sa[32], ga[32];  // fresh each tile: written by the products, not read
+    wgmma_fence();
+    product_kk<D>(sa, kt, qs);  // S^T
+    wgmma_commit();
+    product_kk<D>(ga, vt, dos);  // dP^T
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_acc(sa);
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
+    for (int j = 0; j < 8; ++j)  // P^T, while dP^T runs
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int c = nt * 8 + kq + (e & 1);  // this element's query in the tile
-        const bool ok = q0 + c < L;
-        const float pe = ok ? expf(__fsub_rn(__fmul_rn(p[nt][e], scale), ls[c])) : 0.f;
-        g[nt][e] = ok ? __fmul_rn(__fmul_rn(__fsub_rn(g[nt][e], ds_[c]), pe), scale) : 0.f;
-        p[nt][e] = pe;
+        const int c = j * 8 + kq + (e & 1);  // this element's query in the tile
+        const float p = __expf(__fsub_rn(__fmul_rn(sa[4 * j + e], scale), lss[c]));
+        sa[4 * j + e] = lim < 64 && c >= lim ? 0.f : p;
       }
-    accumulate(dva, p, dos);  // dV += P^T dO
-    accumulate(dka, g, qs);   // dK += dS^T Q
-    __syncthreads();  // the next load reuses this stage's buffers
+    wgmma_wait<0>();
+    fence_acc(ga);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = j * 8 + kq + (e & 1);
+        const float g =
+            __fmul_rn(__fmul_rn(__fsub_rn(ga[4 * j + e], dis[c]), sa[4 * j + e]), scale);
+        ga[4 * j + e] = lim < 64 && c >= lim ? 0.f : g;
+      }
+    uint32_t pf[4][4], gf[4][4];
+    to_a_frags(pf, sa);
+    to_a_frags(gf, ga);
+    fence_frags(pf);
+    fence_frags(gf);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_rs<D>(dva, pf[kk], desc_mn<D>(dos, kk), 1);  // dV += P^T dO
+      wgmma_rs<D>(dka, gf[kk], desc_mn<D>(qs, kk), 1);   // dK += dS^T Q
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(dva);
+    fence_acc(dka);
+    if (lane == 0) mbar_arrive(&empty[s]);
   }
-  const int r0 = k0 + warp * 16 + (lane >> 2);
+  const int r0 = kw + warp * 16 + (lane >> 2);
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
+  for (int j = 0; j < D / 8; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = r0 + (e >> 1) * 8;
+    for (int half = 0; half < 2; ++half) {
+      const int r = r0 + half * 8;
       if (r < L) {
-        const size_t o = ((size_t)b * L + r) * H * D + h * D + dt * 8 + kq + (e & 1);
-        dk[o] = __float2bfloat16_rn(dka[dt][e]);
-        dv[o] = __float2bfloat16_rn(dva[dt][e]);
+        const size_t o = ((size_t)b * L + r) * H * D + h * D + j * 8 + kq;
+        *reinterpret_cast<uint32_t*>(dk + o) =
+            pack_bf16(dka[4 * j + 2 * half], dka[4 * j + 2 * half + 1]);
+        *reinterpret_cast<uint32_t*>(dv + o) =
+            pack_bf16(dva[4 * j + 2 * half], dva[4 * j + 2 * half + 1]);
       }
     }
 }
 
+// bf16 dQ on Hopper: grid (ceil(L / (64 DQ_NC)), H, B), one CTA an SM of a
+// producer and DQ_NC consumer warpgroups (three; two at D = 128, whose dQ
+// accumulator needs the registers). The producer loads each consumer's 64
+// queries of Q and dO once, then streams 64-key tiles of K and V, which
+// the consumers share: each K and V tile is read from L2 once per 192
+// queries (the traffic, not the products, is what bounds this kernel, as
+// attention.cuh's whole-row kernel). A consumer computes S = Q K^T and dP =
+// dO V^T on wgmma from shared memory, P and dS in f32 registers from its
+// rows' lse and di, and dQ += dS(bf16) K with dS as register A fragments
+// and K MN-major; dQ stays in f32 registers to the end.
+template <int D> constexpr int DQ_NC = D == 128 ? 2 : 3;
+
+template <int D> constexpr size_t dq_smem_bytes() {
+  return 1024 + (2 * DQ_NC<D> + 2 * BW_STAGES) * (size_t)RowTile<D>::BYTES +
+         8 * (1 + 2 * BW_STAGES);
+}
+
 template <int D>
-__global__ void __launch_bounds__(128)
-flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, long long sb, long long sl, long long sh,
-                         const bf16* __restrict__ dout, const float* __restrict__ lse,
-                         const float* __restrict__ di, int L, float scale,
-                         bf16* __restrict__ dq) {
-  constexpr int LD = D + 8, KS = D / 16, TILE = FL_TK * LD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [2][64][LD]
-  bf16* Vs = Ks + 2 * TILE;                       // [2][64][LD]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
-  const int r0 = blockIdx.x * 64 + warp * 16 + (lane >> 2), r1 = r0 + 8;
-  const int kq = (lane & 3) * 2;
-  const size_t off = (size_t)b * sb + (size_t)h * sh;
-  const bf16 *qb = q + off, *kb = k + off, *vb = v + off;
-  const bf16* dob = dout + ((size_t)b * L * H + h) * D;
-  const float *lseb = lse + ((size_t)b * H + h) * L, *dib = di + ((size_t)b * H + h) * L;
+__global__ void __launch_bounds__(128 * (DQ_NC<D> + 1), 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const float* __restrict__ stats, int L, int Lp, float scale,
+                          bf16* __restrict__ dq) {
+  using T = RowTile<D>;
+  constexpr int NC = DQ_NC<D>;
+  using Regs = RegSplit<NC + 1, 1>;
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  unsigned char* base = align1024(wg_smem);
+  bf16* Qs = reinterpret_cast<bf16*>(base);  // [NC][64][D]
+  bf16* dOs = Qs + NC * T::ELEMS;             // [NC][64][D]
+  bf16* Ks = dOs + NC * T::ELEMS;             // [STAGES][64][D]
+  bf16* Vs = Ks + BW_STAGES * T::ELEMS;       // [STAGES][64][D]
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(Vs + BW_STAGES * T::ELEMS);
+  uint64_t* full = qfull + 1;
+  uint64_t* empty = full + BW_STAGES;
+  const int q0 = blockIdx.x * 64 * NC, h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
+  const int nk = (L + 63) / 64;
 
-  uint32_t qf[KS][4], gf[KS][4];  // this warp's 16 rows of Q and dO as A fragments
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    const bf16* q0p = qb + (size_t)r0 * sl + ks * 16 + kq;
-    const bf16* q1p = qb + (size_t)r1 * sl + ks * 16 + kq;
-    const bf16* g0p = dob + (size_t)r0 * H * D + ks * 16 + kq;
-    const bf16* g1p = dob + (size_t)r1 * H * D + ks * 16 + kq;
-    qf[ks][0] = r0 < L ? *reinterpret_cast<const uint32_t*>(q0p) : 0u;
-    qf[ks][1] = r1 < L ? *reinterpret_cast<const uint32_t*>(q1p) : 0u;
-    qf[ks][2] = r0 < L ? *reinterpret_cast<const uint32_t*>(q0p + 8) : 0u;
-    qf[ks][3] = r1 < L ? *reinterpret_cast<const uint32_t*>(q1p + 8) : 0u;
-    gf[ks][0] = r0 < L ? *reinterpret_cast<const uint32_t*>(g0p) : 0u;
-    gf[ks][1] = r1 < L ? *reinterpret_cast<const uint32_t*>(g1p) : 0u;
-    gf[ks][2] = r0 < L ? *reinterpret_cast<const uint32_t*>(g0p + 8) : 0u;
-    gf[ks][3] = r1 < L ? *reinterpret_cast<const uint32_t*>(g1p + 8) : 0u;
+  if (threadIdx.x == 0) {
+    mbar_init(qfull, 1);
+    for (int s = 0; s < BW_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * NC);
+    }
+    mbar_fence_init();
   }
-  const float lse0 = r0 < L ? lseb[r0] : 0.f, lse1 = r1 < L ? lseb[r1] : 0.f;
-  const float di0 = r0 < L ? dib[r0] : 0.f, di1 = r1 < L ? dib[r1] : 0.f;
+  __syncthreads();
 
-  auto load_tile = [&](int stage, int k0) {  // 64 keys of K and V, zero-filled past L
-    for (int e = tid; e < FL_TK * (D / 8); e += 128) {
-      const int j = e / (D / 8), c = (e % (D / 8)) * 8;
-      const bool ok = k0 + j < L;
-      const size_t o = (size_t)(ok ? k0 + j : 0) * sl + c;
-      cp_async16(Ks + stage * TILE + j * LD + c, kb + o, ok);
-      cp_async16(Vs + stage * TILE + j * LD + c, vb + o, ok);
-    }
-    cp_async_commit();
-  };
-  // acc[16 x 64 keys] = A (this warp's rows) @ rows(tile)^T
-  auto product = [&](float (&acc)[8][4], const uint32_t (&a)[KS][4], const bf16* tile) {
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
-#pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        uint32_t bf[4];
-        ldmatrix_x4(bf, tile + (p * 16 + (lane >> 4) * 8 + (lane & 7)) * LD + ks * 16 +
-                            ((lane >> 3) & 1) * 8);
-        mma_bf16(acc[2 * p], a[ks], bf[0], bf[1]);
-        mma_bf16(acc[2 * p + 1], a[ks], bf[2], bf[3]);
+  if (threadIdx.x < 128) {  // producer warpgroup
+    reg_dealloc<Regs::PRODUCER>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_tx(qfull, 2 * NC * T::BYTES);
+      for (int w = 0; w < NC; ++w) {
+        tma_tile<D>(Qs + w * T::ELEMS, &tq, qfull, h, q0 + 64 * w, b);
+        tma_tile<D>(dOs + w * T::ELEMS, &tdo, qfull, h, q0 + 64 * w, b);
       }
-  };
-
-  float dqa[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dqa[dt][e] = 0.f;
-
-  const int n_tiles = (L + FL_TK - 1) / FL_TK;
-  load_tile(0, 0);
-  for (int t = 0; t < n_tiles; ++t) {
-    if (t + 1 < n_tiles) {
-      load_tile((t + 1) & 1, (t + 1) * FL_TK);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+      for (int t = 0; t < nk; ++t) {
+        const int s = t % BW_STAGES;
+        mbar_wait(&empty[s], ((t / BW_STAGES) & 1) ^ 1);
+        mbar_arrive_tx(&full[s], 2 * T::BYTES);
+        tma_tile<D>(Ks + s * T::ELEMS, &tk, &full[s], h, t * 64, b);
+        tma_tile<D>(Vs + s * T::ELEMS, &tv, &full[s], h, t * 64, b);
+      }
     }
-    __syncthreads();
-    const bf16* ks_ = Ks + (t & 1) * TILE;
-    const bf16* vs_ = Vs + (t & 1) * TILE;
-    const int k0 = t * FL_TK;
-    float s[8][4], g[8][4];
-    product(s, qf, ks_);  // S
-    product(g, gf, vs_);  // dP
-    uint32_t sf[4][4];    // dS rounded to bf16 as A fragments, 16 keys each
+    return;
+  }
+
+  reg_alloc<Regs::CONSUMER>();
+  const int wg = threadIdx.x / 128 - 1, tid = threadIdx.x % 128, lane = tid & 31,
+            warp = tid >> 5;
+  const int kq = (lane & 3) * 2;
+  const int r0 = q0 + 64 * wg + warp * 16 + (lane >> 2), r1 = r0 + 8;
+  const bf16 *Qw = Qs + wg * T::ELEMS, *dOw = dOs + wg * T::ELEMS;
+  const float* srow = stats + ((size_t)b * H + h) * 2 * Lp;  // di, then lse
+  const float di0 = r0 < L ? srow[r0] : 0.f, di1 = r1 < L ? srow[r1] : 0.f;
+  const float lse0 = r0 < L ? srow[Lp + r0] : 0.f, lse1 = r1 < L ? srow[Lp + r1] : 0.f;
+  float dqa[D / 2] = {};
+  mbar_wait(qfull, 0);
+  for (int t = 0; t < nk; ++t) {
+    const int s = t % BW_STAGES;
+    const bf16 *ks_ = Ks + s * T::ELEMS, *vs_ = Vs + s * T::ELEMS;
+    mbar_wait(&full[s], (t / BW_STAGES) & 1);
+    float sa[32], ga[32];  // fresh each tile: written by the products, not read
+    wgmma_fence();
+    product_kk<D>(sa, Qw, ks_);  // S
+    wgmma_commit();
+    product_kk<D>(ga, dOw, vs_);  // dP
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_acc(sa);
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      float d[4];
+    for (int j = 0; j < 8; ++j)  // P, while dP runs
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sa[4 * j + e] = __expf(__fsub_rn(__fmul_rn(sa[4 * j + e], scale), e < 2 ? lse0 : lse1));
+    wgmma_wait<0>();
+    fence_acc(ga);
+    const int lim = L - t * 64;  // keys of this tile below L
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const bool ok = k0 + nt * 8 + kq + (e & 1) < L;
-        const float pe = ok ? expf(__fsub_rn(__fmul_rn(s[nt][e], scale), e < 2 ? lse0 : lse1))
-                            : 0.f;
-        d[e] = ok ? __fmul_rn(__fmul_rn(__fsub_rn(g[nt][e], e < 2 ? di0 : di1), pe), scale)
-                  : 0.f;
+        const float g =
+            __fmul_rn(__fmul_rn(__fsub_rn(ga[4 * j + e], e < 2 ? di0 : di1), sa[4 * j + e]), scale);
+        ga[4 * j + e] = lim < 64 && j * 8 + kq + (e & 1) >= lim ? 0.f : g;
       }
-      sf[nt >> 1][(nt & 1) * 2] = pack_bf16(d[0], d[1]);
-      sf[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(d[2], d[3]);
-    }
+    uint32_t gf[4][4];  // dS rounded to bf16 as A fragments, 16 keys each
+    to_a_frags(gf, ga);
+    fence_frags(gf);
+    wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks)  // dQ += dS K
-#pragma unroll
-      for (int p = 0; p < D / 16; ++p) {
-        uint32_t bf[4];
-        ldmatrix_x4_trans(bf, ks_ + (ks * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD +
-                                  p * 16 + (lane >> 4) * 8);
-        mma_bf16(dqa[2 * p], sf[ks], bf[0], bf[1]);
-        mma_bf16(dqa[2 * p + 1], sf[ks], bf[2], bf[3]);
-      }
-    __syncthreads();  // the next load reuses this stage's buffers
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<D>(dqa, gf[kk], desc_mn<D>(ks_, kk), 1);  // dQ += dS K
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(dqa);
+    if (lane == 0) mbar_arrive(&empty[s]);
   }
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = e < 2 ? r0 : r1;
-      if (r < L)
-        dq[((size_t)b * L + r) * H * D + h * D + dt * 8 + kq + (e & 1)] =
-            __float2bfloat16_rn(dqa[dt][e]);
-    }
+  for (int j = 0; j < D / 8; ++j) {
+    const int c = h * D + j * 8 + kq;
+    if (r0 < L)
+      *reinterpret_cast<uint32_t*>(dq + ((size_t)b * L + r0) * H * D + c) =
+          pack_bf16(dqa[4 * j], dqa[4 * j + 1]);
+    if (r1 < L)
+      *reinterpret_cast<uint32_t*>(dq + ((size_t)b * L + r1) * H * D + c) =
+          pack_bf16(dqa[4 * j + 2], dqa[4 * j + 3]);
+  }
 }
 
 // f32: 32 keys (dK/dV) or 32 queries (dQ) per CTA of 256 threads, tiles of
@@ -827,26 +891,39 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
 template <int D>
 static int flash_bwd_bf16(const bf16* q, const bf16* k, const bf16* v, int B, int L, int H,
                           long long sb, long long sl, long long sh, const bf16* dout,
-                          const float* lse, const float* di, bf16* dq, bf16* dk, bf16* dv,
+                          const float* stats, int Lp, bf16* dq, bf16* dk, bf16* dv,
                           cudaStream_t st) {
+  CUtensorMap tq, tk, tv, tdo;
+  int rc = bhld_map<D>(&tq, q, B, L, H, sb, sl, sh);
+  if (!rc) rc = bhld_map<D>(&tk, k, B, L, H, sb, sl, sh);
+  if (!rc) rc = bhld_map<D>(&tv, v, B, L, H, sb, sl, sh);
+  if (!rc) rc = bhld_map<D>(&tdo, dout, B, L, H, (long long)L * H * D, (long long)H * D, D);
+  static const int pool_kv =
+      check_reg_pool(flash_bwd_dkv_wgmma_kernel<D>, RegSplit<DKV_NC + 1, 1>::NEED);
+  static const int pool_q =
+      check_reg_pool(flash_bwd_dq_wgmma_kernel<D>, RegSplit<DQ_NC<D> + 1, 1>::NEED);
+  if (!rc) rc = pool_kv ? pool_kv : pool_q;
+  if (rc) return rc;
   const float scale = attn_scale(D);
-  const size_t smem_kv = dkv_bf16_smem<D>();
-  cudaFuncSetAttribute(flash_bwd_dkv_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  constexpr size_t smem_kv = dkv_smem_bytes<D>(), smem_q = dq_smem_bytes<D>();
+  cudaFuncSetAttribute(flash_bwd_dkv_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem_kv);
-  flash_bwd_dkv_bf16_kernel<D><<<dim3((L + BW_TK - 1) / BW_TK, H, B), 128, smem_kv, st>>>(
-      q, k, v, sb, sl, sh, dout, lse, di, L, scale, dk, dv);
+  const int kv_keys = 64 * DKV_NC;
+  flash_bwd_dkv_wgmma_kernel<D><<<dim3((L + kv_keys - 1) / kv_keys, H, B), 128 * (DKV_NC + 1),
+                                  smem_kv, st>>>(tq, tk, tv, tdo, stats, L, Lp, scale, dk, dv);
   PPT_CHECK_LAUNCH();
-  const size_t smem_q = 4 * (size_t)FL_TK * (D + 8) * sizeof(bf16);
-  cudaFuncSetAttribute(flash_bwd_dq_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem_q);
-  flash_bwd_dq_bf16_kernel<D><<<dim3((L + 63) / 64, H, B), 128, smem_q, st>>>(
-      q, k, v, sb, sl, sh, dout, lse, di, L, scale, dq);
+  const int q_rows = 64 * DQ_NC<D>;
+  flash_bwd_dq_wgmma_kernel<D><<<dim3((L + q_rows - 1) / q_rows, H, B), 128 * (DQ_NC<D> + 1),
+                                 smem_q, st>>>(tq, tk, tv, tdo, stats, L, Lp, scale, dq);
   PPT_CHECK_LAUNCH();
   return 0;
 }
 
 // q, k, v strided as the forward takes them; o, dout, dq, dk, dv contiguous
-// [B, L, H, D]; lse the forward's [B, H, L]; di an f32 [B, H, L] scratch.
+// [B, L, H, D]; lse the forward's [B, H, L]; di an f32 scratch, [B, H, 2, Lp]
+// (di and the lse, Lp = L rounded up to 64) in bf16, [B, H, L] in f32.
 PPT_EXPORT int ppt_flash_mha_bwd(int dtype, const void* q, const void* k, const void* v, int B,
                                  int L, int H, int D, long long sb, long long sl, long long sh,
                                  const void* o, const void* dout, const void* lse, void* di,
@@ -856,18 +933,29 @@ PPT_EXPORT int ppt_flash_mha_bwd(int dtype, const void* q, const void* k, const 
   const float* ls = (const float*)lse;
   float* dd = (float*)di;
   if (dtype == PPT_BF16) {
-    flash_bwd_di_kernel<bf16><<<(rows + 7) / 8, 256, 0, st>>>((const bf16*)o, (const bf16*)dout,
-                                                              rows, L, H, D, dd);
+    const int Lp = (L + 63) / 64 * 64;
+    const int blocks = (int)(((long long)rows * (D / 8) + 255) / 256);
+    if (D == 32)
+      flash_bwd_di_bf16_kernel<32><<<blocks, 256, 0, st>>>((const bf16*)o, (const bf16*)dout,
+                                                           rows, L, H, ls, Lp, dd);
+    else if (D == 64)
+      flash_bwd_di_bf16_kernel<64><<<blocks, 256, 0, st>>>((const bf16*)o, (const bf16*)dout,
+                                                           rows, L, H, ls, Lp, dd);
+    else if (D == 128)
+      flash_bwd_di_bf16_kernel<128><<<blocks, 256, 0, st>>>((const bf16*)o, (const bf16*)dout,
+                                                            rows, L, H, ls, Lp, dd);
+    else
+      return (int)cudaErrorInvalidValue;
     PPT_CHECK_LAUNCH();
     const bf16 *qq = (const bf16*)q, *kk = (const bf16*)k, *vv = (const bf16*)v;
     const bf16* g = (const bf16*)dout;
     bf16 *gq = (bf16*)dq, *gk = (bf16*)dk, *gv = (bf16*)dv;
     if (D == 32)
-      return flash_bwd_bf16<32>(qq, kk, vv, B, L, H, sb, sl, sh, g, ls, dd, gq, gk, gv, st);
+      return flash_bwd_bf16<32>(qq, kk, vv, B, L, H, sb, sl, sh, g, dd, Lp, gq, gk, gv, st);
     if (D == 64)
-      return flash_bwd_bf16<64>(qq, kk, vv, B, L, H, sb, sl, sh, g, ls, dd, gq, gk, gv, st);
+      return flash_bwd_bf16<64>(qq, kk, vv, B, L, H, sb, sl, sh, g, dd, Lp, gq, gk, gv, st);
     if (D == 128)
-      return flash_bwd_bf16<128>(qq, kk, vv, B, L, H, sb, sl, sh, g, ls, dd, gq, gk, gv, st);
+      return flash_bwd_bf16<128>(qq, kk, vv, B, L, H, sb, sl, sh, g, dd, Lp, gq, gk, gv, st);
     return (int)cudaErrorInvalidValue;
   }
   flash_bwd_di_kernel<float><<<(rows + 7) / 8, 256, 0, st>>>((const float*)o, (const float*)dout,

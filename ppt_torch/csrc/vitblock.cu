@@ -21,15 +21,16 @@
 //
 // Bound: operations, ~71 GFLOP per block at B=32, L=513, C=384 against
 // ~0.1 GB of activations. Design: in bf16 (the serving dtype) the GEMMs
-// and both attention products run on the tensor cores (mma.sync, f32
-// accumulators); in f32 they run as FMA on the CUDA cores, since TF32
+// run on the tensor cores through mma.sync and the attention through
+// wgmma on TMA-loaded tiles (attention.cuh, hopper.cuh), f32
+// accumulators; in f32 they run as FMA on the CUDA cores, since TF32
 // would round the operands. The GEMM epilogues carry the bias, GELU and
 // droppath-scaled residual, so each sublayer writes its result once.
 // Attention never takes an online-softmax rescale, which keeps the TPU
 // kernel's rounding: row max over all keys, exp(s - m) rounded to the
 // compute dtype before P@V, the f32 accumulator divided by the f32
 // denominator afterwards (vitblock.py:93-106). Fusing the whole block
-// into one persistent kernel, and wgmma/TMA tiles, are later work.
+// into one persistent kernel, and wgmma/TMA GEMMs, are later work.
 //
 // Rounding follows _block_body (vitblock.py:81-125): qkv, attn, y, y2,
 // h1 and each residual sum are rounded to the compute dtype T at the same
@@ -292,6 +293,10 @@ PPT_EXPORT int ppt_vit_block(int dtype, const void* x, const void* pos, const vo
 //   qk_packed2  ATT_PACKED2: two heads per block-diagonal product
 // rows = 2: each block of the attention and LayerNorm launches takes two
 // clouds' tiles in turn (the TPU probe's two clouds per grid instance).
+// In bf16, full, no_gelu, mm_only, no_softmax and rows = 2 run the
+// production attention kernel (wgmma and TMA); pv_ones and qk_packed2 run
+// the probe's own mma.sync attention kernel (attention.cuh), so their
+// deltas against full also price the change of kernel.
 // ---------------------------------------------------------------------------
 enum { VAR_FULL = 0, VAR_MM_ONLY = 1, VAR_NO_SOFTMAX = 2, VAR_NO_GELU = 3, VAR_PV_ONES = 4,
        VAR_QK_PACKED2 = 5 };

@@ -2,8 +2,10 @@
 
 Counterpart of ``ppt_tpu/kernels/attention.py``; the CUDA side is
 ``csrc/attention.cu`` (whole-row kernels shared with the block through
-``csrc/attention.cuh``), whose header says what bounds each kernel on the
-H100 and how its design answers that. Layout ``[B, L, H, D]`` in and out,
+``csrc/attention.cuh``; the bf16 whole-row kernel and the bf16 flash
+backward load their tiles by TMA and run wgmma, from ``csrc/hopper.cuh``),
+whose header says what bounds each kernel on the H100 and how its design
+answers that. Layout ``[B, L, H, D]`` in and out,
 as the reference's (the ``jax.nn`` convention).
 
 - ``fused_mha``: whole-row attention below ``FLASH_MIN_SEQ`` tokens
@@ -136,6 +138,20 @@ def _views(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     return q, k, v, st[:3]
 
 
+def _check_tma(name: str, dt: torch.dtype, strides, *tensors: torch.Tensor) -> None:
+    """The bf16 kernels that load tiles by TMA (``fused_mha``, the flash
+    backward) need every stride (sb, sl, sh) a multiple of 16 bytes and
+    16-byte aligned bases; ``_views`` copies what does not qualify, and
+    this refuses by name what reaches the C call otherwise."""
+    if dt != torch.bfloat16:
+        return
+    if any(st * 2 % 16 for st in strides):
+        raise ValueError(f"{name}: TMA needs strides that are multiples of 16 bytes, got "
+                         f"{tuple(strides)} bf16 elements")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: TMA needs 16-byte aligned bases")
+
+
 def _check_dims(name: str, dt: torch.dtype, D: int) -> None:
     if dt == torch.bfloat16:
         if D not in (32, 64, 128):
@@ -157,6 +173,8 @@ def _launch(name: str, entry: str, q, k, v, want_lse: bool = False):
             4 * (32 * D + 64 * (D + 1) + 32 * L + 32) > _SMEM_LIMIT:
         raise ValueError(f"{name}: L={L} too long for whole-row attention tiles")
     q, k, v, (sb, sl, sh) = _views(name, q, k, v)
+    if entry == "ppt_mha":
+        _check_tma(name, q.dtype, (sb, sl, sh), q, k, v)
     out = torch.empty(B, L, H, D, dtype=q.dtype, device=q.device)
     lse = torch.empty(B, H, L, dtype=torch.float32, device=q.device) if want_lse else None
     lib = _build.load("attention")
@@ -174,12 +192,25 @@ def _launch(name: str, entry: str, q, k, v, want_lse: bool = False):
 
 def bwd_smem_bytes(dt: torch.dtype, D: int) -> int:
     """Shared memory of the larger backward CTA (``csrc/attention.cu``): in
-    bf16 the dK/dV kernel's 64-key K and V tiles, two stages of 32-query Q
-    and dO tiles and their lse/di slices; in f32 four 32-row tiles, the P
-    and dS tiles and the lse/di slices."""
+    bf16 the dK/dV kernel's K and V tiles of its two 64-key consumers, four
+    stages of 64-query Q and dO tiles with their di and lse rows, its
+    mbarriers and the slack that aligns the tiles to 1024 bytes
+    (``dkv_smem_bytes``); in f32 four 32-row tiles, the P and dS tiles and
+    the lse/di slices."""
     if dt == torch.bfloat16:
-        return (2 * 64 + 4 * 32) * (D + 8) * 2 + 4 * 32 * 4
+        tile = 64 * D * 2
+        return 1024 + 4 * tile + 4 * (2 * tile + 512) + 8 * 9
     return 4 * (4 * 32 * (D + 1) + 2 * 32 * 33 + 2 * 32)
+
+
+def bwd_scratch_shape(dt: torch.dtype, B: int, L: int, H: int):
+    """The f32 scratch of the di launch: in bf16 di and a copy of the lse
+    side by side, rows padded to a multiple of 64 so that the dK/dV kernel
+    takes a query tile's by one bulk copy each, [B, H, 2, Lp]; in f32 di
+    alone, [B, H, L]."""
+    if dt == torch.bfloat16:
+        return (B, H, 2, -(-L // 64) * 64)
+    return (B, H, L)
 
 
 def _flash_bwd(q, k, v, o, lse, do):
@@ -202,7 +233,8 @@ def _flash_bwd(q, k, v, o, lse, do):
     _build.check_tensors(name, o, do, lse)
     if o.device != q.device:
         raise ValueError(f"{name}: q on {q.device}, o on {o.device}")
-    di = torch.empty(B, H, L, dtype=torch.float32, device=q.device)
+    _check_tma(name, q.dtype, (sb, sl, sh), q, k, v, do)
+    di = torch.empty(bwd_scratch_shape(q.dtype, B, L, H), dtype=torch.float32, device=q.device)
     grads = [torch.empty(B, L, H, D, dtype=q.dtype, device=q.device) for _ in range(3)]
     lib = _build.load("attention")
     fn = lib.ppt_flash_mha_bwd

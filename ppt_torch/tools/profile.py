@@ -86,6 +86,8 @@ PARTS = (
     ("text::epilogue_bwd_kernel", "text: pooling + ln_final + projection"),
     ("fps_kernel", "fps_batched"),
     ("knn_kernel", "knn_gather"),
+    ("fps_single_kernel", "fps_single"),
+    ("knn_single_kernel", "knn_single"),
     ("ball_query_feats_kernel", "ball_query_gather_feats"),
     ("ball_query_rank_kernel", "ball_query_gather_v2"),
     ("ball_query_kernel", "ball_query_gather"),
@@ -93,9 +95,12 @@ PARTS = (
     ("mini_stats", "mini_stats"),
     ("m2_reduce_kernel", "mini_stats"),
     ("add_ln_kernel", "vit block: add + LayerNorm"),
+    ("add_ln_rows_kernel", "vit block: add + LayerNorm"),
     ("gemm_bf16_kernel", "vit block: GEMMs"),
     ("gemm_f32_kernel", "vit block: GEMMs"),
     # the whole-row kernels serve the block and, on the "unfused" route, fused_mha
+    # (bf16: attention_wgmma_kernel; attention_bf16_kernel is the probe's)
+    ("attention_wgmma_kernel", "vit block: attention"),
     ("attention_bf16_kernel", "vit block: attention"),
     ("attention_f32_kernel", "vit block: attention"),
     ("flash_bf16_kernel", "flash_mha"),

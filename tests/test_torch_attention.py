@@ -41,7 +41,8 @@ def _close(got, want, tol):
 
 
 @pytest.mark.parametrize("dtype,shape", [("float32", (2, 33, 2, 16)),
-                                         ("bfloat16", (2, 100, 6, 64))])
+                                         ("bfloat16", (2, 100, 6, 64)),
+                                         ("bfloat16", (1, 513, 6, 64))])
 def test_mha_plain_matches_pallas(dtype, shape):
     jdt, tdt, tol = DTYPES[dtype]
     arrs = _qkv(np.random.RandomState(0), shape)
@@ -137,6 +138,22 @@ def test_kernel_paths_reject_what_they_do_not_take(fn, dtype, D, match):
     q = _meta(1, 1100, 2, D, dtype=dtype)
     with pytest.raises(ValueError, match=match):
         fn(q, q, q)
+
+
+@pytest.mark.parametrize("strides,offset,match", [
+    ((2304, 1152, 60), 0, "multiples of 16 bytes"),  # a head stride of 60 bf16 elements
+    ((2304, 1156, 64), 0, "multiples of 16 bytes"),
+    ((2304, 1152, 64), 1, "16-byte aligned"),  # a base 2 bytes past a boundary
+])
+def test_tma_guard_refuses_strides_and_bases_it_cannot_load(strides, offset, match):
+    """The bf16 kernels load their tiles by TMA, which takes strides in
+    multiples of 16 bytes and 16-byte aligned bases; ``_views`` copies
+    what does not qualify, and the guard in front of the C call refuses it
+    by name."""
+    t = torch.empty(4096, dtype=torch.bfloat16)[offset:]
+    with pytest.raises(ValueError, match=match):
+        kattn._check_tma("fused_mha", torch.bfloat16, strides, t, t, t)
+    kattn._check_tma("fused_mha", torch.float32, strides, t, t, t)  # f32 takes no TMA
 
 
 def test_whole_row_kernel_path_refuses_a_row_too_long_for_shared_memory():

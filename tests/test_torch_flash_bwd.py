@@ -97,6 +97,24 @@ def test_backward_tiles_fit_shared_memory(dt):
     assert kattn.bwd_smem_bytes(dt, 128) <= kattn._SMEM_LIMIT
 
 
+@pytest.mark.parametrize("D,want", [(32, 52296), (64, 101448), (128, 199752)])
+def test_bf16_backward_tiles_follow_the_kernel(D, want):
+    """The dK/dV CTA (``csrc/attention.cu:dkv_smem_bytes``): two consumers'
+    64-key K and V tiles, four stages of 64-query Q and dO tiles with their
+    di and lse rows, nine mbarriers and 1024 bytes of alignment slack."""
+    assert kattn.bwd_smem_bytes(torch.bfloat16, D) == want
+
+
+@pytest.mark.parametrize("dt,L,want", [(torch.bfloat16, 1025, (2, 3, 2, 1088)),
+                                       (torch.bfloat16, 64, (2, 3, 2, 64)),
+                                       (torch.float32, 1025, (2, 3, 1025))])
+def test_backward_scratch_pads_rows_for_the_bulk_copies(dt, L, want):
+    """bf16 keeps di and the lse side by side with rows padded to 64, so
+    that each 64-query tile's pair arrives by two 256-byte bulk copies; f32
+    keeps di alone."""
+    assert kattn.bwd_scratch_shape(dt, 2, L, 3) == want
+
+
 def _meta(*shape, dtype=torch.float32):
     return torch.empty(*shape, dtype=dtype, device="meta")
 

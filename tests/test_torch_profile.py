@@ -1,6 +1,9 @@
 """The device-time profiler's bookkeeping, on the CPU (it profiles only
 on the card: there it must refuse to run without one)."""
 
+import re
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -23,6 +26,8 @@ def test_busy_us_is_the_union_of_intervals(intervals, want):
     ("st::m2_reduce_kernel(float const*, int, int, float*)", "mini_stats"),
     ("void gemm_bf16_kernel<1>(__nv_bfloat16 const*)", "vit block: GEMMs"),
     ("void attention_bf16_kernel<64>(__nv_bfloat16 const*)", "vit block: attention"),
+    ("void attention_wgmma_kernel<64, 0, true>(CUtensorMap_st, CUtensorMap_st)",
+     "vit block: attention"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n", "other (library kernels)"),
     ("void text::gemm_bf16_kernel<128, true, 6>(__nv_bfloat16 const*)", "text: GEMMs"),
     ("void text::gemm_f32_kernel<false, 0>(float const*)", "text: GEMMs"),
@@ -37,8 +42,9 @@ def test_busy_us_is_the_union_of_intervals(intervals, want):
     ("ball_query_rank_kernel(float const*, float const*, int, int)", "ball_query_gather_v2"),
     ("void flash_bf16_kernel<64>(__nv_bfloat16 const*)", "flash_mha"),
     ("flash_f32_kernel(float const*, float const*)", "flash_mha"),
-    ("void flash_bwd_dkv_bf16_kernel<64>(__nv_bfloat16 const*)", "flash_mha_bwd"),
-    ("void flash_bwd_dq_bf16_kernel<64>(__nv_bfloat16 const*)", "flash_mha_bwd"),
+    ("void flash_bwd_dkv_wgmma_kernel<64>(CUtensorMap_st, CUtensorMap_st)", "flash_mha_bwd"),
+    ("void flash_bwd_dq_wgmma_kernel<64>(CUtensorMap_st, CUtensorMap_st)", "flash_mha_bwd"),
+    ("void flash_bwd_di_bf16_kernel<64>(__nv_bfloat16 const*)", "flash_mha_bwd"),
     ("flash_bwd_dkv_f32_kernel(float const*, float const*)", "flash_mha_bwd"),
     ("void flash_bwd_di_kernel<float>(float const*, float const*, int)", "flash_mha_bwd"),
     ("nn_dist_kernel(float const*, float const*, int, int, int, float*)", "chamfer_nn_dists"),
@@ -47,6 +53,36 @@ def test_busy_us_is_the_union_of_intervals(intervals, want):
 ])
 def test_part_of_maps_kernel_names(name, part):
     assert profile.part_of(name) == part
+
+
+CSRC = Path(__file__).resolve().parent.parent / "ppt_torch" / "csrc"
+
+
+def _kernels():
+    """Every __global__ of the port's CUDA sources, named as a trace names
+    it: with the namespace it is declared in."""
+    bounds = r"(?:__launch_bounds__\((?:[^()]|\([^()]*\))*\)\s*)?"
+    found = []
+    for path in sorted(CSRC.glob("*.cu*")):
+        text = path.read_text()
+        spaces = [(m.start(), text.find("}  // namespace " + m.group(1), m.end()), m.group(1))
+                  for m in re.finditer(r"^namespace (\w+) \{", text, re.M)]
+        for m in re.finditer(r"__global__\s+void\s+" + bounds + r"(\w+)\s*\(", text):
+            ns = [n for start, end, n in spaces if start < m.start() < end]
+            found.append((path.name, "::".join(ns + [m.group(1)])))
+    return found
+
+
+def test_every_kernel_of_the_port_lands_in_a_named_part():
+    """A kernel whose name matches no PARTS key would be counted as a
+    library kernel: each __global__ in ppt_torch/csrc maps to a part."""
+    kernels = _kernels()
+    for want in [("attention.cuh", "attention_wgmma_kernel"),
+                 ("attention.cu", "flash_bwd_dkv_wgmma_kernel"),
+                 ("text.cu", "text::gemm_bf16_kernel"), ("mini.cu", "st::m2_reduce_kernel")]:
+        assert want in kernels
+    other = [k for k in kernels if profile.part_of(k[1]) == "other (library kernels)"]
+    assert not other, other
 
 
 def test_profile_refuses_without_a_card(monkeypatch):
