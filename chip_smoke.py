@@ -16,8 +16,9 @@ Phases (any failed check raises, and the script exits non-zero):
   2. build the kernels from ppt_torch/csrc (one nvcc per source, in
      parallel) and report the build time; count each Hopper kernel's wgmma
      (HGMMA), TMA (UTMALDG, UBLKCP) and mma.sync (HMMA) instructions with
-     cuobjdump: the whole-row attention and the flash backward must issue
-     HGMMA on UTMALDG-loaded tiles and no HMMA;
+     cuobjdump: the ViT block's GEMM, the whole-row attention and the flash
+     forward and backward must issue HGMMA on UTMALDG-loaded tiles and no
+     HMMA;
   3. each kernel entry point against its plain version, at a small shape
      and at the slice's shape, in f32 and bf16 (the grouping kernels take
      f32 coordinates in both; the five kernels of the inference path also
@@ -59,6 +60,10 @@ Phases (any failed check raises, and the script exits non-zero):
      identical to its chain of block launches; the block's own attention
      identical to fused_mha on the block's qkv product (one header, one
      implementation). The tower's library time is 12 SDPA blocks + LN.
+     fused_vit_block, fused_vit_block_readout, fused_vit_tower and
+     flash_mha's kernel are timed in alternated rounds with their library
+     call (kernel, library, ... in each round), each time the median of
+     5 rounds, since the library's time moves between calls.
      The reconstruction-loss kernels: chamfer_nn_dists (nn_dists, both
      directions) bit-equal to nn_dists_plain at the dVAE's per-group clouds
      (4096 x 8 x 32, 4096 x 32 x 32), at 8 x 2048 x 2048 and at 4 x 16384 x
@@ -195,6 +200,11 @@ Phases (any failed check raises, and the script exits non-zero):
      counter), then ``python -m ppt_torch.tools.kernel_check`` (the
      reference tool's 25 checks on the card, 0 failures). Its numbers go
      on a line of their own ({"tools": ...}).
+ 12. tools/profile.py on PPT-Base recognition (B=32) and on the long
+     trunk (1024 groups, N=8192): device ms by part; the block GEMMs' ms a
+     batch and their TFLOP/s (the 12 blocks' products over that time), the
+     flash forward's ms a batch. Its numbers go on a line of their own
+     ({"profile": ...}).
 
 The line before the card's is a JSON object with the per-kernel numbers.
 Each ``launches`` there is a counter read after a driven run, or a sum of
@@ -254,6 +264,7 @@ from ppt_torch.prompt.learner import build_prompt_spec  # noqa: E402
 from ppt_torch.tasks import cls, dvae_pretrain, mpm_pretrain, pretrain  # noqa: E402
 from ppt_torch.tasks.args import TaskArgs  # noqa: E402
 from ppt_torch.tools import kernel_check, vitblock_probe  # noqa: E402
+from ppt_torch.tools import profile as tprofile  # noqa: E402
 from ppt_torch.models.losses import smoothed_cross_entropy, ulip_contrastive_loss  # noqa: E402
 from ppt_torch.ops.losses3d import chamfer_l2  # noqa: E402
 from ppt_torch.train.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
@@ -333,17 +344,17 @@ TOL_TEXT_BWD = {"f32": 1e-4, "bf16": 5e-2}
 
 # the warp-specialised Hopper kernels: each must issue wgmma (HGMMA) on
 # tiles that TMA loads (UTMALDG), and none may run mma.sync (HMMA)
-HOPPER_KERNELS = {"attention": ("attention_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel",
-                                "flash_bwd_dq_wgmma_kernel"),
-                  "vitblock": ("attention_wgmma_kernel",)}
+HOPPER_KERNELS = {"attention": ("attention_wgmma_kernel", "flash_fwd_wgmma_kernel",
+                                "flash_bwd_dkv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel"),
+                  "vitblock": ("attention_wgmma_kernel", "gemm_wgmma_kernel")}
 SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "HMMA")
 
 
 def hopper_sass():
     """Instruction counts of the Hopper kernels in the built libraries
     (cuobjdump -sass), summed over each kernel's template instances; checks
-    that each issues HGMMA and UTMALDG and no HMMA. Returns {kernel:
-    {op: count}} for attention.cu."""
+    that each issues HGMMA and UTMALDG and no HMMA. Returns {library:
+    {kernel: {op: count}}}."""
     tool = Path(_build.nvcc_path()).parent / "cuobjdump"
     found = {}
     for lib, names in HOPPER_KERNELS.items():
@@ -366,8 +377,7 @@ def hopper_sass():
             print(f"[sass] lib{lib}: {n}: {c}")
             check(instances[n] > 0 and c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["HMMA"] == 0,
                   f"{n} in lib{lib} does not run wgmma on TMA-loaded tiles: {c}")
-            if lib == "attention":
-                found[n] = c
+            found.setdefault(lib, {})[n] = c
     return found
 
 
@@ -388,6 +398,17 @@ def gpu_time_ms(fn, reps=10, warmup=2):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def alternated_ms(fns, rounds=5, reps=10, warmup=2):
+    """Each callable's device time as the median over `rounds` rounds, the
+    callables timed in turn within a round (gpu_time_ms each), so that a
+    kernel and its library call meet the same state of the card."""
+    times = {k: [] for k in fns}
+    for _ in range(rounds):
+        for k, fn in fns.items():
+            times[k].append(gpu_time_ms(fn, reps=reps, warmup=warmup))
+    return {k: float(np.median(v)) for k, v in times.items()}
 
 
 def bound_ms(nbytes, nops, peak):
@@ -620,21 +641,24 @@ def check_block(results):
             ops = 2 * rows * (C * 3 * C + C * C + 2 * C * hid) + 4 * B * L * L * C
             wbytes = 2 * (C * 3 * C + C * C + 2 * C * hid) + 4 * (7 * C + hid)
             bms, by = bound_ms(3 * rows * C * 2 + B * 2 * 4 + wbytes, ops, PEAK["bf16"])
+            t = alternated_ms({
+                "block": lambda: kvit.fused_vit_block(x, pos, dp, *w, H),
+                "library": lambda: block_library(x, pos, dp, w, H),
+                "readout": lambda: kvit.fused_vit_block_readout(x, pos, dp, *w, *lnf, H),
+                "readout_library": lambda: block_library(x, pos, dp, w, H, lnf)})
             results["fused_vit_block"] = dict(
                 max_abs_err=float((got.float() - want.float()).abs().max()),
-                ms=gpu_time_ms(lambda: kvit.fused_vit_block(x, pos, dp, *w, H)),
+                ms=t["block"],
                 plain_ms=gpu_time_ms(lambda: kvit.vit_block_plain(x, pos, dp, *w, H)),
-                bound_ms=bms, bound_by=by,
-                library_ms=gpu_time_ms(lambda: block_library(x, pos, dp, w, H)))
+                bound_ms=bms, bound_by=by, library_ms=t["library"])
             bms, by = bound_ms(2 * rows * C * 2 + B * 2 * 4 + wbytes + 4 * 2 * C
                                + B * 8 * C * 4, ops + 8 * rows * C, PEAK["bf16"])
             results["fused_vit_block_readout"] = dict(
                 max_abs_err=float((ro - ro_want).abs().max()),
-                ms=gpu_time_ms(lambda: kvit.fused_vit_block_readout(x, pos, dp, *w, *lnf, H)),
+                ms=t["readout"],
                 plain_ms=gpu_time_ms(
                     lambda: kvit.vit_block_readout_plain(x, pos, dp, *w, *lnf, H)),
-                bound_ms=bms, bound_by=by,
-                library_ms=gpu_time_ms(lambda: block_library(x, pos, dp, w, H, lnf)))
+                bound_ms=bms, bound_by=by, library_ms=t["readout_library"])
 
 
 def qkv_views(B, L, H, D, dt, seed):
@@ -708,12 +732,15 @@ def check_attention(results):
                 flash_f32_ms = gpu_time_ms(lambda: kattn._flash_run(q, k, v))
                 continue
             bms, by = attention_bound(B, L, H, D, dt)
+            t = alternated_ms({"kernel": lambda: kattn._flash_run(q, k, v),
+                               "library": lambda: sdpa(q, k, v),
+                               "with_lse": lambda: kattn._flash_fwd(q, k, v)})
             results["flash_mha"] = dict(
                 max_abs_err=float((got.float() - want.float()).abs().max()),
-                ms=gpu_time_ms(lambda: kattn._flash_run(q, k, v)),
+                ms=t["kernel"],
                 plain_ms=gpu_time_ms(lambda: kattn.flash_plain(q, k, v), reps=3, warmup=1),
-                bound_ms=bms, bound_by=by, library_ms=gpu_time_ms(lambda: sdpa(q, k, v)),
-                f32_ms=flash_f32_ms,
+                bound_ms=bms, bound_by=by, library_ms=t["library"],
+                f32_ms=flash_f32_ms, with_lse_ms=t["with_lse"],
                 whole_row_ms=gpu_time_ms(lambda: kattn._mha_run(q, k, v)))
 
     # the block's attention is fused_mha's kernel on the block's own qkv product
@@ -853,14 +880,16 @@ def check_tower(results):
             wbytes = 2 * (C * 3 * C + C * C + 2 * C * hid) + 4 * (7 * C + hid)
             bms, by = bound_ms(2 * rows * C * 2 + B * depth * 2 * 4 + depth * wbytes
                                + 4 * 2 * C + B * 8 * C * 4, ops, PEAK["bf16"])
+            t = alternated_ms({"tower": lambda: kvit._tower_run(x, pos, dp, *w, *lnf, H),
+                               "library": lambda: tower_library(x, pos, dp, w, lnf, H),
+                               "chain": lambda: tower_chain(x, pos, dp, w, lnf, H)},
+                              reps=5, warmup=1)
             results["fused_vit_tower"] = dict(
                 max_abs_err=float((got - want).abs().max()),
-                ms=gpu_time_ms(lambda: kvit._tower_run(x, pos, dp, *w, *lnf, H)),
+                ms=t["tower"],
                 plain_ms=gpu_time_ms(lambda: kvit.vit_tower_plain(x, pos, dp, *w, *lnf, H),
                                      reps=3, warmup=1),
-                bound_ms=bms, bound_by=by,
-                library_ms=gpu_time_ms(lambda: tower_library(x, pos, dp, w, lnf, H)),
-                chain_ms=gpu_time_ms(lambda: tower_chain(x, pos, dp, w, lnf, H)),
+                bound_ms=bms, bound_by=by, library_ms=t["library"], chain_ms=t["chain"],
                 f32_ms=tower_f32_ms)
 
 
@@ -3079,6 +3108,41 @@ def run_tools_slice():
     return {"vit_variant": probe_launches["vit_variant"]}, stats
 
 
+# ---------------------------------------------------------------------------
+# phase 12: device time by part (tools/profile.py)
+# ---------------------------------------------------------------------------
+
+
+def run_profiles(batch=32, batches=5):
+    """PPT-Base recognition and the long trunk's under tools/profile.py: the
+    block GEMMs' device ms a batch and their rate (the 12 blocks' four
+    products over that time), and the flash forward's ms a batch."""
+    out = {}
+    for tag, kw in (("ppt_base", {}), ("long_trunk", dict(num_group=1024, npoints=8192))):
+        r = tprofile.profile_step(batch=batch, batches=batches, **kw)
+        parts = r["device_ms_per_batch"]
+        stats = dict(wall_ms_per_batch=r["wall_ms_per_batch"],
+                     device_busy_ms_per_batch=r["device_busy_ms_per_batch"],
+                     device_idle_share=r["device_idle_share"], device_ms_per_batch=parts)
+        cfg = npb.PointBertConfig(num_group=kw.get("num_group", 512))
+        rows, C = batch * (cfg.num_group + 1), cfg.trans_dim
+        if "vit block: GEMMs" in parts:
+            flops = cfg.depth * 2 * rows * (C * 3 * C + C * C + 2 * C * 4 * C)
+            gemm_ms = parts["vit block: GEMMs"]
+            stats.update(block_gemm_ms=gemm_ms, block_gemm_gflop=flops / 1e9,
+                         block_gemm_tflops=flops / (gemm_ms * 1e-3) / 1e12)
+        if "flash_mha" in parts:
+            stats["flash_mha_ms"] = parts["flash_mha"]
+        print(f"[profile] {tag}: wall {r['wall_ms_per_batch']:.3f} ms a batch, idle "
+              f"{r['device_idle_share']:.3f}; block GEMMs {stats.get('block_gemm_ms')} ms "
+              f"({stats.get('block_gemm_tflops')} TFLOP/s); flash_mha "
+              f"{stats.get('flash_mha_ms')} ms")
+        out[tag] = stats
+    check("block_gemm_ms" in out["ppt_base"], "PPT-Base recognition ran no block GEMM")
+    check("flash_mha_ms" in out["long_trunk"], "the long trunk ran no flash_mha")
+    return out
+
+
 def main():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3139,8 +3203,13 @@ def main():
         else:
             check(launches.get(name, 0) > 0, f"{name} was launched on no path")
 
-    results["fused_mha"]["sass"] = sass["attention_wgmma_kernel"]
-    results["flash_mha_bwd"]["sass"] = {k: v for k, v in sass.items() if "flash_bwd" in k}
+    prof_stats = run_profiles()
+    att, vit = sass["attention"], sass["vitblock"]
+    results["fused_mha"]["sass"] = att["attention_wgmma_kernel"]
+    results["flash_mha"]["sass"] = att["flash_fwd_wgmma_kernel"]
+    results["flash_mha_bwd"]["sass"] = {k: v for k, v in att.items() if "flash_bwd" in k}
+    for name in ("fused_vit_block", "fused_vit_block_readout", "fused_vit_tower", "vit_variant"):
+        results[name]["sass"] = vit
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         r = results[name]
@@ -3160,6 +3229,7 @@ def main():
     print(json.dumps({"pretrain": pretrain_stats}))
     print(json.dumps({"pretrain_pb": pb_stats}))
     print(json.dumps({"tools": tool_stats}))
+    print(json.dumps({"profile": prof_stats}))
     print(json.dumps({"kernels": kernels, **slice_stats}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

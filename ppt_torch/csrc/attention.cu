@@ -19,154 +19,249 @@
 //
 // Whole-row design: attention.cuh (bf16 on TMA and wgmma, hopper.cuh).
 //
-// Flash design (bf16): one CTA of 4 warps per (batch, head, 64-query
-// tile), each warp 16 query rows held as mma.sync A fragments; K and V
-// tiles of 64 keys staged in shared memory by cp.async, double-buffered,
-// keys >= L zero-filled. Per tile: S = Q K^T on mma.sync into f32, scaled,
-// keys >= L masked to -inf; the running row
-// max and sum in f32, the accumulator rescaled by exp(m_old - m_new); P =
-// exp(s - m) rounded to bf16 from the accumulator registers straight into
-// the A fragments of P V; one division by the f32 sum at the end (and, for
-// training, lse = m + log(l) written per row). Query
-// rows >= L are computed on zeros and never written. The TPU version pads
-// L to 512 and masks with segment ids; only the valid rows' semantics
-// carry over: no padding tensor, no segment-id array. Deterministic: every
-// sum runs in a fixed order, no atomics. f32 runs the same online softmax
-// as FMA on the CUDA cores (32 queries per CTA, scores through shared
-// memory). wgmma and TMA for the forward are later work.
+// Flash forward (bf16): flash_fwd_wgmma_kernel below, warp-specialised on
+// TMA and wgmma as the whole-row kernel is. Online softmax: the running
+// row max and sum in f32, the accumulator rescaled by exp(m_old - m_new),
+// P = exp(s - m) rounded to bf16 before P V, one division by the f32 sum
+// at the end (and, for training, lse = m + log(l) written per row). Keys
+// >= L are masked by select (TMA zero-fills the tile past L); query rows
+// >= L are computed on zeros and never written. The TPU version pads L to
+// 512 and masks with segment ids; only the valid rows' semantics carry
+// over: no padding tensor, no segment-id array. Deterministic: every sum
+// runs in a fixed order, no atomics. f32 runs the same online softmax as
+// FMA on the CUDA cores (32 queries per CTA, scores through shared
+// memory).
 #include "attention.cuh"
 
 PPT_ERROR_STRING_FN
 
 constexpr int FL_TK = 64;  // keys per tile
 
+// bf16 flash forward on Hopper: grid (ceil(L / (64 FL_NC)), H, B), one CTA
+// an SM of a producer and FL_NC consumer warpgroups (three; two at D =
+// 128, whose accumulator needs the registers), as the whole-row kernel.
+// The producer's one thread loads each consumer's 64 queries of Q once,
+// then streams 64-key tiles of K and V through a ring of FL_STAGES stages
+// (full and empty mbarriers) that every consumer reads: each K and V tile
+// is read from L2 once per 192 queries, where the mma.sync kernel this
+// replaces read it once per 64 (0.86 GB a call at [32, 1025, 6, 64]).
+// A consumer owns 64 query rows. Per key tile t it issues S_t = Q K_t^T
+// (wgmma, both operands in shared memory), rescales the accumulator by the
+// previous tile's exp(m_old - m_new) and issues P_{t-1} V_{t-1} (wgmma with
+// P_{t-1} as register A fragments, V MN-major); it waits for S_t alone and
+// runs tile t's softmax in place in those f32 registers while P_{t-1}
+// V_{t-1} is still on the tensor cores, then waits for that product,
+// releases its stage and only then rounds P_t into the A fragments (a
+// fragment rewritten while a product still reads it would make ptxas
+// serialise every wgmma, C7513). The last tile's P V follows the loop.
+// The softmax's arithmetic, not the tensor cores, bounds a tile: exp and a
+// handful of f32 operations on each of a consumer's 4096 scores against
+// two 64 x 64 x 64 products; the scale is folded into one fused
+// multiply-add before the special function unit's 2^x. The consumers issue
+// their products unordered: taking turns by named barriers (FlashAttention
+// 3's ping-pong) measured the same on the H100.
+template <int D> constexpr int FL_NC = D == 128 ? 2 : 3;
+constexpr int FL_STAGES = 4;
+
+template <int D> constexpr size_t flash_smem_bytes() {
+  return 1024 + (FL_NC<D> + 2 * FL_STAGES) * (size_t)RowTile<D>::BYTES + 8 * (1 + 2 * FL_STAGES);
+}
+
+// 2^x on the special-function unit (denormal results flushed to 0)
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// one tile's online softmax on the raw scores s (C-fragment order), in
+// place: keys at or past lim masked (MASK), the new row max m of the scaled
+// scores (the raw max times the scale: rounding s * scale is monotone in s,
+// so this is the max of the rounded scaled scores), the correction c =
+// exp(m_old - m), l = l c + sum p, and s replaced by p = exp(s scale - m)
+// in f32, taken as 2^(s scale log2(e) - m log2(e)) with one fused
+// multiply-add (rounded to bf16 for P V by to_a_frags)
+template <bool MASK>
+__device__ __forceinline__ void flash_softmax(float (&s)[32], float scale, int lim, int kq,
+                                              float& m0, float& m1, float& l0, float& l1,
+                                              float& c0, float& c1) {
+  constexpr float LOG2E = 1.4426950408889634f;
+  float r0 = -INFINITY, r1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (MASK && j * 8 + kq + (e & 1) >= lim) s[4 * j + e] = -INFINITY;
+      if (e < 2) r0 = fmaxf(r0, s[4 * j + e]);
+      else r1 = fmaxf(r1, s[4 * j + e]);
+    }
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {  // the 4 lanes of a row
+    r0 = fmaxf(r0, __shfl_xor_sync(0xffffffffu, r0, o));
+    r1 = fmaxf(r1, __shfl_xor_sync(0xffffffffu, r1, o));
+  }
+  // key 0 is in the first tile, so the max is finite from there on and the
+  // first correction exp(-inf) is 0
+  const float mt0 = fmaxf(m0, __fmul_rn(r0, scale)), mt1 = fmaxf(m1, __fmul_rn(r1, scale));
+  c0 = __expf(__fsub_rn(m0, mt0));
+  c1 = __expf(__fsub_rn(m1, mt1));
+  m0 = mt0;
+  m1 = mt1;
+  l0 *= c0;
+  l1 *= c1;
+  const float sl = __fmul_rn(scale, LOG2E), b0 = -__fmul_rn(mt0, LOG2E),
+              b1 = -__fmul_rn(mt1, LOG2E);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float p0 = ex2_approx(fmaf(s[4 * j], sl, b0)), p1 = ex2_approx(fmaf(s[4 * j + 1], sl, b0));
+    const float p2 = ex2_approx(fmaf(s[4 * j + 2], sl, b1)), p3 = ex2_approx(fmaf(s[4 * j + 3], sl, b1));
+    l0 += p0 + p1;
+    l1 += p2 + p3;
+    s[4 * j] = p0;
+    s[4 * j + 1] = p1;
+    s[4 * j + 2] = p2;
+    s[4 * j + 3] = p3;
+  }
+}
+
+// x (64 x 64, C-fragment order) rounded to bf16 as the A fragments of four k16 steps
+__device__ __forceinline__ void to_a_frags(uint32_t (&f)[4][4], const float (&x)[32]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    f[j >> 1][(j & 1) * 2] = pack_bf16(x[4 * j], x[4 * j + 1]);
+    f[j >> 1][(j & 1) * 2 + 1] = pack_bf16(x[4 * j + 2], x[4 * j + 3]);
+  }
+}
+
 template <int D>
-__global__ void __launch_bounds__(128)
-flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, long long sb, long long sl, long long sh, int L,
-                  float scale, bf16* __restrict__ out, float* __restrict__ lse) {
-  constexpr int LD = D + 8, KS = D / 16, TILE = FL_TK * LD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [2][64][LD]
-  bf16* Vs = Ks + 2 * TILE;                       // [2][64][LD]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
-  const int q0 = blockIdx.x * 64;
-  const int r0 = q0 + warp * 16 + (lane >> 2), r1 = r0 + 8;
+__global__ void __launch_bounds__(128 * (FL_NC<D> + 1), 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, int L, float scale,
+                       bf16* __restrict__ out, float* __restrict__ lse) {
+  using T = RowTile<D>;
+  constexpr int NC = FL_NC<D>, NS = FL_STAGES;
+  using Regs = RegSplit<NC + 1, 1>;
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  unsigned char* base = align1024(wg_smem);
+  bf16* Qs = reinterpret_cast<bf16*>(base);  // [NC][64][D]
+  bf16* Ks = Qs + NC * T::ELEMS;              // [NS][64][D]
+  bf16* Vs = Ks + NS * T::ELEMS;              // [NS][64][D]
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(Vs + NS * T::ELEMS);
+  uint64_t* full = qfull + 1;
+  uint64_t* empty = full + NS;
+  const int q0 = blockIdx.x * 64 * NC, h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
+  const int nt = (L + FL_TK - 1) / FL_TK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qfull, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * NC);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // producer warpgroup
+    reg_dealloc<Regs::PRODUCER>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_tx(qfull, NC * T::BYTES);
+      for (int w = 0; w < NC; ++w) tma_tile<D>(Qs + w * T::ELEMS, &tq, qfull, h, q0 + 64 * w, b);
+      for (int t = 0; t < nt; ++t) {
+        const int s = t % NS;
+        mbar_wait(&empty[s], ((t / NS) & 1) ^ 1);
+        mbar_arrive_tx(&full[s], 2 * T::BYTES);
+        tma_tile<D>(Ks + s * T::ELEMS, &tk, &full[s], h, t * FL_TK, b);
+        tma_tile<D>(Vs + s * T::ELEMS, &tv, &full[s], h, t * FL_TK, b);
+      }
+    }
+    return;
+  }
+
+  reg_alloc<Regs::CONSUMER>();
+  const int wg = threadIdx.x / 128 - 1, tid = threadIdx.x % 128, lane = tid & 31,
+            warp = tid >> 5;
+  const int r0 = q0 + 64 * wg + warp * 16 + (lane >> 2), r1 = r0 + 8;
   const int kq = (lane & 3) * 2;
-  const size_t off = (size_t)b * sb + (size_t)h * sh;
-  const bf16 *qb = q + off, *kb = k + off, *vb = v + off;
-
-  uint32_t qf[KS][4];
+  const bf16* Qw = Qs + wg * T::ELEMS;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, c0 = 0.f, c1 = 0.f;
+  float o[D / 2];     // written by the first P V product
+  uint32_t pf[4][4];  // P of the tile whose P V is issued next, bf16
+  mbar_wait(qfull, 0);
+  // P_{t-1} V_{t-1} into o: PVM 1 the first (o overwritten), 2 the others
+  // (o rescaled first by the previous softmax's correction)
+  auto issue_pv = [&](int sp, auto pvm) {
+    constexpr int PVM = decltype(pvm)::value;
+    // (a warp whose rows kept their max multiplies by 1: skipped, same bits)
+    if (PVM == 2 && __any_sync(0xffffffffu, c0 != 1.f || c1 != 1.f)) {
 #pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    const bf16* q0p = qb + (size_t)r0 * sl + ks * 16 + kq;
-    const bf16* q1p = qb + (size_t)r1 * sl + ks * 16 + kq;
-    qf[ks][0] = r0 < L ? *reinterpret_cast<const uint32_t*>(q0p) : 0u;
-    qf[ks][1] = r1 < L ? *reinterpret_cast<const uint32_t*>(q1p) : 0u;
-    qf[ks][2] = r0 < L ? *reinterpret_cast<const uint32_t*>(q0p + 8) : 0u;
-    qf[ks][3] = r1 < L ? *reinterpret_cast<const uint32_t*>(q1p + 8) : 0u;
-  }
-
-  auto load_tile = [&](int stage, int k0) {  // 64 keys of K and V, zero-filled past L
-    for (int e = tid; e < FL_TK * (D / 8); e += 128) {
-      const int j = e / (D / 8), c = (e % (D / 8)) * 8;
-      const bool ok = k0 + j < L;
-      const size_t o = (size_t)(ok ? k0 + j : 0) * sl + c;
-      cp_async16(Ks + stage * TILE + j * LD + c, kb + o, ok);
-      cp_async16(Vs + stage * TILE + j * LD + c, vb + o, ok);
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j] *= c0;
+        o[4 * j + 1] *= c0;
+        o[4 * j + 2] *= c1;
+        o[4 * j + 3] *= c1;
+      }
     }
-    cp_async_commit();
+    fence_frags(pf);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<D>(o, pf[kk], desc_mn<D>(Vs + sp * T::ELEMS, kk), PVM == 2 || kk > 0);
+    wgmma_commit();
   };
-
-  const int n_tiles = (L + FL_TK - 1) / FL_TK;
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-  float o[D / 8][4];
+  // one key tile: S_t issued, then P_{t-1} V_{t-1} (PVM > 0), S_t waited
+  // for and tile t's softmax run in f32 registers while P_{t-1} V_{t-1}
+  // runs; then that product waited for, its stage released, and P_t
+  // rounded into the A fragments it read
+  auto step = [&](int t, auto mask, auto pvm) {
+    constexpr int PVM = decltype(pvm)::value;
+    const int st = t % NS, sp = (t + NS - 1) % NS;
+    mbar_wait(&full[st], (t / NS) & 1);
+    float s[32];  // fresh each tile: written by the product, not read
+    wgmma_fence();
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
-
-  load_tile(0, 0);
-  for (int t = 0; t < n_tiles; ++t) {
-    if (t + 1 < n_tiles) {
-      load_tile((t + 1) & 1, (t + 1) * FL_TK);
-      cp_async_wait<1>();
+    for (int ks = 0; ks < D / 16; ++ks)
+      wgmma_ss<64>(s, desc_k<D>(Qw, ks), desc_k<D>(Ks + st * T::ELEMS, ks), ks > 0);
+    wgmma_commit();
+    if constexpr (PVM > 0) issue_pv(sp, pvm);
+    if constexpr (PVM > 0) wgmma_wait<1>();
+    else wgmma_wait<0>();
+    fence_acc(s);
+    flash_softmax<decltype(mask)::value>(s, scale, L - t * FL_TK, kq, m0, m1, l0, l1, c0, c1);
+    if constexpr (PVM > 0) {
+      wgmma_wait<0>();
+      fence_acc(o);
+      fence_frags(pf);
+      if (lane == 0) mbar_arrive(&empty[sp]);
+    }
+    to_a_frags(pf, s);
+  };
+  using No = std::integral_constant<bool, false>;
+  using Yes = std::integral_constant<bool, true>;
+  using Pv0 = std::integral_constant<int, 0>;
+  using Pv1 = std::integral_constant<int, 1>;
+  using Pv2 = std::integral_constant<int, 2>;
+  if (nt == 1) {
+    step(0, Yes{}, Pv0{});
+  } else {
+    step(0, No{}, Pv0{});
+    if (nt == 2) {
+      step(1, Yes{}, Pv1{});
     } else {
-      cp_async_wait<0>();
+      step(1, No{}, Pv1{});
+      for (int t = 2; t < nt - 1; ++t) step(t, No{}, Pv2{});
+      step(nt - 1, Yes{}, Pv2{});
     }
-    __syncthreads();
-    const bf16* ks_ = Ks + (t & 1) * TILE;
-    const bf16* vs_ = Vs + (t & 1) * TILE;
-    const int k0 = t * FL_TK;
-
-    float s[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
-#pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        uint32_t kf[4];
-        ldmatrix_x4(kf, ks_ + (p * 16 + (lane >> 4) * 8 + (lane & 7)) * LD + ks * 16 +
-                            ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * p], qf[ks], kf[0], kf[1]);
-        mma_bf16(s[2 * p + 1], qf[ks], kf[2], kf[3]);
-      }
-    float mt0 = m0, mt1 = m1;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool ok = k0 + nt * 8 + kq + (e & 1) < L;
-        s[nt][e] = ok ? __fmul_rn(s[nt][e], scale) : -INFINITY;
-        if (e < 2) mt0 = fmaxf(mt0, s[nt][e]);
-        else mt1 = fmaxf(mt1, s[nt][e]);
-      }
-#pragma unroll
-    for (int x = 1; x <= 2; x <<= 1) {  // the 4 lanes of a row
-      mt0 = fmaxf(mt0, __shfl_xor_sync(0xffffffffu, mt0, x));
-      mt1 = fmaxf(mt1, __shfl_xor_sync(0xffffffffu, mt1, x));
-    }
-    // key 0 is in the first tile, so the max is finite from there on and
-    // the first correction exp(-inf) is 0
-    const float b0 = mt0, b1 = mt1;
-    const float c0 = expf(__fsub_rn(m0, b0)), c1 = expf(__fsub_rn(m1, b1));
-    m0 = mt0;
-    m1 = mt1;
-    l0 *= c0;
-    l1 *= c1;
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      o[dt][0] *= c0;
-      o[dt][1] *= c0;
-      o[dt][2] *= c1;
-      o[dt][3] *= c1;
-    }
-    uint32_t pf[4][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const float p0 = expf(__fsub_rn(s[nt][0], b0)), p1 = expf(__fsub_rn(s[nt][1], b0));
-      const float p2 = expf(__fsub_rn(s[nt][2], b1)), p3 = expf(__fsub_rn(s[nt][3], b1));
-      l0 += p0 + p1;
-      l1 += p2 + p3;
-      pf[nt >> 1][(nt & 1) * 2] = pack_bf16(p0, p1);
-      pf[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p2, p3);
-    }
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
-#pragma unroll
-      for (int p = 0; p < D / 16; ++p) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, vs_ + (ks * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD +
-                                  p * 16 + (lane >> 4) * 8);
-        mma_bf16(o[2 * p], pf[ks], vf[0], vf[1]);
-        mma_bf16(o[2 * p + 1], pf[ks], vf[2], vf[3]);
-      }
-    __syncthreads();  // the next load reuses this stage's buffers
   }
+  // the last tile's P V
+  const int sl = (nt - 1) % NS;
+  if (nt == 1) issue_pv(sl, Pv1{});
+  else issue_pv(sl, Pv2{});
+  wgmma_wait<0>();
+  fence_acc(o);
+  if (lane == 0) mbar_arrive(&empty[sl]);
+
 #pragma unroll
   for (int x = 1; x <= 2; x <<= 1) {
     l0 += __shfl_xor_sync(0xffffffffu, l0, x);
@@ -178,14 +273,15 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (r1 < L) lrow[r1] = __fadd_rn(m1, logf(l1));
   }
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = e < 2 ? r0 : r1;
-      if (r < L)
-        out[((size_t)b * L + r) * H * D + h * D + dt * 8 + kq + (e & 1)] =
-            __float2bfloat16_rn(__fdiv_rn(o[dt][e], e < 2 ? l0 : l1));
-    }
+  for (int j = 0; j < D / 8; ++j) {
+    const int c = h * D + j * 8 + kq;
+    if (r0 < L)
+      *reinterpret_cast<uint32_t*>(out + ((size_t)b * L + r0) * H * D + c) =
+          pack_bf16(__fdiv_rn(o[4 * j], l0), __fdiv_rn(o[4 * j + 1], l0));
+    if (r1 < L)
+      *reinterpret_cast<uint32_t*>(out + ((size_t)b * L + r1) * H * D + c) =
+          pack_bf16(__fdiv_rn(o[4 * j + 2], l1), __fdiv_rn(o[4 * j + 3], l1));
+  }
 }
 
 // f32: grid (ceil(L / 32), H, B), 256 threads, D <= 128 and a multiple of 8.
@@ -297,12 +393,20 @@ template <int D>
 static int flash_bf16(const bf16* q, const bf16* k, const bf16* v, int B, int L, int H,
                       long long sb, long long sl, long long sh, bf16* out, float* lse,
                       cudaStream_t st) {
-  const size_t smem = 4 * (size_t)FL_TK * (D + 8) * sizeof(bf16);
-  cudaFuncSetAttribute(flash_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  constexpr int NC = FL_NC<D>;
+  CUtensorMap tq, tk, tv;
+  int rc = bhld_map<D>(&tq, q, B, L, H, sb, sl, sh);
+  if (!rc) rc = bhld_map<D>(&tk, k, B, L, H, sb, sl, sh);
+  if (!rc) rc = bhld_map<D>(&tv, v, B, L, H, sb, sl, sh);
+  static const int pool = check_reg_pool(flash_fwd_wgmma_kernel<D>, RegSplit<NC + 1, 1>::NEED);
+  if (!rc) rc = pool;
+  if (rc) return rc;
+  constexpr size_t smem = flash_smem_bytes<D>();
+  cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
-  dim3 grid((L + 63) / 64, H, B);
-  flash_bf16_kernel<D><<<grid, 128, smem, st>>>(q, k, v, sb, sl, sh, L, attn_scale(D), out,
-                                                 lse);
+  dim3 grid((L + 64 * NC - 1) / (64 * NC), H, B);
+  flash_fwd_wgmma_kernel<D><<<grid, 128 * (NC + 1), smem, st>>>(tq, tk, tv, L, attn_scale(D),
+                                                                 out, lse);
   PPT_CHECK_LAUNCH();
   return 0;
 }
@@ -452,15 +556,6 @@ template <int D>
 __device__ __forceinline__ void product_kk(float (&acc)[32], const bf16* a, const bf16* b) {
 #pragma unroll
   for (int ks = 0; ks < D / 16; ++ks) wgmma_ss<64>(acc, desc_k<D>(a, ks), desc_k<D>(b, ks), ks > 0);
-}
-
-// x (64 x 64, C-fragment order) rounded to bf16 as the A fragments of four k16 steps
-__device__ __forceinline__ void to_a_frags(uint32_t (&f)[4][4], const float (&x)[32]) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    f[j >> 1][(j & 1) * 2] = pack_bf16(x[4 * j], x[4 * j + 1]);
-    f[j >> 1][(j & 1) * 2 + 1] = pack_bf16(x[4 * j + 2], x[4 * j + 3]);
-  }
 }
 
 template <int D>

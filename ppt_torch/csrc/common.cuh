@@ -2,7 +2,8 @@
 // conventions, dtype conversion, the point clouds' exact distance and
 // argmax / argmin merges, the mma.sync / ldmatrix / cp.async wrappers,
 // and the LayerNorm row and GEMM main loops that vitblock.cu and
-// text.cu both build their kernels from.
+// text.cu build their kernels from (the f32 GEMM both; the mma.sync bf16
+// GEMM text.cu alone: vitblock.cu's bf16 GEMM is gemm.cuh's wgmma kernel).
 //
 // Every kernel library exposes a plain C ABI (loaded with ctypes by
 // ppt_torch/kernels/_build.py): pointers and the stream arrive as

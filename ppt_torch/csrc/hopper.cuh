@@ -1,9 +1,10 @@
-// Hopper (sm_90a) building blocks for the attention kernels
-// (attention.cuh's whole-row kernel, attention.cu's flash backward):
-// shared-memory tiles in the layout that TMA writes and wgmma reads, their
-// wgmma matrix descriptors, the wgmma.mma_async wrappers (bf16 in, f32
-// accumulators), mbarrier waits, TMA tiled and bulk loads, setmaxnreg, and
-// the host-side tensor map of a [B, L, H, D] operand.
+// Hopper (sm_90a) building blocks for the warp-specialised kernels
+// (attention.cuh's whole-row kernel, attention.cu's flash forward and
+// backward, gemm.cuh's GEMM): shared-memory tiles in the layout that TMA
+// writes and wgmma reads, their wgmma matrix descriptors, the
+// wgmma.mma_async wrappers (bf16 in, f32 accumulators), mbarrier waits,
+// TMA tiled and bulk loads, setmaxnreg, and the host-side tensor maps of
+// a [B, L, H, D] operand and of a row-major matrix.
 //
 // Tiles. A tile is 64 rows of a bf16 operand whose D columns are
 // contiguous, kept as D / CW chunks of [64][CW] with CW = min(D, 64), so
@@ -106,29 +107,60 @@ template <int K> __device__ __forceinline__ void fence_frags(uint32_t (&f)[K][4]
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(f[i][j])::"memory");
 }
 
-// d[64 x N] (+)= A[64 x 16] B[16 x N]: A and B K-major in shared memory
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int acc);
 // d[64 x N] (+)= A[64 x 16] B[16 x N]: A in registers, B MN-major in shared memory
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b,
                                          int acc);
 
-template <> __device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a,
-                                                        uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(acc));
+// d[64 x N] (+)= A[64 x 16] B[16 x N], both in shared memory: A K-major, B
+// K-major (TB = 0) or MN-major (TB = 1, the transpose bit)
+template <int N, int TB> struct WgmmaSS;
+template <int TB> struct WgmmaSS<64, TB> {
+  static __device__ __forceinline__ void run(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, %35;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(acc), "n"(TB));
+  }
+};
+
+template <int TB> struct WgmmaSS<128, TB> {
+  static __device__ __forceinline__ void run(float (&d)[64], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, %67;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(acc), "n"(TB));
+  }
+};
+
+template <int N, int TB = 0>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int acc) {
+  WgmmaSS<N, TB>::run(d, a, b, acc);
 }
 
 template <> __device__ __forceinline__ void wgmma_rs<16>(float (&d)[8],
@@ -252,6 +284,42 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// 2-D tiled TMA load into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// 2-D tiled TMA store from shared memory (a bulk group of the issuing
+// thread; rows and columns past the map's edges are not written)
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// waits until the issuing thread's bulk groups have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// waits until the issuing thread's bulk groups have completed
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// orders this thread's shared-memory writes before later async-proxy (TMA) reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // rows r0 .. r0 + 63 of head h, batch entry b into a tile (every chunk);
 // rows past L arrive zero-filled
 template <int D>
@@ -343,6 +411,23 @@ static int bhld_map(CUtensorMap* m, const bf16* base, int B, int L, int H, long 
                                                : CU_TENSOR_MAP_SWIZZLE_32B;
   const CUresult r = fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, (void*)base, dims, strides, box,
                         unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The tensor map of a row-major bf16 [rows, cols] matrix (cols contiguous,
+// cols * 2 bytes a row, a multiple of 16): dims (cols, rows), a box of 64
+// columns (one 128-byte swizzle span) x box_rows rows, zero fill past
+// either edge. Returns 0 or a cudaError_t code.
+static int mat_map(CUtensorMap* m, const bf16* base, int rows, int cols, int box_rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (!fn) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, (void*)base, dims, strides, box,
+                        unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }

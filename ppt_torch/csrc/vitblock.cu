@@ -20,22 +20,24 @@
 // tower is later work.
 //
 // Bound: operations, ~71 GFLOP per block at B=32, L=513, C=384 against
-// ~0.1 GB of activations. Design: in bf16 (the serving dtype) the GEMMs
-// run on the tensor cores through mma.sync and the attention through
-// wgmma on TMA-loaded tiles (attention.cuh, hopper.cuh), f32
-// accumulators; in f32 they run as FMA on the CUDA cores, since TF32
-// would round the operands. The GEMM epilogues carry the bias, GELU and
-// droppath-scaled residual, so each sublayer writes its result once.
-// Attention never takes an online-softmax rescale, which keeps the TPU
-// kernel's rounding: row max over all keys, exp(s - m) rounded to the
-// compute dtype before P@V, the f32 accumulator divided by the f32
-// denominator afterwards (vitblock.py:93-106). Fusing the whole block
-// into one persistent kernel, and wgmma/TMA GEMMs, are later work.
+// ~0.1 GB of activations. Design: in bf16 (the serving dtype) the four
+// GEMMs run gemm.cuh's warp-specialised wgmma kernel on TMA-loaded tiles
+// (persistent CTAs, W read as it lies as an MN-major operand) and the
+// attention attention.cuh's wgmma kernel, f32 accumulators; in f32 both
+// run as FMA on the CUDA cores, since TF32 would round the operands. The
+// GEMM epilogues carry the bias, GELU and droppath-scaled residual, so
+// each sublayer writes its result once. Attention never takes an
+// online-softmax rescale, which keeps the TPU kernel's rounding: row max
+// over all keys, exp(s - m) rounded to the compute dtype before P@V, the
+// f32 accumulator divided by the f32 denominator afterwards
+// (vitblock.py:93-106). Fusing the whole block into one persistent kernel
+// is later work.
 //
 // Rounding follows _block_body (vitblock.py:81-125): qkv, attn, y, y2,
 // h1 and each residual sum are rounded to the compute dtype T at the same
 // points.
 #include "attention.cuh"
+#include "gemm.cuh"
 
 PPT_ERROR_STRING_FN
 
@@ -92,43 +94,46 @@ __device__ __forceinline__ float gelu_tanh(float x) {
 // EPI_BIAS_RES:  y = T(T(acc) + T(bias)); out = T(res + T(y * T(dp[row / L, dp_col])))
 // EPI_BIAS_GELU: out = T(gelu_tanh(acc + bias))      (bias added in f32)
 // EPI_BIAS:      out = T(acc + bias)                 (the probe's GELU-less fc1)
-template <typename T, int EPI>
-__device__ __forceinline__ void epilogue(float acc, int r, int c, int N,
-                                         const float* __restrict__ bias,
-                                         const T* __restrict__ res,
-                                         const float* __restrict__ dp, int dp_col, int L,
-                                         T* __restrict__ out) {
-  const size_t o = (size_t)r * N + c;
-  float v;
-  if (EPI == EPI_ROUND) {
-    v = acc;
-  } else if (EPI == EPI_BIAS_RES) {
-    const float y = rnd<T>(__fadd_rn(rnd<T>(acc), rnd<T>(bias[c])));
-    const float scaled = rnd<T>(__fmul_rn(y, rnd<T>(dp[(r / L) * 2 + dp_col])));
-    v = __fadd_rn(to_f(res[o]), scaled);
-  } else if (EPI == EPI_BIAS_GELU) {
-    v = gelu_tanh(__fadd_rn(acc, bias[c]));
-  } else {
-    v = __fadd_rn(acc, bias[c]);
-  }
-  out[o] = from_f<T>(v);
-}
-
-// the epilogue as the functor the shared GEMM main loops call per element
+// As the functor the GEMM main loops call, with what depends on the row
+// alone (the DropPath scale) or the column alone (the bias) taken once:
+// one element at a time (the f32 body, which stores it), or the value
+// alone (the wgmma body, which stores through shared memory and reads the
+// residual there, RES).
 template <typename T, int EPI>
 struct Epilogue {
+  static constexpr bool RES = EPI == EPI_BIAS_RES;
   int N;
   const float* bias;
   const T* res;
   const float* dp;
   int dp_col, L;
   T* out;
+  // row r's factor: EPI_BIAS_RES the DropPath scale of its sample, in T
+  __device__ __forceinline__ float row(int r) const {
+    return RES ? rnd<T>(dp[(r / L) * 2 + dp_col]) : 0.f;
+  }
+  // column c's bias as the epilogue adds it (EPI_BIAS_RES: in T)
+  __device__ __forceinline__ float col(int c) const {
+    return EPI == EPI_ROUND ? 0.f : RES ? rnd<T>(bias[c]) : bias[c];
+  }
+  // the value before the final rounding to T; rv, cv from row() and col(),
+  // res_v the residual element (EPI_BIAS_RES)
+  __device__ __forceinline__ float value(float acc, float rv, float cv, float res_v) const {
+    if (EPI == EPI_ROUND) return acc;
+    if (RES) {
+      const float y = rnd<T>(__fadd_rn(rnd<T>(acc), cv));
+      return __fadd_rn(res_v, rnd<T>(__fmul_rn(y, rv)));
+    }
+    if (EPI == EPI_BIAS_GELU) return gelu_tanh(__fadd_rn(acc, cv));
+    return __fadd_rn(acc, cv);
+  }
   __device__ __forceinline__ void operator()(float acc, int r, int c) const {
-    epilogue<T, EPI>(acc, r, c, N, bias, res, dp, dp_col, L, out);
+    const size_t o = (size_t)r * N + c;
+    out[o] = from_f<T>(value(acc, row(r), col(c), RES ? to_f(res[o]) : 0.f));
   }
 };
 
-// f32 on the CUDA cores, bf16 on the tensor cores (common.cuh)
+// f32 on the CUDA cores (common.cuh)
 template <int EPI>
 __global__ void __launch_bounds__(256)
 gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ W, int M, int N, int K,
@@ -137,13 +142,15 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ W, int M,
   gemm_f32_body<false>(A, W, M, N, K, Epilogue<float, EPI>{N, bias, res, dp, dp_col, L, out});
 }
 
+// bf16 on Hopper (gemm.cuh): persistent CTAs walking 128 x 128 tiles
 template <int EPI>
-__global__ void __launch_bounds__(256)
-gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W, int M, int N, int K,
-                 const float* __restrict__ bias, const bf16* __restrict__ res,
-                 const float* __restrict__ dp, int dp_col, int L, bf16* __restrict__ out) {
-  gemm_bf16_body<128, false>(A, W, M, N, K,
-                             Epilogue<bf16, EPI>{N, bias, res, dp, dp_col, L, out});
+__global__ void __launch_bounds__(384, 1)
+gemm_wgmma_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tw,
+                  const __grid_constant__ CUtensorMap tc, const __grid_constant__ CUtensorMap tr,
+                  int M, int N, int K, const float* __restrict__ bias,
+                  const float* __restrict__ dp, int dp_col, int L) {
+  gemm_wgmma_body(&ta, &tw, &tc, &tr, M, N, K,
+                  Epilogue<bf16, EPI>{N, bias, nullptr, dp, dp_col, L, nullptr});
 }
 
 // ---------------------------------------------------------------------------
@@ -205,13 +212,25 @@ static int gemm(const float* A, const float* W, int M, int N, int K, const float
   return 0;
 }
 
+// maps: A [M, K], W [K, N], out [M, N] and (EPI_BIAS_RES) the residual
 template <int EPI>
 static int gemm(const bf16* A, const bf16* W, int M, int N, int K, const float* bias,
                 const bf16* res, const float* dp, int dp_col, int L, bf16* out,
                 cudaStream_t st) {
-  if (K % TBK || N % 8) return (int)cudaErrorInvalidValue;
-  dim3 grid((N + TBN - 1) / TBN, (M + 127) / 128);
-  gemm_bf16_kernel<EPI><<<grid, 256, 0, st>>>(A, W, M, N, K, bias, res, dp, dp_col, L, out);
+  if (K % 8 || N % 8) return (int)cudaErrorInvalidValue;  // TMA rows: multiples of 16 bytes
+  auto kernel = gemm_wgmma_kernel<EPI>;
+  static const int pool = check_reg_pool(kernel, RegSplit<3, 1>::NEED);
+  if (pool) return pool;
+  CUtensorMap maps[4];
+  int rc = mat_map(&maps[0], A, M, K, GM_BM);
+  if (!rc) rc = mat_map(&maps[1], W, K, N, GM_BK);
+  if (!rc) rc = mat_map(&maps[2], out, M, N, GM_BM);
+  if (!rc) rc = mat_map(&maps[3], EPI == EPI_BIAS_RES ? res : out, M, N, GM_BM);
+  if (rc) return rc;
+  const int tiles = ((M + GM_BM - 1) / GM_BM) * ((N + GM_BN - 1) / GM_BN), sms = sm_count();
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, GemmTile::SMEM);
+  kernel<<<tiles < sms ? tiles : sms, 384, GemmTile::SMEM, st>>>(
+      maps[0], maps[1], maps[2], maps[3], M, N, K, bias, dp, dp_col, L);
   PPT_CHECK_LAUNCH();
   return 0;
 }
@@ -293,10 +312,11 @@ PPT_EXPORT int ppt_vit_block(int dtype, const void* x, const void* pos, const vo
 //   qk_packed2  ATT_PACKED2: two heads per block-diagonal product
 // rows = 2: each block of the attention and LayerNorm launches takes two
 // clouds' tiles in turn (the TPU probe's two clouds per grid instance).
-// In bf16, full, no_gelu, mm_only, no_softmax and rows = 2 run the
-// production attention kernel (wgmma and TMA); pv_ones and qk_packed2 run
-// the probe's own mma.sync attention kernel (attention.cuh), so their
-// deltas against full also price the change of kernel.
+// Every mode runs the production GEMMs (gemm.cuh). In bf16, full,
+// no_gelu, mm_only, no_softmax and rows = 2 run the production attention
+// kernel (wgmma and TMA); pv_ones and qk_packed2 run the probe's own
+// mma.sync attention kernel (attention.cuh), so their deltas against full
+// also price the change of kernel.
 // ---------------------------------------------------------------------------
 enum { VAR_FULL = 0, VAR_MM_ONLY = 1, VAR_NO_SOFTMAX = 2, VAR_NO_GELU = 3, VAR_PV_ONES = 4,
        VAR_QK_PACKED2 = 5 };

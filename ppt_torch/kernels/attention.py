@@ -3,7 +3,8 @@
 Counterpart of ``ppt_tpu/kernels/attention.py``; the CUDA side is
 ``csrc/attention.cu`` (whole-row kernels shared with the block through
 ``csrc/attention.cuh``; the bf16 whole-row kernel and the bf16 flash
-backward load their tiles by TMA and run wgmma, from ``csrc/hopper.cuh``),
+forward and backward load their tiles by TMA and run wgmma, from
+``csrc/hopper.cuh``),
 whose header says what bounds each kernel on the H100 and how its design
 answers that. Layout ``[B, L, H, D]`` in and out,
 as the reference's (the ``jax.nn`` convention).
@@ -139,10 +140,10 @@ def _views(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
 
 
 def _check_tma(name: str, dt: torch.dtype, strides, *tensors: torch.Tensor) -> None:
-    """The bf16 kernels that load tiles by TMA (``fused_mha``, the flash
-    backward) need every stride (sb, sl, sh) a multiple of 16 bytes and
-    16-byte aligned bases; ``_views`` copies what does not qualify, and
-    this refuses by name what reaches the C call otherwise."""
+    """The bf16 kernels load their tiles by TMA (``fused_mha``, the flash
+    forward and backward), which needs every stride (sb, sl, sh) a multiple
+    of 16 bytes and 16-byte aligned bases; ``_views`` copies what does not
+    qualify, and this refuses by name what reaches the C call otherwise."""
     if dt != torch.bfloat16:
         return
     if any(st * 2 % 16 for st in strides):
@@ -173,8 +174,7 @@ def _launch(name: str, entry: str, q, k, v, want_lse: bool = False):
             4 * (32 * D + 64 * (D + 1) + 32 * L + 32) > _SMEM_LIMIT:
         raise ValueError(f"{name}: L={L} too long for whole-row attention tiles")
     q, k, v, (sb, sl, sh) = _views(name, q, k, v)
-    if entry == "ppt_mha":
-        _check_tma(name, q.dtype, (sb, sl, sh), q, k, v)
+    _check_tma(name, q.dtype, (sb, sl, sh), q, k, v)
     out = torch.empty(B, L, H, D, dtype=q.dtype, device=q.device)
     lse = torch.empty(B, H, L, dtype=torch.float32, device=q.device) if want_lse else None
     lib = _build.load("attention")

@@ -129,6 +129,21 @@ def _check_shapes(name, dt, B, L, C, heads, hid):
             raise ValueError(f"{name}: L={L} too long for whole-row attention tiles")
 
 
+def check_tma(name: str, **tensors: torch.Tensor) -> None:
+    """The bf16 GEMMs load their weights by TMA, which needs 16-byte aligned
+    bases and rows a multiple of 16 bytes: refuse by name what the C call
+    could not load. (Activations reach TMA only through the workspace this
+    module allocates; x and pos are read by plain loads.)"""
+    for key, t in tensors.items():
+        if t.dtype != torch.bfloat16:
+            continue
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: TMA needs 16-byte aligned bases; {key} is not")
+        if t.shape[-1] * t.element_size() % 16:
+            raise ValueError(f"{name}: TMA needs rows a multiple of 16 bytes; {key} has "
+                             f"{t.shape[-1]} bf16 elements a row")
+
+
 def block_operands(name, x, pos, dp, weights, heads):
     """The arguments of a block's launch sequence, checked and cast as the
     kernels take them: x, pos, dp, then the eleven weights in the order
@@ -144,6 +159,7 @@ def block_operands(name, x, pos, dp, weights, heads):
     f = [t.float().contiguous() for t in (ln1s, ln1b, bproj, ln2s, ln2b, bfc1, bfc2)]
     args = [x.contiguous(), pos.to(dt).contiguous(), dp.float().contiguous(),
             f[0], f[1], wq, wp, f[2], f[3], f[4], w1, f[5], w2, f[6]]
+    check_tma(name, wqkv=wq, wproj=wp, wfc1=w1, wfc2=w2)
     _build.check_tensors(name, *args)
     widths = dict(x0=C, xn=C, qkv=3 * C, attn=C, x1=C, h1=hid, out=C)
     bufs = {k: torch.empty(B * L, n, dtype=dt, device=x.device) for k, n in widths.items()}
@@ -241,6 +257,7 @@ def _tower_run(
     mats = [w.to(dt).contiguous() for w in (wqkv, wproj, wfc1, wfc2)]
     f32 = [t.float().contiguous() for t in (ln1s, ln1b, bproj, ln2s, ln2b, bfc1, bfc2, lnfs,
                                             lnfb)]
+    check_tma(name, **dict(zip(("wqkv", "wproj", "wfc1", "wfc2"), mats)))
     _build.check_tensors(name, x, pos, dp_t, *mats, *f32)
     rows = B * L
     ws = torch.empty(rows * (9 * C + hid), dtype=dt, device=x.device)

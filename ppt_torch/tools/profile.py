@@ -96,14 +96,14 @@ PARTS = (
     ("m2_reduce_kernel", "mini_stats"),
     ("add_ln_kernel", "vit block: add + LayerNorm"),
     ("add_ln_rows_kernel", "vit block: add + LayerNorm"),
-    ("gemm_bf16_kernel", "vit block: GEMMs"),
+    ("gemm_wgmma_kernel", "vit block: GEMMs"),
     ("gemm_f32_kernel", "vit block: GEMMs"),
     # the whole-row kernels serve the block and, on the "unfused" route, fused_mha
     # (bf16: attention_wgmma_kernel; attention_bf16_kernel is the probe's)
     ("attention_wgmma_kernel", "vit block: attention"),
     ("attention_bf16_kernel", "vit block: attention"),
     ("attention_f32_kernel", "vit block: attention"),
-    ("flash_bf16_kernel", "flash_mha"),
+    ("flash_fwd_wgmma_kernel", "flash_mha"),
     ("flash_f32_kernel", "flash_mha"),
     ("flash_bwd_", "flash_mha_bwd"),
     ("readout_kernel", "vit block: readout"),

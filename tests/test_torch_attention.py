@@ -151,9 +151,22 @@ def test_tma_guard_refuses_strides_and_bases_it_cannot_load(strides, offset, mat
     what does not qualify, and the guard in front of the C call refuses it
     by name."""
     t = torch.empty(4096, dtype=torch.bfloat16)[offset:]
-    with pytest.raises(ValueError, match=match):
-        kattn._check_tma("fused_mha", torch.bfloat16, strides, t, t, t)
-    kattn._check_tma("fused_mha", torch.float32, strides, t, t, t)  # f32 takes no TMA
+    for name in ("fused_mha", "flash_mha"):
+        with pytest.raises(ValueError, match=f"{name}: .*{match}"):
+            kattn._check_tma(name, torch.bfloat16, strides, t, t, t)
+        kattn._check_tma(name, torch.float32, strides, t, t, t)  # f32 takes no TMA
+
+
+@pytest.mark.parametrize("fn,name", [(kattn._mha_run, "fused_mha"),
+                                     (kattn._flash_run, "flash_mha")])
+def test_kernel_paths_apply_the_tma_guard(fn, name, monkeypatch):
+    """Both bf16 entry points put the guard in front of the C call: with
+    _views letting a head stride of 60 elements through, the launch is
+    refused by name before any build (meta tensors carry shapes only)."""
+    q = _meta(1, 1100, 2, 64, dtype=torch.bfloat16)
+    monkeypatch.setattr(kattn, "_views", lambda name, q, k, v: (q, k, v, (2304, 1152, 60)))
+    with pytest.raises(ValueError, match=f"{name}: TMA needs strides"):
+        fn(q, q, q)
 
 
 def test_whole_row_kernel_path_refuses_a_row_too_long_for_shared_memory():

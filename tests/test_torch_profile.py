@@ -24,7 +24,8 @@ def test_busy_us_is_the_union_of_intervals(intervals, want):
     ("tc::mini_forward_bf16_kernel(float const*, int, int)", "mini_forward"),
     ("tc::mini_stats_bf16_kernel(float const*, int, int)", "mini_stats"),
     ("st::m2_reduce_kernel(float const*, int, int, float*)", "mini_stats"),
-    ("void gemm_bf16_kernel<1>(__nv_bfloat16 const*)", "vit block: GEMMs"),
+    ("void gemm_wgmma_kernel<192, 1>(CUtensorMap_st, CUtensorMap_st, int, int, int)",
+     "vit block: GEMMs"),
     ("void attention_bf16_kernel<64>(__nv_bfloat16 const*)", "vit block: attention"),
     ("void attention_wgmma_kernel<64, 0, true>(CUtensorMap_st, CUtensorMap_st)",
      "vit block: attention"),
@@ -40,7 +41,8 @@ def test_busy_us_is_the_union_of_intervals(intervals, want):
     ("ball_query_feats_kernel(float const*, float const*, char const*, int)",
      "ball_query_gather_feats"),
     ("ball_query_rank_kernel(float const*, float const*, int, int)", "ball_query_gather_v2"),
-    ("void flash_bf16_kernel<64>(__nv_bfloat16 const*)", "flash_mha"),
+    ("void flash_fwd_wgmma_kernel<64>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st)",
+     "flash_mha"),
     ("flash_f32_kernel(float const*, float const*)", "flash_mha"),
     ("void flash_bwd_dkv_wgmma_kernel<64>(CUtensorMap_st, CUtensorMap_st)", "flash_mha_bwd"),
     ("void flash_bwd_dq_wgmma_kernel<64>(CUtensorMap_st, CUtensorMap_st)", "flash_mha_bwd"),
