@@ -16,15 +16,20 @@ Phases (any failed check raises, and the script exits non-zero):
   2. build the kernels from ppt_torch/csrc (one nvcc per source, in
      parallel) and report the build time; count each Hopper kernel's wgmma
      (HGMMA), TMA (UTMALDG, UBLKCP) and mma.sync (HMMA) instructions with
-     cuobjdump: the ViT block's GEMM, the whole-row attention and the flash
-     forward and backward must issue HGMMA on UTMALDG-loaded tiles and no
-     HMMA;
+     cuobjdump: the ViT block's GEMM, the whole-row attention, the flash
+     forward and backward and the bf16 MiniPointNet forward must issue
+     HGMMA on UTMALDG-loaded tiles and no HMMA;
   3. each kernel entry point against its plain version, at a small shape
      and at the slice's shape, in f32 and bf16 (the grouping kernels take
      f32 coordinates in both; the five kernels of the inference path also
      at the train path's batch of 30): indices exact, f32 within 1e-4 and bf16
      within 2e-2 of the plain output's max magnitude; kernel, plain and
-     library times with CUDA events. The three text kernels
+     library times with CUDA events. mini_forward also at the long
+     trunk's 32 x 1024 groups, repeats bit-identical, timed in alternated
+     rounds with its library call at the slice's and the long trunk's
+     shapes, beside its weight bytes through L2 and, in the same rounds, a
+     build whose producer loads the weights once (PPT_MINI_WEIGHTS_ONCE):
+     the kernel's time without that traffic. The three text kernels
      (fused_text_block, fused_text_tower with and without block outputs,
      fused_text_tower_bwd) at 5 classes x 13 positions x 128 wide and at
      the slice's 40 x L x 512, 12 layers (L from the prompts): the same
@@ -77,9 +82,12 @@ Phases (any failed check raises, and the script exits non-zero):
      k, S = 1, 8 / 8, 128 / 32, 256), the slice's 32 x 1024 -> 512, the
      long trunk's 32 x 8192 -> 1024 and fps_single's cap of 16384 points
      (k = 32): indices identical to the plain versions, to fps_batched's and
-     knn_gather's where those take the shape, and between repeats; each
+     knn_gather's where those take the shape, and between repeats;
+     knn_single also around its cloud chunk (N just under, at and over it
+     with a tie across the border, k = 64, k past 64, N = k); each
      refuses by name a shape it does not take (S = 200; N = 16385); times
-     beside rows 1-2 at the same shapes. vit_variant, the ablation probe's
+     beside rows 1-2 at the same shapes, knn_single's in alternated rounds
+     with cdist + topk at all three. vit_variant, the ablation probe's
      block, in each mode (full, mm_only, no_softmax, no_gelu, pv_ones,
      qk_packed2, and full with two clouds per block) in f32 and bf16 at
      2 x 33 x 96 (6 heads of 16) and 32 x 513 x 384 against
@@ -218,6 +226,7 @@ the last line is the contract line
 
 import collections
 import contextlib
+import ctypes
 import dataclasses
 import json
 import math
@@ -282,8 +291,8 @@ DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 # 32; checked and timed). mini_stats runs on the train path alone.
 GROUP_SHAPES = ((2, 256, 32, 8, "small"), (30, 1024, 512, 32, "train"),
                 (32, 1024, 512, 32, "slice"), (32, 8192, 1024, 32, "long"))  # B, N, G, K
-MINI_SHAPES = ((1, 7, 20, "small"), (30, 512, 32, "train"),
-               (32, 512, 32, "slice"))  # B, G, M (small: padded groups)
+MINI_SHAPES = ((1, 7, 20, "small"), (30, 512, 32, "train"), (32, 512, 32, "slice"),
+               (32, 1024, 32, "long"))  # B, G, M (small: padded groups; long: the long trunk's)
 STATS_SHAPES = ((1, 7, 20, "small"), (30, 512, 32, "slice"))
 BLOCK_SHAPES = ((2, 33, 64, 2, "small"), (30, 513, 384, 6, "train"),
                 (32, 513, 384, 6, "slice"))  # B, L, C, heads
@@ -346,7 +355,8 @@ TOL_TEXT_BWD = {"f32": 1e-4, "bf16": 5e-2}
 # tiles that TMA loads (UTMALDG), and none may run mma.sync (HMMA)
 HOPPER_KERNELS = {"attention": ("attention_wgmma_kernel", "flash_fwd_wgmma_kernel",
                                 "flash_bwd_dkv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel"),
-                  "vitblock": ("attention_wgmma_kernel", "gemm_wgmma_kernel")}
+                  "vitblock": ("attention_wgmma_kernel", "gemm_wgmma_kernel"),
+                  "mini": ("mini_forward_wgmma_kernel",)}
 SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "HMMA")
 
 
@@ -496,31 +506,77 @@ def mini_library(M, dt, x, w):
     return F.linear(h, w3.t(), b3).amax(2)
 
 
+# the bf16 weights a 128-row tile of the wgmma kernel streams through L2
+# (w2, fwg, fwl, w3; csrc/mini.cu: every tile reads all of them)
+MINI_TILE_ROWS = 128
+MINI_WEIGHT_BYTES = 2 * (128 * 256 + 2 * 256 * 512 + 512 * 256)
+
+
+def mini_weights_once():
+    """mini_forward's bf16 kernel built with PPT_MINI_WEIGHTS_ONCE
+    (csrc/mini.cu): its producer fills the weight ring once and then hands
+    the consumers stale stages, so it runs without the weights' L2 traffic
+    (its output is wrong by design). Returns f(M, x, w) that launches it as
+    the wrapper launches the kernel."""
+    so = _build.BUILD_DIR / "libppt_mini_weights_once.so"
+    subprocess.run([_build.nvcc_path(), *_build.ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+                    "-Xcompiler", "-fPIC", "-DPPT_MINI_WEIGHTS_ONCE", "-o", str(so),
+                    str(_build.CSRC / "mini.cu")], check=True, capture_output=True, timeout=600)
+    lib = ctypes.CDLL(str(so))
+    lib.ppt_mini_forward.argtypes = (
+        [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 11)
+
+    def run(M, x, w):
+        B, GM, _ = x.shape
+        ws = [t.to(torch.bfloat16).contiguous() for t in w]
+        out = torch.empty(B, GM // M, 256, dtype=torch.bfloat16, device=x.device)
+        rc = lib.ppt_mini_forward(1, _build.ptr(x), B * GM // M, M, 128, 256, 512, 256,
+                                  *[_build.ptr(t) for t in ws], _build.ptr(out),
+                                  _build.stream_ptr(x))
+        check(rc == 0, f"mini_forward weights-once build: error {rc}")
+        return out
+
+    return run
+
+
 def check_mini(results):
+    by_shape = {}
+    once = mini_weights_once()
     for B, G, M, tag in MINI_SHAPES:
         x = cloud(B, G * M, G) - 0.5
         w = mini_weights(256, G)
         for dname, dt in DTYPES.items():
             got = kmini.mini_forward(M, dt, x, *w)
+            again = kmini.mini_forward(M, dt, x, *w)
             want = kmini.mini_forward_plain(M, dt, x, *w)
             torch.cuda.synchronize()
             err = rel_err(got, want)
+            same = torch.equal(got, again)
             print(f"[kernel] mini_forward {tag} {dname} B={B} G={G} M={M}: max rel err "
-                  f"{err:.3e} (tol {TOL[dname]})")
+                  f"{err:.3e} (tol {TOL[dname]}); repeat identical {same}")
             check(torch.isfinite(got.float()).all(), "mini_forward non-finite")
             check(err <= TOL[dname], f"mini_forward {tag} {dname} error {err}")
-            if tag == "slice" and dname == "bf16":
-                n = B * G * M
-                ops = 2 * n * (3 * 128 + 128 * 256 + 256 * 512 + 512 * 256) + 2 * B * G * 256 * 512
-                wbytes = 2 * (3 * 128 + 128 + 128 * 256 + 256 + 2 * 256 * 512 + 512 + 512 * 256
-                              + 256)
-                bms, by = bound_ms(n * 12 + B * G * 256 * 2 + wbytes, ops, PEAK["bf16"])
+            check(same, f"mini_forward {tag} {dname}: repeats differ")
+            if tag not in ("slice", "long") or dname != "bf16":
+                continue
+            n = B * G * M
+            ops = 2 * n * (3 * 128 + 128 * 256 + 256 * 512 + 512 * 256) + 2 * B * G * 256 * 512
+            wbytes = 2 * (3 * 128 + 128 + 128 * 256 + 256 + 2 * 256 * 512 + 512 + 512 * 256 + 256)
+            bms, by = bound_ms(n * 12 + B * G * 256 * 2 + wbytes, ops, PEAK["bf16"])
+            t = alternated_ms({"ms": lambda: kmini.mini_forward(M, dt, x, *w),
+                               "library_ms": lambda: mini_library(M, dt, x, w),
+                               "weights_once_ms": lambda: once(M, x.contiguous(), w)})
+            l2_bytes = -(-n // MINI_TILE_ROWS) * MINI_WEIGHT_BYTES
+            by_shape[tag] = dict(t, bound_ms=bms, bound_by=by, tflops=ops / (t["ms"] * 1e-3) / 1e12,
+                                 weight_l2_gb=l2_bytes / 1e9,
+                                 weight_l2_tb_per_s=l2_bytes / (t["ms"] * 1e-3) / 1e12)
+            print(f"[kernel] mini_forward {tag}: {json.dumps(by_shape[tag])}")
+            if tag == "slice":
                 results["mini_forward"] = dict(
-                    max_abs_err=float((got.float() - want.float()).abs().max()),
-                    ms=gpu_time_ms(lambda: kmini.mini_forward(M, dt, x, *w)),
+                    max_abs_err=float((got.float() - want.float()).abs().max()), ms=t["ms"],
                     plain_ms=gpu_time_ms(lambda: kmini.mini_forward_plain(M, dt, x, *w)),
-                    bound_ms=bms, bound_by=by,
-                    library_ms=gpu_time_ms(lambda: mini_library(M, dt, x, w)))
+                    bound_ms=bms, bound_by=by, library_ms=t["library_ms"])
+    results["mini_forward"]["by_shape"] = by_shape
 
 
 def stats_library(M, dt, x, w):
@@ -1350,12 +1406,16 @@ def check_losses3d(results):
 
 # (B, N, npoint, tag): the reference test's small cloud with duplicated points,
 # the slice's 32 x 1024 -> 512, the long trunk's 32 x 8192 -> 1024 and
-# fps_single's cap (coordinates in shared memory, knn_single's rows
-# recomputed). k = 32 at the three large shapes; the small one takes
-# (k, S) = (1, 8), (8, 128), (32, 256).
+# fps_single's cap (coordinates in shared memory). k = 32 at the three large
+# shapes; the small one takes (k, S) = (1, 8), (8, 128), (32, 256).
 CLOUD_SHAPES = ((2, 300, 64, "small"), (32, 1024, 512, "slice"), (32, 8192, 1024, "long"),
                 (2, kfps.MAX_POINTS, 1024, "cap"))
 CLOUD_SMALL_KNN = ((1, 8), (8, 128), (32, 256))
+# (B, N, S, k) around knn_single's cloud chunk, as tests/test_torch_fps_knn.py
+# takes them: N just under, at and over it (a duplicated point across the
+# border), k = 64 (two queue pairs a lane), k past 64 (passes), N = k
+KNN_EDGES = ((1, kknn.CHUNK - 1, 128, 64), (1, kknn.CHUNK, 128, 32), (1, kknn.CHUNK + 1, 128, 40),
+             (1, 300, 128, 100), (2, 48, 8, 48), (2, 5000, 256, 200))
 
 
 def dup_cloud(B, N, seed):
@@ -1396,20 +1456,29 @@ def check_cloud(results):
             torch.cuda.synchronize()
             n_bad = int((got_k != want_k).sum())
             same = torch.equal(got_k, again_k) and torch.equal(got_k, row2)
-            print(f"[kernel] knn_single {tag} B={B} N={N} S={q.shape[1]} k={k} (row layout "
-                  f"{kknn._row_layout(N)}): index mismatches {n_bad}; repeat"
-                  f"{' and knn_gather' if tag != 'cap' else ''} identical {same}")
+            print(f"[kernel] knn_single {tag} B={B} N={N} S={q.shape[1]} k={k}: index "
+                  f"mismatches {n_bad}; repeat{' and knn_gather' if tag != 'cap' else ''} "
+                  f"identical {same}")
             check(n_bad == 0 and same, f"knn_single indices differ at {tag} k={k}")
         if tag == "small":
             continue
         k, q = qsets[0]
-        timing[tag] = dict(
-            fps_single_ms=gpu_time_ms(lambda: kfps.fps_single(xyz, npoint)),
-            knn_single_ms=gpu_time_ms(lambda: kknn.knn_single(k, xyz, q)))
+        S = q.shape[1]
+
+        def library():
+            return torch.topk(torch.cdist(q, xyz), k, dim=-1, largest=False).indices
+
+        # knn_single against its library call (and row 2) in alternated rounds
+        fns = {"knn_single_ms": lambda: kknn.knn_single(k, xyz, q),
+               "knn_library_ms": library}
         if tag != "cap":  # rows 1 and 2 at the same shape, the same call
-            timing[tag].update(
-                fps_batched_ms=gpu_time_ms(lambda: kgroup.fps_batched(xyz, npoint)),
-                knn_gather_ms=gpu_time_ms(lambda: kgroup.knn_gather(k, xyz, q)))
+            fns["knn_gather_ms"] = lambda: kgroup.knn_gather(k, xyz, q)
+        timing[tag] = alternated_ms(fns)
+        timing[tag]["knn_bound_ms"] = bound_ms(B * N * 12 + B * S * 12 + B * S * k * 4,
+                                               B * S * N * 9, PEAK["f32"])[0]
+        timing[tag]["fps_single_ms"] = gpu_time_ms(lambda: kfps.fps_single(xyz, npoint))
+        if tag != "cap":
+            timing[tag]["fps_batched_ms"] = gpu_time_ms(lambda: kgroup.fps_batched(xyz, npoint))
         if tag != "slice":
             continue
         bms, by = bound_ms(B * N * 12 + B * npoint * 4, B * npoint * N * 10, PEAK["f32"])
@@ -1417,20 +1486,31 @@ def check_cloud(results):
             max_abs_err=0.0, ms=timing[tag]["fps_single_ms"],
             plain_ms=gpu_time_ms(lambda: kfps.fps_single_plain(xyz, npoint), reps=3, warmup=1),
             bound_ms=bms, bound_by=by, library_ms=None)
-        S = q.shape[1]
         bms, by = bound_ms(B * N * 12 + B * S * 12 + B * S * k * 4, B * S * N * 9, PEAK["f32"])
-
-        def library():
-            return torch.topk(torch.cdist(q, xyz), k, dim=-1, largest=False).indices
-
         results["knn_single"] = dict(
             max_abs_err=0.0, ms=timing[tag]["knn_single_ms"],
             plain_ms=gpu_time_ms(lambda: kknn.knn_single_plain(k, xyz, q), reps=3, warmup=1),
-            bound_ms=bms, bound_by=by, library_ms=gpu_time_ms(library))
+            bound_ms=bms, bound_by=by, library_ms=timing[tag]["knn_library_ms"])
     for name, shapes in (("fps_single", "fps"), ("knn_single", "knn")):
         results[name]["by_shape"] = {tag: {key: v for key, v in t.items() if key.startswith(shapes)}
                                      for tag, t in timing.items()}
     print(f"[kernel] fps_single / knn_single against rows 1-2, ms: {json.dumps(timing)}")
+
+    # the shapes around knn_single's chunk and queue, as the CPU tests take them
+    for B, N, S, k in KNN_EDGES:
+        xyz = dup_cloud(B, N, N + k)
+        q = xyz[:, torch.randperm(N, generator=torch.Generator().manual_seed(S))[:S].to(DEV)]
+        if N > kknn.CHUNK:  # a tie across the border
+            xyz[:, kknn.CHUNK] = xyz[:, kknn.CHUNK - 1]
+            q[:, 1] = xyz[:, kknn.CHUNK]
+        got = kknn.knn_single(k, xyz, q)
+        again = kknn.knn_single(k, xyz, q)
+        want = kknn.knn_single_plain(k, xyz, q)
+        torch.cuda.synchronize()
+        n_bad = int((got != want).sum())
+        print(f"[kernel] knn_single edge B={B} N={N} S={S} k={k}: index mismatches {n_bad}; "
+              f"repeat identical {torch.equal(got, again)}")
+        check(n_bad == 0 and torch.equal(got, again), f"knn_single differs at N={N} k={k}")
 
     # the shapes they refuse, by name
     xyz = cloud(1, 256, 1)
@@ -3116,7 +3196,8 @@ def run_tools_slice():
 def run_profiles(batch=32, batches=5):
     """PPT-Base recognition and the long trunk's under tools/profile.py: the
     block GEMMs' device ms a batch and their rate (the 12 blocks' four
-    products over that time), and the flash forward's ms a batch."""
+    products over that time), and the flash forward's, mini_forward's and
+    knn_gather's ms a batch."""
     out = {}
     for tag, kw in (("ppt_base", {}), ("long_trunk", dict(num_group=1024, npoints=8192))):
         r = tprofile.profile_step(batch=batch, batches=batches, **kw)
@@ -3131,15 +3212,18 @@ def run_profiles(batch=32, batches=5):
             gemm_ms = parts["vit block: GEMMs"]
             stats.update(block_gemm_ms=gemm_ms, block_gemm_gflop=flops / 1e9,
                          block_gemm_tflops=flops / (gemm_ms * 1e-3) / 1e12)
-        if "flash_mha" in parts:
-            stats["flash_mha_ms"] = parts["flash_mha"]
+        for part in ("flash_mha", "mini_forward", "knn_gather"):
+            if part in parts:
+                stats[f"{part}_ms"] = parts[part]
         print(f"[profile] {tag}: wall {r['wall_ms_per_batch']:.3f} ms a batch, idle "
               f"{r['device_idle_share']:.3f}; block GEMMs {stats.get('block_gemm_ms')} ms "
               f"({stats.get('block_gemm_tflops')} TFLOP/s); flash_mha "
-              f"{stats.get('flash_mha_ms')} ms")
+              f"{stats.get('flash_mha_ms')} ms; mini_forward {stats.get('mini_forward_ms')} ms; "
+              f"knn_gather {stats.get('knn_gather_ms')} ms")
         out[tag] = stats
     check("block_gemm_ms" in out["ppt_base"], "PPT-Base recognition ran no block GEMM")
     check("flash_mha_ms" in out["long_trunk"], "the long trunk ran no flash_mha")
+    check(all("mini_forward_ms" in v for v in out.values()), "a profile ran no mini_forward")
     return out
 
 
@@ -3205,6 +3289,7 @@ def main():
 
     prof_stats = run_profiles()
     att, vit = sass["attention"], sass["vitblock"]
+    results["mini_forward"]["sass"] = sass["mini"]["mini_forward_wgmma_kernel"]
     results["fused_mha"]["sass"] = att["attention_wgmma_kernel"]
     results["flash_mha"]["sass"] = att["flash_fwd_wgmma_kernel"]
     results["flash_mha_bwd"]["sass"] = {k: v for k, v in att.items() if "flash_bwd" in k}

@@ -16,16 +16,27 @@
 //   coordinates no longer fit beside the distances (64 registers a
 //   thread at 1024 threads) and are staged in shared memory instead; the
 //   distances stay in registers. N above 16384 is refused by the wrapper.
-// knn_single_kernel: one block per (cloud, tile of up to 128 queries), as
-//   the TPU grid has, the cloud staged in shared memory once per block.
-//   Each warp takes the tile's queries in turn. Bound by the k selection
-//   passes, each a warp argmin: pass r takes the smallest (d, index) pair
-//   strictly after pass r-1's pick in lexicographic order, which is the
-//   TPU kernel's "argmin, record, mask to +inf" without a write. The
-//   query's distance row lives in registers (32 a lane) up to N = 1024,
-//   in shared memory (one row per warp) while cloud and rows fit, and
-//   beyond that is recomputed in every pass from the cloud in device
-//   memory (L2-resident), so every N runs.
+// knn_single_kernel: bound on the H100 by the latency of each query's
+//   selection, not by its distances (9 operations a point pair, 0.0023 ms
+//   at the slice's 32 x 1024 points / 512 queries). The TPU kernel's k
+//   argmin passes over a resident distance row are a chain of k x (N / 32
+//   + 10) dependent steps a query, with too few queries in flight to hide
+//   it. Here one warp takes one query and a CTA takes KNN_WARPS of them,
+//   enough CTAs to fill every SM. The cloud streams through shared memory
+//   in chunks of `chunk` points ([chunk][3] f32 as it lies, double-buffered
+//   by cp.async, in ascending index order), each chunk read by all the
+//   CTA's warps. A warp scans a chunk 32 points at a time and keeps a
+//   running top-k queue of (distance, index) pairs in registers, sorted,
+//   one pair a lane for k <= 32 and two for k <= 64 (the most any PPT
+//   configuration takes). A ballot filters the 32 distances against the
+//   queue's k-th pair; the few survivors are inserted one by one in index
+//   order (a warp-wide shift), so the serial work per query is about k ln(N
+//   / k) insertions instead of k full passes. Candidates arrive in
+//   ascending index, and every comparison is lexicographic on (distance,
+//   index), so ties go to the lowest index. k past 64 takes ceil(k / 64)
+//   passes over the cloud with the same queue, each keeping the next 64
+//   pairs after the previous pass's last pick. One design serves every N
+//   and every k in [1, N].
 //
 // Exactness: distances are ((dx*dx + dy*dy) + dz*dz) with the _rn
 // intrinsics, the JAX kernels' order, so indices match the plain PyTorch
@@ -157,111 +168,162 @@ PPT_EXPORT int ppt_fps_single(const void* xyz, int B, int N, int npoint, void* o
 // ---------------------------------------------------------------------------
 // kNN
 // ---------------------------------------------------------------------------
-enum { ROW_REGS = 0, ROW_SMEM = 1, ROW_RECOMPUTE = 2 };
-constexpr int KNN_REG_SLOTS = 32;  // row in registers: N <= 32 * 32
+constexpr int KNN_WARPS = 16;  // queries a CTA, one warp each
+constexpr int KNN_THREADS = 32 * KNN_WARPS;
+constexpr unsigned FULL_MASK = 0xffffffffu;
 
-// (d, j) strictly after (pd, pj) and before (bd, bj), lexicographically
-static __device__ __forceinline__ bool next_pick(float d, int j, float pd, int pj, float bd,
-                                                 int bj) {
-  return (d > pd || (d == pd && j > pj)) && (d < bd || (d == bd && j < bj));
+// (a, ai) before (b, bi): the smaller distance, ties to the lower index
+static __device__ __forceinline__ bool lex_lt(float a, int ai, float b, int bi) {
+  return a < b || (a == b && ai < bi);
 }
 
-template <int ROW>
-__global__ void knn_single_kernel(const float* __restrict__ xyz, const float* __restrict__ q,
-                                  int N, int S, int s_blk, int k, int* __restrict__ out) {
-  extern __shared__ float sm[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  const int b = blockIdx.y;
+// 4-byte global -> shared copy (a cloud's base need not be 16-byte aligned)
+static __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+// A warp's queue of 32 Q (distance, index) pairs in ascending lexicographic
+// order, position 32 r + lane in (d[r], i[r]). Inserts the warp-uniform
+// pair (nd, ni): every pair after it moves up one position (the last one
+// drops out), so the pair lands where its predecessors end.
+template <int Q>
+static __device__ __forceinline__ void queue_insert(float (&d)[Q], int (&i)[Q], float nd, int ni,
+                                                    int lane) {
+  unsigned gt[Q];
+  float up_d[Q];
+  int up_i[Q];
+#pragma unroll
+  for (int r = 0; r < Q; ++r) {
+    gt[r] = __ballot_sync(FULL_MASK, lex_lt(nd, ni, d[r], i[r]));
+    up_d[r] = __shfl_sync(FULL_MASK, d[r], (lane + 31) & 31);
+    up_i[r] = __shfl_sync(FULL_MASK, i[r], (lane + 31) & 31);
+  }
+#pragma unroll
+  for (int r = 0; r < Q; ++r) {
+    if ((gt[r] >> lane) & 1) {
+      // position 32 r + lane takes its predecessor's pair if that one moves too
+      const bool prev = lane ? (gt[r] >> (lane - 1)) & 1 : (r ? gt[r - 1] >> 31 : 0u);
+      const float pd = lane ? up_d[r] : (r ? up_d[r - 1] : nd);
+      const int pi = lane ? up_i[r] : (r ? up_i[r - 1] : ni);
+      d[r] = prev ? pd : nd;
+      i[r] = prev ? pi : ni;
+    }
+  }
+}
+
+// One warp a query, KNN_WARPS queries a CTA; the cloud streams through
+// shared memory in chunks of `chunk` points, double-buffered by cp.async,
+// each chunk read by all the CTA's warps. A pass keeps the 32 Q smallest
+// pairs lexicographically after (lo_d, lo_i) in the warp's queue; k picks
+// take ceil(k / 32 Q) passes over the cloud, each bounded below by the last
+// pick of the one before.
+template <int Q>
+__global__ void __launch_bounds__(KNN_THREADS)
+knn_single_kernel(const float* __restrict__ xyz, const float* __restrict__ q, int N, int S,
+                  int k, int chunk, int* __restrict__ out) {
+  extern __shared__ float sm[];  // [2][chunk][3]
+  constexpr int QN = 32 * Q;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.y, s = blockIdx.x * KNN_WARPS + warp;
+  const bool live = s < S;
   const float* p = xyz + (size_t)b * N * 3;
-  float* xs = sm;
-  float* ys = xs + N;
-  float* zs = ys + N;
-  float* row = zs + N + (size_t)warp * N;  // ROW_SMEM
-  if constexpr (ROW != ROW_RECOMPUTE) {
-    for (int j = threadIdx.x; j < N; j += blockDim.x) {
-      xs[j] = p[3 * j];
-      ys[j] = p[3 * j + 1];
-      zs[j] = p[3 * j + 2];
-    }
-    __syncthreads();
-  }
-
-  for (int t = warp; t < s_blk; t += nw) {
-    const int s = blockIdx.x * s_blk + t;
+  float qx = 0.f, qy = 0.f, qz = 0.f;
+  if (live) {
     const float* qp = q + ((size_t)b * S + s) * 3;
-    const float qx = qp[0], qy = qp[1], qz = qp[2];
-    float reg[ROW == ROW_REGS ? KNN_REG_SLOTS : 1];
-    auto dist = [&](int j) {
-      if constexpr (ROW == ROW_RECOMPUTE)
-        return sq3(__fsub_rn(qx, p[3 * j]), __fsub_rn(qy, p[3 * j + 1]),
-                   __fsub_rn(qz, p[3 * j + 2]));
-      return sq3(__fsub_rn(qx, xs[j]), __fsub_rn(qy, ys[j]), __fsub_rn(qz, zs[j]));
-    };
-    if constexpr (ROW == ROW_REGS) {
-#pragma unroll
-      for (int r = 0; r < KNN_REG_SLOTS; ++r) {
-        const int j = lane + 32 * r;
-        reg[r] = j < N ? dist(j) : INFINITY;
-      }
-    } else if constexpr (ROW == ROW_SMEM) {
-      for (int j = lane; j < N; j += 32) row[j] = dist(j);
-      __syncwarp();
-    }
+    qx = qp[0];
+    qy = qp[1];
+    qz = qp[2];
+  }
+  int* io = out + ((size_t)b * S + (live ? s : 0)) * k;
+  const int n_chunks = (N + chunk - 1) / chunk;
+  auto stage = [&](int c) {
+    float* dst = sm + (c & 1) * chunk * 3;
+    const float* src = p + (size_t)c * chunk * 3;
+    const int n = min(chunk, N - c * chunk) * 3;
+    for (int e = threadIdx.x; e < n; e += KNN_THREADS) cp_async4(dst + e, src + e);
+    cp_async_commit();
+  };
 
-    int* io = out + ((size_t)b * S + s) * k;
-    float pd = -INFINITY;
-    int pj = -1, mine = 0;
-    for (int r = 0; r < k; ++r) {
-      float bd = INFINITY;
-      int bj = INT_MAX;
-      if constexpr (ROW == ROW_REGS) {
+  float lo_d = -INFINITY;
+  int lo_i = -1;
+  for (int k0 = 0; k0 < k; k0 += QN) {
+    const int kk = min(QN, k - k0);  // this pass's picks
+    float d[Q];
+    int ix[Q];
 #pragma unroll
-        for (int e = 0; e < KNN_REG_SLOTS; ++e) {
-          const int j = lane + 32 * e;
-          if (j < N && next_pick(reg[e], j, pd, pj, bd, bj)) { bd = reg[e]; bj = j; }
-        }
-      } else {
-        for (int j = lane; j < N; j += 32) {
-          const float d = ROW == ROW_SMEM ? row[j] : dist(j);
-          if (next_pick(d, j, pd, pj, bd, bj)) { bd = d; bj = j; }
-        }
-      }
-      for (int off = 16; off; off >>= 1)
-        argmin_merge(bd, bj, __shfl_xor_sync(0xffffffffu, bd, off),
-                     __shfl_xor_sync(0xffffffffu, bj, off));
-      pd = bd;
-      pj = bj;
-      if (lane == (r & 31)) mine = bj;
-      if ((r & 31) == 31 || r == k - 1) {  // up to 32 picks written coalesced
-        const int base = r & ~31;
-        if (lane <= (r & 31)) io[base + lane] = mine;
-      }
+    for (int r = 0; r < Q; ++r) {
+      d[r] = INFINITY;
+      ix[r] = INT_MAX;
     }
-    if constexpr (ROW == ROW_SMEM) __syncwarp();  // the row is rewritten for the next query
+    float td = INFINITY;  // the queue's pair kk - 1: a candidate must come before it
+    int ti = INT_MAX;
+    stage(0);
+    for (int c = 0; c < n_chunks; ++c) {
+      if (c + 1 < n_chunks) {
+        stage(c + 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const float* cs = sm + (c & 1) * chunk * 3;
+      const int j0 = c * chunk, n = min(chunk, N - j0);
+      if (live) {
+        for (int t = 0; t < n; t += 32) {
+          const int jl = t + lane, j = j0 + jl;
+          bool ok = false;
+          float dist = INFINITY;
+          if (jl < n) {
+            dist = sq3(__fsub_rn(qx, cs[3 * jl]), __fsub_rn(qy, cs[3 * jl + 1]),
+                       __fsub_rn(qz, cs[3 * jl + 2]));
+            ok = lex_lt(dist, j, td, ti) && lex_lt(lo_d, lo_i, dist, j);
+          }
+          // survivors in ascending index, each checked against the bound
+          // the insertions before it have tightened
+          for (unsigned m = __ballot_sync(FULL_MASK, ok); m; m &= m - 1) {
+            const int src = __ffs(m) - 1;
+            const float nd = __shfl_sync(FULL_MASK, dist, src);
+            const int ni = j0 + t + src;
+            if (lex_lt(nd, ni, td, ti)) {
+              queue_insert<Q>(d, ix, nd, ni, lane);
+              const float last_d = Q > 1 && kk > 32 ? d[Q - 1] : d[0];
+              const int last_i = Q > 1 && kk > 32 ? ix[Q - 1] : ix[0];
+              td = __shfl_sync(FULL_MASK, last_d, (kk - 1) & 31);
+              ti = __shfl_sync(FULL_MASK, last_i, (kk - 1) & 31);
+            }
+          }
+        }
+      }
+      __syncthreads();  // the buffer is restaged two chunks on
+    }
+    if (live) {
+#pragma unroll
+      for (int r = 0; r < Q; ++r)
+        if (32 * r + lane < kk) io[k0 + 32 * r + lane] = ix[r];
+    }
+    lo_d = td;  // the pass's last pick bounds the next pass
+    lo_i = ti;
   }
 }
 
-// One block per (tile of s_blk queries, cloud), `warps` warps; `row` picks
-// where a query's distance row lives (the wrapper sizes it).
-PPT_EXPORT int ppt_knn_single(const void* xyz, const void* q, int B, int N, int S, int s_blk,
-                              int k, int row, int warps, void* out, void* stream) {
+// grid (ceil(S / KNN_WARPS), B); `chunk` cloud points a stage (a multiple of 32)
+PPT_EXPORT int ppt_knn_single(const void* xyz, const void* q, int B, int N, int S, int k,
+                              int chunk, void* out, void* stream) {
+  if (k < 1 || k > N || chunk < 32 || chunk % 32) return (int)cudaErrorInvalidValue;
   const float* x = (const float*)xyz;
   const float* qq = (const float*)q;
   int* o = (int*)out;
   cudaStream_t st = (cudaStream_t)stream;
-  if (S % s_blk || k > N) return (int)cudaErrorInvalidValue;
-  dim3 grid(S / s_blk, B);
-  const int threads = 32 * warps;
-  if (row == ROW_REGS) {
-    if (N > 32 * KNN_REG_SLOTS) return (int)cudaErrorInvalidValue;
-    knn_single_kernel<ROW_REGS><<<grid, threads, 12 * N, st>>>(x, qq, N, S, s_blk, k, o);
-  } else if (row == ROW_SMEM) {
-    const int smem = 4 * N * (3 + warps);
-    cudaFuncSetAttribute(knn_single_kernel<ROW_SMEM>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    knn_single_kernel<ROW_SMEM><<<grid, threads, smem, st>>>(x, qq, N, S, s_blk, k, o);
+  const int c = N < chunk ? N : chunk;
+  const int smem = 2 * c * 3 * (int)sizeof(float);
+  dim3 grid((S + KNN_WARPS - 1) / KNN_WARPS, B);
+  if (k <= 32) {
+    cudaFuncSetAttribute(knn_single_kernel<1>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    knn_single_kernel<1><<<grid, KNN_THREADS, smem, st>>>(x, qq, N, S, k, c, o);
   } else {
-    knn_single_kernel<ROW_RECOMPUTE><<<grid, threads, 0, st>>>(x, qq, N, S, s_blk, k, o);
+    cudaFuncSetAttribute(knn_single_kernel<2>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    knn_single_kernel<2><<<grid, KNN_THREADS, smem, st>>>(x, qq, N, S, k, c, o);
   }
   PPT_CHECK_LAUNCH();
   return 0;

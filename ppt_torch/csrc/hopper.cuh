@@ -1,10 +1,11 @@
 // Hopper (sm_90a) building blocks for the warp-specialised kernels
 // (attention.cuh's whole-row kernel, attention.cu's flash forward and
-// backward, gemm.cuh's GEMM): shared-memory tiles in the layout that TMA
-// writes and wgmma reads, their wgmma matrix descriptors, the
-// wgmma.mma_async wrappers (bf16 in, f32 accumulators), mbarrier waits,
-// TMA tiled and bulk loads, setmaxnreg, and the host-side tensor maps of
-// a [B, L, H, D] operand and of a row-major matrix.
+// backward, gemm.cuh's GEMM, mini.cu's MiniPointNet forward):
+// shared-memory tiles in the layout that TMA writes and wgmma reads, their
+// wgmma matrix descriptors, the wgmma.mma_async wrappers (bf16 in, f32
+// accumulators), mbarrier waits, named barriers, TMA tiled and bulk loads,
+// setmaxnreg, and the host-side tensor maps of a [B, L, H, D] operand and
+// of a row-major matrix.
 //
 // Tiles. A tile is 64 rows of a bf16 operand whose D columns are
 // contiguous, kept as D / CW chunks of [64][CW] with CW = min(D, 64), so
@@ -163,6 +164,18 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t
   WgmmaSS<N, TB>::run(d, a, b, acc);
 }
 
+// d[64 x 8] (+)= A[64 x 16] B[16 x 8], both in shared memory: A MN-major (the
+// transpose bit: the tile's rows are the depth, its 64 columns the product's
+// M), B K-major
+__device__ __forceinline__ void wgmma_ss_n8_ta(float (&d)[4], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
 template <> __device__ __forceinline__ void wgmma_rs<16>(float (&d)[8],
                                                         const uint32_t (&a)[4], uint64_t b,
                                                         int acc) {
@@ -273,6 +286,17 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
     if (clock64() - t0 > (1LL << 34)) __trap();
 }
 
+// mbar_wait for a whole warp, its loop warp-uniform (votes): where
+// accumulators of wgmma in flight are live across the wait, a per-thread
+// spin is a divergent path, and ptxas then serialises every wgmma of the
+// kernel (C7520). Traps as mbar_wait does.
+__device__ __forceinline__ void mbar_wait_warp(uint64_t* bar, int parity) {
+  if (__all_sync(0xffffffffu, mbar_try_wait(bar, parity))) return;
+  const long long t0 = clock64();
+  while (!__all_sync(0xffffffffu, mbar_try_wait(bar, parity)))
+    if (__any_sync(0xffffffffu, clock64() - t0 > (1LL << 34))) __trap();
+}
+
 // 4-D tiled TMA load into shared memory, completing on `bar`
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1, int c2, int c3) {
@@ -341,6 +365,13 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
           "r"(smem_addr(dst)),
       "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
+}
+
+// A barrier among `count` threads (a multiple of 32) under `id` (1-15; 0 is
+// __syncthreads's), for the warpgroups of a warp-specialised kernel that
+// synchronise without the producer.
+__device__ __forceinline__ void named_bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // Register rebalancing between the producer and the consumer warpgroups;

@@ -10,21 +10,26 @@
 // train-mode statistics sweep (mini_stats, second half of this file)
 // shares the first two stages.
 //
-// Bound: operations. ~3.1e11 FLOP per batch at B=32, G=512, M=32
-// against ~10 MB of input and output. Design: in bf16 (the serving
-// dtype) the four products run on the tensor cores, 4 groups per block
-// (mini_forward_bf16_kernel below). In f32 (plain FMA on the CUDA cores,
-// since TF32 would round the operands): one block per group, the stage
-// activations (x1, x2, a 256-column chunk of h) in shared memory, each
-// thread owning one output column for all M rows (32 independent f32
-// accumulators, weights read once per k from L2, activations as
-// broadcast float4 loads). In both, h never leaves the SM: each chunk is
-// folded into the y accumulators right away.
+// Bound: operations. ~3.1e11 FLOP per batch at B=32, G=512, M=32 (0.317
+// ms at the H100's bf16 peak) against ~10 MB of input and output. In bf16
+// (the serving dtype) mini_forward_wgmma_kernel runs the four products on
+// Hopper's wgmma, its weights streamed by TMA (design below); a tile of
+// 128 rows reads all 0.85 MB of bf16 weights from L2, about 3.5 GB a batch
+// at B = 32 x 512 groups (90 FLOP a byte), which chip_smoke.py prices
+// with a build that loads them once (PPT_MINI_WEIGHTS_ONCE). In f32
+// (plain FMA on the CUDA cores, since TF32 would round the
+// operands): one block per group, the stage activations (x1, x2, a
+// 256-column chunk of h) in shared memory, each thread owning one output
+// column for all M rows (32 independent f32 accumulators, weights read once
+// per k from L2, activations as broadcast float4 loads). In both, h never
+// leaves the SM: each chunk is folded into the y accumulators right away.
 //
-// Rounding: as _forward_kernel (mini.py:97-107, :158-175), every dot
+// Rounding: as _forward_kernel (mini.py:97-107, :148-175), every dot
 // product accumulates in f32; in bf16 it is rounded to bf16, then the
 // bias (in bf16) is added and rounded again. The f32 kernel rounds nowhere.
-#include "common.cuh"
+#include <type_traits>
+
+#include "gemm.cuh"
 
 PPT_ERROR_STRING_FN
 
@@ -168,22 +173,557 @@ mini_forward_kernel(const float* __restrict__ x, int M, int C1, int C2, int H, i
 }
 
 // ---------------------------------------------------------------------------
-// bf16: the same chain on the tensor cores (mma.sync, f32 accumulators) for
-// PointBERT's widths. One block of 8 warps takes 4 groups x 32 rows (a
-// group of M < 32 points is padded and its padding rows are left out of
-// the maxes). x1, x2 and a 64-column chunk of h stay in shared memory as
-// bf16; the weights stream through a double-buffered shared tile (32 k-rows
-// at a time, cp.async); y's 128 x 256 accumulators stay in registers across
-// the h chunks, so h never exists whole and only out is written.
+// bf16 forward on Hopper: mini_forward_wgmma_kernel, for PointBERT's widths.
+//
+// What bounds it on the H100: the four products (19.1 MFLOP a group of 32
+// rows) at the tensor cores' rate, reached only through wgmma, and, since
+// a product of 64 rows reads both operands from shared memory, shared
+// memory's bandwidth; then the L2 reads of the weights every tile streams
+// (0.85 MB a tile of 128 rows). The mma.sync kernel it replaces ran one
+// 256-thread CTA an SM, a barrier around each of seven staged products a
+// tile, each cp.async stage's latency exposed, and g @ fwg as a 16-row tile
+// with 12 rows zero.
+//
+// Design, after gemm.cuh: persistent CTAs (one an SM) walk tiles of 4
+// groups x 32 rows with one producer warpgroup and two consumer
+// warpgroups of 64 rows (two groups) each.
+// - The producer's one thread streams every weight by TMA, as it lies
+//   ([K, N] row-major; no transposed copy), in [64][64] boxes with the
+//   128-byte swizzle, two boxes a 16 KB stage, through a ring of NS stages
+//   with a full and an empty mbarrier each. A tile takes 52 stages: w2 by
+//   64 k-rows and 128 columns (4), fwg likewise (16), then per 64-column
+//   chunk of h fwl's chunk by 128 k-rows (2) and the chunk's 64 rows of w3
+//   by 128 columns (2). The ring runs on across tiles; a consumer releases
+//   a stage as soon as the products that read it are done.
+// - Stage 1 (K = 3) runs on the CUDA cores into the consumer's x1 tile.
+//   x2 = x1 @ w2 is m64n128k16 wgmma from shared memory (w2 read as an
+//   MN-major B operand, the transpose bit). The epilogues write x1 and x2,
+//   rounded as the TPU kernel rounds, into K-major tiles with the 128-byte
+//   swizzle that the A descriptors read. They round and add on bf16 pairs
+//   and reduce the group maxes with pair shuffles.
+// - g @ fwg runs transposed, gh^T = fwg^T g^T, as m64n8k16 wgmma with fwg's
+//   stage as an MN-major A operand and the tile's 4 group maxes (padded to
+//   8) as a K-major B operand: no zero rows fed through the tensor cores'
+//   M, half of n8's columns. Each consumer takes 256 of gh's 512 columns;
+//   two named barriers between the consumers hand the group maxes and gh
+//   across.
+// - Per chunk of h: x2 @ fwl (m64n64k16, K = 256) into 32 registers; its
+//   epilogue writes h straight into the A fragments of y += h @ w3
+//   (m64n128k16 twice, A from registers), so h never touches shared
+//   memory; y's 128 accumulators stay in registers across the 8 chunks
+//   (setmaxnreg gives each consumer 232 registers a thread). The next
+//   chunk's x2 @ fwl is issued before this chunk's h @ w3 and waited for
+//   alone, so its epilogue runs on the CUDA cores while h @ w3 runs on the
+//   tensor cores.
+// - ptxas serialises every wgmma of a kernel if one product sits under a
+//   branch it cannot prove uniform, if an accumulator stays live (and
+//   spills) across tiles, or if a thread-divergent mbarrier spin lies
+//   between a product and its wait: no product is issued under a branch,
+//   each accumulator is zeroed before its first product of a tile, and
+//   the consumers wait on full stages warp by warp (mbar_wait_warp).
+// - Only out [n_groups, 256] is written. Padding rows (M < 32, a group
+//   past n_groups) stay out of both maxes. No split-K, no atomics: repeats
+//   are bit-identical.
+// ---------------------------------------------------------------------------
+namespace wg {
+constexpr int C1 = 128, C2 = 256, H = 512, CO = 256;  // PointBERT's widths
+constexpr int ROWS = 128, GPT = ROWS / MAXM;           // a tile's rows and groups
+constexpr int HC = 64, NCH = H / HC;                   // h chunks
+constexpr int BOX = 64 * 64;    // elements of a TMA box, [64 rows][64 columns]
+constexpr int STAGE = 2 * BOX;  // elements of a ring stage, 16 KB
+constexpr int NS = 7;           // ring stages
+// shared memory, bytes from a 1024-byte aligned base
+constexpr int XH_BYTES = 64 * C1 * 2;  // a consumer's x1 tile, then its partial maxes
+constexpr int X2_BYTES = 64 * C2 * 2;  // a consumer's x2 tile
+constexpr int XH_OFF = NS * STAGE * 2;
+constexpr int X2_OFF = XH_OFF + 2 * XH_BYTES;
+constexpr int G_OFF = X2_OFF + 2 * X2_BYTES;  // group maxes [8][256] bf16, rows 4-7 zero
+constexpr int GH_OFF = G_OFF + 8 * C2 * 2;    // gh [4][512] bf16
+constexpr int PAR_OFF = GH_OFF + GPT * H * 2;  // fw1 [3][128] f32, then fb1, b2, fbs, b3 bf16
+constexpr int BAR_OFF = PAR_OFF + 3 * C1 * 4 + (C1 + C2 + H + CO) * 2;
+constexpr int SMEM = 1024 + BAR_OFF + 2 * NS * 8;
+static_assert(SMEM <= 232448, "one CTA an SM");
+// registers a thread: the launch's 168, then 40 for the producer and 232
+// for each consumer (y's 128 accumulators, a chunk of h's 32, the rest)
+constexpr int LAUNCH_REGS = 168, PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+static_assert(PRODUCER_REGS + 2 * CONSUMER_REGS <= 3 * LAUNCH_REGS, "register pool exceeded");
+
+// The epilogues round, add biases and take maxes on bf16 pairs: for bf16
+// operands, an add rounded once to bf16 equals the f32 add rounded to bf16
+// (the TPU kernel's order), so T(T(acc) + b) is one conversion of the f32
+// pair and one bf16x2 add.
+typedef __nv_bfloat162 bf162;
+__device__ __forceinline__ bf162 rnd2(float lo, float hi) {
+  return __float22bfloat162_rn(make_float2(lo, hi));
+}
+__device__ __forceinline__ bf162 ld2(const bf16* p) { return *reinterpret_cast<const bf162*>(p); }
+__device__ __forceinline__ uint32_t bits(bf162 v) { return *reinterpret_cast<uint32_t*>(&v); }
+__device__ __forceinline__ bf162 from_bits(uint32_t u) { return *reinterpret_cast<bf162*>(&u); }
+// the max over the warp's 16 accumulator rows of a column pair (lanes of one
+// column pair differ in bits 2-4)
+__device__ __forceinline__ bf162 rows_max(bf162 m) {
+#pragma unroll
+  for (int off = 4; off < 32; off <<= 1)
+    m = __hmax2(m, from_bits(__shfl_xor_sync(0xffffffffu, bits(m), off)));
+  return m;
+}
+constexpr uint32_t NEG_INF2 = 0xff80ff80u;  // two bf16 -inf
+
+// byte offset of element (r, c) of a K-major tile of 64-column chunks
+// `chunk` bytes apart, 128-byte swizzle: the layout TMA writes and the
+// descriptors read
+__device__ __forceinline__ int swz(int r, int c, int chunk) {
+  return (c >> 6) * chunk + r * 128 + ((((c & 63) >> 3) ^ (r & 7)) << 4) + (c & 7) * 2;
+}
+
+// k16 step ks of a K-major tile of [64][64] chunks (8 KB apart) at shared
+// address a: desc_k<64>'s descriptor, from an address the caller keeps
+// opaque, so that the compiler builds each descriptor where it is used
+// instead of holding a tile's sixteen in registers across the chunk loop
+__device__ __forceinline__ uint64_t desc_ka(uint32_t a, int ks) {
+  a += (ks >> 2) * 8192 + (ks & 3) * 32;
+  return (uint64_t)((a & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+__device__ __forceinline__ uint32_t opaque_addr(const void* p) {
+  uint32_t a = smem_addr(p);
+  asm volatile("" : "+r"(a));
+  return a;
+}
+
+// the group maxes' k16 step ks as a K-major B operand [8 groups][256]
+// (64-column chunks of 8 rows, 1 KB apart)
+__device__ __forceinline__ uint64_t desc_g(const bf16* t, int ks) {
+  return smem_desc<128>(reinterpret_cast<const char*>(t) + (ks >> 2) * 1024 + (ks & 3) * 32, 16,
+                        1024);
+}
+
+// Each accumulator is defined (zeroed) before its first product of a tile:
+// that product overwrites it, but its asm operand reads it, and an
+// accumulator left undefined would stay live across the whole tile loop
+// (every other accumulator's range), spill, and make ptxas serialise the
+// kernel's wgmma.
+template <int N> __device__ __forceinline__ void zero_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i] = 0.f;
+}
+
+// h = relu(T(T(T(x2 @ fwl) + gh) + fbs)) of one chunk, from its product ha,
+// as the A fragments of h @ w3 (k16 step ks: the accumulator's 8-column
+// groups 2 ks and 2 ks + 1, rows rr0 and rr0 + 8); ghr and bsr are the
+// chunk's gh (of the rows' group) and fbs
+__device__ __forceinline__ void h_frags(const float (&ha)[32], uint32_t (&hf)[4][4],
+                                        const bf16* ghr, const bf16* bsr, int lane) {
+  const int cq = (lane & 3) * 2;
+  const bf162 zero = __float2bfloat162_rn(0.f);
+#pragma unroll
+  for (int j = 0; j < HC / 8; ++j) {
+    const bf162 g = ld2(ghr + 8 * j + cq), b = ld2(bsr + 8 * j + cq);
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2)
+      hf[j >> 1][2 * (j & 1) + h2] = bits(__hmax2(
+          __hadd2(__hadd2(rnd2(ha[4 * j + 2 * h2], ha[4 * j + 2 * h2 + 1]), g), b), zero));
+  }
+}
+
+// y += h @ w3[chunk rows, :], h from registers, w3 from the chunk's two
+// stages (128 columns each), one commit group a stage
+__device__ __forceinline__ void issue_y(float (&y)[2][64], uint32_t (&hf)[4][4], const bf16* s0,
+                                        const bf16* s1) {
+  fence_frags(hf);
+  wgmma_fence();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int ks = 0; ks < HC / 16; ++ks) wgmma_rs<128>(y[h], hf[ks], desc_w(h ? s1 : s0, ks), 1);
+    wgmma_commit();
+  }
+}
+
+// ha = x2 @ fwl[:, chunk] (K = 256) from the chunk's two fwl stages (128
+// k-rows each), one commit group a stage
+__device__ __forceinline__ void issue_h(float (&ha)[32], uint32_t x2a, const bf16* s0,
+                                        const bf16* s1) {
+  wgmma_fence();
+#pragma unroll
+  for (int kh = 0; kh < 2; ++kh) {
+    const bf16* stg = kh ? s1 : s0;
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks)
+      wgmma_ss<64, 1>(ha, desc_ka(x2a, 8 * kh + ks), desc_w(stg + (ks >> 2) * BOX, ks & 3),
+                      kh > 0 || ks > 0);
+    wgmma_commit();
+  }
+}
+
+__global__ void __launch_bounds__(384, 1)
+mini_forward_wgmma_kernel(const __grid_constant__ CUtensorMap tw2,
+                          const __grid_constant__ CUtensorMap twg,
+                          const __grid_constant__ CUtensorMap twl,
+                          const __grid_constant__ CUtensorMap tw3, const float* __restrict__ x,
+                          int n_groups, int M, const bf16* __restrict__ fw1,
+                          const bf16* __restrict__ fb1, const bf16* __restrict__ b2,
+                          const bf16* __restrict__ fbs, const bf16* __restrict__ b3,
+                          bf16* __restrict__ out) {
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  unsigned char* base = align1024(wg_smem);
+  bf16* ring = reinterpret_cast<bf16*>(base);
+  bf16* gt = reinterpret_cast<bf16*>(base + G_OFF);
+  bf16* gh = reinterpret_cast<bf16*>(base + GH_OFF);
+  float* pw1 = reinterpret_cast<float*>(base + PAR_OFF);
+  bf16* pb1 = reinterpret_cast<bf16*>(pw1 + 3 * C1);
+  bf16* pb2 = pb1 + C1;
+  bf16* pbs = pb2 + C2;
+  bf16* pb3 = pbs + H;
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + BAR_OFF);
+  uint64_t* empty = full + NS;
+  const int n_tiles = (n_groups + GPT - 1) / GPT;
+
+  for (int e = threadIdx.x; e < 3 * C1; e += blockDim.x) pw1[e] = __bfloat162float(fw1[e]);
+  for (int e = threadIdx.x; e < C1; e += blockDim.x) pb1[e] = fb1[e];
+  for (int e = threadIdx.x; e < C2; e += blockDim.x) pb2[e] = b2[e];
+  for (int e = threadIdx.x; e < H; e += blockDim.x) pbs[e] = fbs[e];
+  for (int e = threadIdx.x; e < CO; e += blockDim.x) pb3[e] = b3[e];
+  for (int e = threadIdx.x; e < 8 * C2; e += blockDim.x) gt[e] = __float2bfloat16_rn(0.f);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // producer warpgroup: thread 0 streams the weights
+    reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      int it = 0;  // stages loaded
+      // a stage: two boxes, at (col0, row0) and (col0 + dcol, row0 + drow)
+      auto load = [&](const CUtensorMap* map, int col0, int dcol, int row0, int drow) {
+        const int s = it % NS;
+        mbar_wait(&empty[s], ((it / NS) & 1) ^ 1);
+#ifdef PPT_MINI_WEIGHTS_ONCE
+        // a measurement build (chip_smoke.py): after the ring's first fill
+        // the stages are handed on as they are, wrong, without loads, so the
+        // kernel runs without the weights' L2 traffic
+        if (it >= NS) {
+          mbar_arrive(&full[s]);
+          ++it;
+          return;
+        }
+#endif
+        mbar_arrive_tx(&full[s], STAGE * 2);
+        tma_load_2d(ring + s * STAGE, map, &full[s], col0, row0);
+        tma_load_2d(ring + s * STAGE + BOX, map, &full[s], col0 + dcol, row0 + drow);
+        ++it;
+      };
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        for (int kq = 0; kq < C1 / 64; ++kq)  // w2: 64 k-rows x 128 columns
+          for (int hf = 0; hf < 2; ++hf) load(&tw2, 128 * hf, 64, 64 * kq, 0);
+        for (int kq = 0; kq < C2 / 64; ++kq)  // fwg: 64 k-rows x 128 columns, by consumer
+          for (int q = 0; q < 4; ++q) load(&twg, 128 * q, 64, 64 * kq, 0);
+        for (int kh = 0; kh < 2; ++kh) load(&twl, 0, 0, 128 * kh, 64);
+        for (int hb = 0; hb < NCH; ++hb) {  // fwl: a chunk's 128 k-rows; w3: 64 x 128
+          if (hb + 1 < NCH)
+            for (int kh = 0; kh < 2; ++kh) load(&twl, HC * (hb + 1), 0, 128 * kh, 64);
+          for (int hf = 0; hf < 2; ++hf) load(&tw3, 128 * hf, 64, HC * hb, 0);
+        }
+      }
+    }
+    return;
+  }
+
+  reg_alloc<CONSUMER_REGS>();
+  const int c = threadIdx.x / 128 - 1, tid = threadIdx.x % 128, lane = tid & 31, w = tid >> 5;
+  unsigned char* xh = base + XH_OFF + c * XH_BYTES;
+  unsigned char* x2t = base + X2_OFF + c * X2_BYTES;
+  // this thread's accumulator rows rr0 and rr0 + 8 of the consumer's 64 (both
+  // in the consumer's group gi) and its column pair cq of each 8-column group
+  const int rr0 = 16 * w + (lane >> 2), gi = w >> 1, cq = (lane & 3) * 2;
+  int it = 0;  // stages consumed
+  auto wait_stage = [&](int i) -> const bf16* {
+    mbar_wait_warp(&full[i % NS], (i / NS) & 1);
+    return ring + (i % NS) * STAGE;
+  };
+  auto wait_full = [&]() { return wait_stage(it); };
+  auto release = [&](int i) {
+    if (lane == 0) mbar_arrive(&empty[i % NS]);
+  };
+  // a column pair's max over the warp's 16 rows, to scr[gi][w & 1][col / 2]
+  // (bf16 pairs): the two warps of a group hold its two halves
+  auto part_max = [&](bf162 m, uint32_t* scr, int col) {
+    if (lane < 4) scr[(gi * 2 + (w & 1)) * 128 + col / 2] = bits(m);
+  };
+
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int g0 = tile * GPT, grp = g0 + 2 * c + gi;
+    const bool ok0 = grp < n_groups && (rr0 & 31) < M;
+    const bool ok1 = grp < n_groups && ((rr0 + 8) & 31) < M;
+
+    // x1 = relu(T(T(x @ fw1) + fb1)) on the CUDA cores: a row and 64 columns a thread
+    {
+      const int r = tid >> 1, half = tid & 1, g = g0 + 2 * c + (r >> 5), pt = r & 31;
+      float xa = 0.f, xb = 0.f, xc = 0.f;
+      if (g < n_groups && pt < M) {
+        const float* xp = x + ((size_t)g * M + pt) * 3;
+        xa = rnd<bf16>(xp[0]);
+        xb = rnd<bf16>(xp[1]);
+        xc = rnd<bf16>(xp[2]);
+      }
+      unsigned char* row = xh + half * (64 * 128) + r * 128;
+      const bf162 zero = __float2bfloat162_rn(0.f);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        uint32_t v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float o[2];
+          const int col = half * 64 + u * 8 + 2 * e;
+#pragma unroll
+          for (int f = 0; f < 2; ++f) {
+            float s = __fmul_rn(xa, pw1[col + f]);
+            s = fmaf(xb, pw1[C1 + col + f], s);
+            o[f] = fmaf(xc, pw1[2 * C1 + col + f], s);
+          }
+          v[e] = bits(__hmax2(__hadd2(rnd2(o[0], o[1]), ld2(pb1 + col)), zero));
+        }
+        *reinterpret_cast<uint4*>(row + ((u ^ (r & 7)) << 4)) = make_uint4(v[0], v[1], v[2], v[3]);
+      }
+    }
+    fence_proxy_async();
+    named_bar_sync(1 + c, 128);
+
+    // x2 = T(T(x1 @ w2) + b2) -> x2t; the group maxes g -> rows 2c, 2c + 1 of gt
+    {
+      float acc[2][64];
+      zero_acc(acc[0]);
+      zero_acc(acc[1]);
+      const uint32_t x1a = opaque_addr(xh);
+#pragma unroll
+      for (int kq = 0; kq < C1 / 64; ++kq)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const bf16* stg = wait_full();
+          wgmma_fence();
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks)
+            wgmma_ss<128, 1>(acc[hf], desc_ka(x1a, 4 * kq + ks), desc_w(stg, ks), kq > 0 || ks > 0);
+          wgmma_commit();
+          ++it;
+        }
+      wgmma_wait<0>();
+      fence_acc(acc[0]);
+      fence_acc(acc[1]);
+#pragma unroll
+      for (int i = 4; i > 0; --i) release(it - i);
+      uint32_t* scr = reinterpret_cast<uint32_t*>(xh);  // x1 is spent: partial maxes
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int col = hf * 128 + 8 * j + cq;
+          const bf162 b = ld2(pb2 + col);
+          bf162 m = from_bits(NEG_INF2);
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) {
+            const bf162 v = __hadd2(rnd2(acc[hf][4 * j + 2 * h2], acc[hf][4 * j + 2 * h2 + 1]), b);
+            *reinterpret_cast<bf162*>(x2t + swz(rr0 + 8 * h2, col, 64 * 128)) = v;
+            if (h2 ? ok1 : ok0) m = __hmax2(m, v);
+          }
+          part_max(rows_max(m), scr, col);
+        }
+      named_bar_sync(1 + c, 128);
+      const int gg = tid >> 6, col = (tid & 63) * 4;
+      const uint32_t* p = scr + gg * 256 + col / 2;
+      uint2 v = {0u, 0u};  // an absent group's row stays finite
+      if (g0 + 2 * c + gg < n_groups)
+        v = {bits(__hmax2(from_bits(p[0]), from_bits(p[128]))),
+             bits(__hmax2(from_bits(p[1]), from_bits(p[129])))};
+      *reinterpret_cast<uint2*>(reinterpret_cast<unsigned char*>(gt) + swz(2 * c + gg, col, 1024)) = v;
+    }
+    fence_proxy_async();
+    named_bar_sync(3, 256);  // both consumers' group maxes are in gt
+
+    // gh^T = T(fwg^T g^T): this consumer's 256 columns of gh, 8 groups (4 real).
+    // Each 64 k-rows of fwg come as four stages of 128 columns; consumer c
+    // takes stages 2c and 2c + 1 and releases the other two once they are
+    // in (no product sits under a branch on c: ptxas would serialise every
+    // wgmma of the kernel)
+    {
+      float ga[4][4];
+#pragma unroll
+      for (int mb = 0; mb < 4; ++mb) zero_acc(ga[mb]);
+#pragma unroll 1
+      for (int kq = 0; kq < C2 / 64; ++kq) {
+        const int own = it + 2 * c, other = it + 2 - 2 * c;
+        const bf16* sa = wait_stage(own);
+        const bf16* sb = wait_stage(own + 1);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+          for (int m = 0; m < 2; ++m) {
+            wgmma_ss_n8_ta(ga[m], desc_w(sa + m * BOX, ks), desc_g(gt, 4 * kq + ks),
+                           kq > 0 || ks > 0);
+            wgmma_ss_n8_ta(ga[2 + m], desc_w(sb + m * BOX, ks), desc_g(gt, 4 * kq + ks),
+                           kq > 0 || ks > 0);
+          }
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous 64 k-rows' products are done
+        if (kq > 0) {  // before the wait below, which may need these slots refilled
+          release(own - 4);
+          release(own - 3);
+        }
+        wait_stage(other);
+        wait_stage(other + 1);
+        release(other);
+        release(other + 1);
+        it += 4;
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int mb = 0; mb < 4; ++mb) fence_acc(ga[mb]);
+      release(it - 4 + 2 * c);
+      release(it - 3 + 2 * c);
+#pragma unroll
+      for (int mb = 0; mb < 4; ++mb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int group = cq + (e & 1);
+          if (group < GPT)
+            gh[group * H + 256 * c + 64 * mb + rr0 + 8 * (e >> 1)] = __float2bfloat16_rn(ga[mb][e]);
+        }
+    }
+    named_bar_sync(3, 256);  // gh is whole
+
+    // h chunk by chunk, y = h @ w3 in registers, h never in shared memory:
+    // each chunk's epilogue writes the A fragments of its h @ w3. The next
+    // chunk's x2 @ fwl is issued before this chunk's h @ w3 and waited for
+    // alone, so that its epilogue overlaps h @ w3; the fragments alternate
+    // between two buffers (the loop takes chunks in pairs), as h @ w3 may
+    // still read the last chunk's; the last chunk issues no x2 @ fwl (no
+    // product is issued under a branch)
+    float y[2][64];
+    zero_acc(y[0]);
+    zero_acc(y[1]);
+    {
+      float ha[32];
+      uint32_t hf0[4][4], hf1[4][4];
+      zero_acc(ha);
+      const bf16* s0 = wait_full();
+      const bf16* s1 = wait_stage(it + 1);
+      issue_h(ha, opaque_addr(x2t), s0, s1);
+      wgmma_wait<0>();
+      fence_acc(ha);
+      release(it);
+      release(it + 1);
+      it += 2;
+      const bf16* ghr = gh + (2 * c + gi) * H;
+      // chunk hb: its epilogue into hf, the next chunk's x2 @ fwl (NEXT), h @ w3
+      auto chunk = [&](auto next, uint32_t (&hf)[4][4], int hb) {
+        constexpr bool NEXT = decltype(next)::value;
+        h_frags(ha, hf, ghr + HC * hb, pbs + HC * hb, lane);
+        if constexpr (NEXT) {
+          const bf16* n0 = wait_full();
+          const bf16* n1 = wait_stage(it + 1);
+          issue_h(ha, opaque_addr(x2t), n0, n1);
+          it += 2;
+        }
+        const bf16* w0 = wait_full();
+        const bf16* w1 = wait_stage(it + 1);
+        issue_y(y, hf, w0, w1);
+        if constexpr (NEXT) {
+          wgmma_wait<2>();  // all but this chunk's h @ w3
+          fence_acc(ha);
+          release(it - 2);
+          release(it - 1);
+        } else {
+          wgmma_wait<0>();
+        }
+        if (hb > 0) {  // the previous chunk's h @ w3 is done
+          const int prev = it - (NEXT ? 4 : 2);
+          release(prev);
+          release(prev + 1);
+        }
+        it += 2;
+      };
+      using yes = std::true_type;
+#pragma unroll 1
+      for (int hb = 0; hb < NCH - 2; hb += 2) {
+        chunk(yes(), hf0, hb);
+        chunk(yes(), hf1, hb + 1);
+      }
+      chunk(yes(), hf0, NCH - 2);
+      chunk(std::false_type(), hf1, NCH - 1);
+      fence_acc(y[0]);
+      fence_acc(y[1]);
+      release(it - 2);
+      release(it - 1);
+    }
+
+    // out = max over the group's valid rows of T(T(y) + b3)
+    {
+      uint32_t* scr = reinterpret_cast<uint32_t*>(x2t);  // x2 is spent
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int col = hf * 128 + 8 * j + cq;
+          const bf162 b = ld2(pb3 + col);
+          bf162 m = from_bits(NEG_INF2);
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2)
+            if (h2 ? ok1 : ok0)
+              m = __hmax2(m, __hadd2(rnd2(y[hf][4 * j + 2 * h2], y[hf][4 * j + 2 * h2 + 1]), b));
+          part_max(rows_max(m), scr, col);
+        }
+      named_bar_sync(1 + c, 128);
+      const int gg = tid >> 6, col = (tid & 63) * 4, g = g0 + 2 * c + gg;
+      if (g < n_groups) {
+        const uint32_t* p = scr + gg * 256 + col / 2;
+        const uint2 v = {bits(__hmax2(from_bits(p[0]), from_bits(p[128]))),
+                         bits(__hmax2(from_bits(p[1]), from_bits(p[129])))};
+        *reinterpret_cast<uint2*>(out + (size_t)g * CO + col) = v;
+      }
+    }
+  }
+}
+
+// w2, fwg, fwl, w3 by TMA (16-byte aligned bases; the wrapper checks them)
+static int launch(const void* x, int n_groups, int M, const void* fw1, const void* fb1,
+                  const void* w2, const void* b2, const void* fwg, const void* fwl, const void* fbs,
+                  const void* w3, const void* b3, void* out, cudaStream_t st) {
+  if (n_groups < 1) return 0;
+  static const int pool = check_reg_pool(mini_forward_wgmma_kernel, LAUNCH_REGS);
+  if (pool) return pool;
+  CUtensorMap maps[4];
+  int rc = mat_map(&maps[0], (const bf16*)w2, C1, C2, 64);
+  if (!rc) rc = mat_map(&maps[1], (const bf16*)fwg, C2, H, 64);
+  if (!rc) rc = mat_map(&maps[2], (const bf16*)fwl, C2, H, 64);
+  if (!rc) rc = mat_map(&maps[3], (const bf16*)w3, H, CO, 64);
+  if (rc) return rc;
+  const int tiles = (n_groups + GPT - 1) / GPT, sms = sm_count();
+  cudaFuncSetAttribute(mini_forward_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       SMEM);
+  mini_forward_wgmma_kernel<<<tiles < sms ? tiles : sms, 384, SMEM, st>>>(
+      maps[0], maps[1], maps[2], maps[3], (const float*)x, n_groups, M, (const bf16*)fw1,
+      (const bf16*)fb1, (const bf16*)b2, (const bf16*)fbs, (const bf16*)b3, (bf16*)out);
+  PPT_CHECK_LAUNCH();
+  return 0;
+}
+}  // namespace wg
+
+// ---------------------------------------------------------------------------
+// bf16 building blocks of mini_stats's sweep (below): stages 1 and 2 of a
+// tile of 4 groups x 32 rows on mma.sync (f32 accumulators) through
+// ldmatrix, the weights streamed through a double-buffered shared tile (32
+// k-rows at a time, cp.async). A group of M < 32 points is padded.
 // ---------------------------------------------------------------------------
 namespace tc {
-constexpr int GPB = 4, R = GPB * MAXM;                   // groups, rows per block
-constexpr int C1 = 128, C2 = 256, H = 512, CO = 256, HC = 64;  // widths, h chunk
-constexpr int X1_LD = C1 + 8, X2_LD = C2 + 8, HC_LD = HC + 8, WS_LD = 256 + 8;
+constexpr int GPB = 4, R = GPB * MAXM;  // groups, rows per block
+constexpr int C1 = 128, C2 = 256;       // widths
+constexpr int X1_LD = C1 + 8, X2_LD = C2 + 8, WS_LD = 256 + 8;
 constexpr int KT = 32;  // k-rows per staged weight tile
-constexpr size_t SMEM = sizeof(bf16) * ((size_t)R * X2_LD + (size_t)R * X1_LD +
-                                        2 * KT * WS_LD + 16 * X2_LD) +
-                        sizeof(float) * (GPB * H + R * 3);
 
 // acc[mt][nt] += A[a_row0 + 16 mt .., 0:K) @ W[0:K, n_base + w_col0 + 8 nt ..]
 // A is bf16 in shared memory (row stride lda); W is bf16 in global memory
@@ -299,96 +839,6 @@ __device__ __forceinline__ void tile_x2(const float* __restrict__ x, int n_group
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(THREADS, 1)
-mini_forward_bf16_kernel(const float* __restrict__ x, int n_groups, int M,
-                         const bf16* __restrict__ fw1, const bf16* __restrict__ fb1,
-                         const bf16* __restrict__ w2, const bf16* __restrict__ b2,
-                         const bf16* __restrict__ fwg, const bf16* __restrict__ fwl,
-                         const bf16* __restrict__ fbs, const bf16* __restrict__ w3,
-                         const bf16* __restrict__ b3, bf16* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smraw[];
-  bf16* x2s = reinterpret_cast<bf16*>(smraw);  // [R][X2_LD]
-  bf16* x1s = x2s + R * X2_LD;                 // [R][X1_LD]; later the h chunk [R][HC_LD]
-  bf16* hcs = x1s;
-  bf16* ws = x1s + R * X1_LD;                  // [2][KT][WS_LD]
-  bf16* gA = ws + 2 * KT * WS_LD;              // [16][X2_LD]: rows 0..3 the group maxes
-  float* gh = reinterpret_cast<float*>(gA + 16 * X2_LD);  // [GPB][H]
-  float* xin = gh + GPB * H;                               // [R][3]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp & 3, wn = warp >> 2;  // warp wm's 32 rows are group wm
-  const int g0 = blockIdx.x * GPB;
-
-  for (int e = tid; e < 16 * X2_LD; e += THREADS) gA[e] = __float2bfloat16_rn(0.f);
-  tile_x2<false>(x, n_groups, M, g0, fw1, fb1, w2, b2, xin, x1s, x2s, ws);
-
-  // g = max over each group's valid rows -> rows 0..3 of gA
-  for (int e = tid; e < GPB * C2; e += THREADS) {
-    const int grp = e / C2, c = e % C2;
-    float m = -INFINITY;
-    for (int r = 0; r < M; ++r) m = fmaxf(m, __bfloat162float(x2s[(grp * MAXM + r) * X2_LD + c]));
-    gA[grp * X2_LD + c] = __float2bfloat16_rn(m);
-  }
-
-  // gh = T(g @ fwg): a 16-row tile whose rows 4..15 are zero
-  for (int nb = 0; nb < H; nb += 256) {
-    float acc[1][4][4];
-    zero(acc);
-    block_mma(acc, gA, X2_LD, 0, fwg, H, nb, 256, C2, warp * 32, ws);
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int grp = (lane >> 2) + (e >> 1) * 8;
-        if (grp < GPB)
-          gh[grp * H + nb + warp * 32 + nt * 8 + (lane & 3) * 2 + (e & 1)] =
-              rnd<bf16>(acc[0][nt][e]);
-      }
-  }
-
-  // h chunk by chunk; y = h @ w3 accumulates in registers
-  float y[2][16][4];
-  zero(y);
-  for (int hb = 0; hb < H; hb += HC) {
-    float acc[2][4][4];
-    zero(acc);
-    block_mma(acc, x2s, X2_LD, wm * 32, fwl, H, hb, HC, C2, wn * 32, ws);
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row = wm * 32 + mt * 16 + (lane >> 2) + (e >> 1) * 8;
-          const int cl = wn * 32 + nt * 8 + (lane & 3) * 2 + (e & 1), c = hb + cl;
-          const float v = rnd<bf16>(rnd<bf16>(rnd<bf16>(acc[mt][nt][e]) + gh[wm * H + c]) +
-                                    bf(fbs, c));
-          hcs[row * HC_LD + cl] = __float2bfloat16_rn(fmaxf(v, 0.f));
-        }
-    block_mma(y, hcs, HC_LD, wm * 32, w3 + (size_t)hb * CO, CO, 0, CO, HC, wn * 128, ws);
-  }
-
-  // out = max over the group's valid rows of T(T(y) + b3)
-  const int grp = g0 + wm;
-#pragma unroll
-  for (int nt = 0; nt < 16; ++nt)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int c = wn * 128 + nt * 8 + (lane & 3) * 2 + j;
-      const float bias = bf(b3, c);
-      float m = -INFINITY;
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int hi = 0; hi < 2; ++hi) {
-          const int r = mt * 16 + (lane >> 2) + hi * 8;
-          if (r < M) m = fmaxf(m, rnd<bf16>(rnd<bf16>(y[mt][nt][hi * 2 + j]) + bias));
-        }
-#pragma unroll
-      for (int off = 4; off < 32; off <<= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-      if (lane < 4 && grp < n_groups) out[(size_t)grp * CO + c] = __float2bfloat16_rn(m);
-    }
-}
 // ---------------------------------------------------------------------------
 // mini_stats, bf16: the train-mode BN2 statistics sweep. Replaces
 // ppt_tpu/kernels/mini.py:mini_stats (_stats_kernel): per tile of groups
@@ -516,17 +966,10 @@ PPT_EXPORT int ppt_mini_forward(int dtype, const void* x, int n_groups, int M, i
                                 const void* fwl, const void* fbs, const void* w3,
                                 const void* b3, void* out, void* stream) {
   if (dtype == PPT_BF16) {
-    if (C1 != tc::C1 || C2 != tc::C2 || H != tc::H || CO != tc::CO)
+    if (C1 != wg::C1 || C2 != wg::C2 || H != wg::H || CO != wg::CO || M > MAXM)
       return (int)cudaErrorInvalidValue;
-    cudaFuncSetAttribute(tc::mini_forward_bf16_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)tc::SMEM);
-    tc::mini_forward_bf16_kernel<<<(n_groups + tc::GPB - 1) / tc::GPB, THREADS, tc::SMEM,
-                                   (cudaStream_t)stream>>>(
-        (const float*)x, n_groups, M, (const bf16*)fw1, (const bf16*)fb1, (const bf16*)w2,
-        (const bf16*)b2, (const bf16*)fwg, (const bf16*)fwl, (const bf16*)fbs,
-        (const bf16*)w3, (const bf16*)b3, (bf16*)out);
-    PPT_CHECK_LAUNCH();
-    return 0;
+    return wg::launch(x, n_groups, M, fw1, fb1, w2, b2, fwg, fwl, fbs, w3, b3, out,
+                      (cudaStream_t)stream);
   }
   return launch_f32(x, n_groups, M, C1, C2, H, CO, fw1, fb1, w2, b2, fwg, fwl, fbs, w3, b3,
                     out, stream);

@@ -1,16 +1,19 @@
-"""k-nearest-neighbour indices, one tile of queries per kernel instance.
+"""k-nearest-neighbour indices of single clouds, one warp a query.
 
 Replaces ``ppt_tpu/kernels/knn.py:knn_pallas``; the CUDA side is
 ``csrc/cloud.cu:knn_single_kernel``, whose header says what bounds it on
-the H100 and how its design answers that. A kernel of its own beside
-``group.py:knn_gather``'s (which also gathers the neighbourhood): one
-block per tile of up to 128 queries, as the TPU grid has, not one warp
-row per query.
+the H100 and how its design answers that: the cloud streams through
+shared memory in chunks of :data:`CHUNK` points, read by all of a CTA's
+query warps, and each warp keeps its query's running top-k in registers,
+filtering each 32 distances by a ballot against the k-th pair. A kernel
+of its own beside ``group.py:knn_gather`` (which also gathers the
+neighbourhood).
 
 Contract (exact, ties included): cloud ``[B, N, 3]``, queries ``[B, S,
 3]`` -> ``[B, S, k]`` int32, the k smallest ``((qx-x)^2 + (qy-y)^2) +
 (qz-z)^2``, nearest first, ties to the lowest index. S must tile by
-``min(128, S)``, as ``knn_pallas`` asserts; every N runs.
+``min(128, S)``, as ``knn_pallas`` asserts; every N and every k in [1, N]
+runs (past 64, in passes of 64 over the cloud).
 
 No module calls ``knn_single``, here or in the reference: the reference's
 ``knn_pallas`` is reached only by its tests.
@@ -25,13 +28,11 @@ import torch
 from ppt_torch.kernels import _build
 from ppt_torch.kernels.group import knn_gather_plain
 
-_SMEM_LIMIT = 227 * 1024
-_REG_POINTS = 1024  # 32 lanes x 32 registers (csrc/cloud.cu:KNN_REG_SLOTS)
-_ROW_REGS, _ROW_SMEM, _ROW_RECOMPUTE = 0, 1, 2
+CHUNK = 1024  # cloud points a CTA stages at a time (double-buffered: 24 KB)
 
 
-def _check(k: int, xyz: torch.Tensor, new_xyz: torch.Tensor) -> int:
-    """The query tile, after the checks ``knn_pallas`` makes."""
+def _check(k: int, xyz: torch.Tensor, new_xyz: torch.Tensor) -> None:
+    """The checks ``knn_pallas`` makes."""
     B, N, C = xyz.shape
     if C != 3 or new_xyz.dim() != 3 or new_xyz.shape[0] != B or new_xyz.shape[2] != 3:
         raise ValueError(f"knn_single: expects xyz [B, N, 3] and queries [B, S, 3], got "
@@ -42,7 +43,6 @@ def _check(k: int, xyz: torch.Tensor, new_xyz: torch.Tensor) -> int:
         raise ValueError(f"knn_single: S={S} must tile by {s_blk} (min(128, S))")
     if not 1 <= k <= N:
         raise ValueError(f"knn_single: k={k} must lie in [1, N={N}]")
-    return s_blk
 
 
 def knn_single_plain(k: int, xyz: torch.Tensor, new_xyz: torch.Tensor) -> torch.Tensor:
@@ -52,22 +52,12 @@ def knn_single_plain(k: int, xyz: torch.Tensor, new_xyz: torch.Tensor) -> torch.
     return knn_gather_plain(k, xyz, new_xyz)[0]
 
 
-def _row_layout(N: int):
-    """Where a query's distance row lives, and warps per block."""
-    if N <= _REG_POINTS:
-        return _ROW_REGS, 8
-    warps = min(8, (_SMEM_LIMIT - 12 * N) // (4 * N))
-    if warps >= 1:
-        return _ROW_SMEM, warps
-    return _ROW_RECOMPUTE, 8
-
-
 def knn_single(k: int, xyz: torch.Tensor, new_xyz: torch.Tensor) -> torch.Tensor:
     """k nearest neighbours' indices [B, S, k] int32, nearest first: the
     kernel on the card, the plain version on the CPU."""
     if xyz.device.type == "cpu":
         return knn_single_plain(k, xyz, new_xyz)
-    s_blk = _check(k, xyz, new_xyz)
+    _check(k, xyz, new_xyz)
     B, N, _ = xyz.shape
     S = new_xyz.shape[1]
     xyz = xyz.float().contiguous()
@@ -76,11 +66,10 @@ def knn_single(k: int, xyz: torch.Tensor, new_xyz: torch.Tensor) -> torch.Tensor
     out = torch.empty(B, S, k, dtype=torch.int32, device=xyz.device)
     if B == 0:
         return out
-    row, warps = _row_layout(N)
     lib = _build.load("cloud")
-    lib.ppt_knn_single.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 + [
+    lib.ppt_knn_single.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p] * 2
-    rc = lib.ppt_knn_single(_build.ptr(xyz), _build.ptr(q), B, N, S, s_blk, k, row, warps,
+    rc = lib.ppt_knn_single(_build.ptr(xyz), _build.ptr(q), B, N, S, k, CHUNK,
                             _build.ptr(out), _build.stream_ptr(xyz))
     _build.check(lib, rc, "knn_single")
     _build.LAUNCHES["knn_single"] += 1

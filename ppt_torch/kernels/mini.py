@@ -4,7 +4,10 @@ and the train-mode BN2 statistics sweep.
 Replaces ``ppt_tpu/kernels/mini.py:mini_forward`` (``_forward_kernel``)
 and ``:mini_stats`` (``_stats_kernel`` + the closed-form epilogue of
 ``_stats_pallas``); the CUDA side is ``csrc/mini.cu``, whose headers say
-what bounds each kernel on the H100 and how its design answers that.
+what bounds each kernel on the H100 and how its design answers that. In
+bf16 the forward is ``mini_forward_wgmma_kernel``: persistent CTAs whose
+producer streams the four weight matrices by TMA into a ring that two
+consumer warpgroups read with wgmma; it takes PointBERT's widths alone.
 
 Chain per group of M points (``mini.py:148-175``), in the compute dtype
 with f32 accumulation, rounding after every dot product and after every
@@ -33,9 +36,10 @@ import torch
 
 from ppt_torch.kernels import _build
 from ppt_torch.kernels._autograd import recompute_grad
+from ppt_torch.kernels.vitblock import check_tma
 
 _MAX_M = 32
-_TC_WIDTHS = (128, 256, 512, 256)  # C1, C2, H, CO of the bf16 tensor-core kernel
+_TC_WIDTHS = (128, 256, 512, 256)  # C1, C2, H, CO of the bf16 wgmma kernel (and mini_stats)
 
 
 def _mm(a: torch.Tensor, b: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -87,6 +91,8 @@ def _mini_forward_run(
     code = _build.dtype_code("mini_forward", dtype)
     x = groups2.float().contiguous()
     w = [t.to(dtype).contiguous() for t in args]
+    # the bf16 kernel streams the four matrices by TMA
+    check_tma("mini_forward", w2=w[2], fwg=w[4], fwl=w[5], w3=w[7])
     _build.check_tensors("mini_forward", x, *w)
     n_groups = B * (GM // m_size)
     out = torch.empty(B, GM // m_size, CO, dtype=dtype, device=x.device)

@@ -55,15 +55,25 @@ def test_fps_single_takes_any_float_type():
 
 
 # the reference test's shapes (tests/test_pallas_kernels.py:27), plus S = 8 and
-# 256 (two query tiles), k = 1 and 32, and ties
+# 256 (two query tiles), k = 1 and 32, and ties; then the kernel's cloud chunk:
+# N just under, at and over it (ties across its border), k = 64 (the queue's
+# two pairs a lane), k past 64 (passes over the cloud) and N = k
+CHUNK = kknn.CHUNK
+
+
 @pytest.mark.parametrize("b,n,s,k,dup", [(2, 256, 128, 8, False), (1, 200, 128, 4, False),
                                          (2, 300, 8, 1, True), (1, 300, 256, 32, True),
-                                         (2, 300, 128, 8, True)])
+                                         (2, 300, 128, 8, True), (1, CHUNK - 1, 128, 64, True),
+                                         (1, CHUNK, 128, 32, True), (1, CHUNK + 1, 128, 40, True),
+                                         (1, 300, 128, 100, True), (2, 48, 8, 48, True)])
 def test_knn_single_matches_knn_pallas(b, n, s, k, dup):
     x = cloud(b, n, n + s + k, dup)
     q = cloud(b, s, n + s + k + 1)
     if dup:  # queries on cloud points: zero distances and ties among the duplicates
         q[:, ::2] = x[:, : (s + 1) // 2]
+    if n > CHUNK:  # a tie across the border: the first chunk's last point opens the next
+        x[:, CHUNK] = x[:, CHUNK - 1]
+        q[:, 1] = x[:, CHUNK]
     want = np.asarray(knn_pallas(k, jnp.asarray(x), jnp.asarray(q), interpret=True))
     got = kknn.knn_single(k, torch.from_numpy(x), torch.from_numpy(q))
     assert got.dtype == torch.int32 and tuple(got.shape) == (b, s, k)
@@ -92,11 +102,3 @@ def test_knn_single_refuses_k_past_n():
     x, q = torch.from_numpy(cloud(1, 16, 0)), torch.from_numpy(cloud(1, 8, 1))
     with pytest.raises(ValueError, match="knn_single: k=17"):
         kknn.knn_single(17, x, q)
-
-
-@pytest.mark.parametrize("n,want", [(1024, (0, 8)), (1025, (1, 8)), (8192, (1, 4)),
-                                    (14000, (1, 1)), (16384, (2, 8))])
-def test_knn_single_row_layout(n, want):
-    """Registers up to 1024 points, a shared-memory row per warp while the
-    cloud and one row fit a block's 227 KB, then recomputed distances."""
-    assert kknn._row_layout(n) == want

@@ -39,8 +39,11 @@ def _close(got, want, tol):
     assert np.max(np.abs(got - want)) <= tol * scale, np.max(np.abs(got - want)) / scale
 
 
+# (1, 7, 20) and (2, 9, 32): the last tile of the card's kernel holds fewer
+# groups than a tile, and M < 32 pads every group's rows
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("B,G,M,co", [(2, 8, 8, 256), (1, 16, 32, 64)])
+@pytest.mark.parametrize("B,G,M,co", [(2, 8, 8, 256), (1, 16, 32, 64), (1, 7, 20, 256),
+                                      (2, 9, 32, 256)])
 def test_mini_forward_plain_matches_pallas(dtype, B, G, M, co):
     jdt, tdt, tol = DTYPES[dtype]
     rng = np.random.RandomState(G * M + co)
@@ -92,3 +95,18 @@ def test_mini_forward_kernel_path_rejects_what_it_does_not_take(M, co, match):
     x = torch.empty(1, 2 * M, 3, device="meta")
     with pytest.raises(ValueError, match=match):
         mini_forward(M, torch.bfloat16, x, *w)
+
+
+@pytest.mark.parametrize("name", ["w2", "fwg", "fwl", "w3"])
+def test_mini_forward_kernel_path_refuses_what_tma_cannot_load(name):
+    """The bf16 kernel streams w2, fwg, fwl and w3 by TMA: a matrix whose
+    base is not 16-byte aligned is refused by name before any build."""
+    shapes = dict(fw1=(3, 128), fb1=(128,), w2=(128, 256), b2=(256,), fwg=(256, 512),
+                  fwl=(256, 512), fbs=(512,), w3=(512, 256), b3=(256,))
+    w = {k: torch.empty(s, device="meta") for k, s in shapes.items()}
+    rows, cols = shapes[name]
+    flat = torch.empty(rows * cols + 1, dtype=torch.bfloat16, device="meta")
+    w[name] = flat[1:].view(rows, cols)  # 2 bytes past an aligned base
+    x = torch.empty(1, 64, 3, device="meta")
+    with pytest.raises(ValueError, match=f"16-byte aligned bases; {name} is not"):
+        mini_forward(32, torch.bfloat16, x, *w.values())

@@ -21,7 +21,8 @@ def test_busy_us_is_the_union_of_intervals(intervals, want):
 
 @pytest.mark.parametrize("name,part", [
     ("fps_kernel(float const*, int, int, int*)", "fps_batched"),
-    ("tc::mini_forward_bf16_kernel(float const*, int, int)", "mini_forward"),
+    ("wg::mini_forward_wgmma_kernel(CUtensorMap_st, CUtensorMap_st, float const*)",
+     "mini_forward"),
     ("tc::mini_stats_bf16_kernel(float const*, int, int)", "mini_stats"),
     ("st::m2_reduce_kernel(float const*, int, int, float*)", "mini_stats"),
     ("void gemm_wgmma_kernel<192, 1>(CUtensorMap_st, CUtensorMap_st, int, int, int)",
