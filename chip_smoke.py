@@ -45,7 +45,14 @@ Phases (any failed check raises, and the script exits non-zero):
      bit, two runs identical; fps_batched against fps_plain at each stage
      of the cascade, and it must raise on a shape it does not take; the
      library time is mask + topk + gather. fps_batched and knn_gather also
-     at the long trunk's N=8192 with 1024 centres. fused_mha (q, k, v as
+     at the long trunk's N=8192 with 1024 centres; fps_batched on
+     duplicated points, at npoint = N, at N = 77, 14528 and its cap of 16384,
+     twice each (indices identical to fps_plain's and between runs), and
+     the time of one step of its dependent chain (a 128-point cloud: 4
+     warps of one point a thread), which times npoint is its latency floor;
+     knn_gather at 100 queries and at 2 x 16384 points (indices exact,
+     coordinates bit-equal to knn_gather_plain's, repeats bit-identical).
+     fused_mha (q, k, v as
      views of one qkv product, as the unfused block hands them over) at
      B=2 x L=33 x 2 heads x 32, and at B=30 and 32 x 513 x 6 x 64;
      flash_mha's kernel at L=65 (one valid key in the last tile), L=1025
@@ -82,12 +89,14 @@ Phases (any failed check raises, and the script exits non-zero):
      k, S = 1, 8 / 8, 128 / 32, 256), the slice's 32 x 1024 -> 512, the
      long trunk's 32 x 8192 -> 1024 and fps_single's cap of 16384 points
      (k = 32): indices identical to the plain versions, to fps_batched's and
-     knn_gather's where those take the shape, and between repeats;
-     knn_single also around its cloud chunk (N just under, at and over it
-     with a tie across the border, k = 64, k past 64, N = k); each
-     refuses by name a shape it does not take (S = 200; N = 16385); times
-     beside rows 1-2 at the same shapes, knn_single's in alternated rounds
-     with cdist + topk at all three. vit_variant, the ablation probe's
+     knn_gather's, and between repeats; knn_single and knn_gather also
+     around their cloud chunk (N just under, at and over it with a tie
+     across the border, k = 64, k past 64, N = k); each refuses by name a
+     shape it does not take (S = 200; N = 16385; knn_gather k = N + 1);
+     times in alternated rounds at all three large shapes: knn_single with
+     cdist + topk, knn_gather (row 2) with cdist + topk + the coordinate
+     gather and subtraction, fps_single with fps_batched (row 1); rows 1
+     and 2 take their times in the kernels line from these rounds. vit_variant, the ablation probe's
      block, in each mode (full, mm_only, no_softmax, no_gelu, pv_ones,
      qk_packed2, and full with two clouds per block) in f32 and bf16 at
      2 x 33 x 96 (6 heads of 16) and 32 x 513 x 384 against
@@ -211,10 +220,12 @@ Phases (any failed check raises, and the script exits non-zero):
  12. tools/profile.py on PPT-Base recognition (B=32) and on the long
      trunk (1024 groups, N=8192): device ms by part; the block GEMMs' ms a
      batch and their TFLOP/s (the 12 blocks' products over that time), the
-     flash forward's ms a batch. Its numbers go on a line of their own
-     ({"profile": ...}).
+     flash forward's, mini_forward's, knn_gather's and fps_batched's ms a
+     batch. Its numbers go on a line of their own ({"profile": ...}).
 
-The line before the card's is a JSON object with the per-kernel numbers.
+The build prints each CUDA kernel's registers and spills (ptxas -v).
+The line before the card's is a JSON object with the per-kernel numbers
+(the grouping kernels' entries name their CUDA kernel, ``cuda_kernel``).
 Each ``launches`` there is a counter read after a driven run, or a sum of
 such readings (``fused_text_tower`` adds its two variants' counters and
 lists them under ``launches_by_variant``; ``flash_mha_bwd``'s is the
@@ -410,6 +421,22 @@ def gpu_time_ms(fn, reps=10, warmup=2):
     return start.elapsed_time(end) / reps
 
 
+def queued_ms(fn, reps=20):
+    """Device time per call of a kernel shorter than its launch: the calls
+    are queued behind a sleeping kernel, so the card runs them back to back
+    and the host's time between them does not show."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)  # about 10 ms of cycles, longer than enqueuing the calls
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def alternated_ms(fns, rounds=5, reps=10, warmup=2):
     """Each callable's device time as the median over `rounds` rounds, the
     callables timed in turn within a round (gpu_time_ms each), so that a
@@ -443,46 +470,99 @@ def cloud(B, N, seed):
     return torch.rand(B, N, 3, generator=g).to(DEV)
 
 
+# (B, N, npoint, tag): fps_batched beyond GROUP_SHAPES: duplicated points,
+# npoint = N (with and without duplicates), N not a multiple of 32, the old
+# kernel's cap of 14528 points and the new one
+FPS_EXTRA = ((2, 300, 64, "dup"), (2, 300, 300, "dup_all"), (3, 1024, 1024, "all"),
+             (2, 77, 77, "n77_all"), (2, 14528, 512, "n14528"),
+             (2, kgroup.FPS_MAX_POINTS, 1024, "cap"))
+# (B, N, S, k, tag): knn_gather beyond GROUP_SHAPES: a query count knn_single
+# refuses (not a multiple of 16), and 16384 points, which the old kernel refused
+KNN_EXTRA = ((2, 1000, 100, 32, "S100"), (2, 16384, 1024, 32, "n16384"))
+
+
+def knn_gather_vs_plain(tag, xyz, q, k):
+    """knn_gather against its plain version: indices exact, coordinates
+    bit-equal, two runs bit-identical. Returns the coordinates' max error."""
+    kidx, nb = kgroup.knn_gather(k, xyz, q)
+    kidx2, nb2 = kgroup.knn_gather(k, xyz, q)
+    widx, wnb = kgroup.knn_gather_plain(k, xyz, q)
+    torch.cuda.synchronize()
+    n_bad = int((kidx != widx).sum())
+    nb_err = float((nb - wnb).abs().max())
+    same = torch.equal(kidx, kidx2) and torch.equal(nb, nb2)
+    print(f"[kernel] knn_gather {tag} B={xyz.shape[0]} N={xyz.shape[1]} S={q.shape[1]} k={k}: "
+          f"index mismatches {n_bad}, max |d nbr| {nb_err:.3e}, repeat identical {same}")
+    check(n_bad == 0, f"knn_gather indices differ at {tag}")
+    check(nb_err == 0.0, f"knn_gather coordinates differ at {tag}")
+    check(same, f"knn_gather repeats differ at {tag}")
+    return nb_err
+
+
+def fps_vs_plain(tag, xyz, npoint):
+    idx = kgroup.fps_batched(xyz, npoint)
+    again = kgroup.fps_batched(xyz, npoint)
+    want = kgroup.fps_plain(xyz, npoint)
+    torch.cuda.synchronize()
+    n_bad = int((idx != want).sum())
+    same = torch.equal(idx, again)
+    B, N, _ = xyz.shape
+    print(f"[kernel] fps_batched {tag} B={B} N={N} -> {npoint}: index mismatches {n_bad}, "
+          f"repeat identical {same}")
+    check(n_bad == 0 and same, f"fps_batched indices differ at {tag}")
+    return want
+
+
+def fps_chain_us(n=128):
+    """One step of fps_batched's dependent chain, us: one n-point cloud (at
+    128 points the rule gives 4 warps of one point a thread, the shortest
+    chain), the time of n steps less that of one, over the difference; the
+    launches queued, as each lasts a few microseconds."""
+    xyz = cloud(1, n, n)
+    t_all = queued_ms(lambda: kgroup.fps_batched(xyz, n))
+    t_one = queued_ms(lambda: kgroup.fps_batched(xyz, 1))
+    return (t_all - t_one) / (n - 1) * 1e3
+
+
 def check_grouping(results):
     for B, N, G, K, tag in GROUP_SHAPES:
         xyz = cloud(B, N, N + G)
-        idx = kgroup.fps_batched(xyz, G)
-        want = kgroup.fps_plain(xyz, G)
-        torch.cuda.synchronize()
-        n_bad = int((idx != want).sum())
-        print(f"[kernel] fps_batched {tag} B={B} N={N} G={G}: index mismatches {n_bad}")
-        check(n_bad == 0, f"fps_batched indices differ at {tag}")
+        want = fps_vs_plain(tag, xyz, G)
         center = torch.gather(xyz, 1, want.long()[:, :, None].expand(-1, -1, 3))
-        kidx, nb = kgroup.knn_gather(K, xyz, center)
-        widx, wnb = kgroup.knn_gather_plain(K, xyz, center)
-        torch.cuda.synchronize()
-        n_bad = int((kidx != widx).sum())
-        nb_err = float((nb - wnb).abs().max())
-        print(f"[kernel] knn_gather {tag} B={B} N={N} S={G} k={K}: index mismatches {n_bad}, "
-              f"max |d nbr| {nb_err:.3e}")
-        check(n_bad == 0, f"knn_gather indices differ at {tag}")
-        check(nb_err == 0.0, f"knn_gather coordinates differ at {tag}")
+        nb_err = knn_gather_vs_plain(tag, xyz, center, K)
         if tag != "slice":
             continue
         fps_b = B * N * 12 + B * G * 4
         fps_ops = B * G * N * 10  # 3 sub, 3 mul, 2 add, min, compare per point per step
         bms, by = bound_ms(fps_b, fps_ops, PEAK["f32"])
         results["fps_batched"] = dict(
-            max_abs_err=0.0, ms=gpu_time_ms(lambda: kgroup.fps_batched(xyz, G)),
+            cuda_kernel="fps_batched_kernel", max_abs_err=0.0,
+            ms=None,  # check_cloud times it beside fps_single
             plain_ms=gpu_time_ms(lambda: kgroup.fps_plain(xyz, G), reps=3, warmup=1),
             bound_ms=bms, bound_by=by, library_ms=None)
         knn_b = B * N * 12 + B * G * 12 + B * G * K * 16
         knn_ops = B * G * N * 9  # distance (8) + one comparison per candidate
         bms, by = bound_ms(knn_b, knn_ops, PEAK["f32"])
-
-        def library():
-            d, i = torch.topk(torch.cdist(center, xyz), K, dim=-1, largest=False)
-            return i
-
         results["knn_gather"] = dict(
-            max_abs_err=nb_err, ms=gpu_time_ms(lambda: kgroup.knn_gather(K, xyz, center)),
+            cuda_kernel="knn_gather_kernel", max_abs_err=nb_err, ms=None, library_ms=None,  # check_cloud: alternated rounds
             plain_ms=gpu_time_ms(lambda: kgroup.knn_gather_plain(K, xyz, center)),
-            bound_ms=bms, bound_by=by, library_ms=gpu_time_ms(library))
+            bound_ms=bms, bound_by=by)
+    for B, N, npoint, tag in FPS_EXTRA:
+        fps_vs_plain(tag, dup_cloud(B, N, N + npoint) if "dup" in tag else cloud(B, N, N),
+                     npoint)
+    for B, N, S, K, tag in KNN_EXTRA:
+        xyz = dup_cloud(B, N, N + S)
+        knn_gather_vs_plain(tag, xyz, xyz[:, :S].contiguous(), K)
+
+    # the latency floor: npoint steps of the shortest dependent chain, at the
+    # shapes check_cloud times
+    chain = fps_chain_us()
+    results["fps_batched"].update(
+        step_chain_us=chain,
+        latency_floor_ms={tag: chain * npoint * 1e-3
+                          for _, _, npoint, tag in CLOUD_SHAPES if tag != "small"})
+    print(f"[kernel] fps_batched step chain {chain:.4f} us; latency floor, ms: "
+          f"{json.dumps(results['fps_batched']['latency_floor_ms'])}")
 
 
 def mini_weights(co, seed):
@@ -1262,7 +1342,7 @@ def check_ballquery(results):
     check(at_radius[0, 0].tolist() == [0, 1, 0, 0], "a point at the radius must be a hit")
 
     for bad in (lambda: kgroup.fps_batched(cloud(1, 64, 1), 65),
-                lambda: kgroup.fps_batched(cloud(1, 16384, 1), 8)):
+                lambda: kgroup.fps_batched(cloud(1, kgroup.FPS_MAX_POINTS + 1, 1), 8)):
         try:
             bad()
         except ValueError as e:
@@ -1406,13 +1486,13 @@ def check_losses3d(results):
 
 # (B, N, npoint, tag): the reference test's small cloud with duplicated points,
 # the slice's 32 x 1024 -> 512, the long trunk's 32 x 8192 -> 1024 and
-# fps_single's cap (coordinates in shared memory). k = 32 at the three large
+# fps_single's cap (coordinates in shared memory; fps_batched's cap too). k = 32 at the three large
 # shapes; the small one takes (k, S) = (1, 8), (8, 128), (32, 256).
 CLOUD_SHAPES = ((2, 300, 64, "small"), (32, 1024, 512, "slice"), (32, 8192, 1024, "long"),
                 (2, kfps.MAX_POINTS, 1024, "cap"))
 CLOUD_SMALL_KNN = ((1, 8), (8, 128), (32, 256))
-# (B, N, S, k) around knn_single's cloud chunk, as tests/test_torch_fps_knn.py
-# takes them: N just under, at and over it (a duplicated point across the
+# (B, N, S, k) around the cloud chunk of knn_single and knn_gather, as
+# tests/test_torch_fps_knn.py and tests/test_torch_grouping.py take them: N just under, at and over it (a duplicated point across the
 # border), k = 64 (two queue pairs a lane), k past 64 (passes), N = k
 KNN_EDGES = ((1, kknn.CHUNK - 1, 128, 64), (1, kknn.CHUNK, 128, 32), (1, kknn.CHUNK + 1, 128, 40),
              (1, 300, 128, 100), (2, 48, 8, 48), (2, 5000, 256, 200))
@@ -1429,20 +1509,21 @@ def dup_cloud(B, N, seed):
 
 def check_cloud(results):
     """Phase 3 for fps_single and knn_single: indices identical to their plain
-    versions and to fps_batched's / knn_gather's where those take the shape,
-    repeats bit-identical, refusals by name."""
+    versions and to fps_batched's / knn_gather's, repeats bit-identical,
+    refusals by name; times beside rows 1-2 and the library calls, in
+    alternated rounds (rows 1-2 take their times from these rounds too)."""
     timing = {}
     for B, N, npoint, tag in CLOUD_SHAPES:
         xyz = dup_cloud(B, N, N) if tag == "small" else cloud(B, N, N + npoint)
         got = kfps.fps_single(xyz, npoint)
         again = kfps.fps_single(xyz, npoint)
         want = kfps.fps_single_plain(xyz, npoint)
-        row1 = kgroup.fps_batched(xyz, npoint) if tag != "cap" else want
+        row1 = kgroup.fps_batched(xyz, npoint)
         torch.cuda.synchronize()
         n_bad = int((got != want).sum())
         same = torch.equal(got, again) and torch.equal(got, row1)
         print(f"[kernel] fps_single {tag} B={B} N={N} npoint={npoint}: index mismatches {n_bad}; "
-              f"repeat{' and fps_batched' if tag != 'cap' else ''} identical {same}")
+              f"repeat and fps_batched identical {same}")
         check(n_bad == 0 and same, f"fps_single indices differ at {tag}")
         if tag == "small":
             qsets = [(k, xyz[:, :S].contiguous()) for k, S in CLOUD_SMALL_KNN]
@@ -1452,13 +1533,12 @@ def check_cloud(results):
             got_k = kknn.knn_single(k, xyz, q)
             again_k = kknn.knn_single(k, xyz, q)
             want_k = kknn.knn_single_plain(k, xyz, q)
-            row2 = kgroup.knn_gather(k, xyz, q)[0] if tag != "cap" else want_k
+            row2 = kgroup.knn_gather(k, xyz, q)[0]
             torch.cuda.synchronize()
             n_bad = int((got_k != want_k).sum())
             same = torch.equal(got_k, again_k) and torch.equal(got_k, row2)
             print(f"[kernel] knn_single {tag} B={B} N={N} S={q.shape[1]} k={k}: index "
-                  f"mismatches {n_bad}; repeat{' and knn_gather' if tag != 'cap' else ''} "
-                  f"identical {same}")
+                  f"mismatches {n_bad}; repeat and knn_gather identical {same}")
             check(n_bad == 0 and same, f"knn_single indices differ at {tag} k={k}")
         if tag == "small":
             continue
@@ -1468,17 +1548,23 @@ def check_cloud(results):
         def library():
             return torch.topk(torch.cdist(q, xyz), k, dim=-1, largest=False).indices
 
-        # knn_single against its library call (and row 2) in alternated rounds
-        fns = {"knn_single_ms": lambda: kknn.knn_single(k, xyz, q),
-               "knn_library_ms": library}
-        if tag != "cap":  # rows 1 and 2 at the same shape, the same call
-            fns["knn_gather_ms"] = lambda: kgroup.knn_gather(k, xyz, q)
-        timing[tag] = alternated_ms(fns)
+        def gather_library():  # row 2's function: the picks' coordinates minus the query's
+            i = torch.topk(torch.cdist(q, xyz), k, dim=-1, largest=False).indices
+            nb = torch.gather(xyz, 1, i.reshape(B, S * k, 1).expand(-1, -1, 3))
+            return i, nb.reshape(B, S, k, 3) - q[:, :, None, :]
+
+        # knn_single and row 2 against their library calls, in alternated rounds
+        timing[tag] = alternated_ms({"knn_single_ms": lambda: kknn.knn_single(k, xyz, q),
+                                     "knn_library_ms": library,
+                                     "knn_gather_ms": lambda: kgroup.knn_gather(k, xyz, q),
+                                     "knn_gather_library_ms": gather_library})
         timing[tag]["knn_bound_ms"] = bound_ms(B * N * 12 + B * S * 12 + B * S * k * 4,
                                                B * S * N * 9, PEAK["f32"])[0]
-        timing[tag]["fps_single_ms"] = gpu_time_ms(lambda: kfps.fps_single(xyz, npoint))
-        if tag != "cap":
-            timing[tag]["fps_batched_ms"] = gpu_time_ms(lambda: kgroup.fps_batched(xyz, npoint))
+        timing[tag]["knn_gather_bound_ms"] = bound_ms(
+            B * N * 12 + B * S * 12 + B * S * k * 16, B * S * N * 9, PEAK["f32"])[0]
+        timing[tag].update(alternated_ms(
+            {"fps_single_ms": lambda: kfps.fps_single(xyz, npoint),
+             "fps_batched_ms": lambda: kgroup.fps_batched(xyz, npoint)}))
         if tag != "slice":
             continue
         bms, by = bound_ms(B * N * 12 + B * npoint * 4, B * npoint * N * 10, PEAK["f32"])
@@ -1491,7 +1577,11 @@ def check_cloud(results):
             max_abs_err=0.0, ms=timing[tag]["knn_single_ms"],
             plain_ms=gpu_time_ms(lambda: kknn.knn_single_plain(k, xyz, q), reps=3, warmup=1),
             bound_ms=bms, bound_by=by, library_ms=timing[tag]["knn_library_ms"])
-    for name, shapes in (("fps_single", "fps"), ("knn_single", "knn")):
+        results["fps_batched"]["ms"] = timing[tag]["fps_batched_ms"]
+        results["knn_gather"].update(ms=timing[tag]["knn_gather_ms"],
+                                     library_ms=timing[tag]["knn_gather_library_ms"])
+    for name, shapes in (("fps_single", "fps"), ("knn_single", "knn"), ("fps_batched", "fps"),
+                         ("knn_gather", "knn")):
         results[name]["by_shape"] = {tag: {key: v for key, v in t.items() if key.startswith(shapes)}
                                      for tag, t in timing.items()}
     print(f"[kernel] fps_single / knn_single against rows 1-2, ms: {json.dumps(timing)}")
@@ -1511,10 +1601,12 @@ def check_cloud(results):
         print(f"[kernel] knn_single edge B={B} N={N} S={S} k={k}: index mismatches {n_bad}; "
               f"repeat identical {torch.equal(got, again)}")
         check(n_bad == 0 and torch.equal(got, again), f"knn_single differs at N={N} k={k}")
+        knn_gather_vs_plain("edge", xyz, q, k)  # the same selection, the same edges
 
     # the shapes they refuse, by name
     xyz = cloud(1, 256, 1)
     for fn, msg in ((lambda: kknn.knn_single(4, xyz, cloud(1, 200, 2)), "knn_single: S=200"),
+                    (lambda: kgroup.knn_gather(257, xyz, cloud(1, 8, 2)), "knn_gather: k=257"),
                     (lambda: kfps.fps_single(cloud(1, kfps.MAX_POINTS + 1, 3), 8),
                      f"fps_single: N={kfps.MAX_POINTS + 1}")):
         try:
@@ -3197,7 +3289,7 @@ def run_profiles(batch=32, batches=5):
     """PPT-Base recognition and the long trunk's under tools/profile.py: the
     block GEMMs' device ms a batch and their rate (the 12 blocks' four
     products over that time), and the flash forward's, mini_forward's and
-    knn_gather's ms a batch."""
+    knn_gather's and fps_batched's ms a batch."""
     out = {}
     for tag, kw in (("ppt_base", {}), ("long_trunk", dict(num_group=1024, npoints=8192))):
         r = tprofile.profile_step(batch=batch, batches=batches, **kw)
@@ -3212,18 +3304,21 @@ def run_profiles(batch=32, batches=5):
             gemm_ms = parts["vit block: GEMMs"]
             stats.update(block_gemm_ms=gemm_ms, block_gemm_gflop=flops / 1e9,
                          block_gemm_tflops=flops / (gemm_ms * 1e-3) / 1e12)
-        for part in ("flash_mha", "mini_forward", "knn_gather"):
+        for part in ("flash_mha", "mini_forward", "knn_gather", "fps_batched"):
             if part in parts:
                 stats[f"{part}_ms"] = parts[part]
         print(f"[profile] {tag}: wall {r['wall_ms_per_batch']:.3f} ms a batch, idle "
               f"{r['device_idle_share']:.3f}; block GEMMs {stats.get('block_gemm_ms')} ms "
               f"({stats.get('block_gemm_tflops')} TFLOP/s); flash_mha "
               f"{stats.get('flash_mha_ms')} ms; mini_forward {stats.get('mini_forward_ms')} ms; "
-              f"knn_gather {stats.get('knn_gather_ms')} ms")
+              f"knn_gather {stats.get('knn_gather_ms')} ms; fps_batched "
+              f"{stats.get('fps_batched_ms')} ms")
         out[tag] = stats
     check("block_gemm_ms" in out["ppt_base"], "PPT-Base recognition ran no block GEMM")
     check("flash_mha_ms" in out["long_trunk"], "the long trunk ran no flash_mha")
     check(all("mini_forward_ms" in v for v in out.values()), "a profile ran no mini_forward")
+    check(all("knn_gather_ms" in v and "fps_batched_ms" in v for v in out.values()),
+          "a profile ran no grouping kernel")
     return out
 
 
@@ -3241,10 +3336,19 @@ def main():
     times = _build.build_all(force=True)
     print(f"[build] {len(times)} sources built in parallel in {time.perf_counter() - t0:.1f} s "
           f"({', '.join(f'{k} {v:.1f} s' for k, v in sorted(times.items()))})")
-    for name in _build.SOURCES:
-        log = (_build.BUILD_DIR / f"{name}.log").read_text()
-        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-        print(f"[build] {name}.cu ptxas: " + " | ".join(regs[:12]))
+    for name in _build.SOURCES:  # each entry function's registers and spills (-Xptxas -v)
+        entry, spills = None, ""
+        for ln in (_build.BUILD_DIR / f"{name}.log").read_text().splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", ln)
+            if m:
+                entry, spills = m.group(1), ""
+            m = re.search(r"\d+ bytes spill stores, \d+ bytes spill loads", ln)
+            if m:
+                spills = m.group(0)
+            m = re.search(r"Used (\d+) registers", ln)
+            if m and entry:
+                print(f"[build] {name}.cu {entry}: {m.group(1)} registers, {spills}")
+                entry = None
     sass = hopper_sass()
 
     results = {}

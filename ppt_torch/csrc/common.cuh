@@ -38,23 +38,12 @@ template <typename T> __device__ __forceinline__ float rnd(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// Point-cloud helpers shared by group.cu, cloud.cu and losses3d.cu: the exact squared
+// Point-cloud helper shared by group.cu, cloud.cu and losses3d.cu: the exact squared
 // distance ((dx*dx + dy*dy) + dz*dz), each step rounded on its own so nvcc
-// cannot contract it into FMAs, and the (value, lowest index) merges every
-// argmax / argmin reduction uses.
+// cannot contract it into FMAs.
 // ---------------------------------------------------------------------------
 static __device__ __forceinline__ float sq3(float dx, float dy, float dz) {
   return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
-}
-
-// larger value wins, ties to the lower index
-static __device__ __forceinline__ void argmax_merge(float& v, int& i, float ov, int oi) {
-  if (ov > v || (ov == v && oi < i)) { v = ov; i = oi; }
-}
-
-// smaller value wins, ties to the lower index
-static __device__ __forceinline__ void argmin_merge(float& v, int& i, float ov, int oi) {
-  if (ov < v || (ov == v && oi < i)) { v = ov; i = oi; }
 }
 
 // ---------------------------------------------------------------------------

@@ -8,17 +8,58 @@
 // (_ball_query_kernel), :ball_query_gather_feats
 // (_ball_query_feats_kernel) and :_ball_query_kernel_v2.
 //
-// fps: bound by latency, not bytes or FLOPs. 512 dependent iterations,
-//   each a block-wide (value, lowest index) argmax; only B=32 clouds for
-//   132 SMs. Design: one block per cloud with the coordinates and the
-//   running min distance in shared memory, each iteration one pass over
-//   the points plus a two-level shuffle reduction (two barriers).
-// knn: bound by the k=32 serial min-extractions per query. Design: one
-//   warp per query, distances in shared memory, each lane keeps the
-//   minimum of the points it owns, so a round is one warp argmin plus a
-//   rescan by the single lane whose point was taken. Winners stay in
-//   registers and are written coalesced, with xyz[idx] - q, so no
-//   [B,G,K,3] gather goes through device memory twice.
+// fps_batched_kernel: bound by the latency of npoint dependent steps, each a
+//   (value, lowest index) argmax over the cloud's running distances, far
+//   above its operations bound; and at large N by issuing about 12
+//   instructions a point a step on the one SM a cloud runs on. A step's
+//   chain: a thread's distances to the last pick and their running minimum;
+//   the thread's best; the warp's; the CTA's through shared memory; the
+//   winner's coordinates. Design: one CTA a cloud, W warps, P points a
+//   thread, strided (point j = s T + tid), their running distances and
+//   coordinates in registers (at P = 16, past 8192 points, the coordinates
+//   are read from shared memory). A warp's best is two redux.sync: the
+//   largest distance bits (non-negative f32 bits order as integers), then
+//   the lowest index holding them. Lane 0 writes it to a double-buffered
+//   slot array; after ONE barrier every warp reduces the W slots itself the
+//   same way and reads the winner's coordinates from the CTA's copy of the
+//   cloud in shared memory ([3][N], 12 N bytes). A warp runs at most one
+//   step ahead of the slowest, so the other buffer is never in use. A
+//   padding slot keeps distance -inf in registers and reaches the slots as
+//   bits 0 with index INT_MAX: a real point at distance 0 beats it.
+//   Plan (ppt_fps): 4 points a thread, 4 to 32 warps a cloud. Measured on
+//   an H100 80GB HBM3 at 700 W in development builds that set the warp count
+//   by hand (the rule beside 4, 8, 16 and 32 warps at the shapes below, ms;
+//   chip_smoke.py times the rule alone): the slice (32 x 1024 ->
+//   512) at its 8 warps 0.130, at 4, 16, 32 warps 0.186, 0.136, 0.154; the
+//   long trunk (32 x 8192 -> 1024) at its 32 warps 0.858, at 16 (16
+//   points a thread) 1.144; PointNeXt-S's stages (B = 128, N = 1024, 512,
+//   256, 128) 0.129, 0.060, 0.029, 0.016 against the fastest count's
+//   0.129, 0.055, 0.025, 0.015 (one point a thread wins below 1024
+//   points, by at most 0.004 ms a launch; each call timed on its own, so
+//   the two smallest stages, near the host's time a launch, rank the
+//   counts loosely). A step of the chain at one point a thread (4 warps)
+//   takes 0.155 us with the launches queued (chip_smoke.py's step-chain
+//   line), 1.6x under a step at the slice and 5.4x under one on the long
+//   trunk. Tried in development builds and
+//   not kept, because each lost at every one of those shapes: the warp's
+//   best as a packed 64-bit (bits, ~index) key through five shuffles
+//   instead of two redux.sync; and a thread-block cluster of 2-8 CTAs a
+//   cloud exchanging per-warp bests through distributed shared memory,
+//   whose cluster barrier cost a step more than the instructions it spread
+//   over the SMs saved.
+// knn_gather_kernel: knn_select.cuh's selection (one warp a query, the
+//   cloud streamed in chunks through shared memory, a register top-k
+//   filtered by ballot; that header says what bounds it), shared with
+//   cloud.cu's knn_single_kernel. After each pass lane r writes pick r's
+//   index and its coordinates minus the query's (__fsub_rn, the JAX
+//   kernel's order), the coordinates read from the cloud in device memory
+//   (L2-resident: the staged chunk no longer holds a pass's picks), so no
+//   [B,G,K,3] gather goes through device memory twice. The gather and its
+//   writes cost 1-2% of the kernel (knn_gather against knn_single in
+//   chip_smoke.py's alternated rounds: 0.136 / 0.134 ms at the slice,
+//   0.724 / 0.714 on the long trunk), so no other source of the coordinates
+//   could save more. Any S (queries past S are masked), any k in [1, N],
+//   any N.
 //
 // ball query (three kernels, one function): the first `nsample` indices
 //   with d <= r*r in ascending index order, short rows padded with the
@@ -48,126 +89,142 @@
 #include <limits.h>
 
 #include "common.cuh"
+#include "knn_select.cuh"
 
 PPT_ERROR_STRING_FN
 
-__global__ void fps_kernel(const float* __restrict__ xyz, int N, int npoint,
-                           int* __restrict__ out) {
-  extern __shared__ float sm[];
-  float* xs = sm;
-  float* ys = xs + N;
-  float* zs = ys + N;
-  float* dist = zs + N;
-  __shared__ float red_v[32];
-  __shared__ int red_i[32];
-  __shared__ int s_far;
+// ---------------------------------------------------------------------------
+// FPS
+// ---------------------------------------------------------------------------
+constexpr int FPS_MAX_THREADS = 1024;
 
-  const int b = blockIdx.x;
-  const float* p = xyz + (size_t)b * N * 3;
-  for (int j = threadIdx.x; j < N; j += blockDim.x) {
-    xs[j] = p[3 * j];
-    ys[j] = p[3 * j + 1];
-    zs[j] = p[3 * j + 2];
-    dist[j] = 1e10f;
+// The warp's argmax of (v, i): the largest distance bits v, ties to the
+// lowest index i; every lane gets it.
+static __device__ __forceinline__ void warp_argmax(unsigned& v, int& i) {
+  const unsigned m = __reduce_max_sync(FULL_MASK, v);
+  i = (int)__reduce_min_sync(FULL_MASK, v == m ? (unsigned)i : 0xffffffffu);
+  v = m;
+}
+
+// One CTA a cloud, blockDim.x = 32 W threads, P points a thread.
+template <int P>
+__global__ void __launch_bounds__(FPS_MAX_THREADS)
+fps_batched_kernel(const float* __restrict__ xyz, int N, int npoint, int* __restrict__ out) {
+  constexpr bool SMEM_XYZ = P > 8;  // 16 points' coordinates do not fit beside their distances
+  extern __shared__ float sm[];     // the cloud, [3][N]
+  __shared__ uint2 slot[2][32];
+  const int T = blockDim.x, W = T >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float* p = xyz + (size_t)blockIdx.x * N * 3;
+  float* sx = sm;
+  float* sy = sm + N;
+  float* sz = sm + 2 * N;
+  for (int j = tid; j < N; j += T) {
+    sx[j] = p[3 * j];
+    sy[j] = p[3 * j + 1];
+    sz[j] = p[3 * j + 2];
+  }
+  float px[SMEM_XYZ ? 1 : P], py[SMEM_XYZ ? 1 : P], pz[SMEM_XYZ ? 1 : P];
+  float dist[P];
+#pragma unroll
+  for (int s = 0; s < P; ++s) {
+    const int j = s * T + tid;
+    const bool ok = j < N;
+    dist[s] = ok ? 1e10f : -INFINITY;  // a padding slot never wins
+    if constexpr (!SMEM_XYZ) {
+      px[s] = ok ? p[3 * j] : 0.f;
+      py[s] = ok ? p[3 * j + 1] : 0.f;
+      pz[s] = ok ? p[3 * j + 2] : 0.f;
+    }
   }
   __syncthreads();
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  int* o = out + (size_t)b * npoint;
+  float cx = sx[0], cy = sy[0], cz = sz[0];
   int far = 0;
-  for (int i = 0; i < npoint; ++i) {
-    if (threadIdx.x == 0) o[i] = far;
-    const float cx = xs[far], cy = ys[far], cz = zs[far];
+  int* o = out + (size_t)blockIdx.x * npoint;
+  for (int it = 0; it < npoint; ++it) {
+    if (tid == 0) o[it] = far;
     float bv = -INFINITY;
-    int bi = INT_MAX;
-    for (int j = threadIdx.x; j < N; j += blockDim.x) {
-      const float d = sq3(__fsub_rn(xs[j], cx), __fsub_rn(ys[j], cy), __fsub_rn(zs[j], cz));
-      const float r = fminf(dist[j], d);
-      dist[j] = r;
-      argmax_merge(bv, bi, r, j);
+    int bs = 0;
+#pragma unroll
+    for (int s = 0; s < P; ++s) {
+      float x, y, z;
+      if constexpr (SMEM_XYZ) {
+        const int j = min(s * T + tid, N - 1);
+        x = sx[j];
+        y = sy[j];
+        z = sz[j];
+      } else {
+        x = px[s];
+        y = py[s];
+        z = pz[s];
+      }
+      const float r = fminf(dist[s], sq3(__fsub_rn(x, cx), __fsub_rn(y, cy), __fsub_rn(z, cz)));
+      dist[s] = r;
+      if (r > bv) {  // slots ascend in index: strict > keeps the lowest
+        bv = r;
+        bs = s;
+      }
     }
-    for (int off = 16; off; off >>= 1)
-      argmax_merge(bv, bi, __shfl_xor_sync(0xffffffffu, bv, off),
-                   __shfl_xor_sync(0xffffffffu, bi, off));
-    if (lane == 0) { red_v[warp] = bv; red_i[warp] = bi; }
-    __syncthreads();
-    if (warp == 0) {
-      bv = lane < nwarps ? red_v[lane] : -INFINITY;
-      bi = lane < nwarps ? red_i[lane] : INT_MAX;
-      for (int off = 16; off; off >>= 1)
-        argmax_merge(bv, bi, __shfl_xor_sync(0xffffffffu, bv, off),
-                     __shfl_xor_sync(0xffffffffu, bi, off));
-      if (lane == 0) s_far = bi;
+    unsigned v = __float_as_uint(fmaxf(bv, 0.f));
+    int bi = bv >= 0.f ? bs * T + tid : INT_MAX;
+    warp_argmax(v, bi);
+    uint2* sl = slot[it & 1];
+    if (lane == 0) sl[warp] = make_uint2(v, bi);
+    __syncthreads();  // the step's one barrier
+    unsigned v2 = 0;
+    int i2 = INT_MAX;
+    if (lane < W) {
+      const uint2 e = sl[lane];
+      v2 = e.x;
+      i2 = (int)e.y;
     }
-    __syncthreads();
-    far = s_far;
+    warp_argmax(v2, i2);
+    far = i2;
+    cx = sx[far];
+    cy = sy[far];
+    cz = sz[far];
   }
 }
 
-// One warp per query; `wpb` warps (queries of one cloud) per block.
-__global__ void knn_kernel(const float* __restrict__ xyz, const float* __restrict__ q,
-                           int N, int S, int k, int* __restrict__ idx_out,
-                           float* __restrict__ nb_out) {
-  extern __shared__ float sm[];
-  const int wpb = blockDim.x >> 5;
-  float* xs = sm;
-  float* ys = xs + N;
-  float* zs = ys + N;
+// ---------------------------------------------------------------------------
+// kNN + gather
+// ---------------------------------------------------------------------------
+
+// One warp a query, KNN_WARPS queries of one cloud a CTA: knn_select.cuh's
+// selection; after each pass, the picks' indices and coordinates minus the
+// query's.
+template <int Q>
+__global__ void __launch_bounds__(KNN_THREADS)
+knn_gather_kernel(const float* __restrict__ xyz, const float* __restrict__ q, int N, int S,
+                  int k, int chunk, int* __restrict__ idx_out, float* __restrict__ nb_out) {
+  extern __shared__ float sm[];  // [2][chunk][3]
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float* dist = zs + N + (size_t)warp * N;
-
-  const int b = blockIdx.y;
+  const int b = blockIdx.y, s = blockIdx.x * KNN_WARPS + warp;
+  const bool live = s < S;
   const float* p = xyz + (size_t)b * N * 3;
-  for (int j = threadIdx.x; j < N; j += blockDim.x) {
-    xs[j] = p[3 * j];
-    ys[j] = p[3 * j + 1];
-    zs[j] = p[3 * j + 2];
+  float qx = 0.f, qy = 0.f, qz = 0.f;
+  if (live) {
+    const float* qp = q + ((size_t)b * S + s) * 3;
+    qx = qp[0];
+    qy = qp[1];
+    qz = qp[2];
   }
-  __syncthreads();
-
-  const int s = blockIdx.x * wpb + warp;
-  if (s >= S) return;
-  const float* qp = q + ((size_t)b * S + s) * 3;
-  const float qx = qp[0], qy = qp[1], qz = qp[2];
-
-  float lv = INFINITY;
-  int li = INT_MAX;
-  for (int j = lane; j < N; j += 32) {
-    const float d = sq3(__fsub_rn(qx, xs[j]), __fsub_rn(qy, ys[j]), __fsub_rn(qz, zs[j]));
-    dist[j] = d;
-    argmin_merge(lv, li, d, j);
-  }
-  __syncwarp();
-
-  int* io = idx_out + ((size_t)b * S + s) * k;
-  float* no = nb_out + ((size_t)b * S + s) * k * 3;
-  int mine = 0;
-  for (int r = 0; r < k; ++r) {
-    float v = lv;
-    int i = li;
-    for (int off = 16; off; off >>= 1)
-      argmin_merge(v, i, __shfl_xor_sync(0xffffffffu, v, off),
-                   __shfl_xor_sync(0xffffffffu, i, off));
-    if (lane == (r & 31)) mine = i;
-    if (lane == (i & 31)) {  // the owner evicts the winner and rescans
-      dist[i] = INFINITY;
-      lv = INFINITY;
-      li = INT_MAX;
-      for (int j = lane; j < N; j += 32) argmin_merge(lv, li, dist[j], j);
-    }
-    __syncwarp();
-    if ((r & 31) == 31 || r == k - 1) {  // flush up to 32 winners coalesced
-      const int base = r & ~31;
-      if (lane <= (r & 31)) {
-        io[base + lane] = mine;
-        float* np = no + (size_t)(base + lane) * 3;
-        np[0] = __fsub_rn(xs[mine], qx);
-        np[1] = __fsub_rn(ys[mine], qy);
-        np[2] = __fsub_rn(zs[mine], qz);
+  const size_t row = (size_t)b * S + (live ? s : 0);
+  int* io = idx_out + row * k;
+  float* no = nb_out + row * k * 3;
+  knn_select<Q>(p, N, k, chunk, sm, live, qx, qy, qz, [&](int k0, int kk, const int (&ix)[Q]) {
+#pragma unroll
+    for (int r = 0; r < Q; ++r) {
+      const int t = k0 + 32 * r + lane;
+      if (32 * r + lane < kk) {
+        const int j = ix[r];
+        io[t] = j;
+        no[3 * t] = __fsub_rn(__ldg(p + 3 * j), qx);
+        no[3 * t + 1] = __fsub_rn(__ldg(p + 3 * j + 1), qy);
+        no[3 * t + 2] = __fsub_rn(__ldg(p + 3 * j + 2), qz);
       }
     }
-  }
+  });
 }
 
 // ---------------------------------------------------------------------------
@@ -355,23 +412,52 @@ __global__ void ball_query_rank_kernel(const float* __restrict__ xyz,
   }
 }
 
+template <int P>
+static void fps_launch(const float* x, int B, int N, int npoint, int W, int* o,
+                       cudaStream_t st) {
+  const int smem = 12 * N;
+  cudaFuncSetAttribute(fps_batched_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  fps_batched_kernel<P><<<B, 32 * W, smem, st>>>(x, N, npoint, o);
+}
+
+// The rule: 4 points a thread, at least 4 warps and at most 32 a cloud (then
+// up to 16 points a thread). N <= FPS_MAX_THREADS * 16 (the wrapper checks it).
 PPT_EXPORT int ppt_fps(const void* xyz, int B, int N, int npoint, void* out, void* stream) {
-  const int threads = N >= 1024 ? 1024 : ((N + 31) / 32) * 32;
-  const size_t smem = (size_t)N * 4 * sizeof(float);
-  cudaFuncSetAttribute(fps_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  fps_kernel<<<B, threads, smem, (cudaStream_t)stream>>>((const float*)xyz, N, npoint,
-                                                        (int*)out);
+  int W = (N + 127) / 128;
+  W = W < 4 ? 4 : (W > 32 ? 32 : W);
+  const int per = (N + 32 * W - 1) / (32 * W);
+  const float* x = (const float*)xyz;
+  int* o = (int*)out;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (per <= 1) fps_launch<1>(x, B, N, npoint, W, o, st);
+  else if (per <= 2) fps_launch<2>(x, B, N, npoint, W, o, st);
+  else if (per <= 4) fps_launch<4>(x, B, N, npoint, W, o, st);
+  else if (per <= 8) fps_launch<8>(x, B, N, npoint, W, o, st);
+  else if (per <= 16) fps_launch<16>(x, B, N, npoint, W, o, st);
+  else return (int)cudaErrorInvalidValue;
   PPT_CHECK_LAUNCH();
   return 0;
 }
 
-PPT_EXPORT int ppt_knn(const void* xyz, const void* q, int B, int N, int S, int k, int wpb,
+// grid (ceil(S / KNN_WARPS), B); `chunk` cloud points a stage (a multiple of 32)
+PPT_EXPORT int ppt_knn(const void* xyz, const void* q, int B, int N, int S, int k, int chunk,
                        void* idx, void* nb, void* stream) {
-  const size_t smem = (size_t)N * (3 + wpb) * sizeof(float);
-  cudaFuncSetAttribute(knn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  dim3 grid((S + wpb - 1) / wpb, B);
-  knn_kernel<<<grid, wpb * 32, smem, (cudaStream_t)stream>>>(
-      (const float*)xyz, (const float*)q, N, S, k, (int*)idx, (float*)nb);
+  if (k < 1 || k > N || chunk < 32 || chunk % 32) return (int)cudaErrorInvalidValue;
+  const float* x = (const float*)xyz;
+  const float* qq = (const float*)q;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int c = N < chunk ? N : chunk;
+  const int smem = 2 * c * 3 * (int)sizeof(float);
+  dim3 grid((S + KNN_WARPS - 1) / KNN_WARPS, B);
+  if (k <= 32) {
+    cudaFuncSetAttribute(knn_gather_kernel<1>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    knn_gather_kernel<1><<<grid, KNN_THREADS, smem, st>>>(x, qq, N, S, k, c, (int*)idx,
+                                                          (float*)nb);
+  } else {
+    cudaFuncSetAttribute(knn_gather_kernel<2>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    knn_gather_kernel<2><<<grid, KNN_THREADS, smem, st>>>(x, qq, N, S, k, c, (int*)idx,
+                                                          (float*)nb);
+  }
   PPT_CHECK_LAUNCH();
   return 0;
 }

@@ -3,8 +3,9 @@
 Replaces ``ppt_tpu/kernels/fps.py:fps_pallas``; the CUDA side is
 ``csrc/cloud.cu:fps_single_kernel``, whose header says what bounds it on
 the H100 and how its design answers that. A kernel of its own beside
-``group.py:fps_batched``'s: the same function, another design (points and
-running distances in registers, not shared memory).
+``group.py:fps_batched``'s: the same function, another design (1024
+threads a cloud, two barriers a step, the winner's coordinates carried
+through the reduction).
 
 Contract (exact, ties included): ``[B, N, 3]`` coordinates of any float
 type, taken as f32 -> ``[B, npoint]`` int32; start at index 0, running

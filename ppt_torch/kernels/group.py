@@ -39,6 +39,8 @@ from ppt_torch.kernels import _build
 from ppt_torch.kernels._autograd import recompute_grad
 
 _SMEM_LIMIT = 227 * 1024
+FPS_MAX_POINTS = 16384  # the cloud in shared memory (12 N bytes), 16 points a thread
+CHUNK = 1024  # cloud points a kNN CTA stages at a time (double-buffered: 24 KB)
 
 
 def _sq3(dx: torch.Tensor, dy: torch.Tensor, dz: torch.Tensor) -> torch.Tensor:
@@ -64,19 +66,25 @@ def fps_plain(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
 
 
 def fps_batched(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
-    """FPS indices [B, npoint] int32 (start index 0 per cloud)."""
+    """FPS indices [B, npoint] int32 (start index 0 per cloud): the kernel
+    on the card, the plain version on the CPU. The kernel takes N up to
+    ``FPS_MAX_POINTS``."""
     if xyz.device.type == "cpu":
         return fps_plain(xyz, npoint)
-    B, N, _ = xyz.shape
+    B, N, C = xyz.shape
+    if C != 3:
+        raise ValueError(f"fps_batched: expects xyz [B, N, 3], got {tuple(xyz.shape)}")
     if npoint > N:
         raise ValueError(f"fps_batched: npoint={npoint} > N={N}")
-    if 16 * N > _SMEM_LIMIT:
-        raise ValueError(f"fps_batched: N={N} does not fit one block's shared memory")
+    if N > FPS_MAX_POINTS:
+        raise ValueError(f"fps_batched: N={N} exceeds the kernel's cap of {FPS_MAX_POINTS} "
+                         "points (1024 threads x 16 points a thread, the cloud in shared memory)")
     xyz = xyz.float().contiguous()
     out = torch.empty(B, npoint, dtype=torch.int32, device=xyz.device)
+    if B == 0 or npoint == 0:
+        return out
     lib = _build.load("group")
-    lib.ppt_fps.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                            ctypes.c_void_p, ctypes.c_void_p]
+    lib.ppt_fps.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
     rc = lib.ppt_fps(_build.ptr(xyz), B, N, npoint, _build.ptr(out), _build.stream_ptr(xyz))
     _build.check(lib, rc, "fps_batched")
     _build.LAUNCHES["fps_batched"] += 1
@@ -101,36 +109,31 @@ def knn_gather_plain(
     return idx.to(torch.int32), nbr - q[:, :, None, :]
 
 
-def _knn_warps_per_block(N: int) -> int:
-    wpb = 8
-    while wpb and 4 * N * (3 + wpb) > _SMEM_LIMIT:
-        wpb //= 2
-    if not wpb:
-        raise ValueError(f"knn_gather: N={N} does not fit one block's shared memory")
-    return wpb
-
-
 def knn_gather(
     k: int, xyz: torch.Tensor, new_xyz: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """kNN + centre-relative neighbour coordinates in one kernel:
-    (idx [B, S, k] int32, neighbourhood - centre [B, S, k, 3] f32)."""
+    (idx [B, S, k] int32, neighbourhood - centre [B, S, k, 3] f32). Any
+    S, any N, any k in [1, N]."""
     if xyz.device.type == "cpu":
         return knn_gather_plain(k, xyz, new_xyz)
-    B, N, _ = xyz.shape
+    B, N, C = xyz.shape
+    if C != 3 or new_xyz.dim() != 3 or new_xyz.shape[0] != B or new_xyz.shape[2] != 3:
+        raise ValueError(f"knn_gather: expects xyz [B, N, 3] and queries [B, S, 3], got "
+                         f"{tuple(xyz.shape)} and {tuple(new_xyz.shape)}")
+    if not 1 <= k <= N:
+        raise ValueError(f"knn_gather: k={k} must lie in [1, N={N}]")
     S = new_xyz.shape[1]
-    if k > N:
-        raise ValueError(f"knn_gather: k={k} > N={N}")
     xyz = xyz.float().contiguous()
     q = new_xyz.float().contiguous()
     _build.check_tensors("knn_gather", xyz, q)
-    wpb = _knn_warps_per_block(N)
     idx = torch.empty(B, S, k, dtype=torch.int32, device=xyz.device)
     nbr = torch.empty(B, S, k, 3, dtype=torch.float32, device=xyz.device)
+    if B == 0 or S == 0:
+        return idx, nbr
     lib = _build.load("group")
-    lib.ppt_knn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    rc = lib.ppt_knn(_build.ptr(xyz), _build.ptr(q), B, N, S, k, wpb, _build.ptr(idx),
+    lib.ppt_knn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
+    rc = lib.ppt_knn(_build.ptr(xyz), _build.ptr(q), B, N, S, k, CHUNK, _build.ptr(idx),
                      _build.ptr(nbr), _build.stream_ptr(xyz))
     _build.check(lib, rc, "knn_gather")
     _build.LAUNCHES["knn_gather"] += 1

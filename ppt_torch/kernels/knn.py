@@ -1,13 +1,13 @@
 """k-nearest-neighbour indices of single clouds, one warp a query.
 
 Replaces ``ppt_tpu/kernels/knn.py:knn_pallas``; the CUDA side is
-``csrc/cloud.cu:knn_single_kernel``, whose header says what bounds it on
-the H100 and how its design answers that: the cloud streams through
-shared memory in chunks of :data:`CHUNK` points, read by all of a CTA's
-query warps, and each warp keeps its query's running top-k in registers,
-filtering each 32 distances by a ballot against the k-th pair. A kernel
-of its own beside ``group.py:knn_gather`` (which also gathers the
-neighbourhood).
+``csrc/cloud.cu:knn_single_kernel`` over ``csrc/knn_select.cuh``, whose
+header says what bounds the selection on the H100 and how its design
+answers that: the cloud streams through shared memory in chunks of
+:data:`CHUNK` points, read by all of a CTA's query warps, and each warp
+keeps its query's running top-k in registers, filtering each 32 distances
+by a ballot against the k-th pair. ``group.py:knn_gather`` runs the same
+selection and also gathers the neighbourhood.
 
 Contract (exact, ties included): cloud ``[B, N, 3]``, queries ``[B, S,
 3]`` -> ``[B, S, k]`` int32, the k smallest ``((qx-x)^2 + (qy-y)^2) +
@@ -26,9 +26,7 @@ import ctypes
 import torch
 
 from ppt_torch.kernels import _build
-from ppt_torch.kernels.group import knn_gather_plain
-
-CHUNK = 1024  # cloud points a CTA stages at a time (double-buffered: 24 KB)
+from ppt_torch.kernels.group import CHUNK, knn_gather_plain
 
 
 def _check(k: int, xyz: torch.Tensor, new_xyz: torch.Tensor) -> None:

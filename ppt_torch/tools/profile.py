@@ -84,8 +84,8 @@ PARTS = (
     ("text::attn_bwd_kernel", "text: attention backward"),
     ("text::pool_ln_proj_kernel", "text: pooling + ln_final + projection"),
     ("text::epilogue_bwd_kernel", "text: pooling + ln_final + projection"),
-    ("fps_kernel", "fps_batched"),
-    ("knn_kernel", "knn_gather"),
+    ("fps_batched_kernel", "fps_batched"),
+    ("knn_gather_kernel", "knn_gather"),
     ("fps_single_kernel", "fps_single"),
     ("knn_single_kernel", "knn_single"),
     ("ball_query_feats_kernel", "ball_query_gather_feats"),

@@ -20,7 +20,9 @@ def test_busy_us_is_the_union_of_intervals(intervals, want):
 
 
 @pytest.mark.parametrize("name,part", [
-    ("fps_kernel(float const*, int, int, int*)", "fps_batched"),
+    ("void fps_batched_kernel<4>(float const*, int, int, int*)", "fps_batched"),
+    ("void knn_gather_kernel<1>(float const*, float const*, int, int, int, int, int*, float*)",
+     "knn_gather"),
     ("wg::mini_forward_wgmma_kernel(CUtensorMap_st, CUtensorMap_st, float const*)",
      "mini_forward"),
     ("tc::mini_stats_bf16_kernel(float const*, int, int)", "mini_stats"),
