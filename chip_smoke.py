@@ -16,9 +16,11 @@ Phases (any failed check raises, and the script exits non-zero):
   2. build the kernels from ppt_torch/csrc (one nvcc per source, in
      parallel) and report the build time; count each Hopper kernel's wgmma
      (HGMMA), TMA (UTMALDG, UBLKCP) and mma.sync (HMMA) instructions with
-     cuobjdump: the ViT block's GEMM, the whole-row attention, the flash
-     forward and backward and the bf16 MiniPointNet forward must issue
-     HGMMA on UTMALDG-loaded tiles and no HMMA;
+     cuobjdump: the ViT block's and the text kernels' GEMM, the whole-row
+     attention, the flash forward and backward and the bf16 MiniPointNet
+     forward must issue HGMMA on UTMALDG-loaded tiles and no HMMA, the
+     text kernels' bf16 attention must issue HMMA, and the text GEMMs' old
+     mma.sync kernel (gemm_bf16_kernel) must be gone;
   3. each kernel entry point against its plain version, at a small shape
      and at the slice's shape, in f32 and bf16 (the grouping kernels take
      f32 coordinates in both; the five kernels of the inference path also
@@ -31,10 +33,15 @@ Phases (any failed check raises, and the script exits non-zero):
      build whose producer loads the weights once (PPT_MINI_WEIGHTS_ONCE):
      the kernel's time without that traffic. The three text kernels
      (fused_text_block, fused_text_tower with and without block outputs,
-     fused_text_tower_bwd) at 5 classes x 13 positions x 128 wide and at
-     the slice's 40 x L x 512, 12 layers (L from the prompts): the same
-     limits, bf16 d_x0 within 5e-2, two runs bit-identical; the library
-     time is the port's plain-PyTorch TextTransformer on the card. The three
+     fused_text_tower_bwd) at 5 classes x 13 positions x 128 wide, at
+     the slice's 40 x L x 512, 12 layers (L from the prompts), at CLIP's
+     full context 40 x 77 (the bf16 attention pads it to 80) and at 37 x
+     77, 2 layers (2849 rows, a multiple of neither 64 nor 128): the same
+     limits, bf16 d_x0 within 5e-2, two runs bit-identical; at the slice
+     timed in alternated rounds (median of 5) with the port's
+     plain-PyTorch TextTransformer on the card (the library call); the
+     GEMMs' device ms and TFLOP/s and the kernels launched a call, per
+     entry point, under the profiler. The three
      ball-query kernels (ball_query_gather, ball_query_gather_feats with
      bf16 and f32 features, ball_query_gather_v2) against their plain
      versions at a small shape (odd nsample, N not a multiple of 32, a
@@ -221,7 +228,10 @@ Phases (any failed check raises, and the script exits non-zero):
      trunk (1024 groups, N=8192): device ms by part; the block GEMMs' ms a
      batch and their TFLOP/s (the 12 blocks' products over that time), the
      flash forward's, mini_forward's, knn_gather's and fps_batched's ms a
-     batch. Its numbers go on a line of their own ({"profile": ...}).
+     batch; then PPT-Base's tuning step (B=30) on the tower text route:
+     wall ms a step, idle share, the text kernels' ms a step by part, and
+     fused_text_tower_res and fused_text_tower_bwd launched. Its numbers go
+     on a line of their own ({"profile": ...}).
 
 The build prints each CUDA kernel's registers and spills (ptxas -v).
 The line before the card's is a JSON object with the per-kernel numbers
@@ -367,18 +377,26 @@ TOL_TEXT_BWD = {"f32": 1e-4, "bf16": 5e-2}
 HOPPER_KERNELS = {"attention": ("attention_wgmma_kernel", "flash_fwd_wgmma_kernel",
                                 "flash_bwd_dkv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel"),
                   "vitblock": ("attention_wgmma_kernel", "gemm_wgmma_kernel"),
-                  "mini": ("mini_forward_wgmma_kernel",)}
+                  "mini": ("mini_forward_wgmma_kernel",),
+                  "text": ("gemm_wgmma_kernel",)}
+# the kernels on mma.sync by design (the text attention's classes of at most
+# 80 padded rows): each must issue HMMA
+MMA_KERNELS = {"text": ("attn_fwd_bf16_kernel", "attn_bwd_bf16_kernel")}
+# kernels that must be gone: the text GEMMs' old mma.sync body
+GONE_KERNELS = {"text": ("gemm_bf16_kernel",)}
 SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "HMMA")
 
 
 def hopper_sass():
     """Instruction counts of the Hopper kernels in the built libraries
     (cuobjdump -sass), summed over each kernel's template instances; checks
-    that each issues HGMMA and UTMALDG and no HMMA. Returns {library:
-    {kernel: {op: count}}}."""
+    that each of HOPPER_KERNELS issues HGMMA and UTMALDG and no HMMA, that
+    each of MMA_KERNELS issues HMMA, and that no GONE_KERNELS is built.
+    Returns {library: {kernel: {op: count}}}."""
     tool = Path(_build.nvcc_path()).parent / "cuobjdump"
     found = {}
-    for lib, names in HOPPER_KERNELS.items():
+    for lib in {**HOPPER_KERNELS, **MMA_KERNELS}:
+        names = HOPPER_KERNELS.get(lib, ()) + MMA_KERNELS.get(lib, ()) + GONE_KERNELS.get(lib, ())
         out = subprocess.run([str(tool), "-sass", str(_build.BUILD_DIR / f"libppt_{lib}.so")],
                              capture_output=True, text=True, timeout=300).stdout
         counts = {n: dict.fromkeys(SASS_OPS, 0) for n in names}
@@ -396,8 +414,15 @@ def hopper_sass():
         for n in names:
             c = dict(counts[n], instances=instances[n])
             print(f"[sass] lib{lib}: {n}: {c}")
-            check(instances[n] > 0 and c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["HMMA"] == 0,
-                  f"{n} in lib{lib} does not run wgmma on TMA-loaded tiles: {c}")
+            if n in HOPPER_KERNELS.get(lib, ()):
+                check(instances[n] > 0 and c["HGMMA"] > 0 and c["UTMALDG"] > 0
+                      and c["HMMA"] == 0,
+                      f"{n} in lib{lib} does not run wgmma on TMA-loaded tiles: {c}")
+            elif n in MMA_KERNELS.get(lib, ()):
+                check(instances[n] > 0 and c["HMMA"] > 0,
+                      f"{n} in lib{lib} does not run on the tensor cores: {c}")
+            else:
+                check(instances[n] == 0, f"lib{lib} still builds {n}")
             found.setdefault(lib, {})[n] = c
     return found
 
@@ -1106,12 +1131,31 @@ def text_ops(C, L, D, H, hid, depth, E):
     return depth * fwd_layer + epilogue, depth * bwd_layer + 2 * epilogue, fwd_layer
 
 
+def text_gemm_ops(R, D, hid, depth):
+    """Operations of the GEMMs alone: one block, the tower's forward and
+    its backward (the recomputed qkv, out_proj and c_fc, and the four
+    input-cotangent products)."""
+    layer = 2 * R * (3 * D * D + D * D + 2 * D * hid)
+    bwd = 2 * R * (3 * D * D + D * D + D * hid) + 2 * R * (2 * D * hid + D * D + 3 * D * D)
+    return layer, depth * layer, depth * bwd
+
+
+def text_shapes():
+    """(C, L, D, heads, depth, E, tag): a small shape; the slice (40 prompts,
+    L from the prompts); CLIP's full context, which the bf16 attention pads
+    to 80; and 37 x 77 = 2849 rows, a multiple of neither 64 nor 128."""
+    L_slice = int(mn40_prompts().perm_tokens.shape[1])
+    return ((5, 13, 128, 4, 2, 96, "small"), (40, L_slice, 512, 8, 12, 512, "slice"),
+            (40, 77, 512, 8, 12, 512, "ctx77"), (37, 77, 512, 8, 2, 512, "ragged"))
+
+
 def check_text(results):
     """Phase 3 for the text path: fused_text_block, fused_text_tower (with
-    and without block outputs) and fused_text_tower_bwd."""
-    L_slice = int(mn40_prompts().perm_tokens.shape[1])
-    shapes = ((5, 13, 128, 4, 2, 96, "small"), (40, L_slice, 512, 8, 12, 512, "slice"))
-    for C, L, D, H, depth, E, tag in shapes:
+    and without block outputs) and fused_text_tower_bwd at every shape of
+    text_shapes(), then timed at the slice in alternated rounds with the
+    plain-PyTorch TextTransformer, with the GEMMs' rate and the kernels
+    launched a call per entry point, under the profiler."""
+    for C, L, D, H, depth, E, tag in text_shapes():
         for dname, dt in DTYPES.items():
             x0, eot_pos, onehot, cot, w = text_inputs(C, L, D, depth, E, dt, seed=L + depth)
             w0 = [t[0] for t in w[:12]]
@@ -1148,16 +1192,16 @@ def check_text(results):
             if tag != "slice":
                 continue
             hid, R = 4 * D, C * L
-            fwd_ms = gpu_time_ms(lambda: ktower.tower_forward(x0, onehot, w, H))
-            res_ms = gpu_time_ms(
-                lambda: ktower.tower_forward(x0, onehot, w, H, want_blocks=True))
-            bwd_ms = gpu_time_ms(lambda: ktower.tower_backward(cot, x0, xs, onehot, w, H))
-            blk_ms = gpu_time_ms(lambda: ktextblock._block_run(x0, *w0, H))
             if dname == "f32":
-                f32_ms = {"block": blk_ms, "tower": fwd_ms, "res": res_ms, "bwd": bwd_ms}
-                print(f"[kernel] text slice f32 (CUDA cores): block {blk_ms:.3f} ms, tower "
-                      f"{fwd_ms:.3f} ms, with block outputs {res_ms:.3f} ms, backward "
-                      f"{bwd_ms:.3f} ms")
+                f32_ms = {"block": gpu_time_ms(lambda: ktextblock._block_run(x0, *w0, H)),
+                          "tower": gpu_time_ms(lambda: ktower.tower_forward(x0, onehot, w, H)),
+                          "res": gpu_time_ms(lambda: ktower.tower_forward(
+                              x0, onehot, w, H, want_blocks=True)),
+                          "bwd": gpu_time_ms(lambda: ktower.tower_backward(
+                              cot, x0, xs, onehot, w, H))}
+                print(f"[kernel] text slice f32 (CUDA cores): block {f32_ms['block']:.3f} ms, "
+                      f"tower {f32_ms['tower']:.3f} ms, with block outputs {f32_ms['res']:.3f} "
+                      f"ms, backward {f32_ms['bwd']:.3f} ms")
                 continue
             with torch.no_grad():
                 plain_blk = gpu_time_ms(lambda: ktextblock.text_block_plain(x0, *w0, H), reps=5)
@@ -1168,35 +1212,56 @@ def check_text(results):
                     reps=3, warmup=1)
             lib_block, lib_fwd, lib_fwd_bwd, lib_graph = text_library(
                 C, L, D, H, depth, E, dt, x0, eot_pos)
-            lib_blk_ms, lib_fwd_ms = gpu_time_ms(lib_block), gpu_time_ms(lib_fwd)
-            lib_fb_ms, lib_graph_ms = gpu_time_ms(lib_fwd_bwd), gpu_time_ms(lib_graph)
+            fns = {"block": lambda: ktextblock._block_run(x0, *w0, H),
+                   "tower": lambda: ktower.tower_forward(x0, onehot, w, H),
+                   "res": lambda: ktower.tower_forward(x0, onehot, w, H, want_blocks=True),
+                   "bwd": lambda: ktower.tower_backward(cot, x0, xs, onehot, w, H),
+                   "lib_block": lib_block, "lib_fwd": lib_fwd, "lib_fwd_bwd": lib_fwd_bwd,
+                   "lib_graph": lib_graph}
+            ms = alternated_ms(fns)
+            print("[kernel] text slice bf16, alternated rounds (median of 5), ms: "
+                  + json.dumps({k: round(v, 4) for k, v in ms.items()}))
+            gemm_ops = dict(zip(("block", "tower", "bwd"), text_gemm_ops(R, D, hid, depth)))
+            profs = {k: tprofile.profile_calls(fns[k]) for k in ("block", "tower", "bwd")}
+            gemm_ms = {k: p["device_ms_per_batch"]["text: GEMMs"] for k, p in profs.items()}
+            per_call = {k: sum(v["launches"] for v in p["text_kernels_per_batch"].values())
+                        for k, p in profs.items()}
+            check(all(per_call.values()), f"the profiler saw no text kernel in a call: {per_call}")
+            tflops = {k: gemm_ops[k] / (gemm_ms[k] * 1e-3) / 1e12 for k in gemm_ms}
+            print("[kernel] text slice bf16 GEMMs: " + ", ".join(
+                f"{k} {gemm_ms[k]:.4f} ms, {gemm_ops[k] / 1e9:.1f} GFLOP, {tflops[k]:.1f} TFLOP/s"
+                for k in gemm_ms) + "; text kernels a call, profiled: "
+                + ", ".join(f"{k} {per_call[k]:g}" for k in per_call))
             fwd_ops, bwd_ops, layer_ops = text_ops(C, L, D, H, hid, depth, E)
             layer_w = 2 * (3 * D * D + D * D + 2 * D * hid) + 4 * (9 * D + hid)
             act = R * D * 2
             bms, by = bound_ms(2 * act + layer_w, layer_ops, PEAK["bf16"])
             results["fused_text_block"] = dict(
-                max_abs_err=float((blk.float() - blk_want.float()).abs().max()), ms=blk_ms,
-                plain_ms=plain_blk, bound_ms=bms, bound_by=by, library_ms=lib_blk_ms,
-                f32_ms=f32_ms["block"])
+                max_abs_err=float((blk.float() - blk_want.float()).abs().max()), ms=ms["block"],
+                plain_ms=plain_blk, bound_ms=bms, bound_by=by, library_ms=ms["lib_block"],
+                f32_ms=f32_ms["block"], gemm_ms=gemm_ms["block"], gemm_tflops=tflops["block"])
             tower_b = act + C * L * 4 + depth * layer_w + 4 * (2 * D + D * E) + C * E * 4
             bms, by = bound_ms(tower_b, fwd_ops, PEAK["bf16"])
             bms_res, _ = bound_ms(tower_b + depth * act, fwd_ops, PEAK["bf16"])
             results["fused_text_tower"] = dict(
-                max_abs_err=float((out - out_want).abs().max()), ms=fwd_ms, plain_ms=plain_fwd,
-                bound_ms=bms, bound_by=by, library_ms=lib_fwd_ms, res_ms=res_ms,
-                res_bound_ms=bms_res, f32_ms=f32_ms["tower"], f32_res_ms=f32_ms["res"],
-                device_kernels_per_call=7 * depth + 1)
+                max_abs_err=float((out - out_want).abs().max()), ms=ms["tower"],
+                plain_ms=plain_fwd, bound_ms=bms, bound_by=by, library_ms=ms["lib_fwd"],
+                res_ms=ms["res"], res_bound_ms=bms_res, res_library_ms=ms["lib_graph"],
+                f32_ms=f32_ms["tower"], f32_res_ms=f32_ms["res"],
+                gemm_ms=gemm_ms["tower"], gemm_tflops=tflops["tower"],
+                device_kernels_per_call=per_call["tower"])
             bms, by = bound_ms(tower_b + depth * act + act, bwd_ops, PEAK["bf16"])
             results["fused_text_tower_bwd"] = dict(
-                max_abs_err=float((dx.float() - dx_want.float()).abs().max()), ms=bwd_ms,
+                max_abs_err=float((dx.float() - dx_want.float()).abs().max()), ms=ms["bwd"],
                 plain_ms=plain_bwd, bound_ms=bms, bound_by=by,
-                library_ms=lib_fb_ms - lib_graph_ms, library_fwd_bwd_ms=lib_fb_ms,
-                fwd_bwd_ms=res_ms + bwd_ms, f32_ms=f32_ms["bwd"],
-                device_kernels_per_call=13 * depth + 1)
+                library_ms=ms["lib_fwd_bwd"] - ms["lib_graph"],
+                library_fwd_bwd_ms=ms["lib_fwd_bwd"], fwd_bwd_ms=ms["res"] + ms["bwd"],
+                f32_ms=f32_ms["bwd"], gemm_ms=gemm_ms["bwd"], gemm_tflops=tflops["bwd"],
+                device_kernels_per_call=per_call["bwd"])
             print(f"[kernel] text slice bf16: forward + backward to x0, kernels "
-                  f"{res_ms + bwd_ms:.3f} ms, the plain-PyTorch TextTransformer {lib_fb_ms:.3f} "
-                  f"ms (its forward alone {lib_fwd_ms:.3f} ms, with a graph {lib_graph_ms:.3f} "
-                  f"ms)")
+                  f"{ms['res'] + ms['bwd']:.3f} ms, the plain-PyTorch TextTransformer "
+                  f"{ms['lib_fwd_bwd']:.3f} ms (its forward alone {ms['lib_fwd']:.3f} ms, with "
+                  f"a graph {ms['lib_graph']:.3f} ms)")
 
 
 # (tag, B, [(N, S, radius, nsample, F or 0), ...]): each tower's ball queries in
@@ -3289,7 +3354,8 @@ def run_profiles(batch=32, batches=5):
     """PPT-Base recognition and the long trunk's under tools/profile.py: the
     block GEMMs' device ms a batch and their rate (the 12 blocks' four
     products over that time), and the flash forward's, mini_forward's and
-    knn_gather's and fps_batched's ms a batch."""
+    knn_gather's and fps_batched's ms a batch; then PPT-Base's tuning step
+    on the tower text route: wall, idle share and the text kernels' parts."""
     out = {}
     for tag, kw in (("ppt_base", {}), ("long_trunk", dict(num_group=1024, npoints=8192))):
         r = tprofile.profile_step(batch=batch, batches=batches, **kw)
@@ -3319,6 +3385,23 @@ def run_profiles(batch=32, batches=5):
     check(all("mini_forward_ms" in v for v in out.values()), "a profile ran no mini_forward")
     check(all("knn_gather_ms" in v and "fps_batched_ms" in v for v in out.values()),
           "a profile ran no grouping kernel")
+
+    _build.reset_launches()
+    r = tprofile.profile_train_step(batch=TRAIN_BATCH, batches=batches, text_route="tower")
+    counts = {k: _build.LAUNCHES[k] for k in ("fused_text_tower_res", "fused_text_tower_bwd")}
+    text = {k: v for k, v in r["device_ms_per_batch"].items() if k.startswith("text:")}
+    out["ppt_base_train_tower"] = dict(
+        wall_ms_per_step=r["wall_ms_per_batch"], device_busy_ms_per_step=r[
+            "device_busy_ms_per_batch"], device_idle_share=r["device_idle_share"],
+        clouds_per_sec=r["clouds_per_sec"], device_ms_per_step=r["device_ms_per_batch"],
+        text_ms_per_step=text, text_kernels_per_step=r["text_kernels_per_batch"],
+        section_ms_per_step=r["section_ms_per_batch"], launches=counts)
+    print(f"[profile] ppt_base_train_tower: wall {r['wall_ms_per_batch']:.3f} ms a step, idle "
+          f"{r['device_idle_share']:.3f}, busy {r['device_busy_ms_per_batch']:.3f} ms; text "
+          f"parts, ms a step: {json.dumps({k: round(v, 4) for k, v in text.items()})}; "
+          f"launches {counts}")
+    check(all(v > 0 for v in counts.values()),
+          f"the tower-route step ran no fused_text_tower_res or fused_text_tower_bwd: {counts}")
     return out
 
 
@@ -3399,6 +3482,8 @@ def main():
     results["flash_mha_bwd"]["sass"] = {k: v for k, v in att.items() if "flash_bwd" in k}
     for name in ("fused_vit_block", "fused_vit_block_readout", "fused_vit_tower", "vit_variant"):
         results[name]["sass"] = vit
+    for name in TEXT_KERNELS:
+        results[name]["sass"] = sass["text"]
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         r = results[name]

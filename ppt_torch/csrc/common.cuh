@@ -1,9 +1,8 @@
 // Shared helpers for the port's hand-written Hopper kernels: the C ABI's
-// conventions, dtype conversion, the point clouds' exact distance and
-// argmax / argmin merges, the mma.sync / ldmatrix / cp.async wrappers,
-// and the LayerNorm row and GEMM main loops that vitblock.cu and
-// text.cu build their kernels from (the f32 GEMM both; the mma.sync bf16
-// GEMM text.cu alone: vitblock.cu's bf16 GEMM is gemm.cuh's wgmma kernel).
+// conventions, dtype conversion, the point clouds' exact distance, the
+// mma.sync / ldmatrix / cp.async wrappers, and the LayerNorm row and f32
+// GEMM main loop that vitblock.cu and text.cu build their kernels from
+// (their bf16 GEMM is gemm.cuh's wgmma kernel).
 //
 // Every kernel library exposes a plain C ABI (loaded with ctypes by
 // ppt_torch/kernels/_build.py): pointers and the stream arrive as
@@ -226,106 +225,6 @@ __device__ __forceinline__ void gemm_f32_body(const float* __restrict__ A,
       if (c < N) epi(acc[i][j], r, c);
     }
   }
-}
-
-// bf16: mma.sync tensor-core tiles. Block tile TBM x 128 (TBM 128 or 64),
-// k-step 32, cp.async double buffer; 8 warps as 4 (rows) x 2 (cols), each
-// warp TBM/4 x 64. Needs K % 32 == 0 and N % 8 == 0. For TB the W tile is
-// kept [n][k] in shared memory, as the A tile is: that is the mma's native
-// B layout, and its fragments come from a plain ldmatrix.
-constexpr int TBN = 128, TBK = 32;
-constexpr int A_LD = TBK + 8, W_LD = TBN + 8;  // padded rows: conflict-free ldmatrix
-
-template <int TBM, bool TB, typename Epi>
-__device__ __forceinline__ void gemm_bf16_body(const bf16* __restrict__ A,
-                                               const bf16* __restrict__ W, int M, int N, int K,
-                                               const Epi& epi) {
-  constexpr int MT = TBM / 64;  // 16-row mma tiles per warp
-  constexpr int WS_ELEMS = TB ? TBN * A_LD : TBK * W_LD;
-  __shared__ __align__(16) bf16 As[2][TBM * A_LD];
-  __shared__ __align__(16) bf16 Ws[2][WS_ELEMS];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp & 3, wn = warp >> 2;
-  const int m0 = blockIdx.y * TBM, n0 = blockIdx.x * TBN;
-
-  auto load = [&](int stage, int k0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + 256 * i;
-      if (i < MT) {  // A: TBM rows x 4 chunks of 8
-        const int r = c >> 2, kc = (c & 3) * 8;
-        const bool ok = m0 + r < M;
-        cp_async16(&As[stage][r * A_LD + kc], ok ? A + (size_t)(m0 + r) * K + k0 + kc : A, ok);
-      }
-      if (TB) {  // W^T: 128 n x 4 chunks of 8 along k
-        const int r = c >> 2, kc = (c & 3) * 8;
-        const bool ok = n0 + r < N;
-        cp_async16(&Ws[stage][r * A_LD + kc], ok ? W + (size_t)(n0 + r) * K + k0 + kc : W, ok);
-      } else {  // W: 32 k x 16 chunks of 8 along n
-        const int kr = c >> 4, nc = (c & 15) * 8;
-        const bool ok = n0 + nc < N;
-        cp_async16(&Ws[stage][kr * W_LD + nc], ok ? W + (size_t)(k0 + kr) * N + n0 + nc : W, ok);
-      }
-    }
-    cp_async_commit();
-  };
-
-  float acc[MT][8][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  const int KT = K / TBK;
-  load(0, 0);
-  for (int kt = 0; kt < KT; ++kt) {
-    if (kt + 1 < KT) {
-      load((kt + 1) & 1, (kt + 1) * TBK);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* as = As[kt & 1];
-    const bf16* ws = Ws[kt & 1];
-#pragma unroll
-    for (int ks = 0; ks < TBK; ks += 16) {
-      uint32_t a[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-        ldmatrix_x4(a[mt], as + (wm * (16 * MT) + mt * 16 + (lane & 15)) * A_LD + ks +
-                               (lane >> 4) * 8);
-#pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        uint32_t b[4];
-        if (TB)
-          ldmatrix_x4(b, ws + (wn * 64 + p * 16 + (lane >> 4) * 8 + (lane & 7)) * A_LD + ks +
-                             ((lane >> 3) & 1) * 8);
-        else
-          ldmatrix_x4_trans(b, ws + (ks + ((lane >> 3) & 1) * 8 + (lane & 7)) * W_LD + wn * 64 +
-                                   p * 16 + (lane >> 4) * 8);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma_bf16(acc[mt][2 * p], a[mt], b[0], b[1]);
-          mma_bf16(acc[mt][2 * p + 1], a[mt], b[2], b[3]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = m0 + wm * (16 * MT) + mt * 16 + (lane >> 2) + (e >> 1) * 8;
-        const int c = n0 + wn * 64 + nt * 8 + (lane & 3) * 2 + (e & 1);
-        if (r < M && c < N) epi(acc[mt][nt][e], r, c);
-      }
 }
 
 // cudaGetLastError after a launch, as the C entry points return it.

@@ -4,8 +4,9 @@
 // shared-memory tiles in the layout that TMA writes and wgmma reads, their
 // wgmma matrix descriptors, the wgmma.mma_async wrappers (bf16 in, f32
 // accumulators), mbarrier waits, named barriers, TMA tiled and bulk loads,
-// setmaxnreg, and the host-side tensor maps of a [B, L, H, D] operand and
-// of a row-major matrix.
+// programmatic dependent launch (text.cu's chains of launches), setmaxnreg,
+// and the host-side tensor maps of a [B, L, H, D] operand and of a
+// row-major matrix.
 //
 // Tiles. A tile is 64 rows of a bf16 operand whose D columns are
 // contiguous, kept as D / CW chunks of [64][CW] with CW = min(D, 64), so
@@ -374,6 +375,19 @@ __device__ __forceinline__ void named_bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
+// Programmatic dependent launch: a kernel launched with launch_kernel(pdl)
+// may start while the kernel before it on the stream drains. pdl_wait blocks
+// until that kernel has completed and its writes are visible, so a kernel
+// calls it before it reads or writes global memory; pdl_launch_dependents
+// lets the next kernel launch (it waits in turn). Without the launch
+// attribute both are no-ops.
+__device__ __forceinline__ void pdl_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void pdl_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
 // Register rebalancing between the producer and the consumer warpgroups;
 // the whole warpgroup executes it.
 template <int R> __device__ __forceinline__ void reg_dealloc() {
@@ -461,6 +475,25 @@ static int mat_map(CUtensorMap* m, const bf16* base, int rows, int cols, int box
                         unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// Launches kernel<<<grid, block, smem, st>>>(args...), with programmatic
+// stream serialisation when pdl (see pdl_wait); returns the launch's error
+// code.
+template <typename... Params, typename... Args>
+static int launch_kernel(bool pdl, void (*kernel)(Params...), dim3 grid, dim3 block, size_t smem,
+                         cudaStream_t st, Args&&... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = pdl ? 1 : 0;
+  return (int)cudaLaunchKernelEx(&cfg, kernel, static_cast<Args&&>(args)...);
 }
 
 // A warp-specialised kernel may only launch when its register count leaves

@@ -102,6 +102,7 @@ __device__ __forceinline__ float gelu_tanh(float x) {
 template <typename T, int EPI>
 struct Epilogue {
   static constexpr bool RES = EPI == EPI_BIAS_RES;
+  static constexpr bool OUT32 = false, DUAL = false;  // bf16 results of one product
   int N;
   const float* bias;
   const T* res;
@@ -149,8 +150,8 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
                   const __grid_constant__ CUtensorMap tc, const __grid_constant__ CUtensorMap tr,
                   int M, int N, int K, const float* __restrict__ bias,
                   const float* __restrict__ dp, int dp_col, int L) {
-  gemm_wgmma_body(&ta, &tw, &tc, &tr, M, N, K,
-                  Epilogue<bf16, EPI>{N, bias, nullptr, dp, dp_col, L, nullptr});
+  gemm_wgmma_body<GM_BN, false>(&ta, &tw, &tc, &tr, M, N, K,
+                                Epilogue<bf16, EPI>{N, bias, nullptr, dp, dp_col, L, nullptr});
 }
 
 // ---------------------------------------------------------------------------
@@ -228,8 +229,9 @@ static int gemm(const bf16* A, const bf16* W, int M, int N, int K, const float* 
   if (!rc) rc = mat_map(&maps[3], EPI == EPI_BIAS_RES ? res : out, M, N, GM_BM);
   if (rc) return rc;
   const int tiles = ((M + GM_BM - 1) / GM_BM) * ((N + GM_BN - 1) / GM_BN), sms = sm_count();
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, GemmTile::SMEM);
-  kernel<<<tiles < sms ? tiles : sms, 384, GemmTile::SMEM, st>>>(
+  constexpr int smem = GemmTile<GM_BN>::SMEM;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  kernel<<<tiles < sms ? tiles : sms, 384, smem, st>>>(
       maps[0], maps[1], maps[2], maps[3], M, N, K, bias, dp, dp_col, L);
   PPT_CHECK_LAUNCH();
   return 0;

@@ -28,11 +28,13 @@ import torch
 
 from ppt_torch.kernels import _build
 from ppt_torch.kernels._autograd import recompute_grad
-from ppt_torch.kernels.vitblock import _mm, ln_f32
+from ppt_torch.kernels.vitblock import _mm, check_tma, ln_f32
 
 LN_EPS = 1e-5  # the text tower's LayerNorm, not the point tower's 1e-6
 SMEM_LIMIT = 227 * 1024  # dynamic shared memory one block may take on sm_90
+ATT_MAX_L = 128  # the bf16 attention's positions: 8 key tiles of 16 (csrc/text.cu)
 MATRICES = (2, 4, 8, 10)  # in_proj, out_proj, c_fc, c_proj kernels among a layer's 12 weights
+MATRIX_NAMES = ("win", "wout", "wfc", "wproj")
 
 
 def quick_gelu_f32(x32: torch.Tensor) -> torch.Tensor:
@@ -72,20 +74,41 @@ def text_block_plain(x, ln1s, ln1b, wqkv, bqkv, wout, bout, ln2s, ln2b, wfc, bfc
     return x1 + (_mm(h1, wproj) + bproj).to(dt)
 
 
+def attention_smem(L: int, d: int, dt: torch.dtype, backward: bool = False) -> int:
+    """Dynamic shared memory of one class's attention block in
+    ``csrc/text.cu``: in bf16, q, k, v (and dO, T(P), T(dS) in the
+    backward) with L padded to 16 and rows padded by 8 elements
+    (``attn_bf16_smem``); in f32, q, k, v (and dO) as ``[L][d + 1]`` and one
+    (two) ``[L][L]`` score matrices."""
+    if dt == torch.bfloat16:
+        lp = -(-L // 16) * 16
+        return 2 * ((4 if backward else 3) * lp * (d + 8) + (2 * lp * (lp + 8) if backward else 0))
+    n_tiles, n_scores = (4, 2) if backward else (3, 1)
+    return 4 * (n_tiles * L * (d + 1) + n_scores * L * L + L)
+
+
 def check_text_shapes(name: str, L: int, D: int, heads: int, hid: int, dt: torch.dtype,
                       backward: bool = False) -> None:
-    """Refuse by name what the tiles of ``csrc/text.cu`` do not take."""
+    """Refuse by name what the kernels of ``csrc/text.cu`` do not take."""
     if D % heads:
         raise ValueError(f"{name}: width {D} is not a multiple of the head count {heads}")
     d = D // heads
-    if D > 1024:
-        raise ValueError(f"{name}: width {D} exceeds the LayerNorm kernel's 1024")
+    if D > 1024 or D % 8:
+        raise ValueError(f"{name}: width {D} must be a multiple of 8 up to 1024 (the LayerNorm "
+                         f"kernels take a row a warp, the backward in 16-byte chunks)")
     if d > 128:
         raise ValueError(f"{name}: head dim {d} exceeds 128")
-    if dt == torch.bfloat16 and (D % 32 or hid % 32):
-        raise ValueError(f"{name}: bf16 needs width and hidden ({D}, {hid}) multiples of 32")
-    n_tiles, n_scores = (4, 2) if backward else (3, 1)
-    smem = 4 * (n_tiles * L * (d + 1) + n_scores * L * L + L)
+    if dt == torch.bfloat16:
+        if hid % 8:
+            raise ValueError(f"{name}: bf16 GEMMs load rows by TMA, so hidden {hid} must be a "
+                             f"multiple of 8 (16-byte rows)")
+        if d % 16:
+            raise ValueError(f"{name}: the bf16 attention's products step 16 deep, so head dim "
+                             f"{d} must be a multiple of 16")
+        if L > ATT_MAX_L:
+            raise ValueError(f"{name}: L={L} exceeds the bf16 attention's {ATT_MAX_L} "
+                             f"positions (a class's scores sit in registers)")
+    smem = attention_smem(L, d, dt, backward)
     if smem > SMEM_LIMIT:
         raise ValueError(f"{name}: L={L} at head dim {d} needs {smem} bytes of shared memory "
                          f"for one class's attention, over {SMEM_LIMIT}")
@@ -131,6 +154,7 @@ def _launch(x, weights, heads):
     check_text_shapes(name, L, D, heads, hid, dt)
     x = x.contiguous()
     weights = prepare_weights(dt, weights)
+    check_tma(name, x=x, **{n: weights[i] for i, n in zip(MATRICES, MATRIX_NAMES)})
     out = torch.empty_like(x)
     call_entry("ppt_text_block", name, dt, (B, L, D, heads, hid),
                [x, *weights, *forward_scratch(B * L, D, hid, dt, x.device), out])

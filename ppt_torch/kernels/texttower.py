@@ -36,10 +36,10 @@ from typing import Sequence
 import torch
 
 from ppt_torch.kernels import _build
-from ppt_torch.kernels.textblock import (LN_EPS, call_entry, causal_scores, check_text_shapes,
-                                         forward_scratch, prepare_weights, quick_gelu_f32,
-                                         split_heads)
-from ppt_torch.kernels.vitblock import _mm, ln_f32
+from ppt_torch.kernels.textblock import (LN_EPS, MATRICES, MATRIX_NAMES, call_entry,
+                                         causal_scores, check_text_shapes, forward_scratch,
+                                         prepare_weights, quick_gelu_f32, split_heads)
+from ppt_torch.kernels.vitblock import _mm, check_tma, ln_f32
 
 WEIGHT_NAMES = ("ln1s", "ln1b", "win", "bin", "wout", "bout", "ln2s", "ln2b", "wfc", "bfc",
                 "wproj", "bproj", "lnfs", "lnfb", "tproj")
@@ -160,8 +160,23 @@ def _dims(name: str, x0: torch.Tensor, weights: Sequence[torch.Tensor], heads: i
     return (C, L, D, heads, hid, depth, E)
 
 
-def _prepare(dt: torch.dtype, weights: Sequence[torch.Tensor]):
-    return prepare_weights(dt, weights[:12]) + [w.float().contiguous() for w in weights[12:]]
+def _prepare(name: str, dt: torch.dtype, weights: Sequence[torch.Tensor], **acts):
+    """The 15 weights as the kernels take them; refuses by name a bf16
+    matrix or activation that TMA cannot load (``acts``: the tower input
+    and the saved block outputs, which the residual epilogues read)."""
+    out = prepare_weights(dt, weights[:12]) + [w.float().contiguous() for w in weights[12:]]
+    check_tma(name, **acts, **{n: out[i] for i, n in zip(MATRICES, MATRIX_NAMES)})
+    return out
+
+
+def _check_ln_rows(name: str, **tensors: torch.Tensor) -> None:
+    """The LayerNorm backward reads x, gamma and its cotangents in 16-byte
+    chunks, in either dtype: refuse by name a base it could not load so
+    (the cotangents are buffers this module allocates)."""
+    for key, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the LayerNorm backward loads 16-byte chunks; {key} is "
+                             f"not 16-byte aligned")
 
 
 def _launch_forward(x0, eot_onehot, weights, heads, want_blocks: bool):
@@ -177,8 +192,9 @@ def _launch_forward(x0, eot_onehot, weights, heads, want_blocks: bool):
         xs, pingpong = torch.empty(depth, R, D, dtype=dt, device=dev), [None, None]
     else:
         xs, pingpong = None, [torch.empty(R, D, dtype=dt, device=dev) for _ in range(2)]
+    weights = _prepare(name, dt, weights, x0=x0)
     call_entry("ppt_text_tower", name, dt, dims,
-               [x0, eot, *_prepare(dt, weights), *forward_scratch(R, D, hid, dt, dev),
+               [x0, eot, *weights, *forward_scratch(R, D, hid, dt, dev),
                 *pingpong, xs, out])
     return (out, xs) if want_blocks else out
 
@@ -197,11 +213,14 @@ def _launch_backward(g, x0, xs, eot_onehot, weights, heads):
         return torch.empty(R, n, dtype=dtype, device=dev)
 
     f32 = torch.float32
+    x0, xs = x0.contiguous(), xs.contiguous()
+    weights = _prepare(name, dt, weights, x0=x0, xs=xs)
+    _check_ln_rows(name, x0=x0, xs=xs, ln1s=weights[0], ln2s=weights[6])
     dx0 = torch.empty(C, L, D, dtype=dt, device=dev)
     call_entry("ppt_text_tower_bwd", name, dt, dims,
-               [g.float().contiguous(), x0.contiguous(), xs.contiguous(),
-                eot_onehot.float().contiguous(), *_prepare(dt, weights),
-                buf(D), buf(3 * D), buf(D), buf(D), buf(hid, f32), buf(hid), buf(D),
+               [g.float().contiguous(), x0, xs, eot_onehot.float().contiguous(), *weights,
+                buf(D), buf(3 * D), buf(D), buf(D), buf(hid, f32) if dt == f32 else None,
+                buf(hid), buf(D),
                 buf(D, f32), buf(D, f32), buf(D, f32), buf(D), buf(3 * D), dx0])
     return dx0
 

@@ -80,10 +80,11 @@ PARTS = (
     ("text::gemm_", "text: GEMMs"),
     ("text::ln_vjp_kernel", "text: LayerNorm backward"),
     ("text::ln_kernel", "text: LayerNorm"),
-    ("text::attn_fwd_kernel", "text: attention"),
-    ("text::attn_bwd_kernel", "text: attention backward"),
+    ("text::attn_fwd_", "text: attention"),
+    ("text::attn_bwd_", "text: attention backward"),
     ("text::pool_ln_proj_kernel", "text: pooling + ln_final + projection"),
     ("text::epilogue_bwd_kernel", "text: pooling + ln_final + projection"),
+    ("text::proj_bwd_kernel", "text: pooling + ln_final + projection"),
     ("fps_batched_kernel", "fps_batched"),
     ("knn_gather_kernel", "knn_gather"),
     ("fps_single_kernel", "fps_single"),
@@ -117,6 +118,22 @@ def part_of(kernel_name: str) -> str:
         if key in kernel_name:
             return part
     return "other (library kernels)"
+
+
+def exclusive_us(intervals) -> list:
+    """Each [start, end) interval's share of their union, in the given
+    order: the time it ran while no interval that started earlier was
+    still running. A kernel launched with programmatic dependent launch
+    (the text kernels) starts while the kernel before it drains and waits;
+    this charges that overlap to the kernel that was running. The shares
+    sum to busy_us of the same intervals."""
+    order = sorted(range(len(intervals)), key=lambda i: intervals[i][0])
+    share, covered = [0.0] * len(intervals), float("-inf")
+    for i in order:
+        s, e = intervals[i]
+        share[i] = max(0.0, e - max(s, covered))
+        covered = max(covered, e)
+    return share
 
 
 def busy_us(intervals) -> float:
@@ -207,8 +224,8 @@ def _profile(step, batches: int) -> dict:
         raise RuntimeError("the profiler recorded no device activity")
     by_part, by_name = collections.Counter(), collections.Counter()
     text_us, text_n = collections.Counter(), collections.Counter()
-    for e in kernels:
-        us = e.time_range.elapsed_us()
+    shares = exclusive_us([(e.time_range.start, e.time_range.end) for e in kernels])
+    for e, us in zip(kernels, shares):
         by_part[part_of(e.name)] += us
         if part_of(e.name).startswith("other"):
             by_name[e.name[:80]] += us
@@ -231,6 +248,14 @@ def _profile(step, batches: int) -> dict:
                                        "ms": v / batches / 1e3}
                                    for k, v in text_us.most_common()},
     }
+
+
+def profile_calls(fn, calls: int = 5) -> dict:
+    """The profile of ``calls`` calls of ``fn``, each followed by a
+    synchronize: device ms a call by part of :data:`PARTS` and the text
+    kernels' launches and ms a call, as :func:`profile_step` reports a
+    batch."""
+    return _profile(fn, calls)
 
 
 def _sections(names, run, batches: int) -> dict:

@@ -33,12 +33,21 @@ def test_busy_us_is_the_union_of_intervals(intervals, want):
     ("void attention_wgmma_kernel<64, 0, true>(CUtensorMap_st, CUtensorMap_st)",
      "vit block: attention"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n", "other (library kernels)"),
-    ("void text::gemm_bf16_kernel<128, true, 6>(__nv_bfloat16 const*)", "text: GEMMs"),
+    ("void text::gemm_wgmma_kernel<64, true, 6>(CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, int, int, int, text::EpiArgs, void*)", "text: GEMMs"),
     ("void text::gemm_f32_kernel<false, 0>(float const*)", "text: GEMMs"),
     ("void text::ln_kernel<__nv_bfloat16>(__nv_bfloat16 const*)", "text: LayerNorm"),
     ("void text::ln_vjp_kernel<float>(float const*)", "text: LayerNorm backward"),
-    ("void text::attn_bwd_kernel<__nv_bfloat16>(__nv_bfloat16 const*)",
+    ("void text::attn_bwd_bf16_kernel<64>(__nv_bfloat16 const*, __nv_bfloat16 const*)",
      "text: attention backward"),
+    ("text::attn_bwd_f32_kernel(float const*, float const*, int, int, int, float, float*)",
+     "text: attention backward"),
+    ("void text::attn_fwd_bf16_kernel<32>(__nv_bfloat16 const*, int, int, float, int)",
+     "text: attention"),
+    ("text::attn_fwd_f32_kernel(float const*, int, int, int, float, int, float*)",
+     "text: attention"),
+    ("text::proj_bwd_kernel(float const*, float const*, int, int, float*)",
+     "text: pooling + ln_final + projection"),
     ("ball_query_kernel(float const*, float const*, int, int, int, float, int*, float*)",
      "ball_query_gather"),
     ("ball_query_feats_kernel(float const*, float const*, char const*, int)",
@@ -84,10 +93,21 @@ def test_every_kernel_of_the_port_lands_in_a_named_part():
     kernels = _kernels()
     for want in [("attention.cuh", "attention_wgmma_kernel"),
                  ("attention.cu", "flash_bwd_dkv_wgmma_kernel"),
-                 ("text.cu", "text::gemm_bf16_kernel"), ("mini.cu", "st::m2_reduce_kernel")]:
+                 ("text.cu", "text::gemm_wgmma_kernel"), ("mini.cu", "st::m2_reduce_kernel")]:
         assert want in kernels
     other = [k for k in kernels if profile.part_of(k[1]) == "other (library kernels)"]
     assert not other, other
+
+
+@pytest.mark.parametrize("intervals,want", [
+    ([(0, 10), (20, 25)], [10, 5]),
+    ([(0, 10), (5, 12), (20, 25)], [10, 2, 5]),  # a launch that waits on the one before
+    ([(5, 12), (0, 10), (6, 8)], [2, 10, 0]),  # given out of order; one inside another
+])
+def test_exclusive_shares_sum_to_the_busy_time(intervals, want):
+    got = profile.exclusive_us(intervals)
+    assert got == want
+    assert sum(got) == profile.busy_us(intervals)
 
 
 def test_profile_refuses_without_a_card(monkeypatch):

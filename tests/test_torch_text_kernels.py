@@ -5,7 +5,8 @@ The same numpy-seeded inputs go through the reference's Pallas kernels
 (in interpret mode, as its own tests run them off the TPU), through its
 XLA twins, and through the port's plain PyTorch versions, which are what
 the port's wrappers run for a tensor on the CPU. Small sizes: 10 classes
-(not a multiple of the reference's chunk of 8), L = 16 and an odd L = 13,
+(not a multiple of the reference's chunk of 8), L = 16, an odd L = 13 and
+CLIP's full context L = 77 (which the card's bf16 attention pads to 80),
 width 128, 2 layers, 4 heads.
 
 Tolerances, of the reference value's max: block f32 1e-5, bf16 2e-2; tower
@@ -149,7 +150,7 @@ def test_fused_text_block_gradient_is_the_twins():
     assert float(gw.abs().max()) > 0
 
 
-@pytest.mark.parametrize("L", [16, 13])
+@pytest.mark.parametrize("L", [16, 13, 77])
 @pytest.mark.parametrize("kind,tol", [("f32", 2e-4), ("bf16", 3e-2)])
 def test_text_tower_plain_matches_kernel_and_twin(kind, tol, L):
     w = make_weights()
@@ -174,7 +175,7 @@ def test_text_tower_plain_matches_kernel_and_twin(kind, tol, L):
     assert torch.equal(texttower.text_tower_plain(x, torch.from_numpy(onehot), *tw, HEADS), got)
 
 
-@pytest.mark.parametrize("L", [16, 13])
+@pytest.mark.parametrize("L", [16, 13, 77])
 @pytest.mark.parametrize("kind,tol", [("f32", 1e-4), ("bf16", 5e-2)])
 def test_text_tower_bwd_plain_matches_backward_kernel(kind, tol, L):
     w = make_weights()
@@ -280,7 +281,7 @@ def test_kernels_refuse_long_rows_and_other_dtypes():
                                     backward=True)
     with pytest.raises(ValueError, match="head dim 256"):
         textblock.check_text_shapes("fused_text_block", 16, 512, 2, 2048, torch.float32)
-    with pytest.raises(ValueError, match="multiples of 32"):
+    with pytest.raises(ValueError, match="head dim 40 must be a multiple of 16"):
         textblock.check_text_shapes("fused_text_block", 16, 80, 2, 320, torch.bfloat16)
     textblock.check_text_shapes("fused_text_tower_bwd", 77, 512, 8, 2048, torch.bfloat16,
                                 backward=True)  # the published tower at full context
@@ -288,6 +289,122 @@ def test_kernels_refuse_long_rows_and_other_dtypes():
     with pytest.raises(TypeError, match="fused_text_tower"):
         texttower._launch_forward(torch.zeros(C, 16, D, dtype=torch.float16),
                                   torch.zeros(C, 16), tw, HEADS, False)
+
+
+@pytest.mark.parametrize("D,heads,hid,match", [
+    (128, 4, 324, "hidden 324 must be a multiple of 8"),
+    (96, 4, 384, "head dim 24 must be a multiple of 16"),
+], ids=["hidden", "head-dim"])
+def test_bf16_kernels_refuse_what_tma_and_the_mma_cannot_take(D, heads, hid, match):
+    """bf16 only: the GEMMs load rows by TMA (16-byte rows), the attention's
+    products step 16 deep; f32 takes both shapes."""
+    with pytest.raises(ValueError, match="fused_text_tower: .*" + match):
+        textblock.check_text_shapes("fused_text_tower", 16, D, heads, hid, torch.bfloat16)
+    textblock.check_text_shapes("fused_text_tower", 16, D, heads, hid, torch.float32)
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [100, 1032])
+def test_kernels_refuse_widths_the_layernorm_cannot_take(D, dt):
+    """Both dtypes: the LayerNorm kernels take a row a warp, at most 1024
+    wide, the backward in 16-byte chunks."""
+    with pytest.raises(ValueError, match=f"fused_text_block: width {D} must be a multiple of 8"):
+        textblock.check_text_shapes("fused_text_block", 16, D, 4, 4 * D, dt)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_bf16_attention_takes_at_most_128_positions(backward):
+    """The bf16 attention keeps a class's scores in registers, 8 key tiles of
+    16: L = 128 passes, L = 129 is refused by name; f32 is bounded by its
+    shared memory alone (its backward's two score matrices pass 227 KB at
+    L = 129)."""
+    name = "fused_text_tower_bwd" if backward else "fused_text_tower"
+    textblock.check_text_shapes(name, 128, 512, 8, 2048, torch.bfloat16, backward=backward)
+    with pytest.raises(ValueError, match=name + ": L=129 exceeds the bf16 attention's 128"):
+        textblock.check_text_shapes(name, 129, 512, 8, 2048, torch.bfloat16, backward=backward)
+    if backward:
+        with pytest.raises(ValueError, match=name + ": L=129 .* bytes of shared memory"):
+            textblock.check_text_shapes(name, 129, 512, 8, 2048, torch.float32, backward=True)
+    else:
+        textblock.check_text_shapes(name, 129, 512, 8, 2048, torch.float32)
+
+
+def test_bf16_attention_shared_memory_mirrors_the_kernels():
+    """attention_smem against csrc/text.cu's layout: bf16 [Lp][d + 8] tiles
+    (3 forward, 4 backward) and, backward, T(P) and T(dS) as [Lp][Lp + 8],
+    Lp = L padded to 16; ATT_MAX_L as the source declares it. At CLIP's
+    full context and head dim 64 one block takes 34,560 / 74,240 bytes
+    (the f32 kernels 84,084 / 127,820), and at the bf16 limit, head dim
+    128, 208,896: every L the bf16 attention takes fits."""
+    import pathlib
+    import re
+
+    src = (pathlib.Path(textblock.__file__).parent.parent / "csrc" / "text.cu").read_text()
+    assert int(re.search(r"constexpr int ATT_MAX_L = (\d+);", src).group(1)) == \
+        textblock.ATT_MAX_L
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert textblock.attention_smem(77, 64, bf16) == 2 * 3 * 80 * 72 == 34560
+    assert textblock.attention_smem(77, 64, bf16, True) == 2 * (4 * 80 * 72 + 2 * 80 * 88)
+    assert textblock.attention_smem(77, 64, bf16, True) == 74240
+    assert textblock.attention_smem(77, 64, f32) == 4 * (3 * 77 * 65 + 77 * 77 + 77) == 84084
+    assert textblock.attention_smem(77, 64, f32, True) == 127820
+    assert textblock.attention_smem(128, 128, bf16, True) == 208896 <= textblock.SMEM_LIMIT
+
+
+def _misaligned(*shape, dt=torch.bfloat16):
+    """A contiguous tensor whose base sits 2 bytes past a 16-byte boundary."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + 8, dtype=dt)[1:n + 1].view(*shape)
+
+
+@pytest.mark.parametrize("which", ["x0", "win", "wproj", "xs"])
+def test_tower_refuses_what_tma_cannot_load(which):
+    """The bf16 GEMMs read the weights, and the tower input and saved block
+    outputs as residuals, by TMA: a base off a 16-byte boundary is refused
+    by name before any launch (here on CPU tensors, which reach the check
+    only through the launch functions)."""
+    L = 16
+    tw = torch_weights(make_weights(), "bf16")
+    x = torch.zeros(C, L, D, dtype=torch.bfloat16)
+    xs = torch.zeros(DEPTH, C * L, D, dtype=torch.bfloat16)
+    if which == "x0":
+        x = _misaligned(C, L, D)
+    elif which == "xs":
+        xs = _misaligned(DEPTH, C * L, D)
+    else:
+        i = WEIGHT_NAMES.index(which)
+        tw[i] = _misaligned(*tw[i].shape).copy_(tw[i])
+    eot = torch.zeros(C, L)
+    with pytest.raises(ValueError, match=f"fused_text_tower_bwd: TMA needs 16-byte aligned "
+                                         f"bases; {which}"):
+        texttower._launch_backward(torch.zeros(C, E), x, xs, eot, tw, HEADS)
+    if which != "xs":
+        with pytest.raises(ValueError, match=f"fused_text_tower: TMA needs 16-byte aligned "
+                                             f"bases; {which}"):
+            texttower._launch_forward(x, eot, tw, HEADS, False)
+
+
+@pytest.mark.parametrize("dname,which", [("f32", "x0"), ("f32", "xs"), ("f32", "ln1s"),
+                                         ("f32", "ln2s"), ("bf16", "ln1s"), ("bf16", "ln2s")])
+def test_tower_bwd_refuses_what_the_layernorm_cannot_load(dname, which):
+    """The LayerNorm backward reads the tower input, the saved block outputs
+    and the f32 LayerNorm scales in 16-byte chunks in either dtype, where
+    TMA's check covers only bf16 tensors: a base off a 16-byte boundary is
+    refused by name before any launch."""
+    L, dt = 16, getattr(torch, {"f32": "float32", "bf16": "bfloat16"}[dname])
+    tw = torch_weights(make_weights(), dname)
+    x = torch.zeros(C, L, D, dtype=dt)
+    xs = torch.zeros(DEPTH, C * L, D, dtype=dt)
+    if which == "x0":
+        x = _misaligned(C, L, D, dt=dt)
+    elif which == "xs":
+        xs = _misaligned(DEPTH, C * L, D, dt=dt)
+    else:
+        i = WEIGHT_NAMES.index(which)
+        tw[i] = _misaligned(*tw[i].shape, dt=torch.float32).copy_(tw[i])
+    with pytest.raises(ValueError, match=f"fused_text_tower_bwd: the LayerNorm backward loads "
+                                         f"16-byte chunks; {which} is not"):
+        texttower._launch_backward(torch.zeros(C, E), x, xs, torch.zeros(C, L), tw, HEADS)
 
 
 # ---------------------------------------------------------------------------

@@ -150,6 +150,20 @@ def test_gemm_ring_fits_shared_memory():
     assert stages * k["GM_BK"] >= 384
 
 
+@pytest.mark.parametrize("bn,stages,smem", [(64, 8, 214168), (128, 6, 230520)])
+def test_gemm_ring_at_every_tile_width(bn, stages, smem):
+    """GemmTile<BN> at the two widths gemm_tile_n chooses from: a stage is
+    an A tile [128][64] and a W tile [64][BN], the bf16 output tile is
+    [128][BN]; the ring takes what is left of the SM's shared memory (the
+    header's static_assert pins the same)."""
+    k = _gemm_constants()
+    stage, out_tile = 2 * k["GM_BK"] * (k["GM_BM"] + bn), 2 * k["GM_BM"] * bn
+    got = (k["GM_SMEM"] - 1024 - out_tile - 24) // (stage + 16)
+    assert got == stages
+    assert 1024 + out_tile + stages * (stage + 16) + 24 == smem
+    assert smem <= k["GM_SMEM"] < smem + stage + 16
+
+
 # Every GEMM the port launches through the block kernels, as (tag, M, N, K,
 # tiles, grid): PPT-Base at B = 32 (recognition, MPM's block route) and 30
 # (the train step), MPM at B = 8 (its step against the plain path), the
