@@ -314,7 +314,9 @@ GROUP_SHAPES = ((2, 256, 32, 8, "small"), (30, 1024, 512, 32, "train"),
                 (32, 1024, 512, 32, "slice"), (32, 8192, 1024, 32, "long"))  # B, N, G, K
 MINI_SHAPES = ((1, 7, 20, "small"), (30, 512, 32, "train"), (32, 512, 32, "slice"),
                (32, 1024, 32, "long"))  # B, G, M (small: padded groups; long: the long trunk's)
-STATS_SHAPES = ((1, 7, 20, "small"), (30, 512, 32, "slice"))
+# mini_stats: padded groups, the train path's batch of 30 (checked and timed)
+# and the long trunk's training shape (the pretraining drivers')
+STATS_SHAPES = ((1, 7, 20, "small"), (30, 512, 32, "slice"), (32, 1024, 32, "long"))
 BLOCK_SHAPES = ((2, 33, 64, 2, "small"), (30, 513, 384, 6, "train"),
                 (32, 513, 384, 6, "slice"))  # B, L, C, heads
 SOURCES = {
@@ -377,13 +379,14 @@ TOL_TEXT_BWD = {"f32": 1e-4, "bf16": 5e-2}
 HOPPER_KERNELS = {"attention": ("attention_wgmma_kernel", "flash_fwd_wgmma_kernel",
                                 "flash_bwd_dkv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel"),
                   "vitblock": ("attention_wgmma_kernel", "gemm_wgmma_kernel"),
-                  "mini": ("mini_forward_wgmma_kernel",),
+                  "mini": ("mini_forward_wgmma_kernel", "mini_stats_wgmma_kernel"),
                   "text": ("gemm_wgmma_kernel",)}
 # the kernels on mma.sync by design (the text attention's classes of at most
 # 80 padded rows): each must issue HMMA
 MMA_KERNELS = {"text": ("attn_fwd_bf16_kernel", "attn_bwd_bf16_kernel")}
-# kernels that must be gone: the text GEMMs' old mma.sync body
-GONE_KERNELS = {"text": ("gemm_bf16_kernel",)}
+# kernels that must be gone: the text GEMMs' old mma.sync body, mini_stats's
+# old mma.sync sweep
+GONE_KERNELS = {"text": ("gemm_bf16_kernel",), "mini": ("mini_stats_bf16_kernel",)}
 SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "HMMA")
 
 
@@ -710,38 +713,46 @@ def check_mini_stats(results):
             errs = [rel_err(g, t) for g, t in zip(got, want)]
             sweep_errs = [rel_err(g, t) for g, t in zip(sweep, sweep_want)]
             same = all(torch.equal(a, b) for a, b in zip(sweep + got, sweep2 + again))
+            sym = torch.equal(sweep[0], sweep[0].t())
             print(f"[kernel] mini_stats {tag} {dname} B={B} G={G} M={M}: max rel err sum_h "
                   f"{errs[0]:.3e}, sumsq_h {errs[1]:.3e} (tol {TOL[dname]}); sweep m2 "
                   f"{sweep_errs[0]:.3e}, sg {sweep_errs[1]:.3e}, gmax {sweep_errs[2]:.3e}; "
-                  f"two runs bit-identical: {same}")
+                  f"two runs bit-identical: {same}; m2 exactly symmetric: {sym}")
             check(all(torch.isfinite(t).all() for t in got), "mini_stats non-finite")
             check(max(errs + sweep_errs) <= TOL[dname], f"mini_stats {tag} {dname} error {errs}")
             check(same, f"mini_stats {tag} {dname} differs between two runs")
+            check(sym, f"mini_stats {tag} {dname}: m2 is not symmetric")
             if tag != "slice":
                 continue
-            sweep_ms = gpu_time_ms(lambda: kmini.mini_stats_sweep(M, dt, x, *w[:4]))
-            whole_ms = gpu_time_ms(lambda: kmini.mini_stats(M, dt, x, *w))
-            epilogue_ms = gpu_time_ms(lambda: kmini._stats_epilogue(M, *sweep, *w[4:]))
-            print(f"[kernel] mini_stats slice {dname}: sweep kernels {sweep_ms:.3f} ms + f32 "
-                  f"epilogue {epilogue_ms:.3f} ms; the wrapper {whole_ms:.3f} ms")
-            if dname == "f32":
-                f32_ms = {"f32_ms": whole_ms, "f32_sweep_ms": sweep_ms}
-                continue
+            # the sweep, the f32 epilogue and the whole wrapper in alternated
+            # rounds with the library chain (median of 5)
+            tm = alternated_ms({"ms": lambda: kmini.mini_stats(M, dt, x, *w),
+                               "sweep_ms": lambda: kmini.mini_stats_sweep(M, dt, x, *w[:4]),
+                               "epilogue_ms": lambda: kmini._stats_epilogue(M, *sweep, *w[4:]),
+                               "library_ms": lambda: stats_library(M, dt, x, w)})
             # The sweep's operations: two products per point, and m2 = x2^T x2,
             # which is symmetric, so C2 (C2 + 1) / 2 of its entries are needed.
             # The epilogue's f32 products are left out: the bound errs low.
             n, C2 = B * G * M, 256
             ops = 2 * n * (3 * 128 + 128 * C2) + n * C2 * (C2 + 1)
+            tflops = ops / (tm["sweep_ms"] * 1e-3) / 1e12
+            print(f"[kernel] mini_stats slice {dname}: sweep {tm['sweep_ms']:.4f} ms "
+                  f"({tflops:.1f} TFLOP/s of the needed operations) + f32 epilogue "
+                  f"{tm['epilogue_ms']:.4f} ms; the wrapper {tm['ms']:.4f} ms; library chain "
+                  f"{tm['library_ms']:.4f} ms")
+            if dname == "f32":
+                f32_ms = {"f32_ms": tm["ms"], "f32_sweep_ms": tm["sweep_ms"]}
+                continue
             nbytes = n * 12 + 2 * B * G * C2 * 4 + C2 * C2 * 4 + 2 * (
                 3 * 128 + 128 + 128 * C2 + C2)
             bms, by = bound_ms(nbytes, ops, PEAK["bf16"])
             results["mini_stats"] = dict(
                 max_abs_err=max(float((g - t).abs().max()) for g, t in zip(got, want)),
-                ms=whole_ms,
+                ms=tm["ms"],
                 plain_ms=gpu_time_ms(lambda: kmini.mini_stats_plain(M, dt, x, *w)),
-                bound_ms=bms, bound_by=by,
-                library_ms=gpu_time_ms(lambda: stats_library(M, dt, x, w)),
-                sweep_ms=sweep_ms, epilogue_ms=epilogue_ms, **f32_ms)
+                bound_ms=bms, bound_by=by, library_ms=tm["library_ms"],
+                sweep_ms=tm["sweep_ms"], epilogue_ms=tm["epilogue_ms"], sweep_tflops=tflops,
+                **f32_ms)
 
 
 def block_inputs(B, L, C, dt, seed):
@@ -3477,6 +3488,7 @@ def main():
     prof_stats = run_profiles()
     att, vit = sass["attention"], sass["vitblock"]
     results["mini_forward"]["sass"] = sass["mini"]["mini_forward_wgmma_kernel"]
+    results["mini_stats"]["sass"] = sass["mini"]["mini_stats_wgmma_kernel"]
     results["fused_mha"]["sass"] = att["attention_wgmma_kernel"]
     results["flash_mha"]["sass"] = att["flash_fwd_wgmma_kernel"]
     results["flash_mha_bwd"]["sass"] = {k: v for k, v in att.items() if "flash_bwd" in k}

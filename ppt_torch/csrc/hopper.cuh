@@ -114,28 +114,29 @@ template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b,
                                          int acc);
 
-// d[64 x N] (+)= A[64 x 16] B[16 x N], both in shared memory: A K-major, B
-// K-major (TB = 0) or MN-major (TB = 1, the transpose bit)
-template <int N, int TB> struct WgmmaSS;
-template <int TB> struct WgmmaSS<64, TB> {
+// d[64 x N] (+)= A[64 x 16] B[16 x N], both in shared memory: B K-major
+// (TB = 0) or MN-major (TB = 1, the transpose bit), A K-major (TA = 0) or
+// MN-major (TA = 1: its tile's rows are the depth, its columns the product's M)
+template <int N, int TB, int TA = 0> struct WgmmaSS;
+template <int TB, int TA> struct WgmmaSS<64, TB, TA> {
   static __device__ __forceinline__ void run(float (&d)[32], uint64_t a, uint64_t b, int acc) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, %35;\n}\n"
+        "%32, %33, p, 1, 1, %35, %36;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
           "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(acc), "n"(TB));
+        : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));
   }
 };
 
-template <int TB> struct WgmmaSS<128, TB> {
+template <int TB, int TA> struct WgmmaSS<128, TB, TA> {
   static __device__ __forceinline__ void run(float (&d)[64], uint64_t a, uint64_t b, int acc) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -144,7 +145,7 @@ template <int TB> struct WgmmaSS<128, TB> {
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
         "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, 0, %67;\n}\n"
+        "%64, %65, p, 1, 1, %67, %68;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -156,13 +157,13 @@ template <int TB> struct WgmmaSS<128, TB> {
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
           "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(acc), "n"(TB));
+        : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));
   }
 };
 
-template <int N, int TB = 0>
+template <int N, int TB = 0, int TA = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int acc) {
-  WgmmaSS<N, TB>::run(d, a, b, acc);
+  WgmmaSS<N, TB, TA>::run(d, a, b, acc);
 }
 
 // d[64 x 8] (+)= A[64 x 16] B[16 x 8], both in shared memory: A MN-major (the

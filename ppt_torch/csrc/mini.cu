@@ -7,8 +7,10 @@
 // per group of M <= 32 points; only out [B*G, CO] is written.
 //
 // Replaces ppt_tpu/kernels/mini.py:mini_forward (_forward_kernel). The
-// train-mode statistics sweep (mini_stats, second half of this file)
-// shares the first two stages.
+// train-mode statistics sweep (mini_stats, second half of this file; in
+// bf16 mini_stats_wgmma_kernel) forms x1 and x2 as the forward does, but
+// for the BN2 sums it needs only x2's second moment and group sums and
+// maxes, so it keeps w2 resident instead of streaming four matrices.
 //
 // Bound: operations. ~3.1e11 FLOP per batch at B=32, G=512, M=32 (0.317
 // ms at the H100's bf16 peak) against ~10 MB of input and output. In bf16
@@ -714,235 +716,414 @@ static int launch(const void* x, int n_groups, int M, const void* fw1, const voi
 }  // namespace wg
 
 // ---------------------------------------------------------------------------
-// bf16 building blocks of mini_stats's sweep (below): stages 1 and 2 of a
-// tile of 4 groups x 32 rows on mma.sync (f32 accumulators) through
-// ldmatrix, the weights streamed through a double-buffered shared tile (32
-// k-rows at a time, cp.async). A group of M < 32 points is padded.
-// ---------------------------------------------------------------------------
-namespace tc {
-constexpr int GPB = 4, R = GPB * MAXM;  // groups, rows per block
-constexpr int C1 = 128, C2 = 256;       // widths
-constexpr int X1_LD = C1 + 8, X2_LD = C2 + 8, WS_LD = 256 + 8;
-constexpr int KT = 32;  // k-rows per staged weight tile
-
-// acc[mt][nt] += A[a_row0 + 16 mt .., 0:K) @ W[0:K, n_base + w_col0 + 8 nt ..]
-// A is bf16 in shared memory (row stride lda); W is bf16 in global memory
-// (row stride ldw), staged NW columns from n_base at a time through ws.
-// Every thread of the block calls it (it holds the block's barriers).
-template <int MT, int NT>
-__device__ __forceinline__ void block_mma(float (&acc)[MT][NT][4], const bf16* As, int lda,
-                                          int a_row0, const bf16* __restrict__ W, int ldw,
-                                          int n_base, int NW, int K, int w_col0, bf16* ws) {
-  const int tid = threadIdx.x, lane = tid & 31;
-  auto stage = [&](int buf, int k0) {
-    const int chunks = NW / 8;
-    for (int e = tid; e < KT * chunks; e += THREADS) {
-      const int kr = e / chunks, nc = (e % chunks) * 8;
-      cp_async16(ws + (buf * KT + kr) * WS_LD + nc, W + (size_t)(k0 + kr) * ldw + n_base + nc,
-                 true);
-    }
-    cp_async_commit();
-  };
-  __syncthreads();  // earlier readers of ws (and of the caller's outputs) are done
-  stage(0, 0);
-  const int nk = K / KT;
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) {
-      stage((kt + 1) & 1, (kt + 1) * KT);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* wsb = ws + (kt & 1) * KT * WS_LD;
-#pragma unroll
-    for (int ks = 0; ks < KT; ks += 16) {
-      uint32_t a[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-        ldmatrix_x4(a[mt], As + (a_row0 + mt * 16 + (lane & 15)) * lda + kt * KT + ks +
-                               (lane >> 4) * 8);
-#pragma unroll
-      for (int p = 0; p < NT / 2; ++p) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, wsb + (ks + ((lane >> 3) & 1) * 8 + (lane & 7)) * WS_LD + w_col0 +
-                                 p * 16 + (lane >> 4) * 8);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma_bf16(acc[mt][2 * p], a[mt], b[0], b[1]);
-          mma_bf16(acc[mt][2 * p + 1], a[mt], b[2], b[3]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
-template <int MT, int NT>
-__device__ __forceinline__ void zero(float (&acc)[MT][NT][4]) {
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-}
-
-__device__ __forceinline__ float bf(const bf16* p, int i) { return __bfloat162float(p[i]); }
-
-// Stages 1 and 2 of one tile of GPB groups starting at group g0:
-//   x1 = relu(T(T(x @ fw1) + fb1)) -> x1s,  x2 = T(T(x1 @ w2) + b2) -> x2s.
-// With ZERO_PAD the x2 rows of absent points (r >= M, or a group past the
-// end) are written as zeros, so that they drop out of sums over rows.
-// Every thread of the block calls it; it ends with a barrier.
-template <bool ZERO_PAD>
-__device__ __forceinline__ void tile_x2(const float* __restrict__ x, int n_groups, int M, int g0,
-                                        const bf16* __restrict__ fw1,
-                                        const bf16* __restrict__ fb1,
-                                        const bf16* __restrict__ w2,
-                                        const bf16* __restrict__ b2, float* xin, bf16* x1s,
-                                        bf16* x2s, bf16* ws) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp & 3, wn = warp >> 2;  // warp wm's 32 rows are group wm
-  for (int e = tid; e < R * 3; e += THREADS) {
-    const int row = e / 3, grp = g0 + row / MAXM, r = row % MAXM;
-    xin[e] = (grp < n_groups && r < M) ? rnd<bf16>(x[((size_t)grp * M + r) * 3 + e % 3]) : 0.f;
-  }
-  __syncthreads();
-
-  for (int e = tid; e < R * C1; e += THREADS) {
-    const int row = e / C1, c = e % C1;
-    float s = __fmul_rn(xin[3 * row], bf(fw1, c));
-    s = fmaf(xin[3 * row + 1], bf(fw1, C1 + c), s);
-    s = fmaf(xin[3 * row + 2], bf(fw1, 2 * C1 + c), s);
-    x1s[row * X1_LD + c] = __float2bfloat16_rn(fmaxf(rnd<bf16>(rnd<bf16>(s) + bf(fb1, c)), 0.f));
-  }
-
-  // two 128-column halves
-  for (int nb = 0; nb < C2; nb += 128) {
-    float acc[2][8][4];
-    zero(acc);
-    block_mma(acc, x1s, X1_LD, wm * 32, w2, C2, nb, 128, C1, wn * 64, ws);
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row = wm * 32 + mt * 16 + (lane >> 2) + (e >> 1) * 8;
-          const int c = nb + wn * 64 + nt * 8 + (lane & 3) * 2 + (e & 1);
-          float v = rnd<bf16>(acc[mt][nt][e]) + bf(b2, c);
-          if (ZERO_PAD && (g0 + wm >= n_groups || row % MAXM >= M)) v = 0.f;
-          x2s[row * X2_LD + c] = __float2bfloat16_rn(v);
-        }
-  }
-  __syncthreads();
-}
-
-// ---------------------------------------------------------------------------
-// mini_stats, bf16: the train-mode BN2 statistics sweep. Replaces
-// ppt_tpu/kernels/mini.py:mini_stats (_stats_kernel): per tile of groups
-// it forms x2 as above and emits the second-moment matrix
-// m2 = sum x2^T x2 [C2, C2] (f32, over ALL rows), per-group column sums
-// sg [n_groups, C2] and per-group column maxes gmax [n_groups, C2] (f32);
-// the closed-form epilogue that turns them into sum(h) and sum(h^2) is
+// mini_stats, bf16, on Hopper: mini_stats_wgmma_kernel, the train-mode BN2
+// statistics sweep. Replaces ppt_tpu/kernels/mini.py:mini_stats
+// (_stats_kernel, and the pallas_call of _stats_pallas): per tile of groups
+// it forms x2 = T(T(x1 @ w2) + b2) as mini_forward does and emits the
+// second-moment matrix m2 = sum x2^T x2 [C2, C2] (f32, over ALL rows), each
+// group's column sums sg and column maxes gmax [n_groups, C2] (f32); rows of
+// absent points (r >= M, a group past n_groups) drop out of every sum and
+// max. The closed-form epilogue that turns them into sum(h) and sum(h^2) is
 // plain f32 tensor code in the wrapper, as it is plain XLA in the
 // reference.
 //
-// Bound: operations (2 n (3 C1 + C1 C2 + C2 C2) against the input read
-// once and sg/gmax written once). Design: the TPU grid runs in order and
-// adds every tile into one m2 block; here a fixed number of persistent
-// blocks each walk their tiles (tile = blockIdx.x, += gridDim.x) and keep
-// their share of m2 in registers, so no atomics are needed and two runs
-// give the same bits. 256 x 256 f32 accumulators do not fit one block's
-// registers, so gridDim.y = 2 splits m2's columns: block (p, half) owns
-// m2[:, 128 half .. 128 half + 127] (128 accumulators per thread, as the
-// forward kernel's y) and that half of sg and gmax, and both halves
-// recompute x2 for the tile (stages 1-2 are a third of the work). x2^T x2
-// runs on the tensor cores straight from the bf16 x2 tile in shared
-// memory: ldmatrix.trans gives the A fragments of x2^T as well as the B
-// fragments. Each block writes one partial [C2, 128] slab; m2_reduce_kernel
-// adds the partials in block order.
+// What bounds it on the H100: operations on the tensor cores, 2 n C1 C2 for
+// x2 and n C2 (C2 + 1) for the symmetric m2 (64.9 GFLOP at B = 30 x 512 x
+// 32, 0.066 ms at the bf16 peak), against 12 bytes of input a row and 8 C2
+// bytes of output a group (0.031 ms of HBM). That rate is reached only
+// through wgmma, and then only while the CUDA-core work around the products
+// (stage 1, x2's epilogue, the group maxes) and the barriers between the
+// consumers leave the tensor cores fed; with one CTA of 8 warps an SM (m2's
+// accumulators take the registers) that work is latency-bound. The
+// mma.sync kernel it replaces ran 66 x 2 CTAs of 8 warps, each column half
+// of m2 recomputing stages 1-2 (a third of its operations), m2 computed
+// whole, w2 streamed from L2 in 32-row cp.async stages for every tile and
+// half (~0.5 GB a call), and x2 read a second time, column by column, for
+// the group sums and maxes.
+//
+// Design: persistent CTAs (one an SM) of two consumer warpgroups and no
+// producer walk tiles of 128 rows (4 groups x 32); consumer c owns rows
+// 64 c .. 64 c + 63 (the tile's groups 2 c and 2 c + 1).
+// - w2 [128][256] (64 KB) is loaded once a CTA by TMA, as four [128 k][64 n]
+//   boxes with the 128-byte swizzle, and stays in shared memory for every
+//   tile: the sweep reads no other matrix, so it needs no ring.
+// - Stage 1 (K = 3) runs on the CUDA cores into the consumer's K-major x1
+//   tile, as in mini_forward_wgmma_kernel, one tile ahead (below).
+// - Stage 2, x2 = x1 @ w2, runs in 64-column chunks as m64n64k16 wgmma (w2
+//   an MN-major B operand), 32 accumulators a thread. Each chunk's
+//   epilogue rounds and adds b2 on bf16 pairs, zeroes absent rows and
+//   writes x2 into one swizzled [4 chunks][128 rows][64] tile that holds
+//   both consumers' rows.
+// - m2 += x2^T x2 runs as wgmma with K = the tile's 128 rows, both operands
+//   from that x2 tile: A = x2^T and B = x2 are both MN-major (both
+//   transpose bits). Only the upper triangle is computed, 10 of the 16
+//   64 x 64 blocks, and its accumulators stay in registers across all of
+//   the CTA's tiles. The strips (64 rows of m2) are split {0, 3} and {1, 2}
+//   between the consumers: 4 + 1 and 3 + 2 blocks, 320 columns and 160
+//   accumulators a thread each. ptxas serialises every wgmma of a kernel
+//   if one product sits under a branch it cannot prove uniform, so both
+//   consumers issue the same three shapes, only their descriptors
+//   differ: consumer 0 strip 0 x chunks 0-1 (m64n128), strip 0 x chunks
+//   2-3 (m64n128), strip 3 x chunk 3 (m64n64); consumer 1 strip 1 x chunks
+//   1-2, strip 2 x chunks 2-3, strip 1 x chunk 3.
+// - The group sums come from the tensor cores too: x2^T E, E [8][128] the
+//   indicator of each row's group (x2's absent rows are zero), as m64n8
+//   products on each consumer's two strips, in their own commit group
+//   before m2's and waited for in the same tile (accumulators carried over
+//   the tile loop's back-edge while in flight made ptxas serialise every
+//   wgmma, C7514/C7515). The group maxes are read back from the x2 tile,
+//   a column pair a thread, while m2's products run.
+// - m2's products are issued in four commit groups of two k16 steps, each
+//   followed by a quarter of the next tile's stage 1 (issued at once, the
+//   24 products hold the issuing warps until they are nearly done); the
+//   next tile's first stage-2 wait covers them. Two CTA barriers a tile:
+//   after that wait (both consumers are done reading x2) and before m2's
+//   products (x2 is whole).
+// - Registers: 160 for m2, 32 for a stage-2 chunk; ptxas takes 246 of the
+//   255 a thread that 256 threads at one CTA an SM allow, no spills, so no
+//   setmaxnreg. The descriptors are built from an address made opaque at
+//   each use (held across the tile loop, they spilled). A second stage-2
+//   accumulator, to overlap a chunk's epilogue with the next chunk's
+//   product, took 255 registers and spilled: slower. Shared memory: w2 64
+//   KB, x2 64 KB, E 2 KB, x1 2 x 16 KB, fw1, fb1 and b2 2.25 KB: ~165 KB.
+// - Between m2's products and their wait no thread spins or loads under
+//   a branch: the x loads take clamped indices and a select; only the
+//   stores of sg and gmax are guarded (by group). The w2 wait is
+//   mbar_wait_warp; each stage-2 accumulator is zeroed before its chunk's
+//   first product.
+// - Each CTA writes its 10 blocks [10][64][64] as a partial slab;
+//   mini_stats_reduce_kernel adds the slabs in CTA order and writes each
+//   upper entry to both of its places: m2 is exactly symmetric, repeats are
+//   bit-identical, and no atomics are used.
 // ---------------------------------------------------------------------------
-constexpr int STATS_BLOCKS = 66;  // x 2 column halves = one block per SM
-constexpr size_t STATS_SMEM =
-    sizeof(bf16) * ((size_t)R * X2_LD + (size_t)R * X1_LD + 2 * KT * WS_LD) +
-    sizeof(float) * (R * 3);
+namespace ms {
+constexpr int C1 = 128, C2 = 256;
+constexpr int ROWS = 128, GPT = ROWS / MAXM;  // a tile's rows and groups
+constexpr int CH = ROWS * 64 * 2;  // bytes of a [128][64] column chunk (w2's k-rows, x2's rows)
+constexpr int X1_BYTES = 64 * C1 * 2;  // a consumer's x1 tile, [2 k chunks][64 rows][64]
+constexpr int NBLK = 10, BLK = 64 * 64;  // m2's upper 64 x 64 blocks
+// shared memory, bytes from a 1024-byte aligned base
+constexpr int W2_OFF = 0;
+constexpr int X2_OFF = W2_OFF + 4 * CH;
+constexpr int E_OFF = X2_OFF + 4 * CH;  // E [8][128] bf16, K-major
+constexpr int X1_OFF = E_OFF + 8 * ROWS * 2;
+constexpr int PAR_OFF = X1_OFF + 2 * X1_BYTES;  // fw1 [3][128] f32, fb1 and b2 bf16
+constexpr int BAR_OFF = PAR_OFF + 3 * C1 * 4 + (C1 + C2) * 2;
+constexpr int SMEM = 1024 + BAR_OFF + 8;
+static_assert(SMEM <= 232448, "one CTA an SM");
+// the (strip, column chunk) of each block of the partial slab: consumer c
+// writes blocks 5 c .. 5 c + 4
+__constant__ int BLK_ROW[NBLK] = {0, 0, 0, 0, 3, 1, 1, 2, 2, 1};
+__constant__ int BLK_COL[NBLK] = {0, 1, 2, 3, 3, 1, 2, 2, 3, 3};
 
-__global__ void __launch_bounds__(THREADS, 1)
-mini_stats_bf16_kernel(const float* __restrict__ x, int n_groups, int M,
-                       const bf16* __restrict__ fw1, const bf16* __restrict__ fb1,
-                       const bf16* __restrict__ w2, const bf16* __restrict__ b2,
-                       float* __restrict__ part, float* __restrict__ sg,
-                       float* __restrict__ gmax) {
-  extern __shared__ __align__(16) unsigned char smraw[];
-  bf16* x2s = reinterpret_cast<bf16*>(smraw);           // [R][X2_LD]
-  bf16* x1s = x2s + R * X2_LD;                          // [R][X1_LD]
-  bf16* ws = x1s + R * X1_LD;                           // [2][KT][WS_LD]
-  float* xin = reinterpret_cast<float*>(ws + 2 * KT * WS_LD);  // [R][3]
+using wg::bf162;
+using wg::bits;
+using wg::from_bits;
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp & 3, wn = warp >> 2;  // 64 rows x 64 columns of the m2 half per warp
-  const int col0 = blockIdx.y * 128;
-  const int n_tiles = (n_groups + GPB - 1) / GPB;
+// k16 step ks (rows 16 ks ..) of a [4 chunks][128 rows][64] tile (w2 or x2)
+// at shared address t, from column chunk `chunk` on, as an MN-major
+// operand: chunks CH bytes apart, 8-row groups 1024 bytes apart
+__device__ __forceinline__ uint64_t desc_mn4(uint32_t t, int chunk, int ks) {
+  const uint32_t a = t + chunk * CH + ks * 2048;
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(CH >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
 
-  float acc[4][8][4];
-  zero(acc);
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int g0 = tile * GPB;
-    tile_x2<true>(x, n_groups, M, g0, fw1, fb1, w2, b2, xin, x1s, x2s, ws);
+// k16 step ks of E at shared address t as a K-major B operand [8][128]
+// (64-column chunks of 8 rows, 1 KB apart)
+__device__ __forceinline__ uint64_t desc_e(uint32_t t, int ks) {
+  const uint32_t a = t + (ks >> 2) * 1024 + (ks & 3) * 32;
+  return (uint64_t)((a & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         (1ull << 62);
+}
 
-    // per-group column sums (f32, rows in order) and maxes of this half
-    for (int e = tid; e < GPB * 128; e += THREADS) {
-      const int grp = e / 128, c = col0 + e % 128;
-      if (g0 + grp < n_groups) {
-        float s = 0.f, m = -INFINITY;
-        for (int r = 0; r < M; ++r) {
-          const float v = __bfloat162float(x2s[(grp * MAXM + r) * X2_LD + c]);
-          s += v;
-          m = fmaxf(m, v);
-        }
-        sg[(size_t)(g0 + grp) * C2 + c] = s;
-        gmax[(size_t)(g0 + grp) * C2 + c] = m;
-      }
+// x2^T E of strip `strip` (its 64 columns x 8 groups, the groups past 4
+// E's zero columns): the thread's rows rr0 and rr0 + 8, groups cq and
+// cq + 1, into sg's rows g0 + cq, g0 + cq + 1 where they exist
+__device__ __forceinline__ void put_sums(const float (&d)[4], float* sg, int g0, int n_groups,
+                                         int strip, int rr0, int cq) {
+  float* p = sg + (size_t)(g0 + cq) * C2 + 64 * strip + rr0;
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+    if (cq + e < GPT && g0 + cq + e < n_groups) {
+      p[e * C2] = d[e];
+      p[e * C2 + 8] = d[2 + e];
     }
+}
 
-    // acc += x2[:, rows of this warp]^T @ x2[:, columns of this warp]
-#pragma unroll 2
-    for (int ks = 0; ks < R; ks += 16) {
-      uint32_t a[4][4];
+// component i (a constant after unrolling) of v
+__device__ __forceinline__ float comp(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// a product's accumulators (N / 32 blocks of 64 columns) into the slab's
+// blocks from `dst` on, at the thread's rows rr0 and rr0 + 8
+template <int N>
+__device__ __forceinline__ void store_blocks(const float (&d)[N], float* dst, int rr0, int cq) {
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-        ldmatrix_x4_trans(a[mt], x2s + (ks + (lane & 7) + ((lane >> 4) & 1) * 8) * X2_LD +
-                                     wm * 64 + mt * 16 + ((lane >> 3) & 1) * 8);
-#pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, x2s + (ks + ((lane >> 3) & 1) * 8 + (lane & 7)) * X2_LD + col0 +
-                                 wn * 64 + p * 16 + (lane >> 4) * 8);
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {
-          mma_bf16(acc[mt][2 * p], a[mt], b[0], b[1]);
-          mma_bf16(acc[mt][2 * p + 1], a[mt], b[2], b[3]);
-        }
-      }
-    }
-    __syncthreads();  // x2s is rewritten by the next tile
+  for (int j = 0; j < N / 4; ++j) {
+    float* p = dst + (j >> 3) * BLK + 8 * (j & 7) + cq;
+    *reinterpret_cast<float2*>(p + rr0 * 64) = make_float2(d[4 * j], d[4 * j + 1]);
+    *reinterpret_cast<float2*>(p + (rr0 + 8) * 64) = make_float2(d[4 * j + 2], d[4 * j + 3]);
   }
+}
 
-  float* dst = part + (size_t)blockIdx.x * C2 * C2;
+__global__ void __launch_bounds__(256, 1)
+mini_stats_wgmma_kernel(const __grid_constant__ CUtensorMap tw2, const float* __restrict__ x,
+                        int n_groups, int M, const bf16* __restrict__ fw1,
+                        const bf16* __restrict__ fb1, const bf16* __restrict__ b2,
+                        float* __restrict__ part, float* __restrict__ sg,
+                        float* __restrict__ gmax) {
+  extern __shared__ __align__(1024) unsigned char ms_smem[];
+  unsigned char* base = align1024(ms_smem);
+  float* pw1 = reinterpret_cast<float*>(base + PAR_OFF);
+  bf16* pb1 = reinterpret_cast<bf16*>(pw1 + 3 * C1);
+  bf16* pb2 = pb1 + C1;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(base + BAR_OFF);
+  const int n_tiles = (n_groups + GPT - 1) / GPT;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    mbar_fence_init();
+    mbar_arrive_tx(bar, 4 * CH);
+    for (int q = 0; q < 4; ++q) tma_load_2d(base + W2_OFF + q * CH, &tw2, bar, 64 * q, 0);
+  }
+  for (int e = threadIdx.x; e < 3 * C1; e += blockDim.x) pw1[e] = __bfloat162float(fw1[e]);
+  for (int e = threadIdx.x; e < C1; e += blockDim.x) pb1[e] = fb1[e];
+  for (int e = threadIdx.x; e < C2; e += blockDim.x) pb2[e] = b2[e];
+  if (threadIdx.x < ROWS) {  // E [8 groups][128 rows], K-major: row r's 1 in group r / 32
+    const int r = threadIdx.x;
+    for (int g = 0; g < 8; ++g)
+      *reinterpret_cast<bf16*>(base + E_OFF + wg::swz(g, r, 1024)) =
+          __float2bfloat16_rn(g == r / MAXM ? 1.f : 0.f);
+  }
+  __syncthreads();
+
+  const int c = threadIdx.x >> 7, tid = threadIdx.x & 127, lane = tid & 31, w = tid >> 5;
+  unsigned char* x1t = base + X1_OFF + c * X1_BYTES;
+  unsigned char* x2t = base + X2_OFF;
+  // this thread's accumulator rows rr0 and rr0 + 8 of the consumer's 64 (both
+  // in the consumer's group gi) and its column pair cq of each 8-column group
+  const int rr0 = 16 * w + (lane >> 2), gi = w >> 1, cq = (lane & 3) * 2;
+  // m2's products: strips a0, a1, a2 against column chunks (b0, b0 + 1),
+  // (2, 3) and 3; a1 and a2 are the consumer's two strips (and its sums')
+  const int a0 = c, b0 = c, a1 = 2 * c, a2 = 3 - 2 * c;
+  float q0[64], q1[64], q2[32];
+  wg::zero_acc(q0);
+  wg::zero_acc(q1);
+  wg::zero_acc(q2);
+
+  // stage 1's thread: row r1 of the consumer's 64, column half h1
+  const int r1 = tid >> 1, h1 = tid & 1;
+  auto load_x = [&](int tile, float (&xv)[3]) {  // clamped: no branch
+    const int g = min(tile * GPT + 2 * c + (r1 >> 5), n_groups - 1), pt = min(r1 & 31, M - 1);
+    const float* xp = x + ((size_t)g * M + pt) * 3;
+    xv[0] = xp[0];
+    xv[1] = xp[1];
+    xv[2] = xp[2];
+  };
+  // x1 = relu(T(T(x @ fw1) + fb1)) of a tile on the CUDA cores, a row and
+  // 64 columns a thread, in quarters of 16 columns (part p), from the
+  // tile's x (xv): the two threads of a row take their 16-byte pieces in
+  // orders that put them in different banks
+  auto stage1 = [&](int tile, int p, const float (&xv)[3]) {
+    const bool ok = tile * GPT + 2 * c + (r1 >> 5) < n_groups && (r1 & 31) < M;
+    const float xa = ok ? rnd<bf16>(xv[0]) : 0.f, xb = ok ? rnd<bf16>(xv[1]) : 0.f,
+                xc = ok ? rnd<bf16>(xv[2]) : 0.f;
+    unsigned char* row = x1t + h1 * (64 * 128) + r1 * 128;
+    const bf162 zero = __float2bfloat162_rn(0.f);
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
+    for (int u = 2 * p; u < 2 * p + 2; ++u) {
+      const int uu = u ^ (h1 << 2), col = h1 * 64 + uu * 8;
+      float4 wv[3][2];  // fw1's 8 columns of each of its 3 rows
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+      for (int k = 0; k < 3; ++k)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          wv[k][h] = *reinterpret_cast<const float4*>(pw1 + k * C1 + col + 4 * h);
+      const uint4 bb = *reinterpret_cast<const uint4*>(pb1 + col);
+      const uint32_t bw[4] = {bb.x, bb.y, bb.z, bb.w};
+      uint32_t v[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int i = wm * 64 + mt * 16 + (lane >> 2) + (e >> 1) * 8;
-        const int j = col0 + wn * 64 + nt * 8 + (lane & 3) * 2 + (e & 1);
-        dst[i * C2 + j] = acc[mt][nt][e];
+        float o[2];
+#pragma unroll
+        for (int f = 0; f < 2; ++f) {
+          const int i = 2 * e + f;
+          float s = __fmul_rn(xa, comp(wv[0][i >> 2], i & 3));
+          s = fmaf(xb, comp(wv[1][i >> 2], i & 3), s);
+          o[f] = fmaf(xc, comp(wv[2][i >> 2], i & 3), s);
+        }
+        v[e] = bits(__hmax2(__hadd2(wg::rnd2(o[0], o[1]), from_bits(bw[e])), zero));
       }
+      *reinterpret_cast<uint4*>(row + ((uu ^ (r1 & 7)) << 4)) = make_uint4(v[0], v[1], v[2], v[3]);
+    }
+  };
+  float xn[3];  // x of the tile whose stage 1 comes next
+  load_x(blockIdx.x, xn);
+#pragma unroll
+  for (int p = 0; p < 4; ++p) stage1(blockIdx.x, p, xn);
+  load_x(blockIdx.x + gridDim.x, xn);
+  mbar_wait_warp(bar, 0);  // w2 is in
+
+  float sa[32];  // a stage-2 chunk
+  // x2[:, 64 cc ..] = x1 @ w2[:, 64 cc ..] into sa
+  auto s2_product = [&](int cc) {
+    wg::zero_acc(sa);
+    const uint32_t x1a = wg::opaque_addr(x1t), w2a = wg::opaque_addr(base + W2_OFF);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < C1 / 16; ++ks)
+      wgmma_ss<64, 1>(sa, wg::desc_ka(x1a, ks), desc_mn4(w2a, cc, ks), ks > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(sa);
+  };
+
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int g0 = tile * GPT, grp = g0 + 2 * c + gi;
+    const bool ok0 = grp < n_groups && (rr0 & 31) < M;
+    const bool ok1 = grp < n_groups && ((rr0 + 8) & 31) < M;
+
+    fence_proxy_async();
+    named_bar_sync(1 + c, 128);
+
+    // chunk cc's epilogue: x2 = T(T(sa) + b2), absent rows zero, into x2t
+    auto s2_epilogue = [&](int cc) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 64 * cc + 8 * j + cq;
+        const bf162 b = wg::ld2(pb2 + col);
+        const uint32_t v0 = bits(__hadd2(wg::rnd2(sa[4 * j], sa[4 * j + 1]), b));
+        const uint32_t v1 = bits(__hadd2(wg::rnd2(sa[4 * j + 2], sa[4 * j + 3]), b));
+        *reinterpret_cast<uint32_t*>(x2t + wg::swz(64 * c + rr0, col, CH)) = ok0 ? v0 : 0u;
+        *reinterpret_cast<uint32_t*>(x2t + wg::swz(64 * c + rr0 + 8, col, CH)) = ok1 ? v1 : 0u;
+      }
+    };
+
+    s2_product(0);  // its wait also covers the last tile's m2 products
+    fence_acc(q0);
+    fence_acc(q1);
+    fence_acc(q2);
+    __syncthreads();  // both consumers are done with the last tile's x2
+    s2_epilogue(0);
+#pragma unroll 1
+    for (int cc = 1; cc < C2 / 64; ++cc) {
+      s2_product(cc);
+      s2_epilogue(cc);
+    }
+    fence_proxy_async();
+    __syncthreads();  // x2 is whole
+
+    // the consumer's two strips' group sums x2^T E, then m2's upper blocks +=
+    // x2^T x2 over the tile's 128 rows, waited for by the next tile's first
+    // stage-2 product
+    const uint32_t x2a = wg::opaque_addr(x2t), ea = wg::opaque_addr(base + E_OFF);
+    float e1[4], e2[4];
+    wg::zero_acc(e1);
+    wg::zero_acc(e2);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < ROWS / 16; ++ks) {
+      wgmma_ss_n8_ta(e1, desc_mn4(x2a, a1, ks), desc_e(ea, ks), ks > 0);
+      wgmma_ss_n8_ta(e2, desc_mn4(x2a, a2, ks), desc_e(ea, ks), ks > 0);
+    }
+    wgmma_commit();
+    // m2's products in four commit groups of two k16 steps, each followed by a
+    // quarter of the next tile's stage 1 (its x1 is no longer read): the
+    // tensor cores drain a group while the CUDA cores run a quarter (issued
+    // at once, the products hold the issuing warps until they are nearly
+    // done). The stage 1 past the last tile writes x1 to no use.
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+#pragma unroll
+      for (int ks = 2 * p; ks < 2 * p + 2; ++ks) {
+        wgmma_ss<128, 1, 1>(q0, desc_mn4(x2a, a0, ks), desc_mn4(x2a, b0, ks), 1);
+        wgmma_ss<128, 1, 1>(q1, desc_mn4(x2a, a1, ks), desc_mn4(x2a, 2, ks), 1);
+        wgmma_ss<64, 1, 1>(q2, desc_mn4(x2a, a2, ks), desc_mn4(x2a, 3, ks), 1);
+      }
+      wgmma_commit();
+      stage1(tile + gridDim.x, p, xn);
+    }
+    load_x(tile + 2 * gridDim.x, xn);  // in flight until the next tile's end
+
+    // gmax, read from the x2 tile while m2's products run: group gs (two
+    // warps), the column pairs at col and col + 128 a thread, over its M
+    // valid rows (a warp reads a row's 128 bytes of a chunk)
+    if (g0 + (int)(threadIdx.x >> 6) < n_groups) {
+      const int gs = threadIdx.x >> 6;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = (threadIdx.x & 63) * 2 + 128 * h;
+        const unsigned char* p = x2t + (col >> 6) * CH + gs * MAXM * 128 + (col & 7) * 2;
+        const int cg = (col & 63) >> 3;
+        bf162 m = from_bits(wg::NEG_INF2);
+#pragma unroll
+        for (int r = 0; r < MAXM; ++r)
+          if (r < M)
+            m = __hmax2(m, *reinterpret_cast<const bf162*>(p + r * 128 + ((cg ^ (r & 7)) << 4)));
+        *reinterpret_cast<float2*>(gmax + (size_t)(g0 + gs) * C2 + col) = __bfloat1622float2(m);
+      }
+    }
+    wgmma_wait<4>();  // the sums are in; m2's products run on
+    fence_acc(e1);
+    fence_acc(e2);
+    put_sums(e1, sg, g0, n_groups, a1, rr0, cq);
+    put_sums(e2, sg, g0, n_groups, a2, rr0, cq);
+  }
+  wgmma_wait<0>();
+  fence_acc(q0);
+  fence_acc(q1);
+  fence_acc(q2);
+  float* dst = part + ((size_t)blockIdx.x * NBLK + 5 * c) * BLK;
+  store_blocks(q0, dst, rr0, cq);
+  store_blocks(q1, dst + 2 * BLK, rr0, cq);
+  store_blocks(q2, dst + 4 * BLK, rr0, cq);
 }
-}  // namespace tc
+
+// m2[i][j] = m2[j][i] = part[0][e] + part[1][e] + ... in CTA order, for each
+// entry e of the slab's blocks with i <= j: m2 exactly symmetric, the same
+// bits from run to run
+__global__ void mini_stats_reduce_kernel(const float* __restrict__ part, int P,
+                                     float* __restrict__ m2) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= NBLK * BLK) return;
+  const int blk = e / BLK;
+  const int i = 64 * BLK_ROW[blk] + (e / 64) % 64, j = 64 * BLK_COL[blk] + e % 64;
+  if (i > j) return;  // a diagonal block's lower half: its mirror's entry
+  float s = 0.f;
+  for (int p = 0; p < P; ++p) s += part[(size_t)p * NBLK * BLK + e];
+  m2[i * C2 + j] = s;
+  m2[j * C2 + i] = s;
+}
+
+// persistent CTAs: one an SM, at most one a tile
+static int blocks(int n_groups) {
+  const int tiles = (n_groups + GPT - 1) / GPT, sms = sm_count();
+  return tiles < sms ? tiles : sms;
+}
+
+// w2 by TMA (a 16-byte aligned base; the wrapper checks it); part
+// [blocks, NBLK, 64, 64]
+static int launch(const void* x, int n_groups, int M, const void* fw1, const void* fb1,
+                  const void* w2, const void* b2, void* part, void* m2, void* sg, void* gmax,
+                  cudaStream_t st) {
+  CUtensorMap map;
+  const int rc = mat_map(&map, (const bf16*)w2, C1, C2, ROWS);
+  if (rc) return rc;
+  const int P = blocks(n_groups);
+  cudaFuncSetAttribute(mini_stats_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       SMEM);
+  mini_stats_wgmma_kernel<<<P, 256, SMEM, st>>>(map, (const float*)x, n_groups, M,
+                                                (const bf16*)fw1, (const bf16*)fb1,
+                                                (const bf16*)b2, (float*)part, (float*)sg,
+                                                (float*)gmax);
+  PPT_CHECK_LAUNCH();
+  mini_stats_reduce_kernel<<<NBLK * BLK / 256, 256, 0, st>>>((const float*)part, P, (float*)m2);
+  PPT_CHECK_LAUNCH();
+  return 0;
+}
+}  // namespace ms
 
 static int launch_f32(const void* x, int n_groups, int M, int C1, int C2, int H, int CO,
                       const void* fw1, const void* fb1, const void* w2, const void* b2,
@@ -976,14 +1157,19 @@ PPT_EXPORT int ppt_mini_forward(int dtype, const void* x, int n_groups, int M, i
 }
 
 // ---------------------------------------------------------------------------
-// mini_stats, f32 (FMA on the CUDA cores): the same sweep and the same
-// split as the bf16 kernel above, one group per tile. Block (p, half)
-// keeps m2[:, 128 half ..] in registers: thread (ti, tj) owns rows
-// {4 ti + e, 128 + 4 ti + e} x columns {32 q + 4 tj + f} (8 x 16
-// accumulators), so a row of x2 is read as float4s without bank conflicts.
+// mini_stats, f32 (FMA on the CUDA cores): the same sweep as the bf16
+// kernel above, one group per tile, on a grid of (P, 2) blocks, P
+// persistent blocks for each column half of m2. Block (p, half) keeps
+// m2[:, 128 half ..] in registers (both halves recompute x2): thread
+// (ti, tj) owns rows {4 ti + e, 128 + 4 ti + e} x columns {32 q + 4 tj + f}
+// (8 x 16 accumulators), so a row of x2 is read as float4s without bank
+// conflicts. m2[i][j] and m2[j][i] are the same fmaf chain over the same
+// groups, so m2 is exactly symmetric here too; m2_reduce_kernel adds the
+// partials in block order.
 // ---------------------------------------------------------------------------
 namespace st {
 constexpr int C1 = 128, C2 = 256;
+constexpr int BLOCKS = 66;  // x 2 column halves = one block an SM
 constexpr size_t SMEM = sizeof(float) * (MAXM * (C1 + C2 + 3));
 
 __global__ void __launch_bounds__(THREADS, 1)
@@ -1073,36 +1259,31 @@ __global__ void m2_reduce_kernel(const float* __restrict__ part, int P, int n,
 }
 }  // namespace st
 
-// Number of partial m2 slabs (persistent blocks per column half) that
-// ppt_mini_stats writes for this many groups; the caller sizes `part` by it.
+// Number of partial m2 slabs that ppt_mini_stats writes for this many
+// groups (bf16: one a persistent CTA, [NBLK, 64, 64]; f32: one a persistent
+// block of each column half, [C2, C2]); the caller sizes `part` by it.
 PPT_EXPORT int ppt_mini_stats_blocks(int dtype, int n_groups) {
-  const int tiles = dtype == PPT_BF16 ? (n_groups + tc::GPB - 1) / tc::GPB : n_groups;
-  return tiles < tc::STATS_BLOCKS ? tiles : tc::STATS_BLOCKS;
+  if (dtype == PPT_BF16) return ms::blocks(n_groups);
+  return n_groups < st::BLOCKS ? n_groups : st::BLOCKS;
 }
 
 // x [n_groups * M, 3] f32; weights in the compute dtype; part
-// [ppt_mini_stats_blocks, C2, C2], m2 [C2, C2], sg and gmax [n_groups, C2] f32.
+// [ppt_mini_stats_blocks, C2, C2] (bf16 uses NBLK / 16 of it), m2 [C2, C2],
+// sg and gmax [n_groups, C2] f32.
 PPT_EXPORT int ppt_mini_stats(int dtype, const void* x, int n_groups, int M, int C1, int C2,
                               const void* fw1, const void* fb1, const void* w2, const void* b2,
                               void* part, void* m2, void* sg, void* gmax, void* stream) {
-  if (C1 != st::C1 || C2 != st::C2 || M > MAXM || n_groups < 1)
+  if (C1 != st::C1 || C2 != st::C2 || M > MAXM || M < 1 || n_groups < 1)
     return (int)cudaErrorInvalidValue;
-  const int P = ppt_mini_stats_blocks(dtype, n_groups);
-  const dim3 grid(P, 2);
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == PPT_BF16) {
-    cudaFuncSetAttribute(tc::mini_stats_bf16_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)tc::STATS_SMEM);
-    tc::mini_stats_bf16_kernel<<<grid, THREADS, tc::STATS_SMEM, s>>>(
-        (const float*)x, n_groups, M, (const bf16*)fw1, (const bf16*)fb1, (const bf16*)w2,
-        (const bf16*)b2, (float*)part, (float*)sg, (float*)gmax);
-  } else {
-    cudaFuncSetAttribute(st::mini_stats_f32_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)st::SMEM);
-    st::mini_stats_f32_kernel<<<grid, THREADS, st::SMEM, s>>>(
-        (const float*)x, n_groups, M, (const float*)fw1, (const float*)fb1, (const float*)w2,
-        (const float*)b2, (float*)part, (float*)sg, (float*)gmax);
-  }
+  if (dtype == PPT_BF16)
+    return ms::launch(x, n_groups, M, fw1, fb1, w2, b2, part, m2, sg, gmax, s);
+  const int P = ppt_mini_stats_blocks(dtype, n_groups);
+  cudaFuncSetAttribute(st::mini_stats_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)st::SMEM);
+  st::mini_stats_f32_kernel<<<dim3(P, 2), THREADS, st::SMEM, s>>>(
+      (const float*)x, n_groups, M, (const float*)fw1, (const float*)fb1, (const float*)w2,
+      (const float*)b2, (float*)part, (float*)sg, (float*)gmax);
   PPT_CHECK_LAUNCH();
   const int n = C2 * C2;
   st::m2_reduce_kernel<<<(n + 255) / 256, 256, 0, s>>>((const float*)part, P, n, (float*)m2);

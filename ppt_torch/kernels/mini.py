@@ -21,7 +21,13 @@ bias add::
 ``h = x2 @ wl + g @ wg + bsplit`` over all rows without ever forming
 ``h``: the kernel sweeps x2 once for its second-moment matrix and the
 per-group column sums and maxes, and a closed form in f32 does the rest
-(``mini.py:207-272``).
+(``mini.py:207-272``). In bf16 the sweep is ``mini_stats_wgmma_kernel``:
+persistent CTAs with w2 resident in shared memory (one TMA load), x2 and
+the upper triangle of the symmetric m2 on wgmma, m2's accumulators in
+registers across a CTA's tiles, the group sums on the tensor cores too
+(x2^T against a group indicator) and the maxes read back from x2's tile;
+a reduce kernel adds the CTAs' partials in order and mirrors the
+triangle.
 
 Neither kernel has a backward kernel in the reference; both public
 functions carry the gradient of their plain version (``_autograd.py``).
@@ -169,7 +175,9 @@ def mini_stats_plain(
 
 
 def mini_stats_sweep(m_size: int, dtype: torch.dtype, groups2: torch.Tensor, fw1, fb1, w2, b2):
-    """The kernel alone on the card: (m2 [C2, C2], sg, gmax [B*G, C2]) f32."""
+    """The kernel alone on the card: (m2 [C2, C2], sg, gmax [B*G, C2]) f32.
+    In bf16 ``mini_stats_wgmma_kernel`` (w2 loaded once a CTA by TMA, x2 and
+    m2's upper triangle on wgmma, m2 mirrored by the reduce kernel)."""
     B, GM, C = groups2.shape
     C1, C2 = fw1.shape[1], w2.shape[1]
     if C != 3 or GM % m_size or m_size > _MAX_M:
@@ -181,6 +189,7 @@ def mini_stats_sweep(m_size: int, dtype: torch.dtype, groups2: torch.Tensor, fw1
     code = _build.dtype_code("mini_stats", dtype)
     x = groups2.float().contiguous()
     w = [t.to(dtype).contiguous() for t in (fw1, fb1, w2, b2)]
+    check_tma("mini_stats", w2=w[2])  # the bf16 kernel loads w2 by TMA
     _build.check_tensors("mini_stats", x, *w)
     n_groups = B * (GM // m_size)
     lib = _build.load("mini")
