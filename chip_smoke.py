@@ -10,6 +10,8 @@ modeling), and the kernel tools (the ViT-block ablation probe, the on-card
 kernel check).
 
     python3 chip_smoke.py            # one CUDA card, no arguments
+    python3 chip_smoke.py --only ballquery   # group.cu, phase 3's ball queries alone
+    python3 chip_smoke.py --only towers      # phase 7's ball-query towers alone
 
 Phases (any failed check raises, and the script exits non-zero):
   1. card name / power limit (nvidia-smi), torch and CUDA versions;
@@ -45,13 +47,20 @@ Phases (any failed check raises, and the script exits non-zero):
      ball-query kernels (ball_query_gather, ball_query_gather_feats with
      bf16 and f32 features, ball_query_gather_v2) against their plain
      versions at a small shape (odd nsample, N not a multiple of 32, a
-     query with no hit, short rows, a point at exactly the radius) and at
-     every shape the towers of phase 7 give them, on those towers' own
-     cascade of FPS subsets: indices and gathered features exact,
-     coordinates within 1e-6, v2 identical to ball_query_gather bit for
-     bit, two runs identical; fps_batched against fps_plain at each stage
-     of the cascade, and it must raise on a shape it does not take; the
-     library time is mask + topk + gather. fps_batched and knn_gather also
+     query with no hit, short rows, a point at exactly the radius, feature
+     rows of 2, 10, 24 and 64 bytes), at the walk's edges (one cloud of
+     20000 points, several staging chunks; S ragged against a CTA's
+     queries; nsample == N, past a warp's ring of picks) and at every
+     shape the towers of phase 7 give them, on those towers' own cascade
+     of FPS subsets: indices and gathered features exact, coordinates
+     within 1e-6, v2 identical to ball_query_gather bit for bit (where its
+     cloud fits shared memory), two runs identical; at the towers' shapes
+     timed with the launches queued behind a sleeping kernel, in
+     alternated rounds with the library call (mask + topk + gather;
+     median of 5), beside the launch floor (a kernel that returns at once,
+     on the same grid, block and shared memory, queued); fps_batched
+     against fps_plain at each stage of the cascade, and it must raise on
+     a shape it does not take. fps_batched and knn_gather also
      at the long trunk's N=8192 with 1024 centres; fps_batched on
      duplicated points, at npoint = N, at N = 77, 14528 and its cap of 16384,
      twice each (indices identical to fps_plain's and between runs), and
@@ -245,6 +254,7 @@ the last line is the contract line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
+import argparse
 import collections
 import contextlib
 import ctypes
@@ -449,30 +459,44 @@ def gpu_time_ms(fn, reps=10, warmup=2):
     return start.elapsed_time(end) / reps
 
 
-def queued_ms(fn, reps=20):
+def queued_ms(fn, reps=20, sleep_cycles=20_000_000):
     """Device time per call of a kernel shorter than its launch: the calls
     are queued behind a sleeping kernel, so the card runs them back to back
-    and the host's time between them does not show."""
+    and the host's time between them does not show. The host must have
+    enqueued every call before the sleep (about 10 ms at first) ends; when
+    it has not (a long enqueue, or more launches than the card's queue
+    holds, which blocks the host), the sleep is doubled, the calls halved
+    and the reading taken again. `fn` must not synchronise."""
     fn()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(20_000_000)  # about 10 ms of cycles, longer than enqueuing the calls
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    for _ in range(5):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(sleep_cycles)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ev[2].record()
+        ev[2].synchronize()
+        if host_ms < 0.9 * ev[0].elapsed_time(ev[1]):
+            return ev[1].elapsed_time(ev[2]) / reps
+        sleep_cycles *= 2
+        reps = max(2, reps // 2)
+    raise RuntimeError(f"chip_smoke: {reps} queued calls took {host_ms:.1f} ms of host time, "
+                       "longer than the sleep they were queued behind")
 
 
-def alternated_ms(fns, rounds=5, reps=10, warmup=2):
+def alternated_ms(fns, rounds=5, timer=gpu_time_ms, **kw):
     """Each callable's device time as the median over `rounds` rounds, the
-    callables timed in turn within a round (gpu_time_ms each), so that a
-    kernel and its library call meet the same state of the card."""
+    callables timed in turn within a round by `timer` (gpu_time_ms, or
+    queued_ms for calls shorter than their launch; `kw` goes to it), so
+    that a kernel and its library call meet the same state of the card."""
     times = {k: [] for k in fns}
     for _ in range(rounds):
         for k, fn in fns.items():
-            times[k].append(gpu_time_ms(fn, reps=reps, warmup=warmup))
+            times[k].append(timer(fn, **kw))
     return {k: float(np.median(v)) for k, v in times.items()}
 
 
@@ -1320,16 +1344,32 @@ def ball_bound(xyz, q, idx, feats):
     return bound_ms(nbytes, 9 * looked, PEAK["f32"]), looked / (B * S * N)
 
 
+def ball_floor_ms(B, N, S, ns):
+    """A kernel that returns at once, launched on the ball query's grid,
+    block and shared memory and queued as the kernels are: the least time
+    a launch of that shape takes. None for a build of group.cu from
+    before the floor's entry point, timed beside this one for comparison."""
+    if not hasattr(_build.load("group"), "ppt_ball_launch_floor"):
+        return None
+    lib = kgroup._lib()
+    args = (B, N, S, ns, *kgroup._ball_plan(B, S),
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    return queued_ms(lambda: _build.check(lib, lib.ppt_ball_launch_floor(*args), "launch floor"))
+
+
 def check_one_ball(tag, radius, ns, xyz, q, feat_list, results=None):
-    """The three kernels at one shape against the plain versions; with
-    ``results`` also times, bounds and library times."""
+    """The three kernels at one shape against the plain versions (v2 where
+    its whole cloud fits one block's shared memory); with ``results`` also
+    queued times in alternated rounds with the library calls (median of
+    5), the launch floor, bounds and plain times."""
     B, N, _ = xyz.shape
     S = q.shape[1]
+    v2 = 12 * N <= kgroup._SMEM_LIMIT
     widx, wrel = kgroup.ball_query_gather_plain(radius, ns, xyz, q)
     idx, rel = kgroup.ball_query_gather(radius, ns, xyz, q)
     idx_b, rel_b = kgroup.ball_query_gather(radius, ns, xyz, q)
-    idx2, rel2 = kgroup.ball_query_gather_v2(radius, ns, xyz, q)
-    idx2_b, rel2_b = kgroup.ball_query_gather_v2(radius, ns, xyz, q)
+    idx2, rel2 = kgroup.ball_query_gather_v2(radius, ns, xyz, q) if v2 else (idx, rel)
+    idx2_b, rel2_b = kgroup.ball_query_gather_v2(radius, ns, xyz, q) if v2 else (idx, rel)
     torch.cuda.synchronize()
     n_bad, n_bad2 = int((idx != widx).sum()), int((idx2 != widx).sum())
     err = float((rel - wrel).abs().max())
@@ -1338,14 +1378,15 @@ def check_one_ball(tag, radius, ns, xyz, q, feat_list, results=None):
     v2_same = torch.equal(idx, idx2) and torch.equal(rel, rel2)
     short = float((widx[..., -1] == widx[..., 0]).float().mean()) if ns > 1 else 0.0
     msg = (f"[kernel] ball query {tag} B={B} N={N} S={S} r={radius} ns={ns}: index mismatches "
-           f"{n_bad} (v2 {n_bad2}), max |d rel| {err:.1e}, v2 == v1 bit for bit {v2_same}, two "
-           f"runs identical {same}, short rows {short:.3f}")
+           f"{n_bad} (v2 {n_bad2 if v2 else 'refuses N'}), max |d rel| {err:.1e}, v2 == v1 bit "
+           f"for bit {v2_same if v2 else '-'}, two runs identical {same}, short rows {short:.3f}")
     check(n_bad == 0 and n_bad2 == 0, f"ball query indices differ at {tag}")
     check(err <= 1e-6, f"ball query coordinates differ at {tag}")
     check(v2_same, f"ball_query_gather_v2 differs from ball_query_gather at {tag}")
     check(same, f"ball query differs between two runs at {tag}")
+    names = {torch.float32: "f32", torch.bfloat16: "bf16"}
     for feats in feat_list:
-        fname = {torch.float32: "f32", torch.bfloat16: "bf16"}[feats.dtype]
+        fname = names[feats.dtype]
         fi, fr, fj = kgroup.ball_query_gather_feats(radius, ns, xyz, q, feats)
         _, _, fj_b = kgroup.ball_query_gather_feats(radius, ns, xyz, q, feats)
         _, _, wfj = kgroup.ball_query_gather_feats_plain(radius, ns, xyz, q, feats)
@@ -1366,32 +1407,43 @@ def check_one_ball(tag, radius, ns, xyz, q, feat_list, results=None):
             acc[k] += row[k]
         acc["shapes"].append(row)
 
-    shape = dict(tag=tag, B=B, N=N, S=S, radius=radius, nsample=ns)
+    fns = {"ball_query_gather": lambda: kgroup.ball_query_gather(radius, ns, xyz, q),
+           "ball_query_gather_v2": lambda: kgroup.ball_query_gather_v2(radius, ns, xyz, q),
+           "library": lambda: ball_library(radius, ns, xyz, q, None)}
+    for feats in feat_list:
+        fns[f"feats_{names[feats.dtype]}"] = (
+            lambda f=feats: kgroup.ball_query_gather_feats(radius, ns, xyz, q, f))
+        fns[f"library_{names[feats.dtype]}"] = lambda f=feats: ball_library(radius, ns, xyz, q, f)
+    t = alternated_ms(fns, timer=queued_ms)
+    floor = ball_floor_ms(B, N, S, ns)
+    shape = dict(tag=tag, B=B, N=N, S=S, radius=radius, nsample=ns, floor_ms=floor)
     (bms, by), looked = ball_bound(xyz, q, widx, None)
     plain_ms = gpu_time_ms(lambda: kgroup.ball_query_gather_plain(radius, ns, xyz, q), reps=3,
                            warmup=1)
-    lib_ms = gpu_time_ms(lambda: ball_library(radius, ns, xyz, q, None), reps=3, warmup=1)
-    for name, fn in (("ball_query_gather", kgroup.ball_query_gather),
-                     ("ball_query_gather_v2", kgroup.ball_query_gather_v2)):
-        add(name, dict(shape, max_abs_err=err, ms=gpu_time_ms(lambda: fn(radius, ns, xyz, q)),
-                       plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
-                       points_looked_at=looked))
+    line = (f"[kernel] ball query {tag} B={B} N={N} S={S} ns={ns}, ms queued: ball_query_gather "
+            f"{t['ball_query_gather']:.4f} (launch floor "
+            f"{'not built' if floor is None else f'{floor:.4f}'}, bound {bms:.4f} {by}, library "
+            f"{t['library']:.4f}, plain {plain_ms:.3f}), v2 {t['ball_query_gather_v2']:.4f}")
+    for name in ("ball_query_gather", "ball_query_gather_v2"):
+        add(name, dict(shape, max_abs_err=err, ms=t[name], plain_ms=plain_ms, bound_ms=bms,
+                       bound_by=by, library_ms=t["library"], points_looked_at=looked))
     for feats in feat_list:
+        fname = names[feats.dtype]
         (bms, by), _ = ball_bound(xyz, q, widx, feats)
         row = dict(shape, F=feats.shape[-1], dtype=str(feats.dtype).split(".")[1],
                    max_abs_err=err, bound_ms=bms, bound_by=by, points_looked_at=looked,
-                   ms=gpu_time_ms(
-                       lambda: kgroup.ball_query_gather_feats(radius, ns, xyz, q, feats)),
+                   ms=t[f"feats_{fname}"], library_ms=t[f"library_{fname}"],
                    plain_ms=gpu_time_ms(lambda: kgroup.ball_query_gather_feats_plain(
-                       radius, ns, xyz, q, feats), reps=3, warmup=1),
-                   library_ms=gpu_time_ms(lambda: ball_library(radius, ns, xyz, q, feats),
-                                          reps=3, warmup=1))
+                       radius, ns, xyz, q, feats), reps=3, warmup=1))
+        line += (f"; feats {fname} F={feats.shape[-1]} {row['ms']:.4f} (bound {bms:.4f}, "
+                 f"library {row['library_ms']:.4f}, plain {row['plain_ms']:.3f})")
         # the dtype the bf16 towers hand the kernel: PointNeXt casts before the
         # gather, PointNet++ gathers its BatchNorm's f32 output
         if (feats.dtype == torch.float32) == tag.startswith("pn_ssg"):
             add("ball_query_gather_feats", row)
         else:
             results.setdefault("ball_query_gather_feats_other_dtype", []).append(row)  # checked too
+    print(line)
 
 
 def check_ballquery(results):
@@ -1404,7 +1456,8 @@ def check_ballquery(results):
     g = torch.Generator().manual_seed(7)
     small_feats = [torch.randn(2, 77, 5, generator=g).to(DEV).bfloat16(),  # 10-byte rows
                    torch.randn(2, 77, 6, generator=g).to(DEV),             # 24-byte rows
-                   torch.randn(2, 77, 32, generator=g).to(DEV).bfloat16()]  # 64-byte rows
+                   torch.randn(2, 77, 32, generator=g).to(DEV).bfloat16(),  # 64-byte rows
+                   torch.randn(2, 77, 1, generator=g).to(DEV).bfloat16()]  # 2-byte rows
     check_one_ball("small", 0.3, 7, xyz, q, small_feats)
     empty, _ = kgroup.ball_query_gather(0.3, 7, xyz, q)
     check(bool((empty[0, 1] == 76).all()), "a query with no hit must give N - 1")
@@ -1416,6 +1469,19 @@ def check_ballquery(results):
     check_one_ball("boundary", 0.5, 4, edge, origin, [])
     at_radius, _ = kgroup.ball_query_gather(0.5, 4, edge, origin)
     check(at_radius[0, 0].tolist() == [0, 1, 0, 0], "a point at the radius must be a hit")
+
+    # the walk's edges: one cloud of more than one staging chunk (hits across
+    # chunks; a ball that fills part way, one that walks every chunk), S
+    # ragged against the CTA's query tile, nsample == N past the warp's ring
+    # of picks (written out part way through the walk), a cloud taken whole
+    for tag, B, N, S, radius, ns, F_ in (
+            ("n20000", 1, 20000, 100, 0.1, 64, 32), ("n20000_walk_all", 1, 20000, 96, 0.05, 64, 0),
+            ("ragged_s", 3, 1024, 37, 0.2, 32, 64), ("ns_eq_n", 2, 300, 40, 0.5, 300, 6),
+            ("n128_ns_eq_n", 2, 128, 24, 0.3, 128, 1)):
+        xyz = cloud(B, N, N + S)
+        q = torch.gather(xyz, 1, kgroup.fps_plain(xyz, S).long()[:, :, None].expand(-1, -1, 3))
+        f32 = torch.randn(B, N, F_, generator=g).to(DEV)
+        check_one_ball(tag, radius, ns, xyz, q, [f32.bfloat16(), f32] if F_ else [])
 
     for bad in (lambda: kgroup.fps_batched(cloud(1, 64, 1), 65),
                 lambda: kgroup.fps_batched(cloud(1, kgroup.FPS_MAX_POINTS + 1, 1), 8)):
@@ -3416,21 +3482,15 @@ def run_profiles(batch=32, batches=5):
     return out
 
 
-def main():
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    print(f"[card] {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"Python {sys.version.split()[0]}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
+def build(names=_build.SOURCES):
+    """Phase 2's build: one nvcc per source, in parallel; prints each entry
+    function's registers and spills (-Xptxas -v) and fails if a ball-query
+    kernel spills."""
     t0 = time.perf_counter()
-    times = _build.build_all(force=True)
+    times = _build.build_all(names, force=True)
     print(f"[build] {len(times)} sources built in parallel in {time.perf_counter() - t0:.1f} s "
           f"({', '.join(f'{k} {v:.1f} s' for k, v in sorted(times.items()))})")
-    for name in _build.SOURCES:  # each entry function's registers and spills (-Xptxas -v)
+    for name in names:
         entry, spills = None, ""
         for ln in (_build.BUILD_DIR / f"{name}.log").read_text().splitlines():
             m = re.search(r"Compiling entry function '([^']+)'", ln)
@@ -3442,7 +3502,41 @@ def main():
             m = re.search(r"Used (\d+) registers", ln)
             if m and entry:
                 print(f"[build] {name}.cu {entry}: {m.group(1)} registers, {spills}")
+                if "ball_query_kernel" in entry or "ball_query_feats_kernel" in entry:
+                    check(spills.startswith("0 bytes spill stores, 0 bytes spill loads"),
+                          f"{entry} spills: {spills}")
                 entry = None
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", choices=("ballquery", "towers"),
+                    help="build group.cu and run phase 3's ball-query checks and times alone "
+                         "(ballquery) or phase 7's ball-query towers alone (towers)")
+    args = ap.parse_args(argv)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(f"[card] {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"Python {sys.version.split()[0]}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    if args.only == "ballquery":
+        build(["group"])
+        results = {}
+        check_ballquery(results)
+        print(json.dumps({"ballquery_kernels": {k: results[k] for k in BALL_KERNELS},
+                          "feats_other_dtype": results["ball_query_gather_feats_other_dtype"]}))
+        print(smi)
+        return
+    if args.only == "towers":
+        build(["group"])
+        print(json.dumps({"ballquery": run_ballquery_slice()[1]}))
+        print(smi)
+        return
+    build()
     sass = hopper_sass()
 
     results = {}

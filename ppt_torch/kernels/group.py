@@ -41,6 +41,35 @@ from ppt_torch.kernels._autograd import recompute_grad
 _SMEM_LIMIT = 227 * 1024
 FPS_MAX_POINTS = 16384  # the cloud in shared memory (12 N bytes), 16 points a thread
 CHUNK = 1024  # cloud points a kNN CTA stages at a time (double-buffered: 24 KB)
+# the ball query's walk (csrc/ball_select.cuh): points a warp tests a round (4
+# a lane), and the points a CTA stages at a time once the cloud is larger
+# (double-buffered: 48 KB); a cloud of at most BALL_CHUNK points is staged whole
+BALL_ROUND = 128
+BALL_CHUNK = 2048
+_BALL_WARPS = 8  # queries (warps) a block: ball_select.cuh's BALL_WARPS, and v2's
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = {
+    "ppt_fps": [_P] + [_I] * 3 + [_P] * 2,
+    "ppt_knn": [_P] * 2 + [_I] * 5 + [_P] * 3,
+    "ppt_ball_query": [_P] * 2 + [_I] * 4 + [_F] + [_I] * 2 + [_P] * 3,
+    "ppt_ball_query_feats": [_P] * 3 + [_I] * 4 + [_F] + [_I] * 4 + [_P] * 4,
+    "ppt_ball_query_rank": [_P] * 2 + [_I] * 4 + [_F] + [_I] * 2 + [_P] * 3,
+    "ppt_ball_launch_floor": [_I] * 6 + [_P],
+}
+_lib_typed = None
+
+
+def _lib() -> ctypes.CDLL:
+    """``csrc/group.cu``'s library, its entry points' argument types set
+    once, when it is first loaded here."""
+    global _lib_typed
+    if _lib_typed is None:
+        lib = _build.load("group")
+        for name, types in _ARGTYPES.items():
+            getattr(lib, name).argtypes = types
+        _lib_typed = lib
+    return _lib_typed
 
 
 def _sq3(dx: torch.Tensor, dy: torch.Tensor, dz: torch.Tensor) -> torch.Tensor:
@@ -83,8 +112,7 @@ def fps_batched(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     out = torch.empty(B, npoint, dtype=torch.int32, device=xyz.device)
     if B == 0 or npoint == 0:
         return out
-    lib = _build.load("group")
-    lib.ppt_fps.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+    lib = _lib()
     rc = lib.ppt_fps(_build.ptr(xyz), B, N, npoint, _build.ptr(out), _build.stream_ptr(xyz))
     _build.check(lib, rc, "fps_batched")
     _build.LAUNCHES["fps_batched"] += 1
@@ -131,8 +159,7 @@ def knn_gather(
     nbr = torch.empty(B, S, k, 3, dtype=torch.float32, device=xyz.device)
     if B == 0 or S == 0:
         return idx, nbr
-    lib = _build.load("group")
-    lib.ppt_knn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
+    lib = _lib()
     rc = lib.ppt_knn(_build.ptr(xyz), _build.ptr(q), B, N, S, k, CHUNK, _build.ptr(idx),
                      _build.ptr(nbr), _build.stream_ptr(xyz))
     _build.check(lib, rc, "knn_gather")
@@ -192,7 +219,15 @@ def ball_query_gather_feats_plain(
     return idx, rel, _gather_rows(feats, idx)
 
 
-_BALL_WARPS = 8  # queries (warps) per block
+def _ball_plan(B: int, S: int) -> Tuple[int, int]:
+    """(queries a warp takes in turn, points a stage) for a ball query of B
+    clouds x S centres: 4 queries a warp (a CTA stages its cloud once for
+    32 of them) while that leaves at least 2 CTAs an SM of an H100's 132
+    in the grid, else 2, else 1."""
+    qw = 4
+    while qw > 1 and B * -(-S // (qw * _BALL_WARPS)) < 2 * 132:
+        qw //= 2
+    return qw, BALL_CHUNK
 
 
 def _ball_args(name: str, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor):
@@ -215,15 +250,16 @@ def ball_query_gather(
     radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Ball query + centre-relative coordinates in one kernel:
-    (idx [B, S, nsample] int32, picks - centre [B, S, nsample, 3] f32)."""
+    (idx [B, S, nsample] int32, picks - centre [B, S, nsample, 3] f32).
+    Any N, any S."""
     if xyz.device.type == "cpu":
         return ball_query_gather_plain(radius, nsample, xyz, new_xyz)
     xyz, q, B, N, S, idx, rel = _ball_args("ball_query_gather", nsample, xyz, new_xyz)
-    lib = _build.load("group")
-    lib.ppt_ball_query.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    if B == 0 or S == 0:
+        return idx, rel
+    lib = _lib()
     rc = lib.ppt_ball_query(_build.ptr(xyz), _build.ptr(q), B, N, S, nsample, radius * radius,
-                            _BALL_WARPS, _build.ptr(idx), _build.ptr(rel),
+                            *_ball_plan(B, S), _build.ptr(idx), _build.ptr(rel),
                             _build.stream_ptr(xyz))
     _build.check(lib, rc, "ball_query_gather")
     _build.LAUNCHES["ball_query_gather"] += 1
@@ -241,10 +277,7 @@ def ball_query_gather_v2(
     xyz, q, B, N, S, idx, rel = _ball_args("ball_query_gather_v2", nsample, xyz, new_xyz)
     if 12 * N > _SMEM_LIMIT:
         raise ValueError(f"ball_query_gather_v2: N={N} does not fit one block's shared memory")
-    lib = _build.load("group")
-    lib.ppt_ball_query_rank.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [
-        ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                             ctypes.c_void_p, ctypes.c_void_p]
+    lib = _lib()
     rc = lib.ppt_ball_query_rank(_build.ptr(xyz), _build.ptr(q), B, N, S, nsample,
                                  radius * radius, 4 * _BALL_WARPS, _BALL_WARPS,
                                  _build.ptr(idx), _build.ptr(rel), _build.stream_ptr(xyz))
@@ -264,15 +297,15 @@ def _ball_feats_run(radius: float, nsample: int, xyz: torch.Tensor, new_xyz: tor
     feats = feats.detach().contiguous()
     _build.check_tensors(name, xyz, feats)
     fj = torch.empty(B, S, nsample, feats.shape[2], dtype=feats.dtype, device=xyz.device)
+    if B == 0 or S == 0:
+        return idx, rel, fj
     row_bytes = feats.shape[2] * feats.element_size()
     # the widest copy unit that divides a row and keeps both pointers aligned
     unit = next(u for u in (16, 4, 2)
                 if row_bytes % u == 0 and feats.data_ptr() % u == 0 and fj.data_ptr() % u == 0)
-    lib = _build.load("group")
-    lib.ppt_ball_query_feats.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
-        ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+    lib = _lib()
     rc = lib.ppt_ball_query_feats(_build.ptr(xyz), _build.ptr(q), _build.ptr(feats), B, N, S,
-                                  nsample, radius * radius, row_bytes, unit, _BALL_WARPS,
+                                  nsample, radius * radius, row_bytes, unit, *_ball_plan(B, S),
                                   _build.ptr(idx), _build.ptr(rel), _build.ptr(fj),
                                   _build.stream_ptr(xyz))
     _build.check(lib, rc, name)

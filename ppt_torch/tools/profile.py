@@ -92,6 +92,7 @@ PARTS = (
     ("ball_query_feats_kernel", "ball_query_gather_feats"),
     ("ball_query_rank_kernel", "ball_query_gather_v2"),
     ("ball_query_kernel", "ball_query_gather"),
+    ("ball_floor_kernel", "ball query: launch floor"),  # chip_smoke.py's measurement alone
     ("mini_forward", "mini_forward"),
     ("mini_stats", "mini_stats"),
     ("m2_reduce_kernel", "mini_stats"),
