@@ -12,6 +12,8 @@ kernel check).
     python3 chip_smoke.py            # one CUDA card, no arguments
     python3 chip_smoke.py --only ballquery   # group.cu, phase 3's ball queries alone
     python3 chip_smoke.py --only towers      # phase 7's ball-query towers alone
+    python3 chip_smoke.py --only losses3d    # losses3d.cu: phase 3's loss checks, nn_dists's plan
+                                             # sweep, the dVAE step with recon="emd"
 
 Phases (any failed check raises, and the script exits non-zero):
   1. card name / power limit (nvidia-smi), torch and CUDA versions;
@@ -93,14 +95,20 @@ Phases (any failed check raises, and the script exits non-zero):
      call (kernel, library, ... in each round), each time the median of
      5 rounds, since the library's time moves between calls.
      The reconstruction-loss kernels: chamfer_nn_dists (nn_dists, both
-     directions) bit-equal to nn_dists_plain at the dVAE's per-group clouds
-     (4096 x 8 x 32, 4096 x 32 x 32), at 8 x 2048 x 2048 and at 4 x 16384 x
-     16384, and chamfer's value and gradient equal to the plain recompute's;
-     library time cdist, squared, min both ways. approx_match at the dVAE's
-     4096 x 8 x 32 and 4096 x 32 x 32, at 4 x 64 x 32, 4 x 1024 x 768 and
-     2 x 1 x 30000 (supply vectors in device scratch): the match within 1e-4
-     of the plain auction's, the match cost within 1e-4 relative, two runs
-     bit-identical; no library call computes it. fps_single and knn_single
+     directions, alone and in chamfer's one launch) bit-equal to
+     nn_dists_plain at the dVAE's per-group clouds (4096 x 8 x 32, 4096 x 32
+     x 32), at 8 x 2048 x 2048, at 4 x 16384 x 16384, at a ragged 3 x 1001 x
+     777 and at M = 1, and chamfer's value and gradient equal to the plain
+     recompute's; library time cdist, squared, min both ways. approx_match
+     at the dVAE's 4096 x 8 x 32 and 4096 x 32 x 32 (the warp kernel), at the
+     warp kernel's edges (N on the lanes, 31 x 31, 1 x 32, one point past
+     its limit on either side), at 4 x 64 x 32, 4 x 1024 x 768 and 2 x 1 x
+     30000 (supply vectors in device scratch): the match within 1e-4 of the
+     plain auction's (bit-equality reported), the match cost within 1e-4
+     relative, two runs bit-identical; no library call computes it. Both
+     are timed with the launches queued (median of 5 rounds; nn_dists in
+     alternated rounds with its library call) beside each shape's launch
+     floor (an empty kernel launched as the kernel is). fps_single and knn_single
      (no module calls them) at 2 x 300 points with duplicates (npoint 64;
      k, S = 1, 8 / 8, 128 / 32, 256), the slice's 32 x 1024 -> 512, the
      long trunk's 32 x 8192 -> 1024 and fps_single's cap of 16384 points
@@ -1528,17 +1536,23 @@ def check_ballquery(results):
 
 # (B, N, M, tag): the dVAE's per-group clouds (B*G = 64*64 groups; coarse 8
 # and fine 32 points against each 32-point neighbourhood), kernel_check's
-# reconstruction scale (tools/kernel_check.py:190-195) and the 16k-point
-# clouds of the Chamfer kernel's docstring. The row's headline is the
-# reconstruction scale, the shape the reference's own on-chip check takes.
+# reconstruction scale (tools/kernel_check.py:190-195), the 16k-point
+# clouds of the Chamfer kernel's docstring, N and M that are multiples of
+# neither a query group (2 or 4), the block (128 threads) nor a support
+# chunk, and M = 1. The row's headline is the reconstruction scale, the
+# shape the reference's own on-chip check takes.
 NN_SHAPES = ((4096, 8, 32, "dvae_coarse"), (4096, 32, 32, "dvae_fine"), (8, 2048, 2048, "recon"),
-             (4, 16384, 16384, "16k"))
+             (4, 16384, 16384, "16k"), (3, 1001, 777, "ragged"), (5, 37, 1, "m1"))
 # the dVAE's two EMD terms, the reference's small shape, kernel_check's
-# (tools/kernel_check.py:201-204), and one whose supply vectors alone pass a
-# block's shared memory (the device-scratch path). The headline is the
-# dVAE's step: its coarse and fine terms together.
+# (tools/kernel_check.py:201-204), one whose supply vectors alone pass a
+# block's shared memory (the device-scratch path), and the warp kernel's
+# edges: N on the lanes, 31 and 1 points a side, and one point past its
+# limit on either side. The headline is the dVAE's step: its coarse and
+# fine terms together.
 EMD_SHAPES = ((4096, 8, 32, "dvae_coarse"), (4096, 32, 32, "dvae_fine"), (4, 64, 32, "small"),
-              (4, 1024, 768, "kernel_check"), (2, 1, 30000, "scratch"))
+              (4, 1024, 768, "kernel_check"), (2, 1, 30000, "scratch"), (64, 32, 8, "lanes_n"),
+              (64, 31, 31, "ragged"), (64, 1, 32, "n1"), (64, 32, 33, "past_m"),
+              (64, 33, 32, "past_n"))
 
 
 def chamfer_library(a, b):
@@ -1546,34 +1560,109 @@ def chamfer_library(a, b):
     return torch.cdist(a, b).square().amin(-1), torch.cdist(b, a).square().amin(-1)
 
 
+def nn_both(a, b):
+    """Both directions the way ``chamfer`` runs them: one launch, or two
+    with a build from before ``nn_dists_both``, timed beside this one."""
+    both = getattr(kchamfer, "nn_dists_both", None)
+    return both(a, b) if both else (kchamfer.nn_dists(a, b), kchamfer.nn_dists(b, a))
+
+
+def losses3d_floor(name, *args):
+    """Queued time of an empty kernel launched as the loss kernel is (grid,
+    block, cluster, shared memory): None for a build of losses3d.cu from
+    before the floor's entry points, timed beside this one."""
+    try:
+        from ppt_torch.kernels import _losses3d
+    except ImportError:
+        return None
+    lib = _losses3d.lib()
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    return queued_ms(lambda: _build.check(lib, getattr(lib, name)(*args, stream), "launch floor"))
+
+
+def sm_clock_hz():
+    """The card's highest SM clock (nvidia-smi), for the issue floor."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout
+    return float(out.split()[0]) * 1e6
+
+
+def nn_plan_sweep():
+    """Queued ms of nn_dists, both directions in one launch, at each of
+    NN_SHAPES for every (queries a thread, split): the measurement
+    kernels/chamfer.py:nn_plan is read from. None for a build from before
+    the plan, timed beside this one."""
+    try:
+        from ppt_torch.kernels import _losses3d
+    except ImportError:
+        return None
+    lib, P = _losses3d.lib(), _build.ptr
+    g = torch.Generator().manual_seed(23)
+    table = {}
+    for B, N, M, tag in NN_SHAPES:
+        a, b = (torch.rand(B, n, 3, generator=g).to(DEV) for n in (N, M))
+        da, db = torch.empty(B, N, device=DEV), torch.empty(B, M, device=DEV)
+        stream = _build.stream_ptr(a)
+
+        def run(q, split):
+            _build.check(lib, lib.ppt_nn_dists(P(a), P(b), P(da), B, N, M, P(b), P(a), P(db),
+                                               B, M, N, q, split, stream), "nn_dists")
+
+        row = {f"{q}/{split}": queued_ms(lambda: run(q, split))
+               for q in kchamfer.QUERIES for split in (1, 2, 4, 8)}
+        plan = "%d/%d" % kchamfer.nn_plan([(B, N, M), (B, M, N)])
+        best = min(row, key=row.get)
+        print(f"[sweep] nn_dists {tag} B={B} N={N} M={M}: plan {plan} {row[plan]:.4f} ms, best "
+              f"{best} {row[best]:.4f}; queries/split: "
+              + " ".join(f"{k} {v:.4f}" for k, v in row.items()))
+        table[tag] = dict(row, plan=plan)
+    return table
+
+
 def check_losses3d(results):
     """Phase 3 for the reconstruction-loss kernels: nn_dists bit-equal to
-    its plain version both ways (and chamfer's gradient to the plain
-    recompute's), approx_match's match within 1e-4 and its cost within
-    1e-4 relative of the plain auction's, repeats bit-identical."""
+    its plain version both ways, alone and in chamfer's one launch (and
+    chamfer's value and gradient to the plain recompute's), approx_match's
+    match within 1e-4 and its cost within 1e-4 relative of the plain
+    auction's, repeats bit-identical; times with the launches queued, in
+    alternated rounds with the library call (median of 5), beside each
+    shape's launch floor."""
     g = torch.Generator().manual_seed(17)
+    clock = sm_clock_hz()
     rows = []
     for B, N, M, tag in NN_SHAPES:
         a, b = (torch.rand(B, n, 3, generator=g).to(DEV) for n in (N, M))
-        got = (kchamfer.nn_dists(a, b), kchamfer.nn_dists(b, a))
+        one = (kchamfer.nn_dists(a, b), kchamfer.nn_dists(b, a))
+        got = nn_both(a, b)
         want = (kchamfer.nn_dists_plain(a, b), kchamfer.nn_dists_plain(b, a))
-        again = kchamfer.nn_dists(a, b)
+        again = nn_both(a, b)
         torch.cuda.synchronize()
-        equal = all(torch.equal(x, y) for x, y in zip(got, want)) and torch.equal(again, got[0])
+        equal = all(torch.equal(x, y) and torch.equal(x, z) and torch.equal(x, r)
+                    for x, y, z, r in zip(got, want, one, again))
         err = max(float((x - y).abs().max()) for x, y in zip(got, want))
-        nbytes = 2 * (B * N * 12 + B * M * 12) + B * (N + M) * 4
-        bms, by = bound_ms(nbytes, 9 * 2 * B * N * M, PEAK["f32"])  # 3 sub, 3 mul, 2 add, min
+        check(equal, f"chamfer_nn_dists differs from its plain version at {tag} (max |diff| "
+                     f"{err:.1e})")
+        nbytes = (B * N + B * M) * 12 + (B * N + B * M) * 4  # each cloud read once, both minima
+        pairs = 2 * B * N * M
+        bms, by = bound_ms(nbytes, 9 * pairs, PEAK["f32"])  # 3 sub, 3 mul, 2 add, min
+        t = alternated_ms({"kernel": lambda: nn_both(a, b),
+                           "library": lambda: chamfer_library(a, b)}, timer=queued_ms)
+        plan = kchamfer.nn_plan([(B, N, M), (B, M, N)]) if hasattr(kchamfer, "nn_plan") else None
+        floor = losses3d_floor("ppt_nn_launch_floor", B, N, M, B, M, N, *plan) if plan else None
         row = dict(tag=tag, B=B, N=N, M=M, max_abs_err=err, bound_ms=bms, bound_by=by,
-                   ms=gpu_time_ms(lambda: (kchamfer.nn_dists(a, b), kchamfer.nn_dists(b, a))),
+                   # 9 instructions a pair, issued one a cycle by each of an SM's 4
+                   # schedulers for 32 lanes, at the highest SM clock
+                   issue_floor_ms=9 * pairs / (132 * 4 * 32 * clock) * 1e3,
+                   ms=t["kernel"], library_ms=t["library"], floor_ms=floor, plan=plan,
                    plain_ms=gpu_time_ms(lambda: (kchamfer.nn_dists_plain(a, b),
-                                                 kchamfer.nn_dists_plain(b, a)), reps=2, warmup=1),
-                   library_ms=gpu_time_ms(lambda: chamfer_library(a, b), reps=2, warmup=1))
+                                                 kchamfer.nn_dists_plain(b, a)), reps=2, warmup=1))
         rows.append(row)
         print(f"[kernel] chamfer_nn_dists {tag} B={B} N={N} M={M}, both directions: bit-equal to "
-              f"the plain version {equal} (max |diff| {err:.1e}), repeats identical; kernel "
-              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.3f}, library {row['library_ms']:.3f},"
-              f" bound {bms:.4f} ({by})")
-        check(equal, f"chamfer_nn_dists differs from its plain version at {tag}")
+              f"the plain version, one direction at a time and in one launch, repeats "
+              f"identical {equal}; ms queued {row['ms']:.4f} (launch floor "
+              f"{'not built' if floor is None else f'{floor:.4f}'}, queries/split {plan}), library "
+              f"{row['library_ms']:.4f}, plain {row['plain_ms']:.3f}, bound {bms:.4f} ({by}), "
+              f"issue floor {row['issue_floor_ms']:.4f}")
     a = torch.rand(4, 500, 3, generator=g).to(DEV).requires_grad_()
     b = torch.rand(4, 300, 3, generator=g).to(DEV).requires_grad_()
     value = kchamfer.chamfer(a, b)
@@ -1590,6 +1679,7 @@ def check_losses3d(results):
         max_abs_err=max(r["max_abs_err"] for r in rows), headline=head["tag"], shapes=rows)
 
     rows = []
+    warp_rule = getattr(kemd, "warp_auction", None)
     for B, N, M, tag in EMD_SHAPES:
         x1, x2 = torch.rand(B, N, 3, generator=g).to(DEV), torch.rand(B, M, 3, generator=g).to(DEV)
         match, again = kemd.approx_match(x1, x2), kemd.approx_match(x1, x2)
@@ -1600,24 +1690,30 @@ def check_losses3d(results):
         err = float((match - want).abs().max())
         cost_rel = float(((cost - cost_p).abs() / cost_p.abs()).max())
         same = torch.equal(match, again)
+        check(err <= 1e-4, f"approx_match's match differs from the plain auction at {tag}")
+        check(cost_rel <= 1e-4, f"the EMD match cost differs from the plain version at {tag}")
+        check(same, f"approx_match differs between two runs at {tag}")
         nbytes = 2 * B * N * M * 4  # d2 read, match written
         # per pair and level: the bid (mul, exp), suml (mul, add), sumr
         # (mul, add), the flow (2 mul) into match (add) and its row sum (add)
         bms, by = bound_ms(nbytes, 10 * len(kemd.LEVELS) * B * N * M, PEAK["f32"])
+        warp = warp_rule(N, M) if warp_rule else None
+        floor = (losses3d_floor("ppt_approx_match_floor", B, N, M, int(warp))
+                 if warp is not None else None)
         row = dict(tag=tag, B=B, N=N, M=M, max_abs_err=err, cost_rel=cost_rel, bound_ms=bms,
-                   bound_by=by, bit_equal=torch.equal(match, want),
-                   ms=gpu_time_ms(lambda: kemd._auction_run(d2), reps=3, warmup=1),
+                   bound_by=by, bit_equal=torch.equal(match, want), warp_kernel=warp,
+                   ms=float(np.median([queued_ms(lambda: kemd._auction_run(d2))
+                                       for _ in range(5)])),
+                   floor_ms=floor,
                    plain_ms=gpu_time_ms(lambda: kemd.auction_plain(d2, *kemd.supplies(N, M)),
                                         reps=1, warmup=1))
         rows.append(row)
-        print(f"[kernel] approx_match {tag} B={B} N={N} M={M}: match max |diff| {err:.2e} (tol "
-              f"1e-4; bit-equal {row['bit_equal']}), cost rel {cost_rel:.2e} (tol 1e-4), "
-              f"repeats identical {same}, rows ship {float(match.sum(2).min()):.6f}-"
-              f"{float(match.sum(2).max()):.6f}; kernel {row['ms']:.4f} ms, plain "
-              f"{row['plain_ms']:.3f}, bound {bms:.4f} ({by})")
-        check(err <= 1e-4, f"approx_match's match differs from the plain auction at {tag}")
-        check(cost_rel <= 1e-4, f"the EMD match cost differs from the plain version at {tag}")
-        check(same, f"approx_match differs between two runs at {tag}")
+        print(f"[kernel] approx_match {tag} B={B} N={N} M={M} ({'warp' if warp else 'block'} "
+              f"kernel): match max |diff| {err:.2e} (tol 1e-4; bit-equal {row['bit_equal']}), "
+              f"cost rel {cost_rel:.2e} (tol 1e-4), repeats identical {same}, rows ship "
+              f"{float(match.sum(2).min()):.6f}-{float(match.sum(2).max()):.6f}; ms queued "
+              f"{row['ms']:.4f} (launch floor {'not built' if floor is None else f'{floor:.4f}'})"
+              f", plain {row['plain_ms']:.3f}, bound {bms:.4f} ({by})")
     step = [r for r in rows if r["tag"].startswith("dvae_")]
     results["approx_match"] = dict(
         {k: sum(r[k] for r in step) for k in ("ms", "plain_ms", "bound_ms")},
@@ -3208,6 +3304,43 @@ def f32_step_vs_plain_by_distance(tag, quantities, kernel, plain_switches=None):
             "stats_rel": d_stats, f"{kernel}_launches": n}, grads
 
 
+def pb_data():
+    """The pretraining stages' clouds, a shuffled stream of dVAE batches
+    and one fixed batch of 64 on the card."""
+    ds = pb_clouds()
+    stream = batch_stream(Loader(ds, DVAE_BATCH, shuffle=True, drop_last=True, seed=0))
+    pc64 = cls.device_batch(next(iter(Loader(ds, DVAE_BATCH, shuffle=True, seed=3))), DEV)["pc"]
+    return ds, stream, pc64
+
+
+def run_dvae_emd(pc64, stream, total, steps):
+    """The dVAE with ``dvae_loss(recon="emd")``, approx_match on the path:
+    one f32 step against the plain path (``PPT_FORCE_XLA_EMD=1``), then a
+    bf16 window of ``steps`` steps. Returns its numbers and the window's
+    approx_match launches."""
+    r = {"batch": DVAE_BATCH, "npoints": PB_NPOINTS}
+    model = dvae_model("f32")
+    state = trainable_all(model, 1e-3)
+    r["vs_plain"], _ = f32_step_vs_plain_by_distance(
+        f"dVAE (EMD) B={DVAE_BATCH}", lambda: dvae_quantities(model, state, pc64, 11, "emd"),
+        "approx_match", plain_switches={"PPT_FORCE_XLA_EMD": "1"})
+    check(r["vs_plain"]["approx_match_launches"] == 2, "a dVAE EMD step runs approx_match twice")
+    model = dvae_model("bf16")
+    state = trainable_all(model, 1e-3)
+    step = dvae_pretrain.make_dvae_step(model, state.optimizer, recon="emd")
+
+    def window_step():
+        pc = train_augment(state.generator, cls.device_batch(next(stream), DEV)["pc"])
+        temp = dvae_pretrain.temperature_at(state.step, total)
+        return float(step(state, {"pc": pc}, temp)[1]["loss"])
+
+    launches, stats = timed_window(f"dVAE (EMD) bf16 B={DVAE_BATCH} x N={PB_NPOINTS}",
+                                   DVAE_BATCH, window_step, steps)
+    r.update(stats)
+    check(launches.get("approx_match") == 2 * steps, f"two approx_match a step: {launches}")
+    return r, launches.get("approx_match", 0)
+
+
 def run_pretrain_pb_slice(steps=20):
     try:
         return _run_pretrain_pb_slice(steps)
@@ -3219,9 +3352,7 @@ def _run_pretrain_pb_slice(steps):
     out = {"dvae": {"batch": DVAE_BATCH, "npoints": PB_NPOINTS, "config": "DvaeConfig()"},
            "mpm": {"batch": MPM_BATCH, "npoints": PB_NPOINTS, "config": "PointBertConfig()"}}
     counted = {}
-    ds = pb_clouds()
-    stream = batch_stream(Loader(ds, DVAE_BATCH, shuffle=True, drop_last=True, seed=0))
-    pc64 = cls.device_batch(next(iter(Loader(ds, DVAE_BATCH, shuffle=True, seed=3))), DEV)["pc"]
+    ds, stream, pc64 = pb_data()
 
     # 1. the dVAE with its Chamfer-L1 loss: one step against the plain path
     r = out["dvae"]
@@ -3287,22 +3418,7 @@ def _run_pretrain_pb_slice(steps):
     del model, state, step, res, dstate, fresh
 
     # 2. the dVAE with dvae_loss(recon="emd"): approx_match on the path
-    r = out["dvae_emd"] = {"batch": DVAE_BATCH, "npoints": PB_NPOINTS}
-    model = dvae_model("f32")
-    state = trainable_all(model, 1e-3)
-    r["vs_plain"], _ = f32_step_vs_plain_by_distance(
-        f"dVAE (EMD) B={DVAE_BATCH}", lambda: dvae_quantities(model, state, pc64, 11, "emd"),
-        "approx_match", plain_switches={"PPT_FORCE_XLA_EMD": "1"})
-    check(r["vs_plain"]["approx_match_launches"] == 2, "a dVAE EMD step runs approx_match twice")
-    model = dvae_model("bf16")
-    state = trainable_all(model, 1e-3)
-    step = dvae_pretrain.make_dvae_step(model, state.optimizer, recon="emd")
-    launches, stats = timed_window(f"dVAE (EMD) bf16 B={DVAE_BATCH} x N={PB_NPOINTS}",
-                                   DVAE_BATCH, window_step, steps)
-    r.update(stats)
-    check(launches.get("approx_match") == 2 * steps, f"two approx_match a step: {launches}")
-    counted["approx_match"] = launches.get("approx_match", 0)
-    del model, state, step
+    out["dvae_emd"], counted["approx_match"] = run_dvae_emd(pc64, stream, total, steps)
 
     # 3. masked point modeling at PointBERT's widths, the dVAE from the checkpoint
     r = out["mpm"]
@@ -3482,10 +3598,16 @@ def run_profiles(batch=32, batches=5):
     return out
 
 
+# kernels whose every instance must build without spills (the ball-query walk,
+# the 3-D loss kernels)
+SPILL_FREE = ("ball_query_kernel", "ball_query_feats_kernel", "approx_match_warp_kernel",
+              "nn_dists_kernel")
+
+
 def build(names=_build.SOURCES):
     """Phase 2's build: one nvcc per source, in parallel; prints each entry
-    function's registers and spills (-Xptxas -v) and fails if a ball-query
-    kernel spills."""
+    function's registers and spills (-Xptxas -v) and fails if a kernel of
+    SPILL_FREE spills."""
     t0 = time.perf_counter()
     times = _build.build_all(names, force=True)
     print(f"[build] {len(times)} sources built in parallel in {time.perf_counter() - t0:.1f} s "
@@ -3502,7 +3624,7 @@ def build(names=_build.SOURCES):
             m = re.search(r"Used (\d+) registers", ln)
             if m and entry:
                 print(f"[build] {name}.cu {entry}: {m.group(1)} registers, {spills}")
-                if "ball_query_kernel" in entry or "ball_query_feats_kernel" in entry:
+                if any(k in entry for k in SPILL_FREE):
                     check(spills.startswith("0 bytes spill stores, 0 bytes spill loads"),
                           f"{entry} spills: {spills}")
                 entry = None
@@ -3510,9 +3632,12 @@ def build(names=_build.SOURCES):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("ballquery", "towers"),
+    ap.add_argument("--only", choices=("ballquery", "towers", "losses3d"),
                     help="build group.cu and run phase 3's ball-query checks and times alone "
-                         "(ballquery) or phase 7's ball-query towers alone (towers)")
+                         "(ballquery) or phase 7's ball-query towers alone (towers); build "
+                         "losses3d.cu and run phase 3's loss checks and times, nn_dists at "
+                         "every (queries, split), then phase 10's dVAE step with recon='emd' "
+                         "(losses3d)")
     args = ap.parse_args(argv)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3529,6 +3654,17 @@ def main(argv=None):
         check_ballquery(results)
         print(json.dumps({"ballquery_kernels": {k: results[k] for k in BALL_KERNELS},
                           "feats_other_dtype": results["ball_query_gather_feats_other_dtype"]}))
+        print(smi)
+        return
+    if args.only == "losses3d":
+        build(["losses3d", "group", "mini"])  # the dVAE's step runs group.cu's and mini.cu's too
+        results = {}
+        check_losses3d(results)
+        sweep = nn_plan_sweep()
+        ds, stream, pc64 = pb_data()
+        emd, _ = run_dvae_emd(pc64, stream, 250 * (len(ds) // DVAE_BATCH), 20)
+        print(json.dumps({"losses3d_kernels": {k: results[k] for k in LOSS3D_KERNELS},
+                          "nn_plan_sweep": sweep, "dvae_emd": emd}))
         print(smi)
         return
     if args.only == "towers":

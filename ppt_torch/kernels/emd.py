@@ -11,10 +11,12 @@ the transport plan ``match [B, N, M]`` f32 over the squared distances
 ``d2 = clamp(square_distance(xyz1, xyz2), 0)``, which the wrapper computes
 outside the kernel as the reference does (``emd.py:119``). Supplies are
 ``multi_l = max(M // N, 1)`` per left point and ``multi_r = max(N // M, 1)``
-per right point, integer ratios. The kernel takes every shape: d2 and the
-match sit in shared memory when they fit and stream from device memory
-otherwise; ``emd_fits_pallas`` is the TPU's VMEM bound, kept for API parity
-and used for no routing.
+per right point, integer ratios. Clouds of at most ``WARP_MAX`` points a
+side (the dVAE's 8 x 32 and 32 x 32) run one warp a cloud, the rule
+:func:`warp_auction` that the plain version's summation order follows too;
+larger ones run one block a cloud, d2 and the match in shared memory when
+they fit and streamed from device memory otherwise. ``emd_fits_pallas``
+is the TPU's VMEM bound, kept for API parity and used for no routing.
 
 ``emd_matchcost`` is ``sum(d2 * match)`` per cloud with the reference's
 closed-form backward (``emd.py:171-180``, ``matchcostgrad1/2``): the match
@@ -24,18 +26,18 @@ is a constant, and the two batched products of the gradient stay
 
 from __future__ import annotations
 
-import ctypes
 from typing import Tuple
 
 import torch
 
-from ppt_torch.kernels import _build
+from ppt_torch.kernels import _build, _losses3d
 from ppt_torch.ops.geometry import square_distance
 
 # -4^j for j = 7..-1, then a final exact level 0 (``emd.py:46``)
 LEVELS = tuple(-(4.0 ** j) for j in range(7, -2, -1)) + (0.0,)
 
 _VMEM_ELEMS = 786_432  # the TPU kernel's scoped-VMEM cap (``emd.py:52``)
+WARP_MAX = 32  # the warp kernel's limit on either side (``csrc/losses3d.cu:kAmWarpMax``)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -58,9 +60,18 @@ def match_d2(xyz1: torch.Tensor, xyz2: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(square_distance(xyz1, xyz2), 0.0)
 
 
+def warp_auction(n: int, m: int) -> bool:
+    """The shape rule: an n x m cloud runs ``approx_match_warp_kernel`` (one
+    warp a cloud, every sum in :func:`_sum4`'s order) when neither side
+    passes ``WARP_MAX``, else ``approx_match_kernel`` (one block a cloud,
+    row sums over 32 lanes and a butterfly, column sums in index order).
+    The wrapper launches by it and :func:`auction_plain` sums by it."""
+    return max(n, m) <= WARP_MAX
+
+
 def _row_sum(t: torch.Tensor) -> torch.Tensor:
-    """Sum over the last axis in the kernel's order: 32 lanes each sum the
-    entries ``m = lane, lane + 32, ...`` in turn, then a butterfly of
+    """Sum over the last axis in the block kernel's order: 32 lanes each sum
+    the entries ``m = lane, lane + 32, ...`` in turn, then a butterfly of
     pairwise adds (xor 16, 8, 4, 2, 1); lane 0's value."""
     M = t.shape[-1]
     t = torch.nn.functional.pad(t, (0, -M % 32)).unflatten(-1, (-1, 32))
@@ -73,12 +84,24 @@ def _row_sum(t: torch.Tensor) -> torch.Tensor:
     return s[..., 0]
 
 
-def _col_sum(t: torch.Tensor) -> torch.Tensor:
-    """Sum over axis 1 of [B, N, M] in order, as one thread sums a column."""
-    s = t[:, 0]
-    for n in range(1, t.shape[1]):
-        s = s + t[:, n]
+def _seq_sum(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over ``dim`` in index order: the block kernel's column sums."""
+    t = t.movedim(dim, 0)
+    s = t[0]
+    for k in range(1, t.shape[0]):
+        s = s + t[k]
     return s
+
+
+def _sum4(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over ``dim`` in the warp kernel's order (``csrc/losses3d.cu:Sum4``):
+    four partial sums of the entries ``k = j, j + 4, ...``, each in index
+    order, then ``(s0 + s1) + (s2 + s3)``."""
+    t = t.movedim(dim, 0)
+    s = [torch.zeros_like(t[0]) for _ in range(4)]
+    for k in range(t.shape[0]):
+        s[k % 4] = s[k % 4] + t[k]
+    return (s[0] + s[1]) + (s[2] + s[3])
 
 
 def auction_plain(d2: torch.Tensor, multi_l: float, multi_r: float) -> torch.Tensor:
@@ -87,22 +110,27 @@ def auction_plain(d2: torch.Tensor, multi_l: float, multi_r: float) -> torch.Ten
     in the kernel's order: the auction is ill-conditioned where a row's
     bids nearly vanish (``ratio_l = remain_l / (1e-9 + suml)``), and there
     two summation orders of the same f32 values differ by up to 4e-4 of a
-    unit supply over 4096 clouds of 32 x 32 points."""
+    unit supply over 4096 clouds of 32 x 32 points. The row sums take the
+    order of the kernel that :func:`warp_auction` picks."""
     B, N, M = d2.shape
+    if warp_auction(N, M):
+        row_sum, col_sum = (lambda t: _sum4(t, -1)), (lambda t: _sum4(t, 1))
+    else:
+        row_sum, col_sum = _row_sum, (lambda t: _seq_sum(t, 1))
     remain_l = torch.full((B, N), multi_l, dtype=torch.float32, device=d2.device)
     remain_r = torch.full((B, M), multi_r, dtype=torch.float32, device=d2.device)
     match = torch.zeros_like(d2)
     for level in LEVELS:
         w = torch.exp(level * d2)
-        suml = 1e-9 + _row_sum(w * remain_r[:, None, :])
+        suml = 1e-9 + row_sum(w * remain_r[:, None, :])
         ratio_l = remain_l / suml
-        sumr = _col_sum(w * ratio_l[:, :, None]) * remain_r
+        sumr = col_sum(w * ratio_l[:, :, None]) * remain_r
         consumption = torch.clamp_max(remain_r / (sumr + 1e-9), 1.0)
         ratio_r = consumption * remain_r
         remain_r = torch.clamp_min(remain_r - sumr, 0.0)
         flow = w * ratio_l[:, :, None] * ratio_r[:, None, :]
         match = match + flow
-        remain_l = torch.clamp_min(remain_l - _row_sum(flow), 0.0)
+        remain_l = torch.clamp_min(remain_l - row_sum(flow), 0.0)
     return match
 
 
@@ -120,16 +148,17 @@ def _auction_run(d2: torch.Tensor) -> torch.Tensor:
     match = torch.empty_like(d2)
     if B == 0:
         return match
-    lib = _build.load("losses3d")
-    lib.ppt_approx_match_needs_scratch.argtypes = [ctypes.c_int, ctypes.c_int]
-    scratch = None
-    if lib.ppt_approx_match_needs_scratch(N, M):  # the supply vectors alone pass a block's 227 KB
-        scratch = torch.empty(B, 2 * (N + M), dtype=torch.float32, device=d2.device)
-    lib.ppt_approx_match.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [
-        ctypes.c_float, ctypes.c_float] + [ctypes.c_void_p] * 3
-    rc = lib.ppt_approx_match(_build.ptr(d2), B, N, M, *supplies(N, M),
-                              None if scratch is None else _build.ptr(scratch), _build.ptr(match),
-                              _build.stream_ptr(d2))
+    lib = _losses3d.lib()
+    if warp_auction(N, M):
+        rc = lib.ppt_approx_match_warp(_build.ptr(d2), B, N, M, *supplies(N, M),
+                                       _build.ptr(match), _build.stream_ptr(d2))
+    else:
+        scratch = None
+        if lib.ppt_approx_match_needs_scratch(N, M):  # the supply vectors alone pass 227 KB
+            scratch = torch.empty(B, 2 * (N + M), dtype=torch.float32, device=d2.device)
+        rc = lib.ppt_approx_match(_build.ptr(d2), B, N, M, *supplies(N, M),
+                                  None if scratch is None else _build.ptr(scratch),
+                                  _build.ptr(match), _build.stream_ptr(d2))
     _build.check(lib, rc, "approx_match")
     _build.LAUNCHES["approx_match"] += 1
     return match

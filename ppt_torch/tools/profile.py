@@ -109,8 +109,11 @@ PARTS = (
     ("flash_f32_kernel", "flash_mha"),
     ("flash_bwd_", "flash_mha_bwd"),
     ("readout_kernel", "vit block: readout"),
-    ("nn_dist_kernel", "chamfer_nn_dists"),
+    ("nn_dists_kernel", "chamfer_nn_dists"),
+    ("nn_floor_kernel", "chamfer_nn_dists: launch floor"),  # chip_smoke.py's measurement alone
+    ("approx_match_warp_kernel", "approx_match"),
     ("approx_match_kernel", "approx_match"),
+    ("approx_match_floor_kernel", "approx_match: launch floor"),  # chip_smoke.py's alone
 )
 
 

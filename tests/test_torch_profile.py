@@ -61,9 +61,15 @@ def test_busy_us_is_the_union_of_intervals(intervals, want):
     ("void flash_bwd_di_bf16_kernel<64>(__nv_bfloat16 const*)", "flash_mha_bwd"),
     ("flash_bwd_dkv_f32_kernel(float const*, float const*)", "flash_mha_bwd"),
     ("void flash_bwd_di_kernel<float>(float const*, float const*, int)", "flash_mha_bwd"),
-    ("nn_dist_kernel(float const*, float const*, int, int, int, float*)", "chamfer_nn_dists"),
+    ("nn_dists_kernel(NnDir, NnDir, int)", "chamfer_nn_dists"),
     ("approx_match_kernel(float const*, int, int, float, float, int, float*, float*)",
      "approx_match"),
+    ("void approx_match_warp_kernel<32, true>(float const*, int, int, int, float, float, float*)",
+     "approx_match"),
+    ("void approx_match_warp_kernel<8, false>(float const*, int, int, int, float, float, float*)",
+     "approx_match"),
+    ("nn_floor_kernel(NnDir, NnDir, int)", "chamfer_nn_dists: launch floor"),
+    ("approx_match_floor_kernel()", "approx_match: launch floor"),
 ])
 def test_part_of_maps_kernel_names(name, part):
     assert profile.part_of(name) == part

@@ -84,13 +84,24 @@ def _tower_args(rng):
             1.0 + 0.1 * f(C), 0.1 * f(C)]
 
 
-def test_vit_tower_plain_matches_pallas():
+@pytest.fixture
+def one_torch_thread():
+    """torch's CPU kernels on one thread for the test, the count restored
+    after: no GEMM blocking may follow the worker's thread count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_vit_tower_plain_matches_pallas(one_torch_thread, record_property):
     from ppt_tpu.kernels.vitblock import _vit_tower_pallas
 
     args = _tower_args(np.random.RandomState(0))
     want = _vit_tower_pallas(*map(jnp.asarray, args), heads=H, interpret=True)
     got = fused_vit_tower(*map(torch.from_numpy, args), H)
     assert got.dtype == torch.float32 and tuple(got.shape) == (2, 8, C)
+    record_property("max_abs_err", float(np.abs(got.numpy() - np.asarray(want)).max()))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
     assert torch.all(got[:, 2:] == 0)
 
