@@ -12,6 +12,9 @@ kernel check).
     python3 chip_smoke.py            # one CUDA card, no arguments
     python3 chip_smoke.py --only ballquery   # group.cu, phase 3's ball queries alone
     python3 chip_smoke.py --only towers      # phase 7's ball-query towers alone
+    python3 chip_smoke.py --only cloud       # cloud.cu and group.cu: phase 3's fps_single and
+                                             # knn_single checks and times, the grouping
+                                             # wrappers' host time a call
     python3 chip_smoke.py --only losses3d    # losses3d.cu: phase 3's loss checks, nn_dists's plan
                                              # sweep, the dVAE step with recon="emd"
 
@@ -55,8 +58,9 @@ Phases (any failed check raises, and the script exits non-zero):
      queries; nsample == N, past a warp's ring of picks) and at every
      shape the towers of phase 7 give them, on those towers' own cascade
      of FPS subsets: indices and gathered features exact, coordinates
-     within 1e-6, v2 identical to ball_query_gather bit for bit (where its
-     cloud fits shared memory), two runs identical; at the towers' shapes
+     within 1e-6, v2 (the same walk) identical to ball_query_gather bit
+     for bit, the 20000-point clouds included, two runs identical; at the
+     towers' shapes
      timed with the launches queued behind a sleeping kernel, in
      alternated rounds with the library call (mask + topk + gather;
      median of 5), beside the launch floor (a kernel that returns at once,
@@ -108,19 +112,27 @@ Phases (any failed check raises, and the script exits non-zero):
      relative, two runs bit-identical; no library call computes it. Both
      are timed with the launches queued (median of 5 rounds; nn_dists in
      alternated rounds with its library call) beside each shape's launch
-     floor (an empty kernel launched as the kernel is). fps_single and knn_single
-     (no module calls them) at 2 x 300 points with duplicates (npoint 64;
+     floor (an empty kernel launched as the kernel is). fps_single (on
+     fps_batched's kernel) and knn_single (on knn_gather's selection; no
+     module calls either) at 2 x 300 points with duplicates (npoint 64;
      k, S = 1, 8 / 8, 128 / 32, 256), the slice's 32 x 1024 -> 512, the
-     long trunk's 32 x 8192 -> 1024 and fps_single's cap of 16384 points
-     (k = 32): indices identical to the plain versions, to fps_batched's and
-     knn_gather's, and between repeats; knn_single and knn_gather also
+     long trunk's 32 x 8192 -> 1024 and the cap of 16384 points (k = 32):
+     indices identical to the plain versions, to fps_batched's and
+     knn_gather's, and between repeats; fps_single also past N (npoint >
+     N, which fps_batched refuses): identical to its plain version, index 0
+     once the cloud's distinct points are spent; knn_single and knn_gather also
      around their cloud chunk (N just under, at and over it with a tie
      across the border, k = 64, k past 64, N = k); each refuses by name a
      shape it does not take (S = 200; N = 16385; knn_gather k = N + 1);
      times in alternated rounds at all three large shapes: knn_single with
      cdist + topk, knn_gather (row 2) with cdist + topk + the coordinate
      gather and subtraction, fps_single with fps_batched (row 1); rows 1
-     and 2 take their times in the kernels line from these rounds. vit_variant, the ablation probe's
+     and 2 take their times in the kernels line from these rounds. Then
+     the host's time a call of each grouping wrapper (fps_batched,
+     fps_single, ball_query_gather, ball_query_gather_v2,
+     ball_query_gather_feats): the wall time of 1000 calls queued without
+     a sync, at a shape the card runs in a few microseconds, beside the
+     card's own time a call (printed, not claimed). vit_variant, the ablation probe's
      block, in each mode (full, mm_only, no_softmax, no_gelu, pv_ones,
      qk_packed2, and full with two clouds per block) in f32 and bf16 at
      2 x 33 x 96 (6 heads of 16) and 32 x 513 x 384 against
@@ -358,7 +370,7 @@ SOURCES = {
                       "jax/experimental/pallas/ops/tpu/flash_attention.py:941,1287"),
     "chamfer_nn_dists": ("ppt_torch/csrc/losses3d.cu", "ppt_tpu/kernels/chamfer.py:99"),
     "approx_match": ("ppt_torch/csrc/losses3d.cu", "ppt_tpu/kernels/emd.py:98,157"),
-    "fps_single": ("ppt_torch/csrc/cloud.cu", "ppt_tpu/kernels/fps.py:73"),
+    "fps_single": ("ppt_torch/csrc/group.cu", "ppt_tpu/kernels/fps.py:73"),
     "knn_single": ("ppt_torch/csrc/cloud.cu", "ppt_tpu/kernels/knn.py:64"),
     "vit_variant": ("ppt_torch/csrc/vitblock.cu", "ppt_tpu/tools/vitblock_probe.py:208"),
 }
@@ -376,14 +388,17 @@ ROUTE_KERNELS = ("fused_mha", "flash_mha", "fused_vit_tower")
 LONG_TRAIN_KERNELS = ("flash_mha_bwd",)
 # the reconstruction-loss kernels of PointBERT's pretraining stages (phase 10)
 LOSS3D_KERNELS = ("chamfer_nn_dists", "approx_match")
-# the single-cloud FPS and kNN kernels (phase 3), and the ablation probe's (phase 11)
+# the single-cloud FPS and kNN entry points (phase 3; fps_single on group.cu's
+# fps_batched_kernel, knn_single on cloud.cu's knn_single_kernel), and the
+# ablation probe's kernel (phase 11)
 CLOUD_KERNELS = ("fps_single", "knn_single")
 TOOL_KERNELS = ("vit_variant",)
 # the PointBERT tower's kernels on its default route (phases 4 to 6)
 POINT_KERNELS = tuple(k for k in SOURCES if k not in TEXT_KERNELS + BALL_KERNELS + ROUTE_KERNELS
                       + LONG_TRAIN_KERNELS + LOSS3D_KERNELS + CLOUD_KERNELS + TOOL_KERNELS)
-# ball_query_gather_v2 is the second formulation of ball_query_gather: no module
-# calls it (nor does the reference call its own), so no driven path launches it;
+# ball_query_gather_v2 is the reference's second formulation of
+# ball_query_gather, on the same kernel here: no module calls it (nor does the
+# reference call its own), so no driven path launches it;
 # no entry point reaches chamfer_nn_dists either, here or in the reference: the
 # dVAE's Chamfer-L1 stays plain on every device, as the reference keeps it in XLA;
 # nor does any module call fps_single or knn_single (the reference reaches
@@ -1366,18 +1381,16 @@ def ball_floor_ms(B, N, S, ns):
 
 
 def check_one_ball(tag, radius, ns, xyz, q, feat_list, results=None):
-    """The three kernels at one shape against the plain versions (v2 where
-    its whole cloud fits one block's shared memory); with ``results`` also
-    queued times in alternated rounds with the library calls (median of
-    5), the launch floor, bounds and plain times."""
+    """The three wrappers at one shape against the plain versions; with
+    ``results`` also queued times in alternated rounds with the library
+    calls (median of 5), the launch floor, bounds and plain times."""
     B, N, _ = xyz.shape
     S = q.shape[1]
-    v2 = 12 * N <= kgroup._SMEM_LIMIT
     widx, wrel = kgroup.ball_query_gather_plain(radius, ns, xyz, q)
     idx, rel = kgroup.ball_query_gather(radius, ns, xyz, q)
     idx_b, rel_b = kgroup.ball_query_gather(radius, ns, xyz, q)
-    idx2, rel2 = kgroup.ball_query_gather_v2(radius, ns, xyz, q) if v2 else (idx, rel)
-    idx2_b, rel2_b = kgroup.ball_query_gather_v2(radius, ns, xyz, q) if v2 else (idx, rel)
+    idx2, rel2 = kgroup.ball_query_gather_v2(radius, ns, xyz, q)
+    idx2_b, rel2_b = kgroup.ball_query_gather_v2(radius, ns, xyz, q)
     torch.cuda.synchronize()
     n_bad, n_bad2 = int((idx != widx).sum()), int((idx2 != widx).sum())
     err = float((rel - wrel).abs().max())
@@ -1386,8 +1399,8 @@ def check_one_ball(tag, radius, ns, xyz, q, feat_list, results=None):
     v2_same = torch.equal(idx, idx2) and torch.equal(rel, rel2)
     short = float((widx[..., -1] == widx[..., 0]).float().mean()) if ns > 1 else 0.0
     msg = (f"[kernel] ball query {tag} B={B} N={N} S={S} r={radius} ns={ns}: index mismatches "
-           f"{n_bad} (v2 {n_bad2 if v2 else 'refuses N'}), max |d rel| {err:.1e}, v2 == v1 bit "
-           f"for bit {v2_same if v2 else '-'}, two runs identical {same}, short rows {short:.3f}")
+           f"{n_bad} (v2 {n_bad2}), max |d rel| {err:.1e}, v2 == v1 bit for bit {v2_same}, "
+           f"two runs identical {same}, short rows {short:.3f}")
     check(n_bad == 0 and n_bad2 == 0, f"ball query indices differ at {tag}")
     check(err <= 1e-6, f"ball query coordinates differ at {tag}")
     check(v2_same, f"ball_query_gather_v2 differs from ball_query_gather at {tag}")
@@ -1479,7 +1492,8 @@ def check_ballquery(results):
     check(at_radius[0, 0].tolist() == [0, 1, 0, 0], "a point at the radius must be a hit")
 
     # the walk's edges: one cloud of more than one staging chunk (hits across
-    # chunks; a ball that fills part way, one that walks every chunk), S
+    # chunks; a ball that fills part way, one that walks every chunk; v2 too,
+    # past the 19370 points its old kernel's shared memory held), S
     # ragged against the CTA's query tile, nsample == N past the warp's ring
     # of picks (written out part way through the walk), a cloud taken whole
     for tag, B, N, S, radius, ns, F_ in (
@@ -1527,6 +1541,8 @@ def check_ballquery(results):
                 dict(tag=tag, B=B, N=N, npoint=S, ms=fps_ms))
     for name in BALL_KERNELS:
         r = results[name]
+        r["cuda_kernel"] = ("ball_query_feats_kernel" if name == "ball_query_gather_feats"
+                            else "ball_query_kernel")  # v2: the same walk as ball_query_gather
         # one bound for the sum over the shapes: what bounds most of it
         by = collections.Counter()
         for row in r["shapes"]:
@@ -1723,12 +1739,15 @@ def check_losses3d(results):
 
 
 # (B, N, npoint, tag): the reference test's small cloud with duplicated points,
-# the slice's 32 x 1024 -> 512, the long trunk's 32 x 8192 -> 1024 and
-# fps_single's cap (coordinates in shared memory; fps_batched's cap too). k = 32 at the three large
-# shapes; the small one takes (k, S) = (1, 8), (8, 128), (32, 256).
+# the slice's 32 x 1024 -> 512, the long trunk's 32 x 8192 -> 1024 and the
+# cap that fps_single shares with fps_batched (16 points a thread, the
+# coordinates in shared memory). k = 32 at the three large shapes; the small
+# one takes (k, S) = (1, 8), (8, 128), (32, 256).
 CLOUD_SHAPES = ((2, 300, 64, "small"), (32, 1024, 512, "slice"), (32, 8192, 1024, "long"),
                 (2, kfps.MAX_POINTS, 1024, "cap"))
 CLOUD_SMALL_KNN = ((1, 8), (8, 128), (32, 256))
+# (B, N, npoint, duplicated points): fps_single past N, as fps_pallas takes it
+FPS_PAST_N = ((2, 77, 100, False), (2, 300, 400, True), (1, 1, 3, False))
 # (B, N, S, k) around the cloud chunk of knn_single and knn_gather, as
 # tests/test_torch_fps_knn.py and tests/test_torch_grouping.py take them: N just under, at and over it (a duplicated point across the
 # border), k = 64 (two queue pairs a lane), k past 64 (passes), N = k
@@ -1745,11 +1764,43 @@ def dup_cloud(B, N, seed):
     return xyz
 
 
+def host_us_a_call(calls=1000):
+    """The host's microseconds a call of each grouping wrapper: the wall time
+    of `calls` calls queued without a sync, at a shape the card runs in a
+    few microseconds (so the card keeps up and the queue never fills),
+    beside the card's own time a call, queued. Printed, not claimed."""
+    xyz = cloud(1, 256, 5)
+    q = xyz[:, :32].contiguous()
+    feats = torch.randn(1, 256, 32, generator=torch.Generator().manual_seed(5)).to(DEV).bfloat16()
+    fns = {"fps_batched": lambda: kgroup.fps_batched(xyz, 32),
+           "fps_single": lambda: kfps.fps_single(xyz, 32),
+           "ball_query_gather": lambda: kgroup.ball_query_gather(0.2, 32, xyz, q),
+           "ball_query_gather_v2": lambda: kgroup.ball_query_gather_v2(0.2, 32, xyz, q),
+           "ball_query_gather_feats": lambda: kgroup.ball_query_gather_feats(0.2, 32, xyz, q,
+                                                                             feats)}
+    out = {}
+    for name, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        host = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+        out[name] = dict(host_us=host, card_us=queued_ms(fn) * 1e3)
+        print(f"[host] {name}: {host:.3f} us a call on the host (the wall of {calls} calls "
+              f"queued without a sync), the card {out[name]['card_us']:.3f} us a call (queued); "
+              f"B=1 N=256, {'npoint' if 'fps' in name else 'S=nsample'} 32")
+    return out
+
+
 def check_cloud(results):
     """Phase 3 for fps_single and knn_single: indices identical to their plain
     versions and to fps_batched's / knn_gather's, repeats bit-identical,
-    refusals by name; times beside rows 1-2 and the library calls, in
-    alternated rounds (rows 1-2 take their times from these rounds too)."""
+    fps_single past N, refusals by name; times beside rows 1-2 and the
+    library calls, in alternated rounds (rows 1-2 take their times from
+    these rounds too); the grouping wrappers' host time a call. Rows 1-2's
+    entries need not exist (``--only cloud``)."""
     timing = {}
     for B, N, npoint, tag in CLOUD_SHAPES:
         xyz = dup_cloud(B, N, N) if tag == "small" else cloud(B, N, N + npoint)
@@ -1807,22 +1858,36 @@ def check_cloud(results):
             continue
         bms, by = bound_ms(B * N * 12 + B * npoint * 4, B * npoint * N * 10, PEAK["f32"])
         results["fps_single"] = dict(
-            max_abs_err=0.0, ms=timing[tag]["fps_single_ms"],
+            cuda_kernel="fps_batched_kernel", max_abs_err=0.0, ms=timing[tag]["fps_single_ms"],
             plain_ms=gpu_time_ms(lambda: kfps.fps_single_plain(xyz, npoint), reps=3, warmup=1),
             bound_ms=bms, bound_by=by, library_ms=None)
         bms, by = bound_ms(B * N * 12 + B * S * 12 + B * S * k * 4, B * S * N * 9, PEAK["f32"])
         results["knn_single"] = dict(
-            max_abs_err=0.0, ms=timing[tag]["knn_single_ms"],
+            cuda_kernel="knn_single_kernel", max_abs_err=0.0, ms=timing[tag]["knn_single_ms"],
             plain_ms=gpu_time_ms(lambda: kknn.knn_single_plain(k, xyz, q), reps=3, warmup=1),
             bound_ms=bms, bound_by=by, library_ms=timing[tag]["knn_library_ms"])
-        results["fps_batched"]["ms"] = timing[tag]["fps_batched_ms"]
-        results["knn_gather"].update(ms=timing[tag]["knn_gather_ms"],
-                                     library_ms=timing[tag]["knn_gather_library_ms"])
+        results.setdefault("fps_batched", {})["ms"] = timing[tag]["fps_batched_ms"]
+        results.setdefault("knn_gather", {}).update(
+            ms=timing[tag]["knn_gather_ms"], library_ms=timing[tag]["knn_gather_library_ms"])
     for name, shapes in (("fps_single", "fps"), ("knn_single", "knn"), ("fps_batched", "fps"),
                          ("knn_gather", "knn")):
         results[name]["by_shape"] = {tag: {key: v for key, v in t.items() if key.startswith(shapes)}
                                      for tag, t in timing.items()}
     print(f"[kernel] fps_single / knn_single against rows 1-2, ms: {json.dumps(timing)}")
+
+    # fps_single past N (fps_batched refuses it): the plain version's indices,
+    # index 0 once the cloud's distinct points are spent
+    for B, N, npoint, dup in FPS_PAST_N:
+        xyz = dup_cloud(B, N, N + npoint) if dup else cloud(B, N, N + npoint)
+        got = kfps.fps_single(xyz, npoint)
+        want = kfps.fps_single_plain(xyz, npoint)
+        torch.cuda.synchronize()
+        n_bad = int((got != want).sum())
+        distinct = len(torch.unique(xyz[0], dim=0))
+        spent = bool((want[:, distinct:] == 0).all())
+        print(f"[kernel] fps_single past N B={B} N={N} npoint={npoint} ({distinct} distinct "
+              f"points): index mismatches {n_bad}; index 0 once they are spent {spent}")
+        check(n_bad == 0 and spent, f"fps_single differs past N at N={N} npoint={npoint}")
 
     # the shapes around knn_single's chunk and queue, as the CPU tests take them
     for B, N, S, k in KNN_EDGES:
@@ -1853,6 +1918,7 @@ def check_cloud(results):
             check(msg in str(e), f"unexpected refusal: {e}")
         else:
             check(False, f"{msg} was not refused")
+    results["host_us_a_call"] = host_us_a_call()
 
 
 # B, L, C (the probe's 6 heads): a small shape (head dim 16) and the slice's
@@ -3632,12 +3698,14 @@ def build(names=_build.SOURCES):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("ballquery", "towers", "losses3d"),
+    ap.add_argument("--only", choices=("ballquery", "towers", "losses3d", "cloud"),
                     help="build group.cu and run phase 3's ball-query checks and times alone "
                          "(ballquery) or phase 7's ball-query towers alone (towers); build "
                          "losses3d.cu and run phase 3's loss checks and times, nn_dists at "
                          "every (queries, split), then phase 10's dVAE step with recon='emd' "
-                         "(losses3d)")
+                         "(losses3d); build cloud.cu and group.cu and run phase 3's "
+                         "fps_single and knn_single checks and times beside rows 1-2, and the "
+                         "grouping wrappers' host time a call (cloud)")
     args = ap.parse_args(argv)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3665,6 +3733,15 @@ def main(argv=None):
         emd, _ = run_dvae_emd(pc64, stream, 250 * (len(ds) // DVAE_BATCH), 20)
         print(json.dumps({"losses3d_kernels": {k: results[k] for k in LOSS3D_KERNELS},
                           "nn_plan_sweep": sweep, "dvae_emd": emd}))
+        print(smi)
+        return
+    if args.only == "cloud":
+        build(["cloud", "group"])
+        results = {}
+        check_cloud(results)
+        print(json.dumps({"cloud_kernels": {k: results[k] for k in CLOUD_KERNELS
+                                            + ("fps_batched", "knn_gather")},
+                          "host_us_a_call": results["host_us_a_call"]}))
         print(smi)
         return
     if args.only == "towers":
@@ -3697,6 +3774,7 @@ def main(argv=None):
     ball_launches, ball_stats = run_ballquery_slice()
     launches.update(ball_launches)  # the ball-query towers' own kernels
     ball_stats["fps_by_shape"] = results.pop("fps_by_shape")
+    ball_stats["host_us_a_call"] = results.pop("host_us_a_call")  # check_cloud's
     ball_stats["ball_query_gather_feats_other_dtype"] = results.pop(
         "ball_query_gather_feats_other_dtype")
     route_launches, route_stats = run_routes_slice()

@@ -6,7 +6,10 @@
 // Replaces ppt_tpu/kernels/group.py:fps_batched (_fps_batched_kernel),
 // :knn_gather (_knn_gather_kernel), :ball_query_gather
 // (_ball_query_kernel), :ball_query_gather_feats
-// (_ball_query_feats_kernel) and :_ball_query_kernel_v2.
+// (_ball_query_feats_kernel) and :_ball_query_kernel_v2; and
+// ppt_tpu/kernels/fps.py:fps_pallas, the single-cloud FPS, which computes
+// fps_batched's function: kernels/fps.py:fps_single launches
+// fps_batched_kernel through ppt_fps, as kernels/group.py:fps_batched does.
 //
 // fps_batched_kernel: bound by the latency of npoint dependent steps, each a
 //   (value, lowest index) argmax over the cloud's running distances, far
@@ -26,7 +29,8 @@
 //   step ahead of the slowest, so the other buffer is never in use. A
 //   padding slot keeps distance -inf in registers and reaches the slots as
 //   bits 0 with index INT_MAX: a real point at distance 0 beats it.
-//   Plan (ppt_fps): 4 points a thread, 4 to 32 warps a cloud. Measured on
+//   Plan (ppt_fps, which fps_batched and fps_single both launch): 4 points
+//   a thread, 4 to 32 warps a cloud. Measured on
 //   an H100 80GB HBM3 at 700 W in development builds that set the warp count
 //   by hand (the rule beside 4, 8, 16 and 32 warps at the shapes below, ms;
 //   chip_smoke.py times the rule alone): the slice (32 x 1024 ->
@@ -61,9 +65,9 @@
 //   could save more. Any S (queries past S are masked), any k in [1, N],
 //   any N.
 //
-// ball query (three kernels, one function): the first `nsample` indices
-//   with d <= r*r in ascending index order, short rows padded with the
-//   first hit, a query with no hit gives N-1; with each pick its
+// ball query (two kernels behind three wrappers, one function): the first
+//   `nsample` indices with d <= r*r in ascending index order, short rows
+//   padded with the first hit, a query with no hit gives N-1; with each pick its
 //   coordinates minus the centre. An ordered, data-dependent compaction,
 //   so the design is warp votes, not a selection product.
 //   ball_query_kernel and ball_query_feats_kernel: ball_select.cuh's walk
@@ -108,11 +112,15 @@
 //   0.081 against 0.079; 1 or 2 where 4 would leave fewer than 2 CTAs an
 //   SM). Testing fewer points, not cheaper tests, is what is left: a
 //   per-CTA grid of the cloud with the picks selected by index.
-//   ball_query_rank_kernel: the rank formulation. A block stages the
-//     cloud's coordinates in shared memory once for a tile of queries and
-//     makes one full pass with no early exit; a hit's inclusive prefix
-//     count is its rank, and the hit with rank r <= nsample is pick r-1.
-//     Padding afterwards.
+//   The reference's rank formulation (_ball_query_kernel_v2: a hit's
+//   inclusive prefix count is its slot) computes the same function, so
+//   kernels/group.py:ball_query_gather_v2 runs ball_query_kernel through
+//   ppt_ball_query too. Its own kernel here (a block staging the whole
+//   cloud for a tile of queries, one point a lane a round, every query
+//   testing all N points, each pick a scattered store from its lane) lost
+//   at every tower shape (0.4042 against this walk's 0.2486 ms over the 12
+//   shapes, same H100) and refused clouds past shared memory (N > 19370),
+//   so it was removed.
 //
 // Exactness: distances are ((dx*dx + dy*dy) + dz*dz) with the _rn
 // intrinsics so nvcc cannot contract them into FMAs; indices then match
@@ -323,64 +331,6 @@ ball_query_feats_kernel(const BallArgs a) {
   ball_select<MULTI>(a.xyz, a.q, a.N, a.S, a.nsample, a.r2, a.qw, a.chunk, ball_sm, rows);
 }
 
-// The rank formulation: a block of `blockDim.x / 32` warps serves a tile
-// of `tile` queries of one cloud from coordinates staged in shared
-// memory; every query makes the full pass over N.
-__global__ void ball_query_rank_kernel(const float* __restrict__ xyz,
-                                       const float* __restrict__ q, int N, int S, int nsample,
-                                       float r2, int tile, int* __restrict__ idx_out,
-                                       float* __restrict__ rel_out) {
-  extern __shared__ float sm[];
-  float* xs = sm;
-  float* ys = xs + N;
-  float* zs = ys + N;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  const int b = blockIdx.y;
-  const float* p = xyz + (size_t)b * N * 3;
-  for (int j = threadIdx.x; j < N; j += blockDim.x) {
-    xs[j] = p[3 * j];
-    ys[j] = p[3 * j + 1];
-    zs[j] = p[3 * j + 2];
-  }
-  __syncthreads();
-
-  const int s_end = min(S, (blockIdx.x + 1) * tile);
-  for (int s = blockIdx.x * tile + warp; s < s_end; s += nwarps) {
-    const float* qp = q + ((size_t)b * S + s) * 3;
-    const float qx = qp[0], qy = qp[1], qz = qp[2];
-    int* io = idx_out + ((size_t)b * S + s) * nsample;
-    float* ro = rel_out + ((size_t)b * S + s) * nsample * 3;
-    int count = 0, first = -1;
-    for (int base = 0; base < N; base += 32) {
-      const int j = base + lane;
-      const bool hit = j < N && sq3(__fsub_rn(qx, xs[j]), __fsub_rn(qy, ys[j]),
-                                    __fsub_rn(qz, zs[j])) <= r2;
-      const unsigned mask = __ballot_sync(0xffffffffu, hit);
-      // inclusive prefix count of the in-ball mask: the hit's rank
-      const int rank = count + __popc(mask & (0xffffffffu >> (31 - lane)));
-      if (hit && rank <= nsample) {
-        io[rank - 1] = j;
-        ro[3 * (rank - 1)] = __fsub_rn(xs[j], qx);
-        ro[3 * (rank - 1) + 1] = __fsub_rn(ys[j], qy);
-        ro[3 * (rank - 1) + 2] = __fsub_rn(zs[j], qz);
-      }
-      if (first < 0 && mask) first = base + __ffs(mask) - 1;
-      count += __popc(mask);
-    }
-    if (count < nsample) {
-      const int pad = count > 0 ? first : N - 1;
-      const float rx = __fsub_rn(xs[pad], qx), ry = __fsub_rn(ys[pad], qy),
-                  rz = __fsub_rn(zs[pad], qz);
-      for (int k = count + lane; k < nsample; k += 32) {
-        io[k] = pad;
-        ro[3 * k] = rx;
-        ro[3 * k + 1] = ry;
-        ro[3 * k + 2] = rz;
-      }
-    }
-  }
-}
-
 template <int P>
 static void fps_launch(const float* x, int B, int N, int npoint, int W, int* o,
                        cudaStream_t st) {
@@ -525,19 +475,6 @@ PPT_EXPORT int ppt_ball_launch_floor(int B, int N, int S, int nsample, int qw, i
   if (!ball_launch(B, N, S, nsample, qw, chunk, a, grid, smem, vec, multi))
     return (int)cudaErrorInvalidValue;
   ball_go(ball_floor_kernel, grid, smem, (cudaStream_t)stream, a);
-  PPT_CHECK_LAUNCH();
-  return 0;
-}
-
-PPT_EXPORT int ppt_ball_query_rank(const void* xyz, const void* q, int B, int N, int S,
-                                   int nsample, float r2, int tile, int wpb, void* idx,
-                                   void* rel, void* stream) {
-  const size_t smem = (size_t)N * 3 * sizeof(float);
-  cudaFuncSetAttribute(ball_query_rank_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  dim3 grid((S + tile - 1) / tile, B);
-  ball_query_rank_kernel<<<grid, wpb * 32, smem, (cudaStream_t)stream>>>(
-      (const float*)xyz, (const float*)q, N, S, nsample, r2, tile, (int*)idx, (float*)rel);
   PPT_CHECK_LAUNCH();
   return 0;
 }

@@ -6,7 +6,10 @@ Replaces ``ppt_tpu/kernels/group.py:fps_batched`` and ``:knn_gather``
 ``:ball_query_gather_feats`` and the rank formulation
 ``:_ball_query_kernel_v2``. The CUDA side is ``csrc/group.cu``, whose
 header says what bounds each kernel on the H100 and how its design
-answers that.
+answers that. ``ball_query_gather_v2`` computes ``ball_query_gather``'s
+function, so it launches the same walk with the same plan; ``fps_launch``
+is the FPS launcher that ``fps_batched`` and ``kernels/fps.py:fps_single``
+share.
 
 Contracts (exact, ties included):
 - FPS starts at index 0, keeps a running min distance initialised to
@@ -38,7 +41,6 @@ import torch
 from ppt_torch.kernels import _build
 from ppt_torch.kernels._autograd import recompute_grad
 
-_SMEM_LIMIT = 227 * 1024
 FPS_MAX_POINTS = 16384  # the cloud in shared memory (12 N bytes), 16 points a thread
 CHUNK = 1024  # cloud points a kNN CTA stages at a time (double-buffered: 24 KB)
 # the ball query's walk (csrc/ball_select.cuh): points a warp tests a round (4
@@ -46,7 +48,7 @@ CHUNK = 1024  # cloud points a kNN CTA stages at a time (double-buffered: 24 KB)
 # (double-buffered: 48 KB); a cloud of at most BALL_CHUNK points is staged whole
 BALL_ROUND = 128
 BALL_CHUNK = 2048
-_BALL_WARPS = 8  # queries (warps) a block: ball_select.cuh's BALL_WARPS, and v2's
+_BALL_WARPS = 8  # queries (warps) a block: ball_select.cuh's BALL_WARPS
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
@@ -54,7 +56,6 @@ _ARGTYPES = {
     "ppt_knn": [_P] * 2 + [_I] * 5 + [_P] * 3,
     "ppt_ball_query": [_P] * 2 + [_I] * 4 + [_F] + [_I] * 2 + [_P] * 3,
     "ppt_ball_query_feats": [_P] * 3 + [_I] * 4 + [_F] + [_I] * 4 + [_P] * 4,
-    "ppt_ball_query_rank": [_P] * 2 + [_I] * 4 + [_F] + [_I] * 2 + [_P] * 3,
     "ppt_ball_launch_floor": [_I] * 6 + [_P],
 }
 _lib_typed = None
@@ -94,29 +95,40 @@ def fps_plain(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     return out
 
 
-def fps_batched(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
-    """FPS indices [B, npoint] int32 (start index 0 per cloud): the kernel
-    on the card, the plain version on the CPU. The kernel takes N up to
-    ``FPS_MAX_POINTS``."""
-    if xyz.device.type == "cpu":
-        return fps_plain(xyz, npoint)
+def fps_launch(name: str, xyz: torch.Tensor, npoint: int) -> torch.Tensor:
+    """FPS indices [B, npoint] int32 from ``csrc/group.cu:ppt_fps`` (its warp
+    rule picks the launch), counted under ``name``. Any float type, taken
+    as f32; N up to ``FPS_MAX_POINTS``; any npoint: once every distinct
+    point is picked, every running distance is 0 and each later step picks
+    index 0, as in the plain version."""
     B, N, C = xyz.shape
     if C != 3:
-        raise ValueError(f"fps_batched: expects xyz [B, N, 3], got {tuple(xyz.shape)}")
-    if npoint > N:
-        raise ValueError(f"fps_batched: npoint={npoint} > N={N}")
+        raise ValueError(f"{name}: expects xyz [B, N, 3], got {tuple(xyz.shape)}")
     if N > FPS_MAX_POINTS:
-        raise ValueError(f"fps_batched: N={N} exceeds the kernel's cap of {FPS_MAX_POINTS} "
+        raise ValueError(f"{name}: N={N} exceeds the kernel's cap of {FPS_MAX_POINTS} "
                          "points (1024 threads x 16 points a thread, the cloud in shared memory)")
+    if N == 0 and npoint > 0:
+        raise ValueError(f"{name}: an empty cloud has no first point to start from")
     xyz = xyz.float().contiguous()
     out = torch.empty(B, npoint, dtype=torch.int32, device=xyz.device)
     if B == 0 or npoint == 0:
         return out
     lib = _lib()
     rc = lib.ppt_fps(_build.ptr(xyz), B, N, npoint, _build.ptr(out), _build.stream_ptr(xyz))
-    _build.check(lib, rc, "fps_batched")
-    _build.LAUNCHES["fps_batched"] += 1
+    _build.check(lib, rc, name)
+    _build.LAUNCHES[name] += 1
     return out
+
+
+def fps_batched(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
+    """FPS indices [B, npoint] int32 (start index 0 per cloud): the kernel
+    on the card, the plain version on the CPU. The kernel takes N up to
+    ``FPS_MAX_POINTS``, and npoint up to N."""
+    if xyz.device.type == "cpu":
+        return fps_plain(xyz, npoint)
+    if npoint > xyz.shape[1]:
+        raise ValueError(f"fps_batched: npoint={npoint} > N={xyz.shape[1]}")
+    return fps_launch("fps_batched", xyz, npoint)
 
 
 def knn_gather_plain(
@@ -246,6 +258,22 @@ def _ball_args(name: str, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor
     return xyz, q, B, N, S, idx, rel
 
 
+def _ball_run(name: str, radius: float, nsample: int, xyz: torch.Tensor,
+              new_xyz: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``csrc/group.cu:ppt_ball_query`` (``ball_select.cuh``'s walk) with
+    ``_ball_plan``'s plan, counted under ``name``."""
+    xyz, q, B, N, S, idx, rel = _ball_args(name, nsample, xyz, new_xyz)
+    if B == 0 or S == 0:
+        return idx, rel
+    lib = _lib()
+    rc = lib.ppt_ball_query(_build.ptr(xyz), _build.ptr(q), B, N, S, nsample, radius * radius,
+                            *_ball_plan(B, S), _build.ptr(idx), _build.ptr(rel),
+                            _build.stream_ptr(xyz))
+    _build.check(lib, rc, name)
+    _build.LAUNCHES[name] += 1
+    return idx, rel
+
+
 def ball_query_gather(
     radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -254,36 +282,20 @@ def ball_query_gather(
     Any N, any S."""
     if xyz.device.type == "cpu":
         return ball_query_gather_plain(radius, nsample, xyz, new_xyz)
-    xyz, q, B, N, S, idx, rel = _ball_args("ball_query_gather", nsample, xyz, new_xyz)
-    if B == 0 or S == 0:
-        return idx, rel
-    lib = _lib()
-    rc = lib.ppt_ball_query(_build.ptr(xyz), _build.ptr(q), B, N, S, nsample, radius * radius,
-                            *_ball_plan(B, S), _build.ptr(idx), _build.ptr(rel),
-                            _build.stream_ptr(xyz))
-    _build.check(lib, rc, "ball_query_gather")
-    _build.LAUNCHES["ball_query_gather"] += 1
-    return idx, rel
+    return _ball_run("ball_query_gather", radius, nsample, xyz, new_xyz)
 
 
 def ball_query_gather_v2(
     radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``ball_query_gather`` by ranks: one full pass over the cloud from
-    shared memory, a hit's prefix count is its slot. The same outputs, bit
-    for bit; no module calls it (nor does the reference call its own)."""
+    """The counterpart of the reference's rank formulation
+    (``_ball_query_kernel_v2``: a hit's prefix count is its slot), which
+    computes ``ball_query_gather``'s function: the same outputs, bit for
+    bit, from the same walk and plan, counted apart. Any N, any S. No
+    module calls it (nor does the reference call its own)."""
     if xyz.device.type == "cpu":
         return ball_query_gather_plain(radius, nsample, xyz, new_xyz)
-    xyz, q, B, N, S, idx, rel = _ball_args("ball_query_gather_v2", nsample, xyz, new_xyz)
-    if 12 * N > _SMEM_LIMIT:
-        raise ValueError(f"ball_query_gather_v2: N={N} does not fit one block's shared memory")
-    lib = _lib()
-    rc = lib.ppt_ball_query_rank(_build.ptr(xyz), _build.ptr(q), B, N, S, nsample,
-                                 radius * radius, 4 * _BALL_WARPS, _BALL_WARPS,
-                                 _build.ptr(idx), _build.ptr(rel), _build.stream_ptr(xyz))
-    _build.check(lib, rc, "ball_query_gather_v2")
-    _build.LAUNCHES["ball_query_gather_v2"] += 1
-    return idx, rel
+    return _ball_run("ball_query_gather_v2", radius, nsample, xyz, new_xyz)
 
 
 def _ball_feats_run(radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor,

@@ -10,9 +10,10 @@ floating-point results within the reference's limits. One name is
 renamed: the reference's ``knn_gather.*_stacked_n2048`` pin a Pallas
 gather option that the CUDA kernel does not have, so the port checks the
 same shape as ``knn_gather.*_n2048``. Like the reference tool, it leaves
-out the two kernels no module calls (``fps_single``, ``knn_single``, the
-counterparts of ``fps_pallas`` and ``knn_pallas``) and the ablation
-probe's; ``chip_smoke.py`` holds those.
+out the two entry points no module calls (``fps_single``, which launches
+``fps_batched``'s kernel, and ``knn_single``, which runs ``knn_gather``'s
+selection: the counterparts of ``fps_pallas`` and ``knn_pallas``) and the
+ablation probe's kernel; ``chip_smoke.py`` holds those.
 
 Prints one JSON line per check, then ``{"failures": n}``; exits 1 on any
 failure. Needs a CUDA card.

@@ -85,12 +85,12 @@ PARTS = (
     ("text::pool_ln_proj_kernel", "text: pooling + ln_final + projection"),
     ("text::epilogue_bwd_kernel", "text: pooling + ln_final + projection"),
     ("text::proj_bwd_kernel", "text: pooling + ln_final + projection"),
+    # fps_single and ball_query_gather_v2 launch fps_batched_kernel and
+    # ball_query_kernel: a trace counts them in those two parts
     ("fps_batched_kernel", "fps_batched"),
     ("knn_gather_kernel", "knn_gather"),
-    ("fps_single_kernel", "fps_single"),
     ("knn_single_kernel", "knn_single"),
     ("ball_query_feats_kernel", "ball_query_gather_feats"),
-    ("ball_query_rank_kernel", "ball_query_gather_v2"),
     ("ball_query_kernel", "ball_query_gather"),
     ("ball_floor_kernel", "ball query: launch floor"),  # chip_smoke.py's measurement alone
     ("mini_forward", "mini_forward"),

@@ -52,7 +52,7 @@ def test_busy_us_is_the_union_of_intervals(intervals, want):
      "ball_query_gather"),
     ("ball_query_feats_kernel(float const*, float const*, char const*, int)",
      "ball_query_gather_feats"),
-    ("ball_query_rank_kernel(float const*, float const*, int, int)", "ball_query_gather_v2"),
+    ("void fps_batched_kernel<16>(float const*, int, int, int*)", "fps_batched"),
     ("void flash_fwd_wgmma_kernel<64>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st)",
      "flash_mha"),
     ("flash_f32_kernel(float const*, float const*)", "flash_mha"),
