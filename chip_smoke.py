@@ -17,6 +17,8 @@ kernel check).
                                              # wrappers' host time a call
     python3 chip_smoke.py --only losses3d    # losses3d.cu: phase 3's loss checks, nn_dists's plan
                                              # sweep, the dVAE step with recon="emd"
+    python3 chip_smoke.py --only recipes     # phase 13: the published recipes, the optimizer
+                                             # zoo on the card, adahessian by route
 
 Phases (any failed check raises, and the script exits non-zero):
   1. card name / power limit (nvidia-smi), torch and CUDA versions;
@@ -261,6 +263,20 @@ Phases (any failed check raises, and the script exits non-zero):
      wall ms a step, idle share, the text kernels' ms a step by part, and
      fused_text_tower_res and fused_text_tower_bwd launched. Its numbers go
      on a line of their own ({"profile": ...}).
+ 13. the published recipes through the port's own CLI: cls.main on
+     configs/experiments/ppt_base_mn40.yaml and ppt_ptb_sonn_hardest.yaml
+     (head type 3; ScanObjectNN falls back to synthetic clouds without
+     h5py) and fewshot.main on fewshot_mn40.yaml, each with --set epochs=1
+     --votes 3 --steps_per_dispatch 2: the loss finite, val_acc1 logged,
+     the checkpoint read back, PointBERT's kernels launched (counts reset
+     before each recipe), fused_vit_block_readout launched votes x batches
+     times in the evaluation; one [recipe] line each with steps, train
+     clouds/s and eval seconds with votes. Then two steps of every
+     optimizer name and of the plateau stage on head type 3's leaves,
+     card against host, and adahessian on every route: three steps where
+     it has a second derivative, the refusal by the kernel's name where it
+     has not. Its numbers go on a line of their own ({"recipes": ...});
+     ``--only recipes`` builds what it needs and runs it alone.
 
 The build prints each CUDA kernel's registers and spills (ptxas -v).
 The line before the card's is a JSON object with the per-kernel numbers
@@ -321,7 +337,7 @@ from ppt_torch.nn import mpm as nmpm  # noqa: E402
 from ppt_torch.nn import pointbert as npb  # noqa: E402
 from ppt_torch.nn import text as ntext  # noqa: E402
 from ppt_torch.prompt.learner import build_prompt_spec  # noqa: E402
-from ppt_torch.tasks import cls, dvae_pretrain, mpm_pretrain, pretrain  # noqa: E402
+from ppt_torch.tasks import cls, dvae_pretrain, fewshot, mpm_pretrain, pretrain  # noqa: E402
 from ppt_torch.tasks.args import TaskArgs  # noqa: E402
 from ppt_torch.tools import kernel_check, vitblock_probe  # noqa: E402
 from ppt_torch.tools import profile as tprofile  # noqa: E402
@@ -3664,6 +3680,200 @@ def run_profiles(batch=32, batches=5):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the published recipes through the port's own CLI
+# ---------------------------------------------------------------------------
+
+RECIPE_DIR = _build.BUILD_DIR.parent / "chip_smoke_recipes"
+RECIPE_ROOT = Path(__file__).resolve().parent / "configs" / "experiments"
+RECIPES = ("ppt_base_mn40", "ppt_ptb_sonn_hardest", "fewshot_mn40")
+RECIPE_VOTES, RECIPE_DISPATCH = 3, 2
+# PointBERT's kernels on the recipes' default routes
+RECIPE_KERNELS = ("fps_batched", "knn_gather", "mini_forward", "mini_stats", "fused_vit_block",
+                  "fused_vit_block_readout")
+# (text route, point route, head type, the kernel adahessian is refused by, or None)
+ADAHESSIAN_ROUTES = (("off", "block", 0, None), ("off", "plain", 3, None),
+                     ("off", "block", 3, "fused_vit_block_readout"),
+                     ("off", "tower", 3, "fused_vit_tower"), ("off", "unfused", 2, "fused_mha"),
+                     ("block", "block", 0, "fused_text_block"),
+                     ("tower", "block", 0, "fused_text_tower_bwd"))
+
+
+def run_recipe(name, smi):
+    """One epoch of a published recipe through ``cls.main`` (``fewshot.main``
+    for the few-shot one) with ``--set epochs=1 --votes 3
+    --steps_per_dispatch 2``: the loss finite, ``val_acc1`` logged, the
+    checkpoint read back into a fresh ``cls.setup``, PointBERT's kernels
+    launched, and ``fused_vit_block_readout`` launched votes x batches times
+    in the evaluation."""
+    module = fewshot if name.startswith("fewshot") else cls
+    out_dir = RECIPE_DIR / name
+    shutil.rmtree(out_dir, ignore_errors=True)
+    argv = ["--config", str(RECIPE_ROOT / f"{name}.yaml"), "--set", "epochs=1", "--votes",
+            str(RECIPE_VOTES), "--steps_per_dispatch", str(RECIPE_DISPATCH), "--output_dir",
+            str(out_dir)]
+    seen = {}
+    real_parse, real_validate = module.parse_args, cls.validate
+
+    def parse(argv=None):
+        seen["args"] = real_parse(argv)
+        return seen["args"]
+
+    def validate(*a, **kw):
+        before = collections.Counter(_build.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        val = real_validate(*a, **kw)
+        torch.cuda.synchronize()
+        seen["eval_s"] = time.perf_counter() - t0
+        seen["eval_launches"] = {k: _build.LAUNCHES[k] - before[k] for k in RECIPE_KERNELS}
+        seen["eval_batches"] = math.ceil(len(a[2]) / a[4].batch_size)
+        seen["votes"] = kw.get("votes", 1)
+        return val
+
+    _build.reset_launches()
+    module.parse_args, cls.validate = parse, validate
+    t0 = time.perf_counter()
+    try:
+        result = module.main(argv)
+    finally:
+        module.parse_args, cls.validate = real_parse, real_validate
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: _build.LAUNCHES[k] for k in RECIPE_KERNELS}
+    args = seen["args"]
+    (entry,) = result["history"]
+    check(math.isfinite(entry["loss"]), f"recipe {name}: non-finite loss {entry['loss']}")
+    check("val_acc1" in entry, f"recipe {name}: no val_acc1 in {entry}")
+    check(all(v > 0 for v in launches.values()), f"recipe {name}: a kernel never ran: {launches}")
+    check(seen["votes"] == RECIPE_VOTES, f"recipe {name}: the train loop's eval took "
+          f"{seen['votes']} votes")
+    want = RECIPE_VOTES * seen["eval_batches"]
+    check(seen["eval_launches"]["fused_vit_block_readout"] == want,
+          f"recipe {name}: fused_vit_block_readout ran {seen['eval_launches']} times in the "
+          f"evaluation, not votes x batches = {want}")
+    fresh = cls.setup(args)
+    load_checkpoint(str(out_dir / (args.exp_name or "cls")), fresh["state"])
+    n_batches = len(fresh["train_ds"]) // args.batch_size
+    steps = sum(1 for it in range(n_batches) if it / n_batches <= args.data_ratio)
+    check(fresh["state"].step == steps, f"recipe {name}: the checkpoint holds step "
+          f"{fresh['state'].step}, the epoch took {steps}")
+    stats = dict(steps=steps, batch=args.batch_size, head_type=args.head_type,
+                 dataset=fresh["train_ds"].name, compute_dtype=args.compute_dtype,
+                 loss=entry["loss"], val_acc1=entry["val_acc1"],
+                 train_clouds_per_s=steps * args.batch_size / entry["epoch_time"],
+                 train_s=entry["epoch_time"], eval_s_with_votes=seen["eval_s"],
+                 votes=RECIPE_VOTES, eval_batches=seen["eval_batches"], wall_s=wall,
+                 launches=launches, eval_launches=seen["eval_launches"])
+    print(f"[recipe] {name}: {steps} steps of {args.batch_size} ({stats['dataset']}, head_type "
+          f"{args.head_type}, {args.compute_dtype}, steps_per_dispatch {RECIPE_DISPATCH}), "
+          f"train {stats['train_clouds_per_s']:.1f} clouds/s; eval {seen['eval_s']:.3f} s with "
+          f"{RECIPE_VOTES} votes over {seen['eval_batches']} batches; loss {entry['loss']:.4f}, "
+          f"val_acc1 {entry['val_acc1']:.2f}; launches {launches}; {smi}")
+    return stats
+
+
+def _close_rel(got, want):
+    """Worst |got - want| / |want| (inf where want is 0 and got is not)."""
+    got, want = got.double().cpu(), want.double().cpu()
+    err = (got - want).abs()
+    return float(torch.where(err == 0, torch.zeros_like(err), err / want.abs()).max())
+
+
+def run_optimizer_zoo():
+    """Two card steps of every optimizer name and of the plateau stage on
+    the trainable leaves of head type 3 (the 384 x 1152 qkv weight reaches
+    adafactor's factored path), held to the same optimizer on the CPU with
+    the same gradients copied to the host: f32, 1e-6 relative to each entry
+    (the optimizers take correctly rounded square roots, divide by device
+    scalars and sum in f64, so the two devices round alike)."""
+    from ppt_torch.train.optim import OPTIMIZERS
+
+    ctx = cls.setup(train_args("float32", head_type=3))
+    state, names = ctx["state"], list(ctx["state"].trainable)
+    qkv = "point_encoder.block_11.attn.qkv.kernel"
+    check(tuple(state.trainable[qkv].shape) == (384, 1152), f"{qkv} is not 384 x 1152")
+    b = cls.device_batch(next(iter(Loader(ctx["train_ds"], TRAIN_BATCH, shuffle=True, seed=3))),
+                         DEV)
+    logits = state.model(b["pc"], ctx["prompts"], train=True, generator=state.generator)
+    loss = smoothed_cross_entropy(logits, b["label"], 0.2)
+    grads = dict(zip(names, torch.autograd.grad(loss, [state.trainable[k] for k in names])))
+    hess = {k: g * g + 1e-3 for k, g in grads.items()}  # a positive diagonal for adahessian
+    loss = loss.detach()
+    host = ({k: g.cpu() for k, g in grads.items()}, {k: h.cpu() for k, h in hess.items()},
+            loss.cpu())
+    worst = {}
+    for name in OPTIMIZERS + ("plateau",):
+        kw = dict(weight_decay=0.1, betas=(0.9, 0.98), eps=1e-8)
+        if name == "plateau":
+            kw.update(plateau_patience=1, steps_per_epoch=1)
+        opt = "adamw" if name == "plateau" else name
+        on_card = {k: v.detach().clone() for k, v in state.trainable.items()}
+        on_host = {k: v.detach().cpu().clone() for k, v in state.trainable.items()}
+        card = build_optimizer(opt, on_card.items(), lambda s: 3e-3, **kw)
+        cpu = build_optimizer(opt, on_host.items(), lambda s: 3e-3, **kw)
+        for _ in range(2):
+            card.step(grads, value=loss, hess=hess)
+            cpu.step(host[0], value=host[2], hess=host[1])
+        worst[name] = max(_close_rel(on_card[k], on_host[k]) for k in names)
+        check(worst[name] <= 1e-6, f"optimizer {name}: card and host differ by {worst[name]:.3e}")
+        if name == "adafactor":
+            check(tuple(card.v_row[qkv].shape) == (384,) and tuple(card.v_col[qkv].shape)
+                  == (1152,), "adafactor did not factor the 384 x 1152 qkv weight")
+        if name == "plateau":
+            check(abs(float(card.plateau.scale) - 0.1) < 1e-7 and float(cpu.plateau.scale)
+                  == float(card.plateau.scale), "the plateau stage did not scale by 0.1")
+    print(f"[recipe] optimizer zoo, 2 steps on the card vs the host at head_type 3 (worst "
+          f"relative difference by name): "
+          + json.dumps({k: float(f"{v:.3e}") for k, v in worst.items()}))
+    return worst
+
+
+def run_adahessian_routes(steps=3):
+    """adahessian on every route: three steps where no kernel lies between a
+    trainable leaf and the loss, the refusal by the kernel's name where one
+    does (the reference's hutchinson_diag refuses there too)."""
+    out = {}
+    for text, point, head_type, refused in ADAHESSIAN_ROUTES:
+        tag = f"text {text}, point {point}, head_type {head_type}"
+        ctx = setup_with_route(train_args("float32", head_type=head_type, optim="adahessian"),
+                               text, point)
+        step = make_train_step(0.2, second_order=True)
+        loader = Loader(ctx["train_ds"], TRAIN_BATCH, shuffle=True, seed=5)
+        stream = batch_stream(loader)
+        if refused:
+            try:
+                step(ctx["state"], cls.device_batch(next(stream), DEV), ctx["prompts"])
+            except NotImplementedError as e:
+                check(str(e).startswith(f"{refused}: no second derivative"),
+                      f"adahessian ({tag}) refused by another name: {e}")
+                out[tag] = f"refused by {refused}"
+                continue
+            check(False, f"adahessian ({tag}) was not refused by {refused}")
+        before = snapshot(ctx["state"].trainable)
+        losses = run_steps(ctx, step, stream, steps)
+        moved = max(float((v.detach() - before[k]).abs().max())
+                    for k, v in ctx["state"].trainable.items())
+        check(all(math.isfinite(x) for x in losses) and moved > 0
+              and all(torch.isfinite(v).all() for v in ctx["state"].trainable.values()),
+              f"adahessian ({tag}): losses {losses}, largest move {moved}")
+        out[tag] = dict(losses=losses, largest_move=moved)
+    print(f"[recipe] adahessian by route: {json.dumps(out)}")
+    return out
+
+
+def run_recipes_slice(smi):
+    """Phase 13: the three published recipes, the optimizer zoo on the card,
+    adahessian by route; ``smi`` is the card's name and power limit."""
+    t0 = time.perf_counter()
+    stats = {name: run_recipe(name, smi) for name in RECIPES}
+    stats["optimizer_zoo_worst_rel"] = run_optimizer_zoo()
+    stats["adahessian_routes"] = run_adahessian_routes()
+    stats["seconds"] = time.perf_counter() - t0
+    print(f"[recipe] phase 13 took {stats['seconds']:.1f} s")
+    return stats
+
+
 # kernels whose every instance must build without spills (the ball-query walk,
 # the 3-D loss kernels)
 SPILL_FREE = ("ball_query_kernel", "ball_query_feats_kernel", "approx_match_warp_kernel",
@@ -3698,14 +3908,15 @@ def build(names=_build.SOURCES):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("ballquery", "towers", "losses3d", "cloud"),
+    ap.add_argument("--only", choices=("ballquery", "towers", "losses3d", "cloud", "recipes"),
                     help="build group.cu and run phase 3's ball-query checks and times alone "
                          "(ballquery) or phase 7's ball-query towers alone (towers); build "
                          "losses3d.cu and run phase 3's loss checks and times, nn_dists at "
                          "every (queries, split), then phase 10's dVAE step with recon='emd' "
                          "(losses3d); build cloud.cu and group.cu and run phase 3's "
                          "fps_single and knn_single checks and times beside rows 1-2, and the "
-                         "grouping wrappers' host time a call (cloud)")
+                         "grouping wrappers' host time a call (cloud); build the kernels "
+                         "PointBERT's recipes run and run phase 13 (recipes)")
     args = ap.parse_args(argv)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3742,6 +3953,11 @@ def main(argv=None):
         print(json.dumps({"cloud_kernels": {k: results[k] for k in CLOUD_KERNELS
                                             + ("fps_batched", "knn_gather")},
                           "host_us_a_call": results["host_us_a_call"]}))
+        print(smi)
+        return
+    if args.only == "recipes":
+        build(["group", "mini", "vitblock", "attention", "text"])
+        print(json.dumps({"recipes": run_recipes_slice(smi)}))
         print(smi)
         return
     if args.only == "towers":
@@ -3787,6 +4003,7 @@ def main(argv=None):
     launches.update(pb_launches)  # the dVAE's EMD step: approx_match
     tool_launches, tool_stats = run_tools_slice()
     launches.update(tool_launches)  # the ablation probe's kernel
+    recipe_stats = run_recipes_slice(smi)  # its own counts, read per recipe
     for name in SOURCES:
         if name in OFF_PATH_KERNELS:
             check(launches.get(name, 0) == 0, f"{name} is called by no module, yet was launched")
@@ -3824,6 +4041,7 @@ def main(argv=None):
     print(json.dumps({"pretrain_pb": pb_stats}))
     print(json.dumps({"tools": tool_stats}))
     print(json.dumps({"profile": prof_stats}))
+    print(json.dumps({"recipes": recipe_stats}))
     print(json.dumps({"kernels": kernels, **slice_stats}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

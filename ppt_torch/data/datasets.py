@@ -1,11 +1,14 @@
-"""Datasets for the recognition and pretraining paths: ModelNet and
-ShapeNet-55 loaders, synthetic fallback.
+"""Datasets for the recognition and pretraining paths: ModelNet10/40,
+ScanObjectNN and ShapeNet-55 loaders, synthetic fallback.
 
 Counterpart of ``ppt_tpu/data/datasets.py``, cut to what the recognition,
 few-shot and ULIP pretraining tasks need (train and test splits, ``*_fs``
 few-shot resampling of the train split, ShapeNet-55's clouds with their
 taxonomy names). Loaders produce plain numpy; batching is in
-``ppt_torch.data.loader``.
+``ppt_torch.data.loader``. ScanObjectNN's ``.h5`` files need ``h5py``,
+imported only where such a file is read: without it the loader raises
+``ImportError`` and ``build_dataset`` falls back to synthetic clouds with
+the reference's warning.
 """
 
 from __future__ import annotations
@@ -28,15 +31,64 @@ def pc_normalize(pc: np.ndarray) -> np.ndarray:
     return centered / np.sqrt((centered**2).sum(axis=1)).max()
 
 
+def read_pcd(path: str) -> np.ndarray:
+    """Uncompressed ``.pcd`` (PCD v0.7, ``DATA ascii`` or ``binary``) ->
+    ``[N, 3]`` f64 xyz (``read_pcd``, ``:81-149``); ``binary_compressed`` is
+    refused by name, as the reference refuses it."""
+    np_types = {("F", 4): "f4", ("F", 8): "f8", ("I", 1): "i1", ("I", 2): "i2",
+                ("I", 4): "i4", ("U", 1): "u1", ("U", 2): "u2", ("U", 4): "u4"}
+    header: Dict[str, List[str]] = {}
+    with open(path, "rb") as f:
+        while True:
+            raw = f.readline()
+            if not raw:
+                raise ValueError(f"{path}: truncated PCD header")
+            line = raw.decode("ascii", "ignore").strip()
+            if not line or line.startswith("#"):
+                continue
+            key, _, rest = line.partition(" ")
+            header[key.upper()] = rest.split()
+            if key.upper() == "DATA":
+                break
+        fields = header.get("FIELDS", [])
+        sizes = [int(v) for v in header.get("SIZE", [])]
+        types = header.get("TYPE", [])
+        counts = [int(v) for v in header.get("COUNT", [])] or [1] * len(fields)
+        npts = int(header.get("POINTS", ["0"])[0]) or (
+            int(header.get("WIDTH", ["0"])[0]) * int(header.get("HEIGHT", ["0"])[0]))
+        mode = header["DATA"][0].lower() if header["DATA"] else ""
+        if mode == "ascii":
+            flat = np.loadtxt(f, dtype=np.float64, ndmin=2)
+            offsets = np.cumsum([0] + counts)
+            col = {name: flat[:, offsets[k]] for k, name in enumerate(fields)}
+            xyz = np.stack([col["x"], col["y"], col["z"]], axis=1)
+        elif mode == "binary":
+            dtype = np.dtype([(name, np_types[(t, s)], (c,)) if c > 1
+                              else (name, np_types[(t, s)])
+                              for name, s, t, c in zip(fields, sizes, types, counts)])
+            rec = np.frombuffer(f.read(npts * dtype.itemsize), dtype=dtype)
+            xyz = np.stack([rec["x"], rec["y"], rec["z"]], axis=1)
+        else:
+            raise ValueError(f"{path}: unsupported PCD DATA mode {mode!r} (ascii and binary "
+                             "only, as the reference)")
+    return np.ascontiguousarray(xyz.astype(np.float64))
+
+
 def read_cloud(path: str) -> np.ndarray:
     """A cloud file by extension (``read_cloud``, ``:156-171``): ``.npy``,
-    ShapeNet-55's format; the reference's ``.pcd``, ``.h5`` and ``.txt``
-    readers are not ported and raise by name."""
+    ``.pcd``, ``.h5`` (its ``data`` array; needs ``h5py``) or ``.txt``."""
     ext = os.path.splitext(path)[1].lower()
     if ext == ".npy":
         return np.load(path)
-    if ext in (".pcd", ".h5", ".txt"):
-        raise NotImplementedError(f"{path}: the {ext} cloud reader is not ported yet")
+    if ext == ".pcd":
+        return read_pcd(path)
+    if ext == ".h5":
+        import h5py
+
+        with h5py.File(path, "r") as f:
+            return f["data"][()]
+    if ext == ".txt":
+        return np.loadtxt(path)
     raise ValueError(f"Unsupported file extension: {ext}")
 
 
@@ -101,11 +153,31 @@ def load_modelnet(root: str, split: str, npoints: int, num_category: int = 40,
     labels = np.zeros(len(list_of_labels), dtype=np.int32)
     for i, (p, lab) in enumerate(zip(list_of_points, list_of_labels)):
         p = np.asarray(p, dtype=np.float32)
-        labels[i] = int(lab)
+        labels[i] = int(np.asarray(lab).reshape(-1)[0])  # a [1] array in the pickles
         if npoints < p.shape[0]:
             p = fps_numpy(p, npoints)
         pts[i] = pc_normalize(p[:, :3])
     return ArrayDataset(pts, labels, classnames, name=f"modelnet{num_category}")
+
+
+def load_scanobjectnn(root: str, split: str, npoints: int,
+                      sonn_type: str = "hardest") -> ArrayDataset:
+    """ScanObjectNN from its ``.h5`` files (``load_scanobjectnn``, ``:299-318``):
+    ``{root}/{sonn_type}/{split}_objectdataset.h5`` for ``obj_only`` and
+    ``obj_bg``, ``..._augmentedrot_scale75.h5`` for ``hardest``; each cloud
+    truncated to its first ``npoints`` points; class names from
+    ``shape_names.txt``."""
+    import h5py  # only where a file is read: the fallback covers its absence
+
+    name = (f"{split}_objectdataset_augmentedrot_scale75.h5" if sonn_type == "hardest"
+            else f"{split}_objectdataset.h5")
+    with h5py.File(os.path.join(root, sonn_type, name), "r") as f:
+        data = f["data"][:].astype(np.float32)
+        labels = f["label"][:].astype(np.int32)
+    with open(os.path.join(root, "shape_names.txt")) as f:
+        classnames = [line.strip() for line in f if line.strip()]
+    return ArrayDataset(data[:, :npoints, :3], labels, classnames,
+                        name=f"scanobjectnn_{sonn_type}")
 
 
 def load_shapenet55(root: str, split: str, npoints: int, pc_dirname: str = "shapenet_pc",
@@ -180,16 +252,32 @@ def _synthetic(args, split: str) -> ArrayDataset:
     )
 
 
-def _modelnet40_fs(args, split: str) -> ArrayDataset:
-    ds = load_modelnet(args.data_path, split, args.npoints, 40)
-    if split == "train":
-        ds = generate_fewshot(ds, args.nshots, seed=args.seed)
-    return ds
+def _few_shot(load: Callable[..., ArrayDataset]) -> Callable[..., ArrayDataset]:
+    """The ``*_fs`` split of a loader: ``nshots`` per class drawn from its
+    train split at ``args.seed`` (``:477-525``); the test split as is."""
+
+    def build(args, split: str) -> ArrayDataset:
+        ds = load(args, split)
+        return generate_fewshot(ds, args.nshots, seed=args.seed) if split == "train" else ds
+
+    return build
+
+
+def _modelnet(num_category: int) -> Callable[..., ArrayDataset]:
+    return lambda args, split: load_modelnet(args.data_path, split, args.npoints, num_category)
+
+
+def _scanobjectnn(args, split: str) -> ArrayDataset:
+    return load_scanobjectnn(args.data_path, split, args.npoints, args.sonn_type)
 
 
 DATASETS: Dict[str, Callable[..., ArrayDataset]] = {
-    "modelnet40": lambda args, split: load_modelnet(args.data_path, split, args.npoints, 40),
-    "modelnet40_fs": _modelnet40_fs,
+    "modelnet40": _modelnet(40),
+    "modelnet10": _modelnet(10),
+    "scanobjectnn": _scanobjectnn,
+    "modelnet40_fs": _few_shot(_modelnet(40)),
+    "modelnet10_fs": _few_shot(_modelnet(10)),
+    "scanobjectnn_fs": _few_shot(_scanobjectnn),
     "shapenet": lambda args, split: load_shapenet55(args.data_path, split, args.npoints),
     "synthetic": _synthetic,
 }

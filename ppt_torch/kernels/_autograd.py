@@ -9,6 +9,11 @@ outside the autograd graph, and the backward re-runs the plain version
 under ``torch.enable_grad()`` on the saved inputs and returns its
 gradients. When no input requires a gradient (the frozen point tower of
 prompt tuning) autograd records nothing and nothing is saved.
+
+No kernel has a second derivative: a backward asked to build a graph
+(``create_graph=True``, as ``adahessian``'s Hessian-vector product asks)
+raises by the kernel's name, where the reference's ``hutchinson_diag``
+raises too (``jax.jvp`` cannot go through a ``custom_vjp``).
 """
 
 from __future__ import annotations
@@ -18,9 +23,21 @@ from typing import Callable, Tuple
 import torch
 
 
+def refuse_second_order(name: str) -> None:
+    """Raise by ``name`` when a backward runs with grad mode on, that is
+    under ``create_graph=True``: a kernel's gradient is not differentiable."""
+    if torch.is_grad_enabled():
+        raise NotImplementedError(
+            f"{name}: no second derivative through this kernel (adahessian's Hessian-vector "
+            "product needs one); the reference's hutchinson_diag cannot take jax.jvp through "
+            "its custom_vjp kernel either. Train these leaves with a first-order optimizer, "
+            "or on a route that does not run the kernel")
+
+
 class _Recompute(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, run: Callable, plain: Callable, *args):
+    def forward(ctx, name: str, run: Callable, plain: Callable, *args):
+        ctx.name = name
         ctx.plain = plain
         ctx.is_tensor = [isinstance(a, torch.Tensor) for a in args]
         ctx.static = [None if t else a for a, t in zip(args, ctx.is_tensor)]
@@ -30,8 +47,9 @@ class _Recompute(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grad_outputs):
+        refuse_second_order(ctx.name)
         saved = iter(ctx.saved_tensors)
-        needs = ctx.needs_input_grad[2:]
+        needs = ctx.needs_input_grad[3:]
         args, wanted = [], []
         for static, is_tensor, need in zip(ctx.static, ctx.is_tensor, needs):
             if not is_tensor:
@@ -49,13 +67,14 @@ class _Recompute(torch.autograd.Function):
         grads = iter(torch.autograd.grad(
             [o for o, _ in pairs], wanted, [g.to(o.dtype) for o, g in pairs], allow_unused=True,
         ) if pairs and wanted else [None] * len(wanted))
-        result: Tuple = (None, None) + tuple(
+        result: Tuple = (None, None, None) + tuple(
             next(grads) if (is_tensor and need) else None
             for is_tensor, need in zip(ctx.is_tensor, needs)
         )
         return result
 
 
-def recompute_grad(run: Callable, plain: Callable, *args):
-    """``run(*args)`` with the gradient of ``plain(*args)``."""
-    return _Recompute.apply(run, plain, *args)
+def recompute_grad(name: str, run: Callable, plain: Callable, *args):
+    """``run(*args)`` with the gradient of ``plain(*args)``; ``name`` is the
+    kernel's, for the refusal of a second derivative."""
+    return _Recompute.apply(name, run, plain, *args)

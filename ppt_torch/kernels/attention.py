@@ -35,7 +35,7 @@ import math
 import torch
 
 from ppt_torch.kernels import _build
-from ppt_torch.kernels._autograd import recompute_grad
+from ppt_torch.kernels._autograd import recompute_grad, refuse_second_order
 
 # At and above this length every trunk route takes the unfused block with
 # flash_mha (ppt_tpu/kernels/attention.py:45): the whole-row scores stop
@@ -256,7 +256,7 @@ def _mha_run(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Whole-row attention, [B, L, H, D] -> [B, L, H, D] in q's dtype.
     Differentiable: the backward recomputes ``mha_reference``."""
-    return recompute_grad(_mha_run, mha_reference, q, k, v)
+    return recompute_grad("fused_mha", _mha_run, mha_reference, q, k, v)
 
 
 def _flash_run(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -282,6 +282,7 @@ class _FlashMha(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
+        refuse_second_order("flash_mha_bwd")
         grads = _flash_bwd(*ctx.saved_tensors, do)
         return tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad))
 
@@ -299,5 +300,5 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
     if not (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))):
         return _flash_run(q, k, v)
     if q.device.type == "cpu":
-        return recompute_grad(_flash_run, flash_plain, q, k, v)
+        return recompute_grad("flash_mha", _flash_run, flash_plain, q, k, v)
     return _FlashMha.apply(q, k, v)

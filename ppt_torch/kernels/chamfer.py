@@ -142,4 +142,4 @@ def chamfer(xyz1: torch.Tensor, xyz2: torch.Tensor) -> torch.Tensor:
     launch. Scalar. Differentiable: the backward recomputes the plain
     ``chamfer_l2`` (``ops.losses3d``), whose gradient reaches each point's
     nearest neighbour only."""
-    return recompute_grad(_chamfer_run, chamfer_l2, xyz1, xyz2)
+    return recompute_grad("chamfer_nn_dists", _chamfer_run, chamfer_l2, xyz1, xyz2)

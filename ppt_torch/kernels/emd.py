@@ -31,6 +31,7 @@ from typing import Tuple
 import torch
 
 from ppt_torch.kernels import _build, _losses3d
+from ppt_torch.kernels._autograd import refuse_second_order
 from ppt_torch.ops.geometry import square_distance
 
 # -4^j for j = 7..-1, then a final exact level 0 (``emd.py:46``)
@@ -187,6 +188,7 @@ class _MatchCost(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        refuse_second_order("approx_match")
         # matchcostgrad1/2: d cost / d x1_n = 2 sum_m match[n, m] (x1_n - x2_m)
         xyz1, xyz2, match = ctx.saved_tensors
         x1, x2 = xyz1.float(), xyz2.float()

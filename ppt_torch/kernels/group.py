@@ -342,7 +342,7 @@ def ball_query_gather_feats(
         kept["idx"], kept["rel"], fj = run(radius, nsample, xyz.detach(), new_xyz.detach(), f)
         return fj
 
-    fj = recompute_grad(forward, lambda f: _gather_rows(f, kept["idx"]), feats)
+    fj = recompute_grad("ball_query_gather_feats", forward, lambda f: _gather_rows(f, kept["idx"]), feats)
     return kept["idx"], kept["rel"], fj
 
 

@@ -123,8 +123,8 @@ def mini_forward(
     groups2: [B, G*M, 3] f32; weights [in, out] and biases in any float
     type (rounded to ``dtype`` as the TPU kernel does). Differentiable:
     the backward recomputes ``mini_forward_plain``."""
-    return recompute_grad(_mini_forward_run, mini_forward_plain, m_size, dtype, groups2, fw1,
-                          fb1, w2, b2, fwg, fwl, fbsplit, w3, b3)
+    return recompute_grad("mini_forward", _mini_forward_run, mini_forward_plain, m_size, dtype,
+                          groups2, fw1, fb1, w2, b2, fwg, fwl, fbsplit, w3, b3)
 
 
 # ---------------------------------------------------------------------------
@@ -224,5 +224,5 @@ def mini_stats(
     """(sum h, sum h^2) [H] f32 of the pre-BN2 activations over all
     B*G*M rows (BN1 folded into fw1/fb1; wg/wl/bsplit unfolded).
     Differentiable: the backward recomputes ``mini_stats_plain``."""
-    return recompute_grad(_mini_stats_run, mini_stats_plain, m_size, dtype, groups2, fw1, fb1,
-                          w2, b2, wg, wl, bsplit)
+    return recompute_grad("mini_stats", _mini_stats_run, mini_stats_plain, m_size, dtype, groups2,
+                          fw1, fb1, w2, b2, wg, wl, bsplit)

@@ -173,5 +173,5 @@ def fused_text_block(x, ln1s, ln1b, wqkv, bqkv, wout, bout, ln2s, ln2b, wfc, bfc
                      heads) -> torch.Tensor:
     """One whole CLIP text block: ``[B, L, D]`` -> ``[B, L, D]`` in x's
     dtype. Differentiable: the backward recomputes ``text_block_plain``."""
-    return recompute_grad(_block_run, text_block_plain, x, ln1s, ln1b, wqkv, bqkv, wout, bout,
-                          ln2s, ln2b, wfc, bfc, wproj, bproj, heads)
+    return recompute_grad("fused_text_block", _block_run, text_block_plain, x, ln1s, ln1b, wqkv,
+                          bqkv, wout, bout, ln2s, ln2b, wfc, bfc, wproj, bproj, heads)

@@ -36,6 +36,7 @@ from typing import Sequence
 import torch
 
 from ppt_torch.kernels import _build
+from ppt_torch.kernels._autograd import refuse_second_order
 from ppt_torch.kernels.textblock import (LN_EPS, MATRICES, MATRIX_NAMES, call_entry,
                                          causal_scores, check_text_shapes, forward_scratch,
                                          prepare_weights, quick_gelu_f32, split_heads)
@@ -255,6 +256,7 @@ class _FusedTextTower(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        refuse_second_order("fused_text_tower_bwd")
         saved = list(ctx.saved_tensors)
         x0, eot = saved[0], saved[1]
         weights = saved[3:] if ctx.need_x else saved[2:]

@@ -219,8 +219,8 @@ def fused_vit_block(
 ) -> torch.Tensor:
     """One whole ViT block: [B, L, C] -> [B, L, C] in x's dtype.
     Differentiable: the backward recomputes ``vit_block_plain``."""
-    return recompute_grad(_block_run, vit_block_plain, x, pos, dp, ln1s, ln1b, wqkv, wproj,
-                          bproj, ln2s, ln2b, wfc1, bfc1, wfc2, bfc2, heads)
+    return recompute_grad("fused_vit_block", _block_run, vit_block_plain, x, pos, dp, ln1s, ln1b,
+                          wqkv, wproj, bproj, ln2s, ln2b, wfc1, bfc1, wfc2, bfc2, heads)
 
 
 def fused_vit_block_readout(
@@ -229,9 +229,9 @@ def fused_vit_block_readout(
 ) -> torch.Tensor:
     """Last block + trunk readout: [B, L, C] -> [B, 8, C] f32.
     Differentiable: the backward recomputes ``vit_block_readout_plain``."""
-    return recompute_grad(_block_readout_run, vit_block_readout_plain, x, pos, dp, ln1s, ln1b,
-                          wqkv, wproj, bproj, ln2s, ln2b, wfc1, bfc1, wfc2, bfc2, lnfs, lnfb,
-                          heads)
+    return recompute_grad("fused_vit_block_readout", _block_readout_run, vit_block_readout_plain,
+                          x, pos, dp, ln1s, ln1b, wqkv, wproj, bproj, ln2s, ln2b, wfc1, bfc1,
+                          wfc2, bfc2, lnfs, lnfb, heads)
 
 
 def _tower_run(
@@ -285,5 +285,6 @@ def fused_vit_tower(
     """The whole trunk + readout: x/pos [B, L, C], dp [B, depth, 2] f32,
     weights stacked with a leading depth axis -> [B, 8, C] f32.
     Differentiable: the backward recomputes ``vit_tower_plain``."""
-    return recompute_grad(_tower_run, vit_tower_plain, x, pos, dp, ln1s, ln1b, wqkv, wproj,
-                          bproj, ln2s, ln2b, wfc1, bfc1, wfc2, bfc2, lnfs, lnfb, heads)
+    return recompute_grad("fused_vit_tower", _tower_run, vit_tower_plain, x, pos, dp, ln1s, ln1b,
+                          wqkv, wproj, bproj, ln2s, ln2b, wfc1, bfc1, wfc2, bfc2, lnfs, lnfb,
+                          heads)

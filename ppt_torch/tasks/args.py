@@ -2,8 +2,13 @@
 
 The flags the recognition, few-shot and pretraining tasks read, with the
 reference package's names and defaults, plus ``--device`` (empty: the card).
-``--config`` YAML files are not ported yet, so the published recipe is
-spelled out as flags.
+``--config`` reads an experiment YAML (``configs/experiments/*``) and
+``--set KEY=VALUE ...`` overrides its keys; the order of precedence is the
+reference's (``ppt_tpu/tasks/args.py:140-157``): defaults, then the YAML
+with its overrides, then explicit flags.
+
+    python -m ppt_torch.tasks.cls --config configs/experiments/ppt_base_mn40.yaml \
+        --set epochs=1 --votes 3 [--device cpu]
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ class TaskArgs:
     # data
     output_dir: str = "outputs"
     dataset_name: str = "modelnet40"
+    sonn_type: str = "hardest"  # ScanObjectNN variant: obj_only | obj_bg | hardest
     data_path: str = "data"
     use_height: bool = False
     npoints: int = 8192
@@ -33,6 +39,7 @@ class TaskArgs:
     model: str = "ULIP_PointBERT"
     head_type: int = 0
     test_ckpt_addr: str = ""
+    ulip2: bool = False  # read by the pretrained-backbone loader, not ported yet
     pretrained_dir: str = "data/pretrained_models"
     # training
     epochs: int = 250
@@ -42,6 +49,8 @@ class TaskArgs:
     data_ratio: float = 1.0
     optim: str = "adamw"
     sched: str = "cosine"
+    plateau_patience: int = 10  # epochs without improvement (sched=plateau)
+    plateau_factor: float = 0.1  # update scale on a plateau
     lr: float = 3e-3
     lr_start: float = 1e-6
     lr_end: float = 1e-5
@@ -57,7 +66,8 @@ class TaskArgs:
     seed: int = 0
     task: str = "cls"
     compute_dtype: str = "float32"  # 'float32' | 'bfloat16'
-    steps_per_dispatch: int = 1  # >1 is not ported yet
+    steps_per_dispatch: int = 1  # >1: that many steps launched before the host reads a metric
+    votes: int = 1  # evaluation votes in the train loop (vote 0 the untouched batch)
     exp_name: str = ""
     device: str = ""  # '' = cuda; 'cpu' runs the plain PyTorch path
 
@@ -83,8 +93,27 @@ class TaskArgs:
         raise FileNotFoundError(f"no classnames for {self.dataset_name} in {labels_path}")
 
 
+# the fields of the reference's TaskArgs (``ppt_tpu/tasks/args.py:19-87``):
+# a config key among them that the port lacks raises by name
+REFERENCE_FIELDS = (
+    "output_dir", "dataset_name", "dataset_type", "sonn_type", "dataset_prompt", "data_path",
+    "use_height", "npoints", "nshots", "allow_synthetic_fallback", "template_init",
+    "num_learnable_prompt_tokens", "class_name_position", "model", "head_type",
+    "test_ckpt_addr", "ulip2", "fpath", "topk", "pretrained_dir", "epochs", "warmup_epochs",
+    "start_epoch", "batch_size", "data_ratio", "optim", "sched", "plateau_patience",
+    "plateau_factor", "lr", "lr_start", "lr_end", "update_freq", "wd", "betas", "eps",
+    "grad_norm_clip", "eval_freq", "resume", "label_smoothing", "num_step", "num_run",
+    "print_freq", "evaluate_3d", "seed", "task", "compute_dtype", "mesh_devices",
+    "steps_per_dispatch", "votes", "voxel_size", "voxel_max", "test_area", "eval_scene",
+    "allow_train_eval", "max_eval_passes", "cm_out", "proj_name", "exp_name", "wandb",
+)
+
+
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="PPT PyTorch port: training and evaluation")
+    p.add_argument("--config", default="", help="experiment YAML (configs/experiments/*)")
+    p.add_argument("--set", dest="overrides", nargs="*", default=[], metavar="KEY=VALUE",
+                   help="dotted config overrides, each value read as YAML")
     for field in dataclasses.fields(TaskArgs):
         if field.name == "classnames":
             continue
@@ -99,10 +128,16 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def parse_args(argv=None) -> TaskArgs:
+    """Later wins: the dataclass defaults, the ``--config`` YAML with its
+    ``--set`` overrides, the explicit flags."""
     ns = build_argparser().parse_args(argv)
     args = TaskArgs()
+    if ns.config:
+        from ppt_torch.utils.config import apply_overrides, config_to_args, load_config
+
+        args = config_to_args(apply_overrides(load_config(ns.config), ns.overrides or []), args)
     for k, v in vars(ns).items():
-        if v is None:
+        if k in ("config", "overrides") or v is None:
             continue
         setattr(args, k, tuple(v) if k == "betas" else v)
     return args

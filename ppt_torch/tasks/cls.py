@@ -2,17 +2,18 @@
 
 Counterpart of ``ppt_tpu/tasks/cls.py`` (``setup``, ``validate``,
 ``train_loop``, ``main``). Loop structure as the reference's:
-per-iteration cosine learning rate with linear warmup, label-smoothed
-cross entropy, the logit-scale clamp inside the step, the ``data_ratio``
-early break, evaluation every ``eval_freq`` epochs with the text tower
-run once per pass, and a best-only checkpoint of the trainable partition.
-Without pretrained weights or a checkpoint the weights are random from
-``--seed``; without the dataset's files the data is synthetic.
+per-iteration learning rate with linear warmup, label-smoothed cross
+entropy, the logit-scale clamp inside the step, the ``data_ratio`` early
+break, ``steps_per_dispatch`` steps launched before the host reads their
+metrics, evaluation every ``eval_freq`` epochs with the text tower run
+once per pass and ``votes`` votes, and a best-only checkpoint of the
+trainable partition. Without pretrained weights or a checkpoint the
+weights are random from ``--seed``; without the dataset's files the data
+is synthetic.
 
-    # train PPT-Base as published (configs/experiments/ppt_base_mn40.yaml)
-    python -m ppt_torch.tasks.cls --dataset_name modelnet40 --npoints 1024 \
-        --batch_size 30 --class_name_position middle --label_smoothing 0.2 \
-        --compute_dtype bfloat16 [--head_type 0..3] [--device cpu]
+    # train PPT-Base as published
+    python -m ppt_torch.tasks.cls --config configs/experiments/ppt_base_mn40.yaml \
+        [--set epochs=1 ...] [--votes 3] [--steps_per_dispatch 2] [--device cpu]
     # the other towers: --model ULIP_PN_NEXT --use_height (PointNeXt-S takes the
     # height as a 4th channel), --model ULIP_PN_SSG, --model ULIP_PN_MSG
     # evaluate a checkpoint
@@ -32,7 +33,7 @@ from typing import Dict, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from ppt_torch.data.augment import append_height, train_augment
+from ppt_torch.data.augment import append_height, train_augment, translate_pointcloud
 from ppt_torch.data.datasets import build_dataset
 from ppt_torch.data.loader import Loader
 from ppt_torch.models.ulip import PromptArrays, build_model, trainable_mask
@@ -118,7 +119,9 @@ def setup(args: TaskArgs) -> Dict:
         model, mask,
         lambda trainable: build_optimizer(
             args.optim, trainable.items(), sched, weight_decay=args.wd, betas=args.betas,
-            eps=args.eps, grad_norm_clip=args.grad_norm_clip),
+            eps=args.eps, grad_norm_clip=args.grad_norm_clip,
+            plateau_patience=args.plateau_patience if args.sched.lower() == "plateau" else 0,
+            steps_per_epoch=steps_per_epoch, plateau_factor=args.plateau_factor),
         seed=args.seed + 1,
     )
     if args.resume:
@@ -142,19 +145,31 @@ def setup(args: TaskArgs) -> Dict:
     }
 
 
-def validate(state, eval_fn, test_ds, prompts, args: TaskArgs, device) -> Dict[str, float]:
+def validate(state, eval_fn, test_ds, prompts, args: TaskArgs, device,
+             votes: int = 1) -> Dict[str, float]:
     """Eval loop over ``test_ds``; ``state`` is the model and ``eval_fn``
-    the (embed, step) pair of ``make_cached_text_eval``."""
+    the (embed, step) pair of ``make_cached_text_eval``. With ``votes > 1``
+    each batch also runs ``votes - 1`` copies scaled and shifted by
+    ``translate_pointcloud`` (the openpoints voting protocol,
+    ``ppt_tpu/tasks/cls.py:149-193``): vote 0 is the untouched batch, the
+    draws come from a generator seeded with ``args.seed + 7``, the height
+    channel is appended after the translation, and the summed logits give
+    the prediction."""
     embed_fn, step_fn = eval_fn
     text_embed = embed_fn(state, prompts)
+    gen = torch.Generator(device=device).manual_seed(args.seed + 7)
     preds, labels = [], []
     for batch in Loader(test_ds, batch_size=args.batch_size):
         valid = batch["valid"]
-        pc = torch.from_numpy(batch["pc"].astype(np.float32)).to(device)
-        if args.use_height:
-            pc = append_height(pc)
-        logits = step_fn(state, {"pc": pc}, text_embed)
-        preds.append(logits.argmax(-1).cpu().numpy()[valid])
+        pc0 = torch.from_numpy(batch["pc"].astype(np.float32)).to(device)
+        logits_sum = None
+        for v in range(max(votes, 1)):
+            pc = translate_pointcloud(gen, pc0) if v > 0 else pc0
+            if args.use_height:
+                pc = append_height(pc)
+            logits = step_fn(state, {"pc": pc}, text_embed)
+            logits_sum = logits if logits_sum is None else logits_sum + logits
+        preds.append(logits_sum.argmax(-1).cpu().numpy()[valid])
         labels.append(batch["label"][valid])
     preds = np.concatenate(preds)
     labels = np.concatenate(labels)
@@ -172,12 +187,17 @@ def train_loop(args: TaskArgs, ctx: Dict) -> Dict[str, float]:
     prompts, device = ctx["prompts"], ctx["device"]
     train_ds, test_ds = ctx["train_ds"], ctx["test_ds"]
 
-    if max(args.steps_per_dispatch, 1) > 1:
-        make_train_multi_step()
-    step_fn = make_train_step(smoothing=args.label_smoothing)
+    K = max(args.steps_per_dispatch, 1)
+    # adahessian takes the Hutchinson diagonal threaded into the step
+    second_order = args.optim.lower() == "adahessian"
+    multi_fn = make_train_multi_step(args.label_smoothing, second_order) if K > 1 else None
+    step_fn = make_train_step(smoothing=args.label_smoothing, second_order=second_order)
     eval_fn = make_cached_text_eval(model)
     loader = Loader(train_ds, batch_size=args.batch_size, shuffle=True, drop_last=True,
                     seed=args.seed)
+    # augmentation draws from its own stream, as the reference's aug_key
+    # (seed + 2): K-step dispatch then takes the same draws as single steps
+    aug_gen = torch.Generator(device=device).manual_seed(args.seed + 2)
     exp_log = ExperimentLogger(args, task_name=args.task)
 
     best_acc = 0.0
@@ -188,18 +208,33 @@ def train_loop(args: TaskArgs, ctx: Dict) -> Dict[str, float]:
         loss_meter, acc_meter = Meter("loss"), Meter("acc")
         t0 = time.time()
         n_batches = len(loader)
+        pending = []  # augmented batches awaiting a K-step dispatch
         for it, batch in enumerate(loader):
             # data-efficiency early break (main_cls.py:173-174)
             if it / max(n_batches, 1) > args.data_ratio:
                 break
             dbatch = device_batch(batch, device)
-            dbatch["pc"] = train_augment(state.generator, dbatch["pc"],
-                                         use_height=args.use_height)
-            state, metrics = step_fn(state, dbatch, prompts)
-            loss_meter.update(float(metrics["loss"]), len(batch["label"]))
-            acc_meter.update(float(metrics["acc"]), len(batch["label"]))
+            dbatch["pc"] = train_augment(aug_gen, dbatch["pc"], use_height=args.use_height)
+            if K > 1:
+                pending.append(dbatch)
+                if len(pending) < K:
+                    continue
+                stacked = {k: torch.stack([b[k] for b in pending]) for k in dbatch}
+                pending = []
+                state, metrics = multi_fn(state, stacked, prompts)
+                loss_meter.update(float(metrics["loss"].mean()), K * len(batch["label"]))
+                acc_meter.update(float(metrics["acc"].mean()), K * len(batch["label"]))
+            else:
+                state, metrics = step_fn(state, dbatch, prompts)
+                loss_meter.update(float(metrics["loss"]), len(batch["label"]))
+                acc_meter.update(float(metrics["acc"]), len(batch["label"]))
             if not math.isfinite(loss_meter.avg):
                 raise FloatingPointError(f"non-finite loss at epoch {epoch}")
+        # leftover batches (fewer than K) run through the single step
+        for dbatch in pending:
+            state, metrics = step_fn(state, dbatch, prompts)
+            loss_meter.update(float(metrics["loss"]), args.batch_size)
+            acc_meter.update(float(metrics["acc"]), args.batch_size)
 
         entry = {
             "epoch": epoch,
@@ -209,7 +244,7 @@ def train_loop(args: TaskArgs, ctx: Dict) -> Dict[str, float]:
             "epoch_time": time.time() - t0,
         }
         if (epoch % args.eval_freq) == 0 or epoch == args.epochs - 1:
-            val = validate(model, eval_fn, test_ds, prompts, args, device)
+            val = validate(model, eval_fn, test_ds, prompts, args, device, votes=args.votes)
             entry["val_acc1"] = val["acc1"]
             if val["acc1"] > best_acc:
                 best_acc = val["acc1"]

@@ -38,9 +38,9 @@ from ppt_torch.nn.dvae import DiscreteVAE, DvaeConfig, dvae_loss, init_dvae
 from ppt_torch.tasks.args import TaskArgs, parse_args
 from ppt_torch.tasks.cls import device_batch
 from ppt_torch.train.checkpoint import save_checkpoint
-from ppt_torch.train.optim import AdamW, build_optimizer
+from ppt_torch.train.optim import Optimizer, build_optimizer
 from ppt_torch.train.schedules import cosine_with_warmup
-from ppt_torch.train.trainer import TrainState, create_train_state
+from ppt_torch.train.trainer import TrainState, apply_gradients, create_train_state
 from ppt_torch.utils.device import resolve_device, resolve_dtype
 
 log = logging.getLogger(__name__)
@@ -48,14 +48,17 @@ log = logging.getLogger(__name__)
 TEMP_START, TEMP_END = 1.0, 0.0625  # PointBERT's Gumbel-softmax anneal endpoints
 
 
-def make_dvae_step(model: DiscreteVAE, optimizer: AdamW, kl_weight: float = 0.1,
-                   recon: str = "chamfer") -> Callable:
+def make_dvae_step(model: DiscreteVAE, optimizer: Optimizer, kl_weight: float = 0.1,
+                   recon: str = "chamfer", second_order: bool = False) -> Callable:
     """``step(state, batch, temperature, uniforms=None) -> (state,
     metrics)``: the dVAE in training mode (batch statistics and their
     running update, Gumbel noise from ``state.generator`` unless
     ``uniforms`` gives it), ``recon + kl_weight * kl`` with ``recon`` the
-    loss ``dvae_loss`` names, AdamW on every parameter. ``metrics`` holds
-    ``loss``, ``recon`` and ``kl`` as 0-dim tensors."""
+    loss ``dvae_loss`` names, the optimizer on every parameter (with the
+    Hutchinson diagonal when ``second_order``, as the reference's step
+    threads it, ``tasks/dvae_pretrain.py:39-60``: the encoder's MiniPointNet
+    kernels refuse it by name, as the reference's kernels do). ``metrics``
+    holds ``loss``, ``recon`` and ``kl`` as 0-dim tensors."""
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor], temperature: float,
              uniforms: Optional[torch.Tensor] = None):
@@ -63,9 +66,7 @@ def make_dvae_step(model: DiscreteVAE, optimizer: AdamW, kl_weight: float = 0.1,
                     generator=state.generator, uniforms=uniforms)
         loss_recon, klv = dvae_loss(ret, model.config.num_tokens, recon=recon)
         loss = loss_recon + kl_weight * klv
-        names = list(optimizer.params)
-        grads = torch.autograd.grad(loss, [optimizer.params[k] for k in names])
-        optimizer.step(dict(zip(names, grads)))
+        apply_gradients(optimizer, loss, state.generator, second_order)
         state.step += 1
         return state, {"loss": loss.detach(), "recon": loss_recon.detach(), "kl": klv.detach()}
 
@@ -105,7 +106,8 @@ def main(args: Optional[Union[TaskArgs, Sequence[str]]] = None,
     log.info("dVAE pretraining on %s (%d clouds); params: %d", train_ds.name, len(train_ds),
              sum(p.numel() for p in state.trainable.values()))
 
-    step_fn = make_dvae_step(model, state.optimizer)
+    step_fn = make_dvae_step(model, state.optimizer,
+                             second_order=args.optim.lower() == "adahessian")
     loader = Loader(train_ds, batch_size=args.batch_size, shuffle=True, drop_last=True,
                     seed=args.seed)
     total_steps = max(args.epochs * steps_per_epoch, 1)

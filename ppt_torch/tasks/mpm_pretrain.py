@@ -41,21 +41,25 @@ from ppt_torch.nn.pointbert import PointBertConfig, group_points
 from ppt_torch.tasks.args import TaskArgs, parse_args
 from ppt_torch.tasks.cls import device_batch, point_route_from_env
 from ppt_torch.train import checkpoint
-from ppt_torch.train.optim import AdamW, build_optimizer
+from ppt_torch.train.optim import Optimizer, build_optimizer
 from ppt_torch.train.schedules import cosine_with_warmup
-from ppt_torch.train.trainer import TrainState, create_train_state
+from ppt_torch.train.trainer import TrainState, apply_gradients, create_train_state
 from ppt_torch.utils.device import resolve_device, resolve_dtype
 
 log = logging.getLogger(__name__)
 
 
-def make_mpm_step(student: PointBertMPM, dvae: DiscreteVAE, optimizer: AdamW,
-                  mask_ratio: float, num_group: int, group_size: int) -> Callable:
+def make_mpm_step(student: PointBertMPM, dvae: DiscreteVAE, optimizer: Optimizer,
+                  mask_ratio: float, num_group: int, group_size: int,
+                  second_order: bool = False) -> Callable:
     """``step(state, batch, mask=None) -> (state, metrics)``: group the
     clouds, take the frozen dVAE's ids, mask ``mask_ratio`` of the groups
     (drawn from ``state.generator`` through ``sample_group_mask`` unless
     ``mask`` gives them), run the student in training mode (DropPath from
-    the same generator), masked cross-entropy, AdamW on the student.
+    the same generator), masked cross-entropy, the optimizer on the student
+    (with the Hutchinson diagonal when ``second_order``, as the reference's
+    step threads it, ``tasks/mpm_pretrain.py:39-62``: the student's kernels
+    refuse it by name, as the reference's kernels do).
     ``metrics`` holds ``loss`` and ``masked_acc`` (percent) as 0-dim
     tensors."""
 
@@ -69,9 +73,7 @@ def make_mpm_step(student: PointBertMPM, dvae: DiscreteVAE, optimizer: AdamW,
                                      device=pc.device)
         logits = student(neighborhood, center, mask, train=True, generator=state.generator)
         loss, acc = mpm_loss(logits, targets, mask)
-        names = list(optimizer.params)
-        grads = torch.autograd.grad(loss, [optimizer.params[k] for k in names])
-        optimizer.step(dict(zip(names, grads)))
+        apply_gradients(optimizer, loss, state.generator, second_order)
         state.step += 1
         return state, {"loss": loss.detach(), "masked_acc": acc.detach() * 100.0}
 
@@ -125,7 +127,7 @@ def main(args: Optional[Union[TaskArgs, Sequence[str]]] = None,
             eps=args.eps, grad_norm_clip=args.grad_norm_clip),
         seed=args.seed + 1)
     step_fn = make_mpm_step(student, dvae, state.optimizer, mask_ratio, cfg.num_group,
-                            cfg.group_size)
+                            cfg.group_size, second_order=args.optim.lower() == "adahessian")
     log.info("MPM pretraining on %s (%d clouds), route %s; student params: %d",
              train_ds.name, len(train_ds), student.route,
              sum(p.numel() for p in state.trainable.values()))

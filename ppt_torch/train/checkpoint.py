@@ -31,11 +31,17 @@ def _cpu(tree: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {k: v.detach().cpu().clone() for k, v in tree.items()}
 
 
+def _cpu_state(tree):
+    """An optimizer's state dict with every tensor copied to the host."""
+    if isinstance(tree, dict):
+        return {k: _cpu_state(v) for k, v in tree.items()}
+    return tree.detach().cpu().clone() if isinstance(tree, torch.Tensor) else tree
+
+
 def state_payload(state: TrainState) -> Dict[str, Any]:
-    opt = state.optimizer.state_dict()
     return {
         "trainable": _cpu(state.trainable),
-        "opt_state": {"count": opt["count"], "mu": _cpu(opt["mu"]), "nu": _cpu(opt["nu"])},
+        "opt_state": _cpu_state(state.optimizer.state_dict()),
         "batch_stats": _cpu(state.batch_stats()),
         "step": int(state.step),
     }

@@ -1,4 +1,4 @@
-"""Trainer: the trainable partition, AdamW on it alone, the train step.
+"""Trainer: the trainable partition, its optimizer, the train steps.
 
 Counterpart of ``ppt_tpu/train/trainer.py``. The reference differentiates
 its loss with respect to the trainable partition only; here the same
@@ -15,14 +15,14 @@ live (``trainer.py:143-149``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from ppt_torch.models.losses import smoothed_cross_entropy
 from ppt_torch.models.ulip import PromptArrays, apply_trainable_mask
-from ppt_torch.train.optim import AdamW
+from ppt_torch.train.optim import Optimizer
 
 LOGIT_SCALE_MAX = 4.6052  # ln(100), main_cls.py:213
 
@@ -34,7 +34,7 @@ class TrainState:
     step count, and the generator DropPath and augmentation draw from."""
 
     model: nn.Module
-    optimizer: AdamW
+    optimizer: Optimizer
     generator: torch.Generator
     step: int = 0
 
@@ -48,7 +48,7 @@ class TrainState:
 
 
 def create_train_state(model: nn.Module, mask: Dict[str, bool],
-                       make_optimizer: Callable[[Dict[str, torch.Tensor]], AdamW],
+                       make_optimizer: Callable[[Dict[str, torch.Tensor]], Optimizer],
                        seed: int) -> TrainState:
     """Apply ``mask`` to ``model`` and build the optimizer over what it
     leaves trainable; the generator lives on the model's device."""
@@ -64,21 +64,26 @@ def clamp_logit_scale(trainable: Dict[str, torch.Tensor]) -> None:
         trainable["logit_scale"].clamp_(0.0, LOGIT_SCALE_MAX)
 
 
-def make_train_step(smoothing: float = 0.0) -> Callable:
+def make_train_step(smoothing: float = 0.0, second_order: bool = False) -> Callable:
     """``train_step(state, batch, prompts) -> (state, metrics)``: one
     optimizer step on ``batch`` (``pc`` [B, N, 3], ``label`` [B], on the
     model's device). ``metrics`` holds ``loss`` and ``acc`` (percent) as
     0-dim tensors, so the caller decides when to wait for the device. The
-    model and the optimizer come with ``state``."""
+    model and the optimizer come with ``state``; the optimizer gets the
+    loss as ``value`` (the plateau stage reads it). With ``second_order``
+    (``adahessian``) the gradients keep their graph and the Hutchinson
+    diagonal, from one Rademacher probe drawn from the state's generator,
+    goes to the optimizer as ``hess``, as the
+    reference's ``_make_train_step_fn`` threads it (``trainer.py:110-190``);
+    a kernel on the way from a trainable leaf to the loss refuses by name."""
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    prompts: PromptArrays) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         trainable = state.trainable
         logits = state.model(batch["pc"], prompts, train=True, generator=state.generator)
         loss = smoothed_cross_entropy(logits, batch["label"], smoothing)
-        names = list(trainable)
-        grads = torch.autograd.grad(loss, [trainable[k] for k in names])
-        state.optimizer.step(dict(zip(names, grads)))
+        apply_gradients(state.optimizer, loss, state.generator, second_order,
+                        value=loss.detach())
         clamp_logit_scale(trainable)
         state.step += 1
         with torch.no_grad():
@@ -88,9 +93,55 @@ def make_train_step(smoothing: float = 0.0) -> Callable:
     return train_step
 
 
-def make_train_multi_step(*args, **kwargs):
-    raise NotImplementedError("steps_per_dispatch > 1 (several optimizer steps per dispatch) "
-                              "is not ported yet")
+def apply_gradients(optimizer: Optimizer, loss: torch.Tensor, generator: torch.Generator,
+                    second_order: bool = False, value=None) -> None:
+    """One optimizer step on the gradient of ``loss`` against the
+    optimizer's tensors; with ``second_order`` the Hutchinson diagonal goes
+    with it as ``hess``."""
+    names = list(optimizer.params)
+    leaves = [optimizer.params[k] for k in names]
+    grads = torch.autograd.grad(loss, leaves, create_graph=second_order)
+    extra = {}
+    if second_order:
+        hess = hutchinson_diag(grads, leaves, generator)
+        extra["hess"] = {k: h.detach() for k, h in zip(names, hess)}
+        grads = [g.detach() for g in grads]
+    optimizer.step(dict(zip(names, grads)), value=value, **extra)
+
+
+def make_train_multi_step(smoothing: float = 0.0, second_order: bool = False) -> Callable:
+    """``multi_step(state, batches, prompts) -> (state, metrics)``: the
+    reference's ``make_train_multi_step`` (``trainer.py:216-251``) without
+    its ``lax.scan``: ``batches`` holds K batches stacked (``pc`` [K, B, N,
+    3], ``label`` [K, B]), and the K single steps are launched back to back
+    with no read by the host between them; ``metrics`` are [K] tensors."""
+    single = make_train_step(smoothing, second_order)
+
+    def multi_step(state: TrainState, batches: Dict[str, torch.Tensor],
+                   prompts: PromptArrays) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        per_step = []
+        for k in range(batches["pc"].shape[0]):
+            state, metrics = single(state, {n: b[k] for n, b in batches.items()}, prompts)
+            per_step.append(metrics)
+        return state, {n: torch.stack([m[n] for m in per_step]) for n in per_step[0]}
+
+    return multi_step
+
+
+def hutchinson_diag(grads: Sequence[torch.Tensor], params: Sequence[torch.Tensor],
+                    generator: torch.Generator, n_samples: int = 1) -> List[torch.Tensor]:
+    """Hutchinson's estimate of the Hessian diagonal, ``E_z[z * (H z)]`` over
+    Rademacher probes ``z`` drawn from ``generator``, with ``H z`` the
+    gradient of ``grads`` (taken with ``create_graph=True``) against ``z``
+    (``train/optim.py:193-214``; the reference's ``jax.jvp`` of its gradient
+    function, one extra backward per probe)."""
+    total = [torch.zeros_like(p) for p in params]
+    for i in range(n_samples):
+        zs = [(torch.randint(0, 2, tuple(p.shape), generator=generator, device=p.device) * 2
+               - 1).to(p.dtype) for p in params]
+        hz = torch.autograd.grad(grads, params, grad_outputs=zs, retain_graph=i < n_samples - 1)
+        total = [t + h * z / n_samples for t, h, z in zip(total, hz, zs)]
+    return total
 
 
 def make_eval_step() -> Callable:

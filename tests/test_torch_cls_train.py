@@ -5,7 +5,9 @@ wide, G=16, M=8, N=128; text tower 2 layers, 64 wide; 4 synthetic
 classes) for 2 epochs: history, metrics file and best-only checkpoint are
 written; ``--evaluate_3d --test_ckpt_addr`` loads the checkpoint and
 reproduces the accuracy; ``--resume`` continues; the few-shot task
-delegates; what this slice leaves out raises by name.
+delegates; what is not ported raises by name, and the cases that were
+refusals (``steps_per_dispatch``, ``lamb``, ``multistep``) now run and
+follow the reference.
 """
 
 import json
@@ -118,9 +120,13 @@ def test_training_flags_parse():
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(steps_per_dispatch=4), NotImplementedError, "steps_per_dispatch"),
-    (dict(optim="lamb"), NotImplementedError, "lamb"),
-    (dict(sched="multistep"), NotImplementedError, "multistep"),
+    # ported since these cases were written: each runs now and follows the
+    # reference (the ids are the cases' own)
+    pytest.param(dict(steps_per_dispatch=4), None, "steps_per_dispatch",
+                 id="kw0-NotImplementedError-steps_per_dispatch"),
+    pytest.param(dict(optim="lamb"), None, "lamb", id="kw1-NotImplementedError-lamb"),
+    pytest.param(dict(sched="multistep"), None, "multistep",
+                 id="kw2-NotImplementedError-multistep"),
     (dict(task="partseg"), NotImplementedError, "partseg"),
     (dict(model="ULIP_PN_MLP"), KeyError, "ULIP_PN_MLP"),
     (dict(use_height=True), NotImplementedError, "use_height"),
@@ -128,8 +134,34 @@ def test_training_flags_parse():
     (dict(use_height=True, model="ULIP_PN_MSG"), NotImplementedError, "ULIP_PN_MSG takes xyz"),
 ])
 def test_what_the_slice_leaves_out_raises_by_name(tmp_path, kw, exc, match):
+    if exc is None:
+        _runs_as_the_reference(tmp_path, kw)
+        return
     with pytest.raises(exc, match=match):
         cls.main(_args(tmp_path, epochs=1, **kw))
+
+
+def _runs_as_the_reference(tmp_path, kw):
+    """Two epochs of 3 steps: every step taken (with K = 4 > 3 batches all
+    three run as leftovers through the single step, as the reference's
+    loop runs them), the optimizer the reference's name gives, and each
+    epoch's logged rate equal to the reference's schedule at that step."""
+    from ppt_tpu.train.optim import build_schedule as jax_build_schedule
+
+    from ppt_torch.train.optim import Lamb
+
+    args = _args(tmp_path, **kw)
+    ctx = cls.setup(args)
+    out = cls.train_loop(args, ctx)
+    state = ctx["state"]
+    assert state.step == 6 and state.optimizer.count == 6
+    assert isinstance(state.optimizer, Lamb) == (args.optim == "lamb")
+    want = jax_build_schedule(args.sched, args.lr, args.epochs, 3, final_lr=args.lr_end,
+                              warmup_epochs=args.warmup_epochs, warmup_start_lr=args.lr_start)
+    for entry in out["history"]:
+        step = (entry["epoch"] + 1) * 3 - 1
+        assert abs(entry["lr"] - float(want(step))) <= 1e-9, (entry, float(want(step)))
+        assert entry["loss"] > 0 and 0.0 <= entry["val_acc1"] <= 100.0
 
 
 def test_existing_pretrained_dir_is_not_silently_ignored(tmp_path):

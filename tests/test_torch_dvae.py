@@ -357,7 +357,12 @@ def test_dvae_pretrain_main_one_epoch_on_the_cpu(tmp_path):
 
 
 def test_dvae_pretrain_refuses_by_name(monkeypatch):
-    with pytest.raises(NotImplementedError, match="adahessian"):
+    # adahessian is threaded into the step now, as the reference's
+    # (tasks/dvae_pretrain.py:39-60); its Hessian-vector product would
+    # differentiate the encoder's MiniPointNet kernel twice, which the
+    # reference's kernel route refuses too (jax.jvp through a custom_vjp),
+    # so the step refuses by the kernel's name
+    with pytest.raises(NotImplementedError, match="mini_forward.*adahessian"):
         dvae_pretrain.main(TaskArgs(dataset_name="synthetic", optim="adahessian", device="cpu",
                                     npoints=64), config=TINY)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -85,14 +85,46 @@ def test_adamw_decays_every_leaf_and_reads_lr_before_the_increment():
 
 @pytest.mark.parametrize("name", ["multistep", "poly", "tanh", "plateau", "cosine_restarts"])
 def test_unported_schedules_raise_by_name(name):
-    with pytest.raises(NotImplementedError, match=name):
-        build_schedule(name, 1e-3, 2, 2)
+    """Ported since this case was a refusal: the schedule now gives the
+    reference's value at every step, warmup and the step past the end
+    included (1e-7 absolute, as above)."""
+    kw = dict(KW, warmup_epochs=1)
+    want_fn = jax_build_schedule(name, 3e-3, 6, 4, **kw, milestones=(2, 4))
+    got_fn = build_schedule(name, 3e-3, 6, 4, **kw, milestones=(2, 4))
+    for step in range(0, 6 * 4 + 3):
+        assert abs(got_fn(step) - float(want_fn(jnp.asarray(step)))) <= 1e-7, (name, step)
 
 
 @pytest.mark.parametrize("name", ["adam", "sgd", "lamb", "adahessian", "madgrad"])
 def test_unported_optimizers_raise_by_name(name):
-    with pytest.raises(NotImplementedError, match=name):
-        build_optimizer(name, {}.items(), lambda s: 1e-3)
+    """Ported since this case was a refusal: three steps of the optimizer
+    against the reference's on the same gradients (and, for adahessian, the
+    same Hessian diagonal), 1e-6 absolute on parameters of order 1."""
+    from ppt_tpu.train.optim import build_optimizer as jax_build_optimizer
+
+    rng = np.random.RandomState(2)
+    shapes = {"tokens": (4, 16), "scale": ()}
+    p0 = {k: np.asarray(rng.randn(*s), np.float32) for k, s in shapes.items()}
+    sched = dict(KW, warmup_epochs=0)
+    jopt = optax.with_extra_args_support(jax_build_optimizer(
+        name, jax_build_schedule("cosine", 3e-3, 3, 2, **sched), weight_decay=0.1))
+    pj = {k: jnp.asarray(v) for k, v in p0.items()}
+    st = jopt.init(pj)
+    pt = {k: torch.from_numpy(v.copy()) for k, v in p0.items()}
+    topt = build_optimizer(name, pt.items(), build_schedule("cosine", 3e-3, 3, 2, **sched),
+                           weight_decay=0.1)
+    for _ in range(3):
+        g = {k: np.asarray(rng.randn(*s) * 0.1, np.float32) for k, s in shapes.items()}
+        h = {k: np.asarray(rng.rand(*s) + 0.5, np.float32) for k, s in shapes.items()}
+        extra = dict(hess={k: jnp.asarray(v) for k, v in h.items()}) if name == "adahessian" \
+            else {}
+        upd, st = jopt.update({k: jnp.asarray(v) for k, v in g.items()}, st, pj,
+                              value=jnp.asarray(1.0), **extra)
+        pj = optax.apply_updates(pj, upd)
+        topt.step({k: torch.from_numpy(v) for k, v in g.items()},
+                  hess={k: torch.from_numpy(v) for k, v in h.items()})
+    for k in shapes:
+        np.testing.assert_allclose(pt[k].numpy(), np.asarray(pj[k]), atol=1e-6, rtol=0)
 
 
 def test_unknown_names_raise_key_error():

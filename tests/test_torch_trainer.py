@@ -218,8 +218,33 @@ def test_trainable_mask_head_types_and_partseg():
     assert counts == [1, 5, 9, 12]
     with pytest.raises(NotImplementedError, match="partseg"):
         trainable_mask(model, task="partseg")
-    with pytest.raises(NotImplementedError, match="steps_per_dispatch"):
-        make_train_multi_step()
+    # ported since this case was a refusal: two steps in one multi-step
+    # call leave the state where two single steps leave it, bit for bit
+    # (the reference's lax.scan of its single step, trainer.py:216-251)
+    args.pointbert_config = PointBertConfig(depth=2, **dict(TINY, drop_path_rate=0.1))
+    prompts = PromptArrays.from_spec(
+        build_prompt_spec(CLASSES, n_ctx=4, class_name_position="middle"), device="cpu")
+    batches = [torch_batch(b) for b in make_batches(2)]
+    states, losses = [], []
+    for multi in (False, True):
+        torch.manual_seed(0)
+        model = build_model("ULIP_PointBERT", args, device="cpu").model
+        state = create_train_state(
+            model, trainable_mask(model, head_type=3),
+            lambda tr: build_optimizer("adamw", tr.items(), lambda s: 1e-3), seed=4)
+        if multi:
+            stacked = {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+            state, m = make_train_multi_step(SMOOTHING)(state, stacked, prompts)
+            assert m["loss"].shape == (2,) and m["acc"].shape == (2,)
+            losses.append(m["loss"].tolist())
+        else:
+            step = make_train_step(SMOOTHING)
+            ms = [step(state, b, prompts)[1] for b in batches]
+            losses.append([float(x["loss"]) for x in ms])
+        states.append(state)
+    assert losses[0] == losses[1] and states[0].step == states[1].step == 2
+    for k, v in states[0].trainable.items():
+        assert torch.equal(v, states[1].trainable[k]), k
 
 
 def test_eval_step_uses_running_statistics_and_moves_nothing():
