@@ -6,8 +6,9 @@ ball-query towers (PointNeXt-S, PointNet++ SSG and MSG), PointBERT's
 other trunk routes with the long-sequence trunk, and training through the
 long trunk (prompt tuning at head types 3 and 2, ULIP pretraining),
 PointBERT's two pretraining stages (the dVAE tokenizer, masked point
-modeling), and the kernel tools (the ViT-block ablation probe, the on-card
-kernel check).
+modeling), the kernel tools (the ViT-block ablation probe, the on-card
+kernel check), the published recipes, and converted pretrained backbones
+with ULIP_PN_MLP at full width.
 
     python3 chip_smoke.py            # one CUDA card, no arguments
     python3 chip_smoke.py --only ballquery   # group.cu, phase 3's ball queries alone
@@ -19,6 +20,8 @@ kernel check).
                                              # sweep, the dVAE step with recon="emd"
     python3 chip_smoke.py --only recipes     # phase 13: the published recipes, the optimizer
                                              # zoo on the card, adahessian by route
+    python3 chip_smoke.py --only pretrained  # phase 14: converted ULIP/SLIP backbones loaded,
+                                             # ULIP_PN_MLP at full width
 
 Phases (any failed check raises, and the script exits non-zero):
   1. card name / power limit (nvidia-smi), torch and CUDA versions;
@@ -277,6 +280,26 @@ Phases (any failed check raises, and the script exits non-zero):
      it has a second derivative, the refusal by the kernel's name where it
      has not. Its numbers go on a line of their own ({"recipes": ...});
      ``--only recipes`` builds what it needs and runs it alone.
+ 14. converted pretrained backbones and PointMLP: seeded full-width weights
+     (SLIP's 12 x 512 text tower with its 49408-token vocabulary, PointBERT
+     at PointBertConfig(), PointNet++ SSG and MSG, PointNeXt-S with the
+     4-wide stem, PointMLP) written as .pt files with the reference's names
+     and converted by ``python -m ppt_torch.tools.ckpt_convert``, one
+     process each, into a --pretrained_dir; through ``cls.setup``: PPT-Base
+     (every leaf but the prompt's loaded, by the logged counts, and
+     bit-equal to its source; a ``validate`` pass over 309 of phase 4's
+     clouds in bf16 and in f32 and one train step, the six kernels
+     launched; logits against the plain path in bf16 and f32 at phase 4's
+     limits), the SSG, MSG and NeXt files loaded bit for bit, then
+     ULIP_PN_MLP at full width, B=32 x 1024 (loaded bit for bit;
+     fps_batched launched 4 times a batch in a bf16 ``validate`` pass, an
+     f32 pass too; logits against the plain path in bf16 and f32; 20
+     timed head-type-0 train steps, then 20 under the profiler: clouds/sec,
+     wall, busy and idle a batch; fps_batched at PointMLP's four shapes
+     with the launches queued, against fps_plain); an existing directory
+     without converted files warns and keeps the seeded init. Its numbers
+     go on a line of their own ({"pretrained": ...}); ``--only pretrained``
+     builds what it needs and runs it alone.
 
 The build prints each CUDA kernel's registers and spills (ptxas -v).
 The line before the card's is a JSON object with the per-kernel numbers
@@ -296,6 +319,7 @@ import contextlib
 import ctypes
 import dataclasses
 import json
+import logging
 import math
 import os
 import re
@@ -3874,6 +3898,427 @@ def run_recipes_slice(smi):
     return stats
 
 
+# ---------------------------------------------------------------------------
+# phase 14: converted ULIP/SLIP backbones, and ULIP_PN_MLP at full width
+# ---------------------------------------------------------------------------
+
+PRETRAINED_DIR = _build.BUILD_DIR.parent / "chip_smoke_pretrained"
+MLP_BATCH = 32
+# PointMLP's four FPS launches a batch: 1024 -> 512 -> 256 -> 128 -> 64 points
+MLP_FPS_SHAPES = ((1024, 512), (512, 256), (256, 128), (128, 64))
+LOADED_MSG = "%s: loaded %d/%d leaves from pretrained"  # train/checkpoint.py's line
+
+# The phase writes its .pt files with the reference's parameter names from a
+# seeded port model: a port module path -> (the reference's module name, a
+# Conv's 1-wide kernel), by checkpoint kind, the inverse of the layout rules of
+# ppt_torch/tools/ckpt_convert.py. A template ending in "_" joins its leaves
+# without a dot (in_proj_weight).
+_TEXT_REF = (
+    (r"", "", False), (r"text", "", False), (r"text\.token_embedding", "token_embedding", False),
+    (r"text\.ln_final", "ln_final", False),
+    (r"text\.block_(\d+)\.(ln_[12])", r"transformer.resblocks.\1.\2", False),
+    (r"text\.block_(\d+)\.attn\.in_proj", r"transformer.resblocks.\1.attn.in_proj_", False),
+    (r"text\.block_(\d+)\.attn\.out_proj", r"transformer.resblocks.\1.attn.out_proj", False),
+    (r"text\.block_(\d+)\.(c_fc|c_proj)", r"transformer.resblocks.\1.mlp.\2", False))
+_PE = r"point_encoder\."
+REF_NAMES = {
+    "slip": _TEXT_REF,
+    "pointbert": (
+        (r"", "", False), (r"point_encoder", "point_encoder", False),
+        (_PE + r"encoder\.conv1a", "point_encoder.encoder.first_conv.0", True),
+        (_PE + r"encoder\.bn1", "point_encoder.encoder.first_conv.1", False),
+        (_PE + r"encoder\.conv1b", "point_encoder.encoder.first_conv.3", True),
+        (_PE + r"encoder\.conv2a", "point_encoder.encoder.second_conv.0", True),
+        (_PE + r"encoder\.bn2", "point_encoder.encoder.second_conv.1", False),
+        (_PE + r"encoder\.conv2b", "point_encoder.encoder.second_conv.3", True),
+        (_PE + r"(reduce_dim|norm)", r"point_encoder.\1", False),
+        (_PE + r"pos_embed1", "point_encoder.pos_embed.0", False),
+        (_PE + r"pos_embed2", "point_encoder.pos_embed.2", False),
+        (_PE + r"block_(\d+)\.(.+)", r"point_encoder.blocks.blocks.\1.\2", False)),
+    "pointnet2": (
+        (r"", "", False),
+        (_PE + r"(sa\d)\.conv(\d+)_(\d+)", r"point_encoder.\1.conv_blocks.\2.\3", True),
+        (_PE + r"(sa\d)\.bn(\d+)_(\d+)", r"point_encoder.\1.bn_blocks.\2.\3", False),
+        (_PE + r"(sa\d)\.conv(\d+)", r"point_encoder.\1.mlp_convs.\2", True),
+        (_PE + r"(sa\d)\.bn(\d+)", r"point_encoder.\1.mlp_bns.\2", False),
+        (_PE + r"head\.(fc\d|bn\d)", r"point_encoder.\1", False)),
+    "pointmlp": (
+        (r"", "", False),
+        (_PE + r"embedding\.conv", "point_encoder.embedding.net.0", True),
+        (_PE + r"embedding\.bn", "point_encoder.embedding.net.1", False),
+        (_PE + r"grouper(\d)", r"point_encoder.local_grouper_list.\1", False),
+        (_PE + r"pre(\d)\.transfer\.conv", r"point_encoder.pre_blocks_list.\1.transfer.net.0",
+         True),
+        (_PE + r"pre(\d)\.transfer\.bn", r"point_encoder.pre_blocks_list.\1.transfer.net.1", False),
+        (_PE + r"(pre|pos)(\d)\.res(\d)\.conv(\d)",
+         r"point_encoder.\1_blocks_list.\2.operation.\3.net\4.0", True),
+        (_PE + r"(pre|pos)(\d)\.res(\d)\.bn(\d)",
+         r"point_encoder.\1_blocks_list.\2.operation.\3.net\4.1", False),
+        (_PE + r"fc1", "point_encoder.classifier.0", False),
+        (_PE + r"bn1", "point_encoder.classifier.1", False),
+        (_PE + r"fc2", "point_encoder.classifier.4", False),
+        (_PE + r"bn2", "point_encoder.classifier.5", False)),
+    "pointnext": (
+        (r"", "", False),
+        (_PE + r"stem", "point_encoder.encoder.encoder.0.0.convs.0.0", True),
+        (_PE + r"stage(\d)_(?:sa|global)\.conv(\d)\.conv",
+         r"point_encoder.encoder.encoder.\1.0.convs.\2.0", True),
+        (_PE + r"stage(\d)_(?:sa|global)\.conv(\d)\.bn",
+         r"point_encoder.encoder.encoder.\1.0.convs.\2.1", False),
+        (_PE + r"stage(\d)_sa\.skipconv", r"point_encoder.encoder.encoder.\1.0.skipconv.0", True),
+        (_PE + r"head_fc0", "point_encoder.prediction.head.0.0", False),
+        (_PE + r"head_bn0", "point_encoder.prediction.head.0.1", False),
+        (_PE + r"head_fc1", "point_encoder.prediction.head.2.0", False),
+        (_PE + r"head_bn1", "point_encoder.prediction.head.2.1", False)),
+}
+# (converter kind, the file the loader reads, the model whose seeded weights
+# write it): SLIP's text tower from PPT-Base's, each point tower from its own
+PRETRAINED_FILES = (("slip", "slip_text", "ULIP_PointBERT"),
+                    ("pointbert", "pointbert", "ULIP_PointBERT"),
+                    ("pointnet2_ssg", "pointnet2_ssg", "ULIP_PN_SSG"),
+                    ("pointnet2_msg", "pointnet2_msg_1kpts", "ULIP_PN_MSG"),
+                    ("pointnext", "pointnext", "ULIP_PN_NEXT"),
+                    ("pointmlp", "pointmlp", "ULIP_PN_MLP"))
+
+
+def in_file(kind, key):
+    """Whether the port's state-dict ``key`` is a leaf of ``kind``'s file."""
+    if kind == "slip":
+        return key.startswith("text.") or key == "logit_scale"
+    return key.startswith("point_encoder.") or key == "pc_projection"
+
+
+def reference_state_dict(kind, sd):
+    """The port's ``sd`` leaves of ``kind`` under the reference's names and
+    layouts: Dense kernels transposed (a Conv's with its 1-wide axis),
+    BatchNorms with their ``num_batches_tracked``."""
+    rules = REF_NAMES["pointnet2" if kind.startswith("pointnet2") else kind]
+    out = {}
+    for key, t in sd.items():
+        if not in_file(kind, key):
+            continue
+        mod, leaf = key.rsplit(".", 1) if "." in key else ("", key)
+        for pattern, template, conv in rules:
+            m = re.fullmatch(pattern, mod)
+            if m:
+                name = m.expand(template)
+                break
+        else:
+            raise KeyError(f"no reference name for {key} ({kind})")
+        ref_leaf = "weight" if leaf == "kernel" else leaf
+        ref = name + ref_leaf if name.endswith("_") else ".".join(filter(None, (name, ref_leaf)))
+        if leaf == "kernel":
+            t = t.t().contiguous()
+            t = t[..., None] if conv else t
+        out[ref] = t.clone()
+        if leaf == "running_mean":
+            out[f"{name}.num_batches_tracked"] = torch.tensor(1000)
+    return out
+
+
+def pretrained_args(model, dtype="bfloat16", batch=MLP_BATCH, pretrained_dir=None, **kw):
+    args = train_args(dtype, 0, batch, model=model, use_height=model == "ULIP_PN_NEXT", **kw)
+    args.pretrained_dir = str(pretrained_dir or PRETRAINED_DIR)
+    return args
+
+
+def write_pretrained_files():
+    """Seeded full-width weights (seed 11, every leaf drawn anew) as the
+    reference's ``.pt`` files, each converted by ``python -m
+    ppt_torch.tools.ckpt_convert`` in its own process (all at once) into
+    ``PRETRAINED_DIR``. Returns each model's source state dict (CPU)."""
+    shutil.rmtree(PRETRAINED_DIR, ignore_errors=True)
+    (PRETRAINED_DIR / "src").mkdir(parents=True)
+    sources, procs = {}, []
+    t0 = time.perf_counter()
+    for kind, fname, model in PRETRAINED_FILES:
+        if model not in sources:
+            m = build_model(model, pretrained_args(model, "float32"), device="cpu", seed=11).model
+            gen = torch.Generator().manual_seed(len(sources) + 12)
+            with torch.no_grad():
+                for key, t in m.state_dict().items():  # BatchNorm and LayerNorm too
+                    noise = 0.02 * torch.randn(t.shape, generator=gen)
+                    t.copy_(t * (1 + noise.abs()) if key.endswith("running_var") else t + noise)
+            sources[model] = {k: v.clone() for k, v in m.state_dict().items()}
+        src = PRETRAINED_DIR / "src" / f"{fname}.pt"
+        torch.save({"state_dict": reference_state_dict(kind, sources[model]),
+                    "args": argparse.Namespace(model=model, seed=11)}, src)
+        procs.append((fname, subprocess.Popen(
+            [sys.executable, "-m", "ppt_torch.tools.ckpt_convert", "--src", str(src), "--kind",
+             kind, "--out", str(PRETRAINED_DIR / f"{fname}.msgpack")],
+            cwd=str(Path(__file__).resolve().parent), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    for fname, p in procs:
+        out, _ = p.communicate(timeout=300)
+        check(p.returncode == 0, f"ckpt_convert {fname} failed: {out[-2000:]}")
+    shutil.rmtree(PRETRAINED_DIR / "src")
+    sizes = {f: (PRETRAINED_DIR / f"{f}.msgpack").stat().st_size for _, f, _ in PRETRAINED_FILES}
+    print(f"[pretrained] wrote and converted {len(procs)} full-width .pt files in "
+          f"{time.perf_counter() - t0:.1f} s: MB "
+          f"{json.dumps({k: round(v / 2**20, 1) for k, v in sizes.items()})}")
+    return sources
+
+
+@contextlib.contextmanager
+def loaded_counts():
+    """The loader's logged (collection, loaded, total) lines, in order."""
+    seen = []
+
+    class Grab(logging.Handler):
+        def emit(self, record):
+            if record.msg == LOADED_MSG:
+                seen.append(tuple(record.args))
+
+    lg = logging.getLogger("ppt_torch.train.checkpoint")
+    handler, level = Grab(), lg.level
+    lg.addHandler(handler)
+    lg.setLevel(logging.INFO)
+    try:
+        yield seen
+    finally:
+        lg.removeHandler(handler)
+        lg.setLevel(level)
+
+
+def setup_loaded(model, dtype, sources, files):
+    """``cls.setup`` of ``model`` with ``PRETRAINED_DIR``: every leaf but the
+    prompt's loaded (the logged counts) and bit-equal to its source."""
+    with loaded_counts() as counts:
+        ctx = cls.setup(pretrained_args(model, dtype))
+    sd = ctx["model"].state_dict()
+    n_params = len(list(ctx["model"].parameters()))
+    n_stats = sum(k.endswith(("running_mean", "running_var")) for k in sd)
+    loaded = sum(c[1] for c in counts if c[0] == "params")
+    check([c[0] for c in counts] == ["params", "batch_stats"] * len(files),
+          f"{model}: the loader logged {counts} for {files}")
+    check(loaded == n_params - 1 and sum(c[1] for c in counts if c[0] == "batch_stats")
+          == n_stats, f"{model} {dtype}: loaded {counts}, the model has {n_params} params "
+          f"(the prompt's stays) and {n_stats} statistics")
+    n_equal = 0
+    for kind, src_model in files:
+        src = sources[src_model]
+        for key, want in src.items():
+            if in_file(kind, key):
+                check(torch.equal(sd[key].cpu(), want), f"{model}: {key} differs from its source")
+                n_equal += 1
+    check(n_equal == len(sd) - 1, f"{model}: {n_equal} leaves checked of {len(sd)}")
+    print(f"[pretrained] {model} {dtype}: loaded {json.dumps(counts)}; {n_equal} leaves "
+          f"bit-equal to their .pt sources")
+    return ctx, {"counts": counts, "bit_equal_leaves": n_equal}
+
+
+def loaded_logits_vs_plain(tag, ctx, dtype, pc):
+    embed_fn, step_fn = make_cached_text_eval(ctx["model"])
+    text_embed = embed_fn(ctx["model"], ctx["prompts"])
+    logits = step_fn(ctx["model"], {"pc": pc}, text_embed)
+    with plain_path():
+        want = step_fn(ctx["model"], {"pc": pc}, text_embed)
+    torch.cuda.synchronize()
+    check(torch.isfinite(logits).all() and logits.shape == want.shape, f"{tag} logits")
+    diff = float((logits - want).abs().max() / want.std())
+    top1 = float((logits.argmax(-1) == want.argmax(-1)).float().mean())
+    ok = diff <= 1e-3 and top1 >= 0.95 if dtype == "float32" else diff <= 0.25 and top1 >= 0.8
+    print(f"[pretrained] {tag} {dtype} logits vs plain path on the card, loaded weights: "
+          f"max|diff|/std {diff:.3e}, top-1 agreement {top1:.3f}")
+    check(ok, f"{tag} {dtype} logits disagree with the plain path")
+    return {"diff_over_std": diff, "top1": top1}
+
+
+def validate_counted(ctx, args):
+    """One ``validate`` pass with the counts set to 0 just before it."""
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    val = cls.validate(ctx["model"], make_cached_text_eval(ctx["model"]), ctx["test_ds"],
+                       ctx["prompts"], args, DEV)
+    torch.cuda.synchronize()
+    return dict(_build.LAUNCHES), time.perf_counter() - t0, val
+
+
+def f32_validate(model, ctx):
+    """The f32 ``validate`` pass of a loaded model: finite, its kernels
+    launched."""
+    launches, wall, val = validate_counted(ctx, pretrained_args(model, "float32"))
+    check(math.isfinite(val["acc1"]) and launches.get("fps_batched", 0) > 0,
+          f"{model} f32 validate: acc1 {val['acc1']}, launches {launches}")
+    print(f"[pretrained] {model} f32 loaded: validate in {wall * 1e3:.1f} ms, acc1 "
+          f"{val['acc1']:.2f}; launches {json.dumps(launches, sort_keys=True)}")
+    return {"ms": wall * 1e3, "acc1": val["acc1"], "launches": launches}
+
+
+def synthetic_modelnet40_phase4(args, split):
+    """Phase 4's clouds, every 8th of them (309 over the 40 classes), to test
+    on; phase 5's to train on."""
+    if split == "train":
+        return synthetic_modelnet40(args, split)
+    ds = synthetic_modelnet40_eval(args, split)
+    return ArrayDataset(ds.points[::8], ds.labels[::8], ds.classnames, name=ds.name)
+
+
+def run_pretrained_slice(smi):
+    saved_loader = pdata.DATASETS["modelnet40"]
+    pdata.DATASETS["modelnet40"] = synthetic_modelnet40_phase4
+    try:
+        return _run_pretrained_slice(smi)
+    finally:
+        pdata.DATASETS["modelnet40"] = saved_loader
+        shutil.rmtree(PRETRAINED_DIR, ignore_errors=True)
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+
+
+def _run_pretrained_slice(smi):
+    t_phase = time.perf_counter()
+    out = {}
+    sources = write_pretrained_files()
+
+    # --- PPT-Base with the converted PointBERT and SLIP ----------------------
+    base_files = (("pointbert", "ULIP_PointBERT"), ("slip", "ULIP_PointBERT"))
+    ctx, out["ppt_base_load"] = setup_loaded("ULIP_PointBERT", "bfloat16", sources, base_files)
+    pc = torch.from_numpy(ctx["test_ds"].points[:MLP_BATCH]).to(DEV)
+    launches, wall, val = validate_counted(ctx, pretrained_args("ULIP_PointBERT"))
+    n_batches = math.ceil(len(ctx["test_ds"]) / MLP_BATCH)
+    b = cls.device_batch(next(iter(Loader(ctx["train_ds"], MLP_BATCH, shuffle=True, seed=3))),
+                         DEV)
+    _build.reset_launches()
+    make_train_step(smoothing=0.2)(ctx["state"], b, ctx["prompts"])
+    torch.cuda.synchronize()
+    train_launches = dict(_build.LAUNCHES)
+    six = ("fps_batched", "knn_gather", "mini_forward", "mini_stats", "fused_vit_block",
+           "fused_vit_block_readout")
+    counted = {k: launches.get(k, 0) for k in six if k != "mini_stats"}
+    counted["mini_stats"] = train_launches.get("mini_stats", 0)
+    print(f"[pretrained] ULIP_PointBERT bf16 loaded: validate over {len(ctx['test_ds'])} clouds "
+          f"({n_batches} batches) in {wall * 1e3:.1f} ms, acc1 {val['acc1']:.2f}; launches in the "
+          f"pass {json.dumps(counted)} (mini_stats in one train step)")
+    check(all(v > 0 for v in counted.values()), f"a PPT-Base kernel never ran: {counted}")
+    out["ppt_base_launches"] = counted
+    out["ppt_base_logits"] = {"bfloat16": loaded_logits_vs_plain("ULIP_PointBERT", ctx,
+                                                                 "bfloat16", pc)}
+    del ctx
+    ctx32, _ = setup_loaded("ULIP_PointBERT", "float32", sources, base_files)
+    out["ppt_base_f32_validate"] = f32_validate("ULIP_PointBERT", ctx32)
+    out["ppt_base_logits"]["float32"] = loaded_logits_vs_plain("ULIP_PointBERT", ctx32,
+                                                               "float32", pc)
+    del ctx32
+
+    # --- the other converted towers load bit for bit ---------------------------
+    for kind, fname, model in PRETRAINED_FILES[2:5]:
+        c, out[f"{model}_load"] = setup_loaded(model, "bfloat16", sources,
+                                               ((kind, model), ("slip", "ULIP_PointBERT")))
+        del c
+
+    # --- ULIP_PN_MLP at full width with its converted weights -------------------
+    mlp_files = (("pointmlp", "ULIP_PN_MLP"), ("slip", "ULIP_PointBERT"))
+    args = pretrained_args("ULIP_PN_MLP")
+    ctx, out["pn_mlp_load"] = setup_loaded("ULIP_PN_MLP", "bfloat16", sources, mlp_files)
+    tower = ctx["model"].point_encoder
+    check(tower.config.points == 1024 and tower.config.embed_dim == 64
+          and tower.fc1.kernel.shape == (1024, 512), "PointMLP at full width")
+    n_tower = sum(p.numel() for p in tower.parameters())
+    validate_counted(ctx, args)  # warm-up
+    launches, wall, val = validate_counted(ctx, args)
+    n_batches = math.ceil(len(ctx["test_ds"]) / MLP_BATCH)
+    print(f"[pretrained] ULIP_PN_MLP bf16 loaded: point tower {n_tower / 1e6:.2f} M parameters; "
+          f"validate over {len(ctx['test_ds'])} clouds x {args.npoints} points ({n_batches} "
+          f"batches of {MLP_BATCH}) in {wall * 1e3:.1f} ms, acc1 {val['acc1']:.2f}; launches "
+          f"{json.dumps(launches, sort_keys=True)}")
+    check(launches.get("fps_batched", 0) == 4 * n_batches,
+          f"ULIP_PN_MLP launched fps_batched {launches.get('fps_batched')} times in "
+          f"{n_batches} batches, not 4 a batch")
+    out["pn_mlp_validate"] = {"clouds": len(ctx["test_ds"]), "batches": n_batches,
+                              "ms": wall * 1e3, "launches": launches,
+                              "fps_batched_per_batch": launches.get("fps_batched", 0) / n_batches}
+    out["pn_mlp_logits"] = {"bfloat16": loaded_logits_vs_plain("ULIP_PN_MLP", ctx, "bfloat16",
+                                                               pc)}
+
+    # 20 timed head-type-0 train steps, then their device time under the profiler
+    state = ctx["state"]
+    check(sorted(state.trainable) == ["prompt_learner.learnable_tokens"], "PN_MLP partition")
+    frozen0 = snapshot({k: p for k, p in ctx["model"].named_parameters()
+                        if k not in state.trainable})
+    step_fn = make_train_step(smoothing=0.2)
+    stream = batch_stream(Loader(ctx["train_ds"], MLP_BATCH, shuffle=True, drop_last=True,
+                                 seed=0))
+    run_steps(ctx, step_fn, stream, 3)  # warm-up
+    t0 = time.perf_counter()
+    losses = run_steps(ctx, step_fn, stream, 20)
+    wall = time.perf_counter() - t0
+    rate = 20 * MLP_BATCH / wall
+
+    def one_step():
+        run_steps(ctx, step_fn, stream, 1)
+
+    prof = tprofile._profile(one_step, 20)
+    check(all(math.isfinite(x) for x in losses), f"PN_MLP train losses {losses}")
+    check(all(torch.equal(p, frozen0[k]) for k, p in ctx["model"].named_parameters()
+              if k in frozen0), "a frozen PointMLP leaf moved")
+    out["pn_mlp_train"] = {
+        "steps": 20, "batch": MLP_BATCH, "clouds_per_sec": rate,
+        "wall_ms_per_batch": wall / 20 * 1e3,
+        "busy_ms_per_batch": prof["device_busy_ms_per_batch"],
+        # the profiler slows the host, not the card: idle against the plain wall
+        "idle_share": 1.0 - prof["device_busy_ms_per_batch"] / (wall / 20 * 1e3),
+        "profiled_wall_ms_per_batch": prof["wall_ms_per_batch"],
+        "profiled_idle_share": prof["device_idle_share"],
+        "loss_first_last": [losses[0], losses[-1]], "card": smi}
+    print(f"[pretrained] ULIP_PN_MLP bf16 head_type 0, 20 steps of {MLP_BATCH}: "
+          f"{rate:.1f} clouds/sec, wall {wall / 20 * 1e3:.3f} ms a batch, busy "
+          f"{prof['device_busy_ms_per_batch']:.3f} ms (profiled), idle "
+          f"{out['pn_mlp_train']['idle_share']:.3f}; the profiled window: wall "
+          f"{prof['wall_ms_per_batch']:.3f} ms, idle {prof['device_idle_share']:.3f}; loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; {smi}")
+    del ctx, state, frozen0, stream
+    ctx32, _ = setup_loaded("ULIP_PN_MLP", "float32", sources, mlp_files)
+    out["pn_mlp_f32_validate"] = f32_validate("ULIP_PN_MLP", ctx32)
+    out["pn_mlp_logits"]["float32"] = loaded_logits_vs_plain("ULIP_PN_MLP", ctx32, "float32",
+                                                             pc)
+    del ctx32
+
+    # fps_batched at PointMLP's four shapes, the launches queued, against fps_plain
+    fps = []
+    for N, npoint in MLP_FPS_SHAPES:
+        xyz = cloud(MLP_BATCH, N, N + npoint)
+        check(torch.equal(kgroup.fps_batched(xyz, npoint), kgroup.fps_plain(xyz, npoint)),
+              f"fps_batched differs from fps_plain at {N} -> {npoint}")
+        times = alternated_ms({"kernel": lambda: kgroup.fps_batched(xyz, npoint)},
+                              timer=queued_ms)
+        bms, by = bound_ms(MLP_BATCH * N * 12 + MLP_BATCH * npoint * 4,
+                           MLP_BATCH * npoint * N * 10, PEAK["f32"])
+        row = dict(B=MLP_BATCH, N=N, npoint=npoint, queued_ms=times["kernel"],
+                   plain_ms=gpu_time_ms(lambda: kgroup.fps_plain(xyz, npoint), reps=3, warmup=1),
+                   bound_ms=bms, bound_by=by)
+        fps.append(row)
+        print(f"[pretrained] fps_batched PointMLP {MLP_BATCH} x {N} -> {npoint}: queued "
+              f"{row['queued_ms']:.4f} ms, fps_plain {row['plain_ms']:.3f} ms, bound "
+              f"{bms:.4f} ms ({by})")
+    out["pn_mlp_fps"] = fps
+
+    # --- the miss path: an existing directory without converted files ------------
+    empty = PRETRAINED_DIR / "empty"
+    empty.mkdir()
+    miss_args = pretrained_args("ULIP_PN_MLP", pretrained_dir=empty)
+    want = build_model("ULIP_PN_MLP", miss_args, device=DEV).model.state_dict()
+
+    class Grab(logging.Handler):
+        def emit(self, record):
+            seen.append(record.getMessage())
+
+    seen, lg = [], logging.getLogger("ppt_torch.tasks.cls")
+    handler = Grab(level=logging.WARNING)
+    lg.addHandler(handler)
+    try:
+        got = cls.setup(miss_args)["model"].state_dict()
+    finally:
+        lg.removeHandler(handler)
+    check(any(f"pretrained checkpoints not found under {empty}; random init" in m
+              for m in seen), f"the miss path did not warn: {seen}")
+    check(all(torch.equal(got[k], want[k]) for k in want), "the miss path moved the init")
+    out["miss_path"] = {"warned": True, "init_kept": True}
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[pretrained] phase 14 took {out['seconds']:.1f} s")
+    return out
+
+
 # kernels whose every instance must build without spills (the ball-query walk,
 # the 3-D loss kernels)
 SPILL_FREE = ("ball_query_kernel", "ball_query_feats_kernel", "approx_match_warp_kernel",
@@ -3908,7 +4353,8 @@ def build(names=_build.SOURCES):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("ballquery", "towers", "losses3d", "cloud", "recipes"),
+    ap.add_argument("--only", choices=("ballquery", "towers", "losses3d", "cloud", "recipes",
+                                       "pretrained"),
                     help="build group.cu and run phase 3's ball-query checks and times alone "
                          "(ballquery) or phase 7's ball-query towers alone (towers); build "
                          "losses3d.cu and run phase 3's loss checks and times, nn_dists at "
@@ -3916,7 +4362,8 @@ def main(argv=None):
                          "(losses3d); build cloud.cu and group.cu and run phase 3's "
                          "fps_single and knn_single checks and times beside rows 1-2, and the "
                          "grouping wrappers' host time a call (cloud); build the kernels "
-                         "PointBERT's recipes run and run phase 13 (recipes)")
+                         "PointBERT's recipes run and run phase 13 (recipes); build the "
+                         "kernels PPT-Base and PointMLP run and run phase 14 (pretrained)")
     args = ap.parse_args(argv)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3958,6 +4405,11 @@ def main(argv=None):
     if args.only == "recipes":
         build(["group", "mini", "vitblock", "attention", "text"])
         print(json.dumps({"recipes": run_recipes_slice(smi)}))
+        print(smi)
+        return
+    if args.only == "pretrained":
+        build(["group", "mini", "vitblock", "attention"])
+        print(json.dumps({"pretrained": run_pretrained_slice(smi)}))
         print(smi)
         return
     if args.only == "towers":
@@ -4004,6 +4456,10 @@ def main(argv=None):
     tool_launches, tool_stats = run_tools_slice()
     launches.update(tool_launches)  # the ablation probe's kernel
     recipe_stats = run_recipes_slice(smi)  # its own counts, read per recipe
+    pretrained_stats = run_pretrained_slice(smi)  # its own counts, read per pass
+    results["fps_batched"]["pointmlp_shapes"] = pretrained_stats["pn_mlp_fps"]
+    results["fps_batched"]["pointmlp_launches_per_batch"] = (
+        pretrained_stats["pn_mlp_validate"]["fps_batched_per_batch"])
     for name in SOURCES:
         if name in OFF_PATH_KERNELS:
             check(launches.get(name, 0) == 0, f"{name} is called by no module, yet was launched")
@@ -4042,6 +4498,7 @@ def main(argv=None):
     print(json.dumps({"tools": tool_stats}))
     print(json.dumps({"profile": prof_stats}))
     print(json.dumps({"recipes": recipe_stats}))
+    print(json.dumps({"pretrained": pretrained_stats}))
     print(json.dumps({"kernels": kernels, **slice_stats}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

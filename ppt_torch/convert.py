@@ -24,7 +24,10 @@ decoder's ``fbn*`` statistics) and the masked-point-modeling student
 (``mask_token``, ``cls_pos``, ``lm_head``).
 
 It raises on a leaf that has no counterpart in the port and on a port
-parameter or buffer that no leaf sets.
+parameter or buffer that no leaf sets. ``port_leaves`` gives the same
+mapping leaf by leaf, without the checks, for the pretrained-backbone
+loader (``ppt_torch.train.checkpoint.merge_pretrained``), which skips what
+has no counterpart.
 
 ``train_state_from_jax(payload, state)`` carries a reference training run
 across: the payload of ``ppt_tpu/train/checkpoint.py:38-43`` (trainable
@@ -34,7 +37,7 @@ into the port's ``TrainState``, by the same leaf rules.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Mapping, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,27 +45,42 @@ from torch import nn
 
 
 def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> Iterator[
-        Tuple[Tuple[str, ...], np.ndarray]]:
+        Tuple[Tuple[str, ...], Any]]:
     for k, v in tree.items():
         if isinstance(v, Mapping):
             yield from _flatten(v, prefix + (str(k),))
         else:
-            yield prefix + (str(k),), np.asarray(v)
+            yield prefix + (str(k),), v if isinstance(v, torch.Tensor) else np.asarray(v)
 
 
-def _port_key(path: Tuple[str, ...], stats: bool) -> str:
-    """The torch key of one flax leaf path."""
+def _tensor(arr) -> torch.Tensor:
+    """A leaf as a tensor of its own storage."""
+    if isinstance(arr, torch.Tensor):
+        return arr.detach().clone()
+    return torch.from_numpy(np.array(arr, order="C", copy=True))
+
+
+def _port_key(path: Tuple[str, ...], stats: bool) -> Optional[str]:
+    """The torch key of one flax leaf path; None for a ``batch_stats`` leaf
+    other than ``mean``/``var``."""
     *mods, leaf = path
     if len(mods) >= 2 and mods[-1] == "norm" and mods[-2].startswith("ln_"):
         mods = mods[:-1]  # LayerNormF32 -> its inner nn.LayerNorm
     if stats:
         names = {"mean": "running_mean", "var": "running_var"}
-        if leaf not in names:
-            raise ValueError(f"from_jax: unknown batch_stats leaf {'/'.join(path)}")
-        return ".".join(mods + [names[leaf]])
+        return ".".join(mods + [names[leaf]]) if leaf in names else None
     if leaf in ("scale", "embedding"):
         return ".".join(mods + ["weight"])
     return ".".join(mods + [leaf])
+
+
+def port_leaves(tree: Mapping[str, Any], stats: bool) -> Iterator[
+        Tuple[Tuple[str, ...], Optional[str], Any]]:
+    """(flax path, port key or None, leaf) for every leaf of one collection
+    (``stats``: a ``batch_stats`` tree), by the rules above. Leaves come as
+    they are (numpy arrays, or the torch tensors a bfloat16 leaf reads as)."""
+    for path, arr in _flatten(tree):
+        yield path, _port_key(path, stats), arr
 
 
 def from_jax(params: Mapping[str, Any], batch_stats: Mapping[str, Any],
@@ -71,14 +89,15 @@ def from_jax(params: Mapping[str, Any], batch_stats: Mapping[str, Any],
     want = model.state_dict()
     out: Dict[str, torch.Tensor] = {}
     for tree, stats in ((params, False), (batch_stats or {}, True)):
-        for path, arr in _flatten(tree):
-            key = _port_key(path, stats)
+        for path, key, arr in port_leaves(tree, stats):
+            if key is None:
+                raise ValueError(f"from_jax: unknown batch_stats leaf {'/'.join(path)}")
             if key not in want:
                 raise ValueError(f"from_jax: leaf {'/'.join(path)} (-> {key}) is left over: "
                                  "the port has no such parameter")
             if key in out:
                 raise ValueError(f"from_jax: two leaves map to {key}")
-            t = torch.from_numpy(np.array(arr, order="C", copy=True))
+            t = _tensor(arr)
             if tuple(t.shape) != tuple(want[key].shape):
                 raise ValueError(f"from_jax: {'/'.join(path)} has shape {tuple(t.shape)}, "
                                  f"port {key} wants {tuple(want[key].shape)}")
@@ -118,8 +137,7 @@ def train_state_from_jax(payload: Mapping[str, Any], state):
         raise ValueError("train_state_from_jax: no adam state (count, mu, nu) in opt_state")
 
     def leaves(tree, stats=False):
-        return {_port_key(path, stats): torch.from_numpy(np.array(arr, order="C", copy=True))
-                for path, arr in _flatten(tree)}
+        return {key: _tensor(arr) for _, key, arr in port_leaves(tree, stats)}
 
     return restore_payload({
         "trainable": leaves(payload["trainable"]),

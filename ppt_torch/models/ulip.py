@@ -1,7 +1,7 @@
 """The ULIP composite: point encoder + prompt-tuned CLIP text tower.
 
-Counterpart of ``ppt_tpu/models/ulip.py`` with four of its point towers:
-PointBERT, PointNet++ SSG and MSG, PointNeXt-S, and the template factory
+Counterpart of ``ppt_tpu/models/ulip.py`` with five of its point towers:
+PointBERT, PointNet++ SSG and MSG, PointMLP, PointNeXt-S, and the template factory
 ``ulip_customized`` for a caller's own tower. Forward contract
 (classification; ULIP pretraining pairs ``encode_pc`` with
 ``encode_captions``)::
@@ -25,6 +25,7 @@ from torch import nn
 
 from ppt_torch.nn.layers import init_dense_
 from ppt_torch.nn.pointbert import PointBert, PointBertConfig
+from ppt_torch.nn.pointmlp import PointMLP, PointMLPConfig
 from ppt_torch.nn.pointnet2 import PointNet2Msg, PointNet2Ssg
 from ppt_torch.nn.pointnext import PointNext, PointNextConfig
 from ppt_torch.nn.text import TextConfig, TextTransformer
@@ -185,6 +186,16 @@ def ulip_pn_msg(args, text_fused: str = "off") -> ModelSpec:
     return _make("ULIP_PN_MSG", PointNet2Msg(dtype=dt), 256, args, dt, text_fused)
 
 
+def ulip_pn_mlp(args, text_fused: str = "off") -> ModelSpec:
+    """ULIP over PointMLP (the reference's ``pointMLP()``), the compute
+    dtype threaded into the tower. ``args.pointmlp_config`` may override
+    the config (tests shrink it)."""
+    _xyz_only("ULIP_PN_MLP", args)
+    dt = resolve_dtype(getattr(args, "compute_dtype", "float32"))
+    cfg = getattr(args, "pointmlp_config", None) or PointMLPConfig()
+    return _make("ULIP_PN_MLP", PointMLP(cfg, dtype=dt), 256, args, dt, text_fused)
+
+
 def ulip_pn_next(args, text_fused: str = "off") -> ModelSpec:
     """ULIP over PointNeXt-S. The stem is as wide as the input: 4 channels
     with ``--use_height`` (the published network), else 3, as the
@@ -212,6 +223,7 @@ def ulip_customized(args, encoder: nn.Module, pc_feat_dims: int = 512,
 MODEL_REGISTRY: Dict[str, Callable[..., ModelSpec]] = {
     "ULIP_PN_SSG": ulip_pn_ssg,
     "ULIP_PN_MSG": ulip_pn_msg,
+    "ULIP_PN_MLP": ulip_pn_mlp,
     "ULIP_PointBERT": ulip_pointbert,
     "ULIP_PN_NEXT": ulip_pn_next,
 }

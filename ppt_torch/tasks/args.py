@@ -25,7 +25,9 @@ class TaskArgs:
     # data
     output_dir: str = "outputs"
     dataset_name: str = "modelnet40"
+    dataset_type: str = "test"  # read nowhere, as in the reference
     sonn_type: str = "hardest"  # ScanObjectNN variant: obj_only | obj_bg | hardest
+    dataset_prompt: str = "modelnet40_64"  # read nowhere, as in the reference
     data_path: str = "data"
     use_height: bool = False
     npoints: int = 8192
@@ -39,7 +41,7 @@ class TaskArgs:
     model: str = "ULIP_PointBERT"
     head_type: int = 0
     test_ckpt_addr: str = ""
-    ulip2: bool = False  # read by the pretrained-backbone loader, not ported yet
+    ulip2: bool = False  # the loader's PointBERT file: pointbert_ulip2.msgpack
     pretrained_dir: str = "data/pretrained_models"
     # training
     epochs: int = 250
@@ -54,6 +56,7 @@ class TaskArgs:
     lr: float = 3e-3
     lr_start: float = 1e-6
     lr_end: float = 1e-5
+    update_freq: int = 1  # read nowhere, as in the reference
     wd: float = 0.1
     betas: Tuple[float, float] = (0.9, 0.98)
     eps: float = 1e-8
@@ -62,13 +65,16 @@ class TaskArgs:
     resume: str = ""
     label_smoothing: float = 0.3
     # system
+    print_freq: int = 10  # read nowhere, as in the reference
     evaluate_3d: bool = False
     seed: int = 0
     task: str = "cls"
     compute_dtype: str = "float32"  # 'float32' | 'bfloat16'
     steps_per_dispatch: int = 1  # >1: that many steps launched before the host reads a metric
     votes: int = 1  # evaluation votes in the train loop (vote 0 the untouched batch)
+    proj_name: str = "PPT_TPU"  # the wandb project (utils/logging_utils.py)
     exp_name: str = ""
+    wandb: bool = False  # fan the logged metrics out to wandb too
     device: str = ""  # '' = cuda; 'cpu' runs the plain PyTorch path
 
     # populated at runtime

@@ -7,15 +7,17 @@ entropy, the logit-scale clamp inside the step, the ``data_ratio`` early
 break, ``steps_per_dispatch`` steps launched before the host reads their
 metrics, evaluation every ``eval_freq`` epochs with the text tower run
 once per pass and ``votes`` votes, and a best-only checkpoint of the
-trainable partition. Without pretrained weights or a checkpoint the
-weights are random from ``--seed``; without the dataset's files the data
-is synthetic.
+trainable partition. ``--pretrained_dir`` holding the converted
+``<backbone>.msgpack`` / ``slip_text.msgpack`` files loads them, in
+training and in evaluation; without them (or a checkpoint) the weights are
+random from ``--seed``; without the dataset's files the data is synthetic.
 
     # train PPT-Base as published
     python -m ppt_torch.tasks.cls --config configs/experiments/ppt_base_mn40.yaml \
         [--set epochs=1 ...] [--votes 3] [--steps_per_dispatch 2] [--device cpu]
     # the other towers: --model ULIP_PN_NEXT --use_height (PointNeXt-S takes the
-    # height as a 4th channel), --model ULIP_PN_SSG, --model ULIP_PN_MSG
+    # height as a 4th channel), --model ULIP_PN_SSG, --model ULIP_PN_MSG,
+    # --model ULIP_PN_MLP
     # evaluate a checkpoint
     python -m ppt_torch.tasks.cls --evaluate_3d --test_ckpt_addr outputs/cls ...
 """
@@ -39,7 +41,8 @@ from ppt_torch.data.loader import Loader
 from ppt_torch.models.ulip import PromptArrays, build_model, trainable_mask
 from ppt_torch.prompt.learner import build_prompt_spec
 from ppt_torch.tasks.args import TaskArgs, parse_args
-from ppt_torch.train.checkpoint import load_checkpoint, save_checkpoint
+from ppt_torch.train.checkpoint import (load_checkpoint, load_pretrained_backbones,
+                                        save_checkpoint)
 from ppt_torch.train.eval import make_cached_text_eval
 from ppt_torch.train.optim import build_optimizer, build_schedule
 from ppt_torch.train.trainer import create_train_state, make_train_multi_step, make_train_step
@@ -101,10 +104,8 @@ def setup(args: TaskArgs) -> Dict:
     args.point_route = point_route_from_env()  # read by ulip_pointbert
     log.info("text route: %s; point route: %s", text_route, args.point_route)
     model = build_model(args.model, args, device=device, text_fused=text_route).model
-    if not args.evaluate_3d and args.pretrained_dir and os.path.isdir(args.pretrained_dir):
-        raise NotImplementedError(
-            f"{args.pretrained_dir} exists, but loading converted pretrained backbones is "
-            "not ported yet; pass --pretrained_dir '' to train from seed-initialised weights")
+    if args.pretrained_dir and os.path.isdir(args.pretrained_dir):
+        _maybe_load_pretrained(args, model)
 
     mask = trainable_mask(model, head_type=args.head_type, task=args.task)
     n_train = sum(p.numel() for name, p in model.named_parameters() if mask[name])
@@ -143,6 +144,18 @@ def setup(args: TaskArgs) -> Dict:
         "steps_per_epoch": steps_per_epoch,
         "sched": sched,
     }
+
+
+def _maybe_load_pretrained(args: TaskArgs, model) -> None:
+    """Converted ULIP/SLIP weights from ``args.pretrained_dir`` into
+    ``model`` in place (``tools/ckpt_convert.py`` writes them); without
+    them the seeded init stays, with a warning (``ppt_tpu/tasks/cls.py:
+    136-145``)."""
+    try:
+        load_pretrained_backbones(args, model)
+    except FileNotFoundError:
+        log.warning("pretrained checkpoints not found under %s; random init",
+                    args.pretrained_dir)
 
 
 def validate(state, eval_fn, test_ds, prompts, args: TaskArgs, device,

@@ -2,7 +2,20 @@
 
 from __future__ import annotations
 
+from typing import Sequence, Tuple
+
 import numpy as np
+import torch
+
+
+def topk_accuracy(logits: torch.Tensor, labels: torch.Tensor,
+                  topk: Sequence[int] = (1,)) -> Tuple[torch.Tensor, ...]:
+    """Top-k accuracies in percent, one 0-d f32 tensor per ``k``
+    (``utils/utils.py:376-398``): a sample counts for ``k`` when its label
+    is among its ``k`` largest logits."""
+    pred = torch.topk(logits, max(topk), dim=-1).indices  # [B, maxk]
+    correct = pred == labels[:, None]
+    return tuple(100.0 * correct[:, :k].any(dim=1).float().mean() for k in topk)
 
 
 def per_class_accuracy(preds: np.ndarray, labels: np.ndarray, num_classes: int) -> np.ndarray:

@@ -128,7 +128,10 @@ def test_training_flags_parse():
     pytest.param(dict(sched="multistep"), None, "multistep",
                  id="kw2-NotImplementedError-multistep"),
     (dict(task="partseg"), NotImplementedError, "partseg"),
-    (dict(model="ULIP_PN_MLP"), KeyError, "ULIP_PN_MLP"),
+    # PointMLP is ported since this case was written: the unported example is
+    # now DGCNN (the id is the case's own)
+    pytest.param(dict(model="ULIP_DGCNN"), KeyError, "ULIP_DGCNN",
+                 id="kw4-KeyError-ULIP_PN_MLP"),
     (dict(use_height=True), NotImplementedError, "use_height"),
     (dict(use_height=True, model="ULIP_PN_SSG"), NotImplementedError, "ULIP_PN_SSG takes xyz"),
     (dict(use_height=True, model="ULIP_PN_MSG"), NotImplementedError, "ULIP_PN_MSG takes xyz"),
@@ -164,12 +167,28 @@ def _runs_as_the_reference(tmp_path, kw):
         assert entry["loss"] > 0 and 0.0 <= entry["val_acc1"] <= 100.0
 
 
-def test_existing_pretrained_dir_is_not_silently_ignored(tmp_path):
-    with pytest.raises(NotImplementedError, match="pretrained"):
-        cls.setup(_args(tmp_path, pretrained_dir=str(tmp_path)))
-    # evaluation loads no backbone from it: the check is the train branch's
-    ctx = cls.setup(_args(tmp_path, pretrained_dir=str(tmp_path), evaluate_3d=True))
-    assert ctx["state"].step == 0
+def test_existing_pretrained_dir_is_not_silently_ignored(tmp_path, caplog):
+    """The reference's behaviour: an existing directory without converted
+    files warns and keeps the seeded init, in training and in evaluation;
+    one with them loads them (``test_torch_pretrained.py`` holds the load
+    against the reference's)."""
+    from ppt_torch.models.ulip import build_model
+    from ppt_torch.utils.msgpack import msgpack_serialize
+
+    for evaluate in (False, True):
+        args = _args(tmp_path, pretrained_dir=str(tmp_path), evaluate_3d=evaluate)
+        want = build_model(args.model, args, device="cpu").model.state_dict()
+        caplog.clear()
+        ctx = cls.setup(args)
+        assert "pretrained checkpoints not found under" in caplog.text
+        assert ctx["state"].step == 0
+        got = ctx["model"].state_dict()
+        assert all(torch.equal(got[k], want[k]) for k in want)
+    scale = {"params": {"logit_scale": torch.tensor(1.25).numpy()}}
+    (tmp_path / "slip_text.msgpack").write_bytes(msgpack_serialize(scale))
+    for evaluate in (False, True):
+        ctx = cls.setup(_args(tmp_path, pretrained_dir=str(tmp_path), evaluate_3d=evaluate))
+        assert float(ctx["model"].logit_scale) == 1.25
 
 
 def test_non_finite_loss_stops_training(tmp_path):

@@ -128,7 +128,9 @@ def test_a_reference_only_key_raises_by_name(tmp_path):
     with pytest.raises(NotImplementedError, match="mesh_devices"):
         targs.parse_args(["--config", str(path)])
     recipe = os.path.join(ROOT, "configs", "experiments", "ppt_base_mn40.yaml")
-    for key in ("dataset_prompt=x", "topk=3", "voxel_size=0.1", "wandb=yes"):
+    # (dataset_prompt and wandb load since the port has those fields: fpath
+    # and num_run take their places)
+    for key in ("fpath=x", "topk=3", "voxel_size=0.1", "num_run=2"):
         with pytest.raises(NotImplementedError, match=key.split("=")[0]):
             targs.parse_args(["--config", recipe, "--set", key])
     # a key of neither dataclass is skipped, as the reference skips num_category

@@ -204,14 +204,15 @@ def test_from_jax_raises_on_missing_and_extra_leaves():
 
 
 def test_port_imports_no_jax():
-    """Every ppt_torch module imports without pulling in JAX or ppt_tpu."""
+    """Every ppt_torch module imports without pulling in JAX, ppt_tpu or
+    msgpack (the card's machine has none of them)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import ppt_torch\n"
         "for m in pkgutil.walk_packages(ppt_torch.__path__, 'ppt_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'flax',"
-        " 'chex', 'ppt_tpu'))\n"
+        " 'chex', 'ppt_tpu', 'msgpack'))\n"
         "n = sum(1 for k in sys.modules if k.startswith('ppt_torch.'))\n"
         "print(n, bad)\n"
         "assert not bad, bad\n"
@@ -229,7 +230,7 @@ def test_default_device_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device()
-    for name in ("ULIP_PointBERT", "ULIP_PN_NEXT", "ULIP_PN_SSG", "ULIP_PN_MSG"):
+    for name in ("ULIP_PointBERT", "ULIP_PN_NEXT", "ULIP_PN_SSG", "ULIP_PN_MSG", "ULIP_PN_MLP"):
         with pytest.raises(RuntimeError):
             build_model(name, _tiny_args())
     with pytest.raises(RuntimeError):
