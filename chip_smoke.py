@@ -7,8 +7,8 @@ other trunk routes with the long-sequence trunk, and training through the
 long trunk (prompt tuning at head types 3 and 2, ULIP pretraining),
 PointBERT's two pretraining stages (the dVAE tokenizer, masked point
 modeling), the kernel tools (the ViT-block ablation probe, the on-card
-kernel check), the published recipes, and converted pretrained backbones
-with ULIP_PN_MLP at full width.
+kernel check), the published recipes, converted pretrained backbones
+with ULIP_PN_MLP at full width, and part segmentation (ULIP_PointBERT_partseg).
 
     python3 chip_smoke.py            # one CUDA card, no arguments
     python3 chip_smoke.py --only ballquery   # group.cu, phase 3's ball queries alone
@@ -22,6 +22,7 @@ with ULIP_PN_MLP at full width.
                                              # zoo on the card, adahessian by route
     python3 chip_smoke.py --only pretrained  # phase 14: converted ULIP/SLIP backbones loaded,
                                              # ULIP_PN_MLP at full width
+    python3 chip_smoke.py --only partseg     # phase 15: part segmentation at full width
 
 Phases (any failed check raises, and the script exits non-zero):
   1. card name / power limit (nvidia-smi), torch and CUDA versions;
@@ -300,6 +301,31 @@ Phases (any failed check raises, and the script exits non-zero):
      without converted files warns and keeps the seeded init. Its numbers
      go on a line of their own ({"pretrained": ...}); ``--only pretrained``
      builds what it needs and runs it alone.
+ 15. part segmentation at full width through ``partseg.setup``:
+     ULIP_PointBERT_partseg (PointBertConfig(), SLIP's 12 x 512 text tower,
+     50 part prompts of 32 tokens, class name in the middle) on 320
+     synthetic part clouds a split, B=32 x N=2048: three bf16 ``validate``
+     passes (clouds/sec, launches a batch: fps_batched 3, knn_gather 1,
+     mini_forward 1, fused_vit_block 12, fused_vit_block_readout 0), one
+     batch's logits against the plain path in bf16 and f32 at phase 4's
+     limits with the refined predictions and mIoU beside them; one train
+     step's launches (mini_stats 1), 20 timed head-type-0 steps and 20
+     profiled (clouds/sec, wall, busy, idle; the frozen leaves
+     bit-unchanged), a fixed batch whose loss falls; one step against the
+     plain path at head types 0 and 3 in f32 (loss, BatchNorm buffers and
+     the prompt's gradient at phase 5's limits, the other leaves by their
+     gradients' distance, TOL_PARTSEG_GRAD_DIST) and bf16 (as phase 9's
+     bf16 pretraining step); the tower, unfused and plain routes against the
+     block route (the tower's logits identical, the others' top-1 at phase
+     4's limit and max|diff|/std within twice it); the published recipe
+     ``configs/experiments/partseg_shapenetpart.yaml --set epochs=1`` in
+     its own process, its mIoU read from the log and its checkpoint read
+     back by ``--evaluate_3d``; a seeded reference-named partseg .pt
+     converted with ``--kind pointbert_partseg`` and a cls ``pointbert.pt``,
+     each loaded into the partseg model bit for bit (the heads at their init
+     from the cls file). Its numbers go on a line of their own
+     ({"partseg": ...}); ``--only partseg`` builds what it needs and runs it
+     alone.
 
 The build prints each CUDA kernel's registers and spills (ptxas -v).
 The line before the card's is a JSON object with the per-kernel numbers
@@ -340,7 +366,7 @@ if not torch.cuda.is_available():
 import torch.nn.functional as F  # noqa: E402
 
 from ppt_torch.data import datasets as pdata  # noqa: E402
-from ppt_torch.data.augment import append_height, train_augment  # noqa: E402
+from ppt_torch.data.augment import append_height, train_augment, translate_pointcloud  # noqa: E402
 from ppt_torch.data.datasets import ArrayDataset, make_synthetic  # noqa: E402
 from ppt_torch.data.loader import Loader  # noqa: E402
 from ppt_torch.kernels import _build  # noqa: E402
@@ -361,7 +387,7 @@ from ppt_torch.nn import mpm as nmpm  # noqa: E402
 from ppt_torch.nn import pointbert as npb  # noqa: E402
 from ppt_torch.nn import text as ntext  # noqa: E402
 from ppt_torch.prompt.learner import build_prompt_spec  # noqa: E402
-from ppt_torch.tasks import cls, dvae_pretrain, fewshot, mpm_pretrain, pretrain  # noqa: E402
+from ppt_torch.tasks import cls, dvae_pretrain, fewshot, mpm_pretrain, partseg, pretrain  # noqa: E402
 from ppt_torch.tasks.args import TaskArgs  # noqa: E402
 from ppt_torch.tools import kernel_check, vitblock_probe  # noqa: E402
 from ppt_torch.tools import profile as tprofile  # noqa: E402
@@ -370,7 +396,8 @@ from ppt_torch.ops.losses3d import chamfer_l2  # noqa: E402
 from ppt_torch.train.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
 from ppt_torch.train.eval import make_cached_text_eval  # noqa: E402
 from ppt_torch.train.optim import build_optimizer, build_schedule  # noqa: E402
-from ppt_torch.train.trainer import create_train_state, make_train_step  # noqa: E402
+from ppt_torch.train.trainer import create_train_state, make_eval_step, make_train_step  # noqa: E402
+from ppt_torch.utils.metrics import partseg_ious, refine_partseg_logits  # noqa: E402
 
 DEV = torch.device("cuda")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -3971,6 +3998,14 @@ REF_NAMES = {
         (_PE + r"head_fc1", "point_encoder.prediction.head.2.0", False),
         (_PE + r"head_bn1", "point_encoder.prediction.head.2.1", False)),
 }
+# the partseg trunk's heads (``point_encoder.py:260-420``): Conv1d propagations,
+# Conv2d EdgeConv layers (2 trailing 1-wide axes) with their GroupNorms
+REF_NAMES["pointbert_partseg"] = REF_NAMES["pointbert"] + (
+    (_PE + r"propagation_(\d)\.conv(\d)", r"point_encoder.propagation_\1.mlp_convs.\2", True),
+    (_PE + r"propagation_(\d)\.bn(\d)", r"point_encoder.propagation_\1.mlp_bns.\2", False),
+    (_PE + r"dgcnn_pro_(\d)\.layer(\d)", r"point_encoder.dgcnn_pro_\1.layer\2.0", 2),
+    (_PE + r"dgcnn_pro_(\d)\.gn(\d)", r"point_encoder.dgcnn_pro_\1.layer\2.1", False),
+    (_PE + r"(conv1|bn1)", r"point_encoder.\1", False))
 # (converter kind, the file the loader reads, the model whose seeded weights
 # write it): SLIP's text tower from PPT-Base's, each point tower from its own
 PRETRAINED_FILES = (("slip", "slip_text", "ULIP_PointBERT"),
@@ -3990,7 +4025,7 @@ def in_file(kind, key):
 
 def reference_state_dict(kind, sd):
     """The port's ``sd`` leaves of ``kind`` under the reference's names and
-    layouts: Dense kernels transposed (a Conv's with its 1-wide axis),
+    layouts: Dense kernels transposed (a Conv's with its 1-wide axes),
     BatchNorms with their ``num_batches_tracked``."""
     rules = REF_NAMES["pointnet2" if kind.startswith("pointnet2") else kind]
     out = {}
@@ -4009,7 +4044,7 @@ def reference_state_dict(kind, sd):
         ref = name + ref_leaf if name.endswith("_") else ".".join(filter(None, (name, ref_leaf)))
         if leaf == "kernel":
             t = t.t().contiguous()
-            t = t[..., None] if conv else t
+            t = t[(...,) + (None,) * int(conv)]
         out[ref] = t.clone()
         if leaf == "running_mean":
             out[f"{name}.num_batches_tracked"] = torch.tensor(1000)
@@ -4319,6 +4354,422 @@ def _run_pretrained_slice(smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: part segmentation at full width
+# ---------------------------------------------------------------------------
+
+PARTSEG_DIR = _build.BUILD_DIR.parent / "chip_smoke_partseg"
+PARTSEG_BATCH = 32
+PARTSEG_NPOINTS = 2048  # configs/datasets/shapenetpart.yaml
+PARTSEG_PER_CATEGORY = 20  # 16 categories x 20 = 320 synthetic part clouds a split
+# each kernel's launches a batch on the block route (validate); mini_stats a train step
+PARTSEG_PER_BATCH = {"fps_batched": 3, "knn_gather": 1, "mini_forward": 1,
+                     "fused_vit_block": 12, "fused_vit_block_readout": 0}
+PARTSEG_RECIPE = Path(__file__).resolve().parent / "configs" / "experiments" / \
+    "partseg_shapenetpart.yaml"
+# The segmentation heads' gradients (and block_11's, which come back through
+# them) are conditioned far worse than the prompt's: in the port alone,
+# multiplying the taps by 1 + 1e-7 noise moves them by up to 0.9% of a leaf's
+# scale and by 1.3e-3 all together (3.2e-3 at 1e-6), the prompt's by 1.2e-6
+# (measured on the CPU at the 48-wide test trunk, B=2 x 2048 points; each
+# train-mode BatchNorm and GroupNorm subtracts its batch mean from a nearly
+# common gradient). An f32 step is held to the plain path by the prompt's
+# gradient at phase 5's limit and the other leaves' distance all together.
+TOL_PARTSEG_GRAD_DIST = 2e-2
+
+
+def partseg_args(dtype="bfloat16", head_type=0, batch=PARTSEG_BATCH, **kw):
+    """ShapeNetPart's task at full width (PointBertConfig(), SLIP's 12 x 512
+    text tower, 50 part prompts of 32 learnable tokens, N=2048); the data
+    path holds no files, so the clouds are synthetic with part labels."""
+    args = TaskArgs(model="ULIP_PointBERT_partseg", dataset_name="shapenetpart",
+                    data_path=str(PARTSEG_DIR / "no_files"), npoints=PARTSEG_NPOINTS,
+                    batch_size=batch, num_learnable_prompt_tokens=32,
+                    class_name_position="middle", compute_dtype=dtype, head_type=head_type,
+                    lr=1e-3, epochs=250, seed=0, device="cuda", pretrained_dir="",
+                    output_dir=str(PARTSEG_DIR), **kw)
+    args.num_classes, args.samples_per_class = 16, PARTSEG_PER_CATEGORY
+    return args
+
+
+def partseg_setup(args, route="block"):
+    with switches(POINT_SWITCHES[route]):
+        ctx = partseg.setup(args)
+    check(ctx["model"].point_encoder.route == route, f"partseg setup did not take route {route}")
+    return ctx
+
+
+def partseg_batch(ds, seed=3):
+    batch = next(iter(Loader(ds, PARTSEG_BATCH, shuffle=True, seed=seed)))
+    b = partseg.device_batch(batch, DEV)
+    b["category"] = torch.from_numpy(batch["category"].astype(np.int64)).to(DEV)
+    return b
+
+
+def partseg_validate_counted(ctx, args):
+    """One ``partseg.validate`` pass, the counts set to 0 just before it."""
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    val = partseg.validate(ctx["state"], make_eval_step(partseg=True), ctx["test_ds"],
+                           ctx["prompts"], args, DEV)
+    torch.cuda.synchronize()
+    return dict(_build.LAUNCHES), time.perf_counter() - t0, val
+
+
+def partseg_logits_vs_plain(tag, ctx, dtype, b):
+    """One batch's [B, N, 50] logits through the kernels and through their
+    plain versions on the card, at phase 4's limits (per point); the refined
+    predictions' agreement and both batches' mIoU beside them."""
+    eval_fn = make_eval_step(partseg=True)
+    logits = eval_fn(ctx["state"], b, ctx["prompts"])
+    with plain_path():
+        want = eval_fn(ctx["state"], b, ctx["prompts"])
+    torch.cuda.synchronize()
+    check(torch.isfinite(logits).all() and logits.shape == (PARTSEG_BATCH, PARTSEG_NPOINTS, 50),
+          f"{tag} partseg logits {tuple(logits.shape)}")
+    diff = float((logits - want).abs().max() / want.std())
+    top1 = float((logits.argmax(-1) == want.argmax(-1)).float().mean())
+    ranges = torch.from_numpy(pdata.SHAPENETPART_PART_RANGES).to(DEV)
+    pred = refine_partseg_logits(logits, b["category"], ranges)
+    pred_p = refine_partseg_logits(want, b["category"], ranges)
+    agree = float((pred == pred_p).float().mean())
+    miou = float(partseg_ious(pred, b["label"], b["category"], ranges, 16)["instance_miou"])
+    miou_p = float(partseg_ious(pred_p, b["label"], b["category"], ranges, 16)["instance_miou"])
+    ok = (diff <= 1e-3 and top1 >= 0.95 and agree >= 0.95 if dtype == "float32"
+          else diff <= 0.25 and top1 >= 0.8 and agree >= 0.8)
+    print(f"[partseg] {tag} {dtype} logits vs plain path on the card: max|diff|/std {diff:.3e}, "
+          f"top-1 agreement {top1:.4f}, refined predictions agree {agree:.4f}, instance mIoU "
+          f"{miou:.3f} vs {miou_p:.3f} (random weights)")
+    check(ok, f"{tag} {dtype} partseg logits disagree with the plain path")
+    return {"diff_over_std": diff, "top1": top1, "refined_agree": agree,
+            "instance_miou": miou, "plain_instance_miou": miou_p}
+
+
+def partseg_quantities(ctx, b, seed, smoothing):
+    """``step_quantities`` of the partseg loss (flattened label-smoothed CE,
+    the tower in training mode, dropout and DropPath from the seeded
+    generator)."""
+    state, model = ctx["state"], ctx["model"]
+    return step_quantities(state, seed, lambda: smoothed_cross_entropy(
+        model(b["pc"], ctx["prompts"], train=True, generator=state.generator,
+              cls_onehot=b["cls_onehot"]).reshape(-1, 50), b["label"].reshape(-1), smoothing))
+
+
+def partseg_step_vs_plain(dtype, head_type, f32_grads=None):
+    """One step's loss, gradients and BatchNorm buffers through the kernels
+    and through their plain versions on the card. f32: loss, buffers and the
+    prompt's gradient at phase 5's limits, the other leaves by their distance
+    all together (TOL_PARTSEG_GRAD_DIST); bf16: loss and buffers at phase 5's
+    limits, the gradients' distance from the f32 step's no more than twice
+    the plain path's plus 1e-2, as phase 9's bf16 pretraining step."""
+    tol_loss, tol_grad, tol_stats = TOL_STEP[dtype]
+    args = partseg_args(dtype, head_type)
+    ctx = partseg_setup(args)
+    b = partseg_batch(ctx["train_ds"])
+    loss, grads, stats = partseg_quantities(ctx, b, 11, args.label_smoothing)
+    with plain_path():
+        loss_p, grads_p, stats_p = partseg_quantities(ctx, b, 11, args.label_smoothing)
+    tag = f"ULIP_PointBERT_partseg {dtype} head_type {head_type}"
+    d_loss = abs(loss - loss_p) / abs(loss_p)
+    d_stats = max(rel_err(stats[k], stats_p[k]) for k in stats)
+    prompt = "prompt_learner.learnable_tokens"
+    d_prompt = rel_err(grads[prompt], grads_p[prompt])
+    rest = [k for k in grads if k != prompt]
+    out = {"loss_rel": d_loss, "stats_rel": d_stats, "prompt_grad_rel": d_prompt,
+           "leaves": len(grads)}
+    check(math.isfinite(loss) and all(torch.isfinite(g).all() for g in grads.values()),
+          f"non-finite loss or gradient ({tag})")
+    check(all(float(g.abs().max()) > 0 for g in grads.values()), f"a zero gradient ({tag})")
+    check(d_loss <= tol_loss, f"loss disagrees with the plain path ({tag})")
+    check(d_stats <= tol_stats, f"BN buffers disagree with the plain path ({tag})")
+    if head_type:
+        check(any("block_11" in k for k in grads), "head_type 3 trains no block_11 leaf")
+    if dtype == "float32":
+        dist = grad_dist({k: grads[k] for k in rest}, {k: grads_p[k] for k in rest})
+        out["grad_dist"] = dist
+        print(f"[partseg] {tag}: one step vs plain path on the card: loss {loss:.6f} vs "
+              f"{loss_p:.6f} (rel {d_loss:.3e}, tol {tol_loss}); prompt gradient max rel "
+              f"{d_prompt:.3e} (tol {tol_grad}); the other {len(rest)} leaves' distance "
+              f"{dist:.3e} (tol {TOL_PARTSEG_GRAD_DIST}); BN buffers max rel {d_stats:.3e} "
+              f"(tol {tol_stats})")
+        check(d_prompt <= tol_grad, f"the prompt's gradient disagrees with the plain path ({tag})")
+        check(dist <= TOL_PARTSEG_GRAD_DIST, f"gradients disagree with the plain path ({tag})")
+        return out, grads
+    e_k, e_p = grad_dist(grads, f32_grads), grad_dist(grads_p, f32_grads)
+    out.update(grad_dist_from_f32=e_k, plain_grad_dist_from_f32=e_p)
+    print(f"[partseg] {tag}: one step vs plain path on the card: loss {loss:.6f} vs "
+          f"{loss_p:.6f} (rel {d_loss:.3e}, tol {tol_loss}); gradients' distance from the f32 "
+          f"step {e_k:.3e} (kernels) vs {e_p:.3e} (plain), tol {BF16_PRETRAIN_FACTOR} x plain + "
+          f"{BF16_PRETRAIN_SLACK}; prompt gradient max rel {d_prompt:.3e} (not checked); BN "
+          f"buffers max rel {d_stats:.3e} (tol {tol_stats})")
+    check(e_k <= BF16_PRETRAIN_FACTOR * e_p + BF16_PRETRAIN_SLACK,
+          f"the kernels' bf16 gradients are farther from the f32 step than the plain path's "
+          f"({tag})")
+    return out, grads
+
+
+def partseg_run_steps(ctx, step_fn, stream, n):
+    """``n`` steps as ``partseg.train_loop`` takes them (translated clouds,
+    the loss read on the host after each)."""
+    losses = []
+    for _ in range(n):
+        b = partseg.device_batch(next(stream), DEV)
+        b["pc"] = translate_pointcloud(ctx["state"].generator, b["pc"])
+        ctx["state"], metrics = step_fn(ctx["state"], b, ctx["prompts"])
+        losses.append(float(metrics["loss"]))
+    torch.cuda.synchronize()
+    return losses
+
+
+def run_partseg_slice(smi):
+    try:
+        return _run_partseg_slice(smi)
+    finally:
+        shutil.rmtree(PARTSEG_DIR, ignore_errors=True)
+
+
+def _run_partseg_slice(smi):
+    t_phase = time.perf_counter()
+    out = {"card": smi}
+
+    # --- serving: validate on the block route ------------------------------------
+    args = partseg_args()
+    ctx = partseg_setup(args)
+    tower = ctx["model"].point_encoder
+    check(tower.config == npb.PointBertConfig() and ctx["model"].text.config == ntext.TextConfig()
+          and ctx["prompts"].perm_tokens.shape[0] == 50, "partseg at full width")
+    n_params = sum(p.numel() for p in ctx["model"].parameters())
+    n_batches = math.ceil(len(ctx["test_ds"]) / PARTSEG_BATCH)
+    partseg_validate_counted(ctx, args)  # warm-up
+    walls = []
+    for _ in range(3):
+        launches, wall, val = partseg_validate_counted(ctx, args)
+        walls.append(wall)
+    wall = sorted(walls)[1]
+    per_batch = {k: launches.get(k, 0) / n_batches for k in PARTSEG_PER_BATCH}
+    print(f"[partseg] ULIP_PointBERT_partseg bf16: {n_params / 1e6:.1f} M parameters; validate "
+          f"over {len(ctx['test_ds'])} clouds x {PARTSEG_NPOINTS} points ({n_batches} batches of "
+          f"{PARTSEG_BATCH}): median of 3 passes {wall * 1e3:.1f} ms, "
+          f"{len(ctx['test_ds']) / wall:.1f} clouds/sec (passes ms "
+          f"{[round(w * 1e3, 1) for w in walls]}); instance mIoU {val['instance_miou']:.3f}, "
+          f"category mIoU {val['category_miou']:.3f} (random weights); launches a batch "
+          f"{json.dumps(per_batch)}; {smi}")
+    check(per_batch == {k: float(v) for k, v in PARTSEG_PER_BATCH.items()},
+          f"partseg launches a batch {per_batch}, not {PARTSEG_PER_BATCH}")
+    check(math.isfinite(val["instance_miou"]) and math.isfinite(val["category_miou"]),
+          f"partseg validate metrics {val}")
+    out["validate"] = {"clouds": len(ctx["test_ds"]), "batches": n_batches,
+                       "ms": wall * 1e3, "clouds_per_sec": len(ctx["test_ds"]) / wall,
+                       "launches_per_batch": per_batch,
+                       "instance_miou": val["instance_miou"], "category_miou": val["category_miou"]}
+    fixed = partseg_batch(ctx["test_ds"])
+    out["logits"] = {"bfloat16": partseg_logits_vs_plain("block route", ctx, "bfloat16", fixed)}
+    block_logits = make_eval_step(partseg=True)(ctx["state"], fixed, ctx["prompts"])
+    vprof = tprofile._profile(lambda: make_eval_step(partseg=True)(ctx["state"], fixed,
+                                                                   ctx["prompts"]), 10)
+    out["validate"]["profiled_batch"] = {
+        k: vprof[k] for k in ("wall_ms_per_batch", "device_busy_ms_per_batch",
+                              "device_idle_share", "device_ms_per_batch",
+                              "top_other_kernels_ms_per_batch")}
+    print(f"[partseg] one eval batch profiled (10 calls, the text tower in each): busy "
+          f"{vprof['device_busy_ms_per_batch']:.3f} ms, wall {vprof['wall_ms_per_batch']:.3f} ms, "
+          f"idle {vprof['device_idle_share']:.3f}; ms by part "
+          + json.dumps({k: round(v, 3) for k, v in vprof["device_ms_per_batch"].items()}))
+
+    # --- training: a train step's launches, a timed window, a fixed batch ----------
+    state = ctx["state"]
+    frozen0 = snapshot({k: p for k, p in ctx["model"].named_parameters()
+                        if k not in state.trainable})
+    step_fn = make_train_step(smoothing=args.label_smoothing, partseg=True)
+    b = partseg_batch(ctx["train_ds"])
+    _build.reset_launches()
+    ctx["state"], _ = step_fn(ctx["state"], b, ctx["prompts"])
+    torch.cuda.synchronize()
+    step_launches = {k: _build.LAUNCHES.get(k, 0) for k in
+                     tuple(PARTSEG_PER_BATCH) + ("mini_stats",)}
+    print(f"[partseg] one bf16 head_type 0 train step launched {json.dumps(step_launches)}")
+    check(step_launches == {**PARTSEG_PER_BATCH, "mini_stats": 1},
+          f"a partseg train step launched {step_launches}")
+    out["train_step_launches"] = step_launches
+    stream = batch_stream(Loader(ctx["train_ds"], PARTSEG_BATCH, shuffle=True, drop_last=True,
+                                 seed=0))
+    partseg_run_steps(ctx, step_fn, stream, 3)  # warm-up
+    t0 = time.perf_counter()
+    losses = partseg_run_steps(ctx, step_fn, stream, 20)
+    wall = time.perf_counter() - t0
+    prof = tprofile._profile(lambda: partseg_run_steps(ctx, step_fn, stream, 1), 20)
+    check(all(math.isfinite(x) for x in losses), f"partseg train losses {losses}")
+    check(all(torch.equal(p, frozen0[k]) for k, p in ctx["model"].named_parameters()
+              if k in frozen0), "a frozen leaf of the partseg model moved")
+    out["train"] = {
+        "steps": 20, "batch": PARTSEG_BATCH, "clouds_per_sec": 20 * PARTSEG_BATCH / wall,
+        "wall_ms_per_batch": wall / 20 * 1e3,
+        "busy_ms_per_batch": prof["device_busy_ms_per_batch"],
+        "idle_share": 1.0 - prof["device_busy_ms_per_batch"] / (wall / 20 * 1e3),
+        "profiled_wall_ms_per_batch": prof["wall_ms_per_batch"],
+        "profiled_idle_share": prof["device_idle_share"],
+        "device_ms_per_batch": prof["device_ms_per_batch"],
+        "top_other_kernels_ms_per_batch": prof["top_other_kernels_ms_per_batch"],
+        "trainable_leaves": len(state.trainable), "loss_first_last": [losses[0], losses[-1]]}
+    print(f"[partseg] bf16 head_type 0, 20 steps of {PARTSEG_BATCH} x {PARTSEG_NPOINTS}: "
+          f"{out['train']['clouds_per_sec']:.1f} clouds/sec, wall {wall / 20 * 1e3:.3f} ms a "
+          f"batch, busy {prof['device_busy_ms_per_batch']:.3f} ms (profiled), idle "
+          f"{out['train']['idle_share']:.3f}; the profiled window: wall "
+          f"{prof['wall_ms_per_batch']:.3f} ms, idle {prof['device_idle_share']:.3f}; "
+          f"{len(state.trainable)} trainable leaves, the frozen ones bit-unchanged; loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; {smi}; ms by part "
+          + json.dumps({k: round(v, 3) for k, v in prof["device_ms_per_batch"].items()}))
+    del ctx, state, frozen0, stream
+
+    fargs = partseg_args()
+    fargs.pointbert_config = npb.PointBertConfig(drop_path_rate=0.0)
+    fctx = partseg_setup(fargs)
+    fb = partseg_batch(fctx["train_ds"])
+    flosses = []
+    for _ in range(12):
+        fctx["state"], m = step_fn(fctx["state"], fb, fctx["prompts"])
+        flosses.append(m["loss"])
+    flosses = [float(x) for x in flosses]
+    print(f"[partseg] fixed batch, 12 steps (warmup schedule), augmentation and DropPath off, "
+          f"dropout on: loss {flosses[0]:.4f} -> {flosses[-1]:.4f} (lowest {min(flosses):.4f})")
+    check(all(math.isfinite(x) for x in flosses)
+          and sum(flosses[-3:]) < sum(flosses[:3]), "the partseg loss did not fall")
+    out["fixed_batch_losses"] = flosses
+    del fctx
+
+    # --- one step against the plain path, head types 0 and 3 ------------------------
+    out["step_vs_plain"] = {}
+    for head_type in (0, 3):
+        q32, g32 = partseg_step_vs_plain("float32", head_type)
+        q16, _ = partseg_step_vs_plain("bfloat16", head_type, g32)
+        out["step_vs_plain"][f"head_type_{head_type}"] = {"float32": q32, "bfloat16": q16}
+        del g32
+
+    # --- the other routes against the block route ----------------------------------
+    routes = {}
+    for route in ("tower", "unfused", "plain"):
+        rctx = partseg_setup(partseg_args(), route)
+        _build.reset_launches()
+        logits = make_eval_step(partseg=True)(rctx["state"], fixed, rctx["prompts"])
+        torch.cuda.synchronize()
+        counted = {k: _build.LAUNCHES.get(k, 0) for k in ("fused_vit_block", "fused_mha",
+                                                          "fused_vit_tower", "flash_mha")}
+        diff = float((logits - block_logits).abs().max() / block_logits.std())
+        top1 = float((logits.argmax(-1) == block_logits.argmax(-1)).float().mean())
+        routes[route] = {"diff_over_std": diff, "top1": top1, "launches": counted,
+                         "identical": bool(torch.equal(logits, block_logits))}
+        print(f"[partseg] route {route} bf16 vs the block route: max|diff|/std {diff:.3e}, "
+              f"top-1 agreement {top1:.4f}, identical {routes[route]['identical']}; trunk "
+              f"launches in one batch {json.dumps(counted)}")
+        want = {"tower": {"fused_vit_block": 12}, "unfused": {"fused_mha": 12},
+                "plain": {}}[route]
+        check({k: v for k, v in counted.items() if v} == want,
+              f"route {route} launched {counted}, not {want}")
+        if route == "tower":  # the reference's partseg trunk never reads the tower switch
+            check(routes[route]["identical"], "the tower route's logits differ from the block's")
+        else:  # two bf16 paths, each within phase 4's 0.25 of a plain path: 0.5 apart at most
+            check(diff <= 0.5 and top1 >= 0.8, f"route {route} disagrees with the block route")
+        del rctx
+    out["routes"] = routes
+    ctx32 = partseg_setup(partseg_args("float32"))
+    out["logits"]["float32"] = partseg_logits_vs_plain("block route", ctx32, "float32", fixed)
+    del ctx32
+
+    out["recipe"] = run_partseg_recipe()
+    out["pretrained"] = run_partseg_pretrained()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[partseg] phase 15 took {out['seconds']:.1f} s")
+    return out
+
+
+def run_partseg_recipe():
+    """The published recipe through the port's CLI for one epoch (its
+    synthetic fallback: 128 part clouds, batch 90, f32), the mIoU read from
+    its log, then ``--evaluate_3d`` reading its best checkpoint back."""
+    out_dir = PARTSEG_DIR / "recipe"
+    argv = ["--config", str(PARTSEG_RECIPE), "--set", "epochs=1", "--output_dir", str(out_dir)]
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "ppt_torch.tasks.partseg", *argv],
+                       cwd=str(Path(__file__).resolve().parent), capture_output=True, text=True,
+                       timeout=600)
+    wall = time.perf_counter() - t0
+    log_text = p.stdout + p.stderr
+    check(p.returncode == 0, f"the partseg recipe failed: {log_text[-3000:]}")
+    m = re.search(r"epoch 0: (\{.*\})", log_text)
+    check(m is not None and "instance_miou" in m.group(1), f"no mIoU in the log: {log_text[-2000:]}")
+    entry = m.group(1)
+    meta = json.loads((out_dir / "partseg" / "checkpoint_best.json").read_text())
+    ev = partseg.main(argv + ["--evaluate_3d", "--test_ckpt_addr", str(out_dir / "partseg")])
+    keys = ("instance_miou", "category_miou", "accuracy")
+    identical = all(ev["best"][k] == meta[k] for k in keys)
+    print(f"[partseg] recipe {PARTSEG_RECIPE.name} --set epochs=1: {wall:.1f} s in its own "
+          f"process; {entry}; --evaluate_3d from its checkpoint: {json.dumps(ev['best'])} "
+          f"(identical to the run's: {identical})")
+    check(all(abs(ev["best"][k] - meta[k]) <= 1e-3 for k in keys),
+          f"the checkpoint read back gives {ev['best']}, the run logged {meta}")
+    return {"seconds": wall, "best": meta, "evaluate_3d": ev["best"], "identical": identical}
+
+
+def run_partseg_pretrained():
+    """A seeded full-width partseg model written as a reference-named .pt and
+    converted with ``--kind pointbert_partseg``, and a cls PointBERT's
+    ``pointbert.pt`` with ``--kind pointbert``, in two processes; each file
+    as ``pointbert.msgpack`` read by ``partseg.setup``: every leaf of the
+    partseg file bit-equal, the cls file's trunk leaves bit-equal and the
+    heads at their seeded init."""
+    t0 = time.perf_counter()
+    dirs, sources, procs = {}, {}, []
+    for kind, model in (("pointbert_partseg", "ULIP_PointBERT_partseg"),
+                        ("pointbert", "ULIP_PointBERT")):
+        d = PARTSEG_DIR / f"pretrained_{kind}"
+        d.mkdir(parents=True)
+        m = build_model(model, partseg_args("float32"), device="cpu", seed=11).model
+        gen = torch.Generator().manual_seed(13)
+        with torch.no_grad():
+            for key, t in m.state_dict().items():
+                noise = 0.02 * torch.randn(t.shape, generator=gen)
+                t.copy_(t * (1 + noise.abs()) if key.endswith("running_var") else t + noise)
+        sources[kind] = {k: v.clone() for k, v in m.state_dict().items()}
+        src = d / "src.pt"
+        torch.save({"state_dict": reference_state_dict(kind, sources[kind]),
+                    "args": argparse.Namespace(model=model, seed=11)}, src)
+        procs.append((kind, subprocess.Popen(
+            [sys.executable, "-m", "ppt_torch.tools.ckpt_convert", "--src", str(src), "--kind",
+             kind, "--out", str(d / "pointbert.msgpack")],
+            cwd=str(Path(__file__).resolve().parent), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+        dirs[kind] = d
+    for kind, p in procs:
+        text, _ = p.communicate(timeout=300)
+        check(p.returncode == 0, f"ckpt_convert {kind} failed: {text[-2000:]}")
+    seeded = build_model("ULIP_PointBERT_partseg", partseg_args(), device="cpu").model.state_dict()
+    out = {}
+    for kind, d in dirs.items():
+        args = partseg_args()
+        args.pretrained_dir = str(d)
+        with loaded_counts() as counts:
+            sd = partseg_setup(args)["model"].state_dict()
+        src = sources[kind]
+        n_equal = n_init = 0
+        for key, t in sd.items():
+            if not in_file("pointbert", key):
+                continue
+            if kind == "pointbert_partseg" or (key in src and key != "pc_projection"):
+                check(torch.equal(t.cpu(), src[key]), f"{kind}: {key} differs from its source")
+                n_equal += 1
+            else:  # a head leaf, or the 768-row projection: the seeded init stays
+                check(torch.equal(t.cpu(), seeded[key]), f"{kind}: {key} left its init")
+                n_init += 1
+        print(f"[partseg] {kind} file into the partseg model: loaded {json.dumps(counts)}; "
+              f"{n_equal} leaves bit-equal to their .pt source, {n_init} at their seeded init")
+        check(n_equal > 0 and (n_init == 0) == (kind == "pointbert_partseg"),
+              f"{kind}: {n_equal} leaves loaded, {n_init} kept")
+        out[kind] = {"counts": counts, "bit_equal_leaves": n_equal, "init_leaves": n_init}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 # kernels whose every instance must build without spills (the ball-query walk,
 # the 3-D loss kernels)
 SPILL_FREE = ("ball_query_kernel", "ball_query_feats_kernel", "approx_match_warp_kernel",
@@ -4354,7 +4805,7 @@ def build(names=_build.SOURCES):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=("ballquery", "towers", "losses3d", "cloud", "recipes",
-                                       "pretrained"),
+                                       "pretrained", "partseg"),
                     help="build group.cu and run phase 3's ball-query checks and times alone "
                          "(ballquery) or phase 7's ball-query towers alone (towers); build "
                          "losses3d.cu and run phase 3's loss checks and times, nn_dists at "
@@ -4363,7 +4814,8 @@ def main(argv=None):
                          "fps_single and knn_single checks and times beside rows 1-2, and the "
                          "grouping wrappers' host time a call (cloud); build the kernels "
                          "PointBERT's recipes run and run phase 13 (recipes); build the "
-                         "kernels PPT-Base and PointMLP run and run phase 14 (pretrained)")
+                         "kernels PPT-Base and PointMLP run and run phase 14 (pretrained); "
+                         "build the kernels part segmentation runs and run phase 15 (partseg)")
     args = ap.parse_args(argv)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4410,6 +4862,11 @@ def main(argv=None):
     if args.only == "pretrained":
         build(["group", "mini", "vitblock", "attention"])
         print(json.dumps({"pretrained": run_pretrained_slice(smi)}))
+        print(smi)
+        return
+    if args.only == "partseg":
+        build(["group", "mini", "vitblock", "attention"])
+        print(json.dumps({"partseg": run_partseg_slice(smi)}))
         print(smi)
         return
     if args.only == "towers":
@@ -4460,6 +4917,11 @@ def main(argv=None):
     results["fps_batched"]["pointmlp_shapes"] = pretrained_stats["pn_mlp_fps"]
     results["fps_batched"]["pointmlp_launches_per_batch"] = (
         pretrained_stats["pn_mlp_validate"]["fps_batched_per_batch"])
+    partseg_stats = run_partseg_slice(smi)  # its own counts, read per pass and per step
+    for name, n in partseg_stats["validate"]["launches_per_batch"].items():
+        results[name]["partseg_launches_per_batch"] = n
+    results["mini_stats"]["partseg_launches_per_step"] = (
+        partseg_stats["train_step_launches"]["mini_stats"])
     for name in SOURCES:
         if name in OFF_PATH_KERNELS:
             check(launches.get(name, 0) == 0, f"{name} is called by no module, yet was launched")
@@ -4499,6 +4961,7 @@ def main(argv=None):
     print(json.dumps({"profile": prof_stats}))
     print(json.dumps({"recipes": recipe_stats}))
     print(json.dumps({"pretrained": pretrained_stats}))
+    print(json.dumps({"partseg": partseg_stats}))
     print(json.dumps({"kernels": kernels, **slice_stats}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,10 +1,11 @@
-"""Datasets for the recognition and pretraining paths: ModelNet10/40,
-ScanObjectNN and ShapeNet-55 loaders, synthetic fallback.
+"""Datasets for the recognition, part-segmentation and pretraining paths:
+ModelNet10/40, ScanObjectNN, ShapeNetPart and ShapeNet-55 loaders,
+synthetic fallback.
 
 Counterpart of ``ppt_tpu/data/datasets.py``, cut to what the recognition,
-few-shot and ULIP pretraining tasks need (train and test splits, ``*_fs``
-few-shot resampling of the train split, ShapeNet-55's clouds with their
-taxonomy names). Loaders produce plain numpy; batching is in
+few-shot, part-segmentation and ULIP pretraining tasks need (train and
+test splits, ``*_fs`` few-shot resampling of the train split, ShapeNetPart's
+per-point part labels, ShapeNet-55's clouds with their taxonomy names). Loaders produce plain numpy; batching is in
 ``ppt_torch.data.loader``. ScanObjectNN's ``.h5`` files need ``h5py``,
 imported only where such a file is read: without it the loader raises
 ``ImportError`` and ``build_dataset`` falls back to synthetic clouds with
@@ -23,6 +24,44 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 
 log = logging.getLogger(__name__)
+
+# part-label spans per object category, in the canonical 16-category
+# ShapeNetPart order (the reference's ``category2part`` map)
+SHAPENETPART_CATEGORIES = [
+    "Airplane", "Bag", "Cap", "Car", "Chair", "Earphone", "Guitar",
+    "Knife", "Lamp", "Laptop", "Motorbike", "Mug", "Pistol", "Rocket",
+    "Skateboard", "Table",
+]
+SHAPENETPART_PART_RANGES = np.array(
+    [
+        [0, 4], [4, 6], [6, 8], [8, 12], [12, 16], [16, 19], [19, 22],
+        [22, 24], [24, 28], [28, 30], [30, 36], [36, 38], [38, 41],
+        [41, 44], [44, 47], [47, 50],
+    ],
+    dtype=np.int32,
+)
+SHAPENETPART_NUM_PARTS = 50
+
+# the 50 part names (category_part); the prompts come from assets/labels.json
+SHAPENETPART_PART_NAMES = [
+    "airplane body", "airplane wing", "airplane tail", "airplane engine",
+    "bag handle", "bag body",
+    "cap panel", "cap peak",
+    "car roof", "car hood", "car wheel", "car body",
+    "chair back", "chair seat", "chair leg", "chair arm",
+    "earphone earcup", "earphone headband", "earphone wire",
+    "guitar head", "guitar neck", "guitar body",
+    "knife blade", "knife handle",
+    "lamp base", "lamp shade", "lamp bulb", "lamp tube",
+    "laptop keyboard", "laptop screen",
+    "motorbike wheel", "motorbike seat", "motorbike gas tank",
+    "motorbike handle", "motorbike light", "motorbike frame",
+    "mug handle", "mug body",
+    "pistol barrel", "pistol handle", "pistol trigger",
+    "rocket body", "rocket fin", "rocket nose",
+    "skateboard wheel", "skateboard deck", "skateboard bar",
+    "table top", "table leg", "table drawer",
+]
 
 
 def pc_normalize(pc: np.ndarray) -> np.ndarray:
@@ -113,9 +152,10 @@ class ArrayDataset:
     """A fully materialised dataset: fixed-shape numpy arrays + metadata."""
 
     points: np.ndarray  # [M, N, 3] float32 (normalised)
-    labels: np.ndarray  # [M] int32
+    labels: np.ndarray  # [M] int32: the class (cls) or the object category (partseg)
     classnames: List[str]
     name: str = ""
+    seg_labels: Optional[np.ndarray] = None  # [M, N] int32 part labels (partseg)
 
     def __len__(self) -> int:
         return len(self.labels)
@@ -220,16 +260,60 @@ def load_shapenet55(root: str, split: str, npoints: int, pc_dirname: str = "shap
     return ArrayDataset(pts, labels, classnames, name="shapenet55")
 
 
+def load_shapenetpart(root: str, split: str, npoints: int, seed: int = 0) -> ArrayDataset:
+    """ShapeNetPart from its per-shape ``.txt`` clouds (``load_shapenetpart``,
+    ``:321-367``): categories from ``synsetoffset2category.txt``, the split's
+    shape ids from ``train_test_split/shuffled_{split}_file_list.json``
+    (``trainval`` joins train and val), each cloud normalised to the unit
+    sphere and resampled with replacement to ``npoints`` from one generator
+    at ``seed``, its last column the part label."""
+    cat: Dict[str, str] = {}
+    with open(os.path.join(root, "synsetoffset2category.txt")) as f:
+        for line in f:
+            name, synset = line.strip().split()
+            cat[name] = synset
+    split_map = {"train": ["train"], "val": ["val"], "test": ["test"],
+                 "trainval": ["train", "val"]}
+    ids = set()
+    for s in split_map[split]:
+        with open(os.path.join(root, "train_test_split", f"shuffled_{s}_file_list.json")) as f:
+            ids |= {d.split("/")[2] for d in json.load(f)}
+    rng = np.random.RandomState(seed)
+    pts_list, cat_list, seg_list = [], [], []
+    for ci, name in enumerate(SHAPENETPART_CATEGORIES):
+        dir_point = os.path.join(root, cat[name])
+        for fn in sorted(os.listdir(dir_point)):
+            if os.path.splitext(fn)[0] not in ids:
+                continue
+            data = np.loadtxt(os.path.join(dir_point, fn)).astype(np.float32)
+            seg = data[:, -1].astype(np.int32)
+            choice = rng.choice(len(seg), npoints, replace=True)
+            pts_list.append(pc_normalize(data[:, :3])[choice])
+            cat_list.append(ci)
+            seg_list.append(seg[choice])
+    return ArrayDataset(np.stack(pts_list), np.asarray(cat_list, dtype=np.int32),
+                        list(SHAPENETPART_CATEGORIES), name="shapenetpart",
+                        seg_labels=np.stack(seg_list))
+
+
 def make_synthetic(num_classes: int = 40, samples_per_class: int = 8, npoints: int = 1024,
-                   seed: int = 0, classnames: Optional[Sequence[str]] = None) -> ArrayDataset:
+                   seed: int = 0, partseg: bool = False,
+                   classnames: Optional[Sequence[str]] = None) -> ArrayDataset:
     """Structured random clouds: each class a distinct mixture of gaussian
-    blobs (same generator and values as the reference's)."""
+    blobs (same generator and values as the reference's). ``partseg``:
+    at most 16 categories, named as ShapeNetPart's 16 (the one-hot is
+    16 wide whatever has samples), each point labelled ``lo + blob % (hi -
+    lo)`` within its category's part range."""
+    if partseg:
+        num_classes = min(num_classes, len(SHAPENETPART_CATEGORIES))
     rng = np.random.RandomState(seed)
     M = num_classes * samples_per_class
     pts = np.zeros((M, npoints, 3), dtype=np.float32)
     labels = np.zeros(M, dtype=np.int32)
+    seg = np.zeros((M, npoints), dtype=np.int32) if partseg else None
     if classnames is None:
-        classnames = [f"shape {i}" for i in range(num_classes)]
+        classnames = (SHAPENETPART_CATEGORIES if partseg
+                      else [f"shape {i}" for i in range(num_classes)])
     for c in range(num_classes):
         class_rng = np.random.RandomState(1000 + c)
         n_blobs = 2 + c % 4
@@ -240,7 +324,10 @@ def make_synthetic(num_classes: int = 40, samples_per_class: int = 8, npoints: i
             pts[i] = centers[blob] * 0.5 + rng.randn(npoints, 3) * 0.15
             pts[i] = pc_normalize(pts[i])
             labels[i] = c
-    return ArrayDataset(pts, labels, list(classnames), name="synthetic")
+            if partseg:
+                lo, hi = SHAPENETPART_PART_RANGES[c % 16]
+                seg[i] = lo + blob % (hi - lo)
+    return ArrayDataset(pts, labels, list(classnames), name="synthetic", seg_labels=seg)
 
 
 def _synthetic(args, split: str) -> ArrayDataset:
@@ -249,6 +336,7 @@ def _synthetic(args, split: str) -> ArrayDataset:
         samples_per_class=getattr(args, "samples_per_class", 8),
         npoints=args.npoints,
         seed=0 if split == "train" else 1,
+        partseg=getattr(args, "task", "cls") == "partseg",
     )
 
 
@@ -278,6 +366,7 @@ DATASETS: Dict[str, Callable[..., ArrayDataset]] = {
     "modelnet40_fs": _few_shot(_modelnet(40)),
     "modelnet10_fs": _few_shot(_modelnet(10)),
     "scanobjectnn_fs": _few_shot(_scanobjectnn),
+    "shapenetpart": lambda args, split: load_shapenetpart(args.data_path, split, args.npoints),
     "shapenet": lambda args, split: load_shapenet55(args.data_path, split, args.npoints),
     "synthetic": _synthetic,
 }

@@ -6,8 +6,9 @@ of epoch ``e`` is ``np.random.RandomState(seed * 100003 + e).permutation``,
 the reference's own (``data/loader.py:58-65``), so both packages see the
 same batches. ``drop_last`` (training) keeps shapes fixed; otherwise the
 final batch is padded to ``batch_size`` with its last item and ``valid``
-marks the real rows. Multi-process striding comes with the parallelism
-slice.
+marks the real rows. A dataset with part labels yields them per point,
+with the object category and its one-hot. Multi-process striding comes with
+the parallelism slice.
 """
 
 from __future__ import annotations
@@ -55,5 +56,14 @@ class Loader:
             if len(idx) < bs:
                 valid[len(idx):] = False
                 idx = np.concatenate([idx, np.full(bs - len(idx), idx[-1])])
-            yield {"pc": self.dataset.points[idx], "label": self.dataset.labels[idx],
-                   "valid": valid}
+            yield dict(self._batch(idx), valid=valid)
+
+    def _batch(self, idx: np.ndarray) -> Dict[str, np.ndarray]:
+        """``pc`` and ``label``; a dataset with part labels gives its object
+        ``category``, the per-point ``label`` [B, N] and ``cls_onehot``
+        [B, num_classes] instead (``data/loader.py:85-95``)."""
+        ds = self.dataset
+        if ds.seg_labels is None:
+            return {"pc": ds.points[idx], "label": ds.labels[idx]}
+        return {"pc": ds.points[idx], "label": ds.seg_labels[idx], "category": ds.labels[idx],
+                "cls_onehot": np.eye(ds.num_classes, dtype=np.float32)[ds.labels[idx]]}

@@ -1,14 +1,18 @@
 """The ULIP composite: point encoder + prompt-tuned CLIP text tower.
 
 Counterpart of ``ppt_tpu/models/ulip.py`` with five of its point towers:
-PointBERT, PointNet++ SSG and MSG, PointMLP, PointNeXt-S, and the template factory
-``ulip_customized`` for a caller's own tower. Forward contract
-(classification; ULIP pretraining pairs ``encode_pc`` with
-``encode_captions``)::
+PointBERT, PointNet++ SSG and MSG, PointMLP, PointNeXt-S, PointBERT's
+part-segmentation trunk, and the template factory ``ulip_customized`` for a
+caller's own tower. Forward contract (classification; ULIP pretraining
+pairs ``encode_pc`` with ``encode_captions``)::
 
     pc_embed   = point_encoder(pc) @ pc_projection                 # [B, E]
     text_embed = normalize(text_tower(splice(prompts))[eot] @ proj) # [C, E]
     logits     = exp(logit_scale) * pc_embed @ text_embed.T
+
+Part segmentation (``task="partseg"``) conditions the point tower on the
+object category's one-hot and embeds every point: ``pc_embed`` is
+``[B, N, E]`` and the logits ``[B, N, C]`` over the part prompts.
 
 ``text_embed`` is L2-normalised and ``pc_embed`` is NOT
 (``ULIP_models.py:276-281``).
@@ -24,7 +28,7 @@ import torch
 from torch import nn
 
 from ppt_torch.nn.layers import init_dense_
-from ppt_torch.nn.pointbert import PointBert, PointBertConfig
+from ppt_torch.nn.pointbert import PointBert, PointBertConfig, PointBertPartSeg
 from ppt_torch.nn.pointmlp import PointMLP, PointMLPConfig
 from ppt_torch.nn.pointnet2 import PointNet2Msg, PointNet2Ssg
 from ppt_torch.nn.pointnext import PointNext, PointNextConfig
@@ -63,13 +67,15 @@ class PromptArrays:
 
 
 class Ulip(nn.Module):
-    """Composite prompt-tuned multimodal model (cls task)."""
+    """Composite prompt-tuned multimodal model; ``task`` is "cls" or
+    "partseg" (the point tower then takes the category one-hot)."""
 
     def __init__(self, point_encoder: nn.Module, pc_feat_dims: int, n_ctx: int = 32,
                  text_config: TextConfig = TextConfig(), dtype: torch.dtype = torch.float32,
-                 text_fused: str = "off"):
+                 text_fused: str = "off", task: str = "cls"):
         super().__init__()
         self.dtype = dtype
+        self.task = task
         self.text = TextTransformer(text_config, dtype=dtype, fused=text_fused)
         self.prompt_learner = PromptLearner(n_ctx, text_config.width)
         self.pc_projection = nn.Parameter(torch.zeros(pc_feat_dims, text_config.embed_dim))
@@ -93,16 +99,23 @@ class Ulip(nn.Module):
         return emb / torch.linalg.norm(emb, dim=-1, keepdim=True)
 
     def encode_pc(self, pc: torch.Tensor, train: bool = False,
-                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Point embeddings [B, E] f32, deliberately NOT normalised.
+                  generator: Optional[torch.Generator] = None,
+                  cls_onehot: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Point embeddings f32, deliberately NOT normalised: [B, E], or
+        [B, N, E] for partseg, whose tower also takes ``cls_onehot`` [B, 16].
         ``train`` puts the point tower in training mode (batch statistics,
-        DropPath from ``generator``) whether or not its weights train."""
-        feat = self.point_encoder(pc, train=train, generator=generator)
+        DropPath and dropout from ``generator``) whether or not its weights
+        train."""
+        if self.task == "partseg":
+            feat = self.point_encoder(pc, cls_onehot, train=train, generator=generator)
+        else:
+            feat = self.point_encoder(pc, train=train, generator=generator)
         return feat.float() @ self.pc_projection
 
     def forward(self, pc: torch.Tensor, prompts: PromptArrays, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        pc_embed = self.encode_pc(pc, train=train, generator=generator)
+                generator: Optional[torch.Generator] = None,
+                cls_onehot: Optional[torch.Tensor] = None) -> torch.Tensor:
+        pc_embed = self.encode_pc(pc, train=train, generator=generator, cls_onehot=cls_onehot)
         text_embed = self.encode_text(prompts)
         return torch.exp(self.logit_scale) * pc_embed @ text_embed.t()
 
@@ -124,7 +137,7 @@ def init_weights(model: Ulip, seed: int) -> Ulip:
     normal_(text.text_projection, text.config.width ** -0.5)
     normal_(model.prompt_learner.learnable_tokens, 0.02)
     normal_(model.pc_projection, 512 ** -0.5)
-    if isinstance(model.point_encoder, PointBert):
+    if isinstance(model.point_encoder, PointBert):  # PointBertPartSeg is one too
         normal_(model.point_encoder.cls_pos, 1.0)
     return model
 
@@ -137,7 +150,7 @@ class ModelSpec:
 
 
 def _make(name: str, encoder: nn.Module, pc_feat_dims: int, args, dtype,
-          text_fused: str) -> ModelSpec:
+          text_fused: str, task: str = "cls") -> ModelSpec:
     model = Ulip(
         point_encoder=encoder,
         pc_feat_dims=pc_feat_dims,
@@ -145,6 +158,7 @@ def _make(name: str, encoder: nn.Module, pc_feat_dims: int, args, dtype,
         text_config=getattr(args, "text_config", None) or TextConfig(),
         dtype=dtype,
         text_fused=text_fused,
+        task=task,
     )
     return ModelSpec(model=model, pc_feat_dims=pc_feat_dims, name=name)
 
@@ -170,6 +184,19 @@ def ulip_pointbert(args, text_fused: str = "off") -> ModelSpec:
     route = getattr(args, "point_route", "block")
     return _make("ULIP_PointBERT", PointBert(cfg, dtype=dt, route=route), 2 * cfg.trans_dim,
                  args, dt, text_fused)
+
+
+def ulip_pointbert_partseg(args, text_fused: str = "off") -> ModelSpec:
+    """ULIP-PointBERT for part segmentation (``ppt_tpu/models/ulip.py:
+    222-226``): the dense trunk, 128-d per-point features projected against
+    the part prompts. ``args.pointbert_config`` and ``args.point_route`` as
+    in ``ulip_pointbert``."""
+    _xyz_only("ULIP_PointBERT_partseg", args)
+    dt = resolve_dtype(getattr(args, "compute_dtype", "float32"))
+    cfg = getattr(args, "pointbert_config", None) or PointBertConfig()
+    route = getattr(args, "point_route", "block")
+    return _make("ULIP_PointBERT_partseg", PointBertPartSeg(cfg, dtype=dt, route=route), 128,
+                 args, dt, text_fused, task="partseg")
 
 
 def ulip_pn_ssg(args, text_fused: str = "off") -> ModelSpec:
@@ -225,6 +252,7 @@ MODEL_REGISTRY: Dict[str, Callable[..., ModelSpec]] = {
     "ULIP_PN_MSG": ulip_pn_msg,
     "ULIP_PN_MLP": ulip_pn_mlp,
     "ULIP_PointBERT": ulip_pointbert,
+    "ULIP_PointBERT_partseg": ulip_pointbert_partseg,
     "ULIP_PN_NEXT": ulip_pn_next,
 }
 
@@ -242,8 +270,8 @@ _HEAD_TYPE_UNFREEZE: Dict[int, Tuple[Tuple[str, ...], ...]] = {
         ("point_encoder", "block_11", "attn", "proj")),
 }
 
-# partseg: the point encoder's subtrees outside the pretrained trunk train.
-# Listed for the part-segmentation slice; no model of the port has them yet.
+# partseg: the point encoder's subtrees outside the pretrained trunk train
+# (the reference keeps what the checkpoint lacks trainable, ULIP_models.py:550-566).
 _PARTSEG_TRAINABLE_SUBTREES = ("propagation_0", "propagation_1", "propagation_2",
                                "dgcnn_pro_1", "dgcnn_pro_2", "conv1", "bn1")
 
@@ -251,22 +279,23 @@ _PARTSEG_TRAINABLE_SUBTREES = ("propagation_0", "propagation_1", "propagation_2"
 def trainable_mask(model: nn.Module, head_type: int = 0, task: str = "cls") -> Dict[str, bool]:
     """Which parameters train, by ``named_parameters`` name.
 
-    Prompt tasks (cls, fewshot): always ``prompt_learner.*``; head types
-    1 to 3 progressively add the PointAdapter leaves of ``block_11``.
-    ``task='pretrain'`` instead trains the point encoder, ``pc_projection``
-    and ``logit_scale`` against the frozen text tower."""
-    if task == "partseg":
-        raise NotImplementedError("the partseg trainable subtrees "
-                                  f"{_PARTSEG_TRAINABLE_SUBTREES} are not ported yet")
+    Prompt tasks (cls, fewshot, partseg): always ``prompt_learner.*``; head
+    types 1 to 3 progressively add the PointAdapter leaves of ``block_11``;
+    partseg adds the segmentation head's subtrees. ``task='pretrain'``
+    instead trains the point encoder, ``pc_projection`` and ``logit_scale``
+    against the frozen text tower."""
 
     def is_trainable(path: Tuple[str, ...]) -> bool:
         if task == "pretrain":
             return path[0] in ("point_encoder", "pc_projection", "logit_scale")
         if "prompt_learner" in path:
             return True
-        return any(path[:len(prefix)] == prefix
-                   for ht, prefixes in _HEAD_TYPE_UNFREEZE.items() if head_type >= ht
-                   for prefix in prefixes)
+        if any(path[:len(prefix)] == prefix
+               for ht, prefixes in _HEAD_TYPE_UNFREEZE.items() if head_type >= ht
+               for prefix in prefixes):
+            return True
+        return (task == "partseg" and path[0] == "point_encoder" and len(path) > 1
+                and path[1] in _PARTSEG_TRAINABLE_SUBTREES)
 
     return {name: is_trainable(tuple(name.split("."))) for name, _ in model.named_parameters()}
 

@@ -71,7 +71,7 @@ class EdgeConvStack(nn.Module):
 
     def forward(self, f: torch.Tensor, coor: torch.Tensor) -> torch.Tensor:
         """f [B, G, C], coor [B, G, 3] -> [B, G, output_channel] f32."""
-        idx = knn_point(self.k, coor.detach(), coor.detach())  # plain topk; no gradient
+        idx = knn_point(self.k, coor.detach(), coor.detach())  # plain; no gradient
         f = self.input_trans(f)
         feats = []
         for i in range(len(self.WIDTHS)):

@@ -26,6 +26,10 @@ one.
 
 The position embedding is added before EVERY block (reference
 ``point_encoder.py:98-110``), inside the block kernel on the fused routes.
+
+``PointBertPartSeg`` is part segmentation's dense trunk (``nn/pointbert.py:
+510-675``): the same grouping, encoder and blocks, LayerNorm taps after
+blocks 3, 7 and 11, then 3-NN and EdgeConv propagation back to every point.
 """
 
 from __future__ import annotations
@@ -37,12 +41,15 @@ import numpy as np
 import torch
 from torch import nn
 
+from ppt_torch.kernels import group as kgroup
 from ppt_torch.kernels.attention import FLASH_MIN_SEQ, flash_mha, fused_mha
 from ppt_torch.kernels.group import fused_group
 from ppt_torch.kernels.mini import mini_forward, mini_stats
 from ppt_torch.kernels.vitblock import fused_vit_block, fused_vit_block_readout, fused_vit_tower
-from ppt_torch.nn.layers import (BatchNormStats, CastCache, Dense, LayerNormF32, MlpBlock,
-                                 drop_path, drop_path_scales, gelu_tanh)
+from ppt_torch.nn.layers import (BatchNorm, BatchNormStats, CastCache, Dense, GroupNorm,
+                                 LayerNormF32, MlpBlock, drop_path, drop_path_scales, dropout,
+                                 gelu_tanh, leaky_relu)
+from ppt_torch.ops.geometry import index_points, knn_point, three_interpolate
 
 POINT_ROUTES = ("block", "tower", "unfused", "plain")
 
@@ -265,10 +272,11 @@ class PointBert(nn.Module):
 
         return self._cache.get(self._block_params, self.dtype, build)
 
-    def forward(self, pts: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """``train``: batch statistics in the group encoder's BatchNorms
-        (and their running update) and DropPath drawn from ``generator``."""
+    def embed(self, pts: torch.Tensor, train: bool, generator: Optional[torch.Generator]):
+        """Grouping, the group encoder, ``reduce_dim``, the cls token and the
+        position embedding: (tokens x [B, 1 + G, C], pos [B, 1 + G, C],
+        centres [B, G, 3], the DropPath ladder's rates, their branch scales
+        [depth, B, 2], the route this trunk length takes)."""
         cfg = self.config
         dt = self.dtype
         neighborhood, center = group_points(pts, cfg.num_group, cfg.group_size)
@@ -280,6 +288,15 @@ class PointBert(nn.Module):
         rates = np.linspace(0.0, cfg.drop_path_rate, cfg.depth).tolist()
         route = self.route if x.shape[1] < FLASH_MIN_SEQ else "unfused"
         dp = drop_path_scales(rates, B, train, generator, x.device)
+        return x, pos, center, rates, dp, route
+
+    def forward(self, pts: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``train``: batch statistics in the group encoder's BatchNorms
+        (and their running update) and DropPath drawn from ``generator``."""
+        cfg = self.config
+        dt = self.dtype
+        x, pos, _, rates, dp, route = self.embed(pts, train, generator)
         if route == "tower":
             ro = fused_vit_tower(x, pos.to(dt), dp.transpose(0, 1), *self.stacked_weights(),
                                  self.norm.weight, self.norm.bias, cfg.num_heads)  # [B, 8, C] f32
@@ -293,3 +310,131 @@ class PointBert(nn.Module):
             x = blk(x, pos, dp[i], route=route, rate=rates[i] if train else 0.0)
         xn = self.norm(x.float())
         return torch.cat([xn[:, 0], xn[:, 1:].amax(1)], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Part segmentation (``ppt_tpu/nn/pointbert.py:510-675``)
+# ---------------------------------------------------------------------------
+
+
+class FeaturePropagation(nn.Module):
+    """3-NN inverse-distance upsampling, then ``Dense -> BatchNorm -> ReLU``
+    per width (``PointNetFeaturePropagation``): the input is ``[points1,
+    interp]`` in that order; the BatchNorms are flax's (f32, batch
+    statistics over every row in training, momentum 0.99)."""
+
+    def __init__(self, in_dim: int, mlp: Tuple[int, ...], dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.depth = len(mlp)
+        for i, ch in enumerate(mlp):
+            self.add_module(f"conv{i}", Dense(in_dim, ch, dtype=dtype))
+            self.add_module(f"bn{i}", BatchNorm(ch))
+            in_dim = ch
+
+    def forward(self, xyz1: torch.Tensor, xyz2: torch.Tensor, points1: Optional[torch.Tensor],
+                points2: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """Targets xyz1 [B, N, 3], sources xyz2 [B, S, 3], target features
+        points1 [B, N, D1] or None, source features points2 [B, S, D2] ->
+        [B, N, mlp[-1]] f32."""
+        x = three_interpolate(xyz1, xyz2, points2)
+        if points1 is not None:
+            x = torch.cat([points1, x], dim=-1)  # promotes as jnp's concat does
+        for i in range(self.depth):
+            x = torch.relu(getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(x), train))
+        return x
+
+
+class DgcnnPropagation(nn.Module):
+    """Two EdgeConv rounds (``DGCNN_Propagation``): the k=4 nearest coarse
+    points of each fine point by coordinates (no gradient through the
+    index), edge feature ``[nbr - q, q]``, ``Dense`` without bias, flax's
+    ``GroupNorm(4)`` in f32, leaky ReLU 0.2, max over k; the second round
+    takes the fine set against itself."""
+
+    def __init__(self, in_dim: int, k: int = 4, hidden_dim: int = 512, out_dim: int = 384,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.k = k
+        self.layer1 = Dense(2 * in_dim, hidden_dim, bias=False, dtype=dtype)
+        self.gn1 = GroupNorm(hidden_dim)
+        self.layer2 = Dense(2 * hidden_dim, out_dim, bias=False, dtype=dtype)
+        self.gn2 = GroupNorm(out_dim)
+
+    def _edge(self, coor_q, x_q, coor_k, x_k) -> torch.Tensor:
+        idx = knn_point(self.k, coor_k.detach(), coor_q.detach())  # [B, Nq, k]
+        nbrs = index_points(x_k, idx)  # [B, Nq, k, D]
+        q = x_q[:, :, None, :].expand_as(nbrs)
+        return torch.cat([nbrs - q, q], dim=-1)
+
+    def forward(self, coor: torch.Tensor, f: torch.Tensor, coor_q: torch.Tensor,
+                f_q: torch.Tensor) -> torch.Tensor:
+        """Coarse coor [B, G, 3] / f [B, G, D], fine coor_q [B, N, 3] / f_q
+        [B, N, D] -> [B, N, out_dim] f32."""
+        h = self.layer1(self._edge(coor_q, f_q, coor, f))
+        h = leaky_relu(self.gn1(h), 0.2).amax(dim=2)
+        h2 = self.layer2(self._edge(coor_q, h, coor_q, h))
+        return leaky_relu(self.gn2(h2), 0.2).amax(dim=2)
+
+
+PARTSEG_TAPS = (3, 7, 11)  # the blocks whose LayerNormed outputs feed the heads
+
+
+class PointBertPartSeg(PointBert):
+    """Dense per-point trunk (``PointTransformer_partseg``) -> [B, N, 128]
+    f32: ``PointBert``'s grouping, encoder and 12 blocks, each of the blocks
+    in ``PARTSEG_TAPS`` tapped through the one shared ``norm`` (f32,
+    cls token dropped), FPS to 512 and 256 points on ``fps_batched``, then
+    the propagations in the reference's order and ``conv1 -> bn1 -> ReLU ->
+    Dropout(0.5)``. As in the reference, ``propagation_2`` and
+    ``propagation_1`` take the sampled coordinates as their ``points1``
+    features, and the level-0 features are ``[one-hot, pts]``.
+
+    Routes: the taps need every block's tokens, so no readout is fused.
+    "block" runs ``fused_vit_block`` twelve times; "unfused" and "plain" are
+    ``PointBert``'s. The reference's partseg trunk never reads the tower
+    switch (``nn/pointbert.py:630-638`` builds plain ``VitBlock``s), so
+    "tower" runs as "block". From ``FLASH_MIN_SEQ`` tokens every route runs
+    the unfused block with ``flash_mha``."""
+
+    def __init__(self, config: PointBertConfig = PointBertConfig(), num_categories: int = 16,
+                 dtype: torch.dtype = torch.float32, route: str = "block"):
+        super().__init__(config, dtype=dtype, route=route)
+        C = config.trans_dim
+        self.num_categories = num_categories
+        mlp = (4 * C, C)
+        self.propagation_2 = FeaturePropagation(3 + C, mlp, dtype=dtype)
+        self.propagation_1 = FeaturePropagation(3 + C, mlp, dtype=dtype)
+        self.dgcnn_pro_2 = DgcnnPropagation(C, k=4, out_dim=C, dtype=dtype)
+        self.dgcnn_pro_1 = DgcnnPropagation(C, k=4, out_dim=C, dtype=dtype)
+        self.propagation_0 = FeaturePropagation(num_categories + 3 + C, mlp, dtype=dtype)
+        self.conv1 = Dense(C, 128, dtype=dtype)
+        self.bn1 = BatchNorm(128)
+
+    def forward(self, pts: torch.Tensor, cls_onehot: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """pts [B, N, 3], cls_onehot [B, num_categories] -> [B, N, 128] f32.
+        ``train``: batch statistics in every BatchNorm (and their running
+        update), DropPath and the head's dropout drawn from ``generator``."""
+        B, N, _ = pts.shape
+        dt = self.dtype
+        x, pos, center, rates, dp, route = self.embed(pts, train, generator)
+        feats = []
+        route = "block" if route == "tower" else route
+        for i, blk in enumerate(self.blocks()):
+            x = blk(x, pos, dp[i], route=route, rate=rates[i] if train else 0.0)
+            if i in PARTSEG_TAPS:
+                feats.append(self.norm(x.float())[:, 1:])  # [B, G, C] f32
+        # hierarchical coordinates: N -> 512 -> 256 -> G
+        xyz = pts.detach()
+        xyz_512 = index_points(xyz, kgroup.fps_batched(xyz, 512))
+        xyz_256 = index_points(xyz, kgroup.fps_batched(xyz, 256))
+        onehot = cls_onehot[:, None, :].to(dt).expand(B, N, self.num_categories)
+        f_level_0 = torch.cat([onehot, pts.to(dt)], dim=-1)
+
+        f_256 = self.propagation_2(xyz_256, center, xyz_256, feats[1], train)
+        f_512 = self.propagation_1(xyz_512, center, xyz_512, feats[0], train)
+        f_256 = self.dgcnn_pro_2(center, feats[2], xyz_256, f_256)
+        f_512 = self.dgcnn_pro_1(xyz_256, f_256, xyz_512, f_512)
+        f_all = self.propagation_0(pts, xyz_512, f_level_0, f_512, train)
+        h = torch.relu(self.bn1(self.conv1(f_all), train))
+        return dropout(h, 0.5, train, generator)

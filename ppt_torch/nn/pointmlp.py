@@ -17,9 +17,9 @@ The traps:
   (1024 -> 512, 256, 128, 64), not from the cloud's N;
 - FPS goes through ``kernels/group.py:fps_batched`` (the kernel on the
   card), as the reference reaches its own chip's kernel; kNN stays
-  ``ops/geometry.py:knn_point``, the expanded-form distance and ``topk``,
-  as the reference's is plain XLA (ties may come out in another order;
-  everything after it is a max-pool or a whole-cloud statistic);
+  ``ops/geometry.py:knn_point``, the expanded-form distance sorted
+  stably (ties to the lower index, as ``lax.top_k``), as the reference's
+  is plain XLA;
 - the "anchor" affine divides by ONE std per cloud over the flattened
   ``[G, K, D]`` block, in f32, with Bessel's correction, plus 1e-5;
 - the residual is ``relu(bn2(conv2(relu(bn1(conv1(x))))) + x)``;

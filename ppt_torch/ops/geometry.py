@@ -1,10 +1,13 @@
 """Point-cloud geometry ops: the plain PyTorch specification.
 
-Counterpart of ``ppt_tpu/ops/geometry.py:28-298``. These are the
+Counterpart of ``ppt_tpu/ops/geometry.py:28-343``. These are the
 semantic ground truth for the grouping kernels in
 ``ppt_torch.kernels.group``; everything is batched ``[B, N, C]``,
 channels-last, with fixed-size index outputs. ``sample_and_group`` is the
 set-abstraction front end and goes through those kernels' wrappers.
+``three_nn`` / ``three_interpolate`` upsample part segmentation's
+features; the TPU runs them as XLA, not as kernels, so they stay plain
+here.
 """
 
 from __future__ import annotations
@@ -51,12 +54,44 @@ def farthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     return out
 
 
+
+
+def nearest_first(d: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` smallest entries of each row of ``d`` and their indices,
+    nearest first, a tie going to the lower index, as ``lax.top_k`` orders
+    them (``torch.topk`` orders ties otherwise, and may keep another tied
+    index at the k-th place): a stable sort of the whole row."""
+    vals, idx = torch.sort(d, dim=-1, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
 def knn_point(nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor) -> torch.Tensor:
-    """k nearest neighbours ``[B, S, nsample]`` int32, nearest first, over
-    the expanded-form distance (the reference's CPU contract; the grouping
-    kernel uses the exact-difference form instead)."""
-    d = square_distance(new_xyz, xyz)
-    return torch.topk(-d, nsample, dim=-1).indices.to(torch.int32)
+    """k nearest neighbours ``[B, S, nsample]`` int32, nearest first, ties to
+    the lower index, over the expanded-form distance (the reference's CPU
+    contract; the grouping kernel uses the exact-difference form instead)."""
+    return nearest_first(square_distance(new_xyz, xyz), nsample)[1].to(torch.int32)
+
+
+def three_nn(unknown: torch.Tensor, known: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Three nearest ``known`` points of each ``unknown`` point: (squared
+    distances [B, N, 3] in the expanded form, clamped at 0, nearest first;
+    indices [B, N, 3] int32), ties to the lower index
+    (``ppt_tpu/ops/geometry.py:301-314``)."""
+    d, idx = nearest_first(square_distance(unknown, known), 3)
+    return torch.clamp_min(d, 0.0), idx.to(torch.int32)
+
+
+def three_interpolate(unknown_xyz: torch.Tensor, known_xyz: torch.Tensor,
+                      known_feats: torch.Tensor) -> torch.Tensor:
+    """Inverse-distance-weighted 3-NN interpolation ``[B, N, D]`` in
+    ``known_feats``' dtype: weights ``1 / (d + 1e-8)`` normalised over the
+    three (``ppt_tpu/ops/geometry.py:317-343``); a coincident point (d = 0)
+    takes almost all the weight."""
+    dists, idx = three_nn(unknown_xyz, known_xyz)
+    recip = 1.0 / (dists + 1e-8)
+    weight = recip / recip.sum(-1, keepdim=True)  # [B, N, 3]
+    gathered = index_points(known_feats, idx)  # [B, N, 3, D]
+    return (gathered * weight[..., None]).sum(2).to(known_feats.dtype)
 
 
 def group_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -86,6 +86,9 @@ def setup(args: TaskArgs) -> Dict:
     """Datasets, prompts, model, trainable partition, schedule, optimizer
     and train state on ``args.device`` (the card if empty), shared by
     training and evaluation."""
+    if args.task == "partseg":
+        raise ValueError("task 'partseg' has a driver of its own: python -m "
+                         "ppt_torch.tasks.partseg")
     device = resolve_device(args.device or None)
     train_ds = build_dataset(args.dataset_name, args, "train")
     test_ds = build_dataset(args.dataset_name, args, "test")

@@ -4,8 +4,8 @@ Counterpart of ``ppt_tpu/tools/ckpt_convert.py`` for the towers the port
 has. Inputs are the ``.pt`` files PPT downloads
 (``models/ULIP_models.py:472-507``): ``slip_base_100ep.pt`` (the SLIP/CLIP
 text tower, its visual tower ignored), ``pointbert(_ulip2).pt`` (the
-ULIP-pretrained PointBERT, with ``pc_projection`` and ``logit_scale``),
-``pointnet2_ssg.pt``, ``pointnet2_msg_1kpts.pt``, ``pointmlp.pt`` and
+ULIP-pretrained PointBERT, with ``pc_projection`` and ``logit_scale``; kind
+``pointbert_partseg`` for a part-segmentation checkpoint), ``pointnet2_ssg.pt``, ``pointnet2_msg_1kpts.pt``, ``pointmlp.pt`` and
 PointNeXt-S's. Each becomes a ``<name>.msgpack`` file holding a flax-layout
 ``{"params": ..., "batch_stats": ...}`` tree, byte for byte the file the
 reference's converter writes, which ``ppt_torch.train.checkpoint.
@@ -133,10 +133,14 @@ def convert_slip_text(sd: Dict[str, Any]) -> Dict[str, Any]:
 
 def convert_pointbert(sd: Dict[str, Any]) -> Dict[str, Any]:
     """ULIP PointBERT -> ``point_encoder/*`` (+ ``pc_projection``)."""
-    sd = _strip_module(sd)
-    pe = "point_encoder."
     p: Flat = {}
     s: Flat = {}
+    _pointbert_leaves(_strip_module(sd), p, s)
+    return _tree(p, s)
+
+
+def _pointbert_leaves(sd: Dict[str, Any], p: Flat, s: Flat) -> None:
+    pe = "point_encoder."
     _projection(p, sd)
     enc = ("point_encoder", "encoder")
     _conv1x1(p, enc + ("conv1a",), sd[pe + "encoder.first_conv.0.weight"],
@@ -170,6 +174,40 @@ def convert_pointbert(sd: Dict[str, Any]) -> Dict[str, Any]:
         _linear(p, dst + ("mlp", "fc1"), sd[f"{src}.mlp.fc1.weight"], sd[f"{src}.mlp.fc1.bias"])
         _linear(p, dst + ("mlp", "fc2"), sd[f"{src}.mlp.fc2.weight"], sd[f"{src}.mlp.fc2.bias"])
     _ln(p, ("point_encoder", "norm"), sd, pe + "norm")
+
+
+def convert_pointbert_partseg(sd: Dict[str, Any]) -> Dict[str, Any]:
+    """ULIP PointBERT partseg trunk (``point_encoder.py:260-420``): the cls
+    trunk's leaves, then the dense heads that the checkpoint holds:
+    ``propagation_{0,1,2}`` (``mlp_convs`` / ``mlp_bns``), ``dgcnn_pro_{1,2}``
+    (``layer{1,2}.0`` convs without bias, the ``layer{1,2}.1`` GroupNorm
+    affine as ``gn{1,2}`` ``scale``/``bias``) and ``conv1`` / ``bn1``."""
+    sd = _strip_module(sd)
+    pe = "point_encoder."
+    p: Flat = {}
+    s: Flat = {}
+    _pointbert_leaves(sd, p, s)
+    for j in (0, 1, 2):
+        src = f"{pe}propagation_{j}"
+        dst = ("point_encoder", f"propagation_{j}")
+        i = 0
+        while f"{src}.mlp_convs.{i}.weight" in sd:
+            _conv1x1(p, dst + (f"conv{i}",), sd[f"{src}.mlp_convs.{i}.weight"],
+                     sd.get(f"{src}.mlp_convs.{i}.bias"))
+            _bn(p, s, dst + (f"bn{i}",), sd, f"{src}.mlp_bns.{i}")
+            i += 1
+    for j in (1, 2):
+        src = f"{pe}dgcnn_pro_{j}"
+        if f"{src}.layer1.0.weight" not in sd:
+            continue
+        dst = ("point_encoder", f"dgcnn_pro_{j}")
+        for layer, gn in (("layer1", "gn1"), ("layer2", "gn2")):
+            _conv1x1(p, dst + (layer,), sd[f"{src}.{layer}.0.weight"])
+            _ln(p, dst + (gn,), sd, f"{src}.{layer}.1")  # the GroupNorm's affine
+    if f"{pe}conv1.weight" in sd:
+        _conv1x1(p, ("point_encoder", "conv1"), sd[f"{pe}conv1.weight"],
+                 sd.get(f"{pe}conv1.bias"))
+        _bn(p, s, ("point_encoder", "bn1"), sd, f"{pe}bn1")
     return _tree(p, s)
 
 
@@ -289,12 +327,13 @@ def convert_pointnext(sd: Dict[str, Any]) -> Dict[str, Any]:
     return _tree(p, s)
 
 
-# the reference's kinds whose modules the port has; the others (pointbert_partseg,
-# dgcnn, pointnet, pointtransformer, randlanet, balldgcnn, deepgcn, grouppointnet,
-# simpleview, baafnet) come with the slices that port their modules (ROADMAP.md)
+# the reference's kinds whose modules the port has; the others (dgcnn, pointnet,
+# pointtransformer, randlanet, balldgcnn, deepgcn, grouppointnet, simpleview,
+# baafnet) come with the slices that port their modules (ROADMAP.md)
 CONVERTERS = {
     "slip": convert_slip_text,
     "pointbert": convert_pointbert,
+    "pointbert_partseg": convert_pointbert_partseg,
     "pointnet2_ssg": convert_pointnet2,
     "pointnet2_msg": convert_pointnet2,
     "pointmlp": convert_pointmlp,

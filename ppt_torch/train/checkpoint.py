@@ -145,9 +145,11 @@ BACKBONE_FILES = {
 
 
 def backbone_file(args) -> Optional[str]:
-    """The converted point tower's file name for ``args.model`` (PointBERT:
-    ``pointbert``, or ``pointbert_ulip2`` under ``--ulip2``)."""
-    if args.model == "ULIP_PointBERT":
+    """The converted point tower's file name for ``args.model`` (PointBERT
+    and its part-segmentation trunk: ``pointbert``, or ``pointbert_ulip2``
+    under ``--ulip2``; the partseg trunk loads the cls trunk's leaves and its
+    heads keep their init)."""
+    if args.model in ("ULIP_PointBERT", "ULIP_PointBERT_partseg"):
         return "pointbert_ulip2" if args.ulip2 else "pointbert"
     return BACKBONE_FILES.get(args.model)
 

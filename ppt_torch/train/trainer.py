@@ -64,10 +64,14 @@ def clamp_logit_scale(trainable: Dict[str, torch.Tensor]) -> None:
         trainable["logit_scale"].clamp_(0.0, LOGIT_SCALE_MAX)
 
 
-def make_train_step(smoothing: float = 0.0, second_order: bool = False) -> Callable:
+def make_train_step(smoothing: float = 0.0, second_order: bool = False,
+                    partseg: bool = False) -> Callable:
     """``train_step(state, batch, prompts) -> (state, metrics)``: one
     optimizer step on ``batch`` (``pc`` [B, N, 3], ``label`` [B], on the
-    model's device). ``metrics`` holds ``loss`` and ``acc`` (percent) as
+    model's device). With ``partseg`` the batch also holds ``cls_onehot``
+    [B, 16], ``label`` is [B, N] and the loss and accuracy are taken over
+    the flattened [B * N, P] logits (``trainer.py:141-160``). ``metrics``
+    holds ``loss`` and ``acc`` (percent) as
     0-dim tensors, so the caller decides when to wait for the device. The
     model and the optimizer come with ``state``; the optimizer gets the
     loss as ``value`` (the plateau stage reads it). With ``second_order``
@@ -80,14 +84,18 @@ def make_train_step(smoothing: float = 0.0, second_order: bool = False) -> Calla
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    prompts: PromptArrays) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         trainable = state.trainable
-        logits = state.model(batch["pc"], prompts, train=True, generator=state.generator)
-        loss = smoothed_cross_entropy(logits, batch["label"], smoothing)
+        logits = state.model(batch["pc"], prompts, train=True, generator=state.generator,
+                             cls_onehot=batch["cls_onehot"] if partseg else None)
+        labels = batch["label"]
+        if partseg:
+            logits, labels = logits.reshape(-1, logits.shape[-1]), labels.reshape(-1)
+        loss = smoothed_cross_entropy(logits, labels, smoothing)
         apply_gradients(state.optimizer, loss, state.generator, second_order,
                         value=loss.detach())
         clamp_logit_scale(trainable)
         state.step += 1
         with torch.no_grad():
-            acc = (logits.argmax(-1) == batch["label"]).float().mean() * 100.0
+            acc = (logits.argmax(-1) == labels).float().mean() * 100.0
         return state, {"loss": loss.detach(), "acc": acc}
 
     return train_step
@@ -109,13 +117,15 @@ def apply_gradients(optimizer: Optimizer, loss: torch.Tensor, generator: torch.G
     optimizer.step(dict(zip(names, grads)), value=value, **extra)
 
 
-def make_train_multi_step(smoothing: float = 0.0, second_order: bool = False) -> Callable:
+def make_train_multi_step(smoothing: float = 0.0, second_order: bool = False,
+                          partseg: bool = False) -> Callable:
     """``multi_step(state, batches, prompts) -> (state, metrics)``: the
     reference's ``make_train_multi_step`` (``trainer.py:216-251``) without
     its ``lax.scan``: ``batches`` holds K batches stacked (``pc`` [K, B, N,
-    3], ``label`` [K, B]), and the K single steps are launched back to back
-    with no read by the host between them; ``metrics`` are [K] tensors."""
-    single = make_train_step(smoothing, second_order)
+    3], ``label`` [K, B]; with ``partseg`` also ``cls_onehot``), and the K
+    single steps are launched back to back with no read by the host between
+    them; ``metrics`` are [K] tensors."""
+    single = make_train_step(smoothing, second_order, partseg)
 
     def multi_step(state: TrainState, batches: Dict[str, torch.Tensor],
                    prompts: PromptArrays) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -144,12 +154,15 @@ def hutchinson_diag(grads: Sequence[torch.Tensor], params: Sequence[torch.Tensor
     return total
 
 
-def make_eval_step() -> Callable:
+def make_eval_step(partseg: bool = False) -> Callable:
     """``eval_step(state, batch, prompts) -> logits`` with running
-    statistics and no DropPath; recomputes the text tower per call."""
+    statistics, no DropPath and no dropout; recomputes the text tower per
+    call. With ``partseg`` the batch's ``cls_onehot`` goes to the point
+    tower and the logits are [B, N, P] (``trainer.py:279-295``)."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Dict[str, torch.Tensor], prompts: PromptArrays):
-        return state.model(batch["pc"], prompts, train=False)
+        return state.model(batch["pc"], prompts, train=False,
+                           cls_onehot=batch["cls_onehot"] if partseg else None)
 
     return eval_step

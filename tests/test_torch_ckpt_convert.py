@@ -1,13 +1,15 @@
 """Port vs reference: the ``.pt`` -> ``.msgpack`` checkpoint converter.
 
-For each kind the port converts (slip, pointbert, pointnet2_ssg,
-pointnet2_msg, pointmlp, pointnext), one seeded state dict with the
-reference's parameter names goes through ``ppt_tpu.tools.ckpt_convert``
-and ``ppt_torch.tools.ckpt_convert``: the two ``.msgpack`` files must be
-equal byte for byte, and the port's msgpack reader must decode the file to
-the arrays flax decodes, bit for bit. SLIP and PointBERT take the
-reference tests' own makers (``tests/test_ckpt_convert.py``) with every
-tensor redrawn from a seed; the other four are written from the small
+For each kind the port converts (slip, pointbert, pointbert_partseg,
+pointnet2_ssg, pointnet2_msg, pointmlp, pointnext), one seeded state dict
+with the reference's parameter names goes through
+``ppt_tpu.tools.ckpt_convert`` and ``ppt_torch.tools.ckpt_convert``: the
+two ``.msgpack`` files must be equal byte for byte, and the port's msgpack
+reader must decode the file to the arrays flax decodes, bit for bit. SLIP
+and PointBERT take the reference tests' own makers
+(``tests/test_ckpt_convert.py``) with every tensor redrawn from a seed, the
+partseg kind PointBERT's with the segmentation heads added under the
+reference's names; the other four are written from the small
 JAX model's variable tree by the inverse of the layout rules, so the
 converted tree must also come back to that tree exactly.
 """
@@ -32,10 +34,11 @@ TINY_BERT = dict(trans_dim=64, depth=2, drop_path_rate=0.0, num_heads=2, group_s
 TEXT = dict(width=64, layers=2, heads=4, embed_dim=64)
 MLP_SMALL = dict(points=64, embed_dim=16, k_neighbors=(8, 8, 8, 8))
 EMBED = 64  # the joint space of the tiny models: pc_projection's width
-KINDS = ("slip", "pointbert", "pointnet2_ssg", "pointnet2_msg", "pointmlp", "pointnext")
-# the reference's kinds whose modules the port lacks (ROADMAP.md, Queue 1 items 3 and 7)
-NOT_PORTED = ("pointbert_partseg", "dgcnn", "pointnet", "pointtransformer", "randlanet",
-              "balldgcnn", "deepgcn", "grouppointnet", "simpleview", "baafnet")
+KINDS = ("slip", "pointbert", "pointbert_partseg", "pointnet2_ssg", "pointnet2_msg", "pointmlp",
+         "pointnext")
+# the reference's kinds whose modules the port lacks (ROADMAP.md, Queue 1 item 7)
+NOT_PORTED = ("dgcnn", "pointnet", "pointtransformer", "randlanet", "balldgcnn", "deepgcn",
+              "grouppointnet", "simpleview", "baafnet")
 
 
 def redraw(sd, seed):
@@ -167,7 +170,41 @@ def reference_state_dict(kind, seed=0):
         sd["pc_projection"] = torch.randn(2 * TINY_BERT["trans_dim"], EMBED,
                                           generator=torch.Generator().manual_seed(seed + 1))
         return sd
+    if kind == "pointbert_partseg":
+        return partseg_state_dict(seed)
     return inverse_state_dict(kind, tower_variables(kind, seed))
+
+
+def partseg_state_dict(seed):
+    """The PointBERT state dict with the partseg trunk's heads under the
+    reference's names (``point_encoder.py:260-420``): ``propagation_{0,1,2}``
+    (``mlp_convs`` Conv1d, ``mlp_bns``), ``dgcnn_pro_{1,2}`` (``layer{1,2}.0``
+    Conv2d without bias, ``layer{1,2}.1`` GroupNorm) and ``conv1`` / ``bn1``,
+    at the small trunk's width, every tensor drawn from ``seed``."""
+    C = TINY_BERT["trans_dim"]
+    sd = reference_state_dict("pointbert", seed)
+    sd["pc_projection"] = torch.randn(128, EMBED)
+    pe = "point_encoder."
+
+    def bn(name, n):
+        sd.update({f"{name}.weight": torch.ones(n), f"{name}.bias": torch.zeros(n),
+                   f"{name}.running_mean": torch.zeros(n), f"{name}.running_var": torch.ones(n),
+                   f"{name}.num_batches_tracked": torch.tensor(0)})
+
+    for j, cin in ((0, 16 + 3 + C), (1, 3 + C), (2, 3 + C)):
+        for i, (a, b) in enumerate(((cin, 4 * C), (4 * C, C))):
+            sd[f"{pe}propagation_{j}.mlp_convs.{i}.weight"] = torch.zeros(b, a, 1)
+            sd[f"{pe}propagation_{j}.mlp_convs.{i}.bias"] = torch.zeros(b)
+            bn(f"{pe}propagation_{j}.mlp_bns.{i}", b)
+    for j in (1, 2):
+        for k, (a, b) in enumerate(((2 * C, 512), (1024, C)), 1):
+            sd[f"{pe}dgcnn_pro_{j}.layer{k}.0.weight"] = torch.zeros(b, a, 1, 1)
+            sd[f"{pe}dgcnn_pro_{j}.layer{k}.1.weight"] = torch.ones(b)
+            sd[f"{pe}dgcnn_pro_{j}.layer{k}.1.bias"] = torch.zeros(b)
+    sd[f"{pe}conv1.weight"] = torch.zeros(128, C, 1)
+    sd[f"{pe}conv1.bias"] = torch.zeros(128)
+    bn(f"{pe}bn1", 128)
+    return redraw(sd, seed + 2)
 
 
 def save_pt(path, sd, module_prefix=False, state_key="state_dict"):
