@@ -8,7 +8,9 @@ long trunk (prompt tuning at head types 3 and 2, ULIP pretraining),
 PointBERT's two pretraining stages (the dVAE tokenizer, masked point
 modeling), the kernel tools (the ViT-block ablation probe, the on-card
 kernel check), the published recipes, converted pretrained backbones
-with ULIP_PN_MLP at full width, and part segmentation (ULIP_PointBERT_partseg).
+with ULIP_PN_MLP at full width, part segmentation (ULIP_PointBERT_partseg),
+and the linear probe (feature extraction, the few-shot probe, prompt
+interpretation).
 
     python3 chip_smoke.py            # one CUDA card, no arguments
     python3 chip_smoke.py --only ballquery   # group.cu, phase 3's ball queries alone
@@ -23,6 +25,7 @@ with ULIP_PN_MLP at full width, and part segmentation (ULIP_PointBERT_partseg).
     python3 chip_smoke.py --only pretrained  # phase 14: converted ULIP/SLIP backbones loaded,
                                              # ULIP_PN_MLP at full width
     python3 chip_smoke.py --only partseg     # phase 15: part segmentation at full width
+    python3 chip_smoke.py --only probe       # phase 16: the linear probe at full width
 
 Phases (any failed check raises, and the script exits non-zero):
   1. card name / power limit (nvidia-smi), torch and CUDA versions;
@@ -326,6 +329,26 @@ Phases (any failed check raises, and the script exits non-zero):
      from the cls file). Its numbers go on a line of their own
      ({"partseg": ...}); ``--only partseg`` builds what it needs and runs it
      alone.
+ 16. the linear probe at full width: ``feature_extract.main`` (PPT-Base,
+     bf16, seeded weights, B=32 x 1024 points) over ModelNet40-sized
+     synthetic splits (9843 train and 2468 test clouds, 40 classes), each
+     split's clouds/sec with its model build, the batch loop's alone, and
+     the launches a batch (fps_batched 1, knn_gather 1, mini_forward 1,
+     fused_vit_block 11, fused_vit_block_readout 1, nothing else); one
+     batch's features against the plain path (f32 max|diff| within 1e-3 of
+     their std, bf16 within 0.25); ``save_recog_feats``' logits bit-equal
+     to ``cls.validate``'s eval step on the same seeded state;
+     ``linear_probe.run_probe`` over the two files on the card and on the
+     CPU, each in a process of its own, side by side (shots 1-16, 2 runs,
+     num_step 8; seconds a shot; each shot's mean within 0.5 points), one
+     fit's weights card against CPU within 1e-2 of their largest;
+     ``interpret_prompt.nearest_words`` at CLIP's 49408
+     x 512 table with 32 seeded context vectors, TF32 off, its indices the
+     CPU's except where two squared distances lie within 1e-6 relative. The
+     features stay under build/chip_smoke_probe/lp_feats, where ``python -m
+     ppt_torch.tasks.linear_probe --output_dir build/chip_smoke_probe``
+     reads them. Its numbers go on a line of their own ({"probe": ...});
+     ``--only probe`` builds what it needs and runs it alone.
 
 The build prints each CUDA kernel's registers and spills (ptxas -v).
 The line before the card's is a JSON object with the per-kernel numbers
@@ -388,6 +411,7 @@ from ppt_torch.nn import pointbert as npb  # noqa: E402
 from ppt_torch.nn import text as ntext  # noqa: E402
 from ppt_torch.prompt.learner import build_prompt_spec  # noqa: E402
 from ppt_torch.tasks import cls, dvae_pretrain, fewshot, mpm_pretrain, partseg, pretrain  # noqa: E402
+from ppt_torch.tasks import feature_extract, interpret_prompt, linear_probe  # noqa: E402
 from ppt_torch.tasks.args import TaskArgs  # noqa: E402
 from ppt_torch.tools import kernel_check, vitblock_probe  # noqa: E402
 from ppt_torch.tools import profile as tprofile  # noqa: E402
@@ -4770,6 +4794,263 @@ def run_partseg_pretrained():
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the linear probe at full width
+# ---------------------------------------------------------------------------
+
+PROBE_DIR = _build.BUILD_DIR.parent / "chip_smoke_probe"
+PROBE_BATCH = 32
+MN40_TRAIN_CLOUDS = 9843  # ModelNet40's train split
+# each kernel's launches a batch of frozen-feature extraction (block route)
+PROBE_PER_BATCH = {"fps_batched": 1, "knn_gather": 1, "mini_forward": 1, "fused_vit_block": 11,
+                   "fused_vit_block_readout": 1}
+PROBE_SHOTS = (1, 2, 4, 8, 16)
+PROBE_RUNS = 2
+PROBE_MEAN_TOL = 0.5  # points: each shot's mean on the card against the CPU's
+PROBE_W_TOL = 1e-2  # one fit's weights, card against CPU: two f32 L-BFGS paths to one minimum
+VOCAB, N_CTX_PROBE = 49408, 32  # CLIP's token table, PPT-Base's context vectors
+TIE_REL = 1e-6  # two squared distances this close (relative) may swap places
+
+
+def synthetic_modelnet40_probe():
+    """ModelNet40-sized synthetic splits over its 40 names (9843 clouds to
+    train on, 2468 to test), made once; the loader then returns them."""
+    names = TaskArgs(dataset_name="modelnet40").load_classnames()
+    splits = {}
+    for split, n, seed in (("train", MN40_TRAIN_CLOUDS, 0), ("test", MN40_TEST_CLOUDS, 1)):
+        ds = make_synthetic(num_classes=40, samples_per_class=-(-n // 40), npoints=1024,
+                            seed=seed, classnames=names)
+        splits[split] = ArrayDataset(ds.points[:n], ds.labels[:n], ds.classnames,
+                                     name="modelnet40_synthetic_clouds")
+    return lambda args, split: splits[split]
+
+
+def probe_args(dtype="bfloat16", **kw):
+    return TaskArgs(dataset_name="modelnet40", npoints=1024, batch_size=PROBE_BATCH,
+                    num_learnable_prompt_tokens=32, class_name_position="middle",
+                    compute_dtype=dtype, seed=0, device="cuda", pretrained_dir="",
+                    output_dir=str(PROBE_DIR), **kw)
+
+
+def probe_features_vs_plain(pc, model):
+    """One batch's features through the kernels and through their plain
+    versions on the card, same weights: ``model`` (bf16) and its f32 twin."""
+    out = {}
+    f32 = build_model("ULIP_PointBERT", probe_args("float32"), device=DEV).model
+    for dtype, tol, m in (("float32", 1e-3, f32), ("bfloat16", 0.25, model)):
+        with torch.no_grad():
+            got = m.point_encoder(pc, train=False).float()
+            with plain_path():
+                want = m.point_encoder(pc, train=False).float()
+        torch.cuda.synchronize()
+        check(got.shape == (PROBE_BATCH, 768) and torch.isfinite(got).all(), "probe features")
+        diff = float((got - want).abs().max() / want.std())
+        print(f"[probe] features vs plain path on the card ({dtype}, B={PROBE_BATCH}): "
+              f"max|diff|/std {diff:.3e} (limit {tol})")
+        check(diff <= tol, f"{dtype} features disagree with the plain path")
+        out[dtype] = diff
+    return out
+
+
+def probe_logits_vs_validate(recog, model, prompts, test_ds):
+    """save_recog_feats' logits against ``cls.validate``'s eval step
+    (``make_cached_text_eval``) on the same seeded state: bit-equal."""
+    embed_fn, step_fn = make_cached_text_eval(model)
+    text_embed = embed_fn(model, prompts)
+    want = []
+    for batch in Loader(test_ds, batch_size=PROBE_BATCH):
+        pc = torch.from_numpy(batch["pc"]).to(DEV)
+        want.append(step_fn(model, {"pc": pc}, text_embed).cpu().numpy()[batch["valid"]])
+    want = np.concatenate(want)
+    got = recog["logits"]
+    equal = bool(np.array_equal(got, want))
+    print(f"[probe] save_recog_feats logits {got.shape} vs validate's eval step: bit-equal "
+          f"{equal}, max|diff| {float(np.abs(got - want).max()):.3e}")
+    check(equal, "save_recog_feats' logits differ from validate's eval step")
+    check(np.array_equal(recog["label_list"], test_ds.labels), "recog labels")
+    return {"bit_equal": equal}
+
+
+# run_probe a shot count at a time (a shot's subsets depend only on the shot
+# and the run) in a fresh process on one device: {shot: (mean, std, seconds)}
+PROBE_CHILD = """
+import json, sys, time
+import torch
+from ppt_torch.tasks import linear_probe
+torch.set_num_threads(1)  # no intra-op pool spinning beside the other process
+files, shots, runs, device = json.loads(sys.argv[1])
+out = {}
+for shot in shots:
+    t0 = time.perf_counter()
+    mean, std = linear_probe.run_probe(*files, num_run=runs, num_step=8, shots=(shot,),
+                                       device=device)[shot]
+    out[shot] = (mean, std, time.perf_counter() - t0)
+print(json.dumps(out))
+"""
+
+
+def probe_card_and_host(files):
+    """The protocol on the card and on the CPU, each in a process of its own,
+    side by side (the fits read the host every step)."""
+    procs = {dev: subprocess.Popen(
+        [sys.executable, "-c", PROBE_CHILD, json.dumps([files, PROBE_SHOTS, PROBE_RUNS, dev])],
+        cwd=str(Path(__file__).resolve().parent), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for dev in ("cuda", "cpu")}
+    out = {}
+    try:
+        for dev, p in procs.items():
+            stdout, stderr = p.communicate(timeout=600)
+            check(p.returncode == 0, f"the probe on {dev} failed: {stderr[-2000:]}")
+            out[dev] = {int(k): v for k, v in json.loads(stdout.splitlines()[-1]).items()}
+    finally:
+        for p in procs.values():
+            p.kill()
+    return out["cuda"], out["cpu"]
+
+
+def probe_fit_card_vs_host(files, C=1e-2, shot=16):
+    """One fit (run 0's subset at ``shot``) on the card and on the CPU at a
+    C where the objective is well conditioned: max|dW| / max|W|."""
+    tr = np.load(files[0])
+    idx = linear_probe.shot_indices(tr["label_list"], shot, 0, 40)
+    X = torch.from_numpy(tr["feature_list"][idx])
+    y = torch.from_numpy(tr["label_list"][idx].astype(np.int64))
+    w_card, _ = linear_probe._fit_logreg(X.to(DEV), y.to(DEV), C, 40)
+    w_host, _ = linear_probe._fit_logreg(X, y, C, 40)
+    return float((w_card.cpu() - w_host).abs().max() / w_host.abs().max())
+
+
+def probe_interpretation():
+    """nearest_words at CLIP's size on the card against the CPU, TF32 off:
+    indices identical except where the f64 squared distances of the two
+    indices lie within TIE_REL of each other."""
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 must be off")
+    gen = torch.Generator().manual_seed(21)
+    table = torch.randn(VOCAB, 512, generator=gen) * 0.02  # the init's scale
+    ctx = torch.randn(N_CTX_PROBE, 512, generator=gen) * 0.02
+    want_idx, want_d = interpret_prompt.nearest_indices(ctx, table, 5)
+    tc, tt = ctx.to(DEV), table.to(DEV)
+    interpret_prompt.nearest_indices(tc, tt, 5)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got_idx, got_d = interpret_prompt.nearest_indices(tc, tt, 5)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    got_idx, got_d = got_idx.cpu(), got_d.cpu()
+    c64, t64 = ctx.double(), table.double()
+    d2 = (c64 * c64).sum(-1)[:, None] + (t64 * t64).sum(-1)[None, :] - 2.0 * c64 @ t64.t()
+    swaps = 0
+    for i, j in zip(*torch.nonzero(got_idx != want_idx, as_tuple=True)):
+        a, b = d2[i, got_idx[i, j]], d2[i, want_idx[i, j]]
+        check(abs(a - b) <= TIE_REL * max(abs(a), abs(b)),
+              f"ctx {int(i)} rank {int(j)}: card {int(got_idx[i, j])}, CPU {int(want_idx[i, j])}")
+        swaps += 1
+    dist_diff = float((got_d - want_d).abs().max())
+    words = interpret_prompt.nearest_words(tc, tt, topk=5)
+    check(len(words) == N_CTX_PROBE and all(len(r) == 5 for r in words), "nearest words")
+    print(f"[probe] nearest_words {N_CTX_PROBE} x {VOCAB} x 512 on the card: {ms:.2f} ms; "
+          f"indices identical to the CPU's but {swaps} near-tie swaps; max|dist diff| "
+          f"{dist_diff:.3e}; ctx[ 0]: {words[0]}")
+    return {"ms": ms, "near_tie_swaps": swaps, "max_dist_diff": dist_diff}
+
+
+def run_probe_slice(smi):
+    saved_loader = pdata.DATASETS["modelnet40"]
+    pdata.DATASETS["modelnet40"] = synthetic_modelnet40_probe()
+    try:
+        return _run_probe_slice(smi)
+    finally:
+        pdata.DATASETS["modelnet40"] = saved_loader
+
+
+def _run_probe_slice(smi):
+    """The extracted features stay under ``PROBE_DIR/lp_feats``, where
+    ``python -m ppt_torch.tasks.linear_probe --output_dir build/chip_smoke_probe``
+    reads them."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(PROBE_DIR, ignore_errors=True)
+    out = {"card": smi}
+
+    # --- extraction: feature_extract.main, each split timed --------------------------
+    walls = {}
+    extract = feature_extract.extract_features
+
+    def timed_extract(args, split, with_logits=False):
+        t0 = time.perf_counter()
+        data = extract(args, split, with_logits)
+        torch.cuda.synchronize()
+        walls[split] = time.perf_counter() - t0
+        return data
+
+    feature_extract.extract_features = timed_extract
+    try:
+        _build.reset_launches()
+        feat_dir = feature_extract.main(probe_args())
+        launches = dict(_build.LAUNCHES)
+    finally:
+        feature_extract.extract_features = extract
+    files = [os.path.join(feat_dir, f"{s}.npz") for s in ("train", "test")]
+    n = {s: len(np.load(f)["label_list"]) for s, f in zip(("train", "test"), files)}
+    check(n == {"train": MN40_TRAIN_CLOUDS, "test": MN40_TEST_CLOUDS}, f"extracted rows {n}")
+    n_batches = sum(math.ceil(v / PROBE_BATCH) for v in n.values())
+    per_batch = {k: launches.get(k, 0) / n_batches for k in PROBE_PER_BATCH}
+    others = {k: v for k, v in launches.items() if k not in PROBE_PER_BATCH and v}
+    rates = {s: n[s] / walls[s] for s in n}
+    print(f"[probe] feature_extract.main bf16 (ULIP_PointBERT, B={PROBE_BATCH} x 1024 points): "
+          f"train {n['train']} clouds in {walls['train']:.2f} s ({rates['train']:.1f} clouds/sec), "
+          f"test {n['test']} in {walls['test']:.2f} s ({rates['test']:.1f} clouds/sec), each "
+          f"with its model build; launches a batch {json.dumps(per_batch)}; {smi}")
+    check(per_batch == {k: float(v) for k, v in PROBE_PER_BATCH.items()} and not others,
+          f"extraction launches a batch {per_batch} (others {others}), not {PROBE_PER_BATCH}")
+    out["extract"] = {"seconds": walls, "clouds_per_sec": rates, "launches_per_batch": per_batch}
+
+    # the batch loop alone, the model built: clouds/sec of the encoder over the test split
+    args = probe_args()
+    test_ds = pdata.build_dataset("modelnet40", args, "test")
+    prompts, model = cls.prompts_and_model(args, test_ds.classnames, DEV)  # main's weights
+    batches = [torch.from_numpy(b["pc"]).to(DEV) for b in Loader(test_ds, PROBE_BATCH)]
+    loop = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for pc in batches:
+                model.point_encoder(pc, train=False).float().cpu()
+        torch.cuda.synchronize()
+        loop.append(time.perf_counter() - t0)
+    loop_rate = len(test_ds) / sorted(loop)[1]
+    print(f"[probe] the extraction loop alone over the test split (model built, batches on the "
+          f"card): median of 3 {sorted(loop)[1] * 1e3:.1f} ms, {loop_rate:.1f} clouds/sec")
+    out["extract"]["loop_clouds_per_sec"] = loop_rate
+    out["features_vs_plain"] = probe_features_vs_plain(batches[0], model)
+
+    # --- the recognition dump against validate's eval step ---------------------------
+    recog = np.load(feature_extract.save_recog_feats(probe_args()))
+    check(np.array_equal(recog["feature_list"], np.load(files[1])["feature_list"]),
+          "save_recog_feats' features differ from main's")
+    out["logits"] = probe_logits_vs_validate(recog, model, prompts, test_ds)
+    del model
+
+    # --- the probe on the card and on the CPU, side by side --------------------------
+    card, host = probe_card_and_host(files)
+    for shot in PROBE_SHOTS:
+        print(f"[probe] {shot}-shot, {PROBE_RUNS} runs, num_step 8: card {card[shot][0]:.2f} +- "
+              f"{card[shot][1]:.2f} in {card[shot][2]:.2f} s; CPU {host[shot][0]:.2f} +- "
+              f"{host[shot][1]:.2f} in {host[shot][2]:.2f} s")
+        check(abs(card[shot][0] - host[shot][0]) <= PROBE_MEAN_TOL,
+              f"{shot}-shot mean on the card {card[shot][0]} vs the CPU {host[shot][0]}")
+    w_diff = probe_fit_card_vs_host(files)
+    print(f"[probe] one fit (16-shot, run 0, C = 1e-2) on the card against the CPU: "
+          f"max|dW|/max|W| {w_diff:.3e} (limit {PROBE_W_TOL})")
+    check(w_diff <= PROBE_W_TOL, "the card's fit differs from the CPU's")
+    out["probe"] = {"card": card, "cpu": host, "w_card_vs_cpu": w_diff}
+
+    out["interpret"] = probe_interpretation()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[probe] phase 16 took {out['seconds']:.1f} s")
+    return out
+
+
 # kernels whose every instance must build without spills (the ball-query walk,
 # the 3-D loss kernels)
 SPILL_FREE = ("ball_query_kernel", "ball_query_feats_kernel", "approx_match_warp_kernel",
@@ -4805,7 +5086,7 @@ def build(names=_build.SOURCES):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=("ballquery", "towers", "losses3d", "cloud", "recipes",
-                                       "pretrained", "partseg"),
+                                       "pretrained", "partseg", "probe"),
                     help="build group.cu and run phase 3's ball-query checks and times alone "
                          "(ballquery) or phase 7's ball-query towers alone (towers); build "
                          "losses3d.cu and run phase 3's loss checks and times, nn_dists at "
@@ -4815,7 +5096,8 @@ def main(argv=None):
                          "grouping wrappers' host time a call (cloud); build the kernels "
                          "PointBERT's recipes run and run phase 13 (recipes); build the "
                          "kernels PPT-Base and PointMLP run and run phase 14 (pretrained); "
-                         "build the kernels part segmentation runs and run phase 15 (partseg)")
+                         "build the kernels part segmentation runs and run phase 15 (partseg); "
+                         "build the kernels feature extraction runs and run phase 16 (probe)")
     args = ap.parse_args(argv)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4867,6 +5149,11 @@ def main(argv=None):
     if args.only == "partseg":
         build(["group", "mini", "vitblock", "attention"])
         print(json.dumps({"partseg": run_partseg_slice(smi)}))
+        print(smi)
+        return
+    if args.only == "probe":
+        build(["group", "mini", "vitblock", "attention"])
+        print(json.dumps({"probe": run_probe_slice(smi)}))
         print(smi)
         return
     if args.only == "towers":
@@ -4922,6 +5209,9 @@ def main(argv=None):
         results[name]["partseg_launches_per_batch"] = n
     results["mini_stats"]["partseg_launches_per_step"] = (
         partseg_stats["train_step_launches"]["mini_stats"])
+    probe_stats = run_probe_slice(smi)  # its own counts, read over feature_extract.main
+    for name, n in probe_stats["extract"]["launches_per_batch"].items():
+        results[name]["probe_launches_per_batch"] = n
     for name in SOURCES:
         if name in OFF_PATH_KERNELS:
             check(launches.get(name, 0) == 0, f"{name} is called by no module, yet was launched")
@@ -4962,6 +5252,7 @@ def main(argv=None):
     print(json.dumps({"recipes": recipe_stats}))
     print(json.dumps({"pretrained": pretrained_stats}))
     print(json.dumps({"partseg": partseg_stats}))
+    print(json.dumps({"probe": probe_stats}))
     print(json.dumps({"kernels": kernels, **slice_stats}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

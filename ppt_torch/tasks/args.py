@@ -1,7 +1,8 @@
 """Task CLI: the flag surface of ``ppt_tpu/tasks/args.py`` for the port.
 
-The flags the recognition, few-shot and pretraining tasks read, with the
-reference package's names and defaults, plus ``--device`` (empty: the card).
+The flags the recognition, few-shot, pretraining and linear-probe tasks
+read, with the reference package's names and defaults, plus ``--device``
+(empty: the card).
 ``--config`` reads an experiment YAML (``configs/experiments/*``) and
 ``--set KEY=VALUE ...`` overrides its keys; the order of precedence is the
 reference's (``ppt_tpu/tasks/args.py:140-157``): defaults, then the YAML
@@ -42,6 +43,8 @@ class TaskArgs:
     head_type: int = 0
     test_ckpt_addr: str = ""
     ulip2: bool = False  # the loader's PointBERT file: pointbert_ulip2.msgpack
+    fpath: str = ""  # interpret_prompt: the checkpoint holding the learned prompt
+    topk: int = 5  # interpret_prompt: nearest words per context vector
     pretrained_dir: str = "data/pretrained_models"
     # training
     epochs: int = 250
@@ -64,6 +67,9 @@ class TaskArgs:
     eval_freq: int = 1
     resume: str = ""
     label_smoothing: float = 0.3
+    # linear probe
+    num_step: int = 8  # ternary-search steps on log10(C) after the grid
+    num_run: int = 10  # shot subsets drawn per shot count
     # system
     print_freq: int = 10  # read nowhere, as in the reference
     evaluate_3d: bool = False

@@ -96,38 +96,9 @@ def setup(args: TaskArgs) -> Dict:
         classnames = train_ds.classnames  # synthetic (incl. fallback) data names its own
     else:
         classnames = args.load_classnames()
-    spec = build_prompt_spec(
-        classnames,
-        n_ctx=args.num_learnable_prompt_tokens,
-        class_name_position=args.class_name_position,
-        template_init=args.template_init,
-    )
-    prompts = PromptArrays.from_spec(spec, device=device)
-    text_route = text_route_from_env()
-    args.point_route = point_route_from_env()  # read by ulip_pointbert
-    log.info("text route: %s; point route: %s", text_route, args.point_route)
-    model = build_model(args.model, args, device=device, text_fused=text_route).model
-    if args.pretrained_dir and os.path.isdir(args.pretrained_dir):
-        _maybe_load_pretrained(args, model)
-
-    mask = trainable_mask(model, head_type=args.head_type, task=args.task)
-    n_train = sum(p.numel() for name, p in model.named_parameters() if mask[name])
-    log.info("trainable params: %d", n_train)
-
+    prompts, model = prompts_and_model(args, classnames, device)
     steps_per_epoch = max(len(train_ds) // args.batch_size, 1)
-    sched = build_schedule(
-        args.sched, args.lr, args.epochs, steps_per_epoch,
-        final_lr=args.lr_end, warmup_epochs=args.warmup_epochs, warmup_start_lr=args.lr_start,
-    )
-    state = create_train_state(
-        model, mask,
-        lambda trainable: build_optimizer(
-            args.optim, trainable.items(), sched, weight_decay=args.wd, betas=args.betas,
-            eps=args.eps, grad_norm_clip=args.grad_norm_clip,
-            plateau_patience=args.plateau_patience if args.sched.lower() == "plateau" else 0,
-            steps_per_epoch=steps_per_epoch, plateau_factor=args.plateau_factor),
-        seed=args.seed + 1,
-    )
+    state, sched = train_state(args, model, steps_per_epoch)
     if args.resume:
         state = load_checkpoint(args.resume, state)
         meta_path = os.path.join(args.resume, "checkpoint_best.json")
@@ -147,6 +118,48 @@ def setup(args: TaskArgs) -> Dict:
         "steps_per_epoch": steps_per_epoch,
         "sched": sched,
     }
+
+
+def prompts_and_model(args: TaskArgs, classnames, device):
+    """The prompts of ``classnames`` and the model on ``device``, its routes
+    from the reference's switches, the converted backbones from
+    ``--pretrained_dir`` loaded where they exist."""
+    spec = build_prompt_spec(
+        classnames,
+        n_ctx=args.num_learnable_prompt_tokens,
+        class_name_position=args.class_name_position,
+        template_init=args.template_init,
+    )
+    prompts = PromptArrays.from_spec(spec, device=device)
+    text_route = text_route_from_env()
+    args.point_route = point_route_from_env()  # read by ulip_pointbert(_partseg)
+    log.info("text route: %s; point route: %s", text_route, args.point_route)
+    model = build_model(args.model, args, device=device, text_fused=text_route).model
+    if args.pretrained_dir and os.path.isdir(args.pretrained_dir):
+        _maybe_load_pretrained(args, model)
+    return prompts, model
+
+
+def train_state(args: TaskArgs, model, steps_per_epoch: int):
+    """(state, schedule): ``args.head_type``'s trainable partition of
+    ``model`` with its optimizer, the schedule the optimizer reads."""
+    mask = trainable_mask(model, head_type=args.head_type, task=args.task)
+    n_train = sum(p.numel() for name, p in model.named_parameters() if mask[name])
+    log.info("trainable params: %d", n_train)
+    sched = build_schedule(
+        args.sched, args.lr, args.epochs, steps_per_epoch,
+        final_lr=args.lr_end, warmup_epochs=args.warmup_epochs, warmup_start_lr=args.lr_start,
+    )
+    state = create_train_state(
+        model, mask,
+        lambda trainable: build_optimizer(
+            args.optim, trainable.items(), sched, weight_decay=args.wd, betas=args.betas,
+            eps=args.eps, grad_norm_clip=args.grad_norm_clip,
+            plateau_patience=args.plateau_patience if args.sched.lower() == "plateau" else 0,
+            steps_per_epoch=steps_per_epoch, plateau_factor=args.plateau_factor),
+        seed=args.seed + 1,
+    )
+    return state, sched
 
 
 def _maybe_load_pretrained(args: TaskArgs, model) -> None:

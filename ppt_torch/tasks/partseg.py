@@ -37,10 +37,9 @@ import torch
 from ppt_torch.data.augment import translate_pointcloud
 from ppt_torch.data.datasets import SHAPENETPART_PART_RANGES, build_dataset
 from ppt_torch.data.loader import Loader
-from ppt_torch.models.ulip import PromptArrays, build_model, trainable_mask
-from ppt_torch.prompt.learner import build_prompt_spec
+from ppt_torch.models.ulip import trainable_mask
 from ppt_torch.tasks.args import TaskArgs, parse_args
-from ppt_torch.tasks.cls import _maybe_load_pretrained, point_route_from_env, text_route_from_env
+from ppt_torch.tasks.cls import prompts_and_model
 from ppt_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from ppt_torch.train.optim import build_optimizer
 from ppt_torch.train.schedules import cosine_with_warmup
@@ -70,16 +69,7 @@ def setup(args: TaskArgs) -> Dict:
     train_ds = build_dataset(args.dataset_name, args, "train")
     eval_split = "val" if args.dataset_name == "shapenetpart" else "test"
     test_ds = build_dataset(args.dataset_name, args, eval_split)
-    spec = build_prompt_spec(part_names(), n_ctx=args.num_learnable_prompt_tokens,
-                             class_name_position=args.class_name_position,
-                             template_init=args.template_init)
-    prompts = PromptArrays.from_spec(spec, device=device)
-    text_route = text_route_from_env()
-    args.point_route = point_route_from_env()  # read by ulip_pointbert_partseg
-    log.info("text route: %s; point route: %s", text_route, args.point_route)
-    model = build_model(args.model, args, device=device, text_fused=text_route).model
-    if args.pretrained_dir and os.path.isdir(args.pretrained_dir):
-        _maybe_load_pretrained(args, model)
+    prompts, model = prompts_and_model(args, part_names(), device)
 
     mask = trainable_mask(model, head_type=args.head_type, task="partseg")
     log.info("trainable params: %d",

@@ -25,6 +25,8 @@ import torch
 import ppt_tpu.kernels.attention as A
 from ppt_torch.kernels import attention as kattn
 
+torch.set_num_threads(1)  # one intra-op thread: the xdist workers share the cores
+
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
 

@@ -14,6 +14,8 @@ import torch
 from ppt_torch.data.augment import (append_height, shuffle_points, train_augment,
                                     translate_pointcloud)
 
+torch.set_num_threads(1)  # one intra-op thread: the xdist workers share the cores
+
 
 def _clouds(B=2048, N=16, seed=0):
     return torch.rand(B, N, 3, generator=torch.Generator().manual_seed(seed)) - 0.5

@@ -22,6 +22,8 @@ import torch
 from ppt_tpu.kernels import group as JG
 from ppt_torch.kernels import group as tg
 
+torch.set_num_threads(1)  # one intra-op thread: the xdist workers share the cores
+
 R = tg.BALL_ROUND
 C = tg.BALL_CHUNK
 

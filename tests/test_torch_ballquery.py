@@ -29,6 +29,8 @@ from ppt_torch.kernels import _build
 from ppt_torch.kernels import group as tg
 from ppt_torch.ops import geometry as tgeo
 
+torch.set_num_threads(1)  # one intra-op thread: the xdist workers share the cores
+
 MARGIN = 1e-5
 
 

@@ -22,6 +22,8 @@ from ppt_torch.train.checkpoint import load_checkpoint, save_checkpoint, state_p
 from test_torch_trainer import (flat, jax_batch, jax_side, make_batches, np_tree, port_name,
                                 port_side, torch_batch)
 
+torch.set_num_threads(1)  # one intra-op thread: the xdist workers share the cores
+
 
 def _fresh_port_state(head_type=0, depth=2, monkeypatch=None):
     _, _, _, variables = jax_side(head_type, depth, monkeypatch)

@@ -29,6 +29,8 @@ from test_ckpt_convert import make_pointbert_state_dict, make_slip_state_dict
 from ppt_torch.tools import ckpt_convert as tconv
 from ppt_torch.utils.msgpack import msgpack_restore
 
+torch.set_num_threads(1)  # one intra-op thread: the xdist workers share the cores
+
 TINY_BERT = dict(trans_dim=64, depth=2, drop_path_rate=0.0, num_heads=2, group_size=8,
                  num_group=16, encoder_dims=64)
 TEXT = dict(width=64, layers=2, heads=4, embed_dim=64)

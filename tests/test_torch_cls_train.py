@@ -22,6 +22,8 @@ from ppt_torch.nn.text import TextConfig
 from ppt_torch.tasks import cls, fewshot
 from ppt_torch.tasks.args import TaskArgs, parse_args
 
+torch.set_num_threads(1)  # one intra-op thread: the xdist workers share the cores
+
 TINY = dict(trans_dim=64, depth=2, drop_path_rate=0.1, num_heads=2, group_size=8,
             num_group=16, encoder_dims=64)
 TEXT = dict(width=64, layers=2, heads=4, embed_dim=64)

@@ -27,6 +27,8 @@ from ppt_torch.data import augment as A
 from ppt_torch.data import datasets as D
 from ppt_torch.tasks.args import TaskArgs
 
+torch.set_num_threads(1)  # one intra-op thread: the xdist workers share the cores
+
 
 def _cloud(rng, n, c=3):
     return rng.randn(n, c).astype(np.float32)

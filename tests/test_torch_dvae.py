@@ -39,6 +39,8 @@ from ppt_torch.nn.layers import GroupNorm, leaky_relu
 from ppt_torch.tasks import dvae_pretrain
 from ppt_torch.tasks.args import TaskArgs, parse_args
 
+torch.set_num_threads(1)  # one intra-op thread: the xdist workers share the cores
+
 TINY_KW = dict(group_size=8, num_group=16, encoder_dims=32, tokens_dims=32, decoder_dims=32,
                num_tokens=64)
 TINY = pdvae.DvaeConfig(**TINY_KW)

@@ -22,6 +22,8 @@ from ppt_torch.kernels import fps as kfps
 from ppt_torch.kernels import group as kgroup
 from ppt_torch.kernels import knn as kknn
 
+torch.set_num_threads(1)  # one intra-op thread: the xdist workers share the cores
+
 
 def cloud(b, n, seed, dup=False):
     rng = np.random.RandomState(seed)

@@ -17,6 +17,8 @@ from ppt_tpu.kernels.group import knn_gather as jax_knn_gather
 from ppt_torch.kernels import group as tg
 from ppt_torch.ops import geometry as tgeo
 
+torch.set_num_threads(1)  # one intra-op thread: the xdist workers share the cores
+
 
 @pytest.mark.parametrize("B,N,G", [(2, 256, 32), (3, 200, 16), (1, 1024, 64)])
 def test_fps_plain_matches_pallas_and_ops(B, N, G):

@@ -22,6 +22,8 @@ from ppt_tpu.kernels.group import fps_batched as jax_fps_batched
 from ppt_tpu.kernels.group import knn_gather as jax_knn_gather
 from ppt_torch.kernels import group as kgroup
 
+torch.set_num_threads(1)  # one intra-op thread: the xdist workers share the cores
+
 CHUNK = kgroup.CHUNK
 
 

@@ -19,6 +19,8 @@ import torch
 from ppt_torch.nn.text import TextConfig
 from ppt_torch.tools import kernel_check as kc
 
+torch.set_num_threads(1)  # one intra-op thread: the xdist workers share the cores
+
 REFERENCE = Path(__file__).resolve().parent.parent / "ppt_tpu" / "tools" / "kernel_check.py"
 
 

@@ -8,6 +8,7 @@ generator, so the few-shot train split is the same too (exact).
 
 import numpy as np
 import pytest
+import torch
 
 from ppt_tpu.data import Loader as JaxLoader
 from ppt_tpu.data.datasets import generate_fewshot as jax_fewshot
@@ -15,6 +16,8 @@ from ppt_tpu.data.datasets import make_synthetic as jax_synthetic
 from ppt_torch.data.datasets import build_dataset, generate_fewshot, make_synthetic
 from ppt_torch.data.loader import Loader
 from ppt_torch.tasks.args import TaskArgs
+
+torch.set_num_threads(1)  # one intra-op thread: the xdist workers share the cores
 
 
 def _pair(n_per_class=5):

@@ -15,6 +15,8 @@ import torch.nn.functional as F
 from ppt_tpu.models.losses import smoothed_cross_entropy as jax_ce
 from ppt_torch.models.losses import smoothed_cross_entropy
 
+torch.set_num_threads(1)  # one intra-op thread: the xdist workers share the cores
+
 
 @pytest.mark.parametrize("smoothing", [0.0, 0.2, 0.3])
 def test_smoothed_cross_entropy_matches_jax(smoothing):

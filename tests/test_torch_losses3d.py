@@ -28,6 +28,8 @@ from ppt_torch.kernels import chamfer as kchamfer
 from ppt_torch.kernels import emd as kemd
 from ppt_torch.ops import losses3d as plosses
 
+torch.set_num_threads(1)  # one intra-op thread: the xdist workers share the cores
+
 
 def clouds(b, n, m, seed=0, scale=1.0):
     rng = np.random.RandomState(seed)

@@ -36,6 +36,8 @@ from ppt_torch.kernels import _build, _losses3d
 from ppt_torch.kernels import chamfer as kchamfer
 from ppt_torch.kernels import emd as kemd
 
+torch.set_num_threads(1)  # one intra-op thread: the xdist workers share the cores
+
 CU = (Path(kemd.__file__).resolve().parent.parent / "csrc" / "losses3d.cu").read_text()
 
 

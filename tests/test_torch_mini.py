@@ -22,6 +22,8 @@ from ppt_torch.convert import from_jax
 from ppt_torch.kernels.mini import mini_forward
 from ppt_torch.nn.pointbert import MiniPointNet
 
+torch.set_num_threads(1)  # one intra-op thread: the xdist workers share the cores
+
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
 

@@ -29,6 +29,8 @@ from jax.experimental.pallas import tpu as pltpu
 from ppt_tpu.kernels.mini import _pick_gm_blk, _stats_kernel, _stats_pallas, _stats_twin, _wspecs
 from ppt_torch.kernels.mini import mini_stats, mini_stats_plain, mini_stats_sweep_plain
 
+torch.set_num_threads(1)  # one intra-op thread: the xdist workers share the cores
+
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
 SHAPES = [(2, 8, 8), (1, 16, 32)]  # B, G, M

@@ -36,6 +36,8 @@ from ppt_torch.nn.pointbert import PointBertConfig
 from ppt_torch.tasks import dvae_pretrain, mpm_pretrain
 from ppt_torch.tasks.args import TaskArgs
 
+torch.set_num_threads(1)  # one intra-op thread: the xdist workers share the cores
+
 DVAE_KW = dict(group_size=8, num_group=16, encoder_dims=32, tokens_dims=32, decoder_dims=32,
                num_tokens=64)
 STUDENT_KW = dict(trans_dim=48, depth=2, drop_path_rate=0.0, num_heads=4, group_size=8,

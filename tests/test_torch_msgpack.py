@@ -22,6 +22,8 @@ from hypothesis import strategies as st
 
 from ppt_torch.utils import msgpack as pm
 
+torch.set_num_threads(1)  # one intra-op thread: the xdist workers share the cores
+
 
 def flax_packb(obj):
     """What flax's ``msgpack_serialize`` hands msgpack, without its tree copy."""

@@ -17,6 +17,8 @@ import torch
 from ppt_tpu.train.optim import build_schedule as jax_build_schedule
 from ppt_torch.train.optim import AdamW, build_optimizer, build_schedule
 
+torch.set_num_threads(1)  # one intra-op thread: the xdist workers share the cores
+
 KW = dict(final_lr=1e-5, warmup_epochs=1, warmup_start_lr=1e-6)
 
 

@@ -41,6 +41,8 @@ from ppt_tpu.train.optim import build_optimizer as jax_build_optimizer
 from ppt_tpu.train.optim import build_schedule as jax_build_schedule
 from ppt_torch.train.optim import OPTIMIZERS, SCHEDULES, build_optimizer, build_schedule
 
+torch.set_num_threads(1)  # one intra-op thread: the xdist workers share the cores
+
 SHAPES = {"bias": (7,), "small": (4, 5), "wide": (128, 160)}
 OPT_KW = dict(weight_decay=0.1, betas=(0.9, 0.98), eps=1e-8)
 SCHED_KW = dict(final_lr=1e-5, warmup_epochs=1, warmup_start_lr=1e-6)

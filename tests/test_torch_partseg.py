@@ -53,6 +53,8 @@ from ppt_torch.tasks.partseg import part_names
 from ppt_torch.train.optim import build_optimizer, build_schedule
 from ppt_torch.train.trainer import create_train_state, make_eval_step, make_train_step
 
+torch.set_num_threads(1)  # one intra-op thread: the xdist workers share the cores
+
 TINY = dict(trans_dim=48, depth=12, drop_path_rate=0.0, num_heads=4, group_size=8,
             num_group=16, encoder_dims=32)
 TEXT = dict(width=64, layers=2, heads=4, embed_dim=64)

@@ -34,6 +34,8 @@ from ppt_torch.tasks import args as targs
 from ppt_torch.tasks import partseg
 from ppt_torch.utils.metrics import partseg_ious, refine_partseg_logits
 
+torch.set_num_threads(1)  # one intra-op thread: the xdist workers share the cores
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RANGES = tdata.SHAPENETPART_PART_RANGES
 TINY = dict(trans_dim=48, depth=12, drop_path_rate=0.0, num_heads=4, group_size=8,

@@ -21,6 +21,8 @@ from ppt_torch.convert import from_jax
 from ppt_torch.nn.layers import drop_path_scales
 from ppt_torch.nn.pointbert import MiniPointNet, PointBert, PointBertConfig
 
+torch.set_num_threads(1)  # one intra-op thread: the xdist workers share the cores
+
 TINY = dict(trans_dim=64, depth=2, drop_path_rate=0.0, num_heads=2, group_size=8,
             num_group=16, encoder_dims=64)
 

@@ -45,6 +45,8 @@ from ppt_torch.tasks.args import TaskArgs
 from ppt_torch.train.optim import build_optimizer, build_schedule
 from ppt_torch.train.trainer import create_train_state, make_train_step
 
+torch.set_num_threads(1)  # one intra-op thread: the xdist workers share the cores
+
 SMALL = dict(points=64, embed_dim=16, k_neighbors=(8, 8, 8, 8))
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 

@@ -28,6 +28,8 @@ import torch
 from ppt_torch.convert import from_jax
 from ppt_torch.nn import pointnet2 as tp2
 
+torch.set_num_threads(1)  # one intra-op thread: the xdist workers share the cores
+
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
 

@@ -39,6 +39,8 @@ from ppt_torch.tasks.args import TaskArgs
 from ppt_torch.train.optim import build_optimizer, build_schedule
 from ppt_torch.train.trainer import create_train_state, make_train_step
 
+torch.set_num_threads(1)  # one intra-op thread: the xdist workers share the cores
+
 S_SMALL = dict(head_dropout=0.0)  # the S plan; N is reduced by the input
 BLOCKY = dict(in_channels=3, width=8, blocks=(1, 2, 1), strides=(1, 2, 2), radius=0.3,
               nsample=6, expansion=2, head_mlps=(24, 16), head_dropout=0.0)

@@ -44,6 +44,8 @@ from ppt_torch.tasks.args import TaskArgs, parse_args
 from ppt_torch.train.optim import build_optimizer, build_schedule
 from ppt_torch.train.trainer import create_train_state
 
+torch.set_num_threads(1)  # one intra-op thread: the xdist workers share the cores
+
 TEXT = dict(width=64, layers=2, heads=4, embed_dim=64)
 SCHED = dict(final_lr=1e-5, warmup_epochs=0, warmup_start_lr=1e-6)
 OPT = dict(weight_decay=0.1, betas=(0.9, 0.98), eps=1e-8)

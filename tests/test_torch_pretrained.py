@@ -37,6 +37,8 @@ from ppt_torch.train.checkpoint import load_params_file, merge_pretrained
 from ppt_torch.train.eval import make_cached_text_eval
 from ppt_torch.utils.msgpack import msgpack_serialize
 
+torch.set_num_threads(1)  # one intra-op thread: the xdist workers share the cores
+
 LOADED = "%s: loaded %d/%d leaves from pretrained"
 
 

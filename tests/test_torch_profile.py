@@ -9,6 +9,8 @@ import torch
 
 from ppt_torch.tools import profile
 
+torch.set_num_threads(1)  # one intra-op thread: the xdist workers share the cores
+
 
 @pytest.mark.parametrize("intervals,want", [
     ([], 0.0),

@@ -34,6 +34,8 @@ from ppt_torch.tasks import cls, fewshot
 from ppt_torch.train.trainer import make_train_step as MAKE_STEP
 from ppt_torch.utils import config as tconfig
 
+torch.set_num_threads(1)  # one intra-op thread: the xdist workers share the cores
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(glob.glob(os.path.join(ROOT, "configs", "**", "*.yaml"), recursive=True))
 RECIPES = sorted(glob.glob(os.path.join(ROOT, "configs", "experiments", "*.yaml")))
@@ -128,11 +130,16 @@ def test_a_reference_only_key_raises_by_name(tmp_path):
     with pytest.raises(NotImplementedError, match="mesh_devices"):
         targs.parse_args(["--config", str(path)])
     recipe = os.path.join(ROOT, "configs", "experiments", "ppt_base_mn40.yaml")
-    # (dataset_prompt and wandb load since the port has those fields: fpath
-    # and num_run take their places)
-    for key in ("fpath=x", "topk=3", "voxel_size=0.1", "num_run=2"):
+    # (fpath, topk, num_step and num_run load since the port has the linear
+    # probe: the scene keys take their places)
+    for key in ("test_area=5", "eval_scene=x", "cm_out=x", "voxel_size=0.1"):
         with pytest.raises(NotImplementedError, match=key.split("=")[0]):
             targs.parse_args(["--config", recipe, "--set", key])
+    got = targs.parse_args(["--config", recipe, "--set", "fpath=x", "topk=3", "num_step=2",
+                            "num_run=4"])
+    assert (got.fpath, got.topk, got.num_step, got.num_run) == ("x", 3, 2, 4)
+    got = targs.parse_args(["--fpath", "y", "--topk", "7", "--num_step", "1", "--num_run", "5"])
+    assert (got.fpath, got.topk, got.num_step, got.num_run) == ("y", 7, 1, 5)
     # a key of neither dataclass is skipped, as the reference skips num_category
     path.write_text("epochs: 2\nnot_a_field: 1\nnested:\n  lr: 1.0e-4\n")
     got = targs.parse_args(["--config", str(path)])

@@ -24,6 +24,8 @@ from ppt_torch.tasks import args as targs
 from ppt_torch.utils.logging_utils import ExperimentLogger
 from ppt_torch.utils.metrics import topk_accuracy
 
+torch.set_num_threads(1)  # one intra-op thread: the xdist workers share the cores
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -157,9 +159,13 @@ def test_the_six_fields_load_from_a_config(tmp_path):
 
     ref = JaxArgs()
     for k in ("dataset_type", "dataset_prompt", "update_freq", "print_freq", "proj_name",
-              "wandb"):
+              "wandb", "fpath", "topk", "num_step", "num_run"):
         assert getattr(defaults, k) == getattr(ref, k), k
-    for key in ("mesh_devices=2", "topk=3", "fpath=x", "num_step=2", "num_run=2",
-                "voxel_size=0.1", "cm_out=x"):
+    # the linear probe's four fields load too; the scene and mesh keys are still refused
+    got = targs.parse_args(["--config", str(path), "--set", "topk=3", "fpath=x", "num_step=2",
+                            "num_run=2"])
+    assert (got.topk, got.fpath, got.num_step, got.num_run) == (3, "x", 2, 2)
+    for key in ("mesh_devices=2", "voxel_size=0.1", "voxel_max=8", "allow_train_eval=yes",
+                "max_eval_passes=2", "cm_out=x"):
         with pytest.raises(NotImplementedError, match=key.split("=")[0]):
             targs.parse_args(["--config", str(path), "--set", key])

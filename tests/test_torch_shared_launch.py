@@ -26,6 +26,8 @@ from ppt_torch.kernels import _build
 from ppt_torch.kernels import fps as kfps
 from ppt_torch.kernels import group as kgroup
 
+torch.set_num_threads(1)  # one intra-op thread: the xdist workers share the cores
+
 CSRC = Path(__file__).resolve().parent.parent / "ppt_torch" / "csrc"
 
 

@@ -29,6 +29,8 @@ from ppt_torch.prompt.learner import build_prompt_spec
 from ppt_torch.tasks.args import TaskArgs
 from ppt_torch.train.eval import make_cached_text_eval
 
+torch.set_num_threads(1)  # one intra-op thread: the xdist workers share the cores
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(trans_dim=64, depth=2, drop_path_rate=0.0, num_heads=2, group_size=8,
             num_group=16, encoder_dims=64)

@@ -21,6 +21,8 @@ from ppt_tpu.prompt import build_prompt_spec as jax_build_prompt_spec
 from ppt_torch.prompt import tokenizer as ttok
 from ppt_torch.prompt.learner import PromptLearner, build_prompt_spec
 
+torch.set_num_threads(1)  # one intra-op thread: the xdist workers share the cores
+
 LABELS = os.path.join(os.path.dirname(__file__), "..", "ppt_torch", "assets", "labels.json")
 
 

@@ -25,6 +25,8 @@ from ppt_tpu.kernels import texttower as jtower
 from ppt_torch.kernels import textblock, texttower
 from ppt_torch.kernels.texttower import WEIGHT_NAMES
 
+torch.set_num_threads(1)  # one intra-op thread: the xdist workers share the cores
+
 C, D, HEADS, DEPTH, E = 10, 128, 4, 2, 128
 MATRICES = ("win", "wout", "wfc", "wproj")
 JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16}

@@ -30,6 +30,8 @@ from ppt_torch.train.optim import build_optimizer, build_schedule
 from ppt_torch.train.trainer import (TrainState, create_train_state, make_eval_step,
                                      make_train_multi_step, make_train_step)
 
+torch.set_num_threads(1)  # one intra-op thread: the xdist workers share the cores
+
 TINY = dict(trans_dim=64, drop_path_rate=0.0, num_heads=2, group_size=8, num_group=16,
             encoder_dims=64)
 TEXT = dict(width=64, layers=2, heads=4, embed_dim=64)

@@ -40,6 +40,8 @@ from ppt_torch.tasks import cls
 from ppt_torch.tasks.args import TaskArgs
 from ppt_torch.train.eval import make_cached_text_eval
 
+torch.set_num_threads(1)  # one intra-op thread: the xdist workers share the cores
+
 SMALL = dict(trans_dim=64, depth=2, drop_path_rate=0.0, num_heads=2, group_size=8,
              num_group=16, encoder_dims=64)
 LONG = dict(trans_dim=48, depth=2, drop_path_rate=0.0, num_heads=6, group_size=8,

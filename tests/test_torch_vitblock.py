@@ -23,6 +23,8 @@ from ppt_torch.convert import from_jax
 from ppt_torch.kernels.vitblock import fused_vit_block, fused_vit_block_readout
 from ppt_torch.nn.pointbert import VitBlock
 
+torch.set_num_threads(1)  # one intra-op thread: the xdist workers share the cores
+
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
 B, L, C, H = 2, 33, 64, 2

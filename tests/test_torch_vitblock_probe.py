@@ -24,6 +24,8 @@ from ppt_tpu.tools.vitblock_probe import _variant_pallas
 from ppt_torch.kernels.vitblock import fused_vit_block
 from ppt_torch.tools import vitblock_probe as probe
 
+torch.set_num_threads(1)  # one intra-op thread: the xdist workers share the cores
+
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
 B, L, C = 2, 17, 96
