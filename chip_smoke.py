@@ -9,8 +9,9 @@ PointBERT's two pretraining stages (the dVAE tokenizer, masked point
 modeling), the kernel tools (the ViT-block ablation probe, the on-card
 kernel check), the published recipes, converted pretrained backbones
 with ULIP_PN_MLP at full width, part segmentation (ULIP_PointBERT_partseg),
-and the linear probe (feature extraction, the few-shot probe, prompt
-interpretation).
+the linear probe (feature extraction, the few-shot probe, prompt
+interpretation), and the tools (the serving export through the registered
+operators, the component probe, the FLOP table, the backbone bench).
 
     python3 chip_smoke.py            # one CUDA card, no arguments
     python3 chip_smoke.py --only ballquery   # group.cu, phase 3's ball queries alone
@@ -26,6 +27,8 @@ interpretation).
                                              # ULIP_PN_MLP at full width
     python3 chip_smoke.py --only partseg     # phase 15: part segmentation at full width
     python3 chip_smoke.py --only probe       # phase 16: the linear probe at full width
+    python3 chip_smoke.py --only tools       # phase 17: the serving export, the probes, the
+                                             # FLOP table, the operators' host cost
 
 Phases (any failed check raises, and the script exits non-zero):
   1. card name / power limit (nvidia-smi), torch and CUDA versions;
@@ -161,8 +164,8 @@ Phases (any failed check raises, and the script exits non-zero):
      the trainer (ULIP-PointBERT, bf16, head_type 0, batch 30, N=1024, the
      40 ModelNet40 names, 32 prompt tokens "middle", label smoothing 0.2,
      lr 3e-3, synthetic train split, DropPath and augmentation on): a
-     warm-up, then 5 windows of 20 steps with the loss read every step as
-     ``train_loop`` reads it, and between them 4 windows with the losses
+     warm-up, then 3 windows of 20 steps with the loss read every step as
+     ``train_loop`` reads it, and between them 2 windows with the losses
      read once per window; median/min/max train clouds/sec of each kind,
      first and last loss, kernel launches per step (``mini_stats`` > 0);
      one epoch through ``cls.train_loop`` itself;
@@ -178,8 +181,8 @@ Phases (any failed check raises, and the script exits non-zero):
      (``PPT_FUSED_TEXT_TOWER=1`` / ``PPT_FUSED_TEXT=1``): a ``validate``
      pass with the tower route (the forward kernel once, no residuals),
      its logits and text embeddings against the off route on the same
-     weights, the text encode's time by route; 4 windows of 20 train
-     steps with the tower route interleaved with 4 of the off route
+     weights, the text encode's time by route; 2 windows of 20 train
+     steps with the tower route interleaved with 2 of the off route
      (loss read every step), launches per step by route (the
      residual-saving forward and the backward kernel once per step);
      frozen weights unchanged; a fixed batch whose loss must fall; one
@@ -220,7 +223,7 @@ Phases (any failed check raises, and the script exits non-zero):
      ``ulip_customized``: head types 3 and 2 (block_11's leaves before its
      attention), each one step against the plain path on the card in f32
      and bf16 (phase 5's limits: loss, gradients, BatchNorm buffers; one
-     flash_mha_bwd launch) and a window of 20 steps (train clouds/sec, 12
+     flash_mha_bwd launch) and a window of 10 steps (train clouds/sec, 12
      flash_mha and 1 flash_mha_bwd a step from the counters, frozen leaves
      bit-unchanged); ULIP pretraining (``pretrain.make_pretrain_step``) on
      the same trunk: one step against the plain path at B=8 in f32 and
@@ -231,7 +234,7 @@ Phases (any failed check raises, and the script exits non-zero):
      from the f32 step's than twice the plain bf16 step's, plus 1e-2: the
      step's conditioning makes phase 5's per-leaf limit a measure of
      rounding, not of the kernels), a fixed batch whose loss must
-     fall over 10 steps, a window of 20 steps (12 flash_mha_bwd a step, the text
+     fall over 10 steps, a window of 10 steps (12 flash_mha_bwd a step, the text
      tower bit-unchanged); then one epoch of ``pretrain.main`` on the
      default trunk over the synthetic ShapeNet fallback (B=32 x N=8192,
      every default-route kernel launched each step, the checkpoint read
@@ -244,15 +247,15 @@ Phases (any failed check raises, and the script exits non-zero):
      sits behind a max over EdgeConv neighbours, a max-pool or a ReLU whose
      near-ties rounding reroutes) and in bf16 (held to the f32 step as
      phase 9's pretraining is), a fixed batch whose loss must fall
-     over 10 steps (Gumbel noise fixed), a window of 20 steps, one epoch of
+     over 10 steps (Gumbel noise fixed), a window of 10 steps, one epoch of
      ``dvae_pretrain.main`` with its checkpoint read back; the dVAE with
      ``dvae_loss(recon="emd")``: one f32 step against the plain path with
      ``PPT_FORCE_XLA_EMD=1`` (two approx_match launches on the kernel side)
-     and a window of 20 steps (two a step from the counters); masked point
+     and a window of 10 steps (two a step from the counters); masked point
      modeling at ``PointBertConfig()`` (384 wide, 12 blocks, 512 groups of
      32), B=32, the frozen dVAE read from that checkpoint: one step against
      the plain path at B=8 in f32 and bf16 (as the dVAE's), a fixed batch
-     whose loss must fall, a window of 20 steps, one epoch of
+     whose loss must fall, a window of 10 steps, one epoch of
      ``mpm_pretrain.main``. Its numbers go on a line of their own
      ({"pretrain_pb": ...}).
  11. the kernel tools as a user runs them: ``python -m
@@ -349,6 +352,22 @@ Phases (any failed check raises, and the script exits non-zero):
      ppt_torch.tasks.linear_probe --output_dir build/chip_smoke_probe``
      reads them. Its numbers go on a line of their own ({"probe": ...});
      ``--only probe`` builds what it needs and runs it alone.
+ 17. the tools: ``tools/export.py``'s full-width PPT-Base program (bf16,
+     seeded weights) exported baked at B=32 by the tool's ``main`` (which
+     prints its ``--measure 30`` latency line), its graph calling the ``ppt``
+     operators 1 / 1 / 1 / 11 / 1 times and nothing decomposed, loaded in a
+     fresh ``python3 -c`` process that imports torch and
+     ``ppt_torch.kernels`` alone and runs 2468 synthetic clouds through it
+     (its launches a batch exactly 1 / 1 / 1 / 11 / 1, its logits bit-equal
+     to the eager eval step's on the same batches, else within the bf16
+     limits of phase 4); the ``--sym-batch`` program at B=8 and B=32
+     against the eager step; the host's us a call of each ``ppt`` operator
+     against its direct launch function, in alternated rounds ([host]
+     lines); ``component_probe`` at
+     its defaults; ``profile --flops`` for the recognition batch and the
+     prompt-tuning step; ``backbone_bench`` for each of its four towers.
+     Its numbers go on a line of their own ({"tools17": ...}); ``--only
+     tools`` builds what it needs and runs it alone.
 
 The build prints each CUDA kernel's registers and spills (ptxas -v).
 The line before the card's is a JSON object with the per-kernel numbers
@@ -403,8 +422,9 @@ from ppt_torch.kernels import mini as kmini  # noqa: E402
 from ppt_torch.kernels import textblock as ktextblock  # noqa: E402
 from ppt_torch.kernels import texttower as ktower  # noqa: E402
 from ppt_torch.kernels import vitblock as kvit  # noqa: E402
-from ppt_torch.models.ulip import (PromptArrays, build_model, init_weights,  # noqa: E402
-                                   trainable_mask, ulip_customized)
+from ppt_torch.models import ulip as ulip_models  # noqa: E402
+from ppt_torch.models.ulip import (PromptArrays, build_model, trainable_mask,  # noqa: E402
+                                   ulip_customized)
 from ppt_torch.nn import dvae as ndvae  # noqa: E402
 from ppt_torch.nn import mpm as nmpm  # noqa: E402
 from ppt_torch.nn import pointbert as npb  # noqa: E402
@@ -415,6 +435,7 @@ from ppt_torch.tasks import feature_extract, interpret_prompt, linear_probe  # n
 from ppt_torch.tasks.args import TaskArgs  # noqa: E402
 from ppt_torch.tools import kernel_check, vitblock_probe  # noqa: E402
 from ppt_torch.tools import profile as tprofile  # noqa: E402
+from ppt_torch.tools.timing import gpu_time_ms, queued_ms  # noqa: E402
 from ppt_torch.models.losses import smoothed_cross_entropy, ulip_contrastive_loss  # noqa: E402
 from ppt_torch.ops.losses3d import chamfer_l2  # noqa: E402
 from ppt_torch.train.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
@@ -559,47 +580,27 @@ def check(cond, msg):
         raise RuntimeError(f"chip_smoke: check failed: {msg}")
 
 
-def gpu_time_ms(fn, reps=10, warmup=2):
-    """Mean device time per call (CUDA events around `reps` calls)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+_INIT_DRAWS = {}
+_draw_init = ulip_models.init_weights
 
 
-def queued_ms(fn, reps=20, sleep_cycles=20_000_000):
-    """Device time per call of a kernel shorter than its launch: the calls
-    are queued behind a sleeping kernel, so the card runs them back to back
-    and the host's time between them does not show. The host must have
-    enqueued every call before the sleep (about 10 ms at first) ends; when
-    it has not (a long enqueue, or more launches than the card's queue
-    holds, which blocks the host), the sleep is doubled, the calls halved
-    and the reading taken again. `fn` must not synchronise."""
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(5):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-        ev[0].record()
-        torch.cuda._sleep(sleep_cycles)
-        ev[1].record()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        host_ms = (time.perf_counter() - t0) * 1e3
-        ev[2].record()
-        ev[2].synchronize()
-        if host_ms < 0.9 * ev[0].elapsed_time(ev[1]):
-            return ev[1].elapsed_time(ev[2]) / reps
-        sleep_cycles *= 2
-        reps = max(2, reps // 2)
-    raise RuntimeError(f"chip_smoke: {reps} queued calls took {host_ms:.1f} ms of host time, "
-                       "longer than the sleep they were queued behind")
+@torch.no_grad()
+def init_weights(model, seed):
+    """``models/ulip.py:init_weights`` with its draws kept: a model whose
+    state has the same names, shapes and dtypes gets the same values from
+    the same seed (the draws come from the seed alone, the rest is
+    constructed constants), so a later build copies them instead of
+    drawing them again: the run builds the full-width model dozens of
+    times, each draw ~1 s of host time. ``main`` installs it over the
+    port's, which ``build_model`` calls."""
+    key = (seed, tuple((k, tuple(v.shape), v.dtype) for k, v in model.state_dict().items()))
+    kept = _INIT_DRAWS.get(key)
+    if kept is None:
+        _draw_init(model, seed)
+        _INIT_DRAWS[key] = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    else:
+        model.load_state_dict(kept)
+    return model
 
 
 def alternated_ms(fns, rounds=5, timer=gpu_time_ms, **kw):
@@ -2383,7 +2384,7 @@ def fixed_batch_losses(loader, steps, route="off"):
     return flosses
 
 
-def run_train_slice(windows=5, steps_per_window=20, warmup=5):
+def run_train_slice(windows=3, steps_per_window=20, warmup=5):
     saved_loader = pdata.DATASETS["modelnet40"]
     pdata.DATASETS["modelnet40"] = synthetic_modelnet40
     try:
@@ -2516,7 +2517,7 @@ def median(xs):
     return sorted(xs)[len(xs) // 2]
 
 
-def run_text_slice(windows=4, steps_per_window=20, warmup=5):
+def run_text_slice(windows=2, steps_per_window=20, warmup=5):
     saved_loader = pdata.DATASETS["modelnet40"]
     pdata.DATASETS["modelnet40"] = synthetic_modelnet40
     try:
@@ -3176,7 +3177,7 @@ def bf16_pretrain_vs_plain(tag, quantities, f32_grads, kernel="flash_mha_bwd"):
             f"{kernel}_launches": bwd}
 
 
-def run_long_train_slice(steps=20):
+def run_long_train_slice(steps=10):
     try:
         return _run_long_train_slice(steps)
     finally:
@@ -3498,7 +3499,7 @@ def run_dvae_emd(pc64, stream, total, steps):
     return r, launches.get("approx_match", 0)
 
 
-def run_pretrain_pb_slice(steps=20):
+def run_pretrain_pb_slice(steps=10):
     try:
         return _run_pretrain_pb_slice(steps)
     finally:
@@ -5053,6 +5054,208 @@ def _run_probe_slice(smi):
 
 # kernels whose every instance must build without spills (the ball-query walk,
 # the 3-D loss kernels)
+# ---------------------------------------------------------------------------
+# phase 17: the tools (the serving export, the component probe, the FLOP
+# table, the backbone bench) and the registered operators' host cost
+# ---------------------------------------------------------------------------
+
+TOOLS_DIR = _build.BUILD_DIR.parent / "chip_smoke_tools"
+EXPORT_BATCH = 32
+# the exported PPT-Base program's kernels, a batch, and nothing else
+EXPORT_PER_BATCH = {"fps_batched": 1, "knn_gather": 1, "mini_forward": 1, "fused_vit_block": 11,
+                    "fused_vit_block_readout": 1}
+HOST_ROUNDS = 400
+# a fresh process that loads the baked program with torch and ppt_torch.kernels
+# alone, runs the clouds through it and reports its launches
+LOADER_CHILD = """
+import json, sys, time
+import torch
+import ppt_torch.kernels
+from ppt_torch.kernels import _build
+art, clouds, out = sys.argv[1:4]
+t0 = time.perf_counter()
+program = torch.export.load(art).module()
+load_s = time.perf_counter() - t0
+pcs = torch.load(clouds).cuda()  # [batches, B, N, 3]
+with torch.no_grad():
+    program(pcs[0])
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    logits = [program(pc) for pc in pcs]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+torch.save(torch.stack(logits).cpu(), out)
+extra = sorted(m for m in sys.modules if m.startswith("ppt_torch.")
+               and not m.startswith("ppt_torch.kernels"))
+print(json.dumps({"launches": dict(_build.LAUNCHES), "batches": len(pcs), "wall_s": wall,
+                  "load_s": load_s, "other_ppt_torch_modules": extra}))
+"""
+
+
+def host_us_by_op(rounds=HOST_ROUNDS):
+    """The host's microseconds a call of each ``ppt`` operator through
+    ``torch.ops.ppt`` against its direct launch function (the operator's CUDA
+    implementation), in alternated rounds of one call each (the order
+    swapped every round, the queue drained every 20 rounds, untimed), at
+    shapes the card runs in microseconds; medians. Printed, not claimed."""
+    xyz = cloud(1, 256, 5)
+    q = xyz[:, :32].contiguous()
+    groups = cloud(1, 8 * 32, 6) - 0.5
+    mw = mini_weights(256, 7)
+    x, pos, dp, bw, lnf = block_inputs(1, 33, 384, torch.bfloat16, 8)
+    bf = torch.bfloat16
+    pairs = {
+        "fps_batched": (lambda: torch.ops.ppt.fps_batched(xyz, 32),
+                        lambda: kgroup._fps_batched_cuda(xyz, 32), "B=1 N=256 npoint 32"),
+        "knn_gather": (lambda: torch.ops.ppt.knn_gather(32, xyz, q),
+                       lambda: kgroup._knn_gather_cuda(32, xyz, q), "B=1 N=256 S=32 k=32"),
+        "mini_forward": (lambda: torch.ops.ppt.mini_forward(32, bf, groups, *mw),
+                         lambda: kmini._mini_forward_cuda(32, bf, groups, *mw),
+                         "B=1 G=8 M=32 bf16"),
+        "mini_stats": (lambda: torch.ops.ppt.mini_stats(32, bf, groups, *mw[:7]),
+                       lambda: kmini._mini_stats_cuda(32, bf, groups, *mw[:7]),
+                       "B=1 G=8 M=32 bf16"),
+        "fused_vit_block": (lambda: torch.ops.ppt.fused_vit_block(x, pos, dp, *bw, 6),
+                            lambda: kvit._block_cuda(x, pos, dp, *bw, 6),
+                            "B=1 L=33 C=384 bf16"),
+        "fused_vit_block_readout": (
+            lambda: torch.ops.ppt.fused_vit_block_readout(x, pos, dp, *bw, *lnf, 6),
+            lambda: kvit._block_readout_cuda(x, pos, dp, *bw, *lnf, 6), "B=1 L=33 C=384 bf16"),
+    }
+    out = {}
+    with torch.no_grad():
+        for name, (op, direct, shape) in pairs.items():
+            a, b = op(), direct()
+            check(all(torch.equal(u, v) for u, v in zip(
+                a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,))),
+                f"{name}: the operator and its direct launch differ")
+            torch.cuda.synchronize()
+            times = {"op": [], "direct": []}
+            for r in range(rounds):
+                for key in (("op", "direct") if r % 2 == 0 else ("direct", "op")):
+                    fn = op if key == "op" else direct
+                    t0 = time.perf_counter()
+                    fn()
+                    times[key].append(time.perf_counter() - t0)
+                if r % 20 == 19:
+                    torch.cuda.synchronize()
+            torch.cuda.synchronize()
+            op_us, direct_us = median(times["op"]) * 1e6, median(times["direct"]) * 1e6
+            out[name] = dict(op_us=op_us, direct_us=direct_us, extra_us=op_us - direct_us)
+            print(f"[host] {name}: {op_us:.3f} us a call through torch.ops.ppt, {direct_us:.3f} "
+                  f"us by the direct launch ({op_us - direct_us:+.3f} us); medians of {rounds} "
+                  f"alternated rounds of one call; {shape}")
+    return out
+
+
+def export_clouds(n_clouds=MN40_TEST_CLOUDS, batch=EXPORT_BATCH, seed=1):
+    """ModelNet40's test-split count of synthetic clouds, the last batch
+    padded with the first clouds: [batches, B, 1024, 3] f32 on the host."""
+    full = make_synthetic(num_classes=40, samples_per_class=-(-n_clouds // 40), npoints=1024,
+                          seed=seed)
+    pts = torch.from_numpy(full.points[:n_clouds])
+    pad = -len(pts) % batch
+    pts = torch.cat([pts, pts[:pad]])
+    return pts.reshape(-1, batch, *pts.shape[1:]).contiguous()
+
+
+def run_export(smi):
+    """The full-width PPT-Base program on the card: ``tools/export.py``'s
+    ``main`` exports it baked at B=32 and prints its ``--measure`` line;
+    a fresh process loads it, its logits against the eager eval step's on
+    the same batches and seeded weights, its launches a batch; the
+    symbolic batch at 8 and 32."""
+    from ppt_torch.tools import export as texport
+
+    TOOLS_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    meta = texport.main(["--out", str(TOOLS_DIR / "baked"), "--bake-weights", "--measure", "30"])
+    main_s = time.perf_counter() - t0
+    check(meta["ppt_ops"] == EXPORT_PER_BATCH,
+          f"the exported graph calls {meta['ppt_ops']}, not {EXPORT_PER_BATCH}")
+    art = TOOLS_DIR / "baked" / texport.ARTIFACT
+    pcs = export_clouds()
+    torch.save(pcs, TOOLS_DIR / "clouds.pt")
+    child = subprocess.run(
+        [sys.executable, "-c", LOADER_CHILD, str(art), str(TOOLS_DIR / "clouds.pt"),
+         str(TOOLS_DIR / "logits.pt")], cwd=str(Path(__file__).resolve().parent),
+        capture_output=True, text=True, timeout=600)
+    check(child.returncode == 0, f"the loading process failed: {child.stderr[-3000:]}")
+    loaded = json.loads(child.stdout.splitlines()[-1])
+    got = torch.load(TOOLS_DIR / "logits.pt")
+    n = loaded["batches"]
+    per_batch = {k: v / n for k, v in loaded["launches"].items()}
+    print(f"[export] baked B={EXPORT_BATCH} artifact {meta['artifact_bytes']} bytes; export, "
+          f"save and {meta['latency']['reps']} measured calls in {main_s:.2f} s; graph ppt ops "
+          f"{json.dumps(meta['ppt_ops'])}; the loading process (torch and ppt_torch.kernels "
+          f"alone; other ppt_torch modules {loaded['other_ppt_torch_modules']}) loaded it in "
+          f"{loaded['load_s']:.2f} s and ran {n} batches in {loaded['wall_s']:.3f} s "
+          f"({n * EXPORT_BATCH / loaded['wall_s']:.1f} clouds/sec, the clouds on the card); "
+          f"launches a batch {json.dumps(per_batch)}")
+    check(not loaded["other_ppt_torch_modules"], "the loading process imported model code")
+    check(per_batch == EXPORT_PER_BATCH, f"the loaded program launched {per_batch} a batch")
+
+    model, prompts = texport.flagship(texport.flagship_args(False, DEV), DEV)  # main's weights
+    embed_fn, step_fn = make_cached_text_eval(model)
+    text_embed = embed_fn(model, prompts)
+    want = torch.stack([step_fn(model, {"pc": pc.to(DEV)}, text_embed) for pc in pcs]).cpu()
+    bit_equal = torch.equal(got, want)
+    diff = float((got - want).abs().max() / want.std())
+    top1 = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    print(f"[export] loaded program vs the eager eval step on the same {n} batches: bit-equal "
+          f"{bit_equal}; max|diff|/std {diff:.3e}, top-1 agreement {top1:.3f}")
+    check(got.shape == want.shape and torch.isfinite(got).all(), "exported logits")
+    check(bit_equal or (diff <= 0.25 and top1 >= 0.8),
+          "the loaded program's logits disagree with the eager eval step")
+
+    ep_sym = texport.export_serving(model, prompts, batch=EXPORT_BATCH, npoints=1024,
+                                    bake_weights=True, sym_batch=True)
+    sym_path = TOOLS_DIR / "sym" / texport.ARTIFACT
+    sym_path.parent.mkdir(parents=True, exist_ok=True)
+    texport.save_exported(ep_sym, str(sym_path))
+    sym = texport.load_exported(str(sym_path))
+    sym_equal = {}
+    with torch.no_grad():
+        for b in (8, 32):
+            pc = pcs[1, :b].to(DEV)
+            sym_equal[b] = torch.equal(sym(pc), step_fn(model, {"pc": pc}, text_embed))
+    print(f"[export] --sym-batch program at B=8 and B=32 bit-equal to the eager step: "
+          f"{json.dumps(sym_equal)}")
+    check(all(sym_equal.values()), f"the symbolic-batch program disagrees: {sym_equal}")
+    return {"main_s": main_s, "artifact_bytes": meta["artifact_bytes"], "ppt_ops": meta["ppt_ops"],
+            "loaded": loaded, "launches_per_batch": per_batch, "bit_equal": bit_equal,
+            "max_diff_over_std": diff, "top1": top1, "sym_batch_bit_equal": sym_equal,
+            "latency": meta["latency"], "card": smi}
+
+
+def run_tools17_slice(smi):
+    """Phase 17: the export, the registered operators' host cost, the
+    component probe at its defaults, profile --flops for recognition and
+    the prompt-tuning step, and backbone_bench for each of its towers."""
+    from ppt_torch.tools import backbone_bench, component_probe
+
+    t0 = time.perf_counter()
+    out = {"export": run_export(smi), "host_us_by_op": host_us_by_op()}
+    out["component_probe"] = {ln["component"]: {k: ln[k] for k in ("ms", "timer", "launches")}
+                              for ln in component_probe.main([])}
+    out["flops"] = {}
+    for train in (False, True):
+        table = tprofile.profile_flops(train)
+        print(f"[flops] {json.dumps(table)}")
+        check(abs(sum(s["gflop"] for s in table["sections"].values())
+                  - table["total"]["gflop"]) <= 1e-9 * table["total"]["gflop"],
+              "profile --flops: the sections do not add up to the step")
+        out["flops"]["train" if train else "eval"] = table
+    out["backbones"] = {}
+    for name in backbone_bench.MODELS:
+        line = backbone_bench.main(["--model", name])
+        out["backbones"][name] = {k: line[k] for k in ("clouds_per_sec", "fwd_ms", "spread_pct")}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[tools] phase 17 took {out['seconds']:.1f} s")
+    return out
+
+
 SPILL_FREE = ("ball_query_kernel", "ball_query_feats_kernel", "approx_match_warp_kernel",
               "nn_dists_kernel")
 
@@ -5086,7 +5289,7 @@ def build(names=_build.SOURCES):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=("ballquery", "towers", "losses3d", "cloud", "recipes",
-                                       "pretrained", "partseg", "probe"),
+                                       "pretrained", "partseg", "probe", "tools"),
                     help="build group.cu and run phase 3's ball-query checks and times alone "
                          "(ballquery) or phase 7's ball-query towers alone (towers); build "
                          "losses3d.cu and run phase 3's loss checks and times, nn_dists at "
@@ -5097,7 +5300,8 @@ def main(argv=None):
                          "PointBERT's recipes run and run phase 13 (recipes); build the "
                          "kernels PPT-Base and PointMLP run and run phase 14 (pretrained); "
                          "build the kernels part segmentation runs and run phase 15 (partseg); "
-                         "build the kernels feature extraction runs and run phase 16 (probe)")
+                         "build the kernels feature extraction runs and run phase 16 (probe); "
+                         "build the kernels the tools time and run phase 17 (tools)")
     args = ap.parse_args(argv)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5107,6 +5311,7 @@ def main(argv=None):
           f"Python {sys.version.split()[0]}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    ulip_models.init_weights = init_weights  # the seeded draws, kept by model
 
     if args.only == "ballquery":
         build(["group"])
@@ -5156,62 +5361,82 @@ def main(argv=None):
         print(json.dumps({"probe": run_probe_slice(smi)}))
         print(smi)
         return
+    if args.only == "tools":
+        build([n for n in _build.SOURCES if n != "losses3d"])
+        print(json.dumps({"tools17": run_tools17_slice(smi)}))
+        print(smi)
+        return
     if args.only == "towers":
         build(["group"])
         print(json.dumps({"ballquery": run_ballquery_slice()[1]}))
         print(smi)
         return
+    laps, t_lap = {}, [time.perf_counter()]
+
+    def lap(name):
+        """The seconds since the previous lap, printed and kept by phase."""
+        now = time.perf_counter()
+        laps[name] = now - t_lap[0]
+        t_lap[0] = now
+        print(f"[phase] {name}: {laps[name]:.1f} s")
+
     build()
     sass = hopper_sass()
+    lap("2 build, SASS")
 
     results = {}
-    check_grouping(results)
-    check_mini(results)
-    check_mini_stats(results)
-    check_block(results)
-    check_attention(results)
-    check_flash_bwd(results)
-    check_tower(results)
-    check_text(results)
-    check_ballquery(results)
-    check_losses3d(results)
-    check_cloud(results)
-    check_variant(results)
+    for check_fn in (check_grouping, check_mini, check_mini_stats, check_block, check_attention,
+                     check_flash_bwd, check_tower, check_text, check_ballquery, check_losses3d,
+                     check_cloud, check_variant):
+        check_fn(results)
+        lap(f"3 {check_fn.__name__}")
     launches, slice_stats = run_slice()
+    lap("4 recognition")
     train_launches, train_stats = run_train_slice()
     launches["mini_stats"] = train_launches["mini_stats"]  # the train path's own kernel
+    lap("5 prompt tuning")
     text_launches, text_stats = run_text_slice()
     text_stats["text_encode_ms"]["phase_4"] = slice_stats["text_tower_ms"]
     launches.update(text_launches)  # the fused text path's own kernels
+    lap("6 text routes")
     ball_launches, ball_stats = run_ballquery_slice()
     launches.update(ball_launches)  # the ball-query towers' own kernels
     ball_stats["fps_by_shape"] = results.pop("fps_by_shape")
     ball_stats["host_us_a_call"] = results.pop("host_us_a_call")  # check_cloud's
     ball_stats["ball_query_gather_feats_other_dtype"] = results.pop(
         "ball_query_gather_feats_other_dtype")
+    lap("7 ball-query towers")
     route_launches, route_stats = run_routes_slice()
     launches.update(route_launches)  # the other trunk routes' own kernels
+    lap("8 trunk routes")
     long_launches, pretrain_stats = run_long_train_slice()
     # training through the long trunk: the pretraining window's count, the
     # prompt-tuning windows' beside it
     launches["flash_mha_bwd"] = long_launches["pretrain"]
+    lap("9 long-trunk training")
     pb_launches, pb_stats = run_pretrain_pb_slice()
     launches.update(pb_launches)  # the dVAE's EMD step: approx_match
+    lap("10 PointBERT pretraining")
     tool_launches, tool_stats = run_tools_slice()
     launches.update(tool_launches)  # the ablation probe's kernel
+    lap("11 kernel tools")
     recipe_stats = run_recipes_slice(smi)  # its own counts, read per recipe
+    lap("13 recipes")
     pretrained_stats = run_pretrained_slice(smi)  # its own counts, read per pass
     results["fps_batched"]["pointmlp_shapes"] = pretrained_stats["pn_mlp_fps"]
     results["fps_batched"]["pointmlp_launches_per_batch"] = (
         pretrained_stats["pn_mlp_validate"]["fps_batched_per_batch"])
+    lap("14 pretrained")
     partseg_stats = run_partseg_slice(smi)  # its own counts, read per pass and per step
     for name, n in partseg_stats["validate"]["launches_per_batch"].items():
         results[name]["partseg_launches_per_batch"] = n
     results["mini_stats"]["partseg_launches_per_step"] = (
         partseg_stats["train_step_launches"]["mini_stats"])
+    lap("15 partseg")
     probe_stats = run_probe_slice(smi)  # its own counts, read over feature_extract.main
     for name, n in probe_stats["extract"]["launches_per_batch"].items():
         results[name]["probe_launches_per_batch"] = n
+    lap("16 probe")
     for name in SOURCES:
         if name in OFF_PATH_KERNELS:
             check(launches.get(name, 0) == 0, f"{name} is called by no module, yet was launched")
@@ -5219,6 +5444,9 @@ def main(argv=None):
             check(launches.get(name, 0) > 0, f"{name} was launched on no path")
 
     prof_stats = run_profiles()
+    lap("12 profiles")
+    tools17_stats = run_tools17_slice(smi)  # its own counts, read in the loading process
+    lap("17 tools")
     att, vit = sass["attention"], sass["vitblock"]
     results["mini_forward"]["sass"] = sass["mini"]["mini_forward_wgmma_kernel"]
     results["mini_stats"]["sass"] = sass["mini"]["mini_stats_wgmma_kernel"]
@@ -5253,6 +5481,8 @@ def main(argv=None):
     print(json.dumps({"pretrained": pretrained_stats}))
     print(json.dumps({"partseg": partseg_stats}))
     print(json.dumps({"probe": probe_stats}))
+    print(json.dumps({"tools17": tools17_stats}))
+    print(json.dumps({"phase_seconds": laps}))
     print(json.dumps({"kernels": kernels, **slice_stats}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -8,7 +8,8 @@ runs the wrapper (the kernel on the card, its plain version on the CPU)
 outside the autograd graph, and the backward re-runs the plain version
 under ``torch.enable_grad()`` on the saved inputs and returns its
 gradients. When no input requires a gradient (the frozen point tower of
-prompt tuning) autograd records nothing and nothing is saved.
+prompt tuning), or grad mode is off (evaluation, ``torch.export``), the
+wrapper is called directly and autograd records nothing.
 
 No kernel has a second derivative: a backward asked to build a graph
 (``create_graph=True``, as ``adahessian``'s Hessian-vector product asks)
@@ -76,5 +77,10 @@ class _Recompute(torch.autograd.Function):
 
 def recompute_grad(name: str, run: Callable, plain: Callable, *args):
     """``run(*args)`` with the gradient of ``plain(*args)``; ``name`` is the
-    kernel's, for the refusal of a second derivative."""
+    kernel's, for the refusal of a second derivative. With grad mode off,
+    or no tensor argument that requires a gradient, ``run`` is called
+    directly: the eval and export paths hold no ``autograd.Function``."""
+    if not (torch.is_grad_enabled()
+            and any(isinstance(a, torch.Tensor) and a.requires_grad for a in args)):
+        return run(*args)
     return _Recompute.apply(name, run, plain, *args)

@@ -9,7 +9,9 @@ header says what bounds each kernel on the H100 and how its design
 answers that. ``ball_query_gather_v2`` computes ``ball_query_gather``'s
 function, so it launches the same walk with the same plan; ``fps_launch``
 is the FPS launcher that ``fps_batched`` and ``kernels/fps.py:fps_single``
-share.
+share. ``fps_batched`` and ``knn_gather`` are the registered operators
+``torch.ops.ppt.fps_batched`` and ``torch.ops.ppt.knn_gather``
+(``_ops.py``): the plain version on the CPU key, the launch on the CUDA key.
 
 Contracts (exact, ties included):
 - FPS starts at index 0, keeps a running min distance initialised to
@@ -38,7 +40,7 @@ from typing import Tuple
 
 import torch
 
-from ppt_torch.kernels import _build
+from ppt_torch.kernels import _build, _ops
 from ppt_torch.kernels._autograd import recompute_grad
 
 FPS_MAX_POINTS = 16384  # the cloud in shared memory (12 N bytes), 16 points a thread
@@ -120,15 +122,32 @@ def fps_launch(name: str, xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     return out
 
 
-def fps_batched(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
-    """FPS indices [B, npoint] int32 (start index 0 per cloud): the kernel
-    on the card, the plain version on the CPU. The kernel takes N up to
-    ``FPS_MAX_POINTS``, and npoint up to N."""
-    if xyz.device.type == "cpu":
-        return fps_plain(xyz, npoint)
+def _fps_batched_cuda(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
+    """``ppt::fps_batched`` on the card: npoint up to N."""
     if npoint > xyz.shape[1]:
         raise ValueError(f"fps_batched: npoint={npoint} > N={xyz.shape[1]}")
     return fps_launch("fps_batched", xyz, npoint)
+
+
+def _fps_fake(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
+    return xyz.new_empty(xyz.shape[0], npoint, dtype=torch.int32)
+
+
+def _fps_flops(xyz_shape, npoint: int) -> int:
+    B, N, _ = xyz_shape
+    return 10 * B * npoint * N  # 3 sub, 3 mul, 2 add, min, compare a point a step
+
+
+_ops.register("fps_batched(Tensor xyz, int npoint) -> Tensor", fps_plain, _fps_batched_cuda,
+              _fps_fake, _fps_flops)
+
+
+def fps_batched(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
+    """FPS indices [B, npoint] int32 (start index 0 per cloud):
+    ``torch.ops.ppt.fps_batched``, the kernel on the card, the plain version
+    on the CPU. The kernel takes N up to ``FPS_MAX_POINTS``, and npoint up
+    to N."""
+    return torch.ops.ppt.fps_batched(xyz, npoint)
 
 
 def knn_gather_plain(
@@ -149,14 +168,10 @@ def knn_gather_plain(
     return idx.to(torch.int32), nbr - q[:, :, None, :]
 
 
-def knn_gather(
+def _knn_gather_cuda(
     k: int, xyz: torch.Tensor, new_xyz: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """kNN + centre-relative neighbour coordinates in one kernel:
-    (idx [B, S, k] int32, neighbourhood - centre [B, S, k, 3] f32). Any
-    S, any N, any k in [1, N]."""
-    if xyz.device.type == "cpu":
-        return knn_gather_plain(k, xyz, new_xyz)
+    """``ppt::knn_gather`` on the card."""
     B, N, C = xyz.shape
     if C != 3 or new_xyz.dim() != 3 or new_xyz.shape[0] != B or new_xyz.shape[2] != 3:
         raise ValueError(f"knn_gather: expects xyz [B, N, 3] and queries [B, S, 3], got "
@@ -177,6 +192,30 @@ def knn_gather(
     _build.check(lib, rc, "knn_gather")
     _build.LAUNCHES["knn_gather"] += 1
     return idx, nbr
+
+
+def _knn_fake(k: int, xyz: torch.Tensor, new_xyz: torch.Tensor):
+    B, S = new_xyz.shape[:2]
+    return (new_xyz.new_empty(B, S, k, dtype=torch.int32),
+            new_xyz.new_empty(B, S, k, 3, dtype=torch.float32))
+
+
+def _knn_flops(k: int, xyz_shape, q_shape) -> int:
+    B, N, _ = xyz_shape
+    return 9 * B * q_shape[1] * N  # the distance (8) and one comparison a candidate
+
+
+_ops.register("knn_gather(int k, Tensor xyz, Tensor new_xyz) -> (Tensor, Tensor)",
+              knn_gather_plain, _knn_gather_cuda, _knn_fake, _knn_flops)
+
+
+def knn_gather(
+    k: int, xyz: torch.Tensor, new_xyz: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """kNN + centre-relative neighbour coordinates in one kernel
+    (``torch.ops.ppt.knn_gather``): (idx [B, S, k] int32, neighbourhood -
+    centre [B, S, k, 3] f32). Any S, any N, any k in [1, N]."""
+    return torch.ops.ppt.knn_gather(k, xyz, new_xyz)
 
 
 def _ball_picks(radius: float, nsample: int, xyz: torch.Tensor,

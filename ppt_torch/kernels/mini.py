@@ -29,8 +29,12 @@ registers across a CTA's tiles, the group sums on the tensor cores too
 a reduce kernel adds the CTAs' partials in order and mirrors the
 triangle.
 
-Neither kernel has a backward kernel in the reference; both public
-functions carry the gradient of their plain version (``_autograd.py``).
+Both are registered operators, ``torch.ops.ppt.mini_forward`` and
+``torch.ops.ppt.mini_stats`` (``_ops.py``): the plain version on the CPU
+key; on the CUDA key the forward kernel, and the sweep with its f32
+epilogue. Neither kernel has a backward kernel in the reference; both
+public functions carry the gradient of their plain version
+(``_autograd.py``).
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ from typing import Tuple
 
 import torch
 
-from ppt_torch.kernels import _build
+from ppt_torch.kernels import _build, _ops
 from ppt_torch.kernels._autograd import recompute_grad
 from ppt_torch.kernels.vitblock import check_tma
 
@@ -76,13 +80,12 @@ def mini_forward_plain(
     return y.amax(dim=2)
 
 
-def _mini_forward_run(
+def _mini_forward_cuda(
     m_size: int, dtype: torch.dtype, groups2: torch.Tensor, fw1, fb1, w2, b2, fwg, fwl,
     fbsplit, w3, b3,
 ) -> torch.Tensor:
+    """``ppt::mini_forward`` on the card."""
     args = (fw1, fb1, w2, b2, fwg, fwl, fbsplit, w3, b3)
-    if groups2.device.type == "cpu":
-        return mini_forward_plain(m_size, dtype, groups2, *args)
     B, GM, C = groups2.shape
     C1, C2, H, CO = fw1.shape[1], w2.shape[1], fwl.shape[1], w3.shape[1]
     if C != 3 or GM % m_size or m_size > _MAX_M:
@@ -112,6 +115,25 @@ def _mini_forward_run(
     _build.check(lib, rc, "mini_forward")
     _build.LAUNCHES["mini_forward"] += 1
     return out
+
+
+def _mini_forward_fake(m_size, dtype, groups2, fw1, fb1, w2, b2, fwg, fwl, fbsplit, w3, b3):
+    B, GM = groups2.shape[:2]
+    return groups2.new_empty(B, GM // m_size, w3.shape[1], dtype=dtype)
+
+
+def _mini_forward_flops(m_size, dtype, groups2, fw1, fb1, w2, b2, fwg, fwl, fbsplit, w3,
+                        b3) -> int:
+    B, GM, C = groups2
+    C1, C2, H, CO = fw1[1], w2[1], fwl[1], w3[1]
+    # four products a point, and the group maxima's product with fwg once a group
+    return 2 * B * GM * (C * C1 + C1 * C2 + C2 * H + H * CO) + 2 * B * (GM // m_size) * C2 * H
+
+
+_mini_forward_run = _ops.register(
+    "mini_forward(int m_size, ScalarType dtype, Tensor groups2, Tensor fw1, Tensor fb1, "
+    "Tensor w2, Tensor b2, Tensor fwg, Tensor fwl, Tensor fbsplit, Tensor w3, Tensor b3) "
+    "-> Tensor", mini_forward_plain, _mini_forward_cuda, _mini_forward_fake, _mini_forward_flops)
 
 
 def mini_forward(
@@ -211,11 +233,29 @@ def mini_stats_sweep(m_size: int, dtype: torch.dtype, groups2: torch.Tensor, fw1
     return m2, sg, gmax
 
 
-def _mini_stats_run(m_size, dtype, groups2, fw1, fb1, w2, b2, wg, wl, bsplit):
-    if groups2.device.type == "cpu":
-        return mini_stats_plain(m_size, dtype, groups2, fw1, fb1, w2, b2, wg, wl, bsplit)
+def _mini_stats_cuda(m_size, dtype, groups2, fw1, fb1, w2, b2, wg, wl, bsplit):
+    """``ppt::mini_stats`` on the card: the sweep, then its f32 epilogue."""
     m2, sg, gmax = mini_stats_sweep(m_size, dtype, groups2, fw1, fb1, w2, b2)
     return _stats_epilogue(m_size, m2, sg, gmax, wg, wl, bsplit)
+
+
+def _mini_stats_fake(m_size, dtype, groups2, fw1, fb1, w2, b2, wg, wl, bsplit):
+    H = wl.shape[1]
+    return (groups2.new_empty(H, dtype=torch.float32), groups2.new_empty(H, dtype=torch.float32))
+
+
+def _mini_stats_flops(m_size, dtype, groups2, fw1, fb1, w2, b2, wg, wl, bsplit) -> int:
+    B, GM, C = groups2
+    C1, C2 = fw1[1], w2[1]
+    # the sweep: two products a point and the upper triangle of the symmetric
+    # m2 = x2^T x2; the epilogue's f32 products are left out, as in the bound
+    return 2 * B * GM * (C * C1 + C1 * C2) + B * GM * C2 * (C2 + 1)
+
+
+_mini_stats_run = _ops.register(
+    "mini_stats(int m_size, ScalarType dtype, Tensor groups2, Tensor fw1, Tensor fb1, "
+    "Tensor w2, Tensor b2, Tensor wg, Tensor wl, Tensor bsplit) -> (Tensor, Tensor)",
+    mini_stats_plain, _mini_stats_cuda, _mini_stats_fake, _mini_stats_flops)
 
 
 def mini_stats(

@@ -19,7 +19,10 @@ depth, 2]``, then the readout: on the card one C entry point walks the
 block's launches over the depth, so its output equals the block chain's
 bit for bit.
 
-No kernel here has a backward kernel in the reference
+The block and the block + readout are registered operators,
+``torch.ops.ppt.fused_vit_block`` and ``torch.ops.ppt.fused_vit_block_readout``
+(``_ops.py``): the plain version on the CPU key, the launch on the CUDA
+key. No kernel here has a backward kernel in the reference
 (``vitblock.py:398-400``, ``:499-501``, ``:551-553``); each public function
 carries the gradient of its plain version (``_autograd.py``), which is what
 trains ``block_11`` under head types 1 to 3.
@@ -32,7 +35,7 @@ import math
 
 import torch
 
-from ppt_torch.kernels import _build
+from ppt_torch.kernels import _build, _ops
 from ppt_torch.kernels._autograd import recompute_grad
 
 LN_EPS = 1e-6
@@ -195,23 +198,51 @@ def _launch(x, pos, dp, weights, lnf, heads, name, scratch=None):
     return ro if ro is not None else bufs["out"].reshape(B, L, C)
 
 
-def _block_run(
+def _block_cuda(
     x, pos, dp, ln1s, ln1b, wqkv, wproj, bproj, ln2s, ln2b, wfc1, bfc1, wfc2, bfc2, heads
 ) -> torch.Tensor:
+    """``ppt::fused_vit_block`` on the card."""
     weights = (ln1s, ln1b, wqkv, wproj, bproj, ln2s, ln2b, wfc1, bfc1, wfc2, bfc2)
-    if x.device.type == "cpu":
-        return vit_block_plain(x, pos, dp, *weights, heads)
     return _launch(x, pos, dp, weights, None, heads, "fused_vit_block")
 
 
-def _block_readout_run(
+def _block_readout_cuda(
     x, pos, dp, ln1s, ln1b, wqkv, wproj, bproj, ln2s, ln2b, wfc1, bfc1, wfc2, bfc2,
     lnfs, lnfb, heads,
 ) -> torch.Tensor:
+    """``ppt::fused_vit_block_readout`` on the card."""
     weights = (ln1s, ln1b, wqkv, wproj, bproj, ln2s, ln2b, wfc1, bfc1, wfc2, bfc2)
-    if x.device.type == "cpu":
-        return vit_block_readout_plain(x, pos, dp, *weights, lnfs, lnfb, heads)
     return _launch(x, pos, dp, weights, (lnfs, lnfb), heads, "fused_vit_block_readout")
+
+
+def _block_fake(x, *args) -> torch.Tensor:
+    return x.new_empty(x.shape)
+
+
+def _block_readout_fake(x, *args) -> torch.Tensor:
+    return x.new_empty(x.shape[0], 8, x.shape[2], dtype=torch.float32)
+
+
+def _block_flops(x, pos, dp, ln1s, ln1b, wqkv, wproj, bproj, ln2s, ln2b, wfc1, *args) -> int:
+    """A block's products, 2 a multiply-add: qkv, proj, the MLP, and the
+    attention's two [L, L] products."""
+    B, L, C = x
+    return 2 * B * L * (C * wqkv[1] + C * C + 2 * C * wfc1[1]) + 4 * B * L * L * C
+
+
+def _block_readout_flops(x, *args) -> int:
+    """The block's, and the readout's LayerNorm at 8 operations an element."""
+    return _block_flops(x, *args) + 8 * x[0] * x[1] * x[2]
+
+
+_BLOCK_ARGS = ("Tensor x, Tensor pos, Tensor dp, Tensor ln1s, Tensor ln1b, Tensor wqkv, "
+               "Tensor wproj, Tensor bproj, Tensor ln2s, Tensor ln2b, Tensor wfc1, Tensor bfc1, "
+               "Tensor wfc2, Tensor bfc2")
+_block_run = _ops.register(f"fused_vit_block({_BLOCK_ARGS}, int heads) -> Tensor",
+                           vit_block_plain, _block_cuda, _block_fake, _block_flops)
+_block_readout_run = _ops.register(
+    f"fused_vit_block_readout({_BLOCK_ARGS}, Tensor lnfs, Tensor lnfb, int heads) -> Tensor",
+    vit_block_readout_plain, _block_readout_cuda, _block_readout_fake, _block_readout_flops)
 
 
 def fused_vit_block(

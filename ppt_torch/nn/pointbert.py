@@ -294,9 +294,15 @@ class PointBert(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``train``: batch statistics in the group encoder's BatchNorms
         (and their running update) and DropPath drawn from ``generator``."""
+        x, pos, _, rates, dp, route = self.embed(pts, train, generator)
+        return self.trunk(x, pos, dp, rates, route, train)
+
+    def trunk(self, x: torch.Tensor, pos: torch.Tensor, dp: torch.Tensor, rates, route: str,
+              train: bool = False) -> torch.Tensor:
+        """The blocks and the readout on ``route``, from ``embed``'s tokens,
+        position embedding, branch scales and rates -> [B, 2 * trans_dim] f32."""
         cfg = self.config
         dt = self.dtype
-        x, pos, _, rates, dp, route = self.embed(pts, train, generator)
         if route == "tower":
             ro = fused_vit_tower(x, pos.to(dt), dp.transpose(0, 1), *self.stacked_weights(),
                                  self.norm.weight, self.norm.bias, cfg.num_heads)  # [B, 8, C] f32

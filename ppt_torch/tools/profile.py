@@ -32,7 +32,11 @@ in ``block_11``. ``--train dvae`` profiles PointBERT's dVAE pretraining
 step (``DvaeConfig()``, B=64 x N=1024; ``--recon emd`` for the auction-EMD
 loss) and ``--train mpm`` its masked-point-modeling step
 (``PointBertConfig()`` against a frozen dVAE, B=32 x N=1024), with their
-own sections.
+own sections. ``--flops`` prints ``step_profile``'s table instead, for the
+recognition batch or (``--train``) the prompt-tuning step: each section's
+FLOPs as ``FlopCounterMode`` counts them (the ``ppt`` operators by their
+registered formulas), its device ms, TFLOP/s and share of the H100's dense
+bf16 peak, and the same for the whole step.
 
     python -m ppt_torch.tools.profile [--batch 32] [--npoints 1024] \
         [--batches 5] [--compute_dtype bfloat16]
@@ -45,6 +49,7 @@ own sections.
     python -m ppt_torch.tools.profile --train pretrain [--num_group 512 --npoints 1024]
     python -m ppt_torch.tools.profile --train dvae [--recon emd]
     python -m ppt_torch.tools.profile --train mpm
+    python -m ppt_torch.tools.profile --flops [--train]
 """
 
 from __future__ import annotations
@@ -56,6 +61,7 @@ import time
 
 import torch
 from torch.autograd import DeviceType
+from torch.utils.flop_counter import FlopCounterMode
 
 from ppt_torch.data.augment import append_height, train_augment
 from ppt_torch.data.datasets import make_synthetic
@@ -159,16 +165,20 @@ def takes_height(model_name: str) -> bool:
 
 
 def _setup(batch, npoints, compute_dtype, seed, text_route="off", model_name="ULIP_PointBERT",
-           point_route="block", num_group=512):
-    dev = resolve_device(None)  # the card; no CPU fallback
-    args = TaskArgs(npoints=npoints, batch_size=batch, num_learnable_prompt_tokens=32,
+           point_route="block", num_group=512, device=None, shrink=None):
+    """``device``: the card unless given; ``shrink``: (PointBertConfig,
+    TextConfig, prompt tokens) in place of the full widths (the tests')."""
+    dev = resolve_device(device)  # the card unless told otherwise; no CPU fallback
+    n_ctx = shrink[2] if shrink else 32
+    args = TaskArgs(npoints=npoints, batch_size=batch, num_learnable_prompt_tokens=n_ctx,
                     class_name_position="middle", compute_dtype=compute_dtype, seed=seed,
                     model=model_name, use_height=takes_height(model_name))
-    args.pointbert_config = PointBertConfig(num_group=num_group)
+    args.pointbert_config = shrink[0] if shrink else PointBertConfig(num_group=num_group)
+    args.text_config = shrink[1] if shrink else None
     args.point_route = point_route
     classnames = args.load_classnames()
     prompts = PromptArrays.from_spec(
-        build_prompt_spec(classnames, n_ctx=32, class_name_position="middle"), device=dev)
+        build_prompt_spec(classnames, n_ctx=n_ctx, class_name_position="middle"), device=dev)
     model = build_model(model_name, args, device=dev, text_fused=text_route).model
     ds = make_synthetic(num_classes=len(classnames), samples_per_class=-(-batch // len(classnames)),
                         npoints=npoints, seed=seed + 1, classnames=classnames)
@@ -287,9 +297,9 @@ def _grads(state, loss):
     return keys, torch.autograd.grad(loss, [state.trainable[k] for k in keys])
 
 
-def _train_sections(state, augment, loss_of, text_section: str, batches: int) -> dict:
-    """ms per batch of a train step's sections: ``augment()``, the point
-    tower in training mode, ``text_section`` (the text tower and
+def _train_run(state, augment, loss_of, text_section: str):
+    """(names, run(mark)) of a train step's sections: ``augment()``, the
+    point tower in training mode, ``text_section`` (the text tower and
     ``loss_of(pc_embed)``), backward, AdamW."""
     model = state.model
 
@@ -305,8 +315,14 @@ def _train_sections(state, augment, loss_of, text_section: str, batches: int) ->
         state.optimizer.step(dict(zip(keys, grads)))
         mark()
 
-    return _sections(("augmentation", "point tower (train mode)", text_section, "backward",
-                      "optimizer"), run, batches)
+    return ("augmentation", "point tower (train mode)", text_section, "backward",
+            "optimizer"), run
+
+
+def _train_sections(state, augment, loss_of, text_section: str, batches: int) -> dict:
+    """ms per batch of a train step's sections (``_train_run``)."""
+    names, run = _train_run(state, augment, loss_of, text_section)
+    return _sections(names, run, batches)
 
 
 def profile_step(batch: int = 32, npoints: int = 1024, batches: int = 5,
@@ -513,6 +529,83 @@ def profile_mpm_step(batch: int = 32, npoints: int = 1024, batches: int = 5,
             "section_ms_per_batch": sections}
 
 
+PEAK_BF16_TFLOPS = 989.0  # one H100 SXM, dense bf16 tensor cores (PERF.md §6's figure)
+
+
+def section_flops(names, run) -> dict:
+    """The FLOPs of each section of ``run(mark)`` (``mark()`` ends one), as
+    ``FlopCounterMode`` counts them: the library's formulas and the ``ppt``
+    operators' (``kernels/_ops.py``); elementwise work counts nothing."""
+    at = []
+    with FlopCounterMode(display=False) as counter:
+        run(lambda: at.append(counter.get_total_flops()))
+    return {name: end - start for name, start, end in zip(names, [0] + at, at)}
+
+
+def flop_table(names, run, batches: int, on_card: bool) -> dict:
+    """Each section's FLOPs, and on the card its device ms a step (CUDA events,
+    ``_sections``), TFLOP/s and share of the H100's dense bf16 peak; the
+    same for the whole step, whose FLOPs are counted over one step of its
+    own (the sections must add up to it). Off the card every time is None:
+    not measured."""
+    flops = section_flops(names, run)
+    with FlopCounterMode(display=False) as counter:
+        run(lambda: None)
+    total = counter.get_total_flops()
+    ms = _sections(names, run, batches) if on_card else {}
+
+    def row(gflop, t):
+        rate = gflop / t if t else None  # GFLOP / ms = TFLOP/s
+        return {"gflop": gflop, "ms": t, "tflops": rate,
+                "peak_share": rate / PEAK_BF16_TFLOPS if rate is not None else None}
+
+    table = {name: row(flops[name] / 1e9, ms.get(name)) for name in names}
+    return {"sections": table,
+            "total": row(total / 1e9, sum(ms.values()) if ms else None),
+            "sections_gflop_sum": sum(flops.values()) / 1e9,
+            "peak_tflops": PEAK_BF16_TFLOPS}
+
+
+def profile_flops(train: bool = False, batch: int = None, npoints: int = 1024, batches: int = 5,
+                  compute_dtype: str = "bfloat16", seed: int = 0, head_type: int = 0,
+                  device=None, shrink=None) -> dict:
+    """``step_profile``'s table for PPT-Base: the recognition batch (the
+    eval step on a cached text embedding), or with ``train`` the
+    prompt-tuning step's sections (augmentation, point tower, text forward
+    and loss, backward, optimizer). On the card unless ``device`` says
+    otherwise (then FLOPs only); ``shrink`` as in ``_setup``."""
+    batch = batch or (30 if train else 32)
+    dev, model, prompts, pc, label = _setup(batch, npoints, compute_dtype, seed, device=device,
+                                            shrink=shrink)
+    on_card = dev.type == "cuda"
+    if train:
+        sched = build_schedule("cosine", 3e-3, 250, 9843 // batch, final_lr=1e-5,
+                               warmup_epochs=1, warmup_start_lr=1e-6)
+        state = create_train_state(
+            model, trainable_mask(model, head_type=head_type),
+            lambda tr: build_optimizer("adamw", tr.items(), sched), seed=seed + 1)
+        names, run = _train_run(
+            state, lambda: train_augment(state.generator, pc),
+            lambda pc_embed: smoothed_cross_entropy(
+                torch.exp(model.logit_scale) * pc_embed @ model.encode_text(prompts).t(), label,
+                0.2),
+            "text tower forward + loss")
+    else:
+        embed_fn, step_fn = make_cached_text_eval(model)
+        text_embed = embed_fn(model, prompts)
+        names = ("recognition batch",)
+
+        def run(mark):
+            step_fn(model, {"pc": pc}, text_embed)
+            mark()
+
+    run(lambda: None)  # warm: kernels, caches, the allocator
+    out = flop_table(names, run, batches, on_card)
+    return {"step": "train" if train else "eval", "model": "ULIP_PointBERT",
+            "compute_dtype": compute_dtype, "batch": batch, "npoints": npoints,
+            "device": torch.cuda.get_device_name(dev) if on_card else str(dev), **out}
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--train", nargs="?", const="cls", choices=("cls", "pretrain", "dvae", "mpm"),
@@ -535,8 +628,17 @@ def main(argv=None) -> None:
                    help="PointBERT's trunk route")
     p.add_argument("--num_group", type=int, default=None,
                    help="PointBERT's group count: default 512, 1024 with --train pretrain")
+    p.add_argument("--flops", action="store_true",
+                   help="the FLOP table instead: FLOPs, device ms, TFLOP/s and share of the "
+                        "bf16 peak per section, of the recognition batch or (--train) the "
+                        "prompt-tuning step")
     a = p.parse_args(argv)
-    if a.train == "dvae":
+    if a.flops:
+        if a.train not in (None, "cls"):
+            p.error("--flops covers the recognition batch and the prompt-tuning step (--train)")
+        out = profile_flops(a.train == "cls", a.batch, a.npoints or 1024, a.batches,
+                            a.compute_dtype, a.seed, a.head_type)
+    elif a.train == "dvae":
         out = profile_dvae_step(a.batch or 64, a.npoints or 1024, a.batches, a.compute_dtype,
                                 a.seed, recon=a.recon)
     elif a.train == "mpm":

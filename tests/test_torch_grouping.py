@@ -111,21 +111,23 @@ def test_fps_plain_matches_pallas_on_pointnext_stages():
         xyz = np.take_along_axis(xyz, got[..., None].astype(np.int64), axis=1)
 
 
-# the kernel paths refuse by name what the kernels do not take, before any
-# build (meta tensors stand in for the card's)
+# the kernel paths (the ops' CUDA implementations) refuse by name what the
+# kernels do not take, before any build (meta tensors stand in for the card's;
+# through the ops a meta tensor takes the fake implementation)
 @pytest.mark.parametrize("call,msg", [
-    (lambda: kgroup.fps_batched(torch.empty(1, kgroup.FPS_MAX_POINTS + 1, 3, device="meta"), 8),
+    (lambda: kgroup._fps_batched_cuda(
+        torch.empty(1, kgroup.FPS_MAX_POINTS + 1, 3, device="meta"), 8),
      f"fps_batched: N={kgroup.FPS_MAX_POINTS + 1} exceeds"),
-    (lambda: kgroup.fps_batched(torch.empty(2, 64, 3, device="meta"), 65),
+    (lambda: kgroup._fps_batched_cuda(torch.empty(2, 64, 3, device="meta"), 65),
      "fps_batched: npoint=65 > N=64"),
-    (lambda: kgroup.knn_gather(65, torch.empty(1, 64, 3, device="meta"),
-                               torch.empty(1, 8, 3, device="meta")),
+    (lambda: kgroup._knn_gather_cuda(65, torch.empty(1, 64, 3, device="meta"),
+                                     torch.empty(1, 8, 3, device="meta")),
      r"knn_gather: k=65 must lie in \[1, N=64\]"),
-    (lambda: kgroup.knn_gather(0, torch.empty(1, 64, 3, device="meta"),
-                               torch.empty(1, 8, 3, device="meta")),
+    (lambda: kgroup._knn_gather_cuda(0, torch.empty(1, 64, 3, device="meta"),
+                                     torch.empty(1, 8, 3, device="meta")),
      r"knn_gather: k=0 must lie in \[1, N=64\]"),
-    (lambda: kgroup.knn_gather(4, torch.empty(2, 64, 3, device="meta"),
-                               torch.empty(1, 8, 3, device="meta")),
+    (lambda: kgroup._knn_gather_cuda(4, torch.empty(2, 64, 3, device="meta"),
+                                     torch.empty(1, 8, 3, device="meta")),
      "knn_gather: expects xyz"),
 ])
 def test_grouping_kernel_paths_refuse_by_name(call, msg):

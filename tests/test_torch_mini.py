@@ -19,7 +19,7 @@ import torch
 
 from ppt_tpu.kernels.mini import _forward_pallas
 from ppt_torch.convert import from_jax
-from ppt_torch.kernels.mini import mini_forward
+from ppt_torch.kernels.mini import _mini_forward_cuda, mini_forward
 from ppt_torch.nn.pointbert import MiniPointNet
 
 torch.set_num_threads(1)  # one intra-op thread: the xdist workers share the cores
@@ -89,14 +89,14 @@ def test_minipointnet_eval_matches_flax(dtype, monkeypatch):
 @pytest.mark.parametrize("M,co,match", [(32, 64, "bf16 takes"), (32, 512, "bf16 takes"),
                                         (64, 256, "M <= 32")])
 def test_mini_forward_kernel_path_rejects_what_it_does_not_take(M, co, match):
-    """A tensor off the CPU takes the kernel path, whose shape checks run
+    """The kernel path (the op's CUDA implementation) runs its shape checks
     before any build or launch (meta tensors carry shapes only)."""
     shapes = [(3, 128), (128,), (128, 256), (256,), (256, 512), (256, 512), (512,), (512, co),
               (co,)]
     w = [torch.empty(s, device="meta") for s in shapes]
     x = torch.empty(1, 2 * M, 3, device="meta")
     with pytest.raises(ValueError, match=match):
-        mini_forward(M, torch.bfloat16, x, *w)
+        _mini_forward_cuda(M, torch.bfloat16, x, *w)
 
 
 @pytest.mark.parametrize("name", ["w2", "fwg", "fwl", "w3"])
@@ -111,4 +111,4 @@ def test_mini_forward_kernel_path_refuses_what_tma_cannot_load(name):
     w[name] = flat[1:].view(rows, cols)  # 2 bytes past an aligned base
     x = torch.empty(1, 64, 3, device="meta")
     with pytest.raises(ValueError, match=f"16-byte aligned bases; {name} is not"):
-        mini_forward(32, torch.bfloat16, x, *w.values())
+        _mini_forward_cuda(32, torch.bfloat16, x, *w.values())

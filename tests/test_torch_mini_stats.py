@@ -27,7 +27,8 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from ppt_tpu.kernels.mini import _pick_gm_blk, _stats_kernel, _stats_pallas, _stats_twin, _wspecs
-from ppt_torch.kernels.mini import mini_stats, mini_stats_plain, mini_stats_sweep_plain
+from ppt_torch.kernels.mini import (_mini_stats_cuda, mini_stats, mini_stats_plain,
+                                    mini_stats_sweep_plain)
 
 torch.set_num_threads(1)  # one intra-op thread: the xdist workers share the cores
 
@@ -106,13 +107,13 @@ def test_mini_stats_records_no_graph_for_frozen_inputs():
 @pytest.mark.parametrize("M,shape,match", [(8, (128, 64), "PointBERT's widths"),
                                            (64, (128, 256), "M <= 32")])
 def test_mini_stats_kernel_path_rejects_what_it_does_not_take(M, shape, match):
-    """A tensor off the CPU takes the kernel path, whose shape checks run
+    """The kernel path (the op's CUDA implementation) runs its shape checks
     before any build or launch (meta tensors carry shapes only)."""
     c1, c2 = shape
     shapes = [(3, c1), (c1,), (c1, c2), (c2,), (c2, 512), (c2, 512), (512,)]
     w = [torch.empty(s, device="meta") for s in shapes]
     with pytest.raises(ValueError, match=match):
-        mini_stats(M, torch.bfloat16, torch.empty(1, 2 * M, 3, device="meta"), *w)
+        _mini_stats_cuda(M, torch.bfloat16, torch.empty(1, 2 * M, 3, device="meta"), *w)
 
 
 def _pallas_sweep(x, fw1, fb1, w2, b2, m_size, jdt):
@@ -175,4 +176,4 @@ def test_mini_stats_kernel_path_refuses_what_tma_cannot_load():
     flat = torch.empty(128 * 256 + 1, dtype=torch.bfloat16, device="meta")
     w[2] = flat[1:].view(128, 256)  # 2 bytes past an aligned base
     with pytest.raises(ValueError, match="16-byte aligned bases; w2 is not"):
-        mini_stats(32, torch.bfloat16, torch.empty(1, 64, 3, device="meta"), *w)
+        _mini_stats_cuda(32, torch.bfloat16, torch.empty(1, 64, 3, device="meta"), *w)

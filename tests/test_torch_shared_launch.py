@@ -103,9 +103,9 @@ def test_fps_single_launches_ppt_fps(stub, B, N, npoint, dtype):
     (name, args), = stub["group"].calls
     assert name == "ppt_fps" and args[1:4] == (B, N, npoint)
     assert dict(_build.LAUNCHES) == {"fps_single": 1}
-    # fps_batched launches the same entry point with the same arguments
+    # fps_batched's kernel path launches the same entry point with the same arguments
     if npoint <= N:
-        kgroup.fps_batched(meta(B, N, 3).to(dtype), npoint)
+        kgroup._fps_batched_cuda(meta(B, N, 3).to(dtype), npoint)
         assert stub["group"].calls[1] == ("ppt_fps", args)
 
 

@@ -20,7 +20,7 @@ import torch
 
 from ppt_tpu.kernels.vitblock import _block_pallas, _block_readout_pallas
 from ppt_torch.convert import from_jax
-from ppt_torch.kernels.vitblock import fused_vit_block, fused_vit_block_readout
+from ppt_torch.kernels.vitblock import _block_cuda, fused_vit_block, fused_vit_block_readout
 from ppt_torch.nn.pointbert import VitBlock
 
 torch.set_num_threads(1)  # one intra-op thread: the xdist workers share the cores
@@ -111,7 +111,7 @@ def test_vitblock_module_matches_flax(dtype, monkeypatch):
     (torch.float32, 96, 5, "must split into"),
 ])
 def test_block_kernel_path_rejects_what_it_does_not_take(dtype, C, heads, match):
-    """A tensor off the CPU takes the kernel path, whose shape checks run
+    """The kernel path (the op's CUDA implementation) runs its shape checks
     before any build or launch (meta tensors carry shapes only)."""
     def m(*s, dt=torch.float32):
         return torch.empty(*s, dtype=dt, device="meta")
@@ -120,7 +120,7 @@ def test_block_kernel_path_rejects_what_it_does_not_take(dtype, C, heads, match)
     weights = [m(C), m(C), m(C, 3 * C, dt=dtype), m(C, C, dt=dtype), m(C), m(C), m(C),
                m(C, 4 * C, dt=dtype), m(4 * C), m(4 * C, C, dt=dtype), m(C)]
     with pytest.raises(ValueError, match=match):
-        fused_vit_block(x, x, m(1, 2), *weights, heads)
+        _block_cuda(x, x, m(1, 2), *weights, heads)
 
 
 def _gemm_constants():
