@@ -10,8 +10,10 @@ modeling), the kernel tools (the ViT-block ablation probe, the on-card
 kernel check), the published recipes, converted pretrained backbones
 with ULIP_PN_MLP at full width, part segmentation (ULIP_PointBERT_partseg),
 the linear probe (feature extraction, the few-shot probe, prompt
-interpretation), and the tools (the serving export through the registered
-operators, the component probe, the FLOP table, the backbone bench).
+interpretation), the tools (the serving export through the registered
+operators, the component probe, the FLOP table, the backbone bench), and
+the rest of the recognition zoo (PointNet with and without T-Nets, DGCNN,
+PCT, CurveNet) with the graph towers and SimpleView.
 
     python3 chip_smoke.py            # one CUDA card, no arguments
     python3 chip_smoke.py --only ballquery   # group.cu, phase 3's ball queries alone
@@ -29,6 +31,8 @@ operators, the component probe, the FLOP table, the backbone bench).
     python3 chip_smoke.py --only probe       # phase 16: the linear probe at full width
     python3 chip_smoke.py --only tools       # phase 17: the serving export, the probes, the
                                              # FLOP table, the operators' host cost
+    python3 chip_smoke.py --only zoo         # phase 18: the rest of the recognition zoo, the
+                                             # graph towers and SimpleView
 
 Phases (any failed check raises, and the script exits non-zero):
   1. card name / power limit (nvidia-smi), torch and CUDA versions;
@@ -205,7 +209,7 @@ Phases (any failed check raises, and the script exits non-zero):
      a line of their own ({"ballquery": ...}).
   8. PointBERT's trunk routes through ``cls.setup`` with the reference's
      switches set as a user sets them: ``PPT_FUSED_VIT_TOWER=1`` (route
-     "tower") and ``PPT_FUSED_BLOCK=0`` ("unfused"): a warm-up, then 3
+     "tower") and ``PPT_FUSED_BLOCK=0`` ("unfused"): a warm-up, then 2
      ``validate`` passes over 2468 clouds at B=32 (median/min/max
      clouds/sec, launches per pass: 78 fused_vit_tower, 936 fused_mha),
      logits against the plain path on the card (phase 4's limits), the
@@ -300,8 +304,8 @@ Phases (any failed check raises, and the script exits non-zero):
      limits), the SSG, MSG and NeXt files loaded bit for bit, then
      ULIP_PN_MLP at full width, B=32 x 1024 (loaded bit for bit;
      fps_batched launched 4 times a batch in a bf16 ``validate`` pass, an
-     f32 pass too; logits against the plain path in bf16 and f32; 20
-     timed head-type-0 train steps, then 20 under the profiler: clouds/sec,
+     f32 pass too; logits against the plain path in bf16 and f32; 10
+     timed head-type-0 train steps, then 10 under the profiler: clouds/sec,
      wall, busy and idle a batch; fps_batched at PointMLP's four shapes
      with the launches queued, against fps_plain); an existing directory
      without converted files warns and keeps the seeded init. Its numbers
@@ -315,7 +319,7 @@ Phases (any failed check raises, and the script exits non-zero):
      mini_forward 1, fused_vit_block 12, fused_vit_block_readout 0), one
      batch's logits against the plain path in bf16 and f32 at phase 4's
      limits with the refined predictions and mIoU beside them; one train
-     step's launches (mini_stats 1), 20 timed head-type-0 steps and 20
+     step's launches (mini_stats 1), 10 timed head-type-0 steps and 10
      profiled (clouds/sec, wall, busy, idle; the frozen leaves
      bit-unchanged), a fixed batch whose loss falls; one step against the
      plain path at head types 0 and 3 in f32 (loss, BatchNorm buffers and
@@ -365,9 +369,32 @@ Phases (any failed check raises, and the script exits non-zero):
      against its direct launch function, in alternated rounds ([host]
      lines); ``component_probe`` at
      its defaults; ``profile --flops`` for the recognition batch and the
-     prompt-tuning step; ``backbone_bench`` for each of its four towers.
-     Its numbers go on a line of their own ({"tools17": ...}); ``--only
-     tools`` builds what it needs and runs it alone.
+     prompt-tuning step; ``backbone_bench`` for the four towers it had
+     before phase 18. Its numbers go on a line of their own ({"tools17":
+     ...}); ``--only tools`` builds what it needs and runs it alone.
+ 18. the zoo: ``ULIP_PointNet``, ``ULIP_PointNet_STN``, ``ULIP_DGCNN``,
+     ``ULIP_PCT`` and ``ULIP_CurveNet`` at their default configs (full
+     width), bf16, seeded weights, through ``cls.setup``: a ``validate``
+     pass over phase 14's 309 clouds of 1024 points at B=32 (a warm-up
+     pass, then one with the counts set to 0: clouds/sec, launches a batch,
+     ``fps_batched`` 0 / 0 / 0 / 2 / 3 a batch and no other kernel); one
+     batch's logits against the plain path (bf16 and f32) at phase 4's
+     limits, and bf16 against f32: the point embeddings at phase 4's bf16
+     max|diff| limit, the logits reported (random weights leave a cloud's
+     top-2 logits within bf16's rounding); for the four that train one head-type-0
+     step (loss finite, frozen leaves bit-unchanged, the prompt moved);
+     ``ULIP_CurveNet``'s step refused by name. ``fps_batched`` at the new
+     shapes (B=32: PCT 1024 -> 512 -> 256, CurveNet 1024 -> 256 -> 64 ->
+     16, GroupPointNet 1024 -> 256) against ``fps_plain``, exact, timed with
+     the launches queued beside each shape's latency floor (npoint steps of
+     phase 3's dependent chain). The graph towers (BallDGCNN, DeepGCN,
+     GroupPointNet) and SimpleView at their default configs, f32, B=32 x
+     1024 points on a 1/64 lattice (exact coordinate distances on both
+     devices): the card's forward against the CPU's. ``backbone_bench
+     --model dgcnn`` at B=128. Its numbers go on a line of their own
+     ({"zoo": ...}); the kernels line's ``fps_batched`` entry gains
+     ``zoo_shapes`` and ``zoo_launches_per_batch``; ``--only zoo`` builds
+     ``group.cu`` and runs it alone.
 
 The build prints each CUDA kernel's registers and spills (ptxas -v).
 The line before the card's is a JSON object with the per-kernel numbers
@@ -2909,7 +2936,7 @@ def route_passes(ctx, args, passes):
             "launches_per_pass": launches, "acc1": val["acc1"]}
 
 
-def run_routes_slice(passes=3, steps=20):
+def run_routes_slice(passes=2, steps=20):
     saved_loader = pdata.DATASETS["modelnet40"]
     pdata.DATASETS["modelnet40"] = synthetic_modelnet40_eval
     try:
@@ -3956,6 +3983,7 @@ def run_recipes_slice(smi):
 
 PRETRAINED_DIR = _build.BUILD_DIR.parent / "chip_smoke_pretrained"
 MLP_BATCH = 32
+MLP_STEPS = 10  # the timed and the profiled window
 # PointMLP's four FPS launches a batch: 1024 -> 512 -> 256 -> 128 -> 64 points
 MLP_FPS_SHAPES = ((1024, 512), (512, 256), (256, 128), (128, 64))
 LOADED_MSG = "%s: loaded %d/%d leaves from pretrained"  # train/checkpoint.py's line
@@ -4291,7 +4319,7 @@ def _run_pretrained_slice(smi):
     out["pn_mlp_logits"] = {"bfloat16": loaded_logits_vs_plain("ULIP_PN_MLP", ctx, "bfloat16",
                                                                pc)}
 
-    # 20 timed head-type-0 train steps, then their device time under the profiler
+    # MLP_STEPS timed head-type-0 train steps, then their device time under the profiler
     state = ctx["state"]
     check(sorted(state.trainable) == ["prompt_learner.learnable_tokens"], "PN_MLP partition")
     frozen0 = snapshot({k: p for k, p in ctx["model"].named_parameters()
@@ -4301,28 +4329,28 @@ def _run_pretrained_slice(smi):
                                  seed=0))
     run_steps(ctx, step_fn, stream, 3)  # warm-up
     t0 = time.perf_counter()
-    losses = run_steps(ctx, step_fn, stream, 20)
+    losses = run_steps(ctx, step_fn, stream, MLP_STEPS)
     wall = time.perf_counter() - t0
-    rate = 20 * MLP_BATCH / wall
+    rate = MLP_STEPS * MLP_BATCH / wall
 
     def one_step():
         run_steps(ctx, step_fn, stream, 1)
 
-    prof = tprofile._profile(one_step, 20)
+    prof = tprofile._profile(one_step, MLP_STEPS)
     check(all(math.isfinite(x) for x in losses), f"PN_MLP train losses {losses}")
     check(all(torch.equal(p, frozen0[k]) for k, p in ctx["model"].named_parameters()
               if k in frozen0), "a frozen PointMLP leaf moved")
     out["pn_mlp_train"] = {
-        "steps": 20, "batch": MLP_BATCH, "clouds_per_sec": rate,
-        "wall_ms_per_batch": wall / 20 * 1e3,
+        "steps": MLP_STEPS, "batch": MLP_BATCH, "clouds_per_sec": rate,
+        "wall_ms_per_batch": wall / MLP_STEPS * 1e3,
         "busy_ms_per_batch": prof["device_busy_ms_per_batch"],
         # the profiler slows the host, not the card: idle against the plain wall
-        "idle_share": 1.0 - prof["device_busy_ms_per_batch"] / (wall / 20 * 1e3),
+        "idle_share": 1.0 - prof["device_busy_ms_per_batch"] / (wall / MLP_STEPS * 1e3),
         "profiled_wall_ms_per_batch": prof["wall_ms_per_batch"],
         "profiled_idle_share": prof["device_idle_share"],
         "loss_first_last": [losses[0], losses[-1]], "card": smi}
-    print(f"[pretrained] ULIP_PN_MLP bf16 head_type 0, 20 steps of {MLP_BATCH}: "
-          f"{rate:.1f} clouds/sec, wall {wall / 20 * 1e3:.3f} ms a batch, busy "
+    print(f"[pretrained] ULIP_PN_MLP bf16 head_type 0, {MLP_STEPS} steps of {MLP_BATCH}: "
+          f"{rate:.1f} clouds/sec, wall {wall / MLP_STEPS * 1e3:.3f} ms a batch, busy "
           f"{prof['device_busy_ms_per_batch']:.3f} ms (profiled), idle "
           f"{out['pn_mlp_train']['idle_share']:.3f}; the profiled window: wall "
           f"{prof['wall_ms_per_batch']:.3f} ms, idle {prof['device_idle_share']:.3f}; loss "
@@ -4385,6 +4413,7 @@ def _run_pretrained_slice(smi):
 
 PARTSEG_DIR = _build.BUILD_DIR.parent / "chip_smoke_partseg"
 PARTSEG_BATCH = 32
+PARTSEG_STEPS = 10  # the timed and the profiled window
 PARTSEG_NPOINTS = 2048  # configs/datasets/shapenetpart.yaml
 PARTSEG_PER_CATEGORY = 20  # 16 categories x 20 = 320 synthetic part clouds a split
 # each kernel's launches a batch on the block route (validate); mini_stats a train step
@@ -4621,24 +4650,26 @@ def _run_partseg_slice(smi):
                                  seed=0))
     partseg_run_steps(ctx, step_fn, stream, 3)  # warm-up
     t0 = time.perf_counter()
-    losses = partseg_run_steps(ctx, step_fn, stream, 20)
+    losses = partseg_run_steps(ctx, step_fn, stream, PARTSEG_STEPS)
     wall = time.perf_counter() - t0
-    prof = tprofile._profile(lambda: partseg_run_steps(ctx, step_fn, stream, 1), 20)
+    prof = tprofile._profile(lambda: partseg_run_steps(ctx, step_fn, stream, 1), PARTSEG_STEPS)
     check(all(math.isfinite(x) for x in losses), f"partseg train losses {losses}")
     check(all(torch.equal(p, frozen0[k]) for k, p in ctx["model"].named_parameters()
               if k in frozen0), "a frozen leaf of the partseg model moved")
     out["train"] = {
-        "steps": 20, "batch": PARTSEG_BATCH, "clouds_per_sec": 20 * PARTSEG_BATCH / wall,
-        "wall_ms_per_batch": wall / 20 * 1e3,
+        "steps": PARTSEG_STEPS, "batch": PARTSEG_BATCH,
+        "clouds_per_sec": PARTSEG_STEPS * PARTSEG_BATCH / wall,
+        "wall_ms_per_batch": wall / PARTSEG_STEPS * 1e3,
         "busy_ms_per_batch": prof["device_busy_ms_per_batch"],
-        "idle_share": 1.0 - prof["device_busy_ms_per_batch"] / (wall / 20 * 1e3),
+        "idle_share": 1.0 - prof["device_busy_ms_per_batch"] / (wall / PARTSEG_STEPS * 1e3),
         "profiled_wall_ms_per_batch": prof["wall_ms_per_batch"],
         "profiled_idle_share": prof["device_idle_share"],
         "device_ms_per_batch": prof["device_ms_per_batch"],
         "top_other_kernels_ms_per_batch": prof["top_other_kernels_ms_per_batch"],
         "trainable_leaves": len(state.trainable), "loss_first_last": [losses[0], losses[-1]]}
-    print(f"[partseg] bf16 head_type 0, 20 steps of {PARTSEG_BATCH} x {PARTSEG_NPOINTS}: "
-          f"{out['train']['clouds_per_sec']:.1f} clouds/sec, wall {wall / 20 * 1e3:.3f} ms a "
+    print(f"[partseg] bf16 head_type 0, {PARTSEG_STEPS} steps of {PARTSEG_BATCH} x "
+          f"{PARTSEG_NPOINTS}: {out['train']['clouds_per_sec']:.1f} clouds/sec, wall "
+          f"{wall / PARTSEG_STEPS * 1e3:.3f} ms a "
           f"batch, busy {prof['device_busy_ms_per_batch']:.3f} ms (profiled), idle "
           f"{out['train']['idle_share']:.3f}; the profiled window: wall "
           f"{prof['wall_ms_per_batch']:.3f} ms, idle {prof['device_idle_share']:.3f}; "
@@ -5248,11 +5279,281 @@ def run_tools17_slice(smi):
               "profile --flops: the sections do not add up to the step")
         out["flops"]["train" if train else "eval"] = table
     out["backbones"] = {}
-    for name in backbone_bench.MODELS:
+    for name in PHASE17_BACKBONES:  # phase 18 times dgcnn
         line = backbone_bench.main(["--model", name])
         out["backbones"][name] = {k: line[k] for k in ("clouds_per_sec", "fwd_ms", "spread_pct")}
     out["seconds"] = time.perf_counter() - t0
     print(f"[tools] phase 17 took {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the rest of the recognition zoo, the graph towers, SimpleView
+# ---------------------------------------------------------------------------
+
+PHASE17_BACKBONES = ("pointnext", "pointnet2_ssg", "pointnet2_msg", "pointmlp")
+ZOO_BATCH = 32
+ZOO_MODELS = ("ULIP_PointNet", "ULIP_PointNet_STN", "ULIP_DGCNN", "ULIP_PCT", "ULIP_CurveNet")
+ZOO_FPS_PER_BATCH = {"ULIP_PointNet": 0, "ULIP_PointNet_STN": 0, "ULIP_DGCNN": 0,
+                     "ULIP_PCT": 2, "ULIP_CurveNet": 3}
+# (N, npoint, towers): fps_batched's new shapes at B=32
+ZOO_FPS_SHAPES = ((1024, 512, "PCT"), (512, 256, "PCT"),
+                  (1024, 256, "CurveNet, GroupPointNet"), (256, 64, "CurveNet"),
+                  (64, 16, "CurveNet"))
+TOL_ZOO_CPU = 1e-3  # the card's f32 forward against the CPU's, of the output's std
+
+
+def zoo_args(model, dtype="bfloat16"):
+    return train_args(dtype, 0, ZOO_BATCH, model=model, evaluate_3d=True)
+
+
+def zoo_logits(ctx, pc, plain=False):
+    embed_fn, step_fn = make_cached_text_eval(ctx["model"])
+    with plain_path() if plain else contextlib.nullcontext():
+        out = step_fn(ctx["model"], {"pc": pc}, embed_fn(ctx["model"], ctx["prompts"]))
+    torch.cuda.synchronize()
+    return out
+
+
+def logits_agree_zoo(tag, got, want, dtype):
+    """Phase 4's limits: max|diff| over the reference's std and top-1."""
+    check(got.shape == want.shape and torch.isfinite(got).all(), f"{tag} logits")
+    diff = float((got.float() - want.float()).abs().max() / want.float().std())
+    top1 = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    ok = diff <= 1e-3 and top1 >= 0.95 if dtype == "float32" else diff <= 0.25 and top1 >= 0.8
+    print(f"[zoo] {tag}: max|diff|/std {diff:.3e}, top-1 agreement {top1:.3f}")
+    check(ok, f"{tag}: logits disagree")
+    return {"diff_over_std": diff, "top1": top1}
+
+
+def bf16_vs_f32_zoo(tag, ctx16, ctx32, pc, logits16, logits32):
+    """bf16 against f32, same weights: the point embeddings ``encode_pc``
+    and the logits each within phase 4's bf16 limit (max|diff| 0.25 of the
+    f32 side's std). The logits' top-1 agreement is reported, not held: at
+    random weights the 40 prompts' text embeddings lie so close that a
+    cloud's top-2 logits sit within bf16's rounding of each other (top-1
+    agreement 0.31 for ``ULIP_PointNet``, measured)."""
+    with torch.no_grad():
+        e16 = ctx16["model"].encode_pc(pc).float()
+        e32 = ctx32["model"].encode_pc(pc).float()
+    torch.cuda.synchronize()
+    diff = float((e16 - e32).abs().max() / e32.std())
+    ldiff = float((logits16.float() - logits32).abs().max() / logits32.std())
+    top1 = float((logits16.argmax(-1) == logits32.argmax(-1)).float().mean())
+    print(f"[zoo] {tag} bf16 vs f32: point embeddings max|diff|/std {diff:.3e} (limit 0.25); "
+          f"logits max|diff|/std {ldiff:.3e} (limit 0.25), top-1 agreement {top1:.3f} (reported)")
+    check(torch.isfinite(e16).all() and diff <= 0.25, f"{tag}: bf16 embeddings disagree with f32")
+    check(torch.isfinite(logits16).all() and ldiff <= 0.25, f"{tag}: bf16 logits disagree with f32")
+    return {"embed_diff_over_std": diff, "logits_diff_over_std": ldiff, "logits_top1": top1}
+
+
+def zoo_step(name, ctx):
+    """One head-type-0 train step of a seeded model: loss finite, frozen
+    leaves bit-unchanged, the prompt moved; ``ULIP_CurveNet``'s refused by
+    name, nothing moved."""
+    state, model = ctx["state"], ctx["model"]
+    check(sorted(state.trainable) == ["prompt_learner.learnable_tokens"], f"{name} partition")
+    before = snapshot(dict(model.named_parameters()))
+    b = cls.device_batch(next(iter(Loader(ctx["train_ds"], ZOO_BATCH, shuffle=True, seed=3))),
+                         DEV)
+    if name == "ULIP_CurveNet":
+        try:
+            make_train_step(smoothing=0.2)(state, b, ctx["prompts"])
+        except ValueError as e:
+            check("ULIP_CurveNet" in str(e) and "'gumbel'" in str(e), f"refusal: {e}")
+            check(all(torch.equal(p, before[k]) for k, p in model.named_parameters()),
+                  "a leaf moved in the refused step")
+            print(f"[zoo] ULIP_CurveNet train step refused by name: {str(e)[:80]}...")
+            return {"refused": True}
+        check(False, "ULIP_CurveNet's train step ran")
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    _, m = make_train_step(smoothing=0.2)(state, b, ctx["prompts"])
+    loss = float(m["loss"])
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(_build.LAUNCHES)
+    moved = not torch.equal(state.trainable["prompt_learner.learnable_tokens"],
+                            before["prompt_learner.learnable_tokens"])
+    frozen = all(torch.equal(p, before[k]) for k, p in model.named_parameters()
+                 if k not in state.trainable)
+    print(f"[zoo] {name} bf16 head_type 0 step (B={ZOO_BATCH}): loss {loss:.4f}, {ms:.1f} ms "
+          f"(the first step), prompt moved {moved}, frozen leaves unchanged {frozen}; launches "
+          f"{json.dumps(launches, sort_keys=True)}")
+    check(math.isfinite(loss) and moved and frozen, f"{name} step")
+    return {"loss": loss, "first_step_ms": ms, "launches": launches}
+
+
+def zoo_entry(name, smi):
+    args = zoo_args(name)
+    ctx = cls.setup(args)
+    n_tower = sum(p.numel() for p in ctx["model"].point_encoder.parameters())
+    n_batches = math.ceil(len(ctx["test_ds"]) / ZOO_BATCH)
+    validate_counted(ctx, args)  # warm-up
+    launches, wall, val = validate_counted(ctx, args)
+    per_batch = {k: v / n_batches for k, v in launches.items()}
+    rate = len(ctx["test_ds"]) / wall
+    print(f"[zoo] {name} bf16: point tower {n_tower / 1e6:.2f} M parameters; validate over "
+          f"{len(ctx['test_ds'])} clouds x {args.npoints} points ({n_batches} batches of "
+          f"{ZOO_BATCH}) in {wall * 1e3:.1f} ms, {rate:.1f} clouds/sec, acc1 {val['acc1']:.2f}; "
+          f"launches a batch {json.dumps(per_batch, sort_keys=True)}; {smi}")
+    want_fps = ZOO_FPS_PER_BATCH[name]
+    check(launches.get("fps_batched", 0) == want_fps * n_batches
+          and set(k for k, v in launches.items() if v) <= {"fps_batched"},
+          f"{name} launched {launches} in {n_batches} batches, not fps_batched {want_fps} a batch "
+          "and nothing else")
+    out = {"tower_params": n_tower, "clouds": len(ctx["test_ds"]), "batches": n_batches,
+           "validate_ms": wall * 1e3, "clouds_per_sec": rate, "acc1": val["acc1"],
+           "launches_per_batch": per_batch, "card": smi}
+    pc = torch.from_numpy(ctx["test_ds"].points[:ZOO_BATCH]).to(DEV)
+    bf16 = zoo_logits(ctx, pc)
+    out["logits"] = {"bfloat16_vs_plain": logits_agree_zoo(f"{name} bf16 vs plain path", bf16,
+                                                           zoo_logits(ctx, pc, plain=True),
+                                                           "bfloat16")}
+    ctx32 = cls.setup(zoo_args(name, "float32"))
+    f32 = zoo_logits(ctx32, pc)
+    out["logits"]["float32_vs_plain"] = logits_agree_zoo(
+        f"{name} f32 vs plain path", f32, zoo_logits(ctx32, pc, plain=True), "float32")
+    out["logits"]["bfloat16_vs_float32"] = bf16_vs_f32_zoo(name, ctx, ctx32, pc, bf16, f32)
+    del ctx32
+    out["step"] = zoo_step(name, ctx)  # its training-mode forward moves the running statistics
+    return out
+
+
+def zoo_fps_shapes():
+    """fps_batched at the zoo's new shapes, the launches queued, against
+    fps_plain (exact), beside each shape's latency floor: npoint steps of
+    the dependent chain (phase 3's ``fps_chain_us``)."""
+    chain_us = fps_chain_us()
+    rows = []
+    for N, npoint, towers in ZOO_FPS_SHAPES:
+        xyz = cloud(ZOO_BATCH, N, 7 * N + npoint)
+        check(torch.equal(kgroup.fps_batched(xyz, npoint), kgroup.fps_plain(xyz, npoint)),
+              f"fps_batched differs from fps_plain at {N} -> {npoint}")
+        times = alternated_ms({"kernel": lambda: kgroup.fps_batched(xyz, npoint)},
+                              timer=queued_ms)
+        bms, by = bound_ms(ZOO_BATCH * N * 12 + ZOO_BATCH * npoint * 4,
+                           ZOO_BATCH * npoint * N * 10, PEAK["f32"])
+        row = dict(B=ZOO_BATCH, N=N, npoint=npoint, towers=towers, queued_ms=times["kernel"],
+                   plain_ms=gpu_time_ms(lambda: kgroup.fps_plain(xyz, npoint), reps=3, warmup=1),
+                   bound_ms=bms, bound_by=by, latency_floor_ms=npoint * chain_us * 1e-3)
+        rows.append(row)
+        print(f"[zoo] fps_batched {towers} {ZOO_BATCH} x {N} -> {npoint}: exact; queued "
+              f"{row['queued_ms']:.4f} ms, fps_plain {row['plain_ms']:.3f} ms, bound "
+              f"{bms:.5f} ms ({by}), latency floor {row['latency_floor_ms']:.4f} ms")
+    return rows
+
+
+@contextlib.contextmanager
+def knn_graphs(replay=None):
+    """``ops/geometry.py:knn_point``'s results recorded call by call into the
+    yielded list, or (``replay``) each call answered with the next recorded
+    graph, moved to the caller's device."""
+    from ppt_torch.ops import geometry as gops
+
+    real, seen = gops.knn_point, []
+    given = iter(replay or ())
+
+    def knn(k, xyz, new_xyz):
+        idx = real(k, xyz, new_xyz) if replay is None else next(given).to(xyz.device)
+        seen.append(idx)
+        return idx
+
+    gops.knn_point = knn
+    try:
+        yield seen
+    finally:
+        gops.knn_point = real
+
+
+def zoo_graph_towers():
+    """The graph towers and SimpleView at their default configs, f32, seeded
+    weights, B=32 x 1024 lattice points: the card's forward against the
+    CPU's. The lattice keeps the coordinate distances exact on both
+    devices, so the ball queries and the coordinate kNN pick alike.
+    DeepGCN's later graphs are kNN over its features, where the devices'
+    summation orders swap neighbours that lie within rounding of each other,
+    and its 14 dilated blocks carry a swap on (the CPU tests measured that
+    chaos): its CPU forward takes the card's graphs, call by call, and the
+    graphs each device builds are counted against each other."""
+    from ppt_torch.nn.gcn import BallDgcnn, DeepGcn, GroupPointNet
+    from ppt_torch.nn.layers import init_dense_
+    from ppt_torch.nn.resnet import init_conv_
+    from ppt_torch.nn.simpleview import SimpleView
+
+    g = torch.Generator().manual_seed(5)
+    pts = (torch.randint(0, 65, (ZOO_BATCH, 1024, 3), generator=g) / 64.0).float()
+    out = {}
+    for name, tower, fwd in (("BallDGCNN", BallDgcnn(), "cls_feat"),
+                             ("DeepGCN", DeepGcn(), "cls_feat"),
+                             ("GroupPointNet", GroupPointNet(), "cls_feat"),
+                             ("SimpleView", SimpleView(), "forward")):
+        gen = torch.Generator().manual_seed(6)
+        init_dense_(tower, gen)
+        init_conv_(tower, gen)
+        tower.eval()
+        row = {}
+        with torch.no_grad():
+            with knn_graphs() as cpu_graphs:
+                want = getattr(tower, fwd)(pts)
+            tower.to(DEV)
+            getattr(tower, fwd)(pts.to(DEV))  # warm-up
+            _build.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with knn_graphs() as card_graphs:
+                got = getattr(tower, fwd)(pts.to(DEV))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+            if name == "DeepGCN":
+                row["graph_indices_differing"] = [
+                    int((a.cpu() != b).sum()) for a, b in zip(card_graphs, cpu_graphs)]
+                row["unshared_graphs_diff_over_std"] = float((got.cpu() - want).abs().max()
+                                                            / want.std())
+                tower.cpu()
+                with knn_graphs(replay=card_graphs):
+                    want = getattr(tower, fwd)(pts)
+        diff = float((got.cpu() - want).abs().max() / want.std())
+        graphs = ""
+        if name == "DeepGCN":
+            graphs = (f", the CPU on the card's graphs (each device on its own graphs: "
+                      f"{row['unshared_graphs_diff_over_std']:.3e}, kNN indices differing by "
+                      f"block {row['graph_indices_differing']})")
+        print(f"[zoo] {name} f32 B={ZOO_BATCH} x 1024: card vs CPU max|diff|/std {diff:.3e} "
+              f"(limit {TOL_ZOO_CPU:g}){graphs}; {ms:.1f} ms a forward on the card; launches "
+              f"a forward {json.dumps(launches)}")
+        check(torch.isfinite(got).all() and diff <= TOL_ZOO_CPU,
+              f"{name}: the card disagrees with the CPU")
+        want_fps = 1 if name == "GroupPointNet" else 0
+        check(launches.get("fps_batched", 0) == want_fps, f"{name} launches {launches}")
+        out[name] = dict(row, diff_over_std=diff, card_ms=ms, launches=launches,
+                         out_shape=list(got.shape))
+        del tower
+    return out
+
+
+def run_zoo_slice(smi):
+    saved_loader = pdata.DATASETS["modelnet40"]
+    pdata.DATASETS["modelnet40"] = synthetic_modelnet40_phase4
+    try:
+        return _run_zoo_slice(smi)
+    finally:
+        pdata.DATASETS["modelnet40"] = saved_loader
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+
+
+def _run_zoo_slice(smi):
+    from ppt_torch.tools import backbone_bench
+
+    t0 = time.perf_counter()
+    out = {"entries": {name: zoo_entry(name, smi) for name in ZOO_MODELS}}
+    out["fps_shapes"] = zoo_fps_shapes()
+    out["graph_towers"] = zoo_graph_towers()
+    line = backbone_bench.main(["--model", "dgcnn"])
+    out["backbone_dgcnn"] = {k: line[k] for k in ("batch", "clouds_per_sec", "fwd_ms",
+                                                  "spread_pct")}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[zoo] phase 18 took {out['seconds']:.1f} s")
     return out
 
 
@@ -5289,7 +5590,7 @@ def build(names=_build.SOURCES):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=("ballquery", "towers", "losses3d", "cloud", "recipes",
-                                       "pretrained", "partseg", "probe", "tools"),
+                                       "pretrained", "partseg", "probe", "tools", "zoo"),
                     help="build group.cu and run phase 3's ball-query checks and times alone "
                          "(ballquery) or phase 7's ball-query towers alone (towers); build "
                          "losses3d.cu and run phase 3's loss checks and times, nn_dists at "
@@ -5301,7 +5602,8 @@ def main(argv=None):
                          "kernels PPT-Base and PointMLP run and run phase 14 (pretrained); "
                          "build the kernels part segmentation runs and run phase 15 (partseg); "
                          "build the kernels feature extraction runs and run phase 16 (probe); "
-                         "build the kernels the tools time and run phase 17 (tools)")
+                         "build the kernels the tools time and run phase 17 (tools); "
+                         "build group.cu and run phase 18, the zoo (zoo)")
     args = ap.parse_args(argv)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5364,6 +5666,11 @@ def main(argv=None):
     if args.only == "tools":
         build([n for n in _build.SOURCES if n != "losses3d"])
         print(json.dumps({"tools17": run_tools17_slice(smi)}))
+        print(smi)
+        return
+    if args.only == "zoo":
+        build(["group"])
+        print(json.dumps({"zoo": run_zoo_slice(smi)}))
         print(smi)
         return
     if args.only == "towers":
@@ -5447,6 +5754,12 @@ def main(argv=None):
     lap("12 profiles")
     tools17_stats = run_tools17_slice(smi)  # its own counts, read in the loading process
     lap("17 tools")
+    zoo_stats = run_zoo_slice(smi)  # its own counts, read per pass
+    results["fps_batched"]["zoo_shapes"] = zoo_stats["fps_shapes"]
+    results["fps_batched"]["zoo_launches_per_batch"] = {
+        name: e["launches_per_batch"].get("fps_batched", 0)
+        for name, e in zoo_stats["entries"].items()}
+    lap("18 zoo")
     att, vit = sass["attention"], sass["vitblock"]
     results["mini_forward"]["sass"] = sass["mini"]["mini_forward_wgmma_kernel"]
     results["mini_stats"]["sass"] = sass["mini"]["mini_stats_wgmma_kernel"]
@@ -5482,6 +5795,7 @@ def main(argv=None):
     print(json.dumps({"partseg": partseg_stats}))
     print(json.dumps({"probe": probe_stats}))
     print(json.dumps({"tools17": tools17_stats}))
+    print(json.dumps({"zoo": zoo_stats}))
     print(json.dumps({"phase_seconds": laps}))
     print(json.dumps({"kernels": kernels, **slice_stats}))
     print(smi)

@@ -1,8 +1,9 @@
 """The ULIP composite: point encoder + prompt-tuned CLIP text tower.
 
-Counterpart of ``ppt_tpu/models/ulip.py`` with five of its point towers:
-PointBERT, PointNet++ SSG and MSG, PointMLP, PointNeXt-S, PointBERT's
-part-segmentation trunk, and the template factory ``ulip_customized`` for a
+Counterpart of ``ppt_tpu/models/ulip.py`` with every entry of its
+registry: PointBERT, PointBERT's part-segmentation trunk, PointNet++ SSG
+and MSG, PointMLP, PointNeXt-S, PointNet with and without T-Nets, DGCNN,
+PCT and CurveNet, and the template factory ``ulip_customized`` for a
 caller's own tower. Forward contract (classification; ULIP pretraining
 pairs ``encode_pc`` with ``encode_captions``)::
 
@@ -27,7 +28,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from ppt_torch.nn.classic import DgcnnClassifier, PointNetClassic, PointNetEncoder
+from ppt_torch.nn.curvenet import CurveNet, CurveNetConfig, Walk
 from ppt_torch.nn.layers import init_dense_
+from ppt_torch.nn.pct import Pct
 from ppt_torch.nn.pointbert import PointBert, PointBertConfig, PointBertPartSeg
 from ppt_torch.nn.pointmlp import PointMLP, PointMLPConfig
 from ppt_torch.nn.pointnet2 import PointNet2Msg, PointNet2Ssg
@@ -131,6 +135,10 @@ def init_weights(model: Ulip, seed: int) -> Ulip:
         p.copy_(torch.randn(p.shape, generator=gen) * std)
 
     init_dense_(model, gen)
+    for mod in model.modules():
+        if isinstance(mod, Walk):  # CurveNet's walks keep their kernels as direct parameters
+            for p in (mod.agent_kernel, mod.momentum_kernel):
+                normal_(p, p.shape[0] ** -0.5)
     text = model.text
     normal_(text.token_embedding.weight, 0.02)
     normal_(text.positional_embedding, 0.01)
@@ -247,6 +255,58 @@ def ulip_customized(args, encoder: nn.Module, pc_feat_dims: int = 512,
     return _make("ULIP_CUSTOMIZED", encoder, pc_feat_dims, args, dt, text_fused)
 
 
+def _in_channels(args) -> int:
+    """The point tower's input width: 4 with ``--use_height``, else 3."""
+    return 4 if getattr(args, "use_height", False) else 3
+
+
+def ulip_pointnet(args, text_fused: str = "off") -> ModelSpec:
+    """ULIP over the vanilla PointNet (``ppt_tpu/models/ulip.py:244-247``).
+    Its first layer is as wide as the input (4 channels with
+    ``--use_height``), as the reference's shape inference makes it: no
+    kernel on this tower needs xyz alone."""
+    dt = resolve_dtype(getattr(args, "compute_dtype", "float32"))
+    return _make("ULIP_PointNet", PointNetClassic(_in_channels(args), dtype=dt), 256, args, dt,
+                 text_fused)
+
+
+def ulip_pointnet_stn(args, text_fused: str = "off") -> ModelSpec:
+    """ULIP over PointNet with T-Nets (``ppt_tpu/models/ulip.py:250-253``),
+    its 1024-d max-pooled feature projected; the input STN turns the 3
+    coordinates of however many channels."""
+    dt = resolve_dtype(getattr(args, "compute_dtype", "float32"))
+    return _make("ULIP_PointNet_STN", PointNetEncoder(_in_channels(args), dtype=dt), 1024, args,
+                 dt, text_fused)
+
+
+def ulip_dgcnn(args, text_fused: str = "off") -> ModelSpec:
+    """ULIP over the DGCNN classifier (``ppt_tpu/models/ulip.py:256-259``);
+    with ``--use_height`` its first graph is over the 4 channels, as the
+    reference's."""
+    dt = resolve_dtype(getattr(args, "compute_dtype", "float32"))
+    return _make("ULIP_DGCNN", DgcnnClassifier(_in_channels(args), dtype=dt), 256, args, dt,
+                 text_fused)
+
+
+def ulip_pct(args, text_fused: str = "off") -> ModelSpec:
+    """ULIP over PCT (``ppt_tpu/models/ulip.py:262-265``); its FPS kernel
+    takes xyz, so ``--use_height`` is refused by name."""
+    _xyz_only("ULIP_PCT", args)
+    dt = resolve_dtype(getattr(args, "compute_dtype", "float32"))
+    return _make("ULIP_PCT", Pct(dtype=dt), 256, args, dt, text_fused)
+
+
+def ulip_curvenet(args, text_fused: str = "off") -> ModelSpec:
+    """ULIP over CurveNet (``ppt_tpu/models/ulip.py:268-271``); it serves in
+    eval, and its train step refuses by name (``nn/curvenet.py``). Its FPS
+    kernel takes xyz, so ``--use_height`` is refused by name.
+    ``args.curvenet_config`` may override the config (tests shrink it)."""
+    _xyz_only("ULIP_CurveNet", args)
+    dt = resolve_dtype(getattr(args, "compute_dtype", "float32"))
+    cfg = getattr(args, "curvenet_config", None) or CurveNetConfig()
+    return _make("ULIP_CurveNet", CurveNet(cfg, dtype=dt), 256, args, dt, text_fused)
+
+
 MODEL_REGISTRY: Dict[str, Callable[..., ModelSpec]] = {
     "ULIP_PN_SSG": ulip_pn_ssg,
     "ULIP_PN_MSG": ulip_pn_msg,
@@ -254,6 +314,11 @@ MODEL_REGISTRY: Dict[str, Callable[..., ModelSpec]] = {
     "ULIP_PointBERT": ulip_pointbert,
     "ULIP_PointBERT_partseg": ulip_pointbert_partseg,
     "ULIP_PN_NEXT": ulip_pn_next,
+    "ULIP_PointNet": ulip_pointnet,
+    "ULIP_PointNet_STN": ulip_pointnet_stn,
+    "ULIP_DGCNN": ulip_dgcnn,
+    "ULIP_PCT": ulip_pct,
+    "ULIP_CurveNet": ulip_curvenet,
 }
 
 

@@ -44,10 +44,11 @@ class BatchNormStats(nn.Module):
     and ``batch_stats`` ``mean``/``var``), for a caller that folds them
     into adjacent Dense weights: with the running statistics in eval, with
     the batch's in training, which also moves the running statistics as
-    flax does."""
+    flax does, with ``momentum`` (flax's 0.99 unless a module sets another)."""
 
-    def __init__(self, width: int):
+    def __init__(self, width: int, momentum: float = BN_MOMENTUM):
         super().__init__()
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(width))
         self.bias = nn.Parameter(torch.zeros(width))
         self.register_buffer("running_mean", torch.zeros(width))
@@ -64,10 +65,12 @@ class BatchNormStats(nn.Module):
 
     @torch.no_grad()
     def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
-        """flax's update, in place: momentum 0.99 and the BIASED batch
-        variance (torch's BatchNorm would use 0.1 and the unbiased one)."""
-        self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1.0 - BN_MOMENTUM)
-        self.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1.0 - BN_MOMENTUM)
+        """flax's update, in place: ``ra = m ra + (1 - m) batch`` (m 0.99 by
+        default) with the BIASED batch variance (torch's BatchNorm would use
+        0.1 and the unbiased one)."""
+        m = self.momentum
+        self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
+        self.running_var.mul_(m).add_(var, alpha=1.0 - m)
 
 
 class BatchNorm(BatchNormStats):

@@ -16,8 +16,9 @@ random from ``--seed``; without the dataset's files the data is synthetic.
     python -m ppt_torch.tasks.cls --config configs/experiments/ppt_base_mn40.yaml \
         [--set epochs=1 ...] [--votes 3] [--steps_per_dispatch 2] [--device cpu]
     # the other towers: --model ULIP_PN_NEXT --use_height (PointNeXt-S takes the
-    # height as a 4th channel), --model ULIP_PN_SSG, --model ULIP_PN_MSG,
-    # --model ULIP_PN_MLP
+    # height as a 4th channel), --model ULIP_PN_SSG, ULIP_PN_MSG, ULIP_PN_MLP,
+    # ULIP_PointNet, ULIP_PointNet_STN, ULIP_DGCNN, ULIP_PCT, and ULIP_CurveNet
+    # (eval only: its train step refuses, as the reference's fails)
     # evaluate a checkpoint
     python -m ppt_torch.tasks.cls --evaluate_3d --test_ckpt_addr outputs/cls ...
 """
@@ -228,72 +229,72 @@ def train_loop(args: TaskArgs, ctx: Dict) -> Dict[str, float]:
     # (seed + 2): K-step dispatch then takes the same draws as single steps
     aug_gen = torch.Generator(device=device).manual_seed(args.seed + 2)
     exp_log = ExperimentLogger(args, task_name=args.task)
-
     best_acc = 0.0
     best_epoch = -1
     history = []
-    for epoch in range(args.start_epoch, args.epochs):
-        loader.set_epoch(epoch)
-        loss_meter, acc_meter = Meter("loss"), Meter("acc")
-        t0 = time.time()
-        n_batches = len(loader)
-        pending = []  # augmented batches awaiting a K-step dispatch
-        for it, batch in enumerate(loader):
-            # data-efficiency early break (main_cls.py:173-174)
-            if it / max(n_batches, 1) > args.data_ratio:
-                break
-            dbatch = device_batch(batch, device)
-            dbatch["pc"] = train_augment(aug_gen, dbatch["pc"], use_height=args.use_height)
-            if K > 1:
-                pending.append(dbatch)
-                if len(pending) < K:
-                    continue
-                stacked = {k: torch.stack([b[k] for b in pending]) for k in dbatch}
-                pending = []
-                state, metrics = multi_fn(state, stacked, prompts)
-                loss_meter.update(float(metrics["loss"].mean()), K * len(batch["label"]))
-                acc_meter.update(float(metrics["acc"].mean()), K * len(batch["label"]))
-            else:
+    try:
+        for epoch in range(args.start_epoch, args.epochs):
+            loader.set_epoch(epoch)
+            loss_meter, acc_meter = Meter("loss"), Meter("acc")
+            t0 = time.time()
+            n_batches = len(loader)
+            pending = []  # augmented batches awaiting a K-step dispatch
+            for it, batch in enumerate(loader):
+                # data-efficiency early break (main_cls.py:173-174)
+                if it / max(n_batches, 1) > args.data_ratio:
+                    break
+                dbatch = device_batch(batch, device)
+                dbatch["pc"] = train_augment(aug_gen, dbatch["pc"], use_height=args.use_height)
+                if K > 1:
+                    pending.append(dbatch)
+                    if len(pending) < K:
+                        continue
+                    stacked = {k: torch.stack([b[k] for b in pending]) for k in dbatch}
+                    pending = []
+                    state, metrics = multi_fn(state, stacked, prompts)
+                    loss_meter.update(float(metrics["loss"].mean()), K * len(batch["label"]))
+                    acc_meter.update(float(metrics["acc"].mean()), K * len(batch["label"]))
+                else:
+                    state, metrics = step_fn(state, dbatch, prompts)
+                    loss_meter.update(float(metrics["loss"]), len(batch["label"]))
+                    acc_meter.update(float(metrics["acc"]), len(batch["label"]))
+                if not math.isfinite(loss_meter.avg):
+                    raise FloatingPointError(f"non-finite loss at epoch {epoch}")
+            # leftover batches (fewer than K) run through the single step
+            for dbatch in pending:
                 state, metrics = step_fn(state, dbatch, prompts)
-                loss_meter.update(float(metrics["loss"]), len(batch["label"]))
-                acc_meter.update(float(metrics["acc"]), len(batch["label"]))
-            if not math.isfinite(loss_meter.avg):
-                raise FloatingPointError(f"non-finite loss at epoch {epoch}")
-        # leftover batches (fewer than K) run through the single step
-        for dbatch in pending:
-            state, metrics = step_fn(state, dbatch, prompts)
-            loss_meter.update(float(metrics["loss"]), args.batch_size)
-            acc_meter.update(float(metrics["acc"]), args.batch_size)
+                loss_meter.update(float(metrics["loss"]), args.batch_size)
+                acc_meter.update(float(metrics["acc"]), args.batch_size)
 
-        entry = {
-            "epoch": epoch,
-            "loss": loss_meter.avg,
-            "train_acc": acc_meter.avg,
-            "lr": float(ctx["sched"]((epoch + 1) * ctx["steps_per_epoch"] - 1)),
-            "epoch_time": time.time() - t0,
-        }
-        if (epoch % args.eval_freq) == 0 or epoch == args.epochs - 1:
-            val = validate(model, eval_fn, test_ds, prompts, args, device, votes=args.votes)
-            entry["val_acc1"] = val["acc1"]
-            if val["acc1"] > best_acc:
-                best_acc = val["acc1"]
-                best_epoch = epoch
-                if args.output_dir:
-                    save_checkpoint(
-                        os.path.join(args.output_dir, args.exp_name or "cls"),
-                        state,
-                        meta={
-                            "epoch": epoch,
-                            "best_acc": best_acc,
-                            "args": {k: v for k, v in vars(args).items()
-                                     if isinstance(v, (int, float, str, bool))},
-                        },
-                    )
-        history.append(entry)
-        exp_log.log(entry, step=epoch)
-        log.info("epoch %d: %s", epoch, entry)
-
-    exp_log.close()
+            entry = {
+                "epoch": epoch,
+                "loss": loss_meter.avg,
+                "train_acc": acc_meter.avg,
+                "lr": float(ctx["sched"]((epoch + 1) * ctx["steps_per_epoch"] - 1)),
+                "epoch_time": time.time() - t0,
+            }
+            if (epoch % args.eval_freq) == 0 or epoch == args.epochs - 1:
+                val = validate(model, eval_fn, test_ds, prompts, args, device, votes=args.votes)
+                entry["val_acc1"] = val["acc1"]
+                if val["acc1"] > best_acc:
+                    best_acc = val["acc1"]
+                    best_epoch = epoch
+                    if args.output_dir:
+                        save_checkpoint(
+                            os.path.join(args.output_dir, args.exp_name or "cls"),
+                            state,
+                            meta={
+                                "epoch": epoch,
+                                "best_acc": best_acc,
+                                "args": {k: v for k, v in vars(args).items()
+                                         if isinstance(v, (int, float, str, bool))},
+                            },
+                        )
+            history.append(entry)
+            exp_log.log(entry, step=epoch)
+            log.info("epoch %d: %s", epoch, entry)
+    finally:  # also when a step raises (a refusal by name, a non-finite loss)
+        exp_log.close()
     ctx["state"] = state
     return {"best_acc": best_acc, "best_epoch": best_epoch, "history": history}
 

@@ -4,11 +4,11 @@ Counterpart of ``ppt_tpu/tools/backbone_bench.py``: the steady-state forward
 clouds/sec of one point backbone at the reference's benchmark setting,
 batch 128 x 1024 points, in bf16 (the JAX tool's dtype on its chip), weights
 from a seed: ``pointnext`` (PointNeXt-S with the height as its 4th input
-channel), ``pointnet2_ssg``, ``pointnet2_msg`` and ``pointmlp``. Each of
-``--iters`` forward calls (after 3 warm-up calls) is timed on the host clock
-closed by ``torch.cuda.synchronize()``; the line gives the median and the
-spread. ``dgcnn`` is not ported yet (ROADMAP Queue 1 item 8) and is refused
-by name. The V100 figures of ``BASELINE.md`` (PointNeXt's model zoo:
+channel), ``pointnet2_ssg``, ``pointnet2_msg``, ``pointmlp`` and ``dgcnn``
+(the DGCNN classifier, 3 channels, its FC trunk on, as the JAX tool builds
+it). Each of ``--iters`` forward calls (after 3 warm-up calls) is timed on
+the host clock closed by ``torch.cuda.synchronize()``; the line gives the
+median and the spread. The V100 figures of ``BASELINE.md`` (PointNeXt's model zoo:
 PointNeXt-S 2040, PointNet++ 1872 ins/sec, V100-32GB) are printed beside
 the result under the V100's name, as another card's numbers.
 
@@ -28,14 +28,14 @@ import torch
 from ppt_torch.data.augment import append_height
 from ppt_torch.nn.layers import init_dense_
 
-MODELS = ("pointnext", "pointnet2_ssg", "pointnet2_msg", "pointmlp")
-NOT_PORTED = {"dgcnn": "DGCNN's tower is not ported yet (ROADMAP Queue 1 item 8)"}
+MODELS = ("pointnext", "pointnet2_ssg", "pointnet2_msg", "pointmlp", "dgcnn")
 # BASELINE.md: PointNeXt's docs/modelzoo.md, V100-32GB, 128 x 1024 points
 V100_CLOUDS_PER_SEC = {"pointnext": 2040, "pointnet2_ssg": 1872}
 
 
 def build(name: str, dtype: torch.dtype):
     """(tower, whether it takes the height channel), weights from seed 0."""
+    from ppt_torch.nn.classic import DgcnnClassifier
     from ppt_torch.nn.pointmlp import PointMLP, PointMLPConfig
     from ppt_torch.nn.pointnet2 import PointNet2Msg, PointNet2Ssg
     from ppt_torch.nn.pointnext import PointNext, PointNextConfig
@@ -48,6 +48,8 @@ def build(name: str, dtype: torch.dtype):
         tower, height = PointNet2Msg(dtype=dtype), False
     elif name == "pointmlp":
         tower, height = PointMLP(PointMLPConfig(), dtype=dtype), False
+    elif name == "dgcnn":
+        tower, height = DgcnnClassifier(3, trunk=True, dtype=dtype), False
     else:
         raise KeyError(name)
     with torch.no_grad():
@@ -57,14 +59,11 @@ def build(name: str, dtype: torch.dtype):
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", default="pointnext", choices=MODELS + tuple(NOT_PORTED))
+    ap.add_argument("--model", default="pointnext", choices=MODELS)
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--npoints", type=int, default=1024)
     ap.add_argument("--iters", type=int, default=16)
-    args = ap.parse_args(argv)
-    if args.model in NOT_PORTED:
-        raise SystemExit(f"backbone_bench: --model {args.model}: {NOT_PORTED[args.model]}")
-    return args
+    return ap.parse_args(argv)
 
 
 def bench(name: str, batch: int = 128, npoints: int = 1024, iters: int = 16) -> dict:

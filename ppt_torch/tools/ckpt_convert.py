@@ -5,17 +5,22 @@ has. Inputs are the ``.pt`` files PPT downloads
 (``models/ULIP_models.py:472-507``): ``slip_base_100ep.pt`` (the SLIP/CLIP
 text tower, its visual tower ignored), ``pointbert(_ulip2).pt`` (the
 ULIP-pretrained PointBERT, with ``pc_projection`` and ``logit_scale``; kind
-``pointbert_partseg`` for a part-segmentation checkpoint), ``pointnet2_ssg.pt``, ``pointnet2_msg_1kpts.pt``, ``pointmlp.pt`` and
-PointNeXt-S's. Each becomes a ``<name>.msgpack`` file holding a flax-layout
-``{"params": ..., "batch_stats": ...}`` tree, byte for byte the file the
-reference's converter writes, which ``ppt_torch.train.checkpoint.
-load_pretrained_backbones`` reads at task setup (and the reference's loader
-too). The port therefore reads exactly the files users of the reference
-already have, through one loader.
+``pointbert_partseg`` for a part-segmentation checkpoint), ``pointnet2_ssg.pt``,
+``pointnet2_msg_1kpts.pt``, ``pointmlp.pt`` and PointNeXt-S's; and
+openpoints' PointNet with T-Nets (``pointnet``), DGCNN (``dgcnn``),
+BallDGCNN, DeepGCN, GroupPointNet and SimpleView checkpoints. Each becomes
+a ``<name>.msgpack`` file holding a flax-layout ``{"params": ...,
+"batch_stats": ...}`` tree, byte for byte the file the reference's
+converter writes. ``ppt_torch.train.checkpoint.load_pretrained_backbones``
+reads the ULIP towers' files at task setup (as the reference's loader
+does), so the port reads exactly the files users of the reference already
+have, through one loader; neither loader names a file of the openpoints
+kinds.
 
 Layout rules, as the reference's:
   - ``Linear.weight [out, in]`` -> ``kernel [in, out]``;
   - ``Conv1d/2d(k=1).weight`` -> the spatial dims squeezed, then transposed;
+  - a 3x3 ``Conv2d.weight [out, in, kh, kw]`` (SimpleView) -> HWIO;
   - BatchNorm ``weight``/``bias`` -> ``scale``/``bias`` params, and
     ``running_mean``/``running_var`` -> ``mean``/``var`` batch stats;
   - MultiheadAttention ``in_proj_weight`` -> the fused ``in_proj`` Dense;
@@ -327,9 +332,159 @@ def convert_pointnext(sd: Dict[str, Any]) -> Dict[str, Any]:
     return _tree(p, s)
 
 
-# the reference's kinds whose modules the port has; the others (dgcnn, pointnet,
-# pointtransformer, randlanet, balldgcnn, deepgcn, grouppointnet, simpleview,
-# baafnet) come with the slices that port their modules (ROADMAP.md)
+def convert_dgcnn(sd: Dict[str, Any]) -> Dict[str, Any]:
+    """openpoints DGCNN (``backbone/dgcnn.py``) -> ``point_encoder/*``: the
+    edge convs ``head.gconv.nn`` / ``backbone.{i}.gconv.nn`` and
+    ``fusion_block``. The reference's EdgeConv concatenates ``[center,
+    neighbor - center]``, ``DgcnnClassifier`` ``[neighbor - center,
+    center]``: the two halves of each edge kernel's input rows swap."""
+    sd = _strip_module(sd)
+    pe = "point_encoder."
+    p: Flat = {}
+    s: Flat = {}
+    _projection(p, sd)
+
+    def edge(dst_name: str, bn_name: str, src: str):
+        w = _t(sd[src + ".0.weight"])  # [C_out, 2 C_in, 1, 1]
+        w = w.reshape(w.shape[0], w.shape[1]).T  # [2 C_in, C_out]
+        half = w.shape[0] // 2
+        p[("point_encoder", dst_name, "kernel")] = np.concatenate([w[half:], w[:half]], axis=0)
+        _bn(p, s, ("point_encoder", bn_name), sd, src + ".1")
+
+    edge("edge0", "bn0", f"{pe}head.gconv.nn")
+    i = 0
+    while f"{pe}backbone.{i}.gconv.nn.0.weight" in sd:
+        edge(f"edge{i + 1}", f"bn{i + 1}", f"{pe}backbone.{i}.gconv.nn")
+        i += 1
+    _conv1x1(p, ("point_encoder", "emb"), sd[f"{pe}fusion_block.0.weight"])
+    _bn(p, s, ("point_encoder", "embn"), sd, f"{pe}fusion_block.1")
+    return _tree(p, s)
+
+
+def convert_pointnet(sd: Dict[str, Any]) -> Dict[str, Any]:
+    """openpoints PointNet with T-Nets (``backbone/pointnet.py``, STN3d /
+    STNkd) -> ``point_encoder/*``."""
+    sd = _strip_module(sd)
+    pe = "point_encoder."
+    p: Flat = {}
+    s: Flat = {}
+    _projection(p, sd)
+
+    def tnet(dst_name: str, src: str):
+        dst = ("point_encoder", dst_name)
+        for i in (1, 2, 3):
+            _conv1x1(p, dst + (f"conv{i}",), sd[f"{src}.conv{i}.weight"],
+                     sd.get(f"{src}.conv{i}.bias"))
+        for i in (1, 2, 3):
+            _linear(p, dst + (f"fc{i}",), sd[f"{src}.fc{i}.weight"], sd.get(f"{src}.fc{i}.bias"))
+        for i in (1, 2, 3, 4, 5):
+            _bn(p, s, dst + (f"bn{i}",), sd, f"{src}.bn{i}")
+
+    if f"{pe}stn.conv1.weight" in sd:
+        tnet("stn", f"{pe}stn")
+    if f"{pe}fstn.conv1.weight" in sd:
+        tnet("fstn", f"{pe}fstn")
+    for name in ("conv0_1", "conv0_2", "conv1", "conv2", "conv3"):
+        _conv1x1(p, ("point_encoder", name), sd[f"{pe}{name}.weight"], sd.get(f"{pe}{name}.bias"))
+    for name in ("bn0_1", "bn0_2", "bn1", "bn2", "bn3"):
+        _bn(p, s, ("point_encoder", name), sd, f"{pe}{name}")
+    return _tree(p, s)
+
+
+def _convblock(p: Flat, s: Flat, dst: Tuple[str, ...], sd, src: str):
+    """A ``create_convblock*`` Sequential -> ``{conv, bn}``: the conv at index
+    0, the BatchNorm at whichever of 1 and 2 holds running statistics (the
+    order differs by tower)."""
+    _conv1x1(p, dst + ("conv",), sd[src + ".0.weight"], sd.get(src + ".0.bias"))
+    for j in (1, 2):
+        if f"{src}.{j}.running_mean" in sd:
+            _bn(p, s, dst + ("bn",), sd, f"{src}.{j}")
+
+
+def convert_balldgcnn(sd: Dict[str, Any]) -> Dict[str, Any]:
+    """openpoints BallDGCNN (``backbone/ball_dgcnn.py:13-108``) -> the
+    ``BallDgcnn`` tree (top level, as the reference's converter writes it)."""
+    sd = _strip_module(sd)
+    p: Flat = {}
+    s: Flat = {}
+    _convblock(p, s, ("edge0",), sd, "head.gconv.nn")
+    i = 0
+    while f"backbone.{i}.gconv.nn.0.weight" in sd:
+        _convblock(p, s, (f"edge{i + 1}",), sd, f"backbone.{i}.gconv.nn")
+        i += 1
+    _convblock(p, s, ("fusion",), sd, "fusion_block")
+    return _tree(p, s)
+
+
+def convert_deepgcn(sd: Dict[str, Any]) -> Dict[str, Any]:
+    """openpoints DeepGCN (``backbone/deepgcn.py:13-128``) -> the ``DeepGcn``
+    tree."""
+    sd = _strip_module(sd)
+    p: Flat = {}
+    s: Flat = {}
+    _convblock(p, s, ("edge0",), sd, "head.gconv.nn")
+    i = 0
+    while f"backbone.{i}.body.gconv.nn.0.weight" in sd:
+        _convblock(p, s, (f"edge{i + 1}",), sd, f"backbone.{i}.body.gconv.nn")
+        i += 1
+    _convblock(p, s, ("fusion",), sd, "fusion_block")
+    return _tree(p, s)
+
+
+def convert_grouppointnet(sd: Dict[str, Any]) -> Dict[str, Any]:
+    """openpoints GroupPointNet (``backbone/grouppointnet.py:11-100``) -> the
+    ``GroupPointNet`` tree."""
+    sd = _strip_module(sd)
+    p: Flat = {}
+    s: Flat = {}
+    i = 0
+    while f"backbone.{i}.0.weight" in sd:
+        _convblock(p, s, (f"conv{i}",), sd, f"backbone.{i}")
+        i += 1
+    return _tree(p, s)
+
+
+def _conv2d(dst_params: Flat, path: Tuple[str, ...], w, b=None):
+    """Conv2d ``[out, in, kh, kw]`` -> flax's HWIO kernel."""
+    dst_params[path + ("kernel",)] = _t(w).transpose(2, 3, 1, 0)
+    if b is not None:
+        dst_params[path + ("bias",)] = _t(b)
+
+
+def convert_simpleview(sd: Dict[str, Any]) -> Dict[str, Any]:
+    """openpoints MVModel (``backbone/simpleview.py:62-153``) -> the
+    ``SimpleView`` tree. ``img_model``: 0 the stem conv, 1 its BatchNorm,
+    3-6 ResNet's layer1..4 (Sequentials of blocks); ``final_fc.model``: 0
+    the views' BatchNorm, 3 and 7 Linear, 4 BatchNorm."""
+    sd = _strip_module(sd)
+    p: Flat = {}
+    s: Flat = {}
+    _conv2d(p, ("stem_conv",), sd["img_model.0.weight"])
+    _bn(p, s, ("stem_bn",), sd, "img_model.1")
+    for stage in range(4):
+        b = 0
+        while f"img_model.{3 + stage}.{b}.conv1.weight" in sd:
+            src = f"img_model.{3 + stage}.{b}"
+            dst = ("backbone", f"layer{stage + 1}_{b}")
+            for c in ("conv1", "conv2", "conv3"):
+                if f"{src}.{c}.weight" in sd:
+                    _conv2d(p, dst + (c,), sd[f"{src}.{c}.weight"])
+            for n in ("bn1", "bn2", "bn3"):
+                if f"{src}.{n}.weight" in sd:
+                    _bn(p, s, dst + (n,), sd, f"{src}.{n}")
+            if f"{src}.downsample.0.weight" in sd:
+                _conv2d(p, dst + ("ds_conv",), sd[f"{src}.downsample.0.weight"])
+                _bn(p, s, dst + ("ds_bn",), sd, f"{src}.downsample.1")
+            b += 1
+    _bn(p, s, ("fc_bn0",), sd, "final_fc.model.0.bn")
+    _linear(p, ("fc1",), sd["final_fc.model.3.weight"], sd.get("final_fc.model.3.bias"))
+    _bn(p, s, ("fc_bn1",), sd, "final_fc.model.4")
+    _linear(p, ("fc2",), sd["final_fc.model.7.weight"], sd.get("final_fc.model.7.bias"))
+    return _tree(p, s)
+
+
+# the reference's kinds whose modules the port has; the others (pointtransformer,
+# randlanet, baafnet) come with the slices that port their modules (ROADMAP.md)
 CONVERTERS = {
     "slip": convert_slip_text,
     "pointbert": convert_pointbert,
@@ -338,7 +493,14 @@ CONVERTERS = {
     "pointnet2_msg": convert_pointnet2,
     "pointmlp": convert_pointmlp,
     "pointnext": convert_pointnext,
+    "dgcnn": convert_dgcnn,
+    "pointnet": convert_pointnet,
+    "balldgcnn": convert_balldgcnn,
+    "deepgcn": convert_deepgcn,
+    "grouppointnet": convert_grouppointnet,
+    "simpleview": convert_simpleview,
 }
+
 
 
 def _count(tree: Dict[str, Any]) -> int:

@@ -1,7 +1,8 @@
 """Port vs reference: the ``.pt`` -> ``.msgpack`` checkpoint converter.
 
 For each kind the port converts (slip, pointbert, pointbert_partseg,
-pointnet2_ssg, pointnet2_msg, pointmlp, pointnext), one seeded state dict
+pointnet2_ssg, pointnet2_msg, pointmlp, pointnext; pointnet, dgcnn,
+balldgcnn, deepgcn, grouppointnet, simpleview), one seeded state dict
 with the reference's parameter names goes through
 ``ppt_tpu.tools.ckpt_convert`` and ``ppt_torch.tools.ckpt_convert``: the
 two ``.msgpack`` files must be equal byte for byte, and the port's msgpack
@@ -9,9 +10,12 @@ reader must decode the file to the arrays flax decodes, bit for bit. SLIP
 and PointBERT take the reference tests' own makers
 (``tests/test_ckpt_convert.py``) with every tensor redrawn from a seed, the
 partseg kind PointBERT's with the segmentation heads added under the
-reference's names; the other four are written from the small
+reference's names; the others are written from the small
 JAX model's variable tree by the inverse of the layout rules, so the
-converted tree must also come back to that tree exactly.
+converted tree must also come back to that tree exactly (DGCNN's edge
+kernels with their input halves swapped back, SimpleView's 3x3 kernels
+from HWIO back to OIHW; the openpoints graph towers and SimpleView convert
+at the tree's top level, without ``point_encoder`` or ``pc_projection``).
 """
 
 import argparse
@@ -37,10 +41,11 @@ TEXT = dict(width=64, layers=2, heads=4, embed_dim=64)
 MLP_SMALL = dict(points=64, embed_dim=16, k_neighbors=(8, 8, 8, 8))
 EMBED = 64  # the joint space of the tiny models: pc_projection's width
 KINDS = ("slip", "pointbert", "pointbert_partseg", "pointnet2_ssg", "pointnet2_msg", "pointmlp",
-         "pointnext")
-# the reference's kinds whose modules the port lacks (ROADMAP.md, Queue 1 item 7)
-NOT_PORTED = ("dgcnn", "pointnet", "pointtransformer", "randlanet", "balldgcnn", "deepgcn",
-              "grouppointnet", "simpleview", "baafnet")
+         "pointnext", "pointnet", "dgcnn", "balldgcnn", "deepgcn", "grouppointnet", "simpleview")
+# the reference's kinds whose modules the port lacks (ROADMAP.md, Queue 1 item 8)
+NOT_PORTED = ("pointtransformer", "randlanet", "baafnet")
+# the kinds whose tree sits at the top level (no point_encoder, no pc_projection)
+BARE = ("balldgcnn", "deepgcn", "grouppointnet", "simpleview")
 
 
 def redraw(sd, seed):
@@ -57,14 +62,26 @@ def redraw(sd, seed):
 
 def _tower(kind):
     """(flax module, sample input) of the tower a kind converts."""
+    from ppt_tpu.nn.classic import DgcnnClassifier, PointNetEncoder
+    from ppt_tpu.nn.gcn import BallDgcnn, DeepGcn, DeepGcnConfig, GroupPointNet
     from ppt_tpu.nn.pointmlp import PointMLP, PointMLPConfig
     from ppt_tpu.nn.pointnet2 import PointNet2Msg, PointNet2Ssg
     from ppt_tpu.nn.pointnext import PointNext, PointNextConfig
+    from ppt_tpu.nn.simpleview import SimpleView, SimpleViewConfig
 
     return {"pointnet2_ssg": (PointNet2Ssg(), (1, 600, 3)),
             "pointnet2_msg": (PointNet2Msg(), (1, 600, 3)),
             "pointmlp": (PointMLP(PointMLPConfig(**MLP_SMALL)), (1, 64, 3)),
-            "pointnext": (PointNext(PointNextConfig(in_channels=4)), (1, 64, 4))}[kind]
+            "pointnext": (PointNext(PointNextConfig(in_channels=4)), (1, 64, 4)),
+            # the reference's converter maps DGCNN's trunk up to the pooled
+            # features, not the FC head: the tower without it
+            "pointnet": (PointNetEncoder(), (1, 32, 3)),
+            "dgcnn": (DgcnnClassifier(trunk=False), (1, 32, 3)),
+            "balldgcnn": (BallDgcnn(), (1, 32, 3)),
+            "deepgcn": (DeepGcn(DeepGcnConfig(n_blocks=4, k=4)), (1, 32, 3)),
+            "grouppointnet": (GroupPointNet(), (1, 64, 3)),
+            "simpleview": (SimpleView(SimpleViewConfig(channels=8, resolution=16)),
+                           (1, 64, 3))}[kind]
 
 
 # the inverse of the layout rules: a flax module path of the point tower
@@ -89,6 +106,60 @@ _INVERSE = {
         (r"fc1", "classifier.0", "linear"), (r"bn1", "classifier.1", "bn"),
         (r"fc2", "classifier.4", "linear"), (r"bn2", "classifier.5", "bn"),
     ),
+    "pointnet": (
+        (r"(f?stn)/conv(\d)", r"\1.conv\2", "conv"),
+        (r"(f?stn)/fc(\d)", r"\1.fc\2", "linear"),
+        (r"(f?stn)/bn(\d)", r"\1.bn\2", "bn"),
+        (r"conv(\d_?\d?)", r"conv\1", "conv"),
+        (r"bn(\d_?\d?)", r"bn\1", "bn"),
+    ),
+    "dgcnn": (
+        (r"edge0", "head.gconv.nn.0", "edge"),
+        (r"bn0", "head.gconv.nn.1", "bn"),
+        (r"edge(\d)", lambda m: f"backbone.{int(m.group(1)) - 1}.gconv.nn.0", "edge"),
+        (r"bn(\d)", lambda m: f"backbone.{int(m.group(1)) - 1}.gconv.nn.1", "bn"),
+        (r"emb", "fusion_block.0", "conv"),
+        (r"embn", "fusion_block.1", "bn"),
+    ),
+    # create_convblock's order: conv-act-norm keeps the norm at index 2,
+    # conv-norm-act at 1
+    "balldgcnn": (
+        (r"edge0/conv", "head.gconv.nn.0", "conv"),
+        (r"edge0/bn", "head.gconv.nn.2", "bn"),
+        (r"edge(\d)/conv", lambda m: f"backbone.{int(m.group(1)) - 1}.gconv.nn.0", "conv"),
+        (r"edge(\d)/bn", lambda m: f"backbone.{int(m.group(1)) - 1}.gconv.nn.2", "bn"),
+        (r"fusion/conv", "fusion_block.0", "conv"),
+        (r"fusion/bn", "fusion_block.2", "bn"),
+    ),
+    "deepgcn": (
+        (r"edge0/conv", "head.gconv.nn.0", "conv"),
+        (r"edge0/bn", "head.gconv.nn.1", "bn"),
+        (r"edge(\d+)/conv", lambda m: f"backbone.{int(m.group(1)) - 1}.body.gconv.nn.0",
+         "conv"),
+        (r"edge(\d+)/bn", lambda m: f"backbone.{int(m.group(1)) - 1}.body.gconv.nn.1", "bn"),
+        (r"fusion/conv", "fusion_block.0", "conv"),
+        (r"fusion/bn", "fusion_block.1", "bn"),
+    ),
+    "grouppointnet": (
+        (r"conv(\d)/conv", r"backbone.\1.0", "conv"),
+        (r"conv(\d)/bn", r"backbone.\1.2", "bn"),
+    ),
+    "simpleview": (
+        (r"stem_conv", "img_model.0", "conv2d"),
+        (r"stem_bn", "img_model.1", "bn"),
+        (r"backbone/layer(\d)_(\d)/(conv\d)",
+         lambda m: f"img_model.{int(m.group(1)) + 2}.{m.group(2)}.{m.group(3)}", "conv2d"),
+        (r"backbone/layer(\d)_(\d)/(bn\d)",
+         lambda m: f"img_model.{int(m.group(1)) + 2}.{m.group(2)}.{m.group(3)}", "bn"),
+        (r"backbone/layer(\d)_(\d)/ds_conv",
+         lambda m: f"img_model.{int(m.group(1)) + 2}.{m.group(2)}.downsample.0", "conv2d"),
+        (r"backbone/layer(\d)_(\d)/ds_bn",
+         lambda m: f"img_model.{int(m.group(1)) + 2}.{m.group(2)}.downsample.1", "bn"),
+        (r"fc_bn0", "final_fc.model.0.bn", "bn"),
+        (r"fc1", "final_fc.model.3", "linear"),
+        (r"fc_bn1", "final_fc.model.4", "bn"),
+        (r"fc2", "final_fc.model.7", "linear"),
+    ),
     "pointnext": (
         (r"stem", "encoder.encoder.0.0.convs.0.0", "conv"),
         (r"stage(\d)_(?:sa|global)/conv(\d)/conv", r"encoder.encoder.\1.0.convs.\2.0", "conv"),
@@ -109,14 +180,16 @@ def tower_variables(kind, seed=0):
     module, shape = _tower(kind)
     shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0), jnp.zeros(shape))
     rng = np.random.RandomState(seed)
+    prefix = () if kind in BARE else ("point_encoder",)
     out = {}
     for coll in ("params", "batch_stats"):
         flat = {}
         for path, leaf in traverse_util.flatten_dict(shapes[coll]).items():
             v = (0.05 * rng.randn(*leaf.shape)).astype(np.float32)
-            flat[("point_encoder",) + path] = 0.5 + np.abs(v) if path[-1] == "var" else v
+            flat[prefix + path] = 0.5 + np.abs(v) if path[-1] == "var" else v
         out[coll] = flat
-    out["params"][("pc_projection",)] = (0.05 * rng.randn(256, EMBED)).astype(np.float32)
+    if prefix:
+        out["params"][("pc_projection",)] = (0.05 * rng.randn(256, EMBED)).astype(np.float32)
     return {k: traverse_util.unflatten_dict(v) for k, v in out.items()}
 
 
@@ -124,16 +197,22 @@ def inverse_state_dict(kind, variables):
     """The reference-named torch state dict whose conversion is
     ``variables``."""
     rules = _INVERSE["pointnet2" if kind.startswith("pointnet2") else kind]
-    sd = {"pc_projection": torch.from_numpy(variables["params"]["pc_projection"])}
-    flat = traverse_util.flatten_dict(variables["params"]["point_encoder"])
-    stats = traverse_util.flatten_dict(variables["batch_stats"]["point_encoder"])
+    if kind in BARE:
+        sd, pe = {}, ""
+        flat = traverse_util.flatten_dict(variables["params"])
+        stats = traverse_util.flatten_dict(variables["batch_stats"])
+    else:
+        sd, pe = {"pc_projection": torch.from_numpy(variables["params"]["pc_projection"])}, \
+            "point_encoder."
+        flat = traverse_util.flatten_dict(variables["params"]["point_encoder"])
+        stats = traverse_util.flatten_dict(variables["batch_stats"]["point_encoder"])
     seen = set()
     for path, v in list(flat.items()) + [(p + ("@stat",), v) for p, v in stats.items()]:
         stat = path[-1] == "@stat"
         mod, leaf = "/".join(path[:-2 if stat else -1]), path[-2 if stat else -1]
         for pattern, repl, what in rules:
             if re.fullmatch(pattern, mod):
-                name = "point_encoder." + re.sub(pattern, repl, mod)
+                name = pe + re.sub(pattern, repl, mod)
                 break
         else:
             raise KeyError(f"no inverse rule for {mod}")
@@ -147,6 +226,12 @@ def inverse_state_dict(kind, variables):
             if name not in seen:
                 sd[f"{name}.num_batches_tracked"] = torch.tensor(7)
                 seen.add(name)
+        elif leaf == "kernel" and what == "edge":  # the input halves swapped back
+            half = t.shape[0] // 2
+            sd[f"{name}.weight"] = torch.cat([t[half:], t[:half]]).t().contiguous()[..., None,
+                                                                                    None]
+        elif leaf == "kernel" and what == "conv2d":  # HWIO -> OIHW
+            sd[f"{name}.weight"] = t.permute(3, 2, 0, 1).contiguous()
         elif leaf == "kernel":
             w = t.t().contiguous()
             sd[f"{name}.weight"] = w if what == "linear" else w[:, :, None]
@@ -247,7 +332,9 @@ def assert_same_tree(got, want, path=()):
     np.testing.assert_array_equal(got, want, err_msg=str(path))
 
 
-@pytest.mark.parametrize("kind", ["pointnet2_ssg", "pointnet2_msg", "pointmlp", "pointnext"])
+@pytest.mark.parametrize("kind", ["pointnet2_ssg", "pointnet2_msg", "pointmlp", "pointnext",
+                                  "pointnet", "dgcnn", "balldgcnn", "deepgcn", "grouppointnet",
+                                  "simpleview"])
 def test_conversion_inverts_the_tower_tree(kind):
     """The converter maps the inverse-written state dict back onto the
     small JAX tower's own tree, leaf for leaf, batch statistics included."""

@@ -146,7 +146,7 @@ def test_model_flag_and_tower_sections(monkeypatch):
     assert seen == {"model_name": "ULIP_PN_NEXT", "batch": 128, "point_route": "block",
                     "num_group": 512}
     with pytest.raises(SystemExit):
-        profile.main(["--model", "ULIP_DGCNN"])  # not ported: not a choice
+        profile.main(["--model", "ULIP_PointTransformer"])  # no registry's entry: not a choice
 
 
 @pytest.mark.parametrize("argv,fn,want", [

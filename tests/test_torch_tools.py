@@ -1,8 +1,9 @@
 """The port's tools that need no card to be checked, on the CPU.
 
 ``tools/visualize.py`` against ``ppt_tpu``'s renderer byte for byte;
-``backbone_bench`` refusing ``dgcnn`` by name; ``profile --flops``' sections
-adding up to the step's total; and ``component_probe``, ``pointnext_profile``
+``backbone_bench`` taking ``dgcnn`` and refusing a name it does not know;
+``profile --flops``' sections adding up to the step's total; and
+``component_probe``, ``pointnext_profile``
 and ``backbone_bench`` parsing their flags and refusing, by name, to run
 without a card.
 """
@@ -43,9 +44,17 @@ def test_visualize_main_writes_one_image_a_cloud(tmp_path):
     assert len(written) == 2 and all((tmp_path / "viz" / p).exists() for p in written)
 
 
-def test_backbone_bench_refuses_dgcnn_by_name():
-    with pytest.raises(SystemExit, match="dgcnn: DGCNN's tower is not ported yet"):
-        backbone_bench.parse_args(["--model", "dgcnn"])
+def test_backbone_bench_refuses_dgcnn_by_name(capsys):
+    """DGCNN is ported since this test was written (its name is the test's
+    own): ``dgcnn`` parses and builds as the JAX tool builds it (3 channels,
+    the FC trunk on), and a name the tool does not know is refused."""
+    args = backbone_bench.parse_args(["--model", "dgcnn"])
+    assert (args.model, args.batch, args.npoints, args.iters) == ("dgcnn", 128, 1024, 16)
+    tower, height = backbone_bench.build("dgcnn", torch.float32)
+    assert not height and tower.trunk and tower.edge0.kernel.shape == (6, 64)
+    with pytest.raises(SystemExit):
+        backbone_bench.parse_args(["--model", "pointtransformer"])
+    assert "invalid choice: 'pointtransformer'" in capsys.readouterr().err
     args = backbone_bench.parse_args(["--model", "pointmlp", "--iters", "4"])
     assert (args.model, args.batch, args.npoints, args.iters) == ("pointmlp", 128, 1024, 4)
 
