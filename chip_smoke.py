@@ -13,7 +13,9 @@ the linear probe (feature extraction, the few-shot probe, prompt
 interpretation), the tools (the serving export through the registered
 operators, the component probe, the FLOP table, the backbone bench), and
 the rest of the recognition zoo (PointNet with and without T-Nets, DGCNN,
-PCT, CurveNet) with the graph towers and SimpleView.
+PCT, CurveNet) with the graph towers and SimpleView, and scene
+segmentation (PTSeg, RandLA-Net and BAAF-Net through the sceneseg driver
+with its whole-scene eval, the S3DIS 6-fold tool).
 
     python3 chip_smoke.py            # one CUDA card, no arguments
     python3 chip_smoke.py --only ballquery   # group.cu, phase 3's ball queries alone
@@ -33,6 +35,8 @@ PCT, CurveNet) with the graph towers and SimpleView.
                                              # FLOP table, the operators' host cost
     python3 chip_smoke.py --only zoo         # phase 18: the rest of the recognition zoo, the
                                              # graph towers and SimpleView
+    python3 chip_smoke.py --only scenes      # phase 19: scene segmentation (PTSeg, RandLA-Net,
+                                             # BAAF-Net, the sceneseg driver, the 6-fold tool)
 
 Phases (any failed check raises, and the script exits non-zero):
   1. card name / power limit (nvidia-smi), torch and CUDA versions;
@@ -395,6 +399,35 @@ Phases (any failed check raises, and the script exits non-zero):
      ({"zoo": ...}); the kernels line's ``fps_batched`` entry gains
      ``zoo_shapes`` and ``zoo_launches_per_batch``; ``--only zoo`` builds
      ``group.cu`` and runs it alone.
+ 19. scene segmentation: PTSeg, RandLA-Net and BAAF-Net (``farthest_knn``
+     off and on) at their default configs for S3DIS (xyz + rgb, 13
+     classes), f32, seeded weights and BatchNorm statistics, B=2 x 4096
+     points on a 1/64 lattice: the card's eval forward against the CPU's
+     and one training-mode forward's running statistics, each within 1e-4
+     of its max magnitude (head dropout the identity), ``fps_batched`` 4 /
+     0 / 5 a forward and no other kernel; bf16 against f32 on the card at
+     B=8 (max|diff| and argmax agreement, reported); ``fps_batched`` at the
+     scene shapes (B=8: 4096 -> 1024 -> 256 -> 64 -> 16 -> 4) against
+     ``fps_plain``, exact, timed with the launches queued beside each
+     shape's latency floor. Then ``sceneseg.train_loop`` for each backbone
+     in bf16 on a synthetic S3DIS written from the seed (Area 1: 16 rooms,
+     Areas 5 and 6: 2 rooms each, 200k raw points a room in a 6 x 5 x 3 m
+     box of ceiling, floor and wall planes and clutter, rgb 0-255, 13
+     labels), --voxel_size 0.04 --npoints 4096 --voxel_max 4096
+     --batch_size 8 --epochs 1 --eval_scene --cm_out: the loss finite,
+     the epoch's training seconds, the whole-scene eval's seconds and raw
+     points/s, mIoU in [0, 100], the scene matrix counting every labelled
+     raw Area 5 point once, ``fps_batched`` 4 / 0 / 5 a step, peak memory,
+     checkpoint_best.pt written and --resume going on at epoch 1; bf16
+     train steps of each at B=8 x 4096, one profiled after a warm-up step
+     (device ms by kind: the kNN's sorts, fps_batched, GEMMs, other; the
+     idle share) and then crops/s over 5 steps; the whole-scene eval of one room under the
+     profiler (its idle share); RandLA-Net with Area 6 held out, and
+     ``tools/s3dis_6fold.py`` over the two areas' matrices. Its numbers go
+     on a line of their own ({"sceneseg": ...}); the kernels line's
+     ``fps_batched`` entry gains ``scene_shapes`` and
+     ``scene_launches_per_step``; ``--only scenes`` builds ``group.cu`` and
+     runs it alone.
 
 The build prints each CUDA kernel's registers and spills (ptxas -v).
 The line before the card's is a JSON object with the per-kernel numbers
@@ -433,6 +466,7 @@ if not torch.cuda.is_available():
     sys.exit(2)
 
 import torch.nn.functional as F  # noqa: E402
+from torch.autograd import DeviceType  # noqa: E402
 
 from ppt_torch.data import datasets as pdata  # noqa: E402
 from ppt_torch.data.augment import append_height, train_augment, translate_pointcloud  # noqa: E402
@@ -458,7 +492,7 @@ from ppt_torch.nn import pointbert as npb  # noqa: E402
 from ppt_torch.nn import text as ntext  # noqa: E402
 from ppt_torch.prompt.learner import build_prompt_spec  # noqa: E402
 from ppt_torch.tasks import cls, dvae_pretrain, fewshot, mpm_pretrain, partseg, pretrain  # noqa: E402
-from ppt_torch.tasks import feature_extract, interpret_prompt, linear_probe  # noqa: E402
+from ppt_torch.tasks import feature_extract, interpret_prompt, linear_probe, sceneseg  # noqa: E402
 from ppt_torch.tasks.args import TaskArgs  # noqa: E402
 from ppt_torch.tools import kernel_check, vitblock_probe  # noqa: E402
 from ppt_torch.tools import profile as tprofile  # noqa: E402
@@ -468,7 +502,8 @@ from ppt_torch.ops.losses3d import chamfer_l2  # noqa: E402
 from ppt_torch.train.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
 from ppt_torch.train.eval import make_cached_text_eval  # noqa: E402
 from ppt_torch.train.optim import build_optimizer, build_schedule  # noqa: E402
-from ppt_torch.train.trainer import create_train_state, make_eval_step, make_train_step  # noqa: E402
+from ppt_torch.train.trainer import (TrainState, create_train_state, make_eval_step,  # noqa: E402
+                                     make_train_step)
 from ppt_torch.utils.metrics import partseg_ious, refine_partseg_logits  # noqa: E402
 
 DEV = torch.device("cuda")
@@ -716,6 +751,30 @@ def fps_chain_us(n=128):
     t_all = queued_ms(lambda: kgroup.fps_batched(xyz, n))
     t_one = queued_ms(lambda: kgroup.fps_batched(xyz, 1))
     return (t_all - t_one) / (n - 1) * 1e3
+
+
+def fps_shape_rows(B, shapes, tag, salt):
+    """fps_batched on B clouds at ``shapes`` ((N, npoint, models), ...), the
+    launches queued, against fps_plain (exact), beside each shape's bound and
+    latency floor: npoint steps of the dependent chain (phase 3's
+    ``fps_chain_us``). The clouds are drawn from seed ``salt * N + npoint``."""
+    chain_us = fps_chain_us()
+    rows = []
+    for N, npoint, models in shapes:
+        xyz = cloud(B, N, salt * N + npoint)
+        check(torch.equal(kgroup.fps_batched(xyz, npoint), kgroup.fps_plain(xyz, npoint)),
+              f"fps_batched differs from fps_plain at {N} -> {npoint}")
+        times = alternated_ms({"kernel": lambda: kgroup.fps_batched(xyz, npoint)},
+                              timer=queued_ms)
+        bms, by = bound_ms(B * N * 12 + B * npoint * 4, B * npoint * N * 10, PEAK["f32"])
+        row = dict(B=B, N=N, npoint=npoint, models=models, queued_ms=times["kernel"],
+                   plain_ms=gpu_time_ms(lambda: kgroup.fps_plain(xyz, npoint), reps=3, warmup=1),
+                   bound_ms=bms, bound_by=by, latency_floor_ms=npoint * chain_us * 1e-3)
+        rows.append(row)
+        print(f"[{tag}] fps_batched {models} {B} x {N} -> {npoint}: exact; queued "
+              f"{row['queued_ms']:.4f} ms, fps_plain {row['plain_ms']:.3f} ms, bound "
+              f"{bms:.5f} ms ({by}), latency floor {row['latency_floor_ms']:.4f} ms")
+    return rows
 
 
 def check_grouping(results):
@@ -4362,24 +4421,8 @@ def _run_pretrained_slice(smi):
                                                              pc)
     del ctx32
 
-    # fps_batched at PointMLP's four shapes, the launches queued, against fps_plain
-    fps = []
-    for N, npoint in MLP_FPS_SHAPES:
-        xyz = cloud(MLP_BATCH, N, N + npoint)
-        check(torch.equal(kgroup.fps_batched(xyz, npoint), kgroup.fps_plain(xyz, npoint)),
-              f"fps_batched differs from fps_plain at {N} -> {npoint}")
-        times = alternated_ms({"kernel": lambda: kgroup.fps_batched(xyz, npoint)},
-                              timer=queued_ms)
-        bms, by = bound_ms(MLP_BATCH * N * 12 + MLP_BATCH * npoint * 4,
-                           MLP_BATCH * npoint * N * 10, PEAK["f32"])
-        row = dict(B=MLP_BATCH, N=N, npoint=npoint, queued_ms=times["kernel"],
-                   plain_ms=gpu_time_ms(lambda: kgroup.fps_plain(xyz, npoint), reps=3, warmup=1),
-                   bound_ms=bms, bound_by=by)
-        fps.append(row)
-        print(f"[pretrained] fps_batched PointMLP {MLP_BATCH} x {N} -> {npoint}: queued "
-              f"{row['queued_ms']:.4f} ms, fps_plain {row['plain_ms']:.3f} ms, bound "
-              f"{bms:.4f} ms ({by})")
-    out["pn_mlp_fps"] = fps
+    out["pn_mlp_fps"] = fps_shape_rows(
+        MLP_BATCH, [(N, npoint, "PointMLP") for N, npoint in MLP_FPS_SHAPES], "pretrained", 1)
 
     # --- the miss path: an existing directory without converted files ------------
     empty = PRETRAINED_DIR / "empty"
@@ -5419,30 +5462,6 @@ def zoo_entry(name, smi):
     return out
 
 
-def zoo_fps_shapes():
-    """fps_batched at the zoo's new shapes, the launches queued, against
-    fps_plain (exact), beside each shape's latency floor: npoint steps of
-    the dependent chain (phase 3's ``fps_chain_us``)."""
-    chain_us = fps_chain_us()
-    rows = []
-    for N, npoint, towers in ZOO_FPS_SHAPES:
-        xyz = cloud(ZOO_BATCH, N, 7 * N + npoint)
-        check(torch.equal(kgroup.fps_batched(xyz, npoint), kgroup.fps_plain(xyz, npoint)),
-              f"fps_batched differs from fps_plain at {N} -> {npoint}")
-        times = alternated_ms({"kernel": lambda: kgroup.fps_batched(xyz, npoint)},
-                              timer=queued_ms)
-        bms, by = bound_ms(ZOO_BATCH * N * 12 + ZOO_BATCH * npoint * 4,
-                           ZOO_BATCH * npoint * N * 10, PEAK["f32"])
-        row = dict(B=ZOO_BATCH, N=N, npoint=npoint, towers=towers, queued_ms=times["kernel"],
-                   plain_ms=gpu_time_ms(lambda: kgroup.fps_plain(xyz, npoint), reps=3, warmup=1),
-                   bound_ms=bms, bound_by=by, latency_floor_ms=npoint * chain_us * 1e-3)
-        rows.append(row)
-        print(f"[zoo] fps_batched {towers} {ZOO_BATCH} x {N} -> {npoint}: exact; queued "
-              f"{row['queued_ms']:.4f} ms, fps_plain {row['plain_ms']:.3f} ms, bound "
-              f"{bms:.5f} ms ({by}), latency floor {row['latency_floor_ms']:.4f} ms")
-    return rows
-
-
 @contextlib.contextmanager
 def knn_graphs(replay=None):
     """``ops/geometry.py:knn_point``'s results recorded call by call into the
@@ -5547,13 +5566,387 @@ def _run_zoo_slice(smi):
 
     t0 = time.perf_counter()
     out = {"entries": {name: zoo_entry(name, smi) for name in ZOO_MODELS}}
-    out["fps_shapes"] = zoo_fps_shapes()
+    out["fps_shapes"] = fps_shape_rows(ZOO_BATCH, ZOO_FPS_SHAPES, "zoo", 7)
     out["graph_towers"] = zoo_graph_towers()
     line = backbone_bench.main(["--model", "dgcnn"])
     out["backbone_dgcnn"] = {k: line[k] for k in ("batch", "clouds_per_sec", "fwd_ms",
                                                   "spread_pct")}
     out["seconds"] = time.perf_counter() - t0
     print(f"[zoo] phase 18 took {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 19: scene segmentation (PTSeg, RandLA-Net, BAAF-Net, the driver)
+# ---------------------------------------------------------------------------
+
+SCENE_DIR = _build.BUILD_DIR.parent / "chip_smoke_scenes"
+SCENE_MODELS = ("ptseg", "randlanet", "baafnet")
+SCENE_B, SCENE_N = 8, 4096  # the driver's batch, --npoints and --voxel_max
+SCENE_CHECK_B = 2  # the card-against-CPU forwards
+SCENE_CLASSES = 13  # S3DIS
+SCENE_FPS_SHAPES = ((4096, 1024, "BAAF-Net, PTSeg"), (1024, 256, "BAAF-Net, PTSeg"),
+                    (256, 64, "BAAF-Net, PTSeg"), (64, 16, "BAAF-Net, PTSeg"),
+                    (16, 4, "BAAF-Net"))
+SCENE_FPS_PER_FORWARD = {"ptseg": 4, "randlanet": 0, "baafnet": 5}
+ROOM_POINTS = 200_000
+# rooms a synthetic area holds: Area 1 trains (16 crops: two batches of 8),
+# Areas 5 and 6 are the two folds evaluated whole
+AREA_ROOMS = {1: 16, 5: 2, 6: 2}
+TOL_SCENE_CPU = 1e-4  # the card's f32 forward against the CPU's, of the output's max
+SCENE_RATE_STEPS = 5  # train steps timed for crops/s, after the profiled ones
+
+
+def scene_module(name, dtype, farthest=False, seed=7):
+    """A scene backbone at its default config for S3DIS (xyz + rgb, 13
+    classes) with seeded Dense kernels (``sceneseg.build_model``) and seeded
+    BatchNorm affine and running statistics, drawn on the CPU."""
+    from ppt_torch.nn import baafnet as nbaaf
+    from ppt_torch.nn.layers import BatchNormStats, init_dense_
+
+    if farthest:
+        model = nbaaf.BaafNet(nbaaf.BaafNetConfig(num_classes=SCENE_CLASSES, farthest_knn=True,
+                                                  dims=(6, 4, 16, 64, 128, 256, 512)),
+                              feat_channels=3, dtype=dtype)
+        init_dense_(model, torch.Generator().manual_seed(seed))
+    else:
+        model = sceneseg.build_model(name, SCENE_CLASSES, 6, dtype, seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, BatchNormStats):
+                n = mod.weight.shape[0]
+                mod.weight.copy_(1 + 0.1 * torch.randn(n, generator=g))
+                mod.bias.copy_(0.1 * torch.randn(n, generator=g))
+                mod.running_mean.copy_(0.1 * torch.randn(n, generator=g))
+                mod.running_var.copy_(0.5 + torch.rand(n, generator=g))
+    return model
+
+
+def scene_inputs(B, seed):
+    """(xyz on a 1/64 lattice of the unit cube, rgb 0-255), on the CPU: every
+    expanded-form distance is exact in f32, so kNN and FPS pick alike on
+    both devices."""
+    g = torch.Generator().manual_seed(seed)
+    pts = (torch.randint(0, 65, (B, SCENE_N, 3), generator=g) / 64.0).float()
+    rgb = torch.randint(0, 256, (B, SCENE_N, 3), generator=g).float()
+    return pts, rgb
+
+
+@contextlib.contextmanager
+def scene_dropout_off():
+    """RandLA-Net's and BAAF-Net's head dropout the identity (no two devices
+    draw alike), so a training-mode forward's statistics compare."""
+    from ppt_torch.nn import baafnet as nbaaf
+    from ppt_torch.nn import randlanet as nrandla
+
+    saved = nbaaf.dropout, nrandla.dropout
+    nbaaf.dropout = nrandla.dropout = lambda x, rate, train, generator: x
+    try:
+        yield
+    finally:
+        nbaaf.dropout, nrandla.dropout = saved
+
+
+def scene_card_vs_cpu(name, farthest=False):
+    """The default config in f32 on the card against the CPU, same weights,
+    B=2 x 4096 lattice points: eval logits, then one training-mode forward's
+    running statistics, each within TOL_SCENE_CPU of its max magnitude."""
+    tag = name + (" farthest_knn" if farthest else "")
+    cpu = scene_module(name, torch.float32, farthest)
+    card = scene_module(name, torch.float32, farthest).to(DEV)
+    pts, rgb = scene_inputs(SCENE_CHECK_B, 11)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        want = sceneseg._apply(name, cpu, pts, rgb, False)
+        cpu_s = time.perf_counter() - t0
+        sceneseg._apply(name, card, pts.to(DEV), rgb.to(DEV), False)  # warm-up
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = sceneseg._apply(name, card, pts.to(DEV), rgb.to(DEV), False)
+        torch.cuda.synchronize()
+        card_ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        diff = rel_err(got.cpu(), want)
+        with scene_dropout_off():
+            sceneseg._apply(name, cpu, pts, rgb, True)
+            sceneseg._apply(name, card, pts.to(DEV), rgb.to(DEV), True)
+    card_stats = dict(card.named_buffers())
+    stats = max(rel_err(card_stats[k].cpu(), v) for k, v in cpu.named_buffers())
+    print(f"[scenes] {tag} f32 B={SCENE_CHECK_B} x {SCENE_N}: card vs CPU logits max|diff|/max "
+          f"{diff:.3e}, a training-mode forward's running statistics {stats:.3e} (limit "
+          f"{TOL_SCENE_CPU:g}); {card_ms:.1f} ms a forward on the card, {cpu_s:.1f} s on the "
+          f"CPU; launches a forward {json.dumps(launches)}")
+    check(torch.isfinite(got).all() and diff <= TOL_SCENE_CPU, f"{tag}: card disagrees with CPU")
+    check(stats <= TOL_SCENE_CPU, f"{tag}: training-mode statistics disagree with the CPU's")
+    check(launches.get("fps_batched", 0) == SCENE_FPS_PER_FORWARD[name]
+          and set(launches) <= {"fps_batched"}, f"{tag} launched {launches}")
+    return {"logits_diff_over_max": diff, "train_stats_diff_over_max": stats,
+            "card_ms": card_ms, "cpu_s": cpu_s, "launches": launches,
+            "params": sum(p.numel() for p in cpu.parameters())}
+
+
+def scene_bf16_vs_f32(name):
+    """bf16 against f32 on the card, same weights, B=8 x 4096: max|diff|
+    over the f32 logits' max and the argmax agreement (reported)."""
+    f32 = scene_module(name, torch.float32).to(DEV)
+    bf16 = scene_module(name, torch.bfloat16).to(DEV)
+    bf16.load_state_dict(f32.state_dict())
+    pts, rgb = (t.to(DEV) for t in scene_inputs(SCENE_B, 12))
+    with torch.no_grad():
+        want = sceneseg._apply(name, f32, pts, rgb, False).float()
+        got = sceneseg._apply(name, bf16, pts, rgb, False).float()
+    diff = rel_err(got, want)
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    print(f"[scenes] {name} bf16 vs f32 B={SCENE_B} x {SCENE_N}: max|diff|/max {diff:.3e}, "
+          f"argmax agreement {agree:.4f}")
+    check(bool(torch.isfinite(got).all()), f"{name}: bf16 logits not finite")
+    return {"diff_over_max": diff, "argmax_agreement": agree}
+
+
+def s3dis_room(rng, n=ROOM_POINTS):
+    """One synthetic S3DIS room [n, 7] (xyz, rgb 0-255, label): a 6 x 5 x 3 m
+    box of ceiling (0), floor (1) and wall (2) planes, and clutter boxes of
+    the other ten classes, each class its own colour plus noise."""
+    size = np.array([6.0, 5.0, 3.0])
+    kind = rng.choice(4, n, p=[0.2, 0.2, 0.35, 0.25])
+    xyz = rng.rand(n, 3) * size
+    label = kind.copy()
+    xyz[kind == 0, 2] = size[2]
+    xyz[kind == 1, 2] = 0.0
+    wall = np.flatnonzero(kind == 2)
+    side = rng.randint(0, 4, wall.size)
+    xyz[wall, side % 2] = np.where(side < 2, 0.0, size[side % 2])
+    clutter = np.flatnonzero(kind == 3)
+    centres = rng.rand(12, 3) * (size - 1.0) + 0.5
+    extent = 0.2 + rng.rand(12, 3) * 0.6
+    box = rng.randint(0, 12, clutter.size)
+    xyz[clutter] = centres[box] + (rng.rand(clutter.size, 3) - 0.5) * extent[box]
+    label[clutter] = 3 + box % 10
+    xyz += rng.randn(n, 3) * 0.005  # sensor noise
+    colours = np.random.RandomState(99).randint(0, 256, (SCENE_CLASSES, 3))
+    rgb = np.clip(colours[label] + rng.randn(n, 3) * 12.0, 0, 255)
+    return np.concatenate([xyz, rgb, label[:, None]], axis=1).astype(np.float32)
+
+
+def write_s3dis(root, seed=0):
+    """``<root>/raw/Area_<a>_room_<i>.npy`` for AREA_ROOMS; returns the
+    labelled raw points by area."""
+    raw = root / "raw"
+    raw.mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    points = {}
+    for area, rooms in AREA_ROOMS.items():
+        for i in range(rooms):
+            room = s3dis_room(rng)
+            np.save(raw / f"Area_{area}_room_{i}.npy", room)
+            points[area] = points.get(area, 0) + int((room[:, 6] >= 0).sum())
+    return points
+
+
+def scene_args(root, name, **kw):
+    base = dict(dataset_name="s3dis", data_path=str(root), model=name, npoints=SCENE_N,
+                voxel_max=SCENE_N, voxel_size=0.04, batch_size=SCENE_B, epochs=1,
+                eval_scene=True, test_area=5, allow_synthetic_fallback=False,
+                output_dir=str(SCENE_DIR / "out"), exp_name=name,
+                cm_out=str(SCENE_DIR / f"{name}_a5.npz"), device=DEV.type)
+    base.update(kw)
+    return TaskArgs(**base)
+
+
+@contextlib.contextmanager
+def counted_steps(per_step):
+    """``sceneseg.make_seg_train_step``'s steps, each step's kernel launches
+    appended to ``per_step``."""
+    real = sceneseg.make_seg_train_step
+
+    def make(*a, **kw):
+        step = real(*a, **kw)
+
+        def counted(state, batch):
+            before = dict(_build.LAUNCHES)
+            out = step(state, batch)
+            per_step.append({k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
+                             if v - before.get(k, 0)})
+            return out
+
+        return counted
+
+    sceneseg.make_seg_train_step = make
+    try:
+        yield
+    finally:
+        sceneseg.make_seg_train_step = real
+
+
+def kernel_split_ms(fn, calls=3):
+    """Device ms a call by kind (sort, fps_batched, GEMM, other) over
+    ``calls`` calls under the profiler, the wall ms a call and the card's
+    idle share of that window."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    check(bool(kernels), "the profiler recorded no device activity")
+    spans = [(e.time_range.start, e.time_range.end) for e in kernels]
+    split = collections.Counter()
+    for e, us in zip(kernels, tprofile.exclusive_us(spans)):
+        low = e.name.lower()
+        kind = ("sort" if "sort" in low else "fps_batched" if "fps" in low
+                else "gemm" if "gemm" in low or "xmma" in low or "cutlass" in low else "other")
+        split[kind] += us
+    busy = tprofile.busy_us(spans)
+    return {"wall_ms": wall_us / calls / 1e3, "busy_ms": busy / calls / 1e3,
+            "idle_share": 1.0 - busy / wall_us, "kernels_per_call": len(kernels) / calls,
+            "device_ms_by_kind": {k: v / calls / 1e3 for k, v in split.most_common()}}
+
+
+def scene_step_profile(name):
+    """bf16 train steps of the driver's kind at B=8 x 4096 (seeded weights,
+    AdamW, one batch): one profiled after a warm-up step, for where its
+    device time goes (the kNN's sorts); then the crops/s of
+    ``SCENE_RATE_STEPS`` steps without the profiler, the loss read after
+    each step as the driver reads it."""
+    model = scene_module(name, torch.bfloat16).to(DEV)
+    state = TrainState(model, build_optimizer("adamw", model.named_parameters(),
+                                              lambda step: 1e-3, betas=(0.9, 0.999)),
+                       torch.Generator(device=DEV).manual_seed(1))
+    step = sceneseg.make_seg_train_step(name, SCENE_CLASSES, 0.2)
+    pts, rgb = (t.to(DEV) for t in scene_inputs(SCENE_B, 13))
+    label = torch.randint(0, SCENE_CLASSES, (SCENE_B, SCENE_N), device=DEV)
+    batch = {"pts": pts, "feats": rgb, "label": label}
+    out = kernel_split_ms(lambda: step(state, batch), calls=1)
+    t0 = time.perf_counter()
+    for _ in range(SCENE_RATE_STEPS):
+        float(step(state, batch)["loss"])
+    out["crops_per_s"] = SCENE_RATE_STEPS * SCENE_B / (time.perf_counter() - t0)
+    print(f"[scenes] {name} bf16 train step B={SCENE_B} x {SCENE_N} profiled: "
+          f"{json.dumps(out)}")
+    return out
+
+
+def scene_driver(root, name, val_points, smi):
+    """``sceneseg.train_loop`` as a user runs it: one epoch, the best
+    checkpoint's whole-scene eval with --cm_out, then --resume at epoch 1."""
+    args = scene_args(root, name)
+    per_step = []
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with counted_steps(per_step):
+        out = sceneseg.train_loop(args)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    h = out["history"][0]
+    cm = np.load(args.cm_out, allow_pickle=True)["matrix"]
+    ckpt = Path(args.output_dir) / args.exp_name
+    rate = out["scene_points"] / out["scene_eval_seconds"]
+    fps_steps = [s.get("fps_batched", 0) for s in per_step]
+    print(f"[scenes] driver {name} bf16: {len(per_step)} steps of {SCENE_B} crops x {SCENE_N}, "
+          f"loss {h['loss']:.4f}, the epoch's training in {h['train_seconds']:.2f} s (its "
+          f"first step's setup included; crops/s: the step profile); crop mIoU {h['miou']:.2f}; whole-scene eval over {out['scene_points']} "
+          f"raw points in {out['scene_eval_seconds']:.1f} s ({rate:.0f} raw points/s), mIoU "
+          f"{out['scene_miou']:.2f}, OA {out['scene_oa']:.2f}, matrix count {int(cm.sum())} of "
+          f"{val_points} labelled val points; fps_batched a step {fps_steps}; peak "
+          f"{peak:.2f} GiB; {wall:.1f} s in all; {smi}")
+    check(math.isfinite(h["loss"]) and per_step, f"{name}: loss {h['loss']} over {per_step}")
+    check(0.0 <= out["scene_miou"] <= 100.0, f"{name}: scene mIoU {out['scene_miou']}")
+    check(int(cm.sum()) == val_points, f"{name}: the scene matrix counts {int(cm.sum())} of "
+          f"{val_points} labelled raw val points")
+    check((ckpt / "checkpoint_best.pt").exists(), f"{name}: no checkpoint_best.pt")
+    check(all(n == SCENE_FPS_PER_FORWARD[name] for n in fps_steps),
+          f"{name}: fps_batched {fps_steps} a step, not {SCENE_FPS_PER_FORWARD[name]}")
+    resumed = sceneseg.train_loop(scene_args(root, name, resume=str(ckpt), epochs=2,
+                                             eval_scene=False, cm_out="",
+                                             exp_name=name + "_resume"))
+    check(resumed["history"][0]["epoch"] == 1, f"{name}: --resume began at "
+          f"{resumed['history'][0]['epoch']}")
+    return {"steps": len(per_step), "loss": h["loss"],
+            "epoch_train_s": h["train_seconds"], "crop_miou": h["miou"],
+            "scene_points": out["scene_points"], "scene_eval_s": out["scene_eval_seconds"],
+            "scene_points_per_s": rate, "scene_miou": out["scene_miou"],
+            "scene_oa": out["scene_oa"], "matrix_count": int(cm.sum()), "val_points": val_points,
+            "fps_batched_per_step": fps_steps, "peak_gib": peak, "wall_s": wall,
+            "resumed_at_epoch": resumed["history"][0]["epoch"]}
+
+
+def scene_eval_profile(root):
+    """The whole-scene eval's idle share: one val room, two voxel passes, the
+    RandLA-Net eval step, under the profiler (the host's voxelize, tiles and
+    ``np.add.at`` between the forwards show as the card's idle time)."""
+    from ppt_torch.data.scenes import SceneDataset, load_s3dis
+
+    scenes = load_s3dis(str(root), "val", test_area=5, voxel_size=0.0)
+    one = SceneDataset(scenes.scenes[:1], scenes.classnames, scenes.name)
+    model = scene_module("randlanet", torch.bfloat16).to(DEV)
+    eval_fn = sceneseg.make_seg_eval_step("randlanet", model, DEV)
+    out = kernel_split_ms(lambda: sceneseg.whole_scene_eval(
+        eval_fn, one, npoints=SCENE_N, num_classes=SCENE_CLASSES, batch_size=SCENE_B,
+        max_passes=2), calls=1)
+    print(f"[scenes] whole-scene eval of one room, two passes, randlanet bf16, profiled: "
+          f"{json.dumps(out)}")
+    return out
+
+
+def run_scenes_slice(smi):
+    try:
+        return _run_scenes_slice(smi)
+    finally:
+        shutil.rmtree(SCENE_DIR, ignore_errors=True)
+
+
+def _run_scenes_slice(smi):
+    from ppt_torch.tools import s3dis_6fold
+
+    t0 = time.perf_counter()
+    out = {"card_vs_cpu": {}, "bf16_vs_f32": {}, "driver": {}, "step_profile": {},
+           "seconds_by_part": {}}
+    t_part = [t0]
+
+    def part(name):
+        now = time.perf_counter()
+        out["seconds_by_part"][name] = now - t_part[0]
+        t_part[0] = now
+
+    for name, far in (("ptseg", False), ("randlanet", False), ("baafnet", False),
+                      ("baafnet", True)):
+        out["card_vs_cpu"][name + ("_farthest" if far else "")] = scene_card_vs_cpu(name, far)
+    part("card_vs_cpu")
+    for name in SCENE_MODELS:
+        out["bf16_vs_f32"][name] = scene_bf16_vs_f32(name)
+    out["fps_shapes"] = fps_shape_rows(SCENE_B, SCENE_FPS_SHAPES, "scenes", 3)
+    part("bf16_vs_f32, fps_shapes")
+    SCENE_DIR.mkdir(parents=True, exist_ok=True)
+    root = SCENE_DIR / "s3dis"
+    labelled = write_s3dis(root)
+    part("fixture")
+    for name in SCENE_MODELS:
+        out["driver"][name] = scene_driver(root, name, labelled[5], smi)
+        part(f"driver {name}")
+        out["step_profile"][name] = scene_step_profile(name)
+        part(f"profile {name}")
+    out["scene_eval_profile"] = scene_eval_profile(root)
+    # the second fold: Area 6 held out, then the two areas' matrices summed
+    sceneseg.train_loop(scene_args(root, "randlanet", test_area=6, exp_name="randlanet_a6",
+                                   cm_out=str(SCENE_DIR / "randlanet_a6.npz")))
+    folds = [str(SCENE_DIR / "randlanet_a5.npz"), str(SCENE_DIR / "randlanet_a6.npz")]
+    six = s3dis_6fold.aggregate(folds)
+    total = sum(int(np.load(p, allow_pickle=True)["matrix"].sum()) for p in folds)
+    print(f"[scenes] s3dis_6fold over Areas 5 and 6 (randlanet): {json.dumps(six)}; "
+          f"{total} points, {labelled[5] + labelled[6]} labelled")
+    check(six["folds"] == 2 and total == labelled[5] + labelled[6], "s3dis_6fold's union")
+    out["six_fold"] = six
+    part("scene eval profile, Area 6, 6-fold")
+    out["card"] = smi
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[scenes] phase 19 took {out['seconds']:.1f} s: "
+          f"{json.dumps({k: round(v, 1) for k, v in out['seconds_by_part'].items()})}")
     return out
 
 
@@ -5590,7 +5983,8 @@ def build(names=_build.SOURCES):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=("ballquery", "towers", "losses3d", "cloud", "recipes",
-                                       "pretrained", "partseg", "probe", "tools", "zoo"),
+                                       "pretrained", "partseg", "probe", "tools", "zoo",
+                                       "scenes"),
                     help="build group.cu and run phase 3's ball-query checks and times alone "
                          "(ballquery) or phase 7's ball-query towers alone (towers); build "
                          "losses3d.cu and run phase 3's loss checks and times, nn_dists at "
@@ -5603,7 +5997,8 @@ def main(argv=None):
                          "build the kernels part segmentation runs and run phase 15 (partseg); "
                          "build the kernels feature extraction runs and run phase 16 (probe); "
                          "build the kernels the tools time and run phase 17 (tools); "
-                         "build group.cu and run phase 18, the zoo (zoo)")
+                         "build group.cu and run phase 18, the zoo (zoo); "
+                         "build group.cu and run phase 19, scene segmentation (scenes)")
     args = ap.parse_args(argv)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5671,6 +6066,11 @@ def main(argv=None):
     if args.only == "zoo":
         build(["group"])
         print(json.dumps({"zoo": run_zoo_slice(smi)}))
+        print(smi)
+        return
+    if args.only == "scenes":
+        build(["group"])
+        print(json.dumps({"sceneseg": run_scenes_slice(smi)}))
         print(smi)
         return
     if args.only == "towers":
@@ -5760,6 +6160,11 @@ def main(argv=None):
         name: e["launches_per_batch"].get("fps_batched", 0)
         for name, e in zoo_stats["entries"].items()}
     lap("18 zoo")
+    scene_stats = run_scenes_slice(smi)  # its own counts, read per step and per forward
+    results["fps_batched"]["scene_shapes"] = scene_stats["fps_shapes"]
+    results["fps_batched"]["scene_launches_per_step"] = {
+        name: d["fps_batched_per_step"] for name, d in scene_stats["driver"].items()}
+    lap("19 scenes")
     att, vit = sass["attention"], sass["vitblock"]
     results["mini_forward"]["sass"] = sass["mini"]["mini_forward_wgmma_kernel"]
     results["mini_stats"]["sass"] = sass["mini"]["mini_stats_wgmma_kernel"]
@@ -5796,6 +6201,7 @@ def main(argv=None):
     print(json.dumps({"probe": probe_stats}))
     print(json.dumps({"tools17": tools17_stats}))
     print(json.dumps({"zoo": zoo_stats}))
+    print(json.dumps({"sceneseg": scene_stats}))
     print(json.dumps({"phase_seconds": laps}))
     print(json.dumps({"kernels": kernels, **slice_stats}))
     print(smi)

@@ -1,5 +1,6 @@
-"""Datasets for the recognition, part-segmentation and pretraining paths:
-ModelNet10/40, ScanObjectNN, ShapeNetPart and ShapeNet-55 loaders,
+"""Datasets for the recognition, part-segmentation, scene-segmentation and
+pretraining paths: ModelNet10/40, ScanObjectNN, ShapeNetPart and
+ShapeNet-55 loaders, the scene datasets' crops (``data/scenes.py``),
 synthetic fallback.
 
 Counterpart of ``ppt_tpu/data/datasets.py``, cut to what the recognition,
@@ -359,6 +360,39 @@ def _scanobjectnn(args, split: str) -> ArrayDataset:
     return load_scanobjectnn(args.data_path, split, args.npoints, args.sonn_type)
 
 
+def _s3dis(args, split: str) -> ArrayDataset:
+    from ppt_torch.data.scenes import load_s3dis, materialize_crops
+
+    scenes = load_s3dis(args.data_path, split, test_area=getattr(args, "test_area", 5),
+                        voxel_size=getattr(args, "voxel_size", 0.04))
+    return materialize_crops(scenes, voxel_max=getattr(args, "voxel_max", args.npoints),
+                             split=split, seed=getattr(args, "seed", 0))
+
+
+def _scannetv2(args, split: str) -> ArrayDataset:
+    from ppt_torch.data.scenes import load_scannetv2, materialize_crops
+
+    return materialize_crops(load_scannetv2(args.data_path, split),
+                             voxel_max=getattr(args, "voxel_max", args.npoints), split=split,
+                             voxel_size=getattr(args, "voxel_size", 0.04),
+                             seed=getattr(args, "seed", 0))
+
+
+def _semantic_kitti(args, split: str) -> ArrayDataset:
+    from ppt_torch.data.scenes import load_semantic_kitti, materialize_crops
+
+    return materialize_crops(load_semantic_kitti(args.data_path, split),
+                             voxel_max=getattr(args, "voxel_max", args.npoints), split=split,
+                             voxel_size=getattr(args, "voxel_size", 0.06),
+                             seed=getattr(args, "seed", 0))
+
+
+def _mp40(args, split: str) -> ArrayDataset:
+    from ppt_torch.data.scenes import load_mp40
+
+    return load_mp40(args.data_path, split, args.npoints, seed=getattr(args, "seed", 0))
+
+
 DATASETS: Dict[str, Callable[..., ArrayDataset]] = {
     "modelnet40": _modelnet(40),
     "modelnet10": _modelnet(10),
@@ -368,6 +402,10 @@ DATASETS: Dict[str, Callable[..., ArrayDataset]] = {
     "scanobjectnn_fs": _few_shot(_scanobjectnn),
     "shapenetpart": lambda args, split: load_shapenetpart(args.data_path, split, args.npoints),
     "shapenet": lambda args, split: load_shapenet55(args.data_path, split, args.npoints),
+    "s3dis": _s3dis,
+    "scannetv2": _scannetv2,
+    "semantic_kitti": _semantic_kitti,
+    "matterport3d": _mp40,  # the MP40 objects, under the reference's key
     "synthetic": _synthetic,
 }
 

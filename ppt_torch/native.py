@@ -1,10 +1,11 @@
-"""ctypes binding of the native host library's renderer (``native/libppt_host.so``).
+"""ctypes binding of the native host library (``native/libppt_host.so``).
 
-The port's own copy of the part of ``ppt_tpu/native.py`` that
-``tools/visualize.py`` needs (the port imports nothing of the JAX package):
-the z-buffer ball renderer, which replaces the reference's prebuilt
-``notebook/render_balls.so``, and the on-demand build of the library with
-the in-tree Makefile. numpy in, numpy out, as there.
+The port's own copy of the parts of ``ppt_tpu/native.py`` that it needs
+(the port imports nothing of the JAX package): the z-buffer ball renderer
+that ``tools/visualize.py`` draws with, which replaces the reference's
+prebuilt ``notebook/render_balls.so``; the batched host FPS that
+``data/scenes.py:load_mp40`` samples objects with; and the on-demand build
+of the library with the in-tree Makefile. numpy in, numpy out, as there.
 """
 
 from __future__ import annotations
@@ -38,12 +39,33 @@ def _lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(build_native())
     c_float_p = ctypes.POINTER(ctypes.c_float)
     c_u8_p = ctypes.POINTER(ctypes.c_uint8)
+    lib.ppt_fps_batch.restype = None
+    lib.ppt_fps_batch.argtypes = [
+        c_float_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int),
+    ]
     lib.ppt_render_balls.restype = None
     lib.ppt_render_balls.argtypes = [
         c_float_p, c_u8_p, ctypes.c_int, c_u8_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_uint8, ctypes.c_uint8, ctypes.c_uint8,
     ]
     return lib
+
+
+def fps_batch(points: np.ndarray, npoint: int, start: int = 0) -> np.ndarray:
+    """Batched farthest point sampling on the host: [B, N, 3] -> [B, npoint]
+    int32 indices (npoint capped at N), every cloud starting at ``start``
+    and taking the first argmax of the running min distance
+    (``ppt_tpu/native.py:130-148``)."""
+    pts = np.ascontiguousarray(points, dtype=np.float32)
+    B, n, _ = pts.shape
+    npoint = min(npoint, n)
+    idx = np.empty((B, npoint), dtype=np.int32)
+    _lib().ppt_fps_batch(
+        pts.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), B, n, npoint, start,
+        idx.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
+    )
+    return idx
 
 
 def render_balls(

@@ -1,5 +1,5 @@
-"""Network modules: shared layers, the point towers, the pretraining models
-and the CLIP text tower.
+"""Network modules: shared layers, the point towers, the scene-segmentation
+backbones, the pretraining models and the CLIP text tower.
 
 The towers' names are exported here, as ``ppt_tpu/nn/__init__.py`` exports
 the reference's, and imported on first use (``from ppt_torch.nn import
@@ -24,6 +24,9 @@ _EXPORTS = {
     "BasicBlock": "resnet", "Bottleneck": "resnet", "ResNetStages": "resnet",
     "SimpleView": "simpleview", "SimpleViewConfig": "simpleview",
     "points_to_depth_views": "simpleview",
+    "PointTransformerSeg": "pointtransformer", "PointTransformerConfig": "pointtransformer",
+    "RandLANet": "randlanet", "RandLANetConfig": "randlanet",
+    "BaafNet": "baafnet", "BaafNetConfig": "baafnet",
 }
 
 __all__ = sorted(_EXPORTS)

@@ -44,11 +44,13 @@ class BatchNormStats(nn.Module):
     and ``batch_stats`` ``mean``/``var``), for a caller that folds them
     into adjacent Dense weights: with the running statistics in eval, with
     the batch's in training, which also moves the running statistics as
-    flax does, with ``momentum`` (flax's 0.99 unless a module sets another)."""
+    flax does, with ``momentum`` and ``eps`` (flax's 0.99 and 1e-5 unless a
+    module sets others: RandLA-Net's are 0.01 and 1e-6)."""
 
-    def __init__(self, width: int, momentum: float = BN_MOMENTUM):
+    def __init__(self, width: int, momentum: float = BN_MOMENTUM, eps: float = BN_EPS):
         super().__init__()
         self.momentum = momentum
+        self.eps = eps
         self.weight = nn.Parameter(torch.ones(width))
         self.bias = nn.Parameter(torch.zeros(width))
         self.register_buffer("running_mean", torch.zeros(width))
@@ -60,7 +62,7 @@ class BatchNormStats(nn.Module):
         batch statistics or else the running ones."""
         if mean is None:
             mean, var = self.running_mean, self.running_var
-        scale = self.weight / torch.sqrt(var + BN_EPS)
+        scale = self.weight / torch.sqrt(var + self.eps)
         return scale, self.bias - mean * scale
 
     @torch.no_grad()
@@ -89,7 +91,7 @@ class BatchNorm(BatchNormStats):
             self.update_running(mean.detach(), var.detach())
         else:
             mean, var = self.running_mean, self.running_var
-        return (x - mean) * (torch.rsqrt(var + BN_EPS) * self.weight) + self.bias
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool,

@@ -1,7 +1,7 @@
 """Task CLI: the flag surface of ``ppt_tpu/tasks/args.py`` for the port.
 
-The flags the recognition, few-shot, pretraining and linear-probe tasks
-read, with the reference package's names and defaults, plus ``--device``
+The flags the recognition, few-shot, pretraining, linear-probe and
+scene-segmentation tasks read, with the reference package's names and defaults, plus ``--device``
 (empty: the card).
 ``--config`` reads an experiment YAML (``configs/experiments/*``) and
 ``--set KEY=VALUE ...`` overrides its keys; the order of precedence is the
@@ -78,6 +78,14 @@ class TaskArgs:
     compute_dtype: str = "float32"  # 'float32' | 'bfloat16'
     steps_per_dispatch: int = 1  # >1: that many steps launched before the host reads a metric
     votes: int = 1  # evaluation votes in the train loop (vote 0 the untouched batch)
+    # scene segmentation (tasks/sceneseg.py)
+    voxel_size: float = 0.04
+    voxel_max: int = 4096
+    test_area: int = 5  # the S3DIS area held out
+    eval_scene: bool = False  # the whole-scene (multi-voxel-pass) eval of the best checkpoint
+    allow_train_eval: bool = False  # evaluate on the train split when val is missing
+    max_eval_passes: int = 0  # 0: every voxel pass (the reference's full coverage)
+    cm_out: str = ""  # where the eval confusion matrix goes (.npz, tools/s3dis_6fold.py)
     proj_name: str = "PPT_TPU"  # the wandb project (utils/logging_utils.py)
     exp_name: str = ""
     wandb: bool = False  # fan the logged metrics out to wandb too

@@ -8,7 +8,8 @@ ULIP-pretrained PointBERT, with ``pc_projection`` and ``logit_scale``; kind
 ``pointbert_partseg`` for a part-segmentation checkpoint), ``pointnet2_ssg.pt``,
 ``pointnet2_msg_1kpts.pt``, ``pointmlp.pt`` and PointNeXt-S's; and
 openpoints' PointNet with T-Nets (``pointnet``), DGCNN (``dgcnn``),
-BallDGCNN, DeepGCN, GroupPointNet and SimpleView checkpoints. Each becomes
+BallDGCNN, DeepGCN, GroupPointNet and SimpleView checkpoints, and the
+scene backbones' (``pointtransformer``, ``randlanet``, ``baafnet``). Each becomes
 a ``<name>.msgpack`` file holding a flax-layout ``{"params": ...,
 "batch_stats": ...}`` tree, byte for byte the file the reference's
 converter writes. ``ppt_torch.train.checkpoint.load_pretrained_backbones``
@@ -483,8 +484,76 @@ def convert_simpleview(sd: Dict[str, Any]) -> Dict[str, Any]:
     return _tree(p, s)
 
 
-# the reference's kinds whose modules the port has; the others (pointtransformer,
-# randlanet, baafnet) come with the slices that port their modules (ROADMAP.md)
+def _fold(parts, rename=None):
+    """A torch module path as the flax tree names it: an integer segment
+    folds into its parent (``enc1.1.transformer2.linear_p.1`` ->
+    ``enc1_1/transformer2/linear_p_1``), after ``rename``'s renames."""
+    out = []
+    for part in parts:
+        part = (rename or {}).get(part, part)
+        if part.isdigit() and out:
+            out[-1] = f"{out[-1]}_{part}"
+        else:
+            out.append(part)
+    return tuple(out)
+
+
+def _folded(sd: Dict[str, Any], flax_path, raw) -> Dict[str, Any]:
+    """Every module of ``sd`` by its folded path: BatchNorms (found by their
+    ``running_mean``), then weights; ``raw(src)`` tells a transposed 1x1
+    convolution, whose ``[in, out, 1...]`` kernel is already flax's
+    ``[in, out]``."""
+    p: Flat = {}
+    s: Flat = {}
+    for src in sorted({k.rsplit(".", 1)[0] for k in sd}):
+        dst = flax_path(src.split("."))
+        if src + ".running_mean" in sd:
+            _bn(p, s, dst, sd, src)
+        elif src + ".weight" in sd:
+            w = _t(sd[src + ".weight"])
+            b = sd.get(src + ".bias")
+            if w.ndim > 2 and raw(src):
+                p[dst + ("kernel",)] = w.reshape(w.shape[0], w.shape[1])
+                if b is not None:
+                    p[dst + ("bias",)] = _t(b)
+            elif w.ndim > 2:
+                _conv1x1(p, dst, w, b)
+            else:
+                _linear(p, dst, w, b)
+    return _tree(p, s)
+
+
+def convert_pointtransformer(sd: Dict[str, Any]) -> Dict[str, Any]:
+    """openpoints PTSeg (``backbone/pointtransformer.py:218-293``) -> the
+    ``PointTransformerSeg`` tree: every integer segment folded into its
+    parent, BatchNorms found by their running statistics."""
+    return _folded(_strip_module(sd), _fold, lambda src: False)
+
+
+def convert_randlanet(sd: Dict[str, Any]) -> Dict[str, Any]:
+    """RandLA-Net (``backbone/randlenet.py:186-301``) -> the ``RandLANet``
+    tree: folded as PTSeg's, SharedMLP's ``batch_norm`` named ``bn``, the
+    Sequential singletons ``score_fn.0`` / ``bn_start.0`` without their
+    index, and the decoder's ConvTranspose2d kernels (k=1, s=1: a 1x1
+    convolution already in flax's ``[in, out]`` layout) not transposed."""
+
+    def flax_path(parts):
+        return tuple(seg[:-2] if seg in ("score_fn_0", "bn_start_0") else seg
+                     for seg in _fold(parts, {"batch_norm": "bn"}))
+
+    return _folded(_strip_module(sd), flax_path, lambda src: src.startswith("decoder."))
+
+
+def convert_baafnet(sd: Dict[str, Any]) -> Dict[str, Any]:
+    """openpoints BAAFNet (``backbone/baafnet.py:365-527``) -> the ``BaafNet``
+    tree: folded as PTSeg's (``EncoderBCBModules.0.BA.mlp1`` ->
+    ``EncoderBCBModules_0/BA/mlp1``); ``conv_trans`` (a ConvTranspose1d,
+    k=1) becomes the same ``linear`` Dense, not transposed."""
+    return _folded(_strip_module(sd), lambda parts: _fold(parts, {"conv_trans": "linear"}),
+                   lambda src: src.endswith("conv_trans"))
+
+
+# every kind of the reference's converter
 CONVERTERS = {
     "slip": convert_slip_text,
     "pointbert": convert_pointbert,
@@ -499,6 +568,9 @@ CONVERTERS = {
     "deepgcn": convert_deepgcn,
     "grouppointnet": convert_grouppointnet,
     "simpleview": convert_simpleview,
+    "pointtransformer": convert_pointtransformer,
+    "randlanet": convert_randlanet,
+    "baafnet": convert_baafnet,
 }
 
 

@@ -1,4 +1,4 @@
-"""Recognition and part-segmentation metrics (counterpart of
+"""Recognition, part- and scene-segmentation metrics (counterpart of
 ``ppt_tpu/utils/metrics.py``)."""
 
 from __future__ import annotations
@@ -72,6 +72,48 @@ def partseg_ious(preds: torch.Tensor, labels: torch.Tensor, category: torch.Tens
         "category_miou": 100.0 * torch.nanmean(cat_means),
         "category_ious": 100.0 * cat_means,
     }
+
+
+class ConfusionMatrix:
+    """Accumulating confusion matrix, numpy on the host
+    (``ppt_tpu/utils/metrics.py:118-165``): rows are labels, columns
+    predictions, int64 counts; overall accuracy, per-class and mean
+    accuracy, per-class IoU and mIoU, in percent."""
+
+    def __init__(self, num_classes: int):
+        self.num_classes = num_classes
+        self.matrix = np.zeros((num_classes, num_classes), dtype=np.int64)
+
+    def update(self, preds: np.ndarray, labels: np.ndarray) -> None:
+        preds = np.asarray(preds).reshape(-1)
+        labels = np.asarray(labels).reshape(-1)
+        idx = labels * self.num_classes + preds
+        self.matrix += np.bincount(idx, minlength=self.num_classes ** 2).reshape(
+            self.num_classes, self.num_classes)
+
+    @property
+    def overall_accuracy(self) -> float:
+        return 100.0 * np.trace(self.matrix) / max(self.matrix.sum(), 1)
+
+    @property
+    def class_accuracy(self) -> np.ndarray:
+        with np.errstate(invalid="ignore", divide="ignore"):
+            return 100.0 * (np.diag(self.matrix) / self.matrix.sum(axis=1))
+
+    @property
+    def mean_accuracy(self) -> float:
+        return float(np.nanmean(self.class_accuracy))
+
+    @property
+    def ious(self) -> np.ndarray:
+        inter = np.diag(self.matrix).astype(np.float64)
+        union = self.matrix.sum(axis=0) + self.matrix.sum(axis=1) - np.diag(self.matrix)
+        with np.errstate(invalid="ignore", divide="ignore"):
+            return 100.0 * (inter / union)
+
+    @property
+    def miou(self) -> float:
+        return float(np.nanmean(self.ious))
 
 
 class Meter:

@@ -2,7 +2,8 @@
 
 For each kind the port converts (slip, pointbert, pointbert_partseg,
 pointnet2_ssg, pointnet2_msg, pointmlp, pointnext; pointnet, dgcnn,
-balldgcnn, deepgcn, grouppointnet, simpleview), one seeded state dict
+balldgcnn, deepgcn, grouppointnet, simpleview; the scene backbones
+pointtransformer, randlanet, baafnet), one seeded state dict
 with the reference's parameter names goes through
 ``ppt_tpu.tools.ckpt_convert`` and ``ppt_torch.tools.ckpt_convert``: the
 two ``.msgpack`` files must be equal byte for byte, and the port's msgpack
@@ -16,6 +17,10 @@ converted tree must also come back to that tree exactly (DGCNN's edge
 kernels with their input halves swapped back, SimpleView's 3x3 kernels
 from HWIO back to OIHW; the openpoints graph towers and SimpleView convert
 at the tree's top level, without ``point_encoder`` or ``pc_projection``).
+The scene backbones' state dicts come from their small JAX modules' trees
+by the inverse of the integer folding (``enc1_1`` <- ``enc1.1``), and
+their converted trees load into the port's modules through
+``convert.from_jax``.
 """
 
 import argparse
@@ -40,10 +45,12 @@ TINY_BERT = dict(trans_dim=64, depth=2, drop_path_rate=0.0, num_heads=2, group_s
 TEXT = dict(width=64, layers=2, heads=4, embed_dim=64)
 MLP_SMALL = dict(points=64, embed_dim=16, k_neighbors=(8, 8, 8, 8))
 EMBED = 64  # the joint space of the tiny models: pc_projection's width
+# the scene backbones: their trees sit at the top level, built from the
+# reference's test configs
+SCENE = ("pointtransformer", "randlanet", "baafnet")
 KINDS = ("slip", "pointbert", "pointbert_partseg", "pointnet2_ssg", "pointnet2_msg", "pointmlp",
-         "pointnext", "pointnet", "dgcnn", "balldgcnn", "deepgcn", "grouppointnet", "simpleview")
-# the reference's kinds whose modules the port lacks (ROADMAP.md, Queue 1 item 8)
-NOT_PORTED = ("pointtransformer", "randlanet", "baafnet")
+         "pointnext", "pointnet", "dgcnn", "balldgcnn", "deepgcn", "grouppointnet",
+         "simpleview") + SCENE
 # the kinds whose tree sits at the top level (no point_encoder, no pc_projection)
 BARE = ("balldgcnn", "deepgcn", "grouppointnet", "simpleview")
 
@@ -173,14 +180,44 @@ _INVERSE = {
 }
 
 
+def _scene(kind):
+    """(flax module, port module, sample input shapes) of a scene backbone
+    at the reference tests' small configs."""
+    from ppt_tpu.nn import (BaafNet, BaafNetConfig, PointTransformerConfig,
+                            PointTransformerSeg, RandLANet, RandLANetConfig)
+
+    from ppt_torch.nn import baafnet as tbf
+    from ppt_torch.nn import pointtransformer as tpt
+    from ppt_torch.nn import randlanet as trl
+
+    pt = dict(blocks=(2, 2, 2, 2, 2), width=8, nsample=(4, 4, 4, 4, 2), in_channels=3,
+              num_classes=13)
+    baaf = dict(n_points=256, ds_ratio=4, k=4, num_classes=5, dims=(3, 4, 8, 16, 32))
+    return {"pointtransformer": (PointTransformerSeg(PointTransformerConfig(**pt)),
+                                 tpt.PointTransformerSeg(tpt.PointTransformerConfig(**pt)),
+                                 [(2, 512, 3)]),
+            "randlanet": (RandLANet(RandLANetConfig(d_in=6, num_classes=6, num_neighbors=4)),
+                          trl.RandLANet(trl.RandLANetConfig(d_in=6, num_classes=6,
+                                                            num_neighbors=4)),
+                          [(1, 256, 6)]),
+            "baafnet": (BaafNet(BaafNetConfig(**baaf)), tbf.BaafNet(tbf.BaafNetConfig(**baaf)),
+                        [(1, 256, 3), (1, 256, 3)])}[kind]
+
+
 def tower_variables(kind, seed=0):
     """The flax tree (``params``, ``batch_stats``) of the kind's small
-    tower under ``point_encoder``, with ``pc_projection``, drawn from
-    ``seed``; shapes from ``jax.eval_shape``, nothing compiled."""
-    module, shape = _tower(kind)
-    shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0), jnp.zeros(shape))
+    tower under ``point_encoder``, with ``pc_projection`` (a scene backbone's
+    and a bare kind's at the top level), drawn from ``seed``; shapes from
+    ``jax.eval_shape``, nothing compiled."""
+    if kind in SCENE:
+        module, _, shapes_in = _scene(kind)
+    else:
+        module, shape = _tower(kind)
+        shapes_in = [shape]
+    shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0),
+                            *[jnp.zeros(sh) for sh in shapes_in])
     rng = np.random.RandomState(seed)
-    prefix = () if kind in BARE else ("point_encoder",)
+    prefix = () if kind in BARE + SCENE else ("point_encoder",)
     out = {}
     for coll in ("params", "batch_stats"):
         flat = {}
@@ -193,9 +230,52 @@ def tower_variables(kind, seed=0):
     return {k: traverse_util.unflatten_dict(v) for k, v in out.items()}
 
 
+def scene_state_dict(kind, variables):
+    """The reference-named torch state dict of a scene backbone whose
+    conversion is ``variables``: each ``name_<k>`` segment unfolded to
+    ``name.<k>``, BatchNorms with ``num_batches_tracked``; PTSeg's layers
+    are Linears; RandLA-Net's SharedMLPs are 1x1 Conv2d (``batch_norm``,
+    ``score_fn.0`` and ``fc_start`` Linears, ``bn_start.0``), its decoder's
+    ConvTranspose2d ``[in, out, 1, 1]``; BAAF-Net's are 1x1 Conv2d, its
+    decoders' ``conv_trans`` ConvTranspose1d ``[in, out, 1]``."""
+    flat = traverse_util.flatten_dict(variables["params"])
+    stats = traverse_util.flatten_dict(variables["batch_stats"])
+    bns = {p[:-1] for p in stats}
+    sd = {}
+    for path, v in list(flat.items()) + [(p + ("@stat",), v) for p, v in stats.items()]:
+        stat = path[-1] == "@stat"
+        mods, leaf = list(path[:-2 if stat else -1]), path[-2 if stat else -1]
+        trans = False
+        if kind == "randlanet":
+            trans = mods[0].startswith("decoder_")
+            mods = ["batch_norm" if m == "bn" else m + "_0" if m in ("score_fn", "bn_start")
+                    else m for m in mods]
+        if kind == "baafnet" and mods[0].startswith("Decoder") and mods[-1] == "linear":
+            trans, mods = True, mods[:-1] + ["conv_trans"]
+        name = ".".join(re.sub(r"_(\d+)", r".\1", m) for m in mods)
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        if tuple(path[:-2 if stat else -1]) in bns:
+            key = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+                   "var": "running_var"}[leaf]
+            sd[f"{name}.{key}"] = t
+            sd.setdefault(f"{name}.num_batches_tracked", torch.tensor(3))
+        elif leaf == "kernel":
+            if trans:  # a transposed 1x1 convolution keeps [in, out]
+                sd[f"{name}.weight"] = t[:, :, None, None] if kind == "randlanet" else t[:, :, None]
+            elif kind == "pointtransformer" or mods[-1] in ("fc_start", "score_fn_0"):
+                sd[f"{name}.weight"] = t.t().contiguous()
+            else:
+                sd[f"{name}.weight"] = t.t().contiguous()[:, :, None, None]
+        else:
+            sd[f"{name}.{leaf}"] = t
+    return sd
+
+
 def inverse_state_dict(kind, variables):
     """The reference-named torch state dict whose conversion is
     ``variables``."""
+    if kind in SCENE:
+        return scene_state_dict(kind, variables)
     rules = _INVERSE["pointnet2" if kind.startswith("pointnet2") else kind]
     if kind in BARE:
         sd, pe = {}, ""
@@ -332,9 +412,9 @@ def assert_same_tree(got, want, path=()):
     np.testing.assert_array_equal(got, want, err_msg=str(path))
 
 
-@pytest.mark.parametrize("kind", ["pointnet2_ssg", "pointnet2_msg", "pointmlp", "pointnext",
+@pytest.mark.parametrize("kind", ("pointnet2_ssg", "pointnet2_msg", "pointmlp", "pointnext",
                                   "pointnet", "dgcnn", "balldgcnn", "deepgcn", "grouppointnet",
-                                  "simpleview"])
+                                  "simpleview") + SCENE)
 def test_conversion_inverts_the_tower_tree(kind):
     """The converter maps the inverse-written state dict back onto the
     small JAX tower's own tree, leaf for leaf, batch statistics included."""
@@ -349,11 +429,30 @@ def test_conversion_inverts_the_tower_tree(kind):
 
 
 def test_kinds_the_port_lacks_are_not_choices(tmp_path, capsys):
+    """The port offers every kind of the reference's converter (the scene
+    backbones' since they were ported), and no other."""
     from ppt_tpu.tools.ckpt_convert import CONVERTERS as JAX_CONVERTERS
 
-    assert set(tconv.CONVERTERS) == set(KINDS)
-    assert set(JAX_CONVERTERS) == set(KINDS) | set(NOT_PORTED)
-    for kind in NOT_PORTED:
-        with pytest.raises(SystemExit):
-            tconv.main(["--src", "x.pt", "--kind", kind, "--out", str(tmp_path / "o")])
-        assert "invalid choice" in capsys.readouterr().err
+    assert set(tconv.CONVERTERS) == set(KINDS) == set(JAX_CONVERTERS)
+    with pytest.raises(SystemExit):
+        tconv.main(["--src", "x.pt", "--kind", "stratified", "--out", str(tmp_path / "o")])
+    assert "invalid choice" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("kind", SCENE)
+def test_scene_kinds_load_into_the_port_modules(kind):
+    """A scene backbone's converted tree loads into the port's module
+    through ``convert.from_jax``, every parameter and statistic set, each
+    equal to its leaf."""
+    from ppt_torch.convert import from_jax
+
+    tree = tconv.CONVERTERS[kind](scene_state_dict(kind, tower_variables(kind, seed=4)))
+    port = _scene(kind)[1]
+    port.load_state_dict(from_jax(tree["params"], tree["batch_stats"], port))
+    got = port.state_dict()
+    for coll in ("params", "batch_stats"):
+        for path, v in traverse_util.flatten_dict(tree[coll]).items():
+            leaf = {"scale": "weight", "mean": "running_mean", "var": "running_var"}.get(
+                path[-1], path[-1])
+            key = ".".join(path[:-1] + (leaf,))
+            np.testing.assert_array_equal(got[key].numpy(), v, err_msg=key)

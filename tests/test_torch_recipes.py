@@ -131,10 +131,13 @@ def test_a_reference_only_key_raises_by_name(tmp_path):
         targs.parse_args(["--config", str(path)])
     recipe = os.path.join(ROOT, "configs", "experiments", "ppt_base_mn40.yaml")
     # (fpath, topk, num_step and num_run load since the port has the linear
-    # probe: the scene keys take their places)
-    for key in ("test_area=5", "eval_scene=x", "cm_out=x", "voxel_size=0.1"):
-        with pytest.raises(NotImplementedError, match=key.split("=")[0]):
-            targs.parse_args(["--config", recipe, "--set", key])
+    # probe, the scene keys since it has scene segmentation: mesh_devices
+    # is the one reference key left)
+    with pytest.raises(NotImplementedError, match="mesh_devices"):
+        targs.parse_args(["--config", recipe, "--set", "mesh_devices=2"])
+    got = targs.parse_args(["--config", recipe, "--set", "test_area=3", "eval_scene=yes",
+                            "cm_out=x", "voxel_size=0.1"])
+    assert (got.test_area, got.eval_scene, got.cm_out, got.voxel_size) == (3, True, "x", 0.1)
     got = targs.parse_args(["--config", recipe, "--set", "fpath=x", "topk=3", "num_step=2",
                             "num_run=4"])
     assert (got.fpath, got.topk, got.num_step, got.num_run) == ("x", 3, 2, 4)

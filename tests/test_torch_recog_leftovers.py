@@ -161,11 +161,18 @@ def test_the_six_fields_load_from_a_config(tmp_path):
     for k in ("dataset_type", "dataset_prompt", "update_freq", "print_freq", "proj_name",
               "wandb", "fpath", "topk", "num_step", "num_run"):
         assert getattr(defaults, k) == getattr(ref, k), k
-    # the linear probe's four fields load too; the scene and mesh keys are still refused
+    # the linear probe's four fields and the seven scene keys load too, with
+    # the reference's defaults; the mesh key is still refused
     got = targs.parse_args(["--config", str(path), "--set", "topk=3", "fpath=x", "num_step=2",
                             "num_run=2"])
     assert (got.topk, got.fpath, got.num_step, got.num_run) == (3, "x", 2, 2)
-    for key in ("mesh_devices=2", "voxel_size=0.1", "voxel_max=8", "allow_train_eval=yes",
-                "max_eval_passes=2", "cm_out=x"):
-        with pytest.raises(NotImplementedError, match=key.split("=")[0]):
-            targs.parse_args(["--config", str(path), "--set", key])
+    scene = ("voxel_size", "voxel_max", "test_area", "eval_scene", "allow_train_eval",
+             "max_eval_passes", "cm_out")
+    for k in scene:
+        assert getattr(defaults, k) == getattr(ref, k), k
+    got = targs.parse_args(["--config", str(path), "--set", "voxel_size=0.1", "voxel_max=8",
+                            "allow_train_eval=yes", "max_eval_passes=2", "cm_out=x"])
+    assert (got.voxel_size, got.voxel_max, got.allow_train_eval, got.max_eval_passes,
+            got.cm_out) == (0.1, 8, True, 2, "x")
+    with pytest.raises(NotImplementedError, match="mesh_devices"):
+        targs.parse_args(["--config", str(path), "--set", "mesh_devices=2"])
