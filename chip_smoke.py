@@ -13,9 +13,11 @@ the linear probe (feature extraction, the few-shot probe, prompt
 interpretation), the tools (the serving export through the registered
 operators, the component probe, the FLOP table, the backbone bench), and
 the rest of the recognition zoo (PointNet with and without T-Nets, DGCNN,
-PCT, CurveNet) with the graph towers and SimpleView, and scene
-segmentation (PTSeg, RandLA-Net and BAAF-Net through the sceneseg driver
-with its whole-scene eval, the S3DIS 6-fold tool).
+PCT, CurveNet) with the graph towers and SimpleView, scene
+segmentation (PTSeg, the Stratified Transformer, RandLA-Net and BAAF-Net
+through the sceneseg driver with its whole-scene eval, the S3DIS 6-fold
+tool), and the scene tier's other modules (GraphViT-3D and PointViT-Seg on
+the ViT block kernel at 768 wide, ASSA, packed PointNeXt).
 
     python3 chip_smoke.py            # one CUDA card, no arguments
     python3 chip_smoke.py --only ballquery   # group.cu, phase 3's ball queries alone
@@ -35,8 +37,11 @@ with its whole-scene eval, the S3DIS 6-fold tool).
                                              # FLOP table, the operators' host cost
     python3 chip_smoke.py --only zoo         # phase 18: the rest of the recognition zoo, the
                                              # graph towers and SimpleView
-    python3 chip_smoke.py --only scenes      # phase 19: scene segmentation (PTSeg, RandLA-Net,
-                                             # BAAF-Net, the sceneseg driver, the 6-fold tool)
+    python3 chip_smoke.py --only scenes      # phase 19: scene segmentation (PTSeg, Stratified,
+                                             # RandLA-Net, BAAF-Net, the sceneseg driver, the
+                                             # 6-fold tool)
+    python3 chip_smoke.py --only scenetier   # phase 3's FPS rows of the ViT tier and phase 20:
+                                             # GraphViT-3D, PointViT-Seg, ASSA, packed PointNeXt
 
 Phases (any failed check raises, and the script exits non-zero):
   1. card name / power limit (nvidia-smi), torch and CUDA versions;
@@ -213,14 +218,14 @@ Phases (any failed check raises, and the script exits non-zero):
      a line of their own ({"ballquery": ...}).
   8. PointBERT's trunk routes through ``cls.setup`` with the reference's
      switches set as a user sets them: ``PPT_FUSED_VIT_TOWER=1`` (route
-     "tower") and ``PPT_FUSED_BLOCK=0`` ("unfused"): a warm-up, then 2
-     ``validate`` passes over 2468 clouds at B=32 (median/min/max
+     "tower") and ``PPT_FUSED_BLOCK=0`` ("unfused"): a warm-up, then 1
+     ``validate`` pass over 2468 clouds at B=32 (median/min/max
      clouds/sec, launches per pass: 78 fused_vit_tower, 936 fused_mha),
      logits against the plain path on the card (phase 4's limits), the
      tower's logits identical to the default route's; one pass with
      ``PPT_FORCE_XLA_ATTN=1`` ("plain", no trunk kernel launched); per
      route a head_type 0 bf16 step and head_type 3 steps in f32 and bf16
-     against the plain path (phase 5's limits) and a window of 20 steps.
+     against the plain path (phase 5's limits) and a window of 10 steps.
      Then the long-sequence trunk (PPT-Base's widths, 1024 groups: L=1025,
      N=8192, B=32, bf16) served through ``ulip_customized`` and
      ``validate``: clouds/sec, 12 flash_mha launches per batch, logits
@@ -308,8 +313,8 @@ Phases (any failed check raises, and the script exits non-zero):
      limits), the SSG, MSG and NeXt files loaded bit for bit, then
      ULIP_PN_MLP at full width, B=32 x 1024 (loaded bit for bit;
      fps_batched launched 4 times a batch in a bf16 ``validate`` pass, an
-     f32 pass too; logits against the plain path in bf16 and f32; 10
-     timed head-type-0 train steps, then 10 under the profiler: clouds/sec,
+     f32 pass too; logits against the plain path in bf16 and f32; 5
+     timed head-type-0 train steps, then 5 under the profiler: clouds/sec,
      wall, busy and idle a batch; fps_batched at PointMLP's four shapes
      with the launches queued, against fps_plain); an existing directory
      without converted files warns and keeps the seeded init. Its numbers
@@ -323,7 +328,7 @@ Phases (any failed check raises, and the script exits non-zero):
      mini_forward 1, fused_vit_block 12, fused_vit_block_readout 0), one
      batch's logits against the plain path in bf16 and f32 at phase 4's
      limits with the refined predictions and mIoU beside them; one train
-     step's launches (mini_stats 1), 10 timed head-type-0 steps and 10
+     step's launches (mini_stats 1), 5 timed head-type-0 steps and 5
      profiled (clouds/sec, wall, busy, idle; the frozen leaves
      bit-unchanged), a fixed batch whose loss falls; one step against the
      plain path at head types 0 and 3 in f32 (loss, BatchNorm buffers and
@@ -399,13 +404,16 @@ Phases (any failed check raises, and the script exits non-zero):
      ({"zoo": ...}); the kernels line's ``fps_batched`` entry gains
      ``zoo_shapes`` and ``zoo_launches_per_batch``; ``--only zoo`` builds
      ``group.cu`` and runs it alone.
- 19. scene segmentation: PTSeg, RandLA-Net and BAAF-Net (``farthest_knn``
-     off and on) at their default configs for S3DIS (xyz + rgb, 13
-     classes), f32, seeded weights and BatchNorm statistics, B=2 x 4096
-     points on a 1/64 lattice: the card's eval forward against the CPU's
-     and one training-mode forward's running statistics, each within 1e-4
-     of its max magnitude (head dropout the identity), ``fps_batched`` 4 /
-     0 / 5 a forward and no other kernel; bf16 against f32 on the card at
+ 19. scene segmentation: PTSeg, the Stratified Transformer, RandLA-Net
+     and BAAF-Net (``farthest_knn`` off and on) at their default configs
+     for S3DIS (xyz + rgb, 13 classes), f32, seeded weights and BatchNorm
+     statistics, B=2 x 4096 points on a 1/64 lattice (Stratified's scaled
+     to 4 m, and once more on the unit cube, where its windows overflow;
+     ``window_overflow`` equal on both devices): the card's eval forward
+     against the CPU's and one training-mode forward's running
+     statistics, each within 1e-4 of its max magnitude (head dropout and
+     DropPath the identity), ``fps_batched`` 4 / 4 / 0 / 5 a forward and
+     no other kernel; bf16 against f32 on the card at
      B=8 (max|diff| and argmax agreement, reported); ``fps_batched`` at the
      scene shapes (B=8: 4096 -> 1024 -> 256 -> 64 -> 16 -> 4) against
      ``fps_plain``, exact, timed with the launches queued beside each
@@ -417,17 +425,34 @@ Phases (any failed check raises, and the script exits non-zero):
      --batch_size 8 --epochs 1 --eval_scene --cm_out: the loss finite,
      the epoch's training seconds, the whole-scene eval's seconds and raw
      points/s, mIoU in [0, 100], the scene matrix counting every labelled
-     raw Area 5 point once, ``fps_batched`` 4 / 0 / 5 a step, peak memory,
+     raw Area 5 point once, ``fps_batched`` 4 / 4 / 0 / 5 a step, peak memory,
      checkpoint_best.pt written and --resume going on at epoch 1; bf16
      train steps of each at B=8 x 4096, one profiled after a warm-up step
      (device ms by kind: the kNN's sorts, fps_batched, GEMMs, other; the
-     idle share) and then crops/s over 5 steps; the whole-scene eval of one room under the
+     idle share; Stratified's ``window_overflow``) and then crops/s over 5
+     steps and the peak memory; the whole-scene eval of one room under the
      profiler (its idle share); RandLA-Net with Area 6 held out, and
      ``tools/s3dis_6fold.py`` over the two areas' matrices. Its numbers go
      on a line of their own ({"sceneseg": ...}); the kernels line's
      ``fps_batched`` entry gains ``scene_shapes`` and
      ``scene_launches_per_step``; ``--only scenes`` builds ``group.cu`` and
      runs it alone.
+ 20. the scene tier's other modules at their default configs (seeded
+     weights and BatchNorm statistics, lattice clouds): GraphViT-3D's
+     ``cls_feat`` at B=32 x 1024, PointViT-Seg at B=8 x 4096, ASSA at B=8
+     (4096 -> 1024 queries), packed PointNeXt-S at B=8 x 1024; each f32
+     forward on the card against the CPU's within 1e-4 of its max, with
+     exactly its kernels (``fused_vit_block`` 12 and ``fps_batched`` 1 /
+     3 / 0 / 4 a forward), bf16 against f32 (reported), ms a forward in
+     both, a bf16 forward under the profiler (the ViT blocks' device ms);
+     PointViT-Seg's training-mode forward and backward at B=2 card against
+     CPU (logits and statistics within 1e-4, gradients by their distance
+     within phase 15's 2e-2). Phase 3 adds row 5 at GraphViT's [32, 257,
+     768] x 12 heads and row 1 at the tier's shapes. A ``{"scenetier":
+     ...}`` line; the kernels line's ``fps_batched`` and
+     ``fused_vit_block`` entries gain ``scenetier_launches_per_forward``;
+     ``--only scenetier`` builds ``group.cu`` and ``vitblock.cu`` and runs
+     it alone.
 
 The build prints each CUDA kernel's registers and spills (ptxas -v).
 The line before the card's is a JSON object with the per-kernel numbers
@@ -522,7 +547,12 @@ MINI_SHAPES = ((1, 7, 20, "small"), (30, 512, 32, "train"), (32, 512, 32, "slice
 # and the long trunk's training shape (the pretraining drivers')
 STATS_SHAPES = ((1, 7, 20, "small"), (30, 512, 32, "slice"), (32, 1024, 32, "long"))
 BLOCK_SHAPES = ((2, 33, 64, 2, "small"), (30, 513, 384, 6, "train"),
-                (32, 513, 384, 6, "slice"))  # B, L, C, heads
+                (32, 513, 384, 6, "slice"),
+                (32, 257, 768, 12, "graphvit"))  # B, L, C, heads; GraphViT-3D's encoder last
+# fps_batched at the ViT segmentation tier's shapes, by batch: PointViT-Seg's
+# skip levels (its encoder's 256 groups are the second) and GraphViT-3D's groups
+VIT_FPS_SHAPES = {8: ((4096, 512, "PointViT-Seg"), (4096, 256, "PointViT-Seg")),
+                  32: ((1024, 256, "GraphViT-3D"),)}
 SOURCES = {
     "fps_batched": ("ppt_torch/csrc/group.cu", "ppt_tpu/kernels/group.py:132"),
     "knn_gather": ("ppt_torch/csrc/group.cu", "ppt_tpu/kernels/group.py:336"),
@@ -816,6 +846,13 @@ def check_grouping(results):
                           for _, _, npoint, tag in CLOUD_SHAPES if tag != "small"})
     print(f"[kernel] fps_batched step chain {chain:.4f} us; latency floor, ms: "
           f"{json.dumps(results['fps_batched']['latency_floor_ms'])}")
+    results["fps_batched"]["vit_tier_shapes"] = vit_fps_rows()
+
+
+def vit_fps_rows():
+    """fps_batched at VIT_FPS_SHAPES, exact and queued (``fps_shape_rows``)."""
+    return [row for B, shapes in VIT_FPS_SHAPES.items()
+            for row in fps_shape_rows(B, shapes, "kernel", 5)]
 
 
 def mini_weights(co, seed):
@@ -1032,22 +1069,29 @@ def check_block(results):
             check(err <= TOL[dname], f"fused_vit_block {tag} {dname} error {err}")
             check(ro_err <= TOL[dname], f"fused_vit_block_readout {tag} {dname} error {ro_err}")
             check(bool((ro[:, 2:] == 0).all()), "readout rows 2..7 not zero")
-            if tag != "slice" or dname != "bf16":
+            if tag not in ("slice", "graphvit") or dname != "bf16":
                 continue
             rows, hid = B * L, 4 * C
             ops = 2 * rows * (C * 3 * C + C * C + 2 * C * hid) + 4 * B * L * L * C
             wbytes = 2 * (C * 3 * C + C * C + 2 * C * hid) + 4 * (7 * C + hid)
             bms, by = bound_ms(3 * rows * C * 2 + B * 2 * 4 + wbytes, ops, PEAK["bf16"])
-            t = alternated_ms({
-                "block": lambda: kvit.fused_vit_block(x, pos, dp, *w, H),
-                "library": lambda: block_library(x, pos, dp, w, H),
-                "readout": lambda: kvit.fused_vit_block_readout(x, pos, dp, *w, *lnf, H),
-                "readout_library": lambda: block_library(x, pos, dp, w, H, lnf)})
-            results["fused_vit_block"] = dict(
+            fns = {"block": lambda: kvit.fused_vit_block(x, pos, dp, *w, H),
+                   "library": lambda: block_library(x, pos, dp, w, H)}
+            if tag == "slice":
+                fns.update(readout=lambda: kvit.fused_vit_block_readout(x, pos, dp, *w, *lnf, H),
+                           readout_library=lambda: block_library(x, pos, dp, w, H, lnf))
+            t = alternated_ms(fns)
+            entry = dict(
                 max_abs_err=float((got.float() - want.float()).abs().max()),
                 ms=t["block"],
                 plain_ms=gpu_time_ms(lambda: kvit.vit_block_plain(x, pos, dp, *w, H)),
                 bound_ms=bms, bound_by=by, library_ms=t["library"])
+            if tag == "graphvit":  # the entry's shape: GraphViT-3D / PointViT-Seg's encoder
+                results["fused_vit_block"]["graphvit"] = dict(B=B, L=L, C=C, heads=H, **entry)
+                print(f"[kernel] fused_vit_block graphvit bf16 {B} x {L} x {C}, {H} heads: "
+                      f"{json.dumps(entry)}")
+                continue
+            results["fused_vit_block"] = entry
             bms, by = bound_ms(2 * rows * C * 2 + B * 2 * 4 + wbytes + 4 * 2 * C
                                + B * 8 * C * 4, ops + 8 * rows * C, PEAK["bf16"])
             results["fused_vit_block_readout"] = dict(
@@ -2995,7 +3039,7 @@ def route_passes(ctx, args, passes):
             "launches_per_pass": launches, "acc1": val["acc1"]}
 
 
-def run_routes_slice(passes=2, steps=20):
+def run_routes_slice(passes=1, steps=10):
     saved_loader = pdata.DATASETS["modelnet40"]
     pdata.DATASETS["modelnet40"] = synthetic_modelnet40_eval
     try:
@@ -4042,7 +4086,7 @@ def run_recipes_slice(smi):
 
 PRETRAINED_DIR = _build.BUILD_DIR.parent / "chip_smoke_pretrained"
 MLP_BATCH = 32
-MLP_STEPS = 10  # the timed and the profiled window
+MLP_STEPS = 5  # the timed and the profiled window
 # PointMLP's four FPS launches a batch: 1024 -> 512 -> 256 -> 128 -> 64 points
 MLP_FPS_SHAPES = ((1024, 512), (512, 256), (256, 128), (128, 64))
 LOADED_MSG = "%s: loaded %d/%d leaves from pretrained"  # train/checkpoint.py's line
@@ -4456,7 +4500,7 @@ def _run_pretrained_slice(smi):
 
 PARTSEG_DIR = _build.BUILD_DIR.parent / "chip_smoke_partseg"
 PARTSEG_BATCH = 32
-PARTSEG_STEPS = 10  # the timed and the profiled window
+PARTSEG_STEPS = 5  # the timed and the profiled window
 PARTSEG_NPOINTS = 2048  # configs/datasets/shapenetpart.yaml
 PARTSEG_PER_CATEGORY = 20  # 16 categories x 20 = 320 synthetic part clouds a split
 # each kernel's launches a batch on the block route (validate); mini_stats a train step
@@ -5581,14 +5625,19 @@ def _run_zoo_slice(smi):
 # ---------------------------------------------------------------------------
 
 SCENE_DIR = _build.BUILD_DIR.parent / "chip_smoke_scenes"
-SCENE_MODELS = ("ptseg", "randlanet", "baafnet")
+SCENE_MODELS = ("ptseg", "stratified", "randlanet", "baafnet")
 SCENE_B, SCENE_N = 8, 4096  # the driver's batch, --npoints and --voxel_max
 SCENE_CHECK_B = 2  # the card-against-CPU forwards
 SCENE_CLASSES = 13  # S3DIS
-SCENE_FPS_SHAPES = ((4096, 1024, "BAAF-Net, PTSeg"), (1024, 256, "BAAF-Net, PTSeg"),
-                    (256, 64, "BAAF-Net, PTSeg"), (64, 16, "BAAF-Net, PTSeg"),
-                    (16, 4, "BAAF-Net"))
-SCENE_FPS_PER_FORWARD = {"ptseg": 4, "randlanet": 0, "baafnet": 5}
+SCENE_FPS_SHAPES = ((4096, 1024, "BAAF-Net, PTSeg, Stratified"),
+                    (1024, 256, "BAAF-Net, PTSeg, Stratified"),
+                    (256, 64, "BAAF-Net, PTSeg, Stratified"),
+                    (64, 16, "BAAF-Net, PTSeg, Stratified"), (16, 4, "BAAF-Net"))
+SCENE_FPS_PER_FORWARD = {"ptseg": 4, "stratified": 4, "randlanet": 0, "baafnet": 5}
+# the lattice's edge by model: the Stratified Transformer's first windows are
+# 1.28 m (fine) and 2.56 m (coarse), so its clouds span 4 m (spacing 1/16 m,
+# tens of points a fine window); on the unit cube every cloud is one window
+SCENE_SCALE = {"stratified": 4.0}
 ROOM_POINTS = 200_000
 # rooms a synthetic area holds: Area 1 trains (16 crops: two batches of 8),
 # Areas 5 and 6 are the two folds evaluated whole
@@ -5602,7 +5651,7 @@ def scene_module(name, dtype, farthest=False, seed=7):
     classes) with seeded Dense kernels (``sceneseg.build_model``) and seeded
     BatchNorm affine and running statistics, drawn on the CPU."""
     from ppt_torch.nn import baafnet as nbaaf
-    from ppt_torch.nn.layers import BatchNormStats, init_dense_
+    from ppt_torch.nn.layers import init_dense_
 
     if farthest:
         model = nbaaf.BaafNet(nbaaf.BaafNetConfig(num_classes=SCENE_CLASSES, farthest_knn=True,
@@ -5611,51 +5660,64 @@ def scene_module(name, dtype, farthest=False, seed=7):
         init_dense_(model, torch.Generator().manual_seed(seed))
     else:
         model = sceneseg.build_model(name, SCENE_CLASSES, 6, dtype, seed)
-    g = torch.Generator().manual_seed(seed + 1)
-    with torch.no_grad():
-        for mod in model.modules():
-            if isinstance(mod, BatchNormStats):
-                n = mod.weight.shape[0]
-                mod.weight.copy_(1 + 0.1 * torch.randn(n, generator=g))
-                mod.bias.copy_(0.1 * torch.randn(n, generator=g))
-                mod.running_mean.copy_(0.1 * torch.randn(n, generator=g))
-                mod.running_var.copy_(0.5 + torch.rand(n, generator=g))
+    return seed_batchnorm(model, seed + 1)
+
+
+@torch.no_grad()
+def seed_batchnorm(model, seed):
+    """Every BatchNorm's affine and running statistics drawn from ``seed`` on
+    the CPU (not the identity they start as)."""
+    from ppt_torch.nn.layers import BatchNormStats
+
+    g = torch.Generator().manual_seed(seed)
+    for mod in model.modules():
+        if isinstance(mod, BatchNormStats):
+            n = mod.weight.shape[0]
+            mod.weight.copy_(1 + 0.1 * torch.randn(n, generator=g))
+            mod.bias.copy_(0.1 * torch.randn(n, generator=g))
+            mod.running_mean.copy_(0.1 * torch.randn(n, generator=g))
+            mod.running_var.copy_(0.5 + torch.rand(n, generator=g))
     return model
 
 
-def scene_inputs(B, seed):
-    """(xyz on a 1/64 lattice of the unit cube, rgb 0-255), on the CPU: every
-    expanded-form distance is exact in f32, so kNN and FPS pick alike on
-    both devices."""
+def scene_inputs(B, seed, scale=1.0):
+    """(xyz on a 1/64 lattice of the unit cube, times ``scale`` (a power of
+    two), rgb 0-255), on the CPU: every expanded-form distance is exact in
+    f32, so kNN and FPS pick alike on both devices."""
     g = torch.Generator().manual_seed(seed)
-    pts = (torch.randint(0, 65, (B, SCENE_N, 3), generator=g) / 64.0).float()
+    pts = (torch.randint(0, 65, (B, SCENE_N, 3), generator=g) / 64.0 * scale).float()
     rgb = torch.randint(0, 256, (B, SCENE_N, 3), generator=g).float()
     return pts, rgb
 
 
 @contextlib.contextmanager
 def scene_dropout_off():
-    """RandLA-Net's and BAAF-Net's head dropout the identity (no two devices
-    draw alike), so a training-mode forward's statistics compare."""
+    """RandLA-Net's and BAAF-Net's head dropout and the Stratified
+    Transformer's DropPath the identity (no two devices draw alike), so a
+    training-mode forward's statistics compare."""
     from ppt_torch.nn import baafnet as nbaaf
     from ppt_torch.nn import randlanet as nrandla
+    from ppt_torch.nn import stratified as nstrat
 
-    saved = nbaaf.dropout, nrandla.dropout
-    nbaaf.dropout = nrandla.dropout = lambda x, rate, train, generator: x
+    saved = nbaaf.dropout, nrandla.dropout, nstrat._drop_path
+    nbaaf.dropout = nrandla.dropout = nstrat._drop_path = lambda x, rate, train, generator: x
     try:
         yield
     finally:
-        nbaaf.dropout, nrandla.dropout = saved
+        nbaaf.dropout, nrandla.dropout, nstrat._drop_path = saved
 
 
-def scene_card_vs_cpu(name, farthest=False):
+def scene_card_vs_cpu(name, farthest=False, scale=None):
     """The default config in f32 on the card against the CPU, same weights,
-    B=2 x 4096 lattice points: eval logits, then one training-mode forward's
-    running statistics, each within TOL_SCENE_CPU of its max magnitude."""
-    tag = name + (" farthest_knn" if farthest else "")
+    B=2 x 4096 lattice points (``scale``: the lattice's edge, SCENE_SCALE's
+    by default): eval logits, then one training-mode forward's running
+    statistics, each within TOL_SCENE_CPU of its max magnitude. A
+    Stratified Transformer's ``window_overflow`` is read on both."""
+    scale = SCENE_SCALE.get(name, 1.0) if scale is None else scale
+    tag = name + (" farthest_knn" if farthest else "") + (f" x{scale:g}" if scale != 1 else "")
     cpu = scene_module(name, torch.float32, farthest)
     card = scene_module(name, torch.float32, farthest).to(DEV)
-    pts, rgb = scene_inputs(SCENE_CHECK_B, 11)
+    pts, rgb = scene_inputs(SCENE_CHECK_B, 11, scale)
     with torch.no_grad():
         t0 = time.perf_counter()
         want = sceneseg._apply(name, cpu, pts, rgb, False)
@@ -5669,6 +5731,7 @@ def scene_card_vs_cpu(name, farthest=False):
         card_ms = (time.perf_counter() - t0) * 1e3
         launches = {k: v for k, v in _build.LAUNCHES.items() if v}
         diff = rel_err(got.cpu(), want)
+        overflow = window_overflow(cpu, card)
         with scene_dropout_off():
             sceneseg._apply(name, cpu, pts, rgb, True)
             sceneseg._apply(name, card, pts.to(DEV), rgb.to(DEV), True)
@@ -5677,14 +5740,29 @@ def scene_card_vs_cpu(name, farthest=False):
     print(f"[scenes] {tag} f32 B={SCENE_CHECK_B} x {SCENE_N}: card vs CPU logits max|diff|/max "
           f"{diff:.3e}, a training-mode forward's running statistics {stats:.3e} (limit "
           f"{TOL_SCENE_CPU:g}); {card_ms:.1f} ms a forward on the card, {cpu_s:.1f} s on the "
-          f"CPU; launches a forward {json.dumps(launches)}")
+          f"CPU; launches a forward {json.dumps(launches)}"
+          + ("" if overflow is None else f"; window_overflow {overflow}"))
     check(torch.isfinite(got).all() and diff <= TOL_SCENE_CPU, f"{tag}: card disagrees with CPU")
     check(stats <= TOL_SCENE_CPU, f"{tag}: training-mode statistics disagree with the CPU's")
     check(launches.get("fps_batched", 0) == SCENE_FPS_PER_FORWARD[name]
           and set(launches) <= {"fps_batched"}, f"{tag} launched {launches}")
-    return {"logits_diff_over_max": diff, "train_stats_diff_over_max": stats,
-            "card_ms": card_ms, "cpu_s": cpu_s, "launches": launches,
-            "params": sum(p.numel() for p in cpu.parameters())}
+    out = {"logits_diff_over_max": diff, "train_stats_diff_over_max": stats,
+           "card_ms": card_ms, "cpu_s": cpu_s, "launches": launches,
+           "params": sum(p.numel() for p in cpu.parameters())}
+    if overflow is not None:
+        out["window_overflow"] = overflow
+    return out
+
+
+def window_overflow(cpu, card):
+    """A Stratified Transformer's ``window_overflow`` after a forward, on the
+    CPU and on the card (which must agree: the key tables are exact), or
+    None for another backbone."""
+    if getattr(cpu, "window_overflow", None) is None:
+        return None
+    got, want = int(card.window_overflow), int(cpu.window_overflow)
+    check(got == want, f"window_overflow {got} on the card, {want} on the CPU")
+    return got
 
 
 def scene_bf16_vs_f32(name):
@@ -5693,7 +5771,7 @@ def scene_bf16_vs_f32(name):
     f32 = scene_module(name, torch.float32).to(DEV)
     bf16 = scene_module(name, torch.bfloat16).to(DEV)
     bf16.load_state_dict(f32.state_dict())
-    pts, rgb = (t.to(DEV) for t in scene_inputs(SCENE_B, 12))
+    pts, rgb = (t.to(DEV) for t in scene_inputs(SCENE_B, 12, SCENE_SCALE.get(name, 1.0)))
     with torch.no_grad():
         want = sceneseg._apply(name, f32, pts, rgb, False).float()
         got = sceneseg._apply(name, bf16, pts, rgb, False).float()
@@ -5756,9 +5834,10 @@ def scene_args(root, name, **kw):
 
 
 @contextlib.contextmanager
-def counted_steps(per_step):
+def counted_steps(per_step, overflows=None):
     """``sceneseg.make_seg_train_step``'s steps, each step's kernel launches
-    appended to ``per_step``."""
+    appended to ``per_step`` (and a Stratified Transformer's
+    ``window_overflow`` on the step's crops to ``overflows``)."""
     real = sceneseg.make_seg_train_step
 
     def make(*a, **kw):
@@ -5769,6 +5848,8 @@ def counted_steps(per_step):
             out = step(state, batch)
             per_step.append({k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
                              if v - before.get(k, 0)})
+            if overflows is not None and getattr(state.model, "window_overflow", None) is not None:
+                overflows.append(int(state.model.window_overflow))
             return out
 
         return counted
@@ -5780,10 +5861,11 @@ def counted_steps(per_step):
         sceneseg.make_seg_train_step = real
 
 
-def kernel_split_ms(fn, calls=3):
-    """Device ms a call by kind (sort, fps_batched, GEMM, other) over
-    ``calls`` calls under the profiler, the wall ms a call and the card's
-    idle share of that window."""
+def kernel_split_ms(fn, calls=3, kinds=()):
+    """Device ms a call by kind (sort, fps_batched, GEMM, other; ``kinds``,
+    ((kind, name substrings), ...), is tried first) over ``calls`` calls
+    under the profiler, the wall ms a call and the card's idle share of that
+    window."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     fn()
     torch.cuda.synchronize()
@@ -5799,8 +5881,9 @@ def kernel_split_ms(fn, calls=3):
     split = collections.Counter()
     for e, us in zip(kernels, tprofile.exclusive_us(spans)):
         low = e.name.lower()
-        kind = ("sort" if "sort" in low else "fps_batched" if "fps" in low
-                else "gemm" if "gemm" in low or "xmma" in low or "cutlass" in low else "other")
+        kind = next((k for k, subs in kinds if any(sub in low for sub in subs)), None) or (
+            "sort" if "sort" in low else "fps_batched" if "fps" in low
+            else "gemm" if "gemm" in low or "xmma" in low or "cutlass" in low else "other")
         split[kind] += us
     busy = tprofile.busy_us(spans)
     return {"wall_ms": wall_us / calls / 1e3, "busy_ms": busy / calls / 1e3,
@@ -5819,14 +5902,18 @@ def scene_step_profile(name):
                                               lambda step: 1e-3, betas=(0.9, 0.999)),
                        torch.Generator(device=DEV).manual_seed(1))
     step = sceneseg.make_seg_train_step(name, SCENE_CLASSES, 0.2)
-    pts, rgb = (t.to(DEV) for t in scene_inputs(SCENE_B, 13))
+    pts, rgb = (t.to(DEV) for t in scene_inputs(SCENE_B, 13, SCENE_SCALE.get(name, 1.0)))
     label = torch.randint(0, SCENE_CLASSES, (SCENE_B, SCENE_N), device=DEV)
     batch = {"pts": pts, "feats": rgb, "label": label}
+    torch.cuda.reset_peak_memory_stats()
     out = kernel_split_ms(lambda: step(state, batch), calls=1)
     t0 = time.perf_counter()
     for _ in range(SCENE_RATE_STEPS):
         float(step(state, batch)["loss"])
     out["crops_per_s"] = SCENE_RATE_STEPS * SCENE_B / (time.perf_counter() - t0)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    if getattr(model, "window_overflow", None) is not None:
+        out["window_overflow"] = int(model.window_overflow)
     print(f"[scenes] {name} bf16 train step B={SCENE_B} x {SCENE_N} profiled: "
           f"{json.dumps(out)}")
     return out
@@ -5836,10 +5923,10 @@ def scene_driver(root, name, val_points, smi):
     """``sceneseg.train_loop`` as a user runs it: one epoch, the best
     checkpoint's whole-scene eval with --cm_out, then --resume at epoch 1."""
     args = scene_args(root, name)
-    per_step = []
+    per_step, overflows = [], []
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with counted_steps(per_step):
+    with counted_steps(per_step, overflows):
         out = sceneseg.train_loop(args)
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -5854,7 +5941,8 @@ def scene_driver(root, name, val_points, smi):
           f"raw points in {out['scene_eval_seconds']:.1f} s ({rate:.0f} raw points/s), mIoU "
           f"{out['scene_miou']:.2f}, OA {out['scene_oa']:.2f}, matrix count {int(cm.sum())} of "
           f"{val_points} labelled val points; fps_batched a step {fps_steps}; peak "
-          f"{peak:.2f} GiB; {wall:.1f} s in all; {smi}")
+          f"{peak:.2f} GiB; {wall:.1f} s in all; {smi}"
+          + (f"; window_overflow a step on the rooms' crops {overflows}" if overflows else ""))
     check(math.isfinite(h["loss"]) and per_step, f"{name}: loss {h['loss']} over {per_step}")
     check(0.0 <= out["scene_miou"] <= 100.0, f"{name}: scene mIoU {out['scene_miou']}")
     check(int(cm.sum()) == val_points, f"{name}: the scene matrix counts {int(cm.sum())} of "
@@ -5873,7 +5961,8 @@ def scene_driver(root, name, val_points, smi):
             "scene_points_per_s": rate, "scene_miou": out["scene_miou"],
             "scene_oa": out["scene_oa"], "matrix_count": int(cm.sum()), "val_points": val_points,
             "fps_batched_per_step": fps_steps, "peak_gib": peak, "wall_s": wall,
-            "resumed_at_epoch": resumed["history"][0]["epoch"]}
+            "resumed_at_epoch": resumed["history"][0]["epoch"],
+            **({"window_overflow_per_step": overflows} if overflows else {})}
 
 
 def scene_eval_profile(root):
@@ -5914,9 +6003,18 @@ def _run_scenes_slice(smi):
         out["seconds_by_part"][name] = now - t_part[0]
         t_part[0] = now
 
-    for name, far in (("ptseg", False), ("randlanet", False), ("baafnet", False),
-                      ("baafnet", True)):
-        out["card_vs_cpu"][name + ("_farthest" if far else "")] = scene_card_vs_cpu(name, far)
+    # the Stratified Transformer twice: on its 4 m lattice, and on the unit
+    # cube, where every cloud is one window far past its caps (the member
+    # table's overflow rule on the card)
+    for key, name, far, scale in (("ptseg", "ptseg", False, None),
+                                  ("stratified", "stratified", False, None),
+                                  ("stratified_overflow", "stratified", False, 1.0),
+                                  ("randlanet", "randlanet", False, None),
+                                  ("baafnet", "baafnet", False, None),
+                                  ("baafnet_farthest", "baafnet", True, None)):
+        out["card_vs_cpu"][key] = scene_card_vs_cpu(name, far, scale)
+    check(out["card_vs_cpu"]["stratified_overflow"]["window_overflow"] > 0,
+          "the unit-cube lattice did not overflow Stratified's windows")
     part("card_vs_cpu")
     for name in SCENE_MODELS:
         out["bf16_vs_f32"][name] = scene_bf16_vs_f32(name)
@@ -5947,6 +6045,175 @@ def _run_scenes_slice(smi):
     out["seconds"] = time.perf_counter() - t0
     print(f"[scenes] phase 19 took {out['seconds']:.1f} s: "
           f"{json.dumps({k: round(v, 1) for k, v in out['seconds_by_part'].items()})}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the scene tier's other modules
+# ---------------------------------------------------------------------------
+
+TIER_MODELS = ("graphvit", "vitseg", "assa", "pointnext_packed")
+# (batch, points a cloud) by module: GraphViT-3D's classification readout at
+# ModelNet's 1024, PointViT-Seg and ASSA at the scene driver's crops,
+# PointNeXt-S packed at 1024
+TIER_SHAPES = {"graphvit": (32, 1024), "vitseg": (SCENE_B, SCENE_N), "assa": (SCENE_B, SCENE_N),
+               "pointnext_packed": (SCENE_B, 1024)}
+# the kernels a forward launches, by module
+TIER_LAUNCHES = {"graphvit": {"fps_batched": 1, "fused_vit_block": 12},
+                 "vitseg": {"fps_batched": 3, "fused_vit_block": 12},
+                 "assa": {}, "pointnext_packed": {"fps_batched": 4}}
+# ASSANet's first set abstraction on an S3DIS crop: 4096 -> 1024 queries, radius
+# 0.1, 32 neighbours, xyz + rgb in; two pre-convs and one post-conv
+ASSA_QUERIES = 1024
+ASSA_KW = dict(channels=(6, 32, 64, 64), radius=0.1, nsample=32)
+VIT_KINDS = (("vit_block", ("add_ln", "gemm_wgmma", "gemm_f32", "attention_", "readout_kernel")),)
+
+
+def tier_module(name, dtype, seed=7):
+    """The module at its default config with seeded weights: Dense kernels
+    lecun-normal, the cls token and position N(0, 0.02), BatchNorm affine
+    and running statistics, all drawn on the CPU."""
+    from ppt_torch.nn.assa import Assa
+    from ppt_torch.nn.graphvit import GraphVit3d
+    from ppt_torch.nn.layers import init_dense_
+    from ppt_torch.nn.pointnext import PointNextConfig
+    from ppt_torch.nn.pointnext_packed import PointNextPacked
+    from ppt_torch.nn.vitseg import PointVitSeg
+
+    model = {"graphvit": lambda: GraphVit3d(dtype=dtype),
+             "vitseg": lambda: PointVitSeg(dtype=dtype),
+             "assa": lambda: Assa(**ASSA_KW, dtype=dtype),
+             "pointnext_packed": lambda: PointNextPacked(PointNextConfig(), dtype=dtype)}[name]()
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        init_dense_(model, gen)
+        if hasattr(model, "init_leaves_"):
+            model.init_leaves_(gen)
+    return seed_batchnorm(model, seed + 1)
+
+
+def tier_inputs(name, B, seed):
+    """The module's arguments on the CPU: clouds on a 1/64 lattice of the
+    unit cube (FPS, kNN and ball queries pick alike on both devices), rgb in
+    [0, 1]; GraphViT-3D takes the coordinates alone, ASSA its queries by
+    ``fps_plain`` (no kernel), packed PointNeXt xyz + height packed with
+    its offsets as ints."""
+    N = TIER_SHAPES[name][1]
+    g = torch.Generator().manual_seed(seed)
+    pts = (torch.randint(0, 65, (B, N, 3), generator=g) / 64.0).float()
+    rgb = torch.randint(0, 256, (B, N, 3), generator=g).float() / 255.0
+    if name == "graphvit":
+        return (pts,)
+    if name == "vitseg":
+        return pts, rgb
+    if name == "pointnext_packed":
+        height = pts[..., 2:] - pts[..., 2:].amin(1, keepdim=True)
+        return torch.cat([pts, height], -1).reshape(B * N, 4), tuple(N * (i + 1) for i in range(B))
+    qi = kgroup.fps_plain(pts, ASSA_QUERIES)
+    query = torch.gather(pts, 1, qi.long()[..., None].expand(-1, -1, 3))
+    return query, pts, torch.cat([pts, rgb], -1), qi
+
+
+def tier_call(name, model, args, train=False):
+    """The module's forward (GraphViT-3D's ``cls_feat``) on ``args``, each
+    tensor moved to the model's device."""
+    fn = model.cls_feat if name == "graphvit" else model
+    dev = next(model.parameters()).device
+    return fn(*[a.to(dev) if isinstance(a, torch.Tensor) else a for a in args], train=train)
+
+
+def tier_card_vs_cpu(name):
+    """f32 on the card against the CPU (same weights, eval) within
+    TOL_SCENE_CPU of the output's max, with the kernels the forward
+    launched; bf16 against f32 on the card (reported); each forward's ms on
+    the card, and a bf16 forward under the profiler (device ms by kind, the
+    ViT blocks' kernels together, the idle share)."""
+    B, N = TIER_SHAPES[name]
+    cpu = tier_module(name, torch.float32)
+    card = tier_module(name, torch.float32).to(DEV)
+    bf16 = tier_module(name, torch.bfloat16).to(DEV)
+    bf16.load_state_dict(card.state_dict())
+    args = tier_inputs(name, B, 21)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        want = tier_call(name, cpu, args)
+        cpu_s = time.perf_counter() - t0
+        tier_call(name, card, args)  # warm-up
+        _build.reset_launches()
+        got = tier_call(name, card, args)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        got16 = tier_call(name, bf16, args).float()
+        diff, diff16 = rel_err(got.cpu(), want), rel_err(got16, got)
+        ms = {dname: gpu_time_ms(lambda m=m: tier_call(name, m, args), reps=5, warmup=1)
+              for dname, m in (("f32", card), ("bf16", bf16))}
+        prof = kernel_split_ms(lambda: tier_call(name, bf16, args), calls=3, kinds=VIT_KINDS)
+    print(f"[scenetier] {name} B={B} x {N}: f32 card vs CPU max|diff|/max {diff:.3e} (limit "
+          f"{TOL_SCENE_CPU:g}), bf16 vs f32 {diff16:.3e}; launches a forward "
+          f"{json.dumps(launches)}; ms a forward f32 {ms['f32']:.3f}, bf16 {ms['bf16']:.3f} "
+          f"(CPU f32 {cpu_s:.1f} s); bf16 profiled {json.dumps(prof)}")
+    check(bool(torch.isfinite(got).all()) and diff <= TOL_SCENE_CPU,
+          f"{name}: card disagrees with CPU ({diff})")
+    check(bool(torch.isfinite(got16).all()), f"{name}: bf16 output not finite")
+    check(launches == TIER_LAUNCHES[name], f"{name} launched {launches}, not "
+          f"{TIER_LAUNCHES[name]}")
+    return {"B": B, "N": N, "diff_over_max": diff, "bf16_vs_f32": diff16, "launches": launches,
+            "ms": ms, "cpu_s": cpu_s, "bf16_profile": prof,
+            "params": sum(p.numel() for p in cpu.parameters())}
+
+
+def vitseg_train_card_vs_cpu(B=2):
+    """One training-mode forward and backward of PointViT-Seg (the head's
+    dropout the identity), card against CPU at B=2 x 4096: the logits and
+    the running statistics within TOL_SCENE_CPU, the gradients of
+    ``sum(logits * R)`` (through each block's ``recompute_grad``) within
+    TOL_PARTSEG_GRAD_DIST of the CPU's by distance, phase 15's limit for
+    the same feature-propagation heads behind training-mode BatchNorms
+    (their eval-mode gradients match ``jax.grad`` within 1e-4 on the CPU,
+    ``tests/test_torch_graphvit.py``); 12 block launches."""
+    from ppt_torch.nn import vitseg as nvitseg
+
+    cpu = tier_module("vitseg", torch.float32)
+    card = tier_module("vitseg", torch.float32).to(DEV)
+    args = tier_inputs("vitseg", B, 22)
+    r = torch.randn(B, SCENE_N, SCENE_CLASSES, generator=torch.Generator().manual_seed(23))
+    saved = nvitseg.dropout
+    nvitseg.dropout = lambda x, rate, train, generator: x
+    try:
+        out = {}
+        for tag, model, rr in (("cpu", cpu, r), ("card", card, r.to(DEV))):
+            _build.reset_launches()
+            logits = tier_call("vitseg", model, args, train=True)
+            names, params = zip(*model.named_parameters())
+            grads = torch.autograd.grad((logits * rr).sum(), params)
+            out[tag] = (logits.detach().cpu(), {k: g.cpu() for k, g in zip(names, grads)},
+                        {k: v.cpu() for k, v in model.named_buffers()},
+                        {k: v for k, v in _build.LAUNCHES.items() if v})
+    finally:
+        nvitseg.dropout = saved
+    diff = rel_err(out["card"][0], out["cpu"][0])
+    dist = grad_dist(out["card"][1], out["cpu"][1])
+    stats = max(rel_err(out["card"][2][k], v) for k, v in out["cpu"][2].items())
+    launches = out["card"][3]
+    print(f"[scenetier] vitseg training-mode forward + backward B={B} x {SCENE_N}, card vs CPU: "
+          f"logits {diff:.3e}, running statistics {stats:.3e} (limit {TOL_SCENE_CPU:g}), "
+          f"gradients' distance {dist:.3e} (limit {TOL_PARTSEG_GRAD_DIST:g}); launches "
+          f"{json.dumps(launches)}")
+    check(diff <= TOL_SCENE_CPU and stats <= TOL_SCENE_CPU, "vitseg training-mode forward "
+          "disagrees with the CPU")
+    check(dist <= TOL_PARTSEG_GRAD_DIST, f"vitseg gradients' distance {dist}")
+    check(launches.get("fused_vit_block") == 12, f"vitseg's training forward launched {launches}")
+    return {"logits_diff_over_max": diff, "stats_diff_over_max": stats, "grad_dist": dist,
+            "launches": launches}
+
+
+def run_scenetier_slice(smi):
+    t0 = time.perf_counter()
+    out = {"modules": {name: tier_card_vs_cpu(name) for name in TIER_MODELS}}
+    out["vitseg_train"] = vitseg_train_card_vs_cpu()
+    out["card"] = smi
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[scenetier] phase 20 took {out['seconds']:.1f} s")
     return out
 
 
@@ -5984,7 +6251,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=("ballquery", "towers", "losses3d", "cloud", "recipes",
                                        "pretrained", "partseg", "probe", "tools", "zoo",
-                                       "scenes"),
+                                       "scenes", "scenetier"),
                     help="build group.cu and run phase 3's ball-query checks and times alone "
                          "(ballquery) or phase 7's ball-query towers alone (towers); build "
                          "losses3d.cu and run phase 3's loss checks and times, nn_dists at "
@@ -5998,7 +6265,9 @@ def main(argv=None):
                          "build the kernels feature extraction runs and run phase 16 (probe); "
                          "build the kernels the tools time and run phase 17 (tools); "
                          "build group.cu and run phase 18, the zoo (zoo); "
-                         "build group.cu and run phase 19, scene segmentation (scenes)")
+                         "build group.cu and run phase 19, scene segmentation (scenes); "
+                         "build group.cu and vitblock.cu and run phase 3's FPS rows of the "
+                         "ViT tier and phase 20, the scene tier's other modules (scenetier)")
     args = ap.parse_args(argv)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -6071,6 +6340,12 @@ def main(argv=None):
     if args.only == "scenes":
         build(["group"])
         print(json.dumps({"sceneseg": run_scenes_slice(smi)}))
+        print(smi)
+        return
+    if args.only == "scenetier":
+        build(["group", "vitblock"])
+        print(json.dumps({"vit_tier_fps_shapes": vit_fps_rows(),
+                          "scenetier": run_scenetier_slice(smi)}))
         print(smi)
         return
     if args.only == "towers":
@@ -6165,6 +6440,11 @@ def main(argv=None):
     results["fps_batched"]["scene_launches_per_step"] = {
         name: d["fps_batched_per_step"] for name, d in scene_stats["driver"].items()}
     lap("19 scenes")
+    tier_stats = run_scenetier_slice(smi)  # its own counts, read per forward
+    for name in ("fps_batched", "fused_vit_block"):
+        results[name]["scenetier_launches_per_forward"] = {
+            m: e["launches"].get(name, 0) for m, e in tier_stats["modules"].items()}
+    lap("20 scene tier")
     att, vit = sass["attention"], sass["vitblock"]
     results["mini_forward"]["sass"] = sass["mini"]["mini_forward_wgmma_kernel"]
     results["mini_stats"]["sass"] = sass["mini"]["mini_stats_wgmma_kernel"]
@@ -6202,6 +6482,7 @@ def main(argv=None):
     print(json.dumps({"tools17": tools17_stats}))
     print(json.dumps({"zoo": zoo_stats}))
     print(json.dumps({"sceneseg": scene_stats}))
+    print(json.dumps({"scenetier": tier_stats}))
     print(json.dumps({"phase_seconds": laps}))
     print(json.dumps({"kernels": kernels, **slice_stats}))
     print(smi)

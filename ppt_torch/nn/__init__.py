@@ -27,6 +27,11 @@ _EXPORTS = {
     "PointTransformerSeg": "pointtransformer", "PointTransformerConfig": "pointtransformer",
     "RandLANet": "randlanet", "RandLANetConfig": "randlanet",
     "BaafNet": "baafnet", "BaafNetConfig": "baafnet",
+    "GraphVit3d": "graphvit", "GraphVit3dConfig": "graphvit", "PointPatchEmbed": "graphvit",
+    "StratifiedConfig": "stratified", "StratifiedSeg": "stratified",
+    "PointNextPacked": "pointnext_packed",
+    "PointVitSeg": "vitseg", "PointVitSegConfig": "vitseg",
+    "Assa": "assa",
 }
 
 __all__ = sorted(_EXPORTS)

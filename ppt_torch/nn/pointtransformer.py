@@ -275,7 +275,11 @@ class PointTransformerSeg(nn.Module):
         return out
 
     def forward(self, pts: torch.Tensor, feats: Optional[torch.Tensor] = None,
-                train: bool = False) -> torch.Tensor:
+                train: bool = False, generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        """``generator`` is read nowhere (PTSeg draws nothing); it keeps the
+        scene backbones' signature."""
+        del generator
         cfg = self.config
         B, N, _ = pts.shape
         levels = self.levels(N)

@@ -12,13 +12,13 @@ whole scenes. ``--cm_out`` saves that confusion matrix for
 ``ppt_torch.tools.s3dis_6fold``.
 
 The backbones are ``ptseg`` (Point Transformer, the reference's default),
-``randlanet`` and ``baafnet``; ``stratified`` is refused by name. On the
-card they compute in bf16 (BatchNorm in f32), on the CPU in f32, as the
-reference computes in bf16 on its accelerator. The schedule is a cosine
-decay over every step of the run; the optimizer comes by name
-(``adahessian`` refused: this step threads no Hessian diagonal), and
-``--betas`` left at the CLIP-style (0.9, 0.98) becomes (0.9, 0.999), the
-segmentation recipes' AdamW default.
+``stratified`` (the Stratified Transformer), ``randlanet`` and
+``baafnet``. On the card they compute in bf16 (BatchNorm in f32), on the
+CPU in f32, as the reference computes in bf16 on its accelerator. The
+schedule is a cosine decay over every step of the run; the optimizer
+comes by name (``adahessian`` refused: this step threads no Hessian
+diagonal), and ``--betas`` left at the CLIP-style (0.9, 0.98) becomes
+(0.9, 0.999), the segmentation recipes' AdamW default.
 
     python -m ppt_torch.tasks.sceneseg --dataset_name s3dis --data_path data/s3dis \\
         --model ptseg --npoints 4096 --voxel_max 4096 --batch_size 8 --epochs 100 \\
@@ -69,6 +69,13 @@ def _ptseg(num_classes: int, in_channels: int, dtype: torch.dtype) -> nn.Module:
         feat_channels=_feat_channels(in_channels), dtype=dtype)
 
 
+def _stratified(num_classes: int, in_channels: int, dtype: torch.dtype) -> nn.Module:
+    from ppt_torch.nn.stratified import StratifiedConfig, StratifiedSeg
+
+    return StratifiedSeg(StratifiedConfig(num_classes=num_classes, in_channels=in_channels),
+                         feat_channels=_feat_channels(in_channels), dtype=dtype)
+
+
 def _randla(num_classes: int, in_channels: int, dtype: torch.dtype) -> nn.Module:
     from ppt_torch.nn.randlanet import RandLANet, RandLANetConfig
 
@@ -85,14 +92,11 @@ def _baaf(num_classes: int, in_channels: int, dtype: torch.dtype) -> nn.Module:
 
 
 SEG_MODELS: Dict[str, Callable[[int, int, torch.dtype], nn.Module]] = {
-    "ptseg": _ptseg, "randlanet": _randla, "baafnet": _baaf}
+    "ptseg": _ptseg, "stratified": _stratified, "randlanet": _randla, "baafnet": _baaf}
 
 
 def backbone(name: str) -> Callable[[int, int, torch.dtype], nn.Module]:
-    """``SEG_MODELS[name]``; ``stratified`` refused by name."""
-    if name == "stratified":
-        raise ValueError("sceneseg: --model stratified (the Stratified Transformer) is not "
-                         "in the port yet: its slice has not landed")
+    """``SEG_MODELS[name]``."""
     if name not in SEG_MODELS:
         raise KeyError(f"sceneseg: unknown model {name!r}; have {sorted(SEG_MODELS)}")
     return SEG_MODELS[name]
@@ -101,10 +105,15 @@ def backbone(name: str) -> Callable[[int, int, torch.dtype], nn.Module]:
 def build_model(name: str, num_classes: int, in_channels: int, dtype: torch.dtype,
                 seed: int) -> nn.Module:
     """The backbone ``name`` with random weights from ``seed`` (lecun-normal
-    Dense kernels drawn on the CPU, zero biases, identity BatchNorms)."""
+    Dense kernels drawn on the CPU, zero biases, identity BatchNorms; the
+    leaves no Dense holds, such as Stratified's KPConv weights and
+    relative-position tables, by the model's ``init_leaves_``)."""
     model = backbone(name)(num_classes, in_channels, dtype)
+    gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
-        init_dense_(model, torch.Generator().manual_seed(seed))
+        init_dense_(model, gen)
+        if hasattr(model, "init_leaves_"):
+            model.init_leaves_(gen)
     return model
 
 
@@ -113,12 +122,13 @@ def _apply(model_name: str, model: nn.Module, pts: torch.Tensor,
            generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """The backbones' signatures (``ppt_tpu/tasks/sceneseg.py:106-119``):
     BAAF-Net takes (xyz, features or xyz), RandLA-Net one row of xyz and
-    features, PTSeg (xyz, features or None)."""
+    features, PTSeg and the Stratified Transformer (xyz, features or None);
+    each then takes ``train`` and the generator of its draws."""
     if model_name == "baafnet":
         return model(pts, feats if feats is not None else pts, train, generator)
     if model_name == "randlanet":
         return model(pts if feats is None else torch.cat([pts, feats], -1), train, generator)
-    return model(pts, feats, train)
+    return model(pts, feats, train, generator)
 
 
 def seg_loss(logits: torch.Tensor, labels: torch.Tensor, num_classes: int,

@@ -2,7 +2,7 @@
 
 ``ppt_torch.tasks.sceneseg`` against ``ppt_tpu.tasks.sceneseg``: one
 train step of each backbone (small configs, f32, dropout the identity on
-both sides) in lockstep with the reference's ``make_seg_train_step`` and
+both sides, the Stratified Transformer's DropPath rate 0) in lockstep with the reference's ``make_seg_train_step`` and
 ``optax.adamw`` under the same cosine decay: the loss within 1e-5, the
 batch statistics within 1e-5, and the updated parameters within 1e-6
 wherever the gradient has settled (AdamW's first update is
@@ -14,7 +14,8 @@ on the S3DIS fixture of ``tests/test_sceneseg_task.py`` (the reference's
 ``train_loop`` is not called: its driver tests take minutes here): the
 whole-scene matrix counts every labelled raw val point once, resume, the
 best checkpoint kept, the missing val split, ``--allow_train_eval``,
-``--cm_out`` and the 6-fold tool over it.
+``--cm_out`` and the 6-fold tool over it, and ``--model stratified`` from
+the command line.
 """
 
 import copy
@@ -32,6 +33,7 @@ from test_sceneseg_task import _fixture
 from test_torch_classic import no_dropout, pair  # noqa: F401 (a fixture)
 from test_torch_pointnet2 import lattice_cloud, np_tree, stats_close
 from test_torch_sceneseg_models import PT3_CFG, baaf, ptseg, randla
+from test_torch_stratified import pair_strat, strat
 
 from ppt_torch.nn import baafnet as tbf
 from ppt_torch.nn import randlanet as trl
@@ -53,10 +55,7 @@ def quiet_dropout(no_dropout, monkeypatch):
 
 
 def test_registry_and_the_refusals(tmp_path):
-    assert set(tss.SEG_MODELS) == {"ptseg", "randlanet", "baafnet"}
-    with pytest.raises(ValueError, match="stratified.*slice has not landed"):
-        tss.main(["--model", "stratified", "--dataset_name", "s3dis", "--device", "cpu",
-                  "--data_path", str(tmp_path)])
+    assert set(tss.SEG_MODELS) == {"ptseg", "stratified", "randlanet", "baafnet"}
     with pytest.raises(KeyError, match="ULIP_PointBERT"):
         tss.backbone("ULIP_PointBERT")
     if not torch.cuda.is_available():
@@ -64,20 +63,21 @@ def test_registry_and_the_refusals(tmp_path):
             tss.main(["--dataset_name", "s3dis", "--model", "ptseg"])
 
 
-@pytest.mark.parametrize("name", ["ptseg", "randlanet", "baafnet"])
+@pytest.mark.parametrize("name", ["ptseg", "stratified", "randlanet", "baafnet"])
 def test_one_train_step_in_lockstep(name, quiet_dropout):
     from ppt_tpu.tasks.sceneseg import make_seg_train_step
     from ppt_tpu.train.optim import build_optimizer as jax_optimizer
 
     jmod, tmod = {"ptseg": lambda: ptseg(PT3_CFG, "PointTransformerBlock"),
-                  "randlanet": randla, "baafnet": lambda: baaf(False)}[name]()
+                  "stratified": strat, "randlanet": randla,
+                  "baafnet": lambda: baaf(False)}[name]()
     N = 256
     pts = lattice_cloud(2, N, 11)
     feats = np.random.RandomState(12).rand(2, N, 3).astype(np.float32)
-    C = {"ptseg": 13, "randlanet": 6, "baafnet": 5}[name]
+    C = {"ptseg": 13, "stratified": 5, "randlanet": 6, "baafnet": 5}[name]
     labels = np.random.RandomState(13).randint(-1, C, (2, N)).astype(np.int32)
     x = [np.concatenate([pts, feats], -1)] if name == "randlanet" else [pts, feats]
-    variables, tmod = pair(jmod, tmod, *x)
+    variables, tmod = (pair_strat if name == "stratified" else pair)(jmod, tmod, *x)
 
     jopt = jax_optimizer("adamw", optax.cosine_decay_schedule(LR, STEPS), weight_decay=WD,
                          betas=(0.9, 0.999))
@@ -187,6 +187,18 @@ def test_train_loop_scene_eval_covers_every_point_and_feeds_6fold(tmp_path):
     out = tss.train_loop(_args(tmp_path, exp_name="run2", eval_scene=True, votes=2,
                                max_eval_passes=2))
     assert 0.0 <= out["scene_miou"] <= 100.0
+
+
+def test_train_loop_stratified_from_the_command_line(tmp_path):
+    """``--model stratified`` at its default config trains, validates and
+    evaluates whole scenes on the CPU, through ``main``'s argument list."""
+    _fixture(str(tmp_path), np.random.RandomState(0))
+    out = tss.main(["--model", "stratified", "--dataset_name", "s3dis", "--data_path",
+                    str(tmp_path), "--npoints", "512", "--voxel_max", "512", "--voxel_size",
+                    "0.1", "--batch_size", "2", "--epochs", "1", "--eval_scene", "--device", "cpu",
+                    "--output_dir", str(tmp_path / "out"), "--exp_name", "strat"])
+    assert np.isfinite(out["history"][0]["loss"]) and 0.0 <= out["scene_miou"] <= 100.0
+    assert (tmp_path / "out" / "strat" / "checkpoint_best.pt").exists()
 
 
 def test_train_loop_resume_keeps_the_best(tmp_path):
