@@ -17,7 +17,8 @@ PCT, CurveNet) with the graph towers and SimpleView, scene
 segmentation (PTSeg, the Stratified Transformer, RandLA-Net and BAAF-Net
 through the sceneseg driver with its whole-scene eval, the S3DIS 6-fold
 tool), and the scene tier's other modules (GraphViT-3D and PointViT-Seg on
-the ViT block kernel at 768 wide, ASSA, packed PointNeXt).
+the ViT block kernel at 768 wide, ASSA, packed PointNeXt), and the
+masked-point autoencoder.
 
     python3 chip_smoke.py            # one CUDA card, no arguments
     python3 chip_smoke.py --only ballquery   # group.cu, phase 3's ball queries alone
@@ -42,6 +43,8 @@ the ViT block kernel at 768 wide, ASSA, packed PointNeXt).
                                              # 6-fold tool)
     python3 chip_smoke.py --only scenetier   # phase 3's FPS rows of the ViT tier and phase 20:
                                              # GraphViT-3D, PointViT-Seg, ASSA, packed PointNeXt
+    python3 chip_smoke.py --only mae         # phase 21: the masked-point autoencoder at full
+                                             # width, rows 1-5 at its shapes
 
 Phases (any failed check raises, and the script exits non-zero):
   1. card name / power limit (nvidia-smi), torch and CUDA versions;
@@ -314,7 +317,7 @@ Phases (any failed check raises, and the script exits non-zero):
      ULIP_PN_MLP at full width, B=32 x 1024 (loaded bit for bit;
      fps_batched launched 4 times a batch in a bf16 ``validate`` pass, an
      f32 pass too; logits against the plain path in bf16 and f32; 5
-     timed head-type-0 train steps, then 5 under the profiler: clouds/sec,
+     timed head-type-0 train steps, then 3 under the profiler: clouds/sec,
      wall, busy and idle a batch; fps_batched at PointMLP's four shapes
      with the launches queued, against fps_plain); an existing directory
      without converted files warns and keeps the seeded init. Its numbers
@@ -323,12 +326,12 @@ Phases (any failed check raises, and the script exits non-zero):
  15. part segmentation at full width through ``partseg.setup``:
      ULIP_PointBERT_partseg (PointBertConfig(), SLIP's 12 x 512 text tower,
      50 part prompts of 32 tokens, class name in the middle) on 320
-     synthetic part clouds a split, B=32 x N=2048: three bf16 ``validate``
-     passes (clouds/sec, launches a batch: fps_batched 3, knn_gather 1,
+     synthetic part clouds a split, B=32 x N=2048: a bf16 ``validate``
+     pass after a warm-up one (clouds/sec, launches a batch: fps_batched 3, knn_gather 1,
      mini_forward 1, fused_vit_block 12, fused_vit_block_readout 0), one
      batch's logits against the plain path in bf16 and f32 at phase 4's
      limits with the refined predictions and mIoU beside them; one train
-     step's launches (mini_stats 1), 5 timed head-type-0 steps and 5
+     step's launches (mini_stats 1), 5 timed head-type-0 steps and 3
      profiled (clouds/sec, wall, busy, idle; the frozen leaves
      bit-unchanged), a fixed batch whose loss falls; one step against the
      plain path at head types 0 and 3 in f32 (loss, BatchNorm buffers and
@@ -376,10 +379,11 @@ Phases (any failed check raises, and the script exits non-zero):
      limits of phase 4); the ``--sym-batch`` program at B=8 and B=32
      against the eager step; the host's us a call of each ``ppt`` operator
      against its direct launch function, in alternated rounds ([host]
-     lines); ``component_probe`` at
-     its defaults; ``profile --flops`` for the recognition batch and the
-     prompt-tuning step; ``backbone_bench`` for the four towers it had
-     before phase 18. Its numbers go on a line of their own ({"tools17":
+     lines); ``component_probe`` over the components no other phase
+     times at the same shape (``PROBE_COMPONENTS``); ``profile --flops``
+     for the recognition batch and the prompt-tuning step;
+     ``backbone_bench`` for the four towers it had before phase 18 (8
+     timed calls each). Its numbers go on a line of their own ({"tools17":
      ...}); ``--only tools`` builds what it needs and runs it alone.
  18. the zoo: ``ULIP_PointNet``, ``ULIP_PointNet_STN``, ``ULIP_DGCNN``,
      ``ULIP_PCT`` and ``ULIP_CurveNet`` at their default configs (full
@@ -453,6 +457,24 @@ Phases (any failed check raises, and the script exits non-zero):
      ``fused_vit_block`` entries gain ``scenetier_launches_per_forward``;
      ``--only scenetier`` builds ``group.cu`` and ``vitblock.cu`` and runs
      it alone.
+ 21. the masked-point autoencoder (``MaskedPointMAE``) at the full
+     ``MaeConfig`` (64 groups of 32, the tokenizer 128 wide, 6 encoder
+     blocks on the 25 kept tokens and 2 decoder blocks on all 64, 192 wide,
+     6 heads), B=32 x 1024, seeded weights and BatchNorm statistics,
+     lattice clouds: rows 1-5 at its shapes against their plain versions
+     (bf16 ``mini_forward`` at CO = 128, its template width, and 256),
+     timed queued in rounds alternated with the library call; the f32
+     forward card against CPU (loss and ``pred`` within 1e-4), bf16
+     against f32 (the loss within 5e-3, ``pred`` within 3e-2 of its max;
+     a float8-weight control's ``pred`` past it); the first f32 train step's
+     gradients card against CPU within 1e-3 of the largest; 5
+     ``torch.optim.Adam(lr=1e-3)`` steps in each dtype with finite losses,
+     launches a step ``fps_batched`` 1, ``knn_gather`` 1, ``mini_stats`` 1,
+     ``mini_forward`` 1, ``fused_vit_block`` 8, and one profiled bf16 step
+     (busy, wall, idle share). A ``{"mae": ...}`` line; the kernels line's
+     five entries gain ``mae`` and ``mae_launches_per_step``; ``--only
+     mae`` builds ``group.cu``, ``mini.cu`` and ``vitblock.cu`` and runs it
+     alone.
 
 The build prints each CUDA kernel's registers and spills (ptxas -v).
 The line before the card's is a JSON object with the per-kernel numbers
@@ -471,6 +493,7 @@ import collections
 import contextlib
 import ctypes
 import dataclasses
+import functools
 import json
 import logging
 import math
@@ -627,15 +650,16 @@ GONE_KERNELS = {"text": ("gemm_bf16_kernel",), "mini": ("mini_stats_bf16_kernel"
 SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "HMMA")
 
 
-def hopper_sass():
+def hopper_sass(libs=None):
     """Instruction counts of the Hopper kernels in the built libraries
-    (cuobjdump -sass), summed over each kernel's template instances; checks
-    that each of HOPPER_KERNELS issues HGMMA and UTMALDG and no HMMA, that
-    each of MMA_KERNELS issues HMMA, and that no GONE_KERNELS is built.
-    Returns {library: {kernel: {op: count}}}."""
+    (cuobjdump -sass; ``libs``, else every library that has one), summed
+    over each kernel's template instances; checks that each of
+    HOPPER_KERNELS issues HGMMA and UTMALDG and no HMMA, that each of
+    MMA_KERNELS issues HMMA, and that no GONE_KERNELS is built. Returns
+    {library: {kernel: {op: count, "instances": n}}}."""
     tool = Path(_build.nvcc_path()).parent / "cuobjdump"
     found = {}
-    for lib in {**HOPPER_KERNELS, **MMA_KERNELS}:
+    for lib in libs or {**HOPPER_KERNELS, **MMA_KERNELS}:
         names = HOPPER_KERNELS.get(lib, ()) + MMA_KERNELS.get(lib, ()) + GONE_KERNELS.get(lib, ())
         out = subprocess.run([str(tool), "-sass", str(_build.BUILD_DIR / f"libppt_{lib}.so")],
                              capture_output=True, text=True, timeout=300).stdout
@@ -2356,13 +2380,25 @@ TRAIN_BATCH = 30  # configs/experiments/ppt_base_mn40.yaml
 TRAIN_DIR = _build.BUILD_DIR.parent / "chip_smoke_train"
 
 
+@functools.lru_cache(maxsize=None)
+def modelnet40_clouds(samples_per_class, npoints, seed):
+    """``make_synthetic`` over ModelNet40's 40 class names, drawn once a run
+    for each (clouds a class, points, seed): the phases set models up
+    dozens of times on the same clouds (a test split of 2468 clouds took
+    ~0.4 s to draw each time)."""
+    names = TaskArgs(dataset_name="modelnet40").load_classnames()
+    return make_synthetic(num_classes=40, samples_per_class=samples_per_class, npoints=npoints,
+                          seed=seed, classnames=names)
+
+
 def synthetic_modelnet40(args, split):
     """ModelNet40's 40 class names over synthetic clouds (no dataset ships
-    with the repository): 30 clouds per class to train on, 3 to test."""
-    names = TaskArgs(dataset_name="modelnet40").load_classnames()
-    ds = make_synthetic(num_classes=40, samples_per_class=30 if split == "train" else 3,
-                        npoints=args.npoints, seed=0 if split == "train" else 1, classnames=names)
-    return ArrayDataset(ds.points, ds.labels, ds.classnames, name="modelnet40_synthetic_clouds")
+    with the repository): 30 clouds per class to train on, 3 to test. Each
+    call gets its own copy of the kept clouds."""
+    ds = modelnet40_clouds(30 if split == "train" else 3, args.npoints,
+                           0 if split == "train" else 1)
+    return ArrayDataset(ds.points.copy(), ds.labels.copy(), ds.classnames,
+                        name="modelnet40_synthetic_clouds")
 
 
 def train_args(dtype="bfloat16", head_type=0, batch=TRAIN_BATCH, **kw):
@@ -2822,10 +2858,8 @@ def synthetic_modelnet40_eval(args, split):
     """As ``synthetic_modelnet40``, with a test split of ModelNet40's size."""
     if split == "train":
         return synthetic_modelnet40(args, split)
-    names = TaskArgs(dataset_name="modelnet40").load_classnames()
-    ds = make_synthetic(num_classes=40, samples_per_class=-(-MN40_TEST_CLOUDS // 40),
-                        npoints=args.npoints, seed=1, classnames=names)
-    return ArrayDataset(ds.points[:MN40_TEST_CLOUDS], ds.labels[:MN40_TEST_CLOUDS],
+    ds = modelnet40_clouds(-(-MN40_TEST_CLOUDS // 40), args.npoints, 1)
+    return ArrayDataset(ds.points[:MN40_TEST_CLOUDS].copy(), ds.labels[:MN40_TEST_CLOUDS].copy(),
                         ds.classnames, name="modelnet40_synthetic_clouds")
 
 
@@ -4086,7 +4120,8 @@ def run_recipes_slice(smi):
 
 PRETRAINED_DIR = _build.BUILD_DIR.parent / "chip_smoke_pretrained"
 MLP_BATCH = 32
-MLP_STEPS = 5  # the timed and the profiled window
+MLP_STEPS = 5  # the timed window
+MLP_PROFILED = 3  # the profiled window
 # PointMLP's four FPS launches a batch: 1024 -> 512 -> 256 -> 128 -> 64 points
 MLP_FPS_SHAPES = ((1024, 512), (512, 256), (256, 128), (128, 64))
 LOADED_MSG = "%s: loaded %d/%d leaves from pretrained"  # train/checkpoint.py's line
@@ -4430,7 +4465,7 @@ def _run_pretrained_slice(smi):
     step_fn = make_train_step(smoothing=0.2)
     stream = batch_stream(Loader(ctx["train_ds"], MLP_BATCH, shuffle=True, drop_last=True,
                                  seed=0))
-    run_steps(ctx, step_fn, stream, 3)  # warm-up
+    run_steps(ctx, step_fn, stream, 1)  # warm-up
     t0 = time.perf_counter()
     losses = run_steps(ctx, step_fn, stream, MLP_STEPS)
     wall = time.perf_counter() - t0
@@ -4439,7 +4474,7 @@ def _run_pretrained_slice(smi):
     def one_step():
         run_steps(ctx, step_fn, stream, 1)
 
-    prof = tprofile._profile(one_step, MLP_STEPS)
+    prof = tprofile._profile(one_step, MLP_PROFILED)
     check(all(math.isfinite(x) for x in losses), f"PN_MLP train losses {losses}")
     check(all(torch.equal(p, frozen0[k]) for k, p in ctx["model"].named_parameters()
               if k in frozen0), "a frozen PointMLP leaf moved")
@@ -4500,7 +4535,8 @@ def _run_pretrained_slice(smi):
 
 PARTSEG_DIR = _build.BUILD_DIR.parent / "chip_smoke_partseg"
 PARTSEG_BATCH = 32
-PARTSEG_STEPS = 5  # the timed and the profiled window
+PARTSEG_STEPS = 5  # the timed window
+PARTSEG_PROFILED = 3  # the profiled window
 PARTSEG_NPOINTS = 2048  # configs/datasets/shapenetpart.yaml
 PARTSEG_PER_CATEGORY = 20  # 16 categories x 20 = 320 synthetic part clouds a split
 # each kernel's launches a batch on the block route (validate); mini_stats a train step
@@ -4683,17 +4719,12 @@ def _run_partseg_slice(smi):
     n_params = sum(p.numel() for p in ctx["model"].parameters())
     n_batches = math.ceil(len(ctx["test_ds"]) / PARTSEG_BATCH)
     partseg_validate_counted(ctx, args)  # warm-up
-    walls = []
-    for _ in range(3):
-        launches, wall, val = partseg_validate_counted(ctx, args)
-        walls.append(wall)
-    wall = sorted(walls)[1]
+    launches, wall, val = partseg_validate_counted(ctx, args)
     per_batch = {k: launches.get(k, 0) / n_batches for k in PARTSEG_PER_BATCH}
     print(f"[partseg] ULIP_PointBERT_partseg bf16: {n_params / 1e6:.1f} M parameters; validate "
           f"over {len(ctx['test_ds'])} clouds x {PARTSEG_NPOINTS} points ({n_batches} batches of "
-          f"{PARTSEG_BATCH}): median of 3 passes {wall * 1e3:.1f} ms, "
-          f"{len(ctx['test_ds']) / wall:.1f} clouds/sec (passes ms "
-          f"{[round(w * 1e3, 1) for w in walls]}); instance mIoU {val['instance_miou']:.3f}, "
+          f"{PARTSEG_BATCH}): one pass after a warm-up {wall * 1e3:.1f} ms, "
+          f"{len(ctx['test_ds']) / wall:.1f} clouds/sec; instance mIoU {val['instance_miou']:.3f}, "
           f"category mIoU {val['category_miou']:.3f} (random weights); launches a batch "
           f"{json.dumps(per_batch)}; {smi}")
     check(per_batch == {k: float(v) for k, v in PARTSEG_PER_BATCH.items()},
@@ -4708,12 +4739,12 @@ def _run_partseg_slice(smi):
     out["logits"] = {"bfloat16": partseg_logits_vs_plain("block route", ctx, "bfloat16", fixed)}
     block_logits = make_eval_step(partseg=True)(ctx["state"], fixed, ctx["prompts"])
     vprof = tprofile._profile(lambda: make_eval_step(partseg=True)(ctx["state"], fixed,
-                                                                   ctx["prompts"]), 10)
+                                                                   ctx["prompts"]), 3)
     out["validate"]["profiled_batch"] = {
         k: vprof[k] for k in ("wall_ms_per_batch", "device_busy_ms_per_batch",
                               "device_idle_share", "device_ms_per_batch",
                               "top_other_kernels_ms_per_batch")}
-    print(f"[partseg] one eval batch profiled (10 calls, the text tower in each): busy "
+    print(f"[partseg] one eval batch profiled (3 calls, the text tower in each): busy "
           f"{vprof['device_busy_ms_per_batch']:.3f} ms, wall {vprof['wall_ms_per_batch']:.3f} ms, "
           f"idle {vprof['device_idle_share']:.3f}; ms by part "
           + json.dumps({k: round(v, 3) for k, v in vprof["device_ms_per_batch"].items()}))
@@ -4735,11 +4766,12 @@ def _run_partseg_slice(smi):
     out["train_step_launches"] = step_launches
     stream = batch_stream(Loader(ctx["train_ds"], PARTSEG_BATCH, shuffle=True, drop_last=True,
                                  seed=0))
-    partseg_run_steps(ctx, step_fn, stream, 3)  # warm-up
+    partseg_run_steps(ctx, step_fn, stream, 1)  # warm-up
     t0 = time.perf_counter()
     losses = partseg_run_steps(ctx, step_fn, stream, PARTSEG_STEPS)
     wall = time.perf_counter() - t0
-    prof = tprofile._profile(lambda: partseg_run_steps(ctx, step_fn, stream, 1), PARTSEG_STEPS)
+    prof = tprofile._profile(lambda: partseg_run_steps(ctx, step_fn, stream, 1),
+                             PARTSEG_PROFILED)
     check(all(math.isfinite(x) for x in losses), f"partseg train losses {losses}")
     check(all(torch.equal(p, frozen0[k]) for k, p in ctx["model"].named_parameters()
               if k in frozen0), "a frozen leaf of the partseg model moved")
@@ -5356,7 +5388,8 @@ def run_tools17_slice(smi):
     t0 = time.perf_counter()
     out = {"export": run_export(smi), "host_us_by_op": host_us_by_op()}
     out["component_probe"] = {ln["component"]: {k: ln[k] for k in ("ms", "timer", "launches")}
-                              for ln in component_probe.main([])}
+                              for ln in component_probe.main(["--components",
+                                                              ",".join(PROBE_COMPONENTS)])}
     out["flops"] = {}
     for train in (False, True):
         table = tprofile.profile_flops(train)
@@ -5367,7 +5400,7 @@ def run_tools17_slice(smi):
         out["flops"]["train" if train else "eval"] = table
     out["backbones"] = {}
     for name in PHASE17_BACKBONES:  # phase 18 times dgcnn
-        line = backbone_bench.main(["--model", name])
+        line = backbone_bench.main(["--model", name, "--iters", "8"])
         out["backbones"][name] = {k: line[k] for k in ("clouds_per_sec", "fwd_ms", "spread_pct")}
     out["seconds"] = time.perf_counter() - t0
     print(f"[tools] phase 17 took {out['seconds']:.1f} s")
@@ -5379,6 +5412,11 @@ def run_tools17_slice(smi):
 # ---------------------------------------------------------------------------
 
 PHASE17_BACKBONES = ("pointnext", "pointnet2_ssg", "pointnet2_msg", "pointmlp")
+# the component probe's components that no other phase times at the same
+# shape: the text routes (phase 6), the other trunk routes (phase 8), the
+# flash backward and the feature ball query (phase 3) are timed there
+PROBE_COMPONENTS = ("grouping", "grouping_single", "mini_forward", "mini_stats", "vit12_block",
+                    "ball_query_gather", "flash_fwd")
 ZOO_BATCH = 32
 ZOO_MODELS = ("ULIP_PointNet", "ULIP_PointNet_STN", "ULIP_DGCNN", "ULIP_PCT", "ULIP_CurveNet")
 ZOO_FPS_PER_BATCH = {"ULIP_PointNet": 0, "ULIP_PointNet_STN": 0, "ULIP_DGCNN": 0,
@@ -6217,6 +6255,291 @@ def run_scenetier_slice(smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the masked-point autoencoder at full width
+# ---------------------------------------------------------------------------
+
+MAE_BATCH = 32
+MAE_NPOINTS = 1024
+MAE_STEPS = 5  # Adam(1e-3) steps in each dtype
+# the kernels a train step launches: the grouping once, the group encoder's two
+# (mini_stats in training), one block kernel for each of the 6 encoder blocks
+# on the 25 kept tokens and the 2 decoder blocks on all 64; the backward
+# recomputes each plain version and launches nothing
+MAE_LAUNCHES = {"fps_batched": 1, "knn_gather": 1, "mini_stats": 1, "mini_forward": 1,
+                "fused_vit_block": 8}
+TOL_MAE_CPU = 1e-4  # the f32 forward card against CPU, of the output's max (phase 20's limit)
+# the f32 step's gradients card against CPU: max|diff| over the largest gradient.
+# Both run the plain versions in the backward; the forwards differ in f32
+# summation order, and the group encoder's two max-pools and the Chamfer's
+# nearest-neighbour picks route a gradient to one of two near-tied points
+TOL_MAE_GRAD = 1e-3
+# the bf16 forward against f32's on the card: the Chamfer-L1, relative, and
+# ``pred``'s max|diff| over its max, a bound on every token (readings 1.243e-03
+# and 1.038e-02, H100 80GB HBM3 at 700 W). A control, the same bf16 model with
+# its parameters rounded to float8_e4m3fn (3 mantissa bits to bf16's 7), has
+# to land above the ``pred`` limit (7.129e-02), so that it separates bf16's
+# rounding from a path that loses precision; the loss, a mean over 2048
+# patches, does not (the control's 1.262e-03)
+TOL_MAE_BF16_LOSS = 5e-3
+TOL_MAE_BF16_PRED = 3e-2
+MAE_KINDS = (("grouping", ("fps_", "knn_")), ("mini", ("mini_",))) + VIT_KINDS
+
+
+def mae_model(dtype, seed=7):
+    """``MaskedPointMAE`` at the full ``MaeConfig`` with seeded weights (Dense
+    kernels lecun-normal, the mask token normal(0.02), BatchNorm affine and
+    running statistics), drawn on the CPU."""
+    from ppt_torch.nn import mae as nmae
+
+    return seed_batchnorm(nmae.init_mae(nmae.MaskedPointMAE(dtype=dtype), seed), seed + 1)
+
+
+def mae_inputs(B, seed):
+    """Clouds on a 1/64 lattice of the unit cube (FPS and kNN pick alike on
+    both devices) and the masking noise [B, 64], on the CPU."""
+    from ppt_torch.nn import mae as nmae
+
+    g = torch.Generator().manual_seed(seed)
+    pts = (torch.randint(0, 65, (B, MAE_NPOINTS, 3), generator=g) / 64.0).float()
+    return pts, nmae.masking_noise(g, B, nmae.MaeConfig().num_group)
+
+
+def mae_call(model, pts, noise, train=False):
+    dev = next(model.parameters()).device
+    return model(pts.to(dev), noise.to(dev), train=train)
+
+
+def mae_kernel_rows():
+    """Rows 1-5 at MAE's shapes (B=32 x 1024 points, 64 groups of 32, the
+    tokenizer 128 wide, blocks [32, 25 | 64, 192] x 6 heads): each against
+    its plain version (indices exact, values to ``TOL``), bf16
+    ``mini_forward`` at CO = 128 and 256; each timed with the launches
+    queued, in rounds alternated with its library call (median of 5)."""
+    B, N, G, K, C, H = MAE_BATCH, MAE_NPOINTS, 64, 32, 192, 6
+    rows = {"fps_batched": fps_shape_rows(B, ((N, G, "MAE"),), "mae", 9)[0]}
+    xyz = cloud(B, N, 43)
+    center = torch.gather(xyz, 1, kgroup.fps_plain(xyz, G).long()[:, :, None].expand(-1, -1, 3))
+    err = knn_gather_vs_plain("mae", xyz, center, K)
+
+    def knn_library():  # the picks' coordinates minus the query's
+        i = torch.topk(torch.cdist(center, xyz), K, dim=-1, largest=False).indices
+        nb = torch.gather(xyz, 1, i.reshape(B, G * K, 1).expand(-1, -1, 3))
+        return i, nb.reshape(B, G, K, 3) - center[:, :, None, :]
+
+    t = alternated_ms({"ms": lambda: kgroup.knn_gather(K, xyz, center),
+                       "library_ms": knn_library}, timer=queued_ms)
+    bms, by = bound_ms(B * N * 12 + B * G * 12 + B * G * K * 16, B * G * N * 9, PEAK["f32"])
+    rows["knn_gather"] = dict(t, max_abs_err=err, bound_ms=bms, bound_by=by,
+                              plain_ms=gpu_time_ms(lambda: kgroup.knn_gather_plain(K, xyz, center)))
+
+    # the group encoder on the groups the grouping gives, [32, 2048, 3]
+    x = kgroup.knn_gather(K, xyz, center)[1].reshape(B, G * K, 3).contiguous()
+    n = B * G * K
+    rows["mini_forward"] = {}
+    for co in (128, 256):
+        w = mini_weights(co, co)
+        entry = {}
+        for dname, dt in DTYPES.items():
+            got = kmini.mini_forward(K, dt, x, *w)
+            again = kmini.mini_forward(K, dt, x, *w)
+            want = kmini.mini_forward_plain(K, dt, x, *w)
+            torch.cuda.synchronize()
+            e, same = rel_err(got, want), torch.equal(got, again)
+            print(f"[mae] mini_forward {dname} [{B}, {G * K}, 3] -> [{B}, {G}, {co}]: max rel err "
+                  f"{e:.3e} (tol {TOL[dname]}); repeat identical {same}")
+            check(bool(torch.isfinite(got.float()).all()) and e <= TOL[dname] and same,
+                  f"mini_forward at CO={co} {dname}: error {e}, repeat identical {same}")
+            entry[f"{dname}_rel_err"] = e
+        if co == 128:
+            ops = 2 * n * (3 * 128 + 128 * 256 + 256 * 512 + 512 * co) + 2 * B * G * 256 * 512
+            wbytes = 2 * (3 * 128 + 128 + 128 * 256 + 256 + 2 * 256 * 512 + 512 + 512 * co + co)
+            bms, by = bound_ms(n * 12 + B * G * co * 2 + wbytes, ops, PEAK["bf16"])
+            dt = torch.bfloat16
+            entry.update(alternated_ms(
+                {"ms": lambda: kmini.mini_forward(K, dt, x, *w),
+                 "library_ms": lambda: mini_library(K, dt, x, w),
+                 "f32_ms": lambda: kmini.mini_forward(K, torch.float32, x, *w)}, timer=queued_ms))
+            entry.update(bound_ms=bms, bound_by=by, tflops=ops / (entry["ms"] * 1e-3) / 1e12,
+                         max_abs_err=float((kmini.mini_forward(K, dt, x, *w).float() - kmini.
+                                            mini_forward_plain(K, dt, x, *w).float()).abs().max()),
+                         plain_ms=gpu_time_ms(lambda: kmini.mini_forward_plain(K, dt, x, *w)))
+        rows["mini_forward"][f"co{co}"] = entry
+
+    w = mini_weights(128, 5)[:7]  # fw1, fb1, w2, b2, wg, wl, bsplit
+    entry = {}
+    for dname, dt in DTYPES.items():
+        got = kmini.mini_stats(K, dt, x, *w)
+        want = kmini.mini_stats_plain(K, dt, x, *w)
+        torch.cuda.synchronize()
+        errs = [rel_err(g, t) for g, t in zip(got, want)]
+        print(f"[mae] mini_stats {dname} over {n} rows: max rel err sum_h {errs[0]:.3e}, "
+              f"sumsq_h {errs[1]:.3e} (tol {TOL[dname]})")
+        check(all(torch.isfinite(t).all() for t in got) and max(errs) <= TOL[dname],
+              f"mini_stats at MAE's shape {dname}: {errs}")
+        entry[f"{dname}_rel_err"] = max(errs)
+    dt = torch.bfloat16
+    entry.update(alternated_ms({"ms": lambda: kmini.mini_stats(K, dt, x, *w),
+                                "library_ms": lambda: stats_library(K, dt, x, w)},
+                               timer=queued_ms))
+    ops = 2 * n * (3 * 128 + 128 * 256) + n * 256 * 257
+    bms, by = bound_ms(n * 12 + 2 * B * G * 256 * 4 + 256 * 256 * 4
+                       + 2 * (3 * 128 + 128 + 128 * 256 + 256), ops, PEAK["bf16"])
+    got = kmini.mini_stats(K, dt, x, *w)
+    want = kmini.mini_stats_plain(K, dt, x, *w)
+    entry.update(bound_ms=bms, bound_by=by,
+                 max_abs_err=max(float((g - t).abs().max()) for g, t in zip(got, want)),
+                 plain_ms=gpu_time_ms(lambda: kmini.mini_stats_plain(K, dt, x, *w)))
+    rows["mini_stats"] = entry
+
+    rows["fused_vit_block"] = {}
+    for L in (25, 64):
+        entry = {}
+        for dname, dt in DTYPES.items():
+            xb, pos, dp, wb, _ = block_inputs(B, L, C, dt, L)
+            got = kvit.fused_vit_block(xb, pos, dp, *wb, H)
+            want = kvit.vit_block_plain(xb, pos, dp, *wb, H)
+            torch.cuda.synchronize()
+            e = rel_err(got, want)
+            print(f"[mae] fused_vit_block {dname} [{B}, {L}, {C}] x {H} heads: max rel err "
+                  f"{e:.3e} (tol {TOL[dname]})")
+            check(bool(torch.isfinite(got.float()).all()) and e <= TOL[dname],
+                  f"fused_vit_block at L={L} {dname}: error {e}")
+            entry[f"{dname}_rel_err"] = e
+        rows_, hid = B * L, 4 * C
+        ops = 2 * rows_ * (C * 3 * C + C * C + 2 * C * hid) + 4 * B * L * L * C
+        wbytes = 2 * (C * 3 * C + C * C + 2 * C * hid) + 4 * (7 * C + hid)
+        bms, by = bound_ms(3 * rows_ * C * 2 + B * 2 * 4 + wbytes, ops, PEAK["bf16"])
+        entry.update(alternated_ms({"ms": lambda: kvit.fused_vit_block(xb, pos, dp, *wb, H),
+                                    "library_ms": lambda: block_library(xb, pos, dp, wb, H)},
+                                   timer=queued_ms))
+        entry.update(bound_ms=bms, bound_by=by, max_abs_err=float((got.float() - want.float())
+                                                                  .abs().max()),
+                     plain_ms=gpu_time_ms(lambda: kvit.vit_block_plain(xb, pos, dp, *wb, H)))
+        rows["fused_vit_block"][f"L{L}"] = entry
+    print(f"[mae] rows 1-5 at MAE's shapes, ms (queued): {json.dumps(rows)}")
+    return rows
+
+
+def mae_card_vs_cpu():
+    """The f32 forward on the card against the CPU's (same weights, clouds and
+    noise; eval): the loss and ``pred`` within TOL_MAE_CPU; bf16 against f32
+    on the card (the loss within TOL_MAE_BF16_LOSS, ``pred`` within
+    TOL_MAE_BF16_PRED of its max) and the float8-weight control's ``pred``
+    past that limit; then the first train
+    step's gradients card against CPU within TOL_MAE_GRAD of the largest,
+    the running statistics within TOL_MAE_CPU, and the card's launches."""
+    B = MAE_BATCH
+    cpu = mae_model(torch.float32)
+    card = mae_model(torch.float32).to(DEV)
+    bf16 = mae_model(torch.bfloat16).to(DEV)
+    bf16.load_state_dict(card.state_dict())
+    control = mae_model(torch.bfloat16).to(DEV)
+    with torch.no_grad():
+        for p, q in zip(control.parameters(), card.parameters()):
+            p.copy_(q.to(torch.float8_e4m3fn).float())
+    pts, noise = mae_inputs(B, 42)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        lw, pw = mae_call(cpu, pts, noise)
+        cpu_s = time.perf_counter() - t0
+        lg, pg = mae_call(card, pts, noise)
+        l16, p16 = mae_call(bf16, pts, noise)
+        l8, p8 = mae_call(control, pts, noise)
+    pred_err, loss_err = rel_err(pg.cpu(), pw), abs(float(lg) - float(lw)) / abs(float(lw))
+    loss16, pred16 = abs(float(l16) - float(lg)) / abs(float(lg)), rel_err(p16, pg)
+    loss8, pred8 = abs(float(l8) - float(lg)) / abs(float(lg)), rel_err(p8, pg)
+    print(f"[mae] f32 forward B={B} x {MAE_NPOINTS}, card vs CPU: loss {float(lg):.6f} vs "
+          f"{float(lw):.6f} (rel {loss_err:.3e}), pred max|diff|/max {pred_err:.3e} (limit "
+          f"{TOL_MAE_CPU:g}; CPU {cpu_s:.1f} s); bf16 vs f32: loss rel {loss16:.3e} (limit "
+          f"{TOL_MAE_BF16_LOSS:g}), pred {pred16:.3e} (limit {TOL_MAE_BF16_PRED:g}); "
+          f"float8-weight control vs f32: loss rel {loss8:.3e}, pred {pred8:.3e}")
+    check(tuple(pg.shape) == (B, 64, 32, 3) and bool(torch.isfinite(pg).all())
+          and pred_err <= TOL_MAE_CPU and loss_err <= TOL_MAE_CPU,
+          f"MAE's f32 forward on the card disagrees with the CPU's ({loss_err}, {pred_err})")
+    check(p16.dtype == torch.float32 and bool(torch.isfinite(p16).all())
+          and loss16 <= TOL_MAE_BF16_LOSS and pred16 <= TOL_MAE_BF16_PRED,
+          f"MAE's bf16 forward against f32: loss {loss16}, pred {pred16}")
+    check(pred8 > TOL_MAE_BF16_PRED, f"the float8-weight control's pred {pred8} stays within "
+          f"the bf16 limit {TOL_MAE_BF16_PRED}")
+    out = {"loss_rel": loss_err, "pred_diff_over_max": pred_err, "cpu_s": cpu_s,
+           "bf16_loss_rel": loss16, "bf16_pred_diff_over_max": pred16,
+           "control_loss_rel": loss8, "control_pred_diff_over_max": pred8}
+    step = {}
+    for tag, model in (("cpu", cpu), ("card", card)):
+        _build.reset_launches()
+        loss, _ = mae_call(model, pts, noise, train=True)
+        names, params = zip(*model.named_parameters())
+        grads = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+        step[tag] = ({k: g.cpu() for k, g in zip(names, grads)},
+                     {k: v.cpu() for k, v in model.named_buffers()},
+                     {k: v for k, v in _build.LAUNCHES.items() if v})
+    ref = step["cpu"][0]
+    top = max(float(g.abs().max()) for g in ref.values())
+    worst = max(float((step["card"][0][k] - g).abs().max()) for k, g in ref.items()) / top
+    dist = grad_dist(step["card"][0], ref)
+    stats = max(rel_err(step["card"][1][k], v) for k, v in step["cpu"][1].items())
+    launches = step["card"][2]
+    print(f"[mae] f32 train step, card vs CPU: gradients max|diff| over the largest "
+          f"{worst:.3e} (limit {TOL_MAE_GRAD:g}), distance {dist:.3e}; running statistics "
+          f"{stats:.3e} (limit {TOL_MAE_CPU:g}); launches {json.dumps(launches)}")
+    check(worst <= TOL_MAE_GRAD, f"MAE's f32 gradients on the card: {worst} of the largest")
+    check(stats <= TOL_MAE_CPU, f"MAE's running statistics on the card: {stats}")
+    check(launches == MAE_LAUNCHES, f"MAE's train forward and backward launched {launches}")
+    out.update(grad_diff_over_max=worst, grad_dist=dist, stats_diff_over_max=stats)
+    return out
+
+
+def mae_train_steps(dtype):
+    """MAE_STEPS ``torch.optim.Adam(lr=1e-3)`` train steps (masking drawn on
+    the card, two seeded batches in turn): the first step's launches, the
+    losses finite, the wall ms a step (the loss read every step); in bf16
+    one more step under the profiler (busy, wall, idle share)."""
+    from ppt_torch.nn import mae as nmae
+
+    model = mae_model(dtype).to(DEV)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    batches = [mae_inputs(MAE_BATCH, 50 + i)[0].to(DEV) for i in range(2)]
+
+    def step(pts):
+        opt.zero_grad(set_to_none=True)
+        loss, _ = model(pts, nmae.masking_noise(gen, MAE_BATCH, 64), train=True)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    _build.reset_launches()
+    losses = [float(step(batches[0]))]
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    t0 = time.perf_counter()
+    losses += [float(step(batches[i % 2])) for i in range(1, MAE_STEPS)]
+    wall_ms = (time.perf_counter() - t0) / (MAE_STEPS - 1) * 1e3
+    name = "bf16" if dtype == torch.bfloat16 else "f32"
+    out = {"losses": losses, "launches_per_step": launches, "wall_ms_per_step": wall_ms,
+           "clouds_per_sec": MAE_BATCH / wall_ms * 1e3}
+    if dtype == torch.bfloat16:
+        out["profiled_step"] = kernel_split_ms(lambda: step(batches[0]), calls=2, kinds=MAE_KINDS)
+    print(f"[mae] {name} Adam(1e-3), {MAE_STEPS} steps of {MAE_BATCH} x {MAE_NPOINTS}: losses "
+          f"{[round(x, 5) for x in losses]}; launches a step {json.dumps(launches)}; "
+          f"{wall_ms:.2f} ms a step after the first ({out['clouds_per_sec']:.1f} clouds/s)"
+          + (f"; profiled {json.dumps(out['profiled_step'])}" if "profiled_step" in out else ""))
+    check(all(math.isfinite(x) for x in losses), f"MAE {name} losses {losses}")
+    check(launches == MAE_LAUNCHES, f"a MAE {name} train step launched {launches}")
+    return out
+
+
+def run_mae_slice(smi):
+    t0 = time.perf_counter()
+    out = {"kernels": mae_kernel_rows(), "card_vs_cpu": mae_card_vs_cpu(),
+           "train": {"f32": mae_train_steps(torch.float32),
+                     "bf16": mae_train_steps(torch.bfloat16)}, "card": smi}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[mae] phase 21 took {out['seconds']:.1f} s")
+    return out
+
+
 SPILL_FREE = ("ball_query_kernel", "ball_query_feats_kernel", "approx_match_warp_kernel",
               "nn_dists_kernel")
 
@@ -6251,7 +6574,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=("ballquery", "towers", "losses3d", "cloud", "recipes",
                                        "pretrained", "partseg", "probe", "tools", "zoo",
-                                       "scenes", "scenetier"),
+                                       "scenes", "scenetier", "mae"),
                     help="build group.cu and run phase 3's ball-query checks and times alone "
                          "(ballquery) or phase 7's ball-query towers alone (towers); build "
                          "losses3d.cu and run phase 3's loss checks and times, nn_dists at "
@@ -6267,7 +6590,10 @@ def main(argv=None):
                          "build group.cu and run phase 18, the zoo (zoo); "
                          "build group.cu and run phase 19, scene segmentation (scenes); "
                          "build group.cu and vitblock.cu and run phase 3's FPS rows of the "
-                         "ViT tier and phase 20, the scene tier's other modules (scenetier)")
+                         "ViT tier and phase 20, the scene tier's other modules (scenetier); "
+                         "build group.cu, mini.cu and vitblock.cu, count mini.cu's and "
+                         "vitblock.cu's wgmma, and run phase 21, the masked-point "
+                         "autoencoder (mae)")
     args = ap.parse_args(argv)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -6348,6 +6674,14 @@ def main(argv=None):
                           "scenetier": run_scenetier_slice(smi)}))
         print(smi)
         return
+    if args.only == "mae":
+        build(["group", "mini", "vitblock"])
+        sass = hopper_sass(["mini", "vitblock"])
+        check(sass["mini"]["mini_forward_wgmma_kernel"]["instances"] == 2,
+              "mini.cu builds mini_forward_wgmma_kernel at CO = 128 and 256")
+        print(json.dumps({"mae": run_mae_slice(smi)}))
+        print(smi)
+        return
     if args.only == "towers":
         build(["group"])
         print(json.dumps({"ballquery": run_ballquery_slice()[1]}))
@@ -6364,6 +6698,8 @@ def main(argv=None):
 
     build()
     sass = hopper_sass()
+    check(sass["mini"]["mini_forward_wgmma_kernel"]["instances"] == 2,
+          "mini.cu builds mini_forward_wgmma_kernel at CO = 128 and 256")
     lap("2 build, SASS")
 
     results = {}
@@ -6445,6 +6781,12 @@ def main(argv=None):
         results[name]["scenetier_launches_per_forward"] = {
             m: e["launches"].get(name, 0) for m, e in tier_stats["modules"].items()}
     lap("20 scene tier")
+    mae_stats = run_mae_slice(smi)  # its own counts, read per step
+    for name, row in mae_stats["kernels"].items():
+        results[name]["mae"] = row
+    for name, n in mae_stats["train"]["bf16"]["launches_per_step"].items():
+        results[name]["mae_launches_per_step"] = n
+    lap("21 mae")
     att, vit = sass["attention"], sass["vitblock"]
     results["mini_forward"]["sass"] = sass["mini"]["mini_forward_wgmma_kernel"]
     results["mini_stats"]["sass"] = sass["mini"]["mini_stats_wgmma_kernel"]
@@ -6483,6 +6825,7 @@ def main(argv=None):
     print(json.dumps({"zoo": zoo_stats}))
     print(json.dumps({"sceneseg": scene_stats}))
     print(json.dumps({"scenetier": tier_stats}))
+    print(json.dumps({"mae": mae_stats}))
     print(json.dumps({"phase_seconds": laps}))
     print(json.dumps({"kernels": kernels, **slice_stats}))
     print(smi)

@@ -175,7 +175,11 @@ mini_forward_kernel(const float* __restrict__ x, int M, int C1, int C2, int H, i
 }
 
 // ---------------------------------------------------------------------------
-// bf16 forward on Hopper: mini_forward_wgmma_kernel, for PointBERT's widths.
+// bf16 forward on Hopper: mini_forward_wgmma_kernel<CO>, for PointBERT's
+// widths (C1, C2, H, CO) = (128, 256, 512, 256) and the masked-point
+// autoencoder's (128, 256, 512, 128): only the last product's width differs,
+// so the kernel is a template on CO, which sets the w3 stages a chunk of h
+// takes (CO / 128), y's accumulators and the output's width.
 //
 // What bounds it on the H100: the four products (19.1 MFLOP a group of 32
 // rows) at the tensor cores' rate, reached only through wgmma, and, since
@@ -195,7 +199,8 @@ mini_forward_kernel(const float* __restrict__ x, int M, int C1, int C2, int H, i
 //   with a full and an empty mbarrier each. A tile takes 52 stages: w2 by
 //   64 k-rows and 128 columns (4), fwg likewise (16), then per 64-column
 //   chunk of h fwl's chunk by 128 k-rows (2) and the chunk's 64 rows of w3
-//   by 128 columns (2). The ring runs on across tiles; a consumer releases
+//   by 128 columns (CO / 128): 52 stages at CO = 256, 44 at CO = 128. The
+//   ring runs on across tiles; a consumer releases
 //   a stage as soon as the products that read it are done.
 // - Stage 1 (K = 3) runs on the CUDA cores into the consumer's x1 tile.
 //   x2 = x1 @ w2 is m64n128k16 wgmma from shared memory (w2 read as an
@@ -211,8 +216,8 @@ mini_forward_kernel(const float* __restrict__ x, int M, int C1, int C2, int H, i
 //   across.
 // - Per chunk of h: x2 @ fwl (m64n64k16, K = 256) into 32 registers; its
 //   epilogue writes h straight into the A fragments of y += h @ w3
-//   (m64n128k16 twice, A from registers), so h never touches shared
-//   memory; y's 128 accumulators stay in registers across the 8 chunks
+//   (m64n128k16 CO / 128 times, A from registers), so h never touches
+//   shared memory; y's CO / 2 accumulators stay in registers across the 8 chunks
 //   (setmaxnreg gives each consumer 232 registers a thread). The next
 //   chunk's x2 @ fwl is issued before this chunk's h @ w3 and waited for
 //   alone, so its epilogue runs on the CUDA cores while h @ w3 runs on the
@@ -223,12 +228,13 @@ mini_forward_kernel(const float* __restrict__ x, int M, int C1, int C2, int H, i
 //   between a product and its wait: no product is issued under a branch,
 //   each accumulator is zeroed before its first product of a tile, and
 //   the consumers wait on full stages warp by warp (mbar_wait_warp).
-// - Only out [n_groups, 256] is written. Padding rows (M < 32, a group
+// - Only out [n_groups, CO] is written. Padding rows (M < 32, a group
 //   past n_groups) stay out of both maxes. No split-K, no atomics: repeats
 //   are bit-identical.
 // ---------------------------------------------------------------------------
 namespace wg {
-constexpr int C1 = 128, C2 = 256, H = 512, CO = 256;  // PointBERT's widths
+constexpr int C1 = 128, C2 = 256, H = 512;  // PointBERT's and MAE's widths
+constexpr int CO_MAX = 256;  // the widest CO; shared memory is laid out for it
 constexpr int ROWS = 128, GPT = ROWS / MAXM;           // a tile's rows and groups
 constexpr int HC = 64, NCH = H / HC;                   // h chunks
 constexpr int BOX = 64 * 64;    // elements of a TMA box, [64 rows][64 columns]
@@ -242,11 +248,11 @@ constexpr int X2_OFF = XH_OFF + 2 * XH_BYTES;
 constexpr int G_OFF = X2_OFF + 2 * X2_BYTES;  // group maxes [8][256] bf16, rows 4-7 zero
 constexpr int GH_OFF = G_OFF + 8 * C2 * 2;    // gh [4][512] bf16
 constexpr int PAR_OFF = GH_OFF + GPT * H * 2;  // fw1 [3][128] f32, then fb1, b2, fbs, b3 bf16
-constexpr int BAR_OFF = PAR_OFF + 3 * C1 * 4 + (C1 + C2 + H + CO) * 2;
+constexpr int BAR_OFF = PAR_OFF + 3 * C1 * 4 + (C1 + C2 + H + CO_MAX) * 2;
 constexpr int SMEM = 1024 + BAR_OFF + 2 * NS * 8;
 static_assert(SMEM <= 232448, "one CTA an SM");
 // registers a thread: the launch's 168, then 40 for the producer and 232
-// for each consumer (y's 128 accumulators, a chunk of h's 32, the rest)
+// for each consumer (y's CO / 2 accumulators, a chunk of h's 32, the rest)
 constexpr int LAUNCH_REGS = 168, PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 static_assert(PRODUCER_REGS + 2 * CONSUMER_REGS <= 3 * LAUNCH_REGS, "register pool exceeded");
 
@@ -328,16 +334,17 @@ __device__ __forceinline__ void h_frags(const float (&ha)[32], uint32_t (&hf)[4]
   }
 }
 
-// y += h @ w3[chunk rows, :], h from registers, w3 from the chunk's two
+// y += h @ w3[chunk rows, :], h from registers, w3 from the chunk's NW3
 // stages (128 columns each), one commit group a stage
-__device__ __forceinline__ void issue_y(float (&y)[2][64], uint32_t (&hf)[4][4], const bf16* s0,
-                                        const bf16* s1) {
+template <int NW3>
+__device__ __forceinline__ void issue_y(float (&y)[NW3][64], uint32_t (&hf)[4][4],
+                                        const bf16* (&ws)[NW3]) {
   fence_frags(hf);
   wgmma_fence();
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
+  for (int h = 0; h < NW3; ++h) {
 #pragma unroll
-    for (int ks = 0; ks < HC / 16; ++ks) wgmma_rs<128>(y[h], hf[ks], desc_w(h ? s1 : s0, ks), 1);
+    for (int ks = 0; ks < HC / 16; ++ks) wgmma_rs<128>(y[h], hf[ks], desc_w(ws[h], ks), 1);
     wgmma_commit();
   }
 }
@@ -358,6 +365,7 @@ __device__ __forceinline__ void issue_h(float (&ha)[32], uint32_t x2a, const bf1
   }
 }
 
+template <int CO>
 __global__ void __launch_bounds__(384, 1)
 mini_forward_wgmma_kernel(const __grid_constant__ CUtensorMap tw2,
                           const __grid_constant__ CUtensorMap twg,
@@ -380,6 +388,8 @@ mini_forward_wgmma_kernel(const __grid_constant__ CUtensorMap tw2,
   uint64_t* full = reinterpret_cast<uint64_t*>(base + BAR_OFF);
   uint64_t* empty = full + NS;
   const int n_tiles = (n_groups + GPT - 1) / GPT;
+  constexpr int NW3 = CO / 128;  // w3 stages a chunk of h; y's 128-column halves
+  static_assert(CO == 128 || CO == 256, "CO is 128 or 256");
 
   for (int e = threadIdx.x; e < 3 * C1; e += blockDim.x) pw1[e] = __bfloat162float(fw1[e]);
   for (int e = threadIdx.x; e < C1; e += blockDim.x) pb1[e] = fb1[e];
@@ -428,7 +438,7 @@ mini_forward_wgmma_kernel(const __grid_constant__ CUtensorMap tw2,
         for (int hb = 0; hb < NCH; ++hb) {  // fwl: a chunk's 128 k-rows; w3: 64 x 128
           if (hb + 1 < NCH)
             for (int kh = 0; kh < 2; ++kh) load(&twl, HC * (hb + 1), 0, 128 * kh, 64);
-          for (int hf = 0; hf < 2; ++hf) load(&tw3, 128 * hf, 64, HC * hb, 0);
+          for (int hf = 0; hf < NW3; ++hf) load(&tw3, 128 * hf, 64, HC * hb, 0);
         }
       }
     }
@@ -605,9 +615,9 @@ mini_forward_wgmma_kernel(const __grid_constant__ CUtensorMap tw2,
     // between two buffers (the loop takes chunks in pairs), as h @ w3 may
     // still read the last chunk's; the last chunk issues no x2 @ fwl (no
     // product is issued under a branch)
-    float y[2][64];
-    zero_acc(y[0]);
-    zero_acc(y[1]);
+    float y[NW3][64];
+#pragma unroll
+    for (int h = 0; h < NW3; ++h) zero_acc(y[h]);
     {
       float ha[32];
       uint32_t hf0[4][4], hf1[4][4];
@@ -631,11 +641,12 @@ mini_forward_wgmma_kernel(const __grid_constant__ CUtensorMap tw2,
           issue_h(ha, opaque_addr(x2t), n0, n1);
           it += 2;
         }
-        const bf16* w0 = wait_full();
-        const bf16* w1 = wait_stage(it + 1);
-        issue_y(y, hf, w0, w1);
+        const bf16* ws[NW3];
+#pragma unroll
+        for (int h = 0; h < NW3; ++h) ws[h] = wait_stage(it + h);
+        issue_y<NW3>(y, hf, ws);
         if constexpr (NEXT) {
-          wgmma_wait<2>();  // all but this chunk's h @ w3
+          wgmma_wait<NW3>();  // all but this chunk's h @ w3
           fence_acc(ha);
           release(it - 2);
           release(it - 1);
@@ -643,11 +654,11 @@ mini_forward_wgmma_kernel(const __grid_constant__ CUtensorMap tw2,
           wgmma_wait<0>();
         }
         if (hb > 0) {  // the previous chunk's h @ w3 is done
-          const int prev = it - (NEXT ? 4 : 2);
-          release(prev);
-          release(prev + 1);
+          const int prev = it - (NEXT ? 2 : 0) - NW3;
+#pragma unroll
+          for (int h = 0; h < NW3; ++h) release(prev + h);
         }
-        it += 2;
+        it += NW3;
       };
       using yes = std::true_type;
 #pragma unroll 1
@@ -657,17 +668,18 @@ mini_forward_wgmma_kernel(const __grid_constant__ CUtensorMap tw2,
       }
       chunk(yes(), hf0, NCH - 2);
       chunk(std::false_type(), hf1, NCH - 1);
-      fence_acc(y[0]);
-      fence_acc(y[1]);
-      release(it - 2);
-      release(it - 1);
+#pragma unroll
+      for (int h = 0; h < NW3; ++h) {
+        fence_acc(y[h]);
+        release(it - NW3 + h);
+      }
     }
 
     // out = max over the group's valid rows of T(T(y) + b3)
     {
       uint32_t* scr = reinterpret_cast<uint32_t*>(x2t);  // x2 is spent
 #pragma unroll
-      for (int hf = 0; hf < 2; ++hf)
+      for (int hf = 0; hf < NW3; ++hf)
 #pragma unroll
         for (int j = 0; j < 16; ++j) {
           const int col = hf * 128 + 8 * j + cq;
@@ -680,8 +692,9 @@ mini_forward_wgmma_kernel(const __grid_constant__ CUtensorMap tw2,
           part_max(rows_max(m), scr, col);
         }
       named_bar_sync(1 + c, 128);
-      const int gg = tid >> 6, col = (tid & 63) * 4, g = g0 + 2 * c + gg;
-      if (g < n_groups) {
+      // CO / 4 threads a group, 4 columns each
+      const int gg = tid / (CO / 4), col = (tid % (CO / 4)) * 4, g = g0 + 2 * c + gg;
+      if (gg < 2 && g < n_groups) {
         const uint32_t* p = scr + gg * 256 + col / 2;
         const uint2 v = {bits(__hmax2(from_bits(p[0]), from_bits(p[128]))),
                          bits(__hmax2(from_bits(p[1]), from_bits(p[129])))};
@@ -692,11 +705,12 @@ mini_forward_wgmma_kernel(const __grid_constant__ CUtensorMap tw2,
 }
 
 // w2, fwg, fwl, w3 by TMA (16-byte aligned bases; the wrapper checks them)
+template <int CO>
 static int launch(const void* x, int n_groups, int M, const void* fw1, const void* fb1,
                   const void* w2, const void* b2, const void* fwg, const void* fwl, const void* fbs,
                   const void* w3, const void* b3, void* out, cudaStream_t st) {
   if (n_groups < 1) return 0;
-  static const int pool = check_reg_pool(mini_forward_wgmma_kernel, LAUNCH_REGS);
+  static const int pool = check_reg_pool(mini_forward_wgmma_kernel<CO>, LAUNCH_REGS);
   if (pool) return pool;
   CUtensorMap maps[4];
   int rc = mat_map(&maps[0], (const bf16*)w2, C1, C2, 64);
@@ -705,9 +719,9 @@ static int launch(const void* x, int n_groups, int M, const void* fw1, const voi
   if (!rc) rc = mat_map(&maps[3], (const bf16*)w3, H, CO, 64);
   if (rc) return rc;
   const int tiles = (n_groups + GPT - 1) / GPT, sms = sm_count();
-  cudaFuncSetAttribute(mini_forward_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       SMEM);
-  mini_forward_wgmma_kernel<<<tiles < sms ? tiles : sms, 384, SMEM, st>>>(
+  cudaFuncSetAttribute(mini_forward_wgmma_kernel<CO>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  mini_forward_wgmma_kernel<CO><<<tiles < sms ? tiles : sms, 384, SMEM, st>>>(
       maps[0], maps[1], maps[2], maps[3], (const float*)x, n_groups, M, (const bf16*)fw1,
       (const bf16*)fb1, (const bf16*)b2, (const bf16*)fbs, (const bf16*)b3, (bf16*)out);
   PPT_CHECK_LAUNCH();
@@ -1147,10 +1161,11 @@ PPT_EXPORT int ppt_mini_forward(int dtype, const void* x, int n_groups, int M, i
                                 const void* fwl, const void* fbs, const void* w3,
                                 const void* b3, void* out, void* stream) {
   if (dtype == PPT_BF16) {
-    if (C1 != wg::C1 || C2 != wg::C2 || H != wg::H || CO != wg::CO || M > MAXM)
+    if (C1 != wg::C1 || C2 != wg::C2 || H != wg::H || (CO != 128 && CO != 256) || M > MAXM)
       return (int)cudaErrorInvalidValue;
-    return wg::launch(x, n_groups, M, fw1, fb1, w2, b2, fwg, fwl, fbs, w3, b3, out,
-                      (cudaStream_t)stream);
+    auto launch = CO == 128 ? wg::launch<128> : wg::launch<256>;
+    return launch(x, n_groups, M, fw1, fb1, w2, b2, fwg, fwl, fbs, w3, b3, out,
+                  (cudaStream_t)stream);
   }
   return launch_f32(x, n_groups, M, C1, C2, H, CO, fw1, fb1, w2, b2, fwg, fwl, fbs, w3, b3,
                     out, stream);

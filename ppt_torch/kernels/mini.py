@@ -7,7 +7,9 @@ and ``:mini_stats`` (``_stats_kernel`` + the closed-form epilogue of
 what bounds each kernel on the H100 and how its design answers that. In
 bf16 the forward is ``mini_forward_wgmma_kernel``: persistent CTAs whose
 producer streams the four weight matrices by TMA into a ring that two
-consumer warpgroups read with wgmma; it takes PointBERT's widths alone.
+consumer warpgroups read with wgmma; it takes PointBERT's widths, and the
+masked-point autoencoder's, whose last layer is 128 wide (a template on
+the output width, ``CO`` 128 or 256).
 
 Chain per group of M points (``mini.py:148-175``), in the compute dtype
 with f32 accumulation, rounding after every dot product and after every
@@ -49,7 +51,8 @@ from ppt_torch.kernels._autograd import recompute_grad
 from ppt_torch.kernels.vitblock import check_tma
 
 _MAX_M = 32
-_TC_WIDTHS = (128, 256, 512, 256)  # C1, C2, H, CO of the bf16 wgmma kernel (and mini_stats)
+_TC_WIDTHS = (128, 256, 512)  # C1, C2, H of the bf16 wgmma forward (C1, C2 of mini_stats)
+_TC_OUT = (128, 256)  # CO of the bf16 forward: MAE's tokens, PointBERT's
 
 
 def _mm(a: torch.Tensor, b: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -91,9 +94,9 @@ def _mini_forward_cuda(
     if C != 3 or GM % m_size or m_size > _MAX_M:
         raise ValueError(f"mini_forward: groups2 {tuple(groups2.shape)} with M={m_size} "
                          f"(needs [B, G*M, 3], M <= {_MAX_M})")
-    if dtype == torch.bfloat16 and (C1, C2, H, CO) != _TC_WIDTHS:
-        raise ValueError(f"mini_forward: bf16 takes PointBERT's widths {_TC_WIDTHS}, "
-                         f"got {(C1, C2, H, CO)}")
+    if dtype == torch.bfloat16 and ((C1, C2, H) != _TC_WIDTHS or CO not in _TC_OUT):
+        raise ValueError(f"mini_forward: bf16 takes (C1, C2, H) = {_TC_WIDTHS} and CO in "
+                         f"{_TC_OUT}, got {(C1, C2, H, CO)}")
     if any(c % 4 for c in (C1, C2, H)) or CO > 256:
         raise ValueError(f"mini_forward: widths C1={C1} C2={C2} H={H} must be multiples "
                          f"of 4 and CO={CO} <= 256")

@@ -1,5 +1,6 @@
 """Network modules: shared layers, the point towers, the scene-segmentation
-backbones, the pretraining models and the CLIP text tower.
+backbones, the pretraining models (the masked-point autoencoder among them)
+and the CLIP text tower.
 
 The towers' names are exported here, as ``ppt_tpu/nn/__init__.py`` exports
 the reference's, and imported on first use (``from ppt_torch.nn import
@@ -32,6 +33,7 @@ _EXPORTS = {
     "PointNextPacked": "pointnext_packed",
     "PointVitSeg": "vitseg", "PointVitSegConfig": "vitseg",
     "Assa": "assa",
+    "MaeConfig": "mae", "MaskedPointMAE": "mae", "random_patch_masking": "mae",
 }
 
 __all__ = sorted(_EXPORTS)

@@ -13,8 +13,9 @@ Within 1e-5 of the output's max magnitude (f32): ``PointPatchEmbed``'s
 embeddings for every feature type with kNN and ball grouping (centres
 exact), ``GraphVit3d``'s tokens and ``cls_feat``, ``PointVitSeg``'s eval
 logits; its parameter gradients within 1e-4 of their max against
-``jax.grad``. Within 1e-4: training-mode forwards' running statistics (and
-logits; the head's dropout the identity on both sides). Launches: one
+``jax.grad``, in eval and in training mode (the dropouts the identity).
+Within 1e-4: training-mode forwards' running statistics (and logits; the
+head's dropout the identity on both sides). Launches: one
 ``fps_batched`` and one ``fused_vit_block`` a block for GraphViT, the
 FPS of each skip level for PointViT-Seg.
 """
@@ -128,6 +129,38 @@ def test_pointvitseg_gradients_match_jax():
     """Every parameter's gradient of ``sum(logits * R)`` in eval mode,
     through each block's ``recompute_grad``, within 1e-4 of the max."""
     gradients_match_jax(*vitseg(), clouds(seed=6))
+
+
+def test_pointvitseg_training_gradients_match_jax(no_dropout, monkeypatch):
+    """The training-mode gradients (batch statistics in every BatchNorm,
+    both packages' dropouts the identity): d/dparams of ``sum(logits * R)``
+    for every parameter within 1e-4 of the max against ``jax.grad``."""
+    from ppt_torch.convert import _port_key
+
+    monkeypatch.setattr(tvs, "dropout", lambda x, rate, train, generator: x)
+    jmod, tmod = vitseg()
+    xs = clouds(seed=6)
+    variables, tmod = pair_strat(jmod, tmod, *xs)
+    jin = [jnp.asarray(x) for x in xs]
+    r = np.random.RandomState(9).randn(2, 128, 5).astype(np.float32)
+
+    def jloss(params):
+        out, _ = jmod.apply({**variables, "params": params}, *jin, train=True,
+                            mutable=["batch_stats"])
+        return jnp.sum(out * r), out
+
+    jgrads, jout = jax.jit(jax.grad(jloss, has_aux=True))(variables["params"])
+    out = tmod(*[torch.from_numpy(x) for x in xs], train=True)
+    close(out.detach().numpy(), jout, 1e-4)
+    (out * torch.from_numpy(r)).sum().backward()
+    grads = {k: p.grad for k, p in tmod.named_parameters()}
+    want = jax.tree_util.tree_leaves_with_path(jgrads)
+    scale = max(float(np.max(np.abs(np.asarray(g)))) for _, g in want)
+    assert len(want) == len(grads)
+    for path, g in want:
+        key = _port_key(tuple(p.key for p in path), False)
+        worst = float(np.max(np.abs(grads[key].numpy() - np.asarray(g))))
+        assert worst <= 1e-4 * scale, (key, worst / scale)
 
 
 def test_launches_a_forward(monkeypatch):

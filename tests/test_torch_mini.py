@@ -1,5 +1,8 @@
 """Port vs reference: the MiniPointNet group encoder (eval mode).
 
+The bf16 kernel path takes the output widths 128 (the masked-point
+autoencoder's tokens) and 256 (PointBERT's) and refuses others by name.
+
 The port's plain ``mini_forward`` against the Pallas kernel in interpret
 mode on the same folded weights, and the port's ``MiniPointNet`` against
 the flax module (fused path forced, as on the reference's chip) with
@@ -42,10 +45,11 @@ def _close(got, want, tol):
 
 
 # (1, 7, 20) and (2, 9, 32): the last tile of the card's kernel holds fewer
-# groups than a tile, and M < 32 pads every group's rows
+# groups than a tile, and M < 32 pads every group's rows; co = 128 is the
+# masked-point autoencoder's tokens, which the bf16 kernel also takes
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("B,G,M,co", [(2, 8, 8, 256), (1, 16, 32, 64), (1, 7, 20, 256),
-                                      (2, 9, 32, 256)])
+                                      (2, 9, 32, 256), (2, 8, 32, 128), (1, 7, 20, 128)])
 def test_mini_forward_plain_matches_pallas(dtype, B, G, M, co):
     jdt, tdt, tol = DTYPES[dtype]
     rng = np.random.RandomState(G * M + co)
@@ -97,6 +101,27 @@ def test_mini_forward_kernel_path_rejects_what_it_does_not_take(M, co, match):
     x = torch.empty(1, 2 * M, 3, device="meta")
     with pytest.raises(ValueError, match=match):
         _mini_forward_cuda(M, torch.bfloat16, x, *w)
+
+
+class Loaded(Exception):
+    """Raised in place of loading the library: the checks before it passed."""
+
+
+@pytest.mark.parametrize("co", [128, 256])
+def test_mini_forward_kernel_path_takes_both_bf16_widths(co, monkeypatch):
+    """In bf16 the kernel path takes CO = 128 (MAE's tokens) and 256
+    (PointBERT's): its checks pass and it goes on to load the library."""
+    from ppt_torch.kernels import _build
+
+    def load(name):
+        raise Loaded(name)
+
+    monkeypatch.setattr(_build, "load", load)
+    shapes = [(3, 128), (128,), (128, 256), (256,), (256, 512), (256, 512), (512,), (512, co),
+              (co,)]
+    w = [torch.empty(s, device="meta") for s in shapes]
+    with pytest.raises(Loaded, match="mini"):
+        _mini_forward_cuda(32, torch.bfloat16, torch.empty(1, 64, 3, device="meta"), *w)
 
 
 @pytest.mark.parametrize("name", ["w2", "fwg", "fwl", "w3"])
