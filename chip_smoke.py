@@ -18,7 +18,8 @@ segmentation (PTSeg, the Stratified Transformer, RandLA-Net and BAAF-Net
 through the sceneseg driver with its whole-scene eval, the S3DIS 6-fold
 tool), and the scene tier's other modules (GraphViT-3D and PointViT-Seg on
 the ViT block kernel at 768 wide, ASSA, packed PointNeXt), and the
-masked-point autoencoder.
+masked-point autoencoder, and the parallelism (data-, tensor- and
+pipeline-parallel PPT-Base steps over ranks that share the card).
 
     python3 chip_smoke.py            # one CUDA card, no arguments
     python3 chip_smoke.py --only ballquery   # group.cu, phase 3's ball queries alone
@@ -45,6 +46,8 @@ masked-point autoencoder.
                                              # GraphViT-3D, PointViT-Seg, ASSA, packed PointNeXt
     python3 chip_smoke.py --only mae         # phase 21: the masked-point autoencoder at full
                                              # width, rows 1-5 at its shapes
+    python3 chip_smoke.py --only parallel    # phase 22: dp, tp and pp PPT-Base steps over
+                                             # two gloo ranks on the card, a one-rank NCCL group
 
 Phases (any failed check raises, and the script exits non-zero):
   1. card name / power limit (nvidia-smi), torch and CUDA versions;
@@ -358,8 +361,9 @@ Phases (any failed check raises, and the script exits non-zero):
      their std, bf16 within 0.25); ``save_recog_feats``' logits bit-equal
      to ``cls.validate``'s eval step on the same seeded state;
      ``linear_probe.run_probe`` over the two files on the card and on the
-     CPU, each in a process of its own, side by side (shots 1-16, 2 runs,
-     num_step 8; seconds a shot; each shot's mean within 0.5 points), one
+     CPU, each in a process of its own, side by side (shots 1-16, one run
+     a shot, num_step 8; seconds a shot; each shot's mean within 0.5
+     points), one
      fit's weights card against CPU within 1e-2 of their largest;
      ``interpret_prompt.nearest_words`` at CLIP's 49408
      x 512 table with 32 seeded context vectors, TF32 off, its indices the
@@ -430,7 +434,8 @@ Phases (any failed check raises, and the script exits non-zero):
      the epoch's training seconds, the whole-scene eval's seconds and raw
      points/s, mIoU in [0, 100], the scene matrix counting every labelled
      raw Area 5 point once, ``fps_batched`` 4 / 4 / 0 / 5 a step, peak memory,
-     checkpoint_best.pt written and --resume going on at epoch 1; bf16
+     checkpoint_best.pt written and (RandLA-Net's) --resume going on at
+     epoch 1; bf16
      train steps of each at B=8 x 4096, one profiled after a warm-up step
      (device ms by kind: the kNN's sorts, fps_batched, GEMMs, other; the
      idle share; Stratified's ``window_overflow``) and then crops/s over 5
@@ -475,6 +480,22 @@ Phases (any failed check raises, and the script exits non-zero):
      five entries gain ``mae`` and ``mae_launches_per_step``; ``--only
      mae`` builds ``group.cu``, ``mini.cu`` and ``vitblock.cu`` and runs it
      alone.
+ 22. the parallelism (``ppt_torch/parallel/``) at PPT-Base's full width in
+     f32: two ranks over gloo on the one card (NCCL refuses two ranks on
+     one device), spawned after the build, each step held against the same
+     step in this process: dp = 2 (one SGD step at global B = 32, 16 a
+     rank, head type 3: the loss within 1e-5, the updates by their distance
+     within 1e-3, the running statistics within 1e-4 (sync-BN), the ranks'
+     launches equal to one process's), tp = 2 (the eval logits within
+     1e-4, the step as dp's; 12 ``fused_mha`` over 3 heads a rank and no
+     fused block), pp = 2 (``pipelined_trunk_features`` at B = 16 in 4
+     microbatches and the gradient of sum(features**2): features within
+     1e-5, gradients by their distance within 1e-4; ``fused_vit_block`` 6
+     times a microbatch on each stage); then a one-rank NCCL group runs the
+     dp step here, held as dp's. A ``{"parallel": ...}``
+     line; the kernels line's entries gain ``parallel_launches_per_step``
+     (rank 0's dp, tp and pp counts); ``--only parallel`` builds what
+     PPT-Base runs and runs it alone.
 
 The build prints each CUDA kernel's registers and spills (ptxas -v).
 The line before the card's is a JSON object with the per-kernel numbers
@@ -658,11 +679,17 @@ def hopper_sass(libs=None):
     MMA_KERNELS issues HMMA, and that no GONE_KERNELS is built. Returns
     {library: {kernel: {op: count, "instances": n}}}."""
     tool = Path(_build.nvcc_path()).parent / "cuobjdump"
+    ops = re.compile(r"\b(" + "|".join(SASS_OPS) + r")\b")
     found = {}
-    for lib in libs or {**HOPPER_KERNELS, **MMA_KERNELS}:
+    libs = list(libs or {**HOPPER_KERNELS, **MMA_KERNELS})
+    # one cuobjdump per library, all at once, read in turn
+    dumps = {lib: subprocess.Popen([str(tool), "-sass",
+                                    str(_build.BUILD_DIR / f"libppt_{lib}.so")],
+                                   stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+             for lib in libs}
+    for lib in libs:
         names = HOPPER_KERNELS.get(lib, ()) + MMA_KERNELS.get(lib, ()) + GONE_KERNELS.get(lib, ())
-        out = subprocess.run([str(tool), "-sass", str(_build.BUILD_DIR / f"libppt_{lib}.so")],
-                             capture_output=True, text=True, timeout=300).stdout
+        out, _ = dumps[lib].communicate(timeout=300)
         counts = {n: dict.fromkeys(SASS_OPS, 0) for n in names}
         instances = dict.fromkeys(names, 0)
         current = None
@@ -672,9 +699,8 @@ def hopper_sass(libs=None):
                 if current:
                     instances[current] += 1
             elif current:
-                for op in SASS_OPS:
-                    if re.search(r"\b" + op + r"\b", line):
-                        counts[current][op] += 1
+                for op in set(ops.findall(line)):  # each op once a line, as counted before
+                    counts[current][op] += 1
         for n in names:
             c = dict(counts[n], instances=instances[n])
             print(f"[sass] lib{lib}: {n}: {c}")
@@ -4956,7 +4982,7 @@ MN40_TRAIN_CLOUDS = 9843  # ModelNet40's train split
 PROBE_PER_BATCH = {"fps_batched": 1, "knn_gather": 1, "mini_forward": 1, "fused_vit_block": 11,
                    "fused_vit_block_readout": 1}
 PROBE_SHOTS = (1, 2, 4, 8, 16)
-PROBE_RUNS = 2
+PROBE_RUNS = 1  # one run a shot holds the card's fit to the CPU's
 PROBE_MEAN_TOL = 0.5  # points: each shot's mean on the card against the CPU's
 PROBE_W_TOL = 1e-2  # one fit's weights, card against CPU: two f32 L-BFGS paths to one minimum
 VOCAB, N_CTX_PROBE = 49408, 32  # CLIP's token table, PPT-Base's context vectors
@@ -5664,6 +5690,7 @@ def _run_zoo_slice(smi):
 
 SCENE_DIR = _build.BUILD_DIR.parent / "chip_smoke_scenes"
 SCENE_MODELS = ("ptseg", "stratified", "randlanet", "baafnet")
+SCENE_RESUME = "randlanet"  # --resume reads a checkpoint alike for every backbone: one shows it
 SCENE_B, SCENE_N = 8, 4096  # the driver's batch, --npoints and --voxel_max
 SCENE_CHECK_B = 2  # the card-against-CPU forwards
 SCENE_CLASSES = 13  # S3DIS
@@ -5959,7 +5986,8 @@ def scene_step_profile(name):
 
 def scene_driver(root, name, val_points, smi):
     """``sceneseg.train_loop`` as a user runs it: one epoch, the best
-    checkpoint's whole-scene eval with --cm_out, then --resume at epoch 1."""
+    checkpoint's whole-scene eval with --cm_out, then (``SCENE_RESUME``)
+    --resume at epoch 1."""
     args = scene_args(root, name)
     per_step, overflows = [], []
     torch.cuda.reset_peak_memory_stats()
@@ -5988,18 +6016,20 @@ def scene_driver(root, name, val_points, smi):
     check((ckpt / "checkpoint_best.pt").exists(), f"{name}: no checkpoint_best.pt")
     check(all(n == SCENE_FPS_PER_FORWARD[name] for n in fps_steps),
           f"{name}: fps_batched {fps_steps} a step, not {SCENE_FPS_PER_FORWARD[name]}")
-    resumed = sceneseg.train_loop(scene_args(root, name, resume=str(ckpt), epochs=2,
+    resumed = {}
+    if name == SCENE_RESUME:
+        run = sceneseg.train_loop(scene_args(root, name, resume=str(ckpt), epochs=2,
                                              eval_scene=False, cm_out="",
                                              exp_name=name + "_resume"))
-    check(resumed["history"][0]["epoch"] == 1, f"{name}: --resume began at "
-          f"{resumed['history'][0]['epoch']}")
+        resumed = {"resumed_at_epoch": run["history"][0]["epoch"]}
+        check(resumed["resumed_at_epoch"] == 1, f"{name}: --resume began at "
+              f"{resumed['resumed_at_epoch']}")
     return {"steps": len(per_step), "loss": h["loss"],
             "epoch_train_s": h["train_seconds"], "crop_miou": h["miou"],
             "scene_points": out["scene_points"], "scene_eval_s": out["scene_eval_seconds"],
             "scene_points_per_s": rate, "scene_miou": out["scene_miou"],
             "scene_oa": out["scene_oa"], "matrix_count": int(cm.sum()), "val_points": val_points,
-            "fps_batched_per_step": fps_steps, "peak_gib": peak, "wall_s": wall,
-            "resumed_at_epoch": resumed["history"][0]["epoch"],
+            "fps_batched_per_step": fps_steps, "peak_gib": peak, "wall_s": wall, **resumed,
             **({"window_overflow_per_step": overflows} if overflows else {})}
 
 
@@ -6540,6 +6570,178 @@ def run_mae_slice(smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 22: data-, tensor- and pipeline-parallel PPT-Base on the one card
+# ---------------------------------------------------------------------------
+
+PAR_DIR = _build.BUILD_DIR.parent / "chip_smoke_parallel"
+PAR_BATCH, PAR_NPOINTS, PAR_PP_BATCH, PAR_MICRO = 32, 1024, 16, 4
+PAR_LR = 0.05  # plain SGD: an updated leaf moves by lr times its gradient
+# f32 on both sides. dp runs the one-process kernels on half the batch: only
+# the BatchNorm sums and the gradient bucket add in another order. tp runs
+# the unfused block with fused_mha over 3 heads a rank, its row-parallel
+# products all-reduced: another route and another order. The updates are
+# held by their distance over all leaves together (grad_dist), as phase 10
+# holds the dVAE's: the readout's and the group encoder's max-pools route
+# gradients to near-tied points, so one leaf alone is not well conditioned.
+TOL_PAR = {"loss": 1e-5, "stats": 1e-4, "dp_update": 1e-3, "tp_update": 1e-3,
+           "tp_logits": 1e-4, "pp_features": 1e-5, "pp_grads": 1e-4}
+
+
+def par_spec(seed=0):
+    """PPT-Base at full width in f32: PointBERT 384 x 12 blocks x 6 heads,
+    512 groups of 32, encoder 256, DropPath 0.1; the text tower 512 x 12 x 8;
+    32 context tokens; the 40 ModelNet40 classes."""
+    names = TaskArgs(dataset_name="modelnet40").load_classnames()
+    return dict(point={}, text={}, classes=names, n_ctx=32, seed=seed)
+
+
+def par_batch(B, seed):
+    g = torch.Generator().manual_seed(seed)
+    return {"pc": torch.rand(B, PAR_NPOINTS, 3, generator=g).numpy(),
+            "label": torch.randint(0, 40, (B,), generator=g).numpy()}
+
+
+def par_jobs():
+    spec = par_spec()
+    dp = dict(kind="step", name="dp", model=spec, batch=par_batch(PAR_BATCH, 5), head_type=3,
+              lr=PAR_LR, mesh=dict(axes=("data",), shape=(2,)))
+    tp = dict(dp, name="tp", logits=True, mesh=dict(axes=("data", "model"), shape=(1, 2)))
+    pp = dict(kind="pipeline", name="pp", model=spec, batch={"pc": par_batch(PAR_PP_BATCH, 6)["pc"]},
+              n_micro=PAR_MICRO, dp_axis=None, mesh=dict(axes=("pipe",), shape=(2,)))
+    return [dp, tp, pp]
+
+
+def par_update(out, start):
+    return {k: v - start[k] for k, v in out["trainable"].items()}
+
+
+def par_stats_rel(got, want):
+    return max(rel_err(got[k], v) for k, v in want.items())
+
+
+def run_parallel_slice(smi):
+    """Phase 22: two ranks over gloo on the one card (NCCL refuses two ranks
+    on one device; gloo's collectives and point-to-point carry the card's
+    tensors through host memory), each PPT-Base step held against the same
+    step in this process on the card: dp = 2 (one SGD step at global B = 32,
+    16 a rank: the loss, every updated trainable tensor, the running
+    statistics; the ranks' launch counts equal one process's), tp = 2 (the
+    eval logits and the step, qkv / fc1 column- and proj / fc2 row-sharded,
+    fused_mha over 3 heads a rank), pp = 2 (``pipelined_trunk_features``
+    with 4 microbatches and the gradient of sum(features**2) against
+    ``PointBert`` in one process; fused_vit_block 6 times a microbatch on
+    each stage). Then a one-rank NCCL group runs the dp step here, its
+    gradient bucket through NCCL's all-reduce on the card, held as dp's. The
+    kernels are built before the ranks start."""
+    from ppt_torch.parallel import launch, workers
+    from ppt_torch.parallel.mesh import create_mesh
+
+    t0 = time.perf_counter()
+    shutil.rmtree(PAR_DIR, ignore_errors=True)
+    jobs = par_jobs()
+    run = launch.start("ppt_torch.parallel.workers:run_jobs", 2, {"jobs": jobs},
+                       workdir=str(PAR_DIR), device="cuda", backend="gloo", timeout=600)
+    one = {"dp": workers.step_job(dict(jobs[0], mesh=None), "cuda"),
+           "tp": workers.step_job(dict(jobs[1], mesh=None), "cuda")}
+    model, _ = workers.build_ulip(jobs[2]["model"], "cuda")
+    enc = model.point_encoder
+    pts = torch.from_numpy(jobs[2]["batch"]["pc"]).to(DEV)
+    _build.reset_launches()
+    feats = enc(pts, train=False)
+    params = dict(enc.named_parameters())
+    grads = dict(zip(params, torch.autograd.grad((feats.float() ** 2).sum(),
+                                                 list(params.values()))))
+    torch.cuda.synchronize()
+    one["pp"] = {"features": feats.detach().float().cpu(),
+                 "grads": {k: g.float().cpu() for k, g in grads.items()},
+                 "launches": {k: v for k, v in _build.LAUNCHES.items() if v}}
+    start = {k: v.detach().float().cpu() for k, v in
+             workers.build_ulip(jobs[0]["model"], "cpu")[0].named_parameters()}
+    ranks = run.wait()
+    spawn_s = run.seconds
+    out = {"card": smi, "ranks": 2, "backend": "gloo", "tolerances": TOL_PAR,
+           "rank_seconds": spawn_s}
+    for r, res in enumerate(ranks):
+        for name in ("dp", "tp"):
+            got, want = res[name], one[name]
+            loss = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+            upd = grad_dist(par_update(got, start), par_update(want, start))
+            stats = par_stats_rel(got["stats"], want["stats"])
+            launches = {k: v for k, v in got["launches"].items() if v}
+            row = {"loss": got["loss"], "loss_one_process": want["loss"], "loss_rel": loss,
+                   "update_dist": upd, "stats_rel": stats, "launches": launches,
+                   "launches_one_process": {k: v for k, v in want["launches"].items() if v}}
+            if name == "tp":
+                row["logits_rel"] = rel_err(got["logits"], want["logits"])
+            print(f"[parallel] rank {r} {name}=2 PPT-Base f32 SGD({PAR_LR}) at B={PAR_BATCH} "
+                  f"x {PAR_NPOINTS}: loss {got['loss']:.7f} vs one process {want['loss']:.7f} "
+                  f"(rel {loss:.2e}, limit {TOL_PAR['loss']:g}); update distance {upd:.2e} "
+                  f"(limit {TOL_PAR[name + '_update']:g}); running statistics rel "
+                  f"{stats:.2e} (limit {TOL_PAR['stats']:g})"
+                  + (f"; eval logits rel {row['logits_rel']:.2e} (limit "
+                     f"{TOL_PAR['tp_logits']:g})" if name == "tp" else "")
+                  + f"; launches {json.dumps(launches)}")
+            check(math.isfinite(got["loss"]) and loss <= TOL_PAR["loss"],
+                  f"{name}=2 loss {got['loss']} against one process {want['loss']}")
+            check(upd <= TOL_PAR[name + "_update"], f"{name}=2 update distance {upd}")
+            check(stats <= TOL_PAR["stats"], f"{name}=2 running statistics {stats}")
+            if name == "dp":
+                check(launches == row["launches_one_process"],
+                      f"a dp=2 rank launched {launches}, one process "
+                      f"{row['launches_one_process']}")
+                for k in ("fps_batched", "knn_gather", "mini_forward", "mini_stats",
+                          "fused_vit_block"):
+                    check(launches.get(k, 0) > 0, f"the dp=2 step launched no {k}")
+            else:
+                check(row["logits_rel"] <= TOL_PAR["tp_logits"], f"tp=2 logits {row['logits_rel']}")
+                check(launches.get("fused_mha", 0) == 12 and not launches.get("fused_vit_block"),
+                      f"tp=2 must run 12 fused_mha over its heads, no fused block: {launches}")
+            out.setdefault(name, {})[f"rank{r}"] = row
+        got, want = res["pp"], one["pp"]
+        f_rel = rel_err(got["features"], want["features"])
+        g_dist = grad_dist(got["grads"], want["grads"])
+        launches = {k: v for k, v in got["launches"].items() if v}
+        print(f"[parallel] rank {r} pp=2 pipelined_trunk_features, {PAR_MICRO} microbatches of "
+              f"{PAR_PP_BATCH // PAR_MICRO}: features rel {f_rel:.2e} (limit "
+              f"{TOL_PAR['pp_features']:g}); gradient distance {g_dist:.2e} (limit "
+              f"{TOL_PAR['pp_grads']:g}); launches {json.dumps(launches)} (one process "
+              f"{json.dumps(want['launches'])})")
+        check(f_rel <= TOL_PAR["pp_features"], f"pp=2 features {f_rel}")
+        check(g_dist <= TOL_PAR["pp_grads"], f"pp=2 gradients {g_dist}")
+        check(launches.get("fused_vit_block", 0) == 6 * PAR_MICRO,
+              f"a pp=2 stage must run fused_vit_block 6 times a microbatch: {launches}")
+        out.setdefault("pp", {})[f"rank{r}"] = {"features_rel": f_rel, "grad_dist": g_dist,
+                                                "launches": launches}
+    # one-rank NCCL group: the dp step's gradient bucket through NCCL
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", init_method=f"file://{PAR_DIR / 'nccl_rendezvous'}",
+                            world_size=1, rank=0)
+    try:
+        got = workers.step_job(dict(jobs[0], mesh=dict(axes=("data",), shape=(1,))), "cuda")
+        backend = str(dist.get_backend())
+    finally:
+        dist.destroy_process_group()
+    want = one["dp"]
+    loss = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    upd = grad_dist(par_update(got, start), par_update(want, start))
+    diff = max(float((got["trainable"][k] - v).abs().max()) for k, v in want["trainable"].items())
+    print(f"[parallel] one-rank {backend} group: the dp step on cuda:0, its gradient bucket "
+          f"through NCCL's all-reduce: loss {got['loss']:.7f} vs one process "
+          f"{want['loss']:.7f} (rel {loss:.2e}, limit {TOL_PAR['loss']:g}); update distance "
+          f"{upd:.2e} (limit {TOL_PAR['dp_update']:g}), max|diff| {diff:g} (the prompt's "
+          "gradient sums its scatter in no fixed order, on the card as on the CPU)")
+    check(backend == "nccl" and loss <= TOL_PAR["loss"] and upd <= TOL_PAR["dp_update"],
+          f"the one-rank NCCL dp step against one process: loss {loss}, update {upd}")
+    out["nccl"] = {"backend": backend, "loss": got["loss"], "loss_rel": loss,
+                   "update_dist": upd, "max_diff": diff,
+                   "launches": {k: v for k, v in got["launches"].items() if v}}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[parallel] phase 22 took {out['seconds']:.1f} s (the ranks {spawn_s:.1f} s)")
+    return out
+
+
 SPILL_FREE = ("ball_query_kernel", "ball_query_feats_kernel", "approx_match_warp_kernel",
               "nn_dists_kernel")
 
@@ -6574,7 +6776,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=("ballquery", "towers", "losses3d", "cloud", "recipes",
                                        "pretrained", "partseg", "probe", "tools", "zoo",
-                                       "scenes", "scenetier", "mae"),
+                                       "scenes", "scenetier", "mae", "parallel"),
                     help="build group.cu and run phase 3's ball-query checks and times alone "
                          "(ballquery) or phase 7's ball-query towers alone (towers); build "
                          "losses3d.cu and run phase 3's loss checks and times, nn_dists at "
@@ -6593,7 +6795,8 @@ def main(argv=None):
                          "ViT tier and phase 20, the scene tier's other modules (scenetier); "
                          "build group.cu, mini.cu and vitblock.cu, count mini.cu's and "
                          "vitblock.cu's wgmma, and run phase 21, the masked-point "
-                         "autoencoder (mae)")
+                         "autoencoder (mae); build the kernels PPT-Base runs and run phase "
+                         "22, data-, tensor- and pipeline-parallel PPT-Base (parallel)")
     args = ap.parse_args(argv)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -6680,6 +6883,11 @@ def main(argv=None):
         check(sass["mini"]["mini_forward_wgmma_kernel"]["instances"] == 2,
               "mini.cu builds mini_forward_wgmma_kernel at CO = 128 and 256")
         print(json.dumps({"mae": run_mae_slice(smi)}))
+        print(smi)
+        return
+    if args.only == "parallel":
+        build(["group", "mini", "vitblock", "attention"])
+        print(json.dumps({"parallel": run_parallel_slice(smi)}))
         print(smi)
         return
     if args.only == "towers":
@@ -6787,6 +6995,11 @@ def main(argv=None):
     for name, n in mae_stats["train"]["bf16"]["launches_per_step"].items():
         results[name]["mae_launches_per_step"] = n
     lap("21 mae")
+    par_stats = run_parallel_slice(smi)  # the ranks' own counts, read per step
+    for mode in ("dp", "tp", "pp"):
+        for name, n in par_stats[mode]["rank0"]["launches"].items():
+            results[name].setdefault("parallel_launches_per_step", {})[mode] = n
+    lap("22 parallel")
     att, vit = sass["attention"], sass["vitblock"]
     results["mini_forward"]["sass"] = sass["mini"]["mini_forward_wgmma_kernel"]
     results["mini_stats"]["sass"] = sass["mini"]["mini_stats_wgmma_kernel"]
@@ -6826,6 +7039,7 @@ def main(argv=None):
     print(json.dumps({"sceneseg": scene_stats}))
     print(json.dumps({"scenetier": tier_stats}))
     print(json.dumps({"mae": mae_stats}))
+    print(json.dumps({"parallel": par_stats}))
     print(json.dumps({"phase_seconds": laps}))
     print(json.dumps({"kernels": kernels, **slice_stats}))
     print(smi)

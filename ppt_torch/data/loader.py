@@ -7,16 +7,25 @@ the reference's own (``data/loader.py:58-65``), so both packages see the
 same batches. ``drop_last`` (training) keeps shapes fixed; otherwise the
 final batch is padded to ``batch_size`` with its last item and ``valid``
 marks the real rows. A dataset with part labels yields them per point,
-with the object category and its one-hot. Multi-process striding comes with
-the parallelism slice.
+with the object category and its one-hot.
+
+Multi-process striding (``DistributedSampler``'s role, the reference's
+``order[process::num_processes]``, ``data/loader.py:33-66``): process
+``process_index`` of ``num_processes`` reads every ``num_processes``-th
+item of the epoch's order, from its own offset, in batches of
+``batch_size``. Both default to the process group's rank and world size,
+or 0 and 1 without a group. The task drivers read the global batch on
+every rank instead (``num_processes=1``) and take their rows with
+``parallel.shard_batch``, so that every draw of a step is one process's.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
+import torch.distributed as dist
 
 from ppt_torch.data.datasets import ArrayDataset
 
@@ -28,23 +37,33 @@ class Loader:
     shuffle: bool = False
     drop_last: bool = False
     seed: int = 0
+    num_processes: Optional[int] = None
+    process_index: Optional[int] = None
 
     def __post_init__(self):
         self._epoch = 0
+        grouped = dist.is_available() and dist.is_initialized()
+        self._n_proc = self.num_processes if self.num_processes is not None else (
+            dist.get_world_size() if grouped else 1)
+        self._proc = self.process_index if self.process_index is not None else (
+            dist.get_rank() if grouped else 0)
 
     def set_epoch(self, epoch: int) -> None:
         """Reshuffle seed per epoch (DistributedSampler.set_epoch parity)."""
         self._epoch = epoch
 
     def __len__(self) -> int:
-        n = len(self.dataset)
+        n = len(self.indices())
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def indices(self) -> np.ndarray:
+        """This process's items of the epoch, in order."""
         n = len(self.dataset)
         if self.shuffle:
-            return np.random.RandomState(self.seed * 100003 + self._epoch).permutation(n)
-        return np.arange(n)
+            order = np.random.RandomState(self.seed * 100003 + self._epoch).permutation(n)
+        else:
+            order = np.arange(n)
+        return order if self._n_proc == 1 else order[self._proc::self._n_proc]
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         order, bs = self.indices(), self.batch_size

@@ -5,7 +5,10 @@ into its own shared library with a plain C ABI under ``build/kernels/``
 at the repository root (listed in ``.gitignore``), and loaded with
 ``ctypes``. A library is built at first use and rebuilt when its source
 or a shared header (``csrc/*.cuh``) is newer than it. :func:`build_all` starts one ``nvcc``
-per source, all at once.
+per source, all at once, under a lock on ``build/kernels/.lock`` that every
+process takes (``flock``): ranks that start at once wait for one build and
+then load its libraries, and a library is only ever replaced whole
+(``os.replace`` of a finished file).
 
 Nothing here runs at import time: the CPU tests import every module and
 this machine may have no ``nvcc``.
@@ -14,7 +17,9 @@ this machine may have no ``nvcc``.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
+import fcntl
 import os
 import shutil
 import subprocess
@@ -67,14 +72,32 @@ def _stale(name: str) -> bool:
     return lib.stat().st_mtime < newest
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """The cross-process build lock (the thread lock ``_lock`` guards one
+    process's loads)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build_all(names: Iterable[str] = SOURCES, force: bool = False) -> Dict[str, float]:
     """Compile the named sources in parallel; returns seconds per source.
-    Raises with nvcc's output when a build fails."""
+    Raises with nvcc's output when a build fails. Another process building
+    meanwhile is waited for; what it built fresh is not built again."""
+    with _build_lock():
+        return _build(list(names), force)
+
+
+def _build(names, force: bool) -> Dict[str, float]:
     names = [n for n in names if force or _stale(n)]
     if not names:
         return {}
     nvcc = nvcc_path()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     t0 = time.perf_counter()
     for n in names:

@@ -72,13 +72,13 @@ def mini_forward_plain(
         return t.to(dtype)
 
     x = groups2.to(dtype)
-    x1 = torch.clamp_min(_mm(x, fw1, dtype) + bias(fb1), 0)
+    x1 = torch.relu(_mm(x, fw1, dtype) + bias(fb1))  # flax's relu: gradient 0 at 0
     x2 = _mm(x1, w2, dtype) + bias(b2)  # [B, GM, C2]
     x2g = x2.reshape(B, G, m_size, -1)
     g = x2g.amax(dim=2)  # [B, G, C2]
     gh = _mm(g, fwg, dtype)  # [B, G, H]
     x2h = _mm(x2g, fwl, dtype)  # [B, G, M, H]
-    h = torch.clamp_min(x2h + gh[:, :, None, :] + bias(fbsplit), 0)
+    h = torch.relu(x2h + gh[:, :, None, :] + bias(fbsplit))
     y = _mm(h, w3, dtype) + bias(b3)
     return y.amax(dim=2)
 
@@ -180,7 +180,7 @@ def mini_stats_sweep_plain(m_size: int, dtype: torch.dtype, groups2: torch.Tenso
     f32, with x2 rounded to ``dtype`` and every sum accumulated in f32."""
     B, GM, _ = groups2.shape
     x = groups2.to(dtype)
-    x1 = torch.clamp_min(_mm(x, fw1, dtype) + fb1.to(dtype), 0)
+    x1 = torch.relu(_mm(x, fw1, dtype) + fb1.to(dtype))
     x2 = (_mm(x1, w2, dtype) + b2.to(dtype)).reshape(B * GM, -1)  # [N, C2] dtype
     x2f = x2.float()
     x2g = x2.reshape(B * GM // m_size, m_size, -1)

@@ -31,6 +31,7 @@ from ppt_torch.nn.layers import BatchNorm, Dense, GroupNorm, init_dense_, leaky_
 from ppt_torch.nn.pointbert import MiniPointNet, group_points
 from ppt_torch.ops.geometry import index_points, knn_point
 from ppt_torch.ops.losses3d import chamfer_l1, earth_mover_distance
+from ppt_torch.parallel import collectives as _dp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,8 +160,9 @@ class DiscreteVAE(nn.Module):
         logits = self.group_logits(neighborhood, center, train)
         if train:
             if uniforms is None:
-                uniforms = torch.clamp_min(torch.rand(logits.shape, generator=generator,
-                                                      device=logits.device), 1e-20)
+                uniforms = torch.clamp_min(_dp.global_draw(torch.rand, logits.shape,
+                                                           generator=generator,
+                                                           device=logits.device), 1e-20)
             gumbel = -torch.log(-torch.log(uniforms.to(logits.device, torch.float32)))
             y = torch.softmax((logits + gumbel) / temperature, dim=-1)
         else:

@@ -16,6 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ppt_torch.parallel import collectives as _dp
+
 
 class Dense(nn.Module):
     """flax ``Dense(dtype=...)``: ``kernel`` ``[in, out]``; inputs, kernel
@@ -80,14 +82,21 @@ class BatchNorm(BatchNormStats):
     and affine in f32 whatever the input's dtype (a bf16 Dense output), the
     result f32. ``train``: the batch's mean and biased variance
     (``E[x^2] - E[x]^2`` clamped at 0, flax's fast variance) normalise and
-    move the running statistics; else the running statistics normalise."""
+    move the running statistics; in a data-parallel step the global batch's,
+    from sums over the data group (sync-BN, ``parallel/collectives.py``);
+    else the running statistics normalise."""
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         x = x.float()
         if train:
             flat = x.reshape(-1, x.shape[-1])
-            mean = flat.mean(0)
-            var = torch.clamp_min((flat * flat).mean(0) - mean * mean, 0.0)
+            if _dp.active() is None:
+                mean = flat.mean(0)
+                var = torch.clamp_min((flat * flat).mean(0) - mean * mean, 0.0)
+            else:  # sync-BN: the sums over the data group, as flax's global statistics
+                n = _dp.sync_count(flat.shape[0])
+                mean = _dp.sync_sum(flat.sum(0)) / n
+                var = torch.clamp_min(_dp.sync_sum((flat * flat).sum(0)) / n - mean * mean, 0.0)
             self.update_running(mean.detach(), var.detach())
         else:
             mean, var = self.running_mean, self.running_var
@@ -98,11 +107,13 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """flax ``nn.Dropout``: in training each element is kept with
     probability ``1 - rate`` and scaled by its inverse, the mask drawn from
-    ``generator`` (on ``x``'s device); identity in eval or at rate 0."""
+    ``generator`` (on ``x``'s device; at the global batch in a data-parallel
+    step, ``parallel.collectives.global_draw``); identity in eval or at rate
+    0."""
     if not train or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = _dp.global_draw(torch.rand, x.shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -192,12 +203,14 @@ def drop_path_scales(rates: Sequence[float], batch: int, train: bool,
     takes: ``[len(rates), batch, 2]`` f32, one scale for the attention
     branch and one for the MLP branch of each block. In training each is
     Bernoulli(keep) / keep with keep = 1 - rate (``nn/pointbert.py:339-349``),
-    drawn from ``generator``; a block of rate 0 (block 0 of the
+    drawn from ``generator`` (at the global batch in a data-parallel step); a
+    block of rate 0 (block 0 of the
     ``linspace(0, drop_path_rate, depth)`` ladder) and eval mode give ones."""
     if not train or max(rates) == 0.0:
         return torch.ones(len(rates), batch, 2, dtype=torch.float32, device=device)
     keep = 1.0 - torch.tensor(list(rates), dtype=torch.float32, device=device)[:, None, None]
-    u = torch.rand(len(rates), batch, 2, generator=generator, device=device)
+    u = _dp.global_draw(torch.rand, (len(rates), batch, 2), dim=1, generator=generator,
+                        device=device)
     return (u < keep).float() / keep
 
 
@@ -223,6 +236,11 @@ class MlpBlock(nn.Module):
         self.fc2 = Dense(hidden_dim, width, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        tp = getattr(self, "tp", None)
+        if tp is not None:  # Megatron: fc1 on its columns, fc2 on its rows, one all-reduce
+            from ppt_torch.parallel.sharding import column_parallel, row_parallel
+
+            return row_parallel(gelu_tanh(column_parallel(x, self.fc1, tp)), self.fc2, tp)
         return self.fc2(gelu_tanh(self.fc1(x)))
 
 

@@ -32,6 +32,7 @@ from torch import nn
 from ppt_torch.nn.layers import Dense, LayerNormF32, gelu_tanh, init_dense_
 from ppt_torch.nn.pointbert import MiniPointNet, VitBlock, group_points
 from ppt_torch.ops.losses3d import chamfer_l1
+from ppt_torch.parallel import collectives as _dp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,7 +50,8 @@ class MaeConfig:
 def masking_noise(generator: torch.Generator, batch: int, num_group: int) -> torch.Tensor:
     """Uniform masking noise [B, L] f32, drawn from ``generator`` on its own
     device."""
-    return torch.rand(batch, num_group, generator=generator, device=generator.device)
+    return _dp.global_draw(torch.rand, (batch, num_group), generator=generator,
+                           device=generator.device)
 
 
 def random_patch_masking(noise: torch.Tensor, mask_ratio: float

@@ -28,6 +28,7 @@ from ppt_torch.kernels.attention import FLASH_MIN_SEQ
 from ppt_torch.nn.dvae import DiscreteVAE
 from ppt_torch.nn.layers import Dense, LayerNormF32, drop_path_scales, gelu_tanh, init_dense_
 from ppt_torch.nn.pointbert import MiniPointNet, PointBertConfig, VitBlock
+from ppt_torch.parallel import collectives as _dp
 
 MPM_ROUTES = ("block", "unfused", "plain")
 
@@ -36,7 +37,7 @@ def sample_group_mask(generator: torch.Generator, batch: int, num_group: int, ra
                       device=None) -> torch.Tensor:
     """[B, G] bool: exactly ``max(int(G * ratio), 1)`` groups masked per
     row, the lowest of uniform scores drawn from ``generator``."""
-    scores = torch.rand(batch, num_group, generator=generator, device=device)
+    scores = _dp.global_draw(torch.rand, (batch, num_group), generator=generator, device=device)
     k = max(int(num_group * ratio), 1)
     mask = torch.zeros(batch, num_group, dtype=torch.bool, device=scores.device)
     return mask.scatter_(1, scores.argsort(dim=1)[:, :k], True)

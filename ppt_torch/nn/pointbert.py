@@ -50,6 +50,7 @@ from ppt_torch.nn.layers import (BatchNorm, BatchNormStats, CastCache, Dense, Gr
                                  LayerNormF32, MlpBlock, drop_path, drop_path_scales, dropout,
                                  gelu_tanh, leaky_relu)
 from ppt_torch.ops.geometry import index_points, knn_point, three_interpolate
+from ppt_torch.parallel import collectives as _dp
 
 POINT_ROUTES = ("block", "tower", "unfused", "plain")
 
@@ -81,7 +82,8 @@ class MiniPointNet(nn.Module):
     statistics: BN1's come in closed form from the 3x3 input moments (it
     feeds on an affine map of the coordinates), BN2's from the
     ``mini_stats`` kernel; both variances are clamped at 0 in f32, and the
-    running statistics are updated in place."""
+    running statistics are updated in place. In a data-parallel step the
+    moments and sums are the data group's (sync-BN)."""
 
     def __init__(self, out_dim: int = 256, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -107,6 +109,8 @@ class MiniPointNet(nn.Module):
         if train:
             z = groups2.reshape(-1, C)
             sz, szz = z.sum(0), z.t() @ z  # [3], [3, 3]
+            if _dp.active() is not None:  # sync-BN: the moments over the data group
+                sz, szz, n = _dp.sync_sum(sz), _dp.sync_sum(szz), _dp.sync_count(n)
             szw = sz @ w1
             mean1 = szw / n + b1
             e2 = ((w1 * (szz @ w1)).sum(0) + 2.0 * b1 * szw + n * b1 * b1) / n
@@ -116,6 +120,8 @@ class MiniPointNet(nn.Module):
         fw1, fb1 = w1 * scale1[None, :], b1 * scale1 + shift1
         if train:
             sumh, sumsqh = mini_stats(M, self.dtype, groups2, fw1, fb1, w2, b2, wg, wl, bsp)
+            if _dp.active() is not None:
+                sumh, sumsqh = _dp.sync_sum(sumh), _dp.sync_sum(sumsqh)
             mean2 = sumh / n
             var2 = torch.clamp_min(sumsqh / n - mean2 * mean2, 0.0)
         scale2, shift2 = self.bn2.fold(mean2, var2)
@@ -158,7 +164,15 @@ class VitAttention(nn.Module):
         From ``FLASH_MIN_SEQ`` tokens on ``flash_mha``; else ``fused_mha``
         with ``fused``, the reference's kernel-free attention without."""
         B, L, C = x.shape
-        q, k, v = (t.reshape(B, L, heads, C // heads) for t in self.qkv(x).split(C, dim=-1))
+        tp = getattr(self, "tp", None)
+        if tp is not None:  # this rank's heads: qkv's columns of them, proj's rows
+            from ppt_torch.parallel.sharding import column_parallel, row_parallel
+
+            heads, C = tp.split(heads, "heads"), tp.split(C, "width")
+            qkv = column_parallel(x, self.qkv, tp, fused3=True)
+        else:
+            qkv = self.qkv(x)
+        q, k, v = (t.reshape(B, L, heads, C // heads) for t in qkv.split(C, dim=-1))
         if L >= FLASH_MIN_SEQ:
             out = flash_mha(q, k, v)
         elif fused:
@@ -167,6 +181,8 @@ class VitAttention(nn.Module):
             out = bf16_score_attention(q, k, v)
         else:
             out = flash_mha(q, k, v)  # below FLASH_MIN_SEQ: the plain path
+        if tp is not None:
+            return row_parallel(out.reshape(B, L, C), self.proj, tp)
         return self.proj(out.reshape(B, L, C))
 
 
@@ -287,6 +303,8 @@ class PointBert(nn.Module):
         pos = torch.cat([self.cls_pos.to(dt).expand(B, 1, -1), pos], dim=1)
         rates = np.linspace(0.0, cfg.drop_path_rate, cfg.depth).tolist()
         route = self.route if x.shape[1] < FLASH_MIN_SEQ else "unfused"
+        if getattr(self.block_0.attn, "tp", None) is not None:
+            route = "unfused"  # the fused kernels take whole weights, not shards
         dp = drop_path_scales(rates, B, train, generator, x.device)
         return x, pos, center, rates, dp, route
 
@@ -421,8 +439,6 @@ class PointBertPartSeg(PointBert):
         """pts [B, N, 3], cls_onehot [B, num_categories] -> [B, N, 128] f32.
         ``train``: batch statistics in every BatchNorm (and their running
         update), DropPath and the head's dropout drawn from ``generator``."""
-        B, N, _ = pts.shape
-        dt = self.dtype
         x, pos, center, rates, dp, route = self.embed(pts, train, generator)
         feats = []
         route = "block" if route == "tower" else route
@@ -430,6 +446,15 @@ class PointBertPartSeg(PointBert):
             x = blk(x, pos, dp[i], route=route, rate=rates[i] if train else 0.0)
             if i in PARTSEG_TAPS:
                 feats.append(self.norm(x.float())[:, 1:])  # [B, G, C] f32
+        return self.head(pts, cls_onehot, center, feats, train, generator)
+
+    def head(self, pts: torch.Tensor, cls_onehot: torch.Tensor, center: torch.Tensor,
+             feats, train: bool = False,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The propagation head from the group centres [B, G, 3] and the three
+        LayerNormed taps [B, G, C] f32 -> [B, N, 128] f32."""
+        B, N, _ = pts.shape
+        dt = self.dtype
         # hierarchical coordinates: N -> 512 -> 256 -> G
         xyz = pts.detach()
         xyz_512 = index_points(xyz, kgroup.fps_batched(xyz, 512))

@@ -74,13 +74,23 @@ class FusedQKVAttention(nn.Module):
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         B, L, D = x.shape
         hd = D // self.heads
-        qkv = self.in_proj(x)
-        q, k, v = (t.reshape(B, L, self.heads, hd).transpose(1, 2) for t in qkv.split(D, -1))
+        heads = self.heads
+        tp = getattr(self, "tp", None)
+        if tp is not None:  # this rank's heads: in_proj's columns of them, out_proj's rows
+            from ppt_torch.parallel.sharding import column_parallel, row_parallel
+
+            heads, D = tp.split(heads, "heads"), tp.split(D, "width")
+            qkv = column_parallel(x, self.in_proj, tp, fused3=True)
+        else:
+            qkv = self.in_proj(x)
+        q, k, v = (t.reshape(B, L, heads, hd).transpose(1, 2) for t in qkv.split(D, -1))
         s = (q.float() @ k.float().transpose(-1, -2)) * (1.0 / math.sqrt(hd))
         if mask is not None:
             s = s + mask
         p = torch.softmax(s, dim=-1).to(v.dtype)
         out = (p.float() @ v.float()).to(x.dtype)
+        if tp is not None:
+            return row_parallel(out.transpose(1, 2).reshape(B, L, D), self.out_proj, tp)
         return self.out_proj(out.transpose(1, 2).reshape(B, L, D))
 
 
@@ -112,7 +122,8 @@ class TextBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 weights: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
-        if self.fused:
+        tp = getattr(self, "tp", None)
+        if self.fused and tp is None:
             if mask is None:
                 raise ValueError("fused_text_block: the kernel bakes in the causal mask; call "
                                  "with the mask or build the block with fused=False")
@@ -121,6 +132,11 @@ class TextBlock(nn.Module):
                            for i, p in enumerate(self.kernel_params())]
             return fused_text_block(x, *weights, self.heads)
         x = x + self.attn(self.ln_1(x), mask)
+        if tp is not None:  # c_fc on its columns, c_proj on its rows, one all-reduce
+            from ppt_torch.parallel.sharding import column_parallel, row_parallel
+
+            return x + row_parallel(quick_gelu(column_parallel(self.ln_2(x), self.c_fc, tp)),
+                                    self.c_proj, tp)
         return x + self.c_proj(quick_gelu(self.c_fc(self.ln_2(x))))
 
 
@@ -171,6 +187,11 @@ class TextTransformer(nn.Module):
         return (*stacked, self.ln_final.weight, self.ln_final.bias, self.text_projection)
 
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        tp = getattr(self, "tp", None)
+        if tp is not None:  # the lookup on this rank's features, then all of them
+            from ppt_torch.parallel.sharding import gather_features
+
+            return gather_features(self.token_embedding(tokens.long()), tp)
         return self.token_embedding(tokens.long())
 
     def forward(self, prompt_embeds: torch.Tensor, eot_positions: torch.Tensor) -> torch.Tensor:
@@ -181,13 +202,14 @@ class TextTransformer(nn.Module):
             )
         dt = self.dtype
         x = prompt_embeds.to(dt) + self.positional_embedding[:L].to(dt)
-        if self.fused == "tower":
+        fused = self.fused if getattr(self, "tp", None) is None else "off"  # shards: "off"
+        if fused == "tower":
             eot_onehot = (torch.arange(L, device=x.device)[None, :]
                           == eot_positions.long()[:, None]).float()
             return fused_text_tower(x, eot_onehot, *self.stacked_weights(),
                                     self.config.heads).to(dt)
         mask = self.mask[:L, :L]
-        stacked = self.stacked_weights()[:12] if self.fused == "block" else None
+        stacked = self.stacked_weights()[:12] if fused == "block" else None
         for i in range(self.config.layers):
             weights = stacked and [s[i] for s in stacked]
             x = getattr(self, f"block_{i}")(x, mask, weights)

@@ -76,6 +76,7 @@ class TaskArgs:
     seed: int = 0
     task: str = "cls"
     compute_dtype: str = "float32"  # 'float32' | 'bfloat16'
+    mesh_devices: int = 0  # 0 = every rank of the process group; else the world size
     steps_per_dispatch: int = 1  # >1: that many steps launched before the host reads a metric
     votes: int = 1  # evaluation votes in the train loop (vote 0 the untouched batch)
     # scene segmentation (tasks/sceneseg.py)

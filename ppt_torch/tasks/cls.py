@@ -40,6 +40,8 @@ from ppt_torch.data.augment import append_height, train_augment, translate_point
 from ppt_torch.data.datasets import build_dataset
 from ppt_torch.data.loader import Loader
 from ppt_torch.models.ulip import PromptArrays, build_model, trainable_mask
+from ppt_torch.parallel.mesh import init_multihost, is_main, on_rows, replicate, shard_batch, \
+    task_mesh
 from ppt_torch.prompt.learner import build_prompt_spec
 from ppt_torch.tasks.args import TaskArgs, parse_args
 from ppt_torch.train.checkpoint import (load_checkpoint, load_pretrained_backbones,
@@ -48,7 +50,7 @@ from ppt_torch.train.eval import make_cached_text_eval
 from ppt_torch.train.optim import build_optimizer, build_schedule
 from ppt_torch.train.trainer import create_train_state, make_train_multi_step, make_train_step
 from ppt_torch.utils.device import resolve_device
-from ppt_torch.utils.logging_utils import ExperimentLogger
+from ppt_torch.utils.logging_utils import experiment_logger
 from ppt_torch.utils.metrics import Meter, per_class_accuracy
 
 log = logging.getLogger(__name__)
@@ -98,8 +100,11 @@ def setup(args: TaskArgs) -> Dict:
     else:
         classnames = args.load_classnames()
     prompts, model = prompts_and_model(args, classnames, device)
+    mesh = task_mesh(args)  # None for one process
+    if mesh is not None:
+        replicate(model)
     steps_per_epoch = max(len(train_ds) // args.batch_size, 1)
-    state, sched = train_state(args, model, steps_per_epoch)
+    state, sched = train_state(args, model, steps_per_epoch, mesh)
     if args.resume:
         state = load_checkpoint(args.resume, state)
         meta_path = os.path.join(args.resume, "checkpoint_best.json")
@@ -118,6 +123,7 @@ def setup(args: TaskArgs) -> Dict:
         "device": device,
         "steps_per_epoch": steps_per_epoch,
         "sched": sched,
+        "mesh": mesh,
     }
 
 
@@ -141,7 +147,7 @@ def prompts_and_model(args: TaskArgs, classnames, device):
     return prompts, model
 
 
-def train_state(args: TaskArgs, model, steps_per_epoch: int):
+def train_state(args: TaskArgs, model, steps_per_epoch: int, mesh=None):
     """(state, schedule): ``args.head_type``'s trainable partition of
     ``model`` with its optimizer, the schedule the optimizer reads."""
     mask = trainable_mask(model, head_type=args.head_type, task=args.task)
@@ -158,7 +164,7 @@ def train_state(args: TaskArgs, model, steps_per_epoch: int):
             eps=args.eps, grad_norm_clip=args.grad_norm_clip,
             plateau_patience=args.plateau_patience if args.sched.lower() == "plateau" else 0,
             steps_per_epoch=steps_per_epoch, plateau_factor=args.plateau_factor),
-        seed=args.seed + 1,
+        seed=args.seed + 1, mesh=mesh,
     )
     return state, sched
 
@@ -176,7 +182,7 @@ def _maybe_load_pretrained(args: TaskArgs, model) -> None:
 
 
 def validate(state, eval_fn, test_ds, prompts, args: TaskArgs, device,
-             votes: int = 1) -> Dict[str, float]:
+             votes: int = 1, mesh=None) -> Dict[str, float]:
     """Eval loop over ``test_ds``; ``state`` is the model and ``eval_fn``
     the (embed, step) pair of ``make_cached_text_eval``. With ``votes > 1``
     each batch also runs ``votes - 1`` copies scaled and shifted by
@@ -184,12 +190,15 @@ def validate(state, eval_fn, test_ds, prompts, args: TaskArgs, device,
     ``ppt_tpu/tasks/cls.py:149-193``): vote 0 is the untouched batch, the
     draws come from a generator seeded with ``args.seed + 7``, the height
     channel is appended after the translation, and the summed logits give
-    the prediction."""
+    the prediction. With ``mesh`` each data rank runs its rows of every
+    batch and the logits are gathered."""
     embed_fn, step_fn = eval_fn
     text_embed = embed_fn(state, prompts)
     gen = torch.Generator(device=device).manual_seed(args.seed + 7)
     preds, labels = [], []
-    for batch in Loader(test_ds, batch_size=args.batch_size):
+    # the whole test set on every rank; a mesh splits each batch's rows
+    for batch in Loader(test_ds, batch_size=args.batch_size, num_processes=1,
+                        process_index=0):
         valid = batch["valid"]
         pc0 = torch.from_numpy(batch["pc"].astype(np.float32)).to(device)
         logits_sum = None
@@ -197,7 +206,7 @@ def validate(state, eval_fn, test_ds, prompts, args: TaskArgs, device,
             pc = translate_pointcloud(gen, pc0) if v > 0 else pc0
             if args.use_height:
                 pc = append_height(pc)
-            logits = step_fn(state, {"pc": pc}, text_embed)
+            logits = on_rows(mesh, lambda b: step_fn(state, b, text_embed), {"pc": pc})
             logits_sum = logits if logits_sum is None else logits_sum + logits
         preds.append(logits_sum.argmax(-1).cpu().numpy()[valid])
         labels.append(batch["label"][valid])
@@ -216,6 +225,7 @@ def train_loop(args: TaskArgs, ctx: Dict) -> Dict[str, float]:
     model, state = ctx["model"], ctx["state"]
     prompts, device = ctx["prompts"], ctx["device"]
     train_ds, test_ds = ctx["train_ds"], ctx["test_ds"]
+    mesh = ctx.get("mesh")
 
     K = max(args.steps_per_dispatch, 1)
     # adahessian takes the Hutchinson diagonal threaded into the step
@@ -223,12 +233,14 @@ def train_loop(args: TaskArgs, ctx: Dict) -> Dict[str, float]:
     multi_fn = make_train_multi_step(args.label_smoothing, second_order) if K > 1 else None
     step_fn = make_train_step(smoothing=args.label_smoothing, second_order=second_order)
     eval_fn = make_cached_text_eval(model)
+    # every rank reads the global batch (augmented there, from the replicated
+    # generator) and keeps its rows: dp = W draws as one process
     loader = Loader(train_ds, batch_size=args.batch_size, shuffle=True, drop_last=True,
-                    seed=args.seed)
+                    seed=args.seed, num_processes=1, process_index=0)
     # augmentation draws from its own stream, as the reference's aug_key
     # (seed + 2): K-step dispatch then takes the same draws as single steps
     aug_gen = torch.Generator(device=device).manual_seed(args.seed + 2)
-    exp_log = ExperimentLogger(args, task_name=args.task)
+    exp_log = experiment_logger(args, task_name=args.task)
     best_acc = 0.0
     best_epoch = -1
     history = []
@@ -245,6 +257,8 @@ def train_loop(args: TaskArgs, ctx: Dict) -> Dict[str, float]:
                     break
                 dbatch = device_batch(batch, device)
                 dbatch["pc"] = train_augment(aug_gen, dbatch["pc"], use_height=args.use_height)
+                if mesh is not None:
+                    dbatch = shard_batch(dbatch, mesh)
                 if K > 1:
                     pending.append(dbatch)
                     if len(pending) < K:
@@ -274,12 +288,13 @@ def train_loop(args: TaskArgs, ctx: Dict) -> Dict[str, float]:
                 "epoch_time": time.time() - t0,
             }
             if (epoch % args.eval_freq) == 0 or epoch == args.epochs - 1:
-                val = validate(model, eval_fn, test_ds, prompts, args, device, votes=args.votes)
+                val = validate(model, eval_fn, test_ds, prompts, args, device, votes=args.votes,
+                               mesh=mesh)
                 entry["val_acc1"] = val["acc1"]
                 if val["acc1"] > best_acc:
                     best_acc = val["acc1"]
                     best_epoch = epoch
-                    if args.output_dir:
+                    if args.output_dir and is_main():
                         save_checkpoint(
                             os.path.join(args.output_dir, args.exp_name or "cls"),
                             state,
@@ -303,13 +318,14 @@ def main(args: Optional[Union[TaskArgs, Sequence[str]]] = None) -> Dict[str, flo
     if not isinstance(args, TaskArgs):
         args = parse_args(args)
     logging.basicConfig(level=logging.INFO)
+    init_multihost(args)  # the process group under torchrun / SLURM; one process otherwise
     ctx = setup(args)
     if args.evaluate_3d:
         if args.test_ckpt_addr:
             ctx["state"] = load_checkpoint(args.test_ckpt_addr, ctx["state"])
         model = ctx["model"]
         val = validate(model, make_cached_text_eval(model), ctx["test_ds"], ctx["prompts"],
-                       args, ctx["device"])
+                       args, ctx["device"], 1, ctx.get("mesh"))
         log.info("eval acc1=%.2f", val["acc1"])
         return {"best_acc": val["acc1"], "best_epoch": -1, "history": []}
     return train_loop(args, ctx)

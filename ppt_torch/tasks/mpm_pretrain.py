@@ -13,7 +13,9 @@ The student's trunk route comes from the reference's switches
 (``tasks/cls.py:point_route_from_env``); ``PPT_FUSED_VIT_TOWER`` names a
 classification-readout kernel that MPM does not use, so it leaves the
 default block route, as it leaves the reference's ``VitBlock``. One card
-(or ``--device cpu``); the reference's mesh is not ported.
+(or ``--device cpu``); under a process group (``torchrun``;
+``init_multihost``) every rank reads the global batch, augments it as one
+process would and keeps its rows, and the step is the mesh's.
 
     python -m ppt_torch.tasks.mpm_pretrain [--dataset_name synthetic] \\
         [--batch_size 32] [--npoints 1024] [--epochs 300] \\
@@ -38,6 +40,7 @@ from ppt_torch.data.loader import Loader
 from ppt_torch.nn.dvae import DiscreteVAE, DvaeConfig, init_dvae
 from ppt_torch.nn.mpm import PointBertMPM, dvae_tokenize, init_mpm, mpm_loss, sample_group_mask
 from ppt_torch.nn.pointbert import PointBertConfig, group_points
+from ppt_torch.parallel.mesh import init_multihost, is_main, replicate, shard_batch, task_mesh
 from ppt_torch.tasks.args import TaskArgs, parse_args
 from ppt_torch.tasks.cls import device_batch, point_route_from_env
 from ppt_torch.train import checkpoint
@@ -61,21 +64,32 @@ def make_mpm_step(student: PointBertMPM, dvae: DiscreteVAE, optimizer: Optimizer
     step threads it, ``tasks/mpm_pretrain.py:39-62``: the student's kernels
     refuse it by name, as the reference's kernels do).
     ``metrics`` holds ``loss`` and ``masked_acc`` (percent) as 0-dim
-    tensors."""
+    tensors. On the optimizer's mesh the batch is this rank's shard and the
+    step is the mesh's, as ``trainer.make_train_step``'s (the masks and
+    DropPath drawn at the global batch, sync-BN, the gradients reduced,
+    global-mean metrics: every row masks the same number of groups, so the
+    shards' means average to the global one)."""
+    from ppt_torch.parallel.collectives import data_parallel, global_mean
+    from ppt_torch.parallel.mesh import axis_group
+
+    data = axis_group(optimizer.mesh, "data")
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              mask: Optional[torch.Tensor] = None):
         pc = batch["pc"]
         neighborhood, center = group_points(pc, num_group, group_size)
         targets = dvae_tokenize(dvae, neighborhood, center)
-        if mask is None:
-            mask = sample_group_mask(state.generator, pc.shape[0], num_group, mask_ratio,
-                                     device=pc.device)
-        logits = student(neighborhood, center, mask, train=True, generator=state.generator)
+        with data_parallel(data):
+            if mask is None:
+                mask = sample_group_mask(state.generator, pc.shape[0], num_group, mask_ratio,
+                                         device=pc.device)
+            logits = student(neighborhood, center, mask, train=True,
+                             generator=state.generator)
         loss, acc = mpm_loss(logits, targets, mask)
         apply_gradients(optimizer, loss, state.generator, second_order)
         state.step += 1
-        return state, {"loss": loss.detach(), "masked_acc": acc.detach() * 100.0}
+        return state, {"loss": global_mean(loss.detach(), data),
+                       "masked_acc": global_mean(acc.detach() * 100.0, data)}
 
     return step
 
@@ -97,6 +111,7 @@ def main(args: Optional[Union[TaskArgs, Sequence[str]]] = None,
     if not isinstance(args, TaskArgs):
         args = parse_args(args)
     logging.basicConfig(level=logging.INFO)
+    init_multihost(args)  # the process group under torchrun / SLURM; one process otherwise
     args.task = "mpm"
     cfg = config or PointBertConfig()
     dcfg = dvae_config or DvaeConfig(group_size=cfg.group_size, num_group=cfg.num_group)
@@ -117,6 +132,10 @@ def main(args: Optional[Union[TaskArgs, Sequence[str]]] = None,
     student = init_mpm(PointBertMPM(cfg, num_tokens=dcfg.num_tokens, dtype=dtype,
                                     route="block" if route == "tower" else route),
                        args.seed).to(device)
+    mesh = task_mesh(args)  # None for one process
+    if mesh is not None:
+        replicate(student)
+        replicate(dvae)
     steps_per_epoch = max(len(train_ds) // args.batch_size, 1)
     sched = cosine_with_warmup(args.lr, args.lr_end, args.epochs, steps_per_epoch,
                                warmup_epochs=args.warmup_epochs, warmup_start_lr=args.lr_start)
@@ -125,15 +144,16 @@ def main(args: Optional[Union[TaskArgs, Sequence[str]]] = None,
         lambda trainable: build_optimizer(
             args.optim, trainable.items(), sched, weight_decay=args.wd, betas=args.betas,
             eps=args.eps, grad_norm_clip=args.grad_norm_clip),
-        seed=args.seed + 1)
+        seed=args.seed + 1, mesh=mesh)
     step_fn = make_mpm_step(student, dvae, state.optimizer, mask_ratio, cfg.num_group,
                             cfg.group_size, second_order=args.optim.lower() == "adahessian")
     log.info("MPM pretraining on %s (%d clouds), route %s; student params: %d",
              train_ds.name, len(train_ds), student.route,
              sum(p.numel() for p in state.trainable.values()))
 
+    # the global batch on every rank, its rows taken after the augmentation
     loader = Loader(train_ds, batch_size=args.batch_size, shuffle=True, drop_last=True,
-                    seed=args.seed)
+                    seed=args.seed, num_processes=1, process_index=0)
     history = []
     for epoch in range(args.epochs):
         loader.set_epoch(epoch)
@@ -141,6 +161,8 @@ def main(args: Optional[Union[TaskArgs, Sequence[str]]] = None,
         t0 = time.time()
         for batch in loader:
             pc = train_augment(state.generator, device_batch(batch, device)["pc"])
+            if mesh is not None:
+                pc = shard_batch(pc, mesh)
             state, metrics = step_fn(state, {"pc": pc})
             losses.append(float(metrics["loss"]))
             accs.append(float(metrics["masked_acc"]))
@@ -150,7 +172,7 @@ def main(args: Optional[Union[TaskArgs, Sequence[str]]] = None,
                  "masked_acc": float(np.mean(accs)), "epoch_time": time.time() - t0}
         history.append(entry)
         log.info("epoch %d: %s", epoch, entry)
-        if args.output_dir:
+        if args.output_dir and is_main():
             checkpoint.save_checkpoint(os.path.join(args.output_dir, args.exp_name or "mpm"),
                                        state, meta={"epoch": epoch, **entry})
     return {"history": history, "state": state}

@@ -12,9 +12,11 @@ frozen. Caption tokens for every (class, template) pair are built once on
 the host; each step takes one per cloud under a template draw from
 ``RandomState(seed + 3)``, so tokenisation never runs in the loop.
 
-The port trains on one card (or with ``--device cpu`` on the CPU): the
-reference's ``init_multihost`` / ``create_mesh`` / ``shard_batch`` belong
-to the parallelism work and are not ported. PointBERT's trunk and the text
+Under a process group (``torchrun``; ``init_multihost``) every rank reads
+the global batch of ``batch_size`` clouds, augments it and draws its
+captions as one process would, and keeps its rows (``shard_batch``); the
+step all-gathers both embeddings, so the InfoNCE is the global batch's.
+PointBERT's trunk and the text
 tower take the routes that the reference's switches name
 (``tasks/cls.py:point_route_from_env``, ``text_route_from_env``); a trunk
 of 1024 tokens or more trains through ``flash_mha``'s backward kernels.
@@ -42,6 +44,7 @@ from ppt_torch.data.datasets import build_dataset
 from ppt_torch.data.loader import Loader
 from ppt_torch.models.losses import ulip_contrastive_loss
 from ppt_torch.models.ulip import build_model, trainable_mask
+from ppt_torch.parallel.mesh import init_multihost, is_main, replicate, shard_batch, task_mesh
 from ppt_torch.prompt.tokenizer import ClipTokenizer
 from ppt_torch.tasks.args import TaskArgs, parse_args
 from ppt_torch.tasks.cls import device_batch, point_route_from_env, text_route_from_env
@@ -76,11 +79,27 @@ def make_pretrain_step(model: torch.nn.Module, optimizer: AdamW) -> Callable:
     contrastive loss at ``exp(logit_scale)``, AdamW on the trainable
     partition and the logit-scale clamp to [0, ln 100]. ``batch["pc"]`` is
     [B, N, 3] and ``tokens`` [B, 77] on the model's device; ``metrics``
-    holds ``loss`` and ``pc_text_acc`` as 0-dim tensors."""
+    holds ``loss`` and ``pc_text_acc`` as 0-dim tensors.
+
+    On the optimizer's mesh (``create_train_state(..., mesh=)``) the clouds
+    and captions are this rank's shard: the point
+    tower runs in the data axis's context (sync-BN, DropPath drawn at the
+    global batch), and both embeddings are all-gathered over the data axis,
+    differentiably (the reference's ``GatherLayer``, ``utils/utils.py:
+    212-250``), so the InfoNCE normalises over the GLOBAL batch on every
+    rank, as GSPMD's placement of the [B, B] product does; the optimizer
+    then reduces the gradients over the ranks."""
+    from ppt_torch.parallel.collectives import all_gather_cat, data_parallel
+    from ppt_torch.parallel.mesh import axis_group
+
+    data = axis_group(optimizer.mesh, "data")
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor], tokens: torch.Tensor):
-        pc_embed = model.encode_pc(batch["pc"], train=True, generator=state.generator)
+        with data_parallel(data):
+            pc_embed = model.encode_pc(batch["pc"], train=True, generator=state.generator)
         text_embed = model.encode_captions(tokens)
+        if data is not None:
+            pc_embed, text_embed = (all_gather_cat(t, data) for t in (pc_embed, text_embed))
         out = ulip_contrastive_loss(pc_embed, text_embed, None, torch.exp(model.logit_scale))
         names = list(optimizer.params)
         grads = torch.autograd.grad(out["loss"], [optimizer.params[k] for k in names])
@@ -100,6 +119,7 @@ def main(args: Optional[Union[TaskArgs, Sequence[str]]] = None) -> Dict:
     if not isinstance(args, TaskArgs):
         args = parse_args(args)
     logging.basicConfig(level=logging.INFO)
+    init_multihost(args)  # the process group under torchrun / SLURM; one process otherwise
     args.task = "pretrain"
     if args.dataset_name not in ("shapenet", "synthetic"):
         args.dataset_name = "shapenet"
@@ -113,6 +133,9 @@ def main(args: Optional[Union[TaskArgs, Sequence[str]]] = None) -> Dict:
     text_route = text_route_from_env()
     args.point_route = point_route_from_env()  # read by ulip_pointbert
     model = build_model(args.model, args, device=device, text_fused=text_route).model
+    mesh = task_mesh(args)  # None for one process
+    if mesh is not None:
+        replicate(model)
     steps_per_epoch = max(len(train_ds) // args.batch_size, 1)
     sched = cosine_with_warmup(args.lr, args.lr_end, args.epochs, steps_per_epoch,
                                warmup_epochs=args.warmup_epochs,
@@ -122,14 +145,14 @@ def main(args: Optional[Union[TaskArgs, Sequence[str]]] = None) -> Dict:
         lambda trainable: build_optimizer(
             args.optim, trainable.items(), sched, weight_decay=args.wd, betas=args.betas,
             eps=args.eps, grad_norm_clip=args.grad_norm_clip),
-        seed=args.seed + 1)
+        seed=args.seed + 1, mesh=mesh)
     log.info("pretraining %s on %s (%d clouds, %d classes x %d captions); trainable params: "
              "%d", args.model, train_ds.name, len(train_ds), bank.shape[0], bank.shape[1],
              sum(p.numel() for p in state.trainable.values()))
 
     step_fn = make_pretrain_step(model, state.optimizer)
     loader = Loader(train_ds, batch_size=args.batch_size, shuffle=True, drop_last=True,
-                    seed=args.seed)
+                    seed=args.seed, num_processes=1, process_index=0)
     cap_rng = np.random.RandomState(args.seed + 3)
     history = []
     for epoch in range(args.epochs):
@@ -141,6 +164,8 @@ def main(args: Optional[Union[TaskArgs, Sequence[str]]] = None) -> Dict:
             pc = train_augment(state.generator, dbatch["pc"])
             t_idx = cap_rng.randint(0, bank.shape[1], size=len(batch["label"]))
             tokens = torch.from_numpy(bank[batch["label"], t_idx]).to(device)
+            if mesh is not None:
+                pc, tokens = shard_batch(pc, mesh), shard_batch(tokens, mesh)
             state, metrics = step_fn(state, {"pc": pc}, tokens)
             losses.append(float(metrics["loss"]))
             accs.append(float(metrics["pc_text_acc"]))
@@ -150,7 +175,7 @@ def main(args: Optional[Union[TaskArgs, Sequence[str]]] = None) -> Dict:
                  "pc_text_acc": float(np.mean(accs)), "epoch_time": time.time() - t0}
         history.append(entry)
         log.info("epoch %d: %s", epoch, entry)
-        if args.output_dir:
+        if args.output_dir and is_main():
             save_checkpoint(os.path.join(args.output_dir, args.exp_name or "pretrain"), state,
                             meta={"epoch": epoch, **entry})
     return {"history": history, "state": state}

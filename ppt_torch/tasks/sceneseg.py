@@ -43,13 +43,14 @@ from torch import nn
 from ppt_torch.data.datasets import build_dataset
 from ppt_torch.data.loader import Loader
 from ppt_torch.nn.layers import init_dense_
+from ppt_torch.parallel.mesh import init_multihost, is_main
 from ppt_torch.tasks.args import TaskArgs, parse_args
 from ppt_torch.train.checkpoint import FILE, META, load_checkpoint, save_checkpoint
 from ppt_torch.train.optim import build_optimizer
 from ppt_torch.train.schedules import cosine_with_warmup
 from ppt_torch.train.trainer import TrainState
 from ppt_torch.utils.device import resolve_device
-from ppt_torch.utils.logging_utils import ExperimentLogger
+from ppt_torch.utils.logging_utils import experiment_logger
 from ppt_torch.utils.metrics import ConfusionMatrix
 
 log = logging.getLogger(__name__)
@@ -340,7 +341,7 @@ def train_loop(args: TaskArgs) -> Dict:
         log.info("resumed from %s at epoch %d (best mIoU %.2f)", args.resume, start_epoch,
                  best_miou)
 
-    logger = ExperimentLogger(args, task_name="sceneseg")
+    logger = experiment_logger(args, task_name="sceneseg")
     step_fn = make_seg_train_step(args.model, num_classes, args.label_smoothing)
     eval_fn = make_seg_eval_step(args.model, model, device)
     loader = Loader(train_ds, batch_size=args.batch_size, shuffle=True, drop_last=True,
@@ -357,8 +358,9 @@ def train_loop(args: TaskArgs) -> Dict:
         if miou >= best_miou:
             best_miou = miou
             state.step = epoch
-            save_checkpoint(logger.dir, state, meta={"epoch": epoch, miou_key: miou,
-                                                     "oa": cm.overall_accuracy})
+            if is_main():
+                save_checkpoint(logger.dir, state, meta={"epoch": epoch, miou_key: miou,
+                                                         "oa": cm.overall_accuracy})
         record = {"epoch": epoch, "loss": float(np.mean(losses)), miou_key: miou,
                   "oa": cm.overall_accuracy, "eval_split": eval_split}
         logger.log(record, step=epoch)
@@ -370,7 +372,8 @@ def train_loop(args: TaskArgs) -> Dict:
 
     result = {"best_miou": best_miou, "history": history}
     if args.eval_scene:
-        if os.path.exists(os.path.join(logger.dir, FILE)):  # the best checkpoint, not the last
+        # the best checkpoint, not the last (rank 0's: the only one written)
+        if is_main() and os.path.exists(os.path.join(logger.dir, FILE)):
             load_checkpoint(logger.dir, state)
         scenes = load_eval_scenes(args)
         t0 = time.perf_counter()
@@ -384,10 +387,10 @@ def train_loop(args: TaskArgs) -> Dict:
         logger.log({"scene_miou": cm.miou, "scene_oa": cm.overall_accuracy})
         log.info("whole-scene eval: mIoU %.2f OA %.2f (%d scenes)", cm.miou,
                  cm.overall_accuracy, len(scenes))
-        if args.cm_out:
+        if args.cm_out and is_main():
             np.savez(args.cm_out, matrix=cm.matrix,
                      classnames=np.asarray(scenes.classnames, dtype=object))
-    elif args.cm_out and cm is not None:
+    elif args.cm_out and cm is not None and is_main():
         log.warning("--cm_out without --eval_scene: writing the crop-eval confusion matrix")
         np.savez(args.cm_out, matrix=cm.matrix,
                  classnames=np.asarray(train_ds.classnames, dtype=object))
@@ -401,6 +404,11 @@ def main(args: Optional[Union[TaskArgs, Sequence[str]]] = None) -> Dict:
     if not isinstance(args, TaskArgs):
         args = parse_args(args)
     logging.basicConfig(level=logging.INFO)
+    # the process group under torchrun / SLURM, as the reference brings it up
+    # here (sceneseg.py:499-501); the reference's scene driver has no mesh, so
+    # each rank trains its own replica on its stride of the crops (the
+    # loader's default) and only rank 0 writes
+    init_multihost(args)
     args.task = "sceneseg"
     return train_loop(args)
 

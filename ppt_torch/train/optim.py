@@ -77,6 +77,16 @@ def _norm(x: torch.Tensor, dim=None, keepdim: bool = False) -> torch.Tensor:
     return torch.linalg.vector_norm(x, dim=dim, keepdim=keepdim, dtype=torch.float64).float()
 
 
+def _leaf_norm(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``_norm`` of a whole leaf; for a tensor-parallel shard (``group`` its
+    'model' group) the squares are summed in f64 over every shard."""
+    if group is None:
+        return _norm(x)
+    from ppt_torch.parallel.collectives import all_reduce_
+
+    return _sqrt(all_reduce_((x.double() ** 2).sum(), group))
+
+
 def _mean(x: torch.Tensor, dim=None, keepdim: bool = False) -> torch.Tensor:
     x = x.double()
     return (x.mean() if dim is None else x.mean(dim, keepdim=keepdim)).float()
@@ -107,12 +117,22 @@ def _scalar(value: float, like: torch.Tensor) -> torch.Tensor:
     return torch.full((), value, dtype=torch.float32, device=like.device)
 
 
-def clip_by_global_norm(grads: Dict[str, torch.Tensor], clip: float) -> Dict[str, torch.Tensor]:
+def clip_by_global_norm(grads: Dict[str, torch.Tensor], clip: float,
+                        shard_groups: Optional[Dict[str, object]] = None
+                        ) -> Dict[str, torch.Tensor]:
     """``optax.clip_by_global_norm``: every gradient times ``clip / norm``
     when the f32 L2 norm over all of them is at least ``clip``, else as
-    given. Decided on the card: no wait for the host."""
+    given. Decided on the card: no wait for the host. A tensor-parallel
+    shard (named in ``shard_groups`` with its 'model' group) adds the
+    squares of every shard."""
     gs = {k: g.float() for k, g in grads.items()}
-    norm = _sqrt(sum((g.double() ** 2).sum() for g in gs.values()))
+    sq = [(g.double() ** 2).sum() for g in gs.values()]
+    if shard_groups:
+        from ppt_torch.parallel.collectives import all_reduce_
+
+        sq = [all_reduce_(s, shard_groups[k]) if k in shard_groups else s
+              for k, s in zip(gs, sq)]
+    norm = _sqrt(sum(sq))
     keep = norm < clip
     return {k: torch.where(keep, g, g / norm * clip) for k, g in gs.items()}
 
@@ -176,6 +196,13 @@ class Optimizer:
     name their per-leaf state in ``slots`` and write ``update``."""
 
     slots: Tuple[str, ...] = ()
+    # tensor-parallel shards among ``params``, by name, with their 'model'
+    # group (``parallel.sharding.shard_groups``): the whole-leaf norms sum
+    # over it
+    shard_groups: Dict[str, object] = {}
+    # the mesh the step runs on (``trainer.create_train_state``), or None for
+    # one process: ``step`` first reduces the gradients over its ranks
+    mesh = None
 
     def __init__(self, params: Iterable[Tuple[str, torch.Tensor]], schedule: Callable, *,
                  grad_norm_clip: float = 0.0, plateau: Optional[Tuple[float, int, int]] = None):
@@ -204,9 +231,13 @@ class Optimizer:
     @torch.no_grad()
     def step(self, grads: Dict[str, torch.Tensor], *, value=None,
              hess: Optional[Dict[str, torch.Tensor]] = None) -> None:
+        if self.mesh is not None:
+            grads = self.reduce_over_mesh(grads)
+            if hess is not None:
+                hess = self.reduce_over_mesh(hess)
         lr = self.lr()
         if self.grad_norm_clip > 0.0:
-            grads = clip_by_global_norm(grads, self.grad_norm_clip)
+            grads = clip_by_global_norm(grads, self.grad_norm_clip, self.shard_groups)
         else:
             grads = {k: g.float() for k, g in grads.items()}
         updates = self.update(grads, lr, hess)
@@ -215,6 +246,19 @@ class Optimizer:
         for name, p in self.params.items():
             p.add_(updates[name].to(p.dtype))
         self.count += 1
+
+    def reduce_over_mesh(self, grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """``grads`` summed over the ranks that hold each tensor (every rank
+        for a replicated one, the data axis for a tensor-parallel shard) and
+        divided by the world size (``parallel.collectives`` says why that is
+        the gradient of the global mean loss): ``torch.autograd.grad`` fills
+        no ``.grad``, so no DDP hook could."""
+        from ppt_torch.parallel.collectives import ALONE, reduce_gradients
+        from ppt_torch.parallel.mesh import axis_group
+
+        data = axis_group(self.mesh, "data") or ALONE
+        return reduce_gradients(grads, self.mesh.size(),
+                                {k: data for k in self.shard_groups if k in grads})
 
     def state_dict(self) -> Dict:
         state = {"count": self.count, **{s: dict(getattr(self, s)) for s in self.slots}}
@@ -255,10 +299,12 @@ def _trace(trace: Dict[str, torch.Tensor], updates, decay: float, nesterov: bool
     return out
 
 
-def _trust_ratio(update: torch.Tensor, param: torch.Tensor, coeff: float = 1.0) -> torch.Tensor:
-    """``optax.scale_by_trust_ratio`` (min_norm 0, eps 0) on one leaf."""
-    pn = _norm(param.float())
-    un = _norm(update)
+def _trust_ratio(update: torch.Tensor, param: torch.Tensor, coeff: float = 1.0,
+                 group=None) -> torch.Tensor:
+    """``optax.scale_by_trust_ratio`` (min_norm 0, eps 0) on one leaf (a
+    tensor-parallel shard's norms over its ``group``)."""
+    pn = _leaf_norm(param.float(), group)
+    un = _leaf_norm(update, group)
     ratio = coeff * pn / un
     return update * torch.where((pn == 0.0) | (un == 0.0), torch.ones_like(ratio), ratio)
 
@@ -328,7 +374,8 @@ class Lamb(_Adam):
 
     def update(self, grads, lr, hess):
         u = _decayed(self.adam(grads), self.params, self.weight_decay)
-        return _scale({k: _trust_ratio(v, self.params[k]) for k, v in u.items()}, lr)
+        return _scale({k: _trust_ratio(v, self.params[k], 1.0, self.shard_groups.get(k))
+                       for k, v in u.items()}, lr)
 
 
 class AdamP(_Adam):
@@ -337,6 +384,9 @@ class AdamP(_Adam):
     their decay scaled by ``wd_ratio``, then ``-lr``."""
 
     def update(self, grads, lr, hess):
+        if self.shard_groups:
+            raise NotImplementedError("adamp: its channel-wise projection reads whole rows of "
+                                      "each leaf; it takes no tensor-parallel shards")
         return _scale(_project(self.adam(grads), self.params, self.weight_decay), lr)
 
 
@@ -402,7 +452,8 @@ class Lars(Optimizer):
 
     def update(self, grads, lr, hess):
         g = _decayed(grads, self.params, self.weight_decay)
-        u = _scale({k: _trust_ratio(v, self.params[k], 0.001) for k, v in g.items()}, lr)
+        u = _scale({k: _trust_ratio(v, self.params[k], 0.001, self.shard_groups.get(k))
+                    for k, v in g.items()}, lr)
         return _trace(self.trace, u, self.momentum, False)
 
 
@@ -561,7 +612,7 @@ class NovoGrad(Optimizer):
         first = self.count == 0
         out = {}
         for k, g in grads.items():
-            n = _norm(g)
+            n = _leaf_norm(g, self.shard_groups.get(k))
             n2 = n * n
             nu, mu = self.nu[k], self.mu[k]
             nu.copy_(n2 if first else (1 - self.b2) * n2 + self.b2 * nu)

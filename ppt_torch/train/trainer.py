@@ -49,13 +49,25 @@ class TrainState:
 
 def create_train_state(model: nn.Module, mask: Dict[str, bool],
                        make_optimizer: Callable[[Dict[str, torch.Tensor]], Optimizer],
-                       seed: int) -> TrainState:
+                       seed: int, mesh=None) -> TrainState:
     """Apply ``mask`` to ``model`` and build the optimizer over what it
-    leaves trainable; the generator lives on the model's device."""
+    leaves trainable; the generator lives on the model's device. With
+    ``mesh`` (``parallel.create_mesh``) the steps are the mesh's: the
+    optimizer reduces the gradients over its ranks (``Optimizer.
+    reduce_over_mesh``), and the step factories, which read the mesh from
+    the optimizer, run the forward in its data axis's context (sync-BN,
+    draws at the global batch) and report global means."""
     trainable = apply_trainable_mask(model, mask)
     device = next(model.parameters()).device
     generator = torch.Generator(device=device).manual_seed(seed)
-    return TrainState(model=model, optimizer=make_optimizer(trainable), generator=generator)
+    optimizer = make_optimizer(trainable)
+    optimizer.mesh = mesh
+    if getattr(model, "tp", None) is not None:  # tensor-parallel shards (``shard_params``)
+        from ppt_torch.parallel.sharding import shard_groups
+
+        optimizer.shard_groups = {k: g for k, g in shard_groups(model).items()
+                                  if k in trainable}
+    return TrainState(model=model, optimizer=optimizer, generator=generator)
 
 
 @torch.no_grad()
@@ -79,24 +91,36 @@ def make_train_step(smoothing: float = 0.0, second_order: bool = False,
     diagonal, from one Rademacher probe drawn from the state's generator,
     goes to the optimizer as ``hess``, as the
     reference's ``_make_train_step_fn`` threads it (``trainer.py:110-190``);
-    a kernel on the way from a trainable leaf to the loss refuses by name."""
+    a kernel on the way from a trainable leaf to the loss refuses by name.
+
+    On a mesh (``create_train_state(..., mesh=)``) the batch is this rank's
+    shard (``parallel.shard_batch``): the forward runs in the data axis's
+    context (sync-BN, draws at the global batch), the optimizer reduces the
+    gradients over the ranks, and ``loss`` and ``acc`` are global means. A
+    model put on the mesh's 'model' axis by ``parallel.sharding.
+    shard_params`` runs tensor-parallel."""
+    from ppt_torch.parallel.collectives import data_parallel, global_mean
+    from ppt_torch.parallel.mesh import axis_group
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    prompts: PromptArrays) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         trainable = state.trainable
-        logits = state.model(batch["pc"], prompts, train=True, generator=state.generator,
-                             cls_onehot=batch["cls_onehot"] if partseg else None)
+        data = axis_group(state.optimizer.mesh, "data")  # None for one process
+        with data_parallel(data):
+            logits = state.model(batch["pc"], prompts, train=True, generator=state.generator,
+                                 cls_onehot=batch["cls_onehot"] if partseg else None)
         labels = batch["label"]
         if partseg:
             logits, labels = logits.reshape(-1, logits.shape[-1]), labels.reshape(-1)
         loss = smoothed_cross_entropy(logits, labels, smoothing)
+        global_loss = global_mean(loss.detach(), data)
         apply_gradients(state.optimizer, loss, state.generator, second_order,
-                        value=loss.detach())
+                        value=global_loss)
         clamp_logit_scale(trainable)
         state.step += 1
         with torch.no_grad():
             acc = (logits.argmax(-1) == labels).float().mean() * 100.0
-        return state, {"loss": loss.detach(), "acc": acc}
+        return state, {"loss": global_loss, "acc": global_mean(acc, data)}
 
     return train_step
 
@@ -124,7 +148,7 @@ def make_train_multi_step(smoothing: float = 0.0, second_order: bool = False,
     its ``lax.scan``: ``batches`` holds K batches stacked (``pc`` [K, B, N,
     3], ``label`` [K, B]; with ``partseg`` also ``cls_onehot``), and the K
     single steps are launched back to back with no read by the host between
-    them; ``metrics`` are [K] tensors."""
+    them; ``metrics`` are [K] tensors. On a mesh as ``make_train_step``."""
     single = make_train_step(smoothing, second_order, partseg)
 
     def multi_step(state: TrainState, batches: Dict[str, torch.Tensor],

@@ -10,19 +10,30 @@ from __future__ import annotations
 from typing import Optional, Union
 
 import torch
+import torch.distributed
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
+    """The device an entry point runs on: ``device``, else the card. Under a
+    process group a card without an index is the rank's own
+    (``parallel.mesh.rank_device``): a bare ``cuda`` would be card 0 on
+    every rank."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "CUDA is not available; pass device='cpu' to run the plain "
                 "PyTorch path on the CPU"
             )
-        return torch.device("cuda")
-    dev = torch.device(device)
+        dev = torch.device("cuda")
+    else:
+        dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is not available")
+    if dev.type == "cuda" and dev.index is None and torch.distributed.is_available() \
+            and torch.distributed.is_initialized():
+        from ppt_torch.parallel.mesh import rank_device
+
+        return rank_device(dev)
     return dev
 
 

@@ -72,3 +72,25 @@ class ExperimentLogger:
         self._jsonl.close()
         if self._wandb is not None:
             self._wandb.finish()
+
+
+class NullLogger:
+    """The logger of a rank other than 0: it writes nothing (``dir`` names
+    rank 0's directory)."""
+
+    def __init__(self, args, task_name: str = ""):
+        self.dir = os.path.join(args.output_dir, args.exp_name or task_name or "exp")
+
+    def log(self, metrics: Dict[str, Any], step: Optional[int] = None) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def experiment_logger(args, task_name: str = ""):
+    """An ``ExperimentLogger`` on rank 0 (or the one process), a
+    ``NullLogger`` elsewhere: only rank 0 writes."""
+    from ppt_torch.parallel.mesh import is_main
+
+    return (ExperimentLogger if is_main() else NullLogger)(args, task_name)

@@ -123,18 +123,18 @@ def test_recipes_resolve_field_for_field_as_the_reference(recipe, extra):
         assert v == getattr(want, k), (k, v, getattr(want, k))
 
 
-def test_a_reference_only_key_raises_by_name(tmp_path):
+def test_a_reference_only_key_raises_by_name(tmp_path, monkeypatch):
     path = tmp_path / "x.yaml"
     path.write_text("_base_: %s\nmesh_devices: 4\n" % os.path.join(
         ROOT, "configs", "experiments", "ppt_base_mn40.yaml"))
-    with pytest.raises(NotImplementedError, match="mesh_devices"):
-        targs.parse_args(["--config", str(path)])
+    # mesh_devices, the last reference key, loads since the port has the
+    # parallelism; a reference key the port lacked would still raise by name
+    assert targs.parse_args(["--config", str(path)]).mesh_devices == 4
     recipe = os.path.join(ROOT, "configs", "experiments", "ppt_base_mn40.yaml")
-    # (fpath, topk, num_step and num_run load since the port has the linear
-    # probe, the scene keys since it has scene segmentation: mesh_devices
-    # is the one reference key left)
-    with pytest.raises(NotImplementedError, match="mesh_devices"):
-        targs.parse_args(["--config", recipe, "--set", "mesh_devices=2"])
+    assert targs.parse_args(["--config", recipe, "--set", "mesh_devices=2"]).mesh_devices == 2
+    monkeypatch.setattr(targs, "REFERENCE_FIELDS", targs.REFERENCE_FIELDS + ("a_reference_key",))
+    with pytest.raises(NotImplementedError, match="a_reference_key"):
+        targs.parse_args(["--config", recipe, "--set", "a_reference_key=2"])
     got = targs.parse_args(["--config", recipe, "--set", "test_area=3", "eval_scene=yes",
                             "cm_out=x", "voxel_size=0.1"])
     assert (got.test_area, got.eval_scene, got.cm_out, got.voxel_size) == (3, True, "x", 0.1)

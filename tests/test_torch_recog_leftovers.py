@@ -161,8 +161,8 @@ def test_the_six_fields_load_from_a_config(tmp_path):
     for k in ("dataset_type", "dataset_prompt", "update_freq", "print_freq", "proj_name",
               "wandb", "fpath", "topk", "num_step", "num_run"):
         assert getattr(defaults, k) == getattr(ref, k), k
-    # the linear probe's four fields and the seven scene keys load too, with
-    # the reference's defaults; the mesh key is still refused
+    # the linear probe's four fields, the seven scene keys and the mesh key
+    # load too, with the reference's defaults
     got = targs.parse_args(["--config", str(path), "--set", "topk=3", "fpath=x", "num_step=2",
                             "num_run=2"])
     assert (got.topk, got.fpath, got.num_step, got.num_run) == (3, "x", 2, 2)
@@ -174,5 +174,5 @@ def test_the_six_fields_load_from_a_config(tmp_path):
                             "allow_train_eval=yes", "max_eval_passes=2", "cm_out=x"])
     assert (got.voxel_size, got.voxel_max, got.allow_train_eval, got.max_eval_passes,
             got.cm_out) == (0.1, 8, True, 2, "x")
-    with pytest.raises(NotImplementedError, match="mesh_devices"):
-        targs.parse_args(["--config", str(path), "--set", "mesh_devices=2"])
+    assert defaults.mesh_devices == ref.mesh_devices == 0
+    assert targs.parse_args(["--config", str(path), "--set", "mesh_devices=2"]).mesh_devices == 2
