@@ -36,7 +36,8 @@ pipeline-parallel PPT-Base steps over ranks that share the card).
     python3 chip_smoke.py --only partseg     # phase 15: part segmentation at full width
     python3 chip_smoke.py --only probe       # phase 16: the linear probe at full width
     python3 chip_smoke.py --only tools       # phase 17: the serving export, the probes, the
-                                             # FLOP table, the operators' host cost
+                                             # FLOP table, the operators' host cost, the
+                                             # meta traces against the card
     python3 chip_smoke.py --only zoo         # phase 18: the rest of the recognition zoo, the
                                              # graph towers and SimpleView
     python3 chip_smoke.py --only scenes      # phase 19: scene segmentation (PTSeg, Stratified,
@@ -381,9 +382,15 @@ Phases (any failed check raises, and the script exits non-zero):
      (its launches a batch exactly 1 / 1 / 1 / 11 / 1, its logits bit-equal
      to the eager eval step's on the same batches, else within the bf16
      limits of phase 4); the ``--sym-batch`` program at B=8 and B=32
-     against the eager step; the host's us a call of each ``ppt`` operator
-     against its direct launch function, in alternated rounds ([host]
-     lines); ``component_probe`` over the components no other phase
+     against the eager step; the host's us a call of every ``ppt``
+     operator (all 22, ``flash_mha`` with and without the lse) against its
+     direct launch function, in alternated rounds, each bit-equal to it
+     ([host] lines); the FLOP audit's PPT-Base train step (B=32 x 1024)
+     and the long trunk's forward (1024 groups, B=32 x 8192) traced on
+     meta tensors and run on the card: the trace's ``ppt`` operators equal
+     the card's launch counters, its FLOPs the card's ``FlopCounterMode``
+     total, the train step's FLOPs a cloud ``ppt_torch/assets/flops.json``'s
+     ([audit] lines); ``component_probe`` over the components no other phase
      times at the same shape (``PROBE_COMPONENTS``); ``profile --flops``
      for the recognition batch and the prompt-tuning step;
      ``backbone_bench`` for the four towers it had before phase 18 (8
@@ -563,6 +570,7 @@ from ppt_torch.prompt.learner import build_prompt_spec  # noqa: E402
 from ppt_torch.tasks import cls, dvae_pretrain, fewshot, mpm_pretrain, partseg, pretrain  # noqa: E402
 from ppt_torch.tasks import feature_extract, interpret_prompt, linear_probe, sceneseg  # noqa: E402
 from ppt_torch.tasks.args import TaskArgs  # noqa: E402
+from ppt_torch.tools import flops_audit as faudit  # noqa: E402
 from ppt_torch.tools import kernel_check, vitblock_probe  # noqa: E402
 from ppt_torch.tools import profile as tprofile  # noqa: E402
 from ppt_torch.tools.timing import gpu_time_ms, queued_ms  # noqa: E402
@@ -2274,17 +2282,17 @@ def plain_path():
     saved = (kgroup.fps_batched, kgroup.knn_gather, npb.mini_forward, npb.fused_vit_block,
              npb.fused_vit_block_readout, npb.mini_stats)
     saved_text = (ktextblock._block_run, ktower.tower_forward, ktower.tower_backward)
-    saved_ball = (kgroup.ball_query_gather, kgroup._ball_feats_run)
-    saved_route = (kattn._mha_run, kattn._flash_run, kvit._tower_run)
-    saved_flash = (kattn._flash_fwd, kattn._flash_bwd)
-    saved_emd = kemd._auction_run
-    kemd._auction_run = lambda d2: kemd.auction_plain(d2, *kemd.supplies(*d2.shape[1:]))
-    kattn._mha_run, kattn._flash_run = kattn.mha_plain, kattn.flash_plain
+    saved_ball = (kgroup.ball_query_gather, kgroup._ball_feats_op)
+    saved_route = (kattn._mha_op, kattn._flash_run, kvit._tower_run)
+    saved_flash = (kattn._flash_fwd, kattn._flash_bwd_op)
+    saved_emd = kemd._match_op
+    kemd._match_op = lambda d2: kemd.auction_plain(d2, *kemd.supplies(*d2.shape[1:]))
+    kattn._mha_op, kattn._flash_run = kattn.mha_plain, kattn.flash_plain
     kattn._flash_fwd = lambda q, k, v: (kattn.flash_plain(q, k, v), kattn.flash_lse_plain(q, k))
-    kattn._flash_bwd = kattn.flash_bwd_plain
+    kattn._flash_bwd_op = kattn.flash_bwd_plain
     kvit._tower_run = kvit.vit_tower_plain
     kgroup.ball_query_gather = kgroup.ball_query_gather_plain
-    kgroup._ball_feats_run = kgroup.ball_query_gather_feats_plain
+    kgroup._ball_feats_op = kgroup.ball_query_gather_feats_plain
     ktextblock._block_run = ktextblock.text_block_plain
     ktower.tower_forward = lambda x0, eot, w, heads, want_blocks=False: ktower.text_tower_plain(
         x0, eot, *w, heads, return_blocks=want_blocks)
@@ -2302,10 +2310,10 @@ def plain_path():
         (kgroup.fps_batched, kgroup.knn_gather, npb.mini_forward, npb.fused_vit_block,
          npb.fused_vit_block_readout, npb.mini_stats) = saved
         ktextblock._block_run, ktower.tower_forward, ktower.tower_backward = saved_text
-        kgroup.ball_query_gather, kgroup._ball_feats_run = saved_ball
-        kattn._mha_run, kattn._flash_run, kvit._tower_run = saved_route
-        kattn._flash_fwd, kattn._flash_bwd = saved_flash
-        kemd._auction_run = saved_emd
+        kgroup.ball_query_gather, kgroup._ball_feats_op = saved_ball
+        kattn._mha_op, kattn._flash_run, kvit._tower_run = saved_route
+        kattn._flash_fwd, kattn._flash_bwd_op = saved_flash
+        kemd._match_op = saved_emd
 
 
 MN40_TEST_CLOUDS = 2468  # ModelNet40's test split
@@ -5298,6 +5306,7 @@ def host_us_by_op(rounds=HOST_ROUNDS):
         "fused_vit_block_readout": (
             lambda: torch.ops.ppt.fused_vit_block_readout(x, pos, dp, *bw, *lnf, 6),
             lambda: kvit._block_readout_cuda(x, pos, dp, *bw, *lnf, 6), "B=1 L=33 C=384 bf16"),
+        **other_op_pairs(xyz, q),
     }
     out = {}
     with torch.no_grad():
@@ -5322,6 +5331,114 @@ def host_us_by_op(rounds=HOST_ROUNDS):
             print(f"[host] {name}: {op_us:.3f} us a call through torch.ops.ppt, {direct_us:.3f} "
                   f"us by the direct launch ({op_us - direct_us:+.3f} us); medians of {rounds} "
                   f"alternated rounds of one call; {shape}")
+    return out
+
+
+def other_op_pairs(xyz, q):
+    """The operators beyond the recognition path's six, each beside its
+    direct launch function (its CUDA implementation), at shapes the card
+    runs in microseconds: name -> (op, direct, shape)."""
+    bf = torch.bfloat16
+    qa, ka, va = qkv_views(1, 130, 2, 64, bf, 9)
+    o, lse = kattn._flash_cuda(qa, ka, va, True)
+    do = (torch.randn(qa.shape, generator=torch.Generator().manual_seed(10)) * 0.5).to(DEV, bf)
+    tx, tpos, tdp, tstacked, tlnf = tower_inputs(1, 33, 384, 2, bf, 11)
+    x0, _, onehot, cot, tw = text_inputs(2, 16, 128, 2, 128, bf, 12)
+    _, xs = ktower._tower_res_cuda(x0, onehot, *tw, 4)
+    feats = (torch.randn(1, xyz.shape[1], 32, generator=torch.Generator().manual_seed(13))
+             ).to(DEV, bf)
+    d2 = kemd.match_d2(cloud(16, 32, 14), cloud(16, 32, 15))
+    a, b = cloud(2, 200, 16), cloud(2, 150, 17)
+    vx, vpos, vdp, vw, _ = block_inputs(1, 33, 384, bf, 18)
+    ops = torch.ops.ppt
+    return {
+        "fused_mha": (lambda: ops.fused_mha(qa, ka, va), lambda: kattn._mha_run(qa, ka, va),
+                      "B=1 L=130 H=2 D=64 bf16"),
+        "flash_mha": (lambda: ops.flash_mha(qa, ka, va, False),
+                      lambda: kattn._flash_cuda(qa, ka, va, False), "B=1 L=130 H=2 D=64 bf16"),
+        "flash_mha (lse)": (lambda: ops.flash_mha(qa, ka, va, True),
+                            lambda: kattn._flash_cuda(qa, ka, va, True),
+                            "B=1 L=130 H=2 D=64 bf16"),
+        "flash_mha_bwd": (lambda: ops.flash_mha_bwd(qa, ka, va, o, lse, do),
+                          lambda: kattn._flash_bwd(qa, ka, va, o, lse, do),
+                          "B=1 L=130 H=2 D=64 bf16"),
+        "fused_vit_tower": (lambda: ops.fused_vit_tower(tx, tpos, tdp, *tstacked, *tlnf, 6),
+                            lambda: kvit._tower_cuda(tx, tpos, tdp, *tstacked, *tlnf, 6),
+                            "B=1 L=33 C=384 depth 2 bf16"),
+        "fused_text_block": (lambda: ops.fused_text_block(x0, *[t[0] for t in tw[:12]], 4),
+                             lambda: ktextblock._block_cuda(x0, *[t[0] for t in tw[:12]], 4),
+                             "C=2 L=16 D=128 bf16"),
+        "fused_text_tower": (lambda: ops.fused_text_tower(x0, onehot, *tw, 4),
+                             lambda: ktower._tower_cuda(x0, onehot, *tw, 4),
+                             "C=2 L=16 D=128 depth 2 bf16"),
+        "fused_text_tower_res": (lambda: ops.fused_text_tower_res(x0, onehot, *tw, 4),
+                                 lambda: ktower._tower_res_cuda(x0, onehot, *tw, 4),
+                                 "C=2 L=16 D=128 depth 2 bf16"),
+        "fused_text_tower_bwd": (lambda: ops.fused_text_tower_bwd(cot, x0, xs, onehot, *tw, 4),
+                                 lambda: ktower._tower_bwd_cuda(cot, x0, xs, onehot, *tw, 4),
+                                 "C=2 L=16 D=128 depth 2 bf16"),
+        "ball_query_gather": (lambda: ops.ball_query_gather(0.2, 32, xyz, q),
+                              lambda: kgroup._ball_cuda(0.2, 32, xyz, q), "B=1 N=256 S=nsample 32"),
+        "ball_query_gather_v2": (lambda: ops.ball_query_gather_v2(0.2, 32, xyz, q),
+                                 lambda: kgroup._ball_v2_cuda(0.2, 32, xyz, q),
+                                 "B=1 N=256 S=nsample 32"),
+        "ball_query_gather_feats": (
+            lambda: ops.ball_query_gather_feats(0.2, 32, xyz, q, feats),
+            lambda: kgroup._ball_feats_run(0.2, 32, xyz, q, feats), "B=1 N=256 S=32 F=32 bf16"),
+        "approx_match": (lambda: ops.approx_match(d2), lambda: kemd._auction_run(d2),
+                         "16 x 32 x 32 (the warp kernel)"),
+        "chamfer_nn_dists": (lambda: ops.chamfer_nn_dists(a, b, True),
+                             lambda: kchamfer._nn_cuda(a, b, True), "2 x 200 x 150, both ways"),
+        "fps_single": (lambda: ops.fps_single(xyz, 32), lambda: kfps._fps_single_cuda(xyz, 32),
+                       "B=1 N=256 npoint 32"),
+        "knn_single": (lambda: ops.knn_single(32, xyz, q),
+                       lambda: kknn._knn_single_cuda(32, xyz, q), "B=1 N=256 S=32 k=32"),
+        "vit_variant": (lambda: ops.vit_variant(vx, vpos, vdp, *vw, "full", 1),
+                        lambda: vitblock_probe._variant_cuda(vx, vpos, vdp, *vw, "full", 1),
+                        "B=1 L=33 C=384 bf16, mode full"),
+    }
+
+
+# the card's runs that phase 17 holds to their meta traces: name -> (workload
+# on a device, batch); the audit's train step and the long trunk's forward
+AUDIT_ON_CARD = {
+    "train_per_cloud": (lambda dev: faudit.workload("train_per_cloud", dev), 32),
+    "long_trunk_fwd": (lambda dev: faudit.forward(*faudit.ppt_base(dev, num_group=1024), 32,
+                                                   8192, dev), 32),
+}
+
+
+def audit_on_card():
+    """Each of ``AUDIT_ON_CARD`` traced on meta tensors (the FLOP audit's
+    way: no card, no build) and run once on the card under the same
+    counters: the meta trace's operator calls equal the card's launch
+    counters, its FLOPs the card's ``FlopCounterMode`` total, and the train
+    step's FLOPs a cloud the committed audit's."""
+    committed = json.loads(faudit.OUT.read_text())
+    out = {}
+    for name, (make, batch) in AUDIT_ON_CARD.items():
+        t0 = time.perf_counter()
+        meta_flops, meta_ops = faudit.trace(make(torch.device("meta")))
+        meta_s = time.perf_counter() - t0
+        run = make(DEV)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        card_flops, card_ops = faudit.trace(run)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        out[name] = dict(meta_ops=meta_ops, card_ops=card_ops, launches=launches,
+                         meta_gflop_per_cloud=meta_flops / batch / 1e9,
+                         card_gflop_per_cloud=card_flops / batch / 1e9, meta_trace_s=meta_s)
+        print(f"[audit] {name}: meta trace {json.dumps(meta_ops)} in {meta_s:.2f} s, card "
+              f"launches {json.dumps(launches)}; FLOPs a cloud meta {meta_flops / batch:.1f}, "
+              f"card {card_flops / batch:.1f}"
+              + (f", committed {committed[name]:.1f}" if name in committed else ""))
+        check(meta_ops == card_ops == launches,
+              f"{name}: the meta trace's operators {meta_ops} are not the card's launches "
+              f"{launches}")
+        check(meta_flops == card_flops, f"{name}: FLOPs meta {meta_flops} != card {card_flops}")
+        check(name not in committed or committed[name] == card_flops / batch,
+              f"{name}: the card's FLOPs a cloud differ from ppt_torch/assets/flops.json")
     return out
 
 
@@ -5412,7 +5529,8 @@ def run_tools17_slice(smi):
     from ppt_torch.tools import backbone_bench, component_probe
 
     t0 = time.perf_counter()
-    out = {"export": run_export(smi), "host_us_by_op": host_us_by_op()}
+    out = {"export": run_export(smi), "host_us_by_op": host_us_by_op(),
+           "audit": audit_on_card()}
     out["component_probe"] = {ln["component"]: {k: ln[k] for k in ("ms", "timer", "launches")}
                               for ln in component_probe.main(["--components",
                                                               ",".join(PROBE_COMPONENTS)])}
@@ -6788,7 +6906,7 @@ def main(argv=None):
                          "kernels PPT-Base and PointMLP run and run phase 14 (pretrained); "
                          "build the kernels part segmentation runs and run phase 15 (partseg); "
                          "build the kernels feature extraction runs and run phase 16 (probe); "
-                         "build the kernels the tools time and run phase 17 (tools); "
+                         "build every kernel and run phase 17 (tools); "
                          "build group.cu and run phase 18, the zoo (zoo); "
                          "build group.cu and run phase 19, scene segmentation (scenes); "
                          "build group.cu and vitblock.cu and run phase 3's FPS rows of the "
@@ -6857,7 +6975,7 @@ def main(argv=None):
         print(smi)
         return
     if args.only == "tools":
-        build([n for n in _build.SOURCES if n != "losses3d"])
+        build(list(_build.SOURCES))
         print(json.dumps({"tools17": run_tools17_slice(smi)}))
         print(smi)
         return

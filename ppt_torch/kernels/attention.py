@@ -34,7 +34,7 @@ import math
 
 import torch
 
-from ppt_torch.kernels import _build
+from ppt_torch.kernels import _build, _ops
 from ppt_torch.kernels._autograd import recompute_grad, refuse_second_order
 
 # At and above this length every trunk route takes the unfused block with
@@ -76,23 +76,43 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Te
     return _pv(p.to(dt), v).to(dt)
 
 
+def _scaled_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """The f32 logits times the f32 scale, [B, H, L, L]."""
+    return _scores(q, k) * (1.0 / math.sqrt(q.shape[-1]))
+
+
+def _softmax_pv(s: torch.Tensor, v: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """softmax(s) normalised in f32, cast to ``dt``, then P @ V rounded to it."""
+    return _pv(torch.softmax(s, dim=-1).to(dt), v).to(dt)
+
+
+def _row_lse(s: torch.Tensor) -> torch.Tensor:
+    """m + log(sum exp(s - m)) over the last axis, [B, H, L] f32."""
+    m = s.amax(-1, keepdim=True)
+    return (m + torch.log(torch.exp(s - m).sum(-1, keepdim=True)))[..., 0]
+
+
 def flash_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """``jax.nn.dot_product_attention`` as the installed JAX computes it
     (``_dot_product_attention_core``): f32 logits times the f32 scale,
     softmax normalised in f32, probabilities cast to the compute dtype,
     P @ V rounded to it."""
-    dt = q.dtype
-    s = _scores(q, k) * (1.0 / math.sqrt(q.shape[-1]))
-    p = torch.softmax(s, dim=-1)
-    return _pv(p.to(dt), v).to(dt)
+    return _softmax_pv(_scaled_scores(q, k), v, q.dtype)
 
 
 def flash_lse_plain(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """The row log-sum-exp the training forward writes, [B, H, L] f32:
     m + log(sum exp(s - m)) over the f32 scaled scores."""
-    s = _scores(q, k) * (1.0 / math.sqrt(q.shape[-1]))
-    m = s.amax(-1, keepdim=True)
-    return (m + torch.log(torch.exp(s - m).sum(-1, keepdim=True)))[..., 0]
+    return _row_lse(_scaled_scores(q, k))
+
+
+def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, want_lse: bool):
+    """``ppt::flash_mha`` on the CPU: ``flash_plain``'s output and, with
+    ``want_lse``, ``flash_lse_plain``'s row log-sum-exp from the same
+    scores (else an empty ``[B, H, 0]``), each bit for bit."""
+    s = _scaled_scores(q, k)
+    lse = _row_lse(s) if want_lse else s.new_empty(*s.shape[:2], 0)
+    return _softmax_pv(s, v, q.dtype), lse
 
 
 def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
@@ -248,31 +268,88 @@ def _flash_bwd(q, k, v, o, lse, do):
 
 
 def _mha_run(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    if q.device.type == "cpu":
-        return mha_plain(q, k, v)
+    """``ppt::fused_mha`` on the card: the whole-row kernel."""
     return _launch("fused_mha", "ppt_mha", q, k, v)
 
 
+def _attention_fake(q, k, v):
+    return q.new_empty(q.shape)
+
+
+def _attention_flops(q, k, v) -> int:
+    """``mha_plain``'s two products, as ``FlopCounterMode`` counts them:
+    S = Q K^T and P V, 2 a multiply-add."""
+    B, L, H, D = q
+    return 4 * B * H * L * L * D
+
+
+_mha_op = _ops.register("fused_mha(Tensor q, Tensor k, Tensor v) -> Tensor", mha_plain,
+                        _mha_run, _attention_fake, _attention_flops)
+
+
 def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Whole-row attention, [B, L, H, D] -> [B, L, H, D] in q's dtype.
-    Differentiable: the backward recomputes ``mha_reference``."""
-    return recompute_grad("fused_mha", _mha_run, mha_reference, q, k, v)
+    """Whole-row attention, [B, L, H, D] -> [B, L, H, D] in q's dtype
+    (``torch.ops.ppt.fused_mha``). Differentiable: the backward recomputes
+    ``mha_reference``."""
+    return recompute_grad("fused_mha", _mha_op, mha_reference, q, k, v)
+
+
+def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, want_lse: bool):
+    """``ppt::flash_mha`` on the card: the flash kernel, which writes the
+    row log-sum-exp only when asked."""
+    if want_lse:
+        return _launch("flash_mha", "ppt_flash_mha", q, k, v, want_lse=True)
+    B, _, H, _ = q.shape
+    return (_launch("flash_mha", "ppt_flash_mha", q, k, v),
+            torch.empty(B, H, 0, dtype=torch.float32, device=q.device))
+
+
+def _flash_fake(q, k, v, want_lse: bool):
+    B, L, H, _ = q.shape
+    return q.new_empty(q.shape), q.new_empty(B, H, L if want_lse else 0, dtype=torch.float32)
+
+
+def _flash_flops(q, k, v, want_lse: bool) -> int:
+    """``flash_fwd_plain``'s two products (the lse reuses S)."""
+    return _attention_flops(q, k, v)
+
+
+_flash_op = _ops.register(
+    "flash_mha(Tensor q, Tensor k, Tensor v, bool want_lse) -> (Tensor, Tensor)",
+    flash_fwd_plain, _flash_cuda, _flash_fake, _flash_flops)
+
+
+def _flash_bwd_fake(q, k, v, o, lse, do):
+    return tuple(q.new_empty(q.shape) for _ in range(3))
+
+
+def _flash_bwd_flops(q, k, v, o, lse, do) -> int:
+    """``flash_bwd_plain``'s five products, as ``FlopCounterMode`` counts
+    them: S recomputed (P from it and the lse), dV = P^T dO, dP = dO V^T,
+    dK = dS^T Q, dQ = dS K."""
+    B, L, H, D = q
+    return 10 * B * H * L * L * D
+
+
+_flash_bwd_op = _ops.register(
+    "flash_mha_bwd(Tensor q, Tensor k, Tensor v, Tensor o, Tensor lse, Tensor do) "
+    "-> (Tensor, Tensor, Tensor)", flash_bwd_plain, _flash_bwd, _flash_bwd_fake, _flash_bwd_flops)
 
 
 def _flash_run(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    if q.device.type == "cpu":
-        return flash_plain(q, k, v)
-    return _launch("flash_mha", "ppt_flash_mha", q, k, v)
+    """The serving forward, ``torch.ops.ppt.flash_mha`` without the lse."""
+    return _flash_op(q, k, v, False)[0]
 
 
 def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-    """The training forward on the card: (output, row log-sum-exp)."""
-    return _launch("flash_mha", "ppt_flash_mha", q, k, v, want_lse=True)
+    """The training forward: (output, row log-sum-exp)."""
+    return _flash_op(q, k, v, True)
 
 
 class _FlashMha(torch.autograd.Function):
-    """The flash kernel with its backward kernels, for CUDA tensors: the
-    forward saves q, k, v, its output and the lse."""
+    """The flash kernel with its backward kernels (the operators
+    ``flash_mha`` with the lse and ``flash_mha_bwd``): the forward saves q,
+    k, v, its output and the lse."""
 
     @staticmethod
     def forward(ctx, q, k, v):
@@ -283,7 +360,7 @@ class _FlashMha(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         refuse_second_order("flash_mha_bwd")
-        grads = _flash_bwd(*ctx.saved_tensors, do)
+        grads = _flash_bwd_op(*ctx.saved_tensors, do)
         return tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad))
 
 
@@ -299,6 +376,6 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
         return flash_plain(q, k, v)
     if not (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))):
         return _flash_run(q, k, v)
-    if q.device.type == "cpu":
+    if q.device.type == "cpu":  # the gradient's rule, not the route: both run the operator
         return recompute_grad("flash_mha", _flash_run, flash_plain, q, k, v)
     return _FlashMha.apply(q, k, v)

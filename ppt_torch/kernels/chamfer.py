@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from ppt_torch.kernels import _build, _losses3d
+from ppt_torch.kernels import _build, _losses3d, _ops
 from ppt_torch.kernels._autograd import recompute_grad
 from ppt_torch.ops.losses3d import chamfer_l2
 
@@ -117,19 +117,50 @@ def _nn_run(pairs):
     return outs
 
 
+def _nn_plain_op(a: torch.Tensor, b: torch.Tensor, both: bool):
+    """``ppt::chamfer_nn_dists`` on the CPU: ``nn_dists_plain(a, b)`` and,
+    with ``both``, ``nn_dists_plain(b, a)`` (else an empty ``[B, 0]``)."""
+    d_ab = nn_dists_plain(a, b)
+    return d_ab, nn_dists_plain(b, a) if both else d_ab.new_empty(d_ab.shape[0], 0)
+
+
+def _nn_cuda(a: torch.Tensor, b: torch.Tensor, both: bool):
+    """``ppt::chamfer_nn_dists`` on the card: one launch for one direction
+    or both."""
+    if both:
+        return tuple(_nn_run([(a, b), (b, a)]))
+    d_ab = _nn_run([(a, b)])[0]
+    return d_ab, d_ab.new_empty(d_ab.shape[0], 0)
+
+
+def _nn_fake(a: torch.Tensor, b: torch.Tensor, both: bool):
+    B, N, M = a.shape[0], a.shape[1], b.shape[1]
+    return (a.new_empty(B, N, dtype=torch.float32),
+            a.new_empty(B, M if both else 0, dtype=torch.float32))
+
+
+def _nn_flops(a_shape, b_shape, both: bool) -> int:
+    """The scan's work, as ``PERF.md`` §6 bounds row 15: 9 operations a
+    query-support pair (the distance and the running minimum), per
+    direction."""
+    B, N, M = a_shape[0], a_shape[1], b_shape[1]
+    return 9 * B * N * M * (2 if both else 1)
+
+
+_nn_op = _ops.register("chamfer_nn_dists(Tensor a, Tensor b, bool both) -> (Tensor, Tensor)",
+                       _nn_plain_op, _nn_cuda, _nn_fake, _nn_flops)
+
+
 def nn_dists(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """[B, N] f32 minimum squared distance of each query to its cloud's
-    support points: the kernel on the card, the plain version on the CPU."""
-    if q.device.type == "cpu":
-        return nn_dists_plain(q, x)
-    return _nn_run([(q, x)])[0]
+    support points (``torch.ops.ppt.chamfer_nn_dists``): the kernel on the
+    card, the plain version on the CPU. No gradient."""
+    return _nn_op(q.detach(), x.detach(), False)[0]
 
 
 def nn_dists_both(a: torch.Tensor, b: torch.Tensor):
     """``(nn_dists(a, b), nn_dists(b, a))``, on the card in one launch."""
-    if a.device.type == "cpu":
-        return nn_dists_plain(a, b), nn_dists_plain(b, a)
-    return tuple(_nn_run([(a, b), (b, a)]))
+    return _nn_op(a.detach(), b.detach(), True)
 
 
 def _chamfer_run(xyz1: torch.Tensor, xyz2: torch.Tensor) -> torch.Tensor:

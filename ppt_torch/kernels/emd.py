@@ -30,7 +30,7 @@ from typing import Tuple
 
 import torch
 
-from ppt_torch.kernels import _build, _losses3d
+from ppt_torch.kernels import _build, _losses3d, _ops
 from ppt_torch.kernels._autograd import refuse_second_order
 from ppt_torch.ops.geometry import square_distance
 
@@ -142,6 +142,8 @@ def approx_match_plain(xyz1: torch.Tensor, xyz2: torch.Tensor) -> torch.Tensor:
 
 
 def _auction_run(d2: torch.Tensor) -> torch.Tensor:
+    """``ppt::approx_match`` on the card: the warp kernel up to
+    ``WARP_MAX`` points a side, else the block kernel."""
     B, N, M = d2.shape
     if N < 1 or M < 1:
         raise ValueError(f"approx_match: needs N, M >= 1, got d2 {tuple(d2.shape)}")
@@ -165,16 +167,36 @@ def _auction_run(d2: torch.Tensor) -> torch.Tensor:
     return match
 
 
+def _auction_plain_op(d2: torch.Tensor) -> torch.Tensor:
+    """``ppt::approx_match`` on the CPU: the plain auction at the shape's
+    supplies."""
+    return auction_plain(d2, *supplies(*d2.shape[1:]))
+
+
+def _auction_fake(d2: torch.Tensor) -> torch.Tensor:
+    return d2.new_empty(d2.shape, dtype=torch.float32)
+
+
+def _auction_flops(d2_shape) -> int:
+    """The auction's work, as ``PERF.md`` §6 bounds row 16: 10 operations
+    a pair and level."""
+    B, N, M = d2_shape
+    return 10 * len(LEVELS) * B * N * M
+
+
+_match_op = _ops.register("approx_match(Tensor d2) -> Tensor", _auction_plain_op, _auction_run,
+                          _auction_fake, _auction_flops)
+
+
 def _match(d2: torch.Tensor) -> torch.Tensor:
-    if d2.device.type == "cpu":
-        return auction_plain(d2, *supplies(*d2.shape[1:]))
-    return _auction_run(d2)
+    return _match_op(d2.detach())
 
 
 def approx_match(xyz1: torch.Tensor, xyz2: torch.Tensor) -> torch.Tensor:
     """Transport plan ``match [B, N, M]`` f32 of ``xyz1 [B, N, 3]`` onto
-    ``xyz2 [B, M, 3]``: the kernel on the card, the plain version on the
-    CPU."""
+    ``xyz2 [B, M, 3]`` (``torch.ops.ppt.approx_match`` on their squared
+    distances): the kernel on the card, the plain version on the CPU. No
+    gradient: the match is a constant of the cost."""
     return _match(match_d2(xyz1, xyz2))
 
 

@@ -23,7 +23,8 @@ from __future__ import annotations
 
 import torch
 
-from ppt_torch.kernels.group import FPS_MAX_POINTS, fps_launch, fps_plain
+from ppt_torch.kernels import _ops
+from ppt_torch.kernels.group import FPS_MAX_POINTS, _fps_fake, _fps_flops, fps_launch, fps_plain
 
 MAX_POINTS = FPS_MAX_POINTS
 
@@ -33,9 +34,17 @@ def fps_single_plain(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     return fps_plain(xyz, npoint)
 
 
-def fps_single(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
-    """FPS indices [B, npoint] int32 (start index 0 per cloud): the kernel
-    on the card, the plain version on the CPU."""
-    if xyz.device.type == "cpu":
-        return fps_single_plain(xyz, npoint)
+def _fps_single_cuda(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
+    """``ppt::fps_single`` on the card: npoint past N too."""
     return fps_launch("fps_single", xyz, npoint)
+
+
+_fps_single_op = _ops.register("fps_single(Tensor xyz, int npoint) -> Tensor", fps_single_plain,
+                               _fps_single_cuda, _fps_fake, _fps_flops)
+
+
+def fps_single(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
+    """FPS indices [B, npoint] int32 (start index 0 per cloud),
+    ``torch.ops.ppt.fps_single``: the kernel on the card, the plain version
+    on the CPU."""
+    return _fps_single_op(xyz, npoint)

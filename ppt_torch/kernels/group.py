@@ -9,8 +9,7 @@ header says what bounds each kernel on the H100 and how its design
 answers that. ``ball_query_gather_v2`` computes ``ball_query_gather``'s
 function, so it launches the same walk with the same plan; ``fps_launch``
 is the FPS launcher that ``fps_batched`` and ``kernels/fps.py:fps_single``
-share. ``fps_batched`` and ``knn_gather`` are the registered operators
-``torch.ops.ppt.fps_batched`` and ``torch.ops.ppt.knn_gather``
+share. Every entry point is a registered operator, ``torch.ops.ppt.<name>``
 (``_ops.py``): the plain version on the CPU key, the launch on the CUDA key.
 
 Contracts (exact, ties included):
@@ -313,32 +312,9 @@ def _ball_run(name: str, radius: float, nsample: int, xyz: torch.Tensor,
     return idx, rel
 
 
-def ball_query_gather(
-    radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Ball query + centre-relative coordinates in one kernel:
-    (idx [B, S, nsample] int32, picks - centre [B, S, nsample, 3] f32).
-    Any N, any S."""
-    if xyz.device.type == "cpu":
-        return ball_query_gather_plain(radius, nsample, xyz, new_xyz)
-    return _ball_run("ball_query_gather", radius, nsample, xyz, new_xyz)
-
-
-def ball_query_gather_v2(
-    radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The counterpart of the reference's rank formulation
-    (``_ball_query_kernel_v2``: a hit's prefix count is its slot), which
-    computes ``ball_query_gather``'s function: the same outputs, bit for
-    bit, from the same walk and plan, counted apart. Any N, any S. No
-    module calls it (nor does the reference call its own)."""
-    if xyz.device.type == "cpu":
-        return ball_query_gather_plain(radius, nsample, xyz, new_xyz)
-    return _ball_run("ball_query_gather_v2", radius, nsample, xyz, new_xyz)
-
-
 def _ball_feats_run(radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor,
                     feats: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``ppt::ball_query_gather_feats`` on the card."""
     name = "ball_query_gather_feats"
     xyz, q, B, N, S, idx, rel = _ball_args(name, nsample, xyz, new_xyz)
     if feats.dim() != 3 or feats.shape[:2] != (B, N):
@@ -364,24 +340,88 @@ def _ball_feats_run(radius: float, nsample: int, xyz: torch.Tensor, new_xyz: tor
     return idx, rel, fj
 
 
+def _ball_fake(radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor):
+    B, S = new_xyz.shape[:2]
+    return (new_xyz.new_empty(B, S, nsample, dtype=torch.int32),
+            new_xyz.new_empty(B, S, nsample, 3, dtype=torch.float32))
+
+
+def _ball_feats_fake(radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor,
+                     feats: torch.Tensor):
+    B, S = new_xyz.shape[:2]
+    return (*_ball_fake(radius, nsample, xyz, new_xyz),
+            feats.new_empty(B, S, nsample, feats.shape[2]))
+
+
+def _ball_flops(radius: float, nsample: int, xyz_shape, q_shape, *feats_shape) -> int:
+    """The walk's work, as ``PERF.md`` §6 bounds rows 12-14: 9 operations
+    (the distance and its test) for every point a centre looks at; the
+    gathers move bytes."""
+    B, N, _ = xyz_shape
+    return 9 * B * q_shape[1] * N
+
+
+def _ball_cuda(radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor):
+    """``ppt::ball_query_gather`` on the card."""
+    return _ball_run("ball_query_gather", radius, nsample, xyz, new_xyz)
+
+
+def _ball_v2_cuda(radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor):
+    """``ppt::ball_query_gather_v2`` on the card: the same walk and plan."""
+    return _ball_run("ball_query_gather_v2", radius, nsample, xyz, new_xyz)
+
+
+_BALL = "(float radius, int nsample, Tensor xyz, Tensor new_xyz"
+_ball_op = _ops.register(f"ball_query_gather{_BALL}) -> (Tensor, Tensor)",
+                         ball_query_gather_plain, _ball_cuda, _ball_fake, _ball_flops)
+_ball_v2_op = _ops.register(f"ball_query_gather_v2{_BALL}) -> (Tensor, Tensor)",
+                            ball_query_gather_plain, _ball_v2_cuda, _ball_fake, _ball_flops)
+_ball_feats_op = _ops.register(
+    f"ball_query_gather_feats{_BALL}, Tensor feats) -> (Tensor, Tensor, Tensor)",
+    ball_query_gather_feats_plain, _ball_feats_run, _ball_feats_fake, _ball_flops)
+
+
+def ball_query_gather(
+    radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Ball query + centre-relative coordinates in one kernel
+    (``torch.ops.ppt.ball_query_gather``): (idx [B, S, nsample] int32,
+    picks - centre [B, S, nsample, 3] f32). Any N, any S. No gradient."""
+    return _ball_op(radius, nsample, xyz.detach(), new_xyz.detach())
+
+
+def ball_query_gather_v2(
+    radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The counterpart of the reference's rank formulation
+    (``_ball_query_kernel_v2``: a hit's prefix count is its slot), which
+    computes ``ball_query_gather``'s function: the same outputs, bit for
+    bit, from the same walk and plan, counted apart
+    (``torch.ops.ppt.ball_query_gather_v2``). Any N, any S. No module calls
+    it (nor does the reference call its own)."""
+    return _ball_v2_op(radius, nsample, xyz.detach(), new_xyz.detach())
+
+
 def ball_query_gather_feats(
     radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor, feats: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Ball query + centre-relative coordinates + the picks' feature rows in
-    one kernel: (idx [B, S, nsample] int32, picks - centre [B, S, nsample, 3]
-    f32, feats[picks] [B, S, nsample, F] in ``feats``' dtype, f32 or bf16).
-    ``fj`` carries a gradient to ``feats`` (the plain gather's, by
-    ``recompute_grad``); the indices and the coordinates carry none."""
-    run = ball_query_gather_feats_plain if xyz.device.type == "cpu" else _ball_feats_run
+    one kernel (``torch.ops.ppt.ball_query_gather_feats``): (idx [B, S,
+    nsample] int32, picks - centre [B, S, nsample, 3] f32, feats[picks] [B,
+    S, nsample, F] in ``feats``' dtype, f32 or bf16). ``fj`` carries a
+    gradient to ``feats`` (the plain gather's, by ``recompute_grad``); the
+    indices and the coordinates carry none."""
+    xyz, new_xyz = xyz.detach(), new_xyz.detach()
     if not (feats.requires_grad and torch.is_grad_enabled()):
-        return run(radius, nsample, xyz, new_xyz, feats)
+        return _ball_feats_op(radius, nsample, xyz, new_xyz, feats)
     kept = {}
 
     def forward(f):
-        kept["idx"], kept["rel"], fj = run(radius, nsample, xyz.detach(), new_xyz.detach(), f)
+        kept["idx"], kept["rel"], fj = _ball_feats_op(radius, nsample, xyz, new_xyz, f)
         return fj
 
-    fj = recompute_grad("ball_query_gather_feats", forward, lambda f: _gather_rows(f, kept["idx"]), feats)
+    fj = recompute_grad("ball_query_gather_feats", forward,
+                        lambda f: _gather_rows(f, kept["idx"]), feats)
     return kept["idx"], kept["rel"], fj
 
 

@@ -25,8 +25,8 @@ import ctypes
 
 import torch
 
-from ppt_torch.kernels import _build
-from ppt_torch.kernels.group import CHUNK, knn_gather_plain
+from ppt_torch.kernels import _build, _ops
+from ppt_torch.kernels.group import CHUNK, _knn_fake, _knn_flops, knn_gather_plain
 
 
 def _check(k: int, xyz: torch.Tensor, new_xyz: torch.Tensor) -> None:
@@ -50,11 +50,8 @@ def knn_single_plain(k: int, xyz: torch.Tensor, new_xyz: torch.Tensor) -> torch.
     return knn_gather_plain(k, xyz, new_xyz)[0]
 
 
-def knn_single(k: int, xyz: torch.Tensor, new_xyz: torch.Tensor) -> torch.Tensor:
-    """k nearest neighbours' indices [B, S, k] int32, nearest first: the
-    kernel on the card, the plain version on the CPU."""
-    if xyz.device.type == "cpu":
-        return knn_single_plain(k, xyz, new_xyz)
+def _knn_single_cuda(k: int, xyz: torch.Tensor, new_xyz: torch.Tensor) -> torch.Tensor:
+    """``ppt::knn_single`` on the card."""
     _check(k, xyz, new_xyz)
     B, N, _ = xyz.shape
     S = new_xyz.shape[1]
@@ -72,3 +69,18 @@ def knn_single(k: int, xyz: torch.Tensor, new_xyz: torch.Tensor) -> torch.Tensor
     _build.check(lib, rc, "knn_single")
     _build.LAUNCHES["knn_single"] += 1
     return out
+
+
+def _knn_single_fake(k: int, xyz: torch.Tensor, new_xyz: torch.Tensor) -> torch.Tensor:
+    return _knn_fake(k, xyz, new_xyz)[0]
+
+
+_knn_single_op = _ops.register("knn_single(int k, Tensor xyz, Tensor new_xyz) -> Tensor",
+                               knn_single_plain, _knn_single_cuda, _knn_single_fake, _knn_flops)
+
+
+def knn_single(k: int, xyz: torch.Tensor, new_xyz: torch.Tensor) -> torch.Tensor:
+    """k nearest neighbours' indices [B, S, k] int32, nearest first
+    (``torch.ops.ppt.knn_single``): the kernel on the card, the plain
+    version on the CPU."""
+    return _knn_single_op(k, xyz, new_xyz)

@@ -14,7 +14,9 @@ cast; the kernel follows the reference's kernel body, which casts
 ``exp(s - m)`` and divides the f32 accumulator afterwards. In f32 the two
 are the same function.
 
-The reference gives the block no backward kernel (``:267-269``): the
+The block is the registered operator ``torch.ops.ppt.fused_text_block``
+(``_ops.py``): the plain version on the CPU key, the launch on the CUDA
+key. The reference gives the block no backward kernel (``:267-269``): the
 gradient is the twin's, recomputed (``_autograd.py``).
 """
 
@@ -26,7 +28,7 @@ from typing import Sequence
 
 import torch
 
-from ppt_torch.kernels import _build
+from ppt_torch.kernels import _build, _ops
 from ppt_torch.kernels._autograd import recompute_grad
 from ppt_torch.kernels.vitblock import _mm, check_tma, ln_f32
 
@@ -161,12 +163,34 @@ def _launch(x, weights, heads):
     return out
 
 
-def _block_run(x, ln1s, ln1b, wqkv, bqkv, wout, bout, ln2s, ln2b, wfc, bfc, wproj, bproj,
-               heads) -> torch.Tensor:
-    weights = (ln1s, ln1b, wqkv, bqkv, wout, bout, ln2s, ln2b, wfc, bfc, wproj, bproj)
-    if x.device.type == "cpu":
-        return text_block_plain(x, *weights, heads)
-    return _launch(x, weights, heads)
+def _block_cuda(x, ln1s, ln1b, wqkv, bqkv, wout, bout, ln2s, ln2b, wfc, bfc, wproj, bproj,
+                heads) -> torch.Tensor:
+    """``ppt::fused_text_block`` on the card."""
+    return _launch(x, (ln1s, ln1b, wqkv, bqkv, wout, bout, ln2s, ln2b, wfc, bfc, wproj, bproj),
+                   heads)
+
+
+def _block_fake(x, *args) -> torch.Tensor:
+    return x.new_empty(x.shape)
+
+
+def block_flops(B: int, L: int, D: int, hid: int) -> int:
+    """One text block's products as ``FlopCounterMode`` counts
+    ``text_block_plain``'s, 2 a multiply-add: qkv, out_proj, c_fc, c_proj
+    and the attention's two [L, L] products (the causal mask's zeros
+    included, as the plain version multiplies them)."""
+    return 2 * B * L * (4 * D * D + 2 * D * hid) + 4 * B * L * L * D
+
+
+def _block_flops(x, ln1s, ln1b, wqkv, bqkv, wout, bout, ln2s, ln2b, wfc, *args) -> int:
+    B, L, D = x
+    return block_flops(B, L, D, wfc[-1])
+
+
+TEXT_WEIGHTS = ("Tensor ln1s, Tensor ln1b, Tensor wqkv, Tensor bqkv, Tensor wout, Tensor bout, "
+                "Tensor ln2s, Tensor ln2b, Tensor wfc, Tensor bfc, Tensor wproj, Tensor bproj")
+_block_run = _ops.register(f"fused_text_block(Tensor x, {TEXT_WEIGHTS}, int heads) -> Tensor",
+                           text_block_plain, _block_cuda, _block_fake, _block_flops)
 
 
 def fused_text_block(x, ln1s, ln1b, wqkv, bqkv, wout, bout, ln2s, ln2b, wfc, bfc, wproj, bproj,

@@ -26,6 +26,11 @@ block's output saved by the residual-saving forward and recomputes each
 block's LayerNorm statistics, attention probabilities and GELU
 pre-activations. The kernel yields no weight cotangent: a weight that
 asks for a gradient gets the plain tower's, recomputed under autograd.
+
+The three entry points are registered operators (``_ops.py``):
+``torch.ops.ppt.fused_text_tower``, ``fused_text_tower_res`` (with the
+block outputs) and ``fused_text_tower_bwd``, each with its plain version
+on the CPU key and its launch on the CUDA key.
 """
 
 from __future__ import annotations
@@ -35,11 +40,12 @@ from typing import Sequence
 
 import torch
 
-from ppt_torch.kernels import _build
+from ppt_torch.kernels import _build, _ops
 from ppt_torch.kernels._autograd import refuse_second_order
 from ppt_torch.kernels.textblock import (LN_EPS, MATRICES, MATRIX_NAMES, call_entry,
-                                         causal_scores, check_text_shapes, forward_scratch,
-                                         prepare_weights, quick_gelu_f32, split_heads)
+                                         block_flops, causal_scores, check_text_shapes,
+                                         forward_scratch, prepare_weights, quick_gelu_f32,
+                                         split_heads)
 from ppt_torch.kernels.vitblock import _mm, check_tma, ln_f32
 
 WEIGHT_NAMES = ("ln1s", "ln1b", "win", "bin", "wout", "bout", "ln2s", "ln2b", "wfc", "bfc",
@@ -226,18 +232,82 @@ def _launch_backward(g, x0, xs, eot_onehot, weights, heads):
     return dx0
 
 
+def _tower_cuda(x0, eot_onehot, *rest) -> torch.Tensor:
+    """``ppt::fused_text_tower`` on the card: the forward kernel."""
+    return _launch_forward(x0, eot_onehot, rest[:-1], rest[-1], False)
+
+
+def _tower_res_cuda(x0, eot_onehot, *rest):
+    """``ppt::fused_text_tower_res`` on the card: the forward kernel with
+    every block's output written."""
+    return _launch_forward(x0, eot_onehot, rest[:-1], rest[-1], True)
+
+
+def _tower_bwd_cuda(g, x0, xs, eot_onehot, *rest) -> torch.Tensor:
+    """``ppt::fused_text_tower_bwd`` on the card: the backward kernel."""
+    return _launch_backward(g, x0, xs, eot_onehot, rest[:-1], rest[-1])
+
+
+def _tower_fake(x0, eot_onehot, *rest) -> torch.Tensor:
+    return x0.new_empty(x0.shape[0], rest[14].shape[1], dtype=torch.float32)
+
+
+def _tower_res_fake(x0, eot_onehot, *rest):
+    C, L, D = x0.shape
+    return _tower_fake(x0, eot_onehot, *rest), x0.new_empty(rest[8].shape[0], C * L, D)
+
+
+def _tower_bwd_fake(g, x0, *rest) -> torch.Tensor:
+    return x0.new_empty(x0.shape)
+
+
+def _tower_flops(x0, eot_onehot, *rest) -> int:
+    """``text_tower_plain``'s products as ``FlopCounterMode`` counts them:
+    ``depth`` blocks', the EOT pooling as a product with the one-hot rows
+    and the text projection."""
+    C, L, D = x0
+    depth, _, hid = rest[8]
+    return depth * block_flops(C, L, D, hid) + 2 * C * L * D + 2 * C * D * rest[14][1]
+
+
+def _tower_bwd_flops(g, x0, xs, eot_onehot, *rest) -> int:
+    """``text_tower_bwd_plain``'s products as ``FlopCounterMode`` counts
+    them: a block's qkv, attention and out_proj recomputed with c_fc, then
+    the input cotangents of c_proj, c_fc, out_proj, the attention's four
+    products and qkv; the projection's cotangent and the EOT pooling."""
+    C, L, D = x0
+    depth, _, hid = rest[8]
+    R = C * L
+    per_block = 2 * R * (8 * D * D + 3 * D * hid) + 12 * C * L * L * D
+    return depth * per_block + 2 * C * D * rest[14][1] + 2 * C * L * D
+
+
+_WEIGHTS = ", ".join(f"Tensor {n}" for n in WEIGHT_NAMES)
+_tower_op = _ops.register(
+    f"fused_text_tower(Tensor x0, Tensor eot_onehot, {_WEIGHTS}, int heads) -> Tensor",
+    lambda x0, eot, *rest: text_tower_plain(x0, eot, *rest),
+    _tower_cuda, _tower_fake, _tower_flops)
+_tower_res_op = _ops.register(
+    f"fused_text_tower_res(Tensor x0, Tensor eot_onehot, {_WEIGHTS}, int heads) "
+    "-> (Tensor, Tensor)",
+    lambda x0, eot, *rest: text_tower_plain(x0, eot, *rest, return_blocks=True),
+    _tower_res_cuda, _tower_res_fake, _tower_flops)
+_tower_bwd_op = _ops.register(
+    f"fused_text_tower_bwd(Tensor g, Tensor x0, Tensor xs, Tensor eot_onehot, {_WEIGHTS}, "
+    "int heads) -> Tensor", text_tower_bwd_plain, _tower_bwd_cuda, _tower_bwd_fake,
+    _tower_bwd_flops)
+
+
 def tower_forward(x0, eot_onehot, weights, heads, want_blocks: bool = False):
-    """The forward kernel on the card, ``text_tower_plain`` on the CPU."""
-    if x0.device.type == "cpu":
-        return text_tower_plain(x0, eot_onehot, *weights, heads, return_blocks=want_blocks)
-    return _launch_forward(x0, eot_onehot, weights, heads, want_blocks)
+    """``torch.ops.ppt.fused_text_tower``, or with ``want_blocks``
+    ``fused_text_tower_res`` (also every block's output)."""
+    op = _tower_res_op if want_blocks else _tower_op
+    return op(x0, eot_onehot, *weights, heads)
 
 
 def tower_backward(g, x0, xs, eot_onehot, weights, heads) -> torch.Tensor:
-    """The backward kernel on the card, ``text_tower_bwd_plain`` on the CPU."""
-    if x0.device.type == "cpu":
-        return text_tower_bwd_plain(g, x0, xs, eot_onehot, *weights, heads)
-    return _launch_backward(g, x0, xs, eot_onehot, weights, heads)
+    """``torch.ops.ppt.fused_text_tower_bwd``: ``d_x0``."""
+    return _tower_bwd_op(g, x0, xs, eot_onehot, *weights, heads)
 
 
 class _FusedTextTower(torch.autograd.Function):

@@ -19,10 +19,10 @@ depth, 2]``, then the readout: on the card one C entry point walks the
 block's launches over the depth, so its output equals the block chain's
 bit for bit.
 
-The block and the block + readout are registered operators,
-``torch.ops.ppt.fused_vit_block`` and ``torch.ops.ppt.fused_vit_block_readout``
-(``_ops.py``): the plain version on the CPU key, the launch on the CUDA
-key. No kernel here has a backward kernel in the reference
+The block, the block + readout and the tower are registered operators,
+``torch.ops.ppt.fused_vit_block``, ``torch.ops.ppt.fused_vit_block_readout``
+and ``torch.ops.ppt.fused_vit_tower`` (``_ops.py``): the plain version on
+the CPU key, the launch on the CUDA key. No kernel here has a backward kernel in the reference
 (``vitblock.py:398-400``, ``:499-501``, ``:551-553``); each public function
 carries the gradient of its plain version (``_autograd.py``), which is what
 trains ``block_11`` under head types 1 to 3.
@@ -265,14 +265,12 @@ def fused_vit_block_readout(
                           wfc2, bfc2, lnfs, lnfb, heads)
 
 
-def _tower_run(
+def _tower_cuda(
     x, pos, dp, ln1s, ln1b, wqkv, wproj, bproj, ln2s, ln2b, wfc1, bfc1, wfc2, bfc2,
     lnfs, lnfb, heads,
 ) -> torch.Tensor:
-    args = (x, pos, dp, ln1s, ln1b, wqkv, wproj, bproj, ln2s, ln2b, wfc1, bfc1, wfc2, bfc2,
-            lnfs, lnfb)
-    if x.device.type == "cpu":
-        return vit_tower_plain(*args, heads)
+    """``ppt::fused_vit_tower`` on the card: one C entry point walks the
+    block's launches over the depth."""
     name = "fused_vit_tower"
     B, L, C = x.shape
     dt = x.dtype
@@ -307,6 +305,22 @@ def _tower_run(
     _build.check(lib, rc, name)
     _build.LAUNCHES[name] += 1
     return ro
+
+
+def _tower_fake(x, *args) -> torch.Tensor:
+    return x.new_empty(x.shape[0], 8, x.shape[2], dtype=torch.float32)
+
+
+def _tower_flops(x, pos, dp, ln1s, ln1b, wqkv, wproj, bproj, ln2s, ln2b, wfc1, *args) -> int:
+    """``vit_tower_plain``'s products as ``FlopCounterMode`` counts them:
+    ``depth`` blocks' (the readout's LayerNorm is not a product)."""
+    return wqkv[0] * _block_flops(x, pos, dp, ln1s, ln1b, wqkv[1:], wproj, bproj, ln2s, ln2b,
+                                  wfc1[1:])
+
+
+_tower_run = _ops.register(
+    f"fused_vit_tower({_BLOCK_ARGS}, Tensor lnfs, Tensor lnfb, int heads) -> Tensor",
+    vit_tower_plain, _tower_cuda, _tower_fake, _tower_flops)
 
 
 def fused_vit_tower(

@@ -77,9 +77,11 @@ def emd_matchcost(xyz1: torch.Tensor, xyz2: torch.Tensor) -> torch.Tensor:
 
 
 def emd_uses_kernel(device: torch.device) -> bool:
-    """The auction kernel serves CUDA tensors unless ``PPT_FORCE_XLA_EMD``
-    is set to anything (``ppt_tpu/ops/losses3d.py:156-160``)."""
-    return torch.device(device).type == "cuda" and not os.environ.get("PPT_FORCE_XLA_EMD")
+    """The auction kernel serves every tensor off the CPU (the card's, and
+    the meta tensors that trace the card's program) unless
+    ``PPT_FORCE_XLA_EMD`` is set to anything
+    (``ppt_tpu/ops/losses3d.py:156-160``)."""
+    return torch.device(device).type != "cpu" and not os.environ.get("PPT_FORCE_XLA_EMD")
 
 
 def earth_mover_distance(xyz1: torch.Tensor, xyz2: torch.Tensor) -> torch.Tensor:

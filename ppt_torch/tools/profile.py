@@ -33,10 +33,11 @@ step (``DvaeConfig()``, B=64 x N=1024; ``--recon emd`` for the auction-EMD
 loss) and ``--train mpm`` its masked-point-modeling step
 (``PointBertConfig()`` against a frozen dVAE, B=32 x N=1024), with their
 own sections. ``--flops`` prints ``step_profile``'s table instead, for the
-recognition batch or (``--train``) the prompt-tuning step: each section's
-FLOPs as ``FlopCounterMode`` counts them (the ``ppt`` operators by their
-registered formulas), its device ms, TFLOP/s and share of the H100's dense
-bf16 peak, and the same for the whole step.
+recognition batch or (``--train``) the prompt-tuning step, on the routes and
+group count that ``--text_route``, ``--point_route`` and ``--num_group``
+give: each section's FLOPs as ``FlopCounterMode`` counts them (every kernel
+a ``ppt`` operator, by its registered formula), its device ms, TFLOP/s and
+share of the H100's dense bf16 peak, and the same for the whole step.
 
     python -m ppt_torch.tools.profile [--batch 32] [--npoints 1024] \
         [--batches 5] [--compute_dtype bfloat16]
@@ -49,7 +50,8 @@ bf16 peak, and the same for the whole step.
     python -m ppt_torch.tools.profile --train pretrain [--num_group 512 --npoints 1024]
     python -m ppt_torch.tools.profile --train dvae [--recon emd]
     python -m ppt_torch.tools.profile --train mpm
-    python -m ppt_torch.tools.profile --flops [--train]
+    python -m ppt_torch.tools.profile --flops [--train] [--text_route tower] \
+        [--point_route tower] [--num_group 1024 --npoints 8192]
 """
 
 from __future__ import annotations
@@ -568,15 +570,20 @@ def flop_table(names, run, batches: int, on_card: bool) -> dict:
 
 def profile_flops(train: bool = False, batch: int = None, npoints: int = 1024, batches: int = 5,
                   compute_dtype: str = "bfloat16", seed: int = 0, head_type: int = 0,
-                  device=None, shrink=None) -> dict:
+                  device=None, shrink=None, text_route: str = "off", point_route: str = "block",
+                  num_group: int = 512) -> dict:
     """``step_profile``'s table for PPT-Base: the recognition batch (the
     eval step on a cached text embedding), or with ``train`` the
     prompt-tuning step's sections (augmentation, point tower, text forward
-    and loss, backward, optimizer). On the card unless ``device`` says
-    otherwise (then FLOPs only); ``shrink`` as in ``_setup``."""
+    and loss, backward, optimizer), with the text tower on ``text_route``,
+    the trunk on ``point_route`` and ``num_group`` groups (1024 with 8192
+    points is the long trunk, on ``flash_mha``). On the card unless
+    ``device`` says otherwise (then FLOPs only); ``shrink`` as in
+    ``_setup``."""
     batch = batch or (30 if train else 32)
-    dev, model, prompts, pc, label = _setup(batch, npoints, compute_dtype, seed, device=device,
-                                            shrink=shrink)
+    dev, model, prompts, pc, label = _setup(batch, npoints, compute_dtype, seed, text_route,
+                                            point_route=point_route, num_group=num_group,
+                                            device=device, shrink=shrink)
     on_card = dev.type == "cuda"
     if train:
         sched = build_schedule("cosine", 3e-3, 250, 9843 // batch, final_lr=1e-5,
@@ -603,6 +610,7 @@ def profile_flops(train: bool = False, batch: int = None, npoints: int = 1024, b
     out = flop_table(names, run, batches, on_card)
     return {"step": "train" if train else "eval", "model": "ULIP_PointBERT",
             "compute_dtype": compute_dtype, "batch": batch, "npoints": npoints,
+            "text_route": text_route, "point_route": point_route, "num_group": num_group,
             "device": torch.cuda.get_device_name(dev) if on_card else str(dev), **out}
 
 
@@ -637,7 +645,8 @@ def main(argv=None) -> None:
         if a.train not in (None, "cls"):
             p.error("--flops covers the recognition batch and the prompt-tuning step (--train)")
         out = profile_flops(a.train == "cls", a.batch, a.npoints or 1024, a.batches,
-                            a.compute_dtype, a.seed, a.head_type)
+                            a.compute_dtype, a.seed, a.head_type, text_route=a.text_route,
+                            point_route=a.point_route, num_group=a.num_group or 512)
     elif a.train == "dvae":
         out = profile_dvae_step(a.batch or 64, a.npoints or 1024, a.batches, a.compute_dtype,
                                 a.seed, recon=a.recon)

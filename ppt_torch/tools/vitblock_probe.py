@@ -46,7 +46,7 @@ import time
 import numpy as np
 import torch
 
-from ppt_torch.kernels import _build
+from ppt_torch.kernels import _build, _ops
 from ppt_torch.kernels import vitblock as kvit
 from ppt_torch.utils.device import resolve_device
 
@@ -138,13 +138,10 @@ def _check_variant(dt, Bx, Lx, Cx, hid, mode, rows):
             raise ValueError(f"{name}: L={Lx} too long for qk_packed2's whole-row tiles")
 
 
-def variant_block(x, pos, dp, ln1s, ln1b, wqkv, wproj, bproj, ln2s, ln2b, wfc1, bfc1, wfc2,
-                  bfc2, *, mode: str, rows: int = 1) -> torch.Tensor:
-    """One ViT block in ``mode``, [B, L, C] -> [B, L, C] in x's dtype: the
-    kernels on the card, the plain version on the CPU."""
+def _variant_cuda(x, pos, dp, ln1s, ln1b, wqkv, wproj, bproj, ln2s, ln2b, wfc1, bfc1, wfc2,
+                  bfc2, mode: str, rows: int) -> torch.Tensor:
+    """``ppt::vit_variant`` on the card: ``csrc/vitblock.cu:ppt_vit_variant``."""
     w = (ln1s, ln1b, wqkv, wproj, bproj, ln2s, ln2b, wfc1, bfc1, wfc2, bfc2)
-    if x.device.type == "cpu":
-        return variant_block_plain(x, pos, dp, *w, mode=mode, rows=rows)
     name = "vit_variant"
     Bx, Lx, Cx = x.shape
     code = _build.dtype_code(name, x.dtype)
@@ -163,6 +160,41 @@ def variant_block(x, pos, dp, ln1s, ln1b, wqkv, wproj, bproj, ln2s, ln2b, wfc1, 
     _build.check(lib, rc, name)
     _build.LAUNCHES[name] += 1
     return bufs["out"].reshape(Bx, Lx, Cx)
+
+
+def _variant_plain(*args) -> torch.Tensor:
+    """``ppt::vit_variant`` on the CPU (its mode and rows last)."""
+    return variant_block_plain(*args[:-2], mode=args[-2], rows=args[-1])
+
+
+def _variant_fake(x, *args) -> torch.Tensor:
+    return x.new_empty(x.shape)
+
+
+def _variant_flops(x, pos, dp, ln1s, ln1b, wqkv, wproj, bproj, ln2s, ln2b, wfc1, bfc1, wfc2,
+                   bfc2, mode: str, rows: int) -> int:
+    """``variant_block_plain``'s products as ``FlopCounterMode`` counts
+    them: the block's in every mode, and in ``qk_packed2`` the attention's
+    two products twice over (each head pair against block-diagonal K and
+    V)."""
+    Bx, Lx, Cx = x
+    attention = 4 * Bx * Lx * Lx * Cx
+    flops = kvit._block_flops(x, pos, dp, ln1s, ln1b, wqkv, wproj, bproj, ln2s, ln2b, wfc1)
+    return flops + (attention if mode == "qk_packed2" else 0)
+
+
+_variant_op = _ops.register(
+    f"vit_variant({kvit._BLOCK_ARGS}, str mode, int rows) -> Tensor", _variant_plain,
+    _variant_cuda, _variant_fake, _variant_flops)
+
+
+def variant_block(x, pos, dp, ln1s, ln1b, wqkv, wproj, bproj, ln2s, ln2b, wfc1, bfc1, wfc2,
+                  bfc2, *, mode: str, rows: int = 1) -> torch.Tensor:
+    """One ViT block in ``mode``, [B, L, C] -> [B, L, C] in x's dtype
+    (``torch.ops.ppt.vit_variant``): the kernels on the card, the plain
+    version on the CPU."""
+    return _variant_op(x, pos, dp, ln1s, ln1b, wqkv, wproj, bproj, ln2s, ln2b, wfc1, bfc1, wfc2,
+                       bfc2, mode, rows)
 
 
 def probe_inputs(device, dt=torch.bfloat16):

@@ -59,7 +59,9 @@ def create_train_state(model: nn.Module, mask: Dict[str, bool],
     draws at the global batch) and report global means."""
     trainable = apply_trainable_mask(model, mask)
     device = next(model.parameters()).device
-    generator = torch.Generator(device=device).manual_seed(seed)
+    # meta tensors (a traced program) have no generator of their own; they take the CPU's
+    generator = torch.Generator(device=device if device.type != "meta" else "cpu")
+    generator.manual_seed(seed)
     optimizer = make_optimizer(trainable)
     optimizer.mesh = mesh
     if getattr(model, "tp", None) is not None:  # tensor-parallel shards (``shard_params``)

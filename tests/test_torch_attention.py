@@ -128,11 +128,17 @@ def _meta(*shape, dtype=torch.float32):
     return torch.empty(*shape, dtype=dtype, device="meta")
 
 
+def _flash_cuda_serving(q, k, v):
+    """The flash operator's CUDA implementation, serving (no lse): a meta
+    tensor through the operator takes its fake."""
+    return kattn._flash_cuda(q, k, v, False)[0]
+
+
 @pytest.mark.parametrize("fn,dtype,D,match", [
     (kattn._mha_run, torch.bfloat16, 48, "bf16 needs head dim"),
     (kattn._mha_run, torch.float32, 12, "multiple of 8"),
-    (kattn._flash_run, torch.bfloat16, 16, "bf16 needs head dim"),
-    (kattn._flash_run, torch.float32, 136, "multiple of 8"),
+    (_flash_cuda_serving, torch.bfloat16, 16, "bf16 needs head dim"),
+    (_flash_cuda_serving, torch.float32, 136, "multiple of 8"),
 ])
 def test_kernel_paths_reject_what_they_do_not_take(fn, dtype, D, match):
     """A tensor off the CPU takes the kernel path, whose checks run before
@@ -160,7 +166,7 @@ def test_tma_guard_refuses_strides_and_bases_it_cannot_load(strides, offset, mat
 
 
 @pytest.mark.parametrize("fn,name", [(kattn._mha_run, "fused_mha"),
-                                     (kattn._flash_run, "flash_mha")])
+                                     (_flash_cuda_serving, "flash_mha")])
 def test_kernel_paths_apply_the_tma_guard(fn, name, monkeypatch):
     """Both bf16 entry points put the guard in front of the C call: with
     _views letting a head stride of 60 elements through, the launch is

@@ -4,9 +4,10 @@ Each computes the function of another wrapper (``fps_batched``,
 ``ball_query_gather``), so each launches that wrapper's CUDA kernel
 through the same entry point of ``csrc/group.cu``, with its own launch
 counter and refusals. On the CPU there is no card and no ``nvcc``: the
-kernel paths run on meta tensors against a stand-in for the built
-library that has exactly the entry points the sources export and records
-each call. The CPU paths (the plain versions) are held to the
+kernel paths (the operators' CUDA implementations: through the operator a
+meta tensor takes the fake) run on meta tensors against a stand-in for the
+built library that has exactly the entry points the sources export and
+records each call. The CPU paths (the plain versions) are held to the
 reference: ``fps_single`` past N against ``fps_pallas`` interpreted, and
 ``ball_query_gather_v2`` past the cloud size its old kernel refused.
 """
@@ -97,7 +98,7 @@ def test_the_stand_in_has_every_entry_point_the_grouping_wrappers_type():
                                               (2, kfps.MAX_POINTS, 1024, torch.float32),
                                               (3, 300, 64, torch.bfloat16)])
 def test_fps_single_launches_ppt_fps(stub, B, N, npoint, dtype):
-    out = kfps.fps_single(meta(B, N, 3).to(dtype), npoint)
+    out = kfps._fps_single_cuda(meta(B, N, 3).to(dtype), npoint)
     assert out.dtype == torch.int32 and tuple(out.shape) == (B, npoint)
     assert list(stub) == ["group"]  # cloud.cu holds no FPS kernel
     (name, args), = stub["group"].calls
@@ -111,7 +112,7 @@ def test_fps_single_launches_ppt_fps(stub, B, N, npoint, dtype):
 
 @pytest.mark.parametrize("B,N,npoint", [(0, 64, 8), (2, 64, 0)])
 def test_fps_single_launches_nothing_for_an_empty_result(stub, B, N, npoint):
-    assert tuple(kfps.fps_single(meta(B, N, 3), npoint).shape) == (B, npoint)
+    assert tuple(kfps._fps_single_cuda(meta(B, N, 3), npoint).shape) == (B, npoint)
     assert not stub and not _build.LAUNCHES
 
 
@@ -122,7 +123,7 @@ def test_fps_single_launches_nothing_for_an_empty_result(stub, B, N, npoint):
 ])
 def test_fps_single_refuses_by_name_before_any_build(stub, shape, npoint, msg):
     with pytest.raises(ValueError, match=msg):
-        kfps.fps_single(meta(*shape), npoint)
+        kfps._fps_single_cuda(meta(*shape), npoint)
     assert not stub
 
 
@@ -131,7 +132,7 @@ def test_fps_single_refuses_by_name_before_any_build(stub, shape, npoint, msg):
 @pytest.mark.parametrize("B,N,S,nsample", [(128, 1024, 512, 32), (2, 300, 40, 7),
                                            (1, 20000, 100, 64)])
 def test_ball_query_gather_v2_launches_the_walk_with_its_plan(stub, B, N, S, nsample):
-    idx, rel = kgroup.ball_query_gather_v2(0.2, nsample, meta(B, N, 3), meta(B, S, 3))
+    idx, rel = kgroup._ball_v2_cuda(0.2, nsample, meta(B, N, 3), meta(B, S, 3))
     assert tuple(idx.shape) == (B, S, nsample) and tuple(rel.shape) == (B, S, nsample, 3)
     assert list(stub) == ["group"]
     (name, args), = stub["group"].calls
@@ -139,14 +140,14 @@ def test_ball_query_gather_v2_launches_the_walk_with_its_plan(stub, B, N, S, nsa
     assert args[6] == pytest.approx(0.2 * 0.2) and args[7:9] == kgroup._ball_plan(B, S)
     assert dict(_build.LAUNCHES) == {"ball_query_gather_v2": 1}
     # ball_query_gather launches the same entry point with the same arguments
-    kgroup.ball_query_gather(0.2, nsample, meta(B, N, 3), meta(B, S, 3))
+    kgroup._ball_cuda(0.2, nsample, meta(B, N, 3), meta(B, S, 3))
     assert stub["group"].calls[1] == ("ppt_ball_query", args)
     assert dict(_build.LAUNCHES) == {"ball_query_gather_v2": 1, "ball_query_gather": 1}
 
 
 def test_ball_query_gather_v2_refuses_by_name_before_any_build(stub):
     with pytest.raises(ValueError, match=r"ball_query_gather_v2: nsample=65 not in \[1, N=64\]"):
-        kgroup.ball_query_gather_v2(0.2, 65, meta(1, 64, 3), meta(1, 8, 3))
+        kgroup._ball_v2_cuda(0.2, 65, meta(1, 64, 3), meta(1, 8, 3))
     assert not stub
 
 

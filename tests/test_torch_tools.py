@@ -2,7 +2,8 @@
 
 ``tools/visualize.py`` against ``ppt_tpu``'s renderer byte for byte;
 ``backbone_bench`` taking ``dgcnn`` and refusing a name it does not know;
-``profile --flops``' sections adding up to the step's total; and
+``profile --flops``' sections adding up to the step's total, and its
+routes and group count passed through to the model it counts; and
 ``component_probe``, ``pointnext_profile``
 and ``backbone_bench`` parsing their flags and refusing, by name, to run
 without a card.
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from ppt_tpu.tools import visualize as jvis
+from ppt_torch.kernels._ops import OpCounter
 from ppt_torch.nn.pointbert import PointBertConfig
 from ppt_torch.nn.text import TextConfig
 from ppt_torch.tools import backbone_bench, component_probe, pointnext_profile
@@ -83,6 +85,29 @@ def test_profile_flops_sections_sum_to_the_total(train):
         assert sections["backward"]["gflop"] > 0
     else:
         assert list(sections) == ["recognition batch"]
+
+
+@pytest.mark.parametrize("train,routes,op", [
+    (False, {"point_route": "tower"}, "fused_vit_tower"),
+    (False, {"point_route": "unfused"}, "fused_mha"),
+    (True, {"text_route": "tower"}, "fused_text_tower_bwd"),
+    (False, {"text_route": "block"}, "fused_text_block"),
+])
+def test_profile_flops_counts_the_routes_it_is_given(train, routes, op):
+    """The kernels of the route asked for run, and count by their
+    operators' formulas."""
+    with OpCounter() as ops:
+        out = tprofile.profile_flops(train, batch=4, npoints=128, compute_dtype="float32",
+                                     device="cpu", shrink=SHRINK, **routes)
+    assert ops.counts[op] > 0 and all(out[k] == v for k, v in routes.items())
+
+
+def test_profile_flops_flag_passes_routes_and_group_count(monkeypatch):
+    seen = {}
+    monkeypatch.setattr(tprofile, "profile_flops", lambda *a, **kw: seen.update(kw) or {})
+    tprofile.main(["--flops", "--train", "--text_route", "tower", "--point_route", "unfused",
+                   "--num_group", "1024", "--npoints", "8192"])
+    assert seen == {"text_route": "tower", "point_route": "unfused", "num_group": 1024}
 
 
 def test_profile_flops_flag_takes_the_cls_step_alone(capsys):
