@@ -1,0 +1,7 @@
+"""Percent of the profiled pass's wall time in which the device ran nothing."""
+
+from h100_bench import readers
+
+
+def read(run):
+    return readers.idle_pct(run)
